@@ -1,0 +1,79 @@
+"""Llama-family configuration and parameter stacking (port of the parts
+of ``lqer_tpu/models/llama.py`` the serving path uses). Params are a flat
+``{hf_name: tensor}`` dict (``model.layers.N.self_attn.q_proj.weight``...)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int | None = None  # None -> MHA
+    max_position_embeddings: int = 2048
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    sliding_window: int | None = None  # Mistral
+    tie_word_embeddings: bool = False
+    arch: str = "llama"
+
+    @property
+    def kv_heads(self):
+        return self.num_key_value_heads or self.num_attention_heads
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def tiny(vocab_size=512, hidden=64, layers=2, heads=4, kv_heads=None,
+             inter=128, max_pos=128, **kw) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=vocab_size, hidden_size=hidden, intermediate_size=inter,
+            num_hidden_layers=layers, num_attention_heads=heads,
+            num_key_value_heads=kv_heads, max_position_embeddings=max_pos, **kw,
+        )
+
+    @staticmethod
+    def llama_7b() -> "LlamaConfig":
+        return LlamaConfig()
+
+
+def layer_prefix(i: int) -> str:
+    return f"model.layers.{i}"
+
+
+LAYER_REL_KEYS = (
+    "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+    "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj",
+    "input_layernorm", "post_attention_layernorm",
+)
+
+
+def stack_layer_params(params: dict, cfg: LlamaConfig) -> tuple[dict, dict]:
+    """Per-layer params → ``(stacked {rel.suffix: (L, ...)}, rest)``; every
+    layer must carry the same key set. ``rest`` holds embeddings, the final
+    norm and the head."""
+    stacked: dict[str, torch.Tensor] = {}
+    consumed = set()
+    for rel in LAYER_REL_KEYS:
+        for suffix in ("weight", "bias", "A", "B"):
+            if f"{layer_prefix(0)}.{rel}.{suffix}" not in params:
+                continue
+            per_layer = []
+            for i in range(cfg.num_hidden_layers):
+                n = f"{layer_prefix(i)}.{rel}.{suffix}"
+                if n not in params:
+                    raise KeyError(f"layer {i} missing {rel}.{suffix}")
+                per_layer.append(params[n])
+                consumed.add(n)
+            stacked[f"{rel}.{suffix}"] = torch.stack(per_layer)
+    rest = {k: v for k, v in params.items() if k not in consumed}
+    return stacked, rest

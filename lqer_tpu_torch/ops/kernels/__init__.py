@@ -1,0 +1,33 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version. A wrapper launches its CUDA kernel for CUDA tensors and counts the
+launch in its ``launches`` attribute; for CPU tensors it runs the plain
+version and counts nothing."""
+
+from __future__ import annotations
+
+from .attention import quantized_attention
+from .cache_write import flush_stage_to_main
+from .decode_attention import decode_attention_quantized_staged
+from .dequant_gemm import qlinear_w4_fused
+
+# name -> (wrapper, CUDA source, TPU kernel it replaces)
+KERNELS = {
+    "dequant_gemm": (qlinear_w4_fused, "lqer_tpu_torch/csrc/dequant_gemm.cu",
+                     "lqer_tpu/ops/pallas/dequant_gemm.py:117"),
+    "attention": (quantized_attention, "lqer_tpu_torch/csrc/attention.cu",
+                  "lqer_tpu/ops/pallas/attention.py:58"),
+    "decode_attention": (decode_attention_quantized_staged,
+                         "lqer_tpu_torch/csrc/decode_attention.cu",
+                         "lqer_tpu/ops/pallas/decode_attention.py:575"),
+    "cache_write": (flush_stage_to_main, "lqer_tpu_torch/csrc/cache_write.cu",
+                    "lqer_tpu/ops/pallas/cache_write.py:333"),
+}
+
+
+def reset_launch_counts() -> None:
+    for wrapper, _, _ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: w.launches for name, (w, _, _) in KERNELS.items()}

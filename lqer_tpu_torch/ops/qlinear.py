@@ -1,0 +1,118 @@
+"""Quantized linear with the optional low-rank LQER correction.
+
+Port of ``lqer_tpu/ops/qlinear.py``: :class:`QLinearConfig` resolves a
+reference-schema q_config (+ l_config) into quantizer callables, with the
+A_out/B_out quantizers falling back to the x-quantizer config, and
+:func:`qlinear` computes ``Y = X_q W_q^T + b_q [+ B_out_q(A_out_q(X_q A) B)]``.
+The emulated ``llm_int8`` mode is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from .quantizers import make_quantizer, passthrough_quantizer
+
+
+@dataclasses.dataclass(frozen=True)
+class QLinearConfig:
+    x_quantizer: Callable = passthrough_quantizer
+    w_quantizer: Callable = passthrough_quantizer
+    b_quantizer: Callable = passthrough_quantizer
+    a_out_quantizer: Callable = passthrough_quantizer
+    b_out_quantizer: Callable = passthrough_quantizer
+    is_ptq: bool = True
+    is_lqer: bool = False
+    rank: int = 0
+    # raw resolved config dicts, kept for the serving backend's
+    # kernel-eligibility checks (compared by the memoized callables above)
+    x_cfg: dict | None = dataclasses.field(default=None, compare=False)
+    w_cfg: dict | None = dataclasses.field(default=None, compare=False)
+    a_out_cfg: dict | None = dataclasses.field(default=None, compare=False)
+    b_out_cfg: dict | None = dataclasses.field(default=None, compare=False)
+
+    @staticmethod
+    def from_q_config(q_config: dict, l_config: dict | None = None
+                      ) -> "QLinearConfig":
+        if q_config.get("name") in ("llm_int8", "llm_int4"):
+            raise NotImplementedError(
+                "the llm_int8 emulated linear is not ported yet")
+
+        def cfg(key, fallback_keys=()):
+            c = q_config.get(key)
+            for fk in fallback_keys:
+                if c is None:
+                    c = q_config.get(fk)
+            if c is None or c is False:
+                c = q_config.get("default")
+            return c
+
+        x_cfg = cfg("x_quantizer")
+        w_cfg = cfg("w_quantizer")
+        b_cfg = cfg("b_quantizer")
+        a_out_cfg = cfg("A_out_quantizer", fallback_keys=("x_quantizer",))
+        b_out_cfg = cfg("B_out_quantizer", fallback_keys=("x_quantizer",))
+        is_lqer = q_config.get("name") == "flexible_lqer"
+        rank = int(l_config.get("rank", 0)) if (l_config and is_lqer) else 0
+        return QLinearConfig(
+            x_quantizer=make_quantizer(x_cfg),
+            w_quantizer=make_quantizer(w_cfg),
+            b_quantizer=make_quantizer(b_cfg),
+            a_out_quantizer=make_quantizer(a_out_cfg),
+            b_out_quantizer=make_quantizer(b_out_cfg),
+            is_ptq=bool(q_config.get("is_ptq", False)),
+            is_lqer=is_lqer,
+            rank=rank,
+            x_cfg=x_cfg, w_cfg=w_cfg, a_out_cfg=a_out_cfg,
+            b_out_cfg=b_out_cfg,
+        )
+
+
+def qlinear(x: torch.Tensor, params: dict, cfg: QLinearConfig, *,
+            weights_prepared: bool | None = None) -> torch.Tensor:
+    if weights_prepared is None:
+        weights_prepared = cfg.is_ptq
+    w, b = params["weight"], params.get("bias")
+    if not weights_prepared:
+        w = cfg.w_quantizer(w)
+        if b is not None:
+            b = cfg.b_quantizer(b)
+    x_q = cfg.x_quantizer(x)
+    y = torch.matmul(x_q, w.T)
+    if b is not None:
+        y = y + b
+    if cfg.is_lqer and params.get("A") is not None:
+        xa = cfg.a_out_quantizer(torch.matmul(x_q, params["A"]))
+        y = y + cfg.b_out_quantizer(torch.matmul(xa, params["B"]))
+    return y
+
+
+def bf16_exact(cfg: dict | None) -> bool:
+    """True when the quantizer's output grid is exact in bfloat16
+    (block_fp / integer with width <= 9)."""
+    return bool(cfg and cfg.get("name") in ("block_fp", "integer")
+                and cfg.get("width", 99) <= 9)
+
+
+def resolve_qmatmul(q_config: dict | None) -> Callable:
+    """Quantize both operands, then matmul. Bf16-exact grids run on f32
+    operands with f32 accumulation (the products are exact either way)."""
+    if not q_config:
+        return torch.matmul
+    x_cfg = q_config.get("x_quantizer") or q_config.get("default")
+    y_cfg = q_config.get("w_quantizer") or q_config.get("default")
+    xq, yq = make_quantizer(x_cfg), make_quantizer(y_cfg)
+
+    def fn(a, b):
+        qa, qb = xq(a), yq(b)
+        return torch.matmul(qa.to(torch.float32),
+                            qb.to(torch.float32)).to(qa.dtype)
+
+    return fn
+
+
+def qmatmul(x: torch.Tensor, y: torch.Tensor, q_config: dict) -> torch.Tensor:
+    return resolve_qmatmul(q_config)(x, y)

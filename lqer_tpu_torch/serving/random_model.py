@@ -1,0 +1,85 @@
+"""Seeded random Llama weights at full width, packed layer by layer on the
+device (port of ``experiments/bench_e2e_llama7b.py::build_7b_backend_and_params``).
+
+Each layer's fp32 weights (and bf16-exact rank-``rank`` A/B factors) are
+drawn on the device from a ``torch.Generator`` seeded with
+``seed * 1000 + layer``, packed into the kernel backend and freed, so only
+one layer's fp32 weights exist at a time. The returned params keep the
+embedding, the norms and nothing else: every linear is served from the
+backend, and the head is the tied embedding (``pack_lm_head``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import models
+from ..device import resolve_device
+from .kernel_backend import prepare_serving_params
+
+
+def _q(width, block, skip):
+    return {"name": "block_fp", "width": width, "exponent_width": 8,
+            "exponent_bias": None, "block_size": block, "skip_first_dim": skip}
+
+
+# W4A8 L²QER: MXINT4 weights, MXINT8 activations and attention operands
+Q_CONFIG = {
+    "linear": {
+        "name": "flexible_lqer", "is_ptq": True,
+        "x_quantizer": _q(8, [1, 16], True),
+        "w_quantizer": _q(4, [1, 16], False),
+        "b_quantizer": _q(8, [1, 16], False),
+    },
+    "matmul": {"name": "flexible", "x_quantizer": _q(8, [1, 16], True),
+               "w_quantizer": _q(8, [1, 16], True)},
+}
+
+
+def layer_shapes(cfg) -> dict:
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.kv_heads * cfg.head_dim
+    return {"self_attn.q_proj": (h, h), "self_attn.k_proj": (kv, h),
+            "self_attn.v_proj": (kv, h), "self_attn.o_proj": (h, h),
+            "mlp.gate_proj": (inter, h), "mlp.up_proj": (inter, h),
+            "mlp.down_proj": (h, inter)}
+
+
+def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda"):
+    """``(backend, params, layer_qcfgs)`` for ``cfg`` with random weights;
+    ``rank=0`` leaves out the low-rank correction."""
+    dev = resolve_device(device)
+    h = cfg.hidden_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = {
+        "model.embed_tokens.weight": torch.randn(
+            cfg.vocab_size, h, generator=gen, device=dev) * 0.02,
+        "model.norm.weight": torch.ones(h, device=dev),
+    }
+    qcfgs = models.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": rank}})
+    one_layer = dataclasses.replace(cfg, num_hidden_layers=1)
+    p0 = models.get_arch_module(cfg).layer_prefix(0)
+    arrays, meta = {}, {}
+    for i in range(cfg.num_hidden_layers):
+        p = models.get_arch_module(cfg).layer_prefix(i)
+        params[f"{p}.input_layernorm.weight"] = torch.ones(h, device=dev)
+        params[f"{p}.post_attention_layernorm.weight"] = torch.ones(h, device=dev)
+        gen.manual_seed(seed * 1000 + i)
+        layer = {}
+        for rel, (o, ic) in sorted(layer_shapes(cfg).items()):
+            layer[f"{p0}.{rel}.weight"] = torch.randn(
+                o, ic, generator=gen, device=dev) * 0.01
+            if rank > 0:
+                for name, shape in (("A", (ic, rank)), ("B", (rank, o))):
+                    layer[f"{p0}.{rel}.{name}"] = (torch.randn(
+                        *shape, generator=gen, device=dev) * 0.01).to(
+                        torch.bfloat16).to(torch.float32)
+        packed = prepare_serving_params(layer, one_layer, [qcfgs[i]])
+        del layer
+        arrays.update({k.replace(p0, p, 1): v
+                       for k, v in packed["arrays"].items()})
+        meta.update({k.replace(p0, p, 1): v for k, v in packed["meta"].items()})
+    return {"arrays": arrays, "meta": meta}, params, qcfgs
