@@ -8,12 +8,20 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
 2. build: the four kernels from ``lqer_tpu_torch/csrc`` (one nvcc each, in
    parallel);
 3. each kernel against its plain PyTorch version on the card at the 7B
-   serving shapes: max difference (or bit equality), kernel, plain, bound
-   and library times (CUDA events, medians, L2 flushed between launches);
-4. a 2-layer Llama at full 7B width on the card (kernels) against the CPU
-   (plain versions), teacher-forced through an admission and 20 decode
-   steps that cross a flush: logits allclose at every step, main cache
-   codes below ``flushed`` equal on >= 99.9% and within one code step;
+   serving shapes, held to the limits of ``lqer_tpu_torch/testing.py``
+   (rtol = atol = 2e-4 plus one 8-bit code step of each quantizer a
+   summation order can flip; ring and flush bytes bit-exact): max
+   difference, kernel, plain, bound and library times (CUDA events,
+   medians, L2 flushed between launches);
+4. a 2-layer Llama at full 7B width, teacher-forced through an admission
+   and 20 decode steps that cross a flush, three ways: through the kernels
+   on the card, through the plain versions on the card, and through the
+   plain versions on the CPU. Logits within LOGIT_MAX_STEPS and
+   LOGIT_RMS_STEPS 8-bit code steps at every step for each pair; the main
+   cache below ``flushed`` of kernels vs plain on the card equal on >= 99.9%
+   and within one code step, and against the CPU within CACHE_CPU_STEPS. A
+   fourth run through the kernels with one linear's correction left out
+   must fail the RMS limit at every step;
 5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head,
    mxint8-staged, 8 slots, max_len 2048) serving 8 greedy requests, then
    a torch.profiler window of 5 decode steps (device busy vs wall time);
@@ -27,6 +35,7 @@ a directory without the ``lqer_tpu_torch`` package next to this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -34,8 +43,29 @@ import sys
 import time
 from pathlib import Path
 
-RTOL = ATOL = 2e-4  # summation order only (tests/test_staged_serving.py:82)
 SEED = 0
+# Phase 4 limits, in 8-bit code steps of each logit row's scale
+# (2^(ceil_log2(max |logit|) - 7)). Two sides that sum in different orders
+# (kernels vs torch on the card, the card's libraries vs the CPU's) round a
+# rare 8-bit activation, P or cache value one code step apart, and every
+# later layer sums each flip into its 4096-wide products. On the H100 the
+# flips moved the logits by at most 1.61 steps and 0.18 steps RMS; leaving
+# out the rank-32 correction of layer 1's down_proj alone moved them by
+# 0.59 to 0.72 steps RMS at every step (PERF.md). The RMS limit sits
+# between, and phase 4 checks that it still rejects that run (a negative
+# control).
+LOGIT_MAX_STEPS = 4.0
+LOGIT_RMS_STEPS = 0.4
+# Main cache against the CPU: layer 0's K/V differ by single flips; each
+# later layer inherits the flips of all before it through the residual
+# stream, and the plain versions on the card diverge from the CPU exactly as
+# much as the kernels do (7 steps at most in layer 1, PERF.md); the limit is
+# twice that.
+CACHE_CPU_STEPS = 14
+# Fraction of a kernel's outputs allowed past the plain rtol/atol band: a
+# flipped P rounding moves a whole output row, a flipped correction code
+# one element (``testing.check_close``).
+FLIPPED = {"dequant_gemm": 0.01, "attention": 0.05}
 
 
 def card_line() -> str:
@@ -55,7 +85,8 @@ def peak_rates(name: str) -> tuple[float, float]:
 
 class Timer:
     """Median CUDA-event time of one call; a 256 MB memset before each
-    launch evicts L2 and keeps the card busy while the host enqueues."""
+    launch evicts L2, and a 1 ms spin keeps the card busy while the host
+    enqueues the call, so host time stays out of the window."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -69,6 +100,7 @@ class Timer:
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(2_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -99,6 +131,11 @@ def phase_kernels(torch, timer, rates):
     from lqer_tpu_torch.parallel.collectives import mx8_decode, mx8_encode
     from lqer_tpu_torch.serving.kernel_backend import pack_lm_head
     from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.testing import (
+        attention_limit,
+        check_close,
+        dequant_gemm_limit,
+    )
 
     bw, ops_rate = rates
     gen = torch.Generator(device="cuda")
@@ -121,7 +158,7 @@ def phase_kernels(torch, timer, rates):
         params["model.embed_tokens.weight"].to(torch.bfloat16)
     backend = pack_lm_head(backend, params, width=8)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "err": 0.0}
+           "err": 0.0, "of_limit": 0.0}
     bound_by = set()
     for name, key in (("qkv", "model.layers.0.self_attn.qkv_proj"),
                       ("o", "model.layers.0.self_attn.o_proj"),
@@ -139,10 +176,10 @@ def phase_kernels(torch, timer, rates):
                   quant_out_width=meta["out_width"])
         y = k1.qlinear_w4_fused(x, prep, fmt, **kw)
         ref = k1.qlinear_w4_plain(x, prep, fmt, **kw)
-        torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
-        if not torch.allclose(y, ref, rtol=RTOL, atol=ATOL):
-            raise AssertionError(f"kernel 1 {name}: max |diff| {err}")
+        c = check_close(f"kernel 1 {name}", y, ref,
+                        dequant_gemm_limit(x, prep, ref, **kw),
+                        FLIPPED["dequant_gemm"])
+        err = c["max_abs_err"]
         w_dense = dequantize_packed(prep["codes"], prep["exps"], fmt).to(
             torch.bfloat16)
         ms = timer(lambda: k1.qlinear_w4_fused(x, prep, fmt, **kw))
@@ -154,15 +191,17 @@ def phase_kernels(torch, timer, rates):
                            2 * 8 * N * K + 2 * 8 * R * (K + N))
         bound_by.add(b_by)
         print(f"kernel 1 dequant_gemm {name} M=8 K={K} N={N} R={R}: "
-              f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms="
+              f"max_abs_err={err:.3g} ({c['of_limit']:.3g} of its limit, "
+              f"{c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} plain_ms="
               f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
               "(torch.matmul, dense bf16 weight)", flush=True)
         for k, v in (("ms", ms), ("plain_ms", plain_ms),
                      ("library_ms", lib_ms), ("bound_ms", b_ms)):
             tot[k] += v
         tot["err"] = max(tot["err"], err)
+        tot["of_limit"] = max(tot["of_limit"], c["of_limit"])
     results["dequant_gemm"] = dict(
-        max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+        max_abs_err=tot["err"], of_limit=tot["of_limit"], ms=tot["ms"], plain_ms=tot["plain_ms"],
         bound_ms=tot["bound_ms"], bound_by="/".join(sorted(bound_by)),
         library_ms=tot["library_ms"],
         shape="sum over qkv, o, gate|up, down and the W8 head at M=8")
@@ -180,10 +219,10 @@ def phase_kernels(torch, timer, rates):
     scale = D ** -0.5
     y = k2.quantized_attention(q, k, v, scale=scale)
     ref = k2.quantized_attention_plain(q, k, v, scale=scale)
-    torch.cuda.synchronize()
-    err = float((y - ref).abs().max())
-    if not torch.allclose(y, ref, rtol=RTOL, atol=ATOL):
-        raise AssertionError(f"kernel 2: max |diff| {err}")
+    c = check_close("kernel 2", y, ref, attention_limit(
+        k2.prefill_scores(q, k, scale=scale), v, ref, p_width=8),
+        FLIPPED["attention"])
+    err = c["max_abs_err"]
     ms = timer(lambda: k2.quantized_attention(q, k, v, scale=scale))
     plain_ms = timer(lambda: k2.quantized_attention_plain(q, k, v,
                                                           scale=scale), 5)
@@ -193,10 +232,12 @@ def phase_kernels(torch, timer, rates):
     b_ms, b_by = bound(nbytes(q, k, v) + BH * S * D * 4,
                        2 * 2 * BH * (S * (S + 1) // 2) * D)
     print(f"kernel 2 attention BH={BH} S=L={S} d={D}: max_abs_err={err:.3g} "
+          f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past 2e-4) "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
           f"library_ms={lib_ms:.4f} (causal scaled_dot_product_attention)",
           flush=True)
-    results["attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    results["attention"] = dict(max_abs_err=err, of_limit=c["of_limit"],
+                                ms=ms, plain_ms=plain_ms,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=lib_ms,
                                 shape="8 prompts x 64 tokens, 32 heads, d=128")
@@ -226,13 +267,15 @@ def phase_kernels(torch, timer, rates):
                                              pos, fl, scaling=scale)
     ref = k3.staged_decode_plain(qd, kc, ke, vc, ve, *r_p, kh, vh, pos, fl,
                                  scaling=scale)
-    torch.cuda.synchronize()
-    err = float((y - ref).abs().max())
-    if not torch.allclose(y, ref, rtol=RTOL, atol=ATOL):
-        raise AssertionError(f"kernel 3: max |diff| {err}")
     if not all(torch.equal(a, b) for a, b in zip(r_k, r_p)):
         raise AssertionError("kernel 3: ring bytes differ from the plain "
                              "version")
+    sc, vals = k3.staged_scores(qd, kc, ke, vc, ve, *r_p, pos, fl,
+                                scaling=scale)
+    c = check_close("kernel 3", y, ref, attention_limit(
+        sc[:, :, None, :], vals, ref, p_width=8), FLIPPED["attention"])
+    del sc, vals
+    err = c["max_abs_err"]
     ms = timer(lambda: k3.decode_attention_quantized_staged(
         qd, kc, ke, vc, ve, *r_k, kh, vh, pos, fl, scaling=scale))
     plain_ms = timer(lambda: k3.staged_decode_plain(
@@ -246,10 +289,11 @@ def phase_kernels(torch, timer, rates):
                        2 * 2 * 32 * (flushed_tokens + ring_valid) * D)
     print(f"kernel 3 decode_attention B={B} KVH={KVH} L={L} "
           f"flushed={fl.tolist()} pos={pos.tolist()}: max_abs_err={err:.3g} "
-          f"rings bit-exact kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+          f"2e-4), rings bit-exact kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} library_ms=null", flush=True)
     results["decode_attention"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        max_abs_err=err, of_limit=c["of_limit"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
         shape="one layer, B=8, 32 kv heads, L=2048, flushed 64..1984")
     del kc, ke, vc, ve, rings, r_k, r_p
@@ -282,7 +326,7 @@ def phase_kernels(torch, timer, rates):
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
           "library_ms=null", flush=True)
     results["cache_write"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
         shape="one flush of 32 tokens, 32 layers, 8 slots, 32 kv heads")
     del mains, stages, m_plain
@@ -290,40 +334,40 @@ def phase_kernels(torch, timer, rates):
     return results
 
 
-def _cache_compare(a: dict, b: dict) -> tuple[float, int]:
-    """Fraction of equal main-cache bytes below ``flushed`` and the largest
-    difference of decoded values, in code steps of the coarser exponent of
-    the two."""
-    import torch
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """Route the served path's kernel calls to the plain versions, which
+    then run on CUDA tensors; every launch counter must stay at 0."""
+    from lqer_tpu_torch.ops.kernels import attention as k2
+    from lqer_tpu_torch.ops.kernels import cache_write as k4
+    from lqer_tpu_torch.ops.kernels import decode_attention as k3
+    from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.serving import decode, kernel_backend
 
-    fl = a["flushed"].cpu()
-    if not torch.equal(fl, b["flushed"].cpu()):
-        raise AssertionError(f"flushed differs: {fl} vs {b['flushed']}")
-    eq = total = 0
-    worst = 0
-    for side in ("k", "v"):
-        ca, cb = a[f"{side}_codes"].cpu(), b[f"{side}_codes"].cpu()
-        ea, eb = a[f"{side}_exps"].cpu(), b[f"{side}_exps"].cpu()
-        for s in range(fl.shape[0]):
-            f = int(fl[s])
-            if f == 0:
-                continue
-            xa, xb = ca[:, s, ..., :f], cb[:, s, ..., :f]
-            ya, yb = ea[:, s, ..., :f], eb[:, s, ..., :f]
-            eq += int((xa == xb).sum()) + int((ya == yb).sum())
-            total += xa.numel() + ya.numel()
-            emax = torch.maximum(ya, yb).to(torch.int32).repeat_interleave(
-                16, dim=-2)
-            da = xa.float() * torch.exp2(ya.float().repeat_interleave(16, -2)
-                                         - emax)
-            db = xb.float() * torch.exp2(yb.float().repeat_interleave(16, -2)
-                                         - emax)
-            worst = max(worst, float((da - db).abs().max()))
-    return eq / max(total, 1), worst
+    swaps = [(kernel_backend, "qlinear_w4_fused", k1.qlinear_w4_plain),
+             (decode, "qlinear_w4_fused", k1.qlinear_w4_plain),
+             (decode, "decode_attention_quantized_staged",
+              k3.staged_decode_plain),
+             (decode, "flush_stage_to_main", k4.flush_plain),
+             (k2, "quantized_attention", k2.quantized_attention_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    reset_launch_counts()
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    if any(launch_counts().values()):
+        raise AssertionError(f"a kernel ran in the plain pass: "
+                             f"{launch_counts()}")
 
 
 def phase_teacher_forced(torch):
-    """Phase 4: card (kernels) vs CPU (plain versions), teacher-forced."""
+    """Phase 4: kernels on the card vs plain versions on the card and on
+    the CPU, teacher-forced with the kernels' greedy tokens."""
     import dataclasses
 
     import numpy as np
@@ -331,6 +375,7 @@ def phase_teacher_forced(torch):
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.serving import DecodeEngine
     from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.testing import cache_agreement, logits_steps
 
     cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=2)
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 2)
@@ -340,58 +385,79 @@ def phase_teacher_forced(torch):
                                   for n, t in v.items()}
                               for k, v in backend["arrays"].items()},
                    "meta": dict(backend["meta"])}
-    cpu_params = {k: v.cpu() for k, v in params.items()}
     kw = dict(num_slots=8, max_len=256, lm_head_width=8)
-    gpu = DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                       device="cuda", **kw)
-    cpu = DecodeEngine(cpu_params, cfg, qcfgs, pallas_backend=cpu_backend,
-                       device="cpu", **kw)
+    # the negative control: the kernels with one linear's correction left
+    # out (of the layers' o, qkv and down, the one whose loss moved the
+    # logits least)
+    broken = {"arrays": dict(backend["arrays"]), "meta": backend["meta"]}
+    key = "model.layers.1.mlp.down_proj"
+    broken["arrays"][key] = dict(broken["arrays"][key],
+                                 b=torch.zeros_like(backend["arrays"][key]["b"]))
+    engines = {
+        "kernels": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
+                                device="cuda", **kw),
+        "plain": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
+                              device="cuda", **kw),
+        "cpu": DecodeEngine({k: v.cpu() for k, v in params.items()}, cfg,
+                            qcfgs, pallas_backend=cpu_backend, device="cpu",
+                            **kw),
+        "no correction": DecodeEngine(params, cfg, qcfgs,
+                                      pallas_backend=broken, device="cuda",
+                                      **kw)}
     rng = np.random.default_rng(SEED)
     prompt_len = 63                      # 63 = 32 + 31: residue 31
     padded = rng.integers(0, cfg.vocab_size, (8, 64))
     lengths = np.full(8, prompt_len, dtype=np.int32)
-    slots = np.arange(8)
-    worst = 0.0
-
-    def check(step, lg, lc):
-        nonlocal worst
-        lg = lg.float().cpu()
-        lc = lc.float()
-        d = float((lg - lc).abs().max())
-        worst = max(worst, d)
-        if not torch.allclose(lg, lc, rtol=RTOL, atol=ATOL):
-            raise AssertionError(f"phase 4 step {step}: logits max |diff| {d}")
-
-    t0 = time.perf_counter()
-    lg = gpu.prefill(padded, slots, lengths)
-    lc = cpu.prefill(padded, slots, lengths)
-    check("admission", lg, lc)
-    gpu.lengths[:] = lengths
-    cpu.lengths[:] = lengths
-    tok = torch.argmax(lg, -1).cpu().numpy()
     steps = 20
-    for i in range(steps):
-        lg = gpu.decode_logits(tok)
-        lc = cpu.decode_logits(tok)
-        check(i, lg, lc)
-        gpu.lengths += 1
-        cpu.lengths += 1
-        tok = torch.argmax(lg, -1).cpu().numpy()
-    frac, step_diff = _cache_compare(gpu.cache, cpu.cache)
-    fl = gpu.cache["flushed"].tolist()
+    t0 = time.perf_counter()
+    logits = {}
+    tokens = []
+    for name, engine in engines.items():
+        ctx = (plain_versions_on_card() if name == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            lg = engine.prefill(padded, np.arange(8), lengths)
+            engine.lengths[:] = lengths
+            logits[name] = [lg.float().cpu()]
+            for i in range(steps):
+                if name == "kernels":
+                    tokens.append(torch.argmax(lg, -1).cpu().numpy())
+                lg = engine.decode_logits(tokens[i])
+                engine.lengths += 1
+                logits[name].append(lg.float().cpu())
+    fl = engines["kernels"].cache["flushed"].tolist()
     if min(fl) < 64:
         raise AssertionError(f"phase 4 did not cross a flush: {fl}")
-    if frac < 0.999:
-        raise AssertionError(f"phase 4 cache bytes equal on {frac:.6f} only")
-    if step_diff > 1:
-        raise AssertionError(f"phase 4 cache values differ by {step_diff} "
-                             "code steps")
-    print(f"teacher-forced 2-layer 7B-width path vs CPU: admission + {steps} "
-          f"decode steps, logits max |diff| {worst:.3g} (rtol=atol={RTOL}), "
-          f"flushed={fl}, main cache bytes equal {frac:.6f}, largest value "
-          f"diff {step_diff:.3g} code step(s), "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    del gpu, cpu, backend, params, cpu_backend, cpu_params
+    failed = []
+    for one, other in (("kernels", "plain"), ("kernels", "cpu"),
+                       ("plain", "cpu"), ("kernels", "no correction")):
+        seen = [logits_steps(a, b) for a, b in zip(logits[one],
+                                                   logits[other])]
+        worst = max(m for m, _ in seen)
+        rms = max(r for _, r in seen)
+        least = min(r for _, r in seen)
+        frac, cache_steps = cache_agreement(engines[one].cache,
+                                            engines[other].cache)
+        print(f"teacher-forced 2-layer 7B-width path, {one} vs {other} "
+              f"({'CPU' if other == 'cpu' else 'card'}): admission + {steps} "
+              f"decode steps, logits |diff| in code steps max {worst:.3g} "
+              f"(limit {LOGIT_MAX_STEPS}), RMS {least:.3g} to {rms:.3g} "
+              f"(limit {LOGIT_RMS_STEPS}); flushed={fl}, main cache bytes "
+              f"equal {frac:.6f}, largest value diff {cache_steps:.3g} code "
+              f"step(s), {time.perf_counter() - t0:.1f}s", flush=True)
+        if other == "no correction":
+            if least <= LOGIT_RMS_STEPS:
+                failed.append("the RMS limit passed a missing correction")
+            continue
+        if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
+            failed.append(f"{one} vs {other}: logits")
+        if other == "plain" and (frac < 0.999 or cache_steps > 1):
+            failed.append(f"{one} vs {other}: cache")
+        if other == "cpu" and cache_steps > CACHE_CPU_STEPS:
+            failed.append(f"{one} vs {other}: cache")
+    if failed:
+        raise AssertionError(f"phase 4 past its limits: {failed}")
+    del engines, backend, broken, params, cpu_backend
     torch.cuda.empty_cache()
 
 
@@ -492,10 +558,19 @@ def profile_steps(torch, decode_logits, steps: int = 5) -> None:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.2f}"
                       for e in top)
+    # the port's kernels sit in anonymous namespaces of csrc/*.cu; PyTorch's
+    # own anonymous ones are inside at::
+    tag = "(anonymous namespace)::"
+    ours = "; ".join(
+        f"{e.key.split(tag)[1].split('(')[0]} "
+        f"{e.self_device_time_total / 1e3 / steps:.3f} ms per step, "
+        f"{e.self_device_time_total / e.count:.1f} us per launch"
+        for e in events if tag in e.key and "at::" not in e.key)
     print(f"profile of {steps} decode steps (torch.profiler): device busy "
           f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall per step "
           f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler overhead "
-          f"included); top device ms per step: {names}", flush=True)
+          f"included); top device ms per step: {names}; the port's "
+          f"kernels: {ours}", flush=True)
 
 
 def main() -> int:

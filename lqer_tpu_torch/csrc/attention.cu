@@ -16,11 +16,8 @@
 // and V stream through a shared 32-key tile (padded rows, no bank
 // conflicts). Up to about 6K keys the 8 score rows stay in shared memory
 // and the scores are computed once; beyond that the streaming variant below
-// recomputes them in three passes over K. Scores sum over d in order, exp is evaluated in double and
-// rounded once (exp_ref), the row sum runs lane-strided and then through a
-// xor butterfly, and P·V sums over the keys in order; ops/kernels/attention.py
-// repeats every one of those steps, so kernel and plain version agree bit
-// for bit on the card and on the CPU.
+// recomputes them in a second pass over K. The row sum runs lane-strided,
+// then through a xor butterfly.
 #include "mx_common.cuh"
 
 namespace {
@@ -66,8 +63,7 @@ __global__ void prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s = fmaf(qs[w * D + d], kv[lane * (D + 1) + d], s);
-      s = __fmul_rn(s, scale);
-      srow[j] = (causal && j > qi) ? -INFINITY : s;
+      srow[j] = (causal && j > qi) ? -INFINITY : s * scale;
     }
   }
   __syncwarp();
@@ -77,12 +73,12 @@ __global__ void prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   mx = warp_max_xor(mx);
   float part = 0.f;
   for (int j = lane; j < Lr; j += 32) {
-    const float p = exp_ref(srow[j] - mx);
+    const float p = expf(srow[j] - mx);
     srow[j] = p;
-    part = __fadd_rn(part, p);
+    part += p;
   }
   const float total = warp_sum_xor(part);
-  for (int j = lane; j < Lr; j += 32) srow[j] = __fdiv_rn(srow[j], total);
+  for (int j = lane; j < Lr; j += 32) srow[j] = srow[j] / total;
   __syncwarp();
   if (p_mb >= 0) {
     for (int g = lane; g < Lr / 16; g += 32) {
@@ -121,13 +117,11 @@ __global__ void prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Rows whose scores do not fit in shared memory: three passes over the
-// keys, each recomputing the scores exactly as above (row max; exp and the
-// lane-ordered sum; normalize, quantize per 16 keys with a half-warp
-// shuffle, P·V in key order). A two-pass online softmax would rescale the
-// running sum and round differently from exp(s - max) / sum; three passes
-// keep this kernel bit-identical to the one-pass kernel and the plain
-// version.
+// Rows whose scores do not fit in shared memory: two passes over the keys.
+// The first keeps each lane's running max and its sum rescaled to it, then
+// merges them across the warp; the second recomputes every score,
+// p = exp(s - max) / sum, quantizes p per 16 keys (the two half-warps of a
+// 32-key tile, reduced by shuffles) and accumulates P·V.
 template <int D>
 __global__ void prefill_attention_stream_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -165,22 +159,30 @@ __global__ void prefill_attention_stream_kernel(
     float s = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) s = fmaf(qs[w * D + d], kt[lane * (D + 1) + d], s);
-    s = __fmul_rn(s, scale);
-    return (causal && j > qi) ? -INFINITY : s;
+    return (causal && j > qi) ? -INFINITY : s * scale;
   };
+  // exp(a - m) with exp(-inf - m) = 0, also for m = -inf
+  auto rescale = [](float a, float m) { return a == -INFINITY ? 0.f : expf(a - m); };
 
-  float mx = -INFINITY;
+  float mx = -INFINITY, total = 0.f;
   for (int c0 = 0; c0 < Lr; c0 += KCH) {
     stage(c0, false);
-    if (c0 + lane < Lr) mx = fmaxf(mx, score(c0 + lane));
+    if (c0 + lane < Lr) {
+      const float s = score(c0 + lane);
+      const float m = fmaxf(mx, s);
+      total = total * rescale(mx, m) + rescale(s, m);
+      mx = m;
+    }
   }
-  mx = warp_max_xor(mx);
-  float part = 0.f;
-  for (int c0 = 0; c0 < Lr; c0 += KCH) {
-    stage(c0, false);
-    if (c0 + lane < Lr) part = __fadd_rn(part, exp_ref(score(c0 + lane) - mx));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, mx, off);
+    const float t2 = __shfl_xor_sync(0xffffffffu, total, off);
+    const float m = fmaxf(mx, m2);
+    // no FMA contraction: both lanes of a pair add the same two products
+    total = __fmul_rn(total, rescale(mx, m)) + __fmul_rn(t2, rescale(m2, m));
+    mx = m;
   }
-  const float total = warp_sum_xor(part);
 
   float acc[D / 32];
 #pragma unroll
@@ -188,7 +190,7 @@ __global__ void prefill_attention_stream_kernel(
   for (int c0 = 0; c0 < Lr; c0 += KCH) {
     stage(c0, true);
     const int j = c0 + lane;
-    float p = j < Lr ? __fdiv_rn(exp_ref(score(j) - mx), total) : 0.f;
+    float p = j < Lr ? expf(score(j) - mx) / total : 0.f;
     if (p_mb >= 0) {
       float bmax = p;  // 16-key groups are the two half-warps
 #pragma unroll

@@ -25,13 +25,9 @@
 // decoded K/V value. The cache keeps the token-axis-last layout of the JAX
 // package ((d, L) codes, (d/16, L) exponents): for the scores a thread owns
 // 4 consecutive tokens (char4 loads, a warp reads 128 consecutive bytes of
-// a d row) and walks d; for P·V a thread owns a d row and walks its tokens
-// in order, 16 per 16-byte load. Scores sum over d in order; exp is
-// evaluated in double and rounded once (exp_ref); the softmax sum runs
-// thread-strided over the index space [main L | ring], then through a xor
-// butterfly, then over warps in order; P·V sums over that index space in
-// order. ops/kernels/decode_attention.py repeats every step, so kernel and
-// plain version agree bit for bit.
+// a d row) and walks d; for P·V a thread owns a d row and walks its tokens,
+// 16 per 16-byte load. The softmax sum runs thread-strided, then through a
+// xor butterfly, then over warps.
 #include "mx_common.cuh"
 
 namespace {
@@ -59,7 +55,7 @@ __device__ __forceinline__ void score_column(const Cache& c, int col,
 #pragma unroll
     for (int jj = 0; jj < 16; ++jj) {
       const int d = g * 16 + jj;
-      const float kval = __fmul_rn((float)c.kc[(size_t)d * c.stride + col], scl);
+      const float kval = (float)c.kc[(size_t)d * c.stride + col] * scl;
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
         if (h < nrep) s[h] = fmaf(qs[h * D + d], kval, s[h]);
@@ -68,7 +64,7 @@ __device__ __forceinline__ void score_column(const Cache& c, int col,
 }
 
 // Scores of the 4 consecutive main columns col..col+3 (one char4 per row):
-// each column still sums over d in order.
+// each column sums over d.
 template <int D>
 __device__ __forceinline__ void score_4_columns(const Cache& c, int col,
                                                 const float* qs, int nrep,
@@ -85,8 +81,8 @@ __device__ __forceinline__ void score_4_columns(const Cache& c, int col,
     for (int jj = 0; jj < 16; ++jj) {
       const int d = g * 16 + jj;
       const char4 c4 = *reinterpret_cast<const char4*>(c.kc + (size_t)d * c.stride + col);
-      const float kv[4] = {__fmul_rn((float)c4.x, scl[0]), __fmul_rn((float)c4.y, scl[1]),
-                           __fmul_rn((float)c4.z, scl[2]), __fmul_rn((float)c4.w, scl[3])};
+      const float kv[4] = {(float)c4.x * scl[0], (float)c4.y * scl[1],
+                           (float)c4.z * scl[2], (float)c4.w * scl[3]};
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
         if (h < nrep) {
@@ -98,7 +94,7 @@ __device__ __forceinline__ void score_4_columns(const Cache& c, int col,
   }
 }
 
-// Σ_j p_j · v[dd][j] over 16-token chunks of one d row, tokens in order.
+// Σ_j p_j · v[dd][j] over 16-token chunks of one d row.
 __device__ __forceinline__ void pv_row(const Cache& c, int dd, int ntok,
                                        const float* p, int LS, int nrep,
                                        float (&acc)[NREP_MAX]) {
@@ -113,7 +109,7 @@ __device__ __forceinline__ void pv_row(const Cache& c, int dd, int ntok,
     for (int u = 0; u < 16; ++u) {
       const int code = (int)(int8_t)(cv[u >> 2] >> ((u & 3) * 8));
       const int e = (int)(int8_t)(ev[u >> 2] >> ((u & 3) * 8));
-      const float vval = __fmul_rn((float)code, exp2_int(e - 7));
+      const float vval = (float)code * exp2_int(e - 7);
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
         if (h < nrep) acc[h] = fmaf(p[h * LS + j0 + u], vval, acc[h]);
@@ -130,7 +126,7 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
                      const float* __restrict__ vh, const int* __restrict__ pos_p,
                      const int* __restrict__ fl_p, float* __restrict__ out,
                      int KVH, int nrep, int L, int SW, float scaling,
-                     int scale_query, int q_mb, int p_mb) {
+                     int q_mb, int p_mb) {
   constexpr int GD = D / 16;
   extern __shared__ float smem[];
   __shared__ float red[NW][NREP_MAX];
@@ -157,7 +153,7 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
     float bmax = 0.f;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      vals[j] = scale_query ? __fmul_rn(qrow[j], scaling) : qrow[j];
+      vals[j] = qrow[j];
       bmax = fmaxf(bmax, fabsf(vals[j]));
     }
     const int e = group_exponent(bmax);
@@ -193,7 +189,7 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
         if (h < nrep)
-          sc[h * LS + j + u] = scale_query ? s4[u][h] : __fmul_rn(s4[u][h], scaling);
+          sc[h * LS + j + u] = s4[u][h] * scaling;
   }
   float s[NREP_MAX];
   for (int jr = t; jr < SW; jr += NT) {
@@ -204,7 +200,7 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep)
         sc[h * LS + L + jr] =
-            !valid ? -INFINITY : (scale_query ? s[h] : __fmul_rn(s[h], scaling));
+            valid ? s[h] * scaling : -INFINITY;
   }
   __syncthreads();
 
@@ -233,25 +229,25 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   }
   __syncthreads();
 
-  // 5. exp and the ordered sum: each thread over its indices (main, then
-  //    ring), xor butterfly, warps in order
+  // 5. exp and the sum: each thread over its indices (main, then ring),
+  //    xor butterfly, then the warps
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
   for (int j = t; j < fl; j += NT)
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep) {
-        const float p = exp_ref(sc[h * LS + j] - m_stat[h]);
+        const float p = expf(sc[h * LS + j] - m_stat[h]);
         sc[h * LS + j] = p;
-        acc[h] = __fadd_rn(acc[h], p);
+        acc[h] += p;
       }
   for (int jr = t; jr < SW; jr += NT)
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep) {
-        const float p = exp_ref(sc[h * LS + L + jr] - m_stat[h]);
+        const float p = expf(sc[h * LS + L + jr] - m_stat[h]);
         sc[h * LS + L + jr] = p;
-        acc[h] = __fadd_rn(acc[h], p);
+        acc[h] += p;
       }
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) {
@@ -261,7 +257,7 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   __syncthreads();
   if (t < nrep) {
     float tot = 0.f;
-    for (int i = 0; i < NW; ++i) tot = __fadd_rn(tot, red[i][t]);
+    for (int i = 0; i < NW; ++i) tot += red[i][t];
     s_stat[t] = tot;
   }
   __syncthreads();
@@ -274,7 +270,7 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
     float bmax = 0.f;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      pg[j] = __fdiv_rn(pg[j], s_stat[h]);
+      pg[j] = pg[j] / s_stat[h];
       bmax = fmaxf(bmax, pg[j]);
     }
     if (p_mb >= 0) {
@@ -285,8 +281,8 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   }
   __syncthreads();
 
-  // 7. P·V: thread dd owns d row dd and walks the tokens in order, main
-  //    [0, fl) then the 64 ring lanes, 16 tokens per 16-byte load
+  // 7. P·V: thread dd owns d row dd and walks the tokens, main [0, fl)
+  //    then the 64 ring lanes, 16 tokens per 16-byte load
   for (int dd = t; dd < D; dd += NT) {
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
@@ -303,7 +299,7 @@ int launch(const void* q, const void* kc, const void* ke, const void* vc,
            const void* ve, void* ksc, void* kse, void* vsc, void* vse,
            const void* kh, const void* vh, const void* pos, const void* fl,
            void* out, int B, int KVH, int nrep, int L, int SW, float scaling,
-           int scale_query, int q_mb, int p_mb, cudaStream_t st) {
+           int q_mb, int p_mb, cudaStream_t st) {
   const size_t smem = sizeof(float) * (size_t)nrep * (D + L + SW);
   if (nrep < 1 || nrep > NREP_MAX || L % NT != 0 || SW > NT || smem > 220 * 1024)
     return (int)cudaErrorInvalidValue;
@@ -319,7 +315,7 @@ int launch(const void* q, const void* kc, const void* ke, const void* vc,
       static_cast<int8_t*>(vse), static_cast<const float*>(kh),
       static_cast<const float*>(vh), static_cast<const int*>(pos),
       static_cast<const int*>(fl), static_cast<float*>(out), KVH, nrep, L, SW,
-      scaling, scale_query, q_mb, p_mb);
+      scaling, q_mb, p_mb);
   return (int)cudaGetLastError();
 }
 
@@ -333,12 +329,12 @@ LQER_API int lqer_staged_decode_attention(
     const void* q, const void* kc, const void* ke, const void* vc,
     const void* ve, void* ksc, void* kse, void* vsc, void* vse, const void* kh,
     const void* vh, const void* pos, const void* fl, void* out, int B, int KVH,
-    int nrep, int D, int L, int SW, float scaling, int scale_query, int q_mb,
-    int p_mb, void* stream) {
+    int nrep, int D, int L, int SW, float scaling, int q_mb, int p_mb,
+    void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
 #define LQER_DEC_ARGS                                                          \
   q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, out, B, KVH, nrep, L, \
-      SW, scaling, scale_query, q_mb, p_mb, st
+      SW, scaling, q_mb, p_mb, st
   if (D == 128) return launch<128>(LQER_DEC_ARGS);
   if (D == 64) return launch<64>(LQER_DEC_ARGS);
 #undef LQER_DEC_ARGS

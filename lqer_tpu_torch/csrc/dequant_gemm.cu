@@ -22,16 +22,16 @@
 //    (K/16, N) int8. A thread owns 4 adjacent columns and reads 16
 //    contiguous bytes per load; eight column threads cover a 32-column
 //    tile, and 32 K-slices of the block take the 16-row groups of K in
-//    turn (slice s: groups s, s + 32, ...). The slices are summed in order
-//    through shared memory. The dequantization happens in registers.
+//    turn (slice s: groups s, s + 32, ...). The slices are summed through
+//    shared memory. The dequantization happens in registers.
 //  * X·A cannot use the TPU kernel's "n == 0 sweep" (blocks run in no
 //    order), so it runs as a FIRST SMALL PHASE (xa_partial_kernel): each
-//    block sums one 256-wide K chunk of X·A for 8 rows; the GEMM block then
-//    adds the chunk partials in order, quantizes X·A per row, multiplies by
-//    its 32 columns of B, quantizes the correction per 16 columns with a
-//    half-warp shuffle, and adds the bias. The summation order of both
-//    phases is fixed, and the plain version in ops/kernels/dequant_gemm.py
-//    repeats it, so the two quantizers see bit-identical inputs.
+//    block stages one 256-wide K chunk of X (8 rows) and of A in shared
+//    memory with 16-byte loads, and each thread sums whole (row, rank)
+//    outputs over the chunk. The GEMM block then adds the chunk partials,
+//    quantizes X·A per row, multiplies by its 32 columns of B, quantizes
+//    the correction per 16 columns with a half-warp shuffle, and adds the
+//    bias.
 #include "mx_common.cuh"
 
 namespace {
@@ -47,35 +47,51 @@ constexpr int RMAX = 128;    // largest (fused) rank
 __global__ void __launch_bounds__(NTHREADS)
 xa_partial_kernel(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ a,
-                  float* __restrict__ part, int M, int K, int R, int nks) {
+                  float* __restrict__ part, int M, int K, int R) {
+  constexpr int HALF = XA_KC / 2;
+  constexpr int OUT = MT * RMAX / NTHREADS;   // outputs per thread
   const int mt = blockIdx.x, s = blockIdx.y, KS = gridDim.y;
   const int t = threadIdx.x;
-  const int r = t % R, j = t / R;
-  __shared__ float red[NTHREADS * MT];
-  float acc[MT];
+  const int k0 = s * XA_KC, kn = min(XA_KC, K - k0);
+  __shared__ float xs[MT][XA_KC];
+  __shared__ __align__(16) __nv_bfloat16 as[HALF * RMAX];
+  for (int i = t; i < MT * XA_KC; i += NTHREADS) {
+    const int m = i / XA_KC, kk = i % XA_KC, row = mt * MT + m;
+    xs[m][kk] = (row < M && kk < kn) ? __bfloat162float(x[(size_t)row * K + k0 + kk]) : 0.f;
+  }
+  float acc[OUT];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-  if (j < nks) {
-    for (int i = 0; i < XA_KC / nks; ++i) {
-      const int k = s * XA_KC + i * nks + j;
-      if (k >= K) break;
-      const float av = __bfloat162float(a[(size_t)k * R + r]);
+  for (int o = 0; o < OUT; ++o) acc[o] = 0.f;
+  for (int h = 0; h < kn; h += HALF) {
+    // rows [k0 + h, k0 + h + HALF) of A are one contiguous span
+    const int n = min(HALF, kn - h) * R;
+    const __nv_bfloat16* src = a + (size_t)(k0 + h) * R;
+    __syncthreads();
+    if (R % 8 == 0) {
+      for (int i = t; i < n / 8; i += NTHREADS)
+        reinterpret_cast<uint4*>(as)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+    } else {
+      for (int i = t; i < n; i += NTHREADS) as[i] = src[i];
+    }
+    __syncthreads();
+    const int kh = n / R;
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int row = mt * MT + m;
-        if (row < M)
-          acc[m] = fmaf(__bfloat162float(x[(size_t)row * K + k]), av, acc[m]);
+    for (int o = 0; o < OUT; ++o) {
+      const int idx = o * NTHREADS + t;
+      if (idx < MT * R) {
+        const int m = idx / R, r = idx % R;
+        float v = acc[o];
+#pragma unroll 8
+        for (int kk = 0; kk < kh; ++kk)
+          v = fmaf(xs[m][h + kk], __bfloat162float(as[kk * R + r]), v);
+        acc[o] = v;
       }
     }
   }
 #pragma unroll
-  for (int m = 0; m < MT; ++m) red[t * MT + m] = acc[m];
-  __syncthreads();
-  for (int idx = t; idx < MT * R; idx += NTHREADS) {
-    const int m = idx / R, rr = idx % R;
-    float p = 0.f;
-    for (int jj = 0; jj < nks; ++jj) p = __fadd_rn(p, red[(jj * R + rr) * MT + m]);
-    part[(((size_t)mt * KS + s) * MT + m) * R + rr] = p;
+  for (int o = 0; o < OUT; ++o) {
+    const int idx = o * NTHREADS + t;
+    if (idx < MT * R) part[((size_t)mt * KS + s) * MT * R + idx] = acc[o];
   }
 }
 
@@ -157,14 +173,15 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ words,
   const int m = t / TN, col = t % TN;
   const int row = m0 + m, n = nb + col;
   float y = 0.f;
-  for (int s = 0; s < KSL; ++s) y = __fadd_rn(y, red[s][m][col]);
+  for (int s = 0; s < KSL; ++s) y += red[s][m][col];
 
   if (R > 0) {
     for (int idx = t; idx < MT * R; idx += NTHREADS) {
       const int mm = idx / R, r = idx % R;
       float v = 0.f;
+#pragma unroll 4
       for (int s = 0; s < KS; ++s)
-        v = __fadd_rn(v, xa_part[(((size_t)blockIdx.y * KS + s) * MT + mm) * R + r]);
+        v += __ldg(xa_part + (((size_t)blockIdx.y * KS + s) * MT + mm) * R + r);
       xa_s[mm][r] = v;
     }
     __syncthreads();
@@ -192,9 +209,9 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ words,
         bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
       corr = mx_value(corr, group_exponent(bmax), out_mb);
     }
-    y = __fadd_rn(y, corr);
+    y += corr;
   }
-  if (bias != nullptr) y = __fadd_rn(y, bias[n]);
+  if (bias != nullptr) y += bias[n];
   if (row < M) out[(size_t)row * N + n] = y;
 }
 
@@ -212,13 +229,11 @@ LQER_API int lqer_dequant_gemm(const void* x, const void* words,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int Mt = (M + MT - 1) / MT;
   const int KS = (K + XA_KC - 1) / XA_KC;
-  if (R > 0) {
-    int nks = 1;
-    while (nks * 2 * R <= NTHREADS) nks *= 2;
+  if (R > RMAX) return (int)cudaErrorInvalidValue;
+  if (R > 0)
     xa_partial_kernel<<<dim3(Mt, KS), NTHREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a),
-        static_cast<float*>(xa_part), M, K, R, nks);
-  }
+        static_cast<float*>(xa_part), M, K, R);
   const dim3 grid(N / TN, Mt);
 #define LQER_GEMM_ARGS                                                        \
   static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(words),        \

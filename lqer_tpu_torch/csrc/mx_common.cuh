@@ -6,8 +6,8 @@
 // reference's f32 operation order: sign(v + 1e-9), (|v| + 1e-9) / 2^e * 2^mb,
 // round half to even, clamp to [0, 2^mb - 1], |v| <= 1e-8 passes through.
 // The intrinsics (__fadd_rn, __fdiv_rn, __fmul_rn) keep nvcc from contracting
-// any of it into an FMA, so the kernels and the plain PyTorch versions round
-// identically.
+// any of it into an FMA, so a kernel quantizes a given f32 value exactly as
+// the plain PyTorch versions (and the JAX package) do.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,14 +55,6 @@ __device__ __forceinline__ float mx_value(float v, int e, int mb) {
 // values pass through or encode to code 0 either way).
 __device__ __forceinline__ int group_exponent(float absmax) {
   return ceil_log2_exact(absmax == 0.f ? 1.f : absmax);
-}
-
-// exp evaluated in double and rounded once to float: the same value as the
-// plain versions' torch.exp(x.double()).float() on any device (a float
-// expf differs between libraries by an ulp, which flips 8-bit roundings
-// of p downstream).
-__device__ __forceinline__ float exp_ref(float x) {
-  return (float)exp((double)x);
 }
 
 __device__ __forceinline__ float bf16_round(float v) {

@@ -15,35 +15,22 @@ from ..ops.qlinear import QLinearConfig
 
 def rms_norm(x: torch.Tensor, params: dict, eps: float = 1e-6
              ) -> torch.Tensor:
-    """RMSNorm with the mean square and its reciprocal root taken in double
-    and rounded once to f32, so the card and the CPU agree bit for bit (a
-    float mean depends on the reduction order and rsqrt on the library; a
-    one-ulp difference flips the 8-bit activation quantizer downstream)."""
     xf = x.to(torch.float32)
-    var = xf.to(torch.float64).square().mean(-1, keepdim=True)
-    y = xf * (1.0 / torch.sqrt(var + eps)).to(torch.float32)
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
     return params["weight"] * y.to(x.dtype)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x · sigmoid(x)`` evaluated in double, rounded once (device
-    independent, see :func:`rms_norm`)."""
-    xd = x.to(torch.float64)
-    return (xd / (1.0 + torch.exp(-xd))).to(x.dtype)
 
 
 def rotary_tables(head_dim: int, max_pos: int, theta: float = 10000.0,
                   device=None):
-    """HF-convention cos/sin tables (max_pos, head_dim), frequencies
-    duplicated across the two halves; computed in double on the CPU and
-    rounded to f32, so every device gets the same table."""
+    """HF-convention cos/sin tables (max_pos, head_dim) in f32, frequencies
+    duplicated across the two halves."""
     inv_freq = 1.0 / (theta ** (
-        torch.arange(0, head_dim, 2, dtype=torch.float64) / head_dim))
-    t = torch.arange(max_pos, dtype=torch.float64)
+        torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
+    t = torch.arange(max_pos, dtype=torch.float32)
     emb = torch.outer(t, inv_freq)
     emb = torch.cat([emb, emb], dim=-1)
-    return (torch.cos(emb).to(torch.float32).to(device),
-            torch.sin(emb).to(torch.float32).to(device))
+    return torch.cos(emb).to(device), torch.sin(emb).to(device)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -121,8 +108,7 @@ def supports_fused_attention(attn_cfg: AttnQConfig,
 
 
 def fused_quantized_attention(q, k, v, attn_cfg: AttnQConfig, scaling: float,
-                              *, scale_query: bool = False,
-                              kv_values_pre_quantized: bool = False):
+                              *, kv_values_pre_quantized: bool = False):
     """Causal attention through the prefill kernel: q (and K^T along tokens,
     V along d, unless ``kv_values_pre_quantized``) quantized to the
     activation format, P quantized in the kernel. (b, h, s, d) in and
@@ -142,11 +128,6 @@ def fused_quantized_attention(q, k, v, attn_cfg: AttnQConfig, scaling: float,
     q3 = q.reshape(b * h, s, d)
     k3 = k.reshape(b * h, kv_len, d)
     v3 = v.reshape(b * h, kv_len, d)
-    if scale_query:
-        q3 = q3 * scaling
-        kernel_scale = 1.0
-    else:
-        kernel_scale = scaling
     q_q = aq(q3)
     if kv_values_pre_quantized:
         k_q, v_q = k3, v3
@@ -155,6 +136,6 @@ def fused_quantized_attention(q, k, v, attn_cfg: AttnQConfig, scaling: float,
         v_q = aq(v3)
     out = quantized_attention(
         q_q.to(torch.bfloat16).contiguous(), k_q.to(torch.bfloat16).contiguous(),
-        v_q.to(torch.bfloat16).contiguous(), scale=kernel_scale,
+        v_q.to(torch.bfloat16).contiguous(), scale=scaling,
         p_width=width, group=16, causal=True)
     return out.reshape(b, h, s, d).to(q.dtype)

@@ -29,7 +29,7 @@ SIGNATURES = {
     "dequant_gemm": ("lqer_dequant_gemm", [P] * 8 + [I] * 7 + [P]),
     "attention": ("lqer_prefill_attention", [P] * 4 + [I] * 4 + [F, I, I, P]),
     "decode_attention": ("lqer_staged_decode_attention",
-                         [P] * 14 + [I] * 6 + [F, I, I, I, P]),
+                         [P] * 14 + [I] * 6 + [F, I, I, P]),
     "cache_write": ("lqer_flush_stage", [P] * 8 + [I] * 4 + [P] * 2 + [I] * 5
                     + [P]),
 }

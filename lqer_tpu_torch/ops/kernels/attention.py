@@ -2,12 +2,9 @@
 
 Port of ``lqer_tpu/ops/pallas/attention.py``. The CUDA kernel is
 ``csrc/attention.cu``; :func:`quantized_attention_plain` is its plain
-PyTorch version: scores summed over d in order, an exact f32 softmax over
-the full row (exp evaluated in double and rounded once, :func:`exp_ref`)
-whose sum follows the kernel's lane order (:func:`ordered_sum`), P
+PyTorch version: f32 scores, an exact softmax over the full row, P
 quantized per 16 keys (:func:`_quantize_sublane_groups`, ``p <= 1e-8``
-passes through), then P·V summed over the keys in order. Every step rounds
-as the kernel does, so the two agree bit for bit on any device.
+passes through), then P·V.
 """
 
 from __future__ import annotations
@@ -28,67 +25,36 @@ def _quantize_sublane_groups(p: torch.Tensor, mb: int, group: int
     return mx_values(v, bmax, mb).reshape(*lead, n)
 
 
-def exp_ref(x: torch.Tensor) -> torch.Tensor:
-    """``exp`` evaluated in double and rounded once to f32: the same value
-    on the CPU and on the card (``exp_ref`` in ``csrc/mx_common.cuh``); a
-    float exp differs between libraries by an ulp, which flips 8-bit
-    roundings of p downstream."""
-    return torch.exp(x.to(torch.float64)).to(torch.float32)
-
-
-def ordered_sum(p: torch.Tensor, threads: int) -> torch.Tensor:
-    """Sum over the last axis in a CUDA block's order: thread ``t`` of
-    ``threads`` adds indices ``t, t + threads, ...`` in turn, each warp of
-    32 reduces through a xor butterfly, and the warps add in order."""
-    n = p.shape[-1]
-    pad = -n % threads
-    if pad:
-        p = torch.nn.functional.pad(p, (0, pad))
-    v = p.reshape(*p.shape[:-1], -1, threads)
-    acc = torch.zeros_like(v[..., 0, :])
-    for i in range(v.shape[-2]):
-        acc = acc + v[..., i, :]
-    acc = acc.reshape(*acc.shape[:-1], threads // 32, 32)
-    width = 32
-    while width > 1:
-        width //= 2
-        acc = acc[..., :width] + acc[..., width:2 * width]
-    total = torch.zeros_like(acc[..., 0, 0])
-    for w in range(threads // 32):
-        total = total + acc[..., w, 0]
-    return total[..., None]
-
-
-def ordered_dot(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """``q (..., S, D) · k (..., D, L)`` summed over D in order (one kernel
-    thread per score)."""
-    s = torch.zeros(*q.shape[:-1], k.shape[-1], dtype=torch.float32,
-                    device=q.device)
-    for d in range(q.shape[-1]):
-        s = s + q[..., d, None] * k[..., d, None, :]
+def prefill_scores(q_q: torch.Tensor, k_q: torch.Tensor, *, scale: float,
+                   causal: bool = True) -> torch.Tensor:
+    """``(q · k^T) · scale`` in f32, (BH, S, L); with ``causal``, keys past
+    the query row are -inf."""
+    s = torch.matmul(q_q.to(torch.float32),
+                     k_q.to(torch.float32).transpose(-1, -2)) * scale
+    if causal:
+        S, L = s.shape[-2:]
+        ok = (torch.arange(L, device=s.device)[None, :]
+              <= torch.arange(S, device=s.device)[:, None])
+        s = torch.where(ok, s, torch.full_like(s, float("-inf")))
     return s
+
+
+def attend_plain(s: torch.Tensor, v: torch.Tensor, p_width: int | None,
+                 group: int = 16) -> torch.Tensor:
+    """``p = exp(s − max) / sum`` over the last axis of ``s (..., S, L)``,
+    p quantized per ``group`` keys (``p <= 1e-8`` passes through), then
+    ``p · v`` with ``v (..., L, D)``, all in f32."""
+    p = torch.softmax(s, dim=-1)
+    if p_width is not None:
+        p = _quantize_sublane_groups(p, p_width - 1, group)
+    return torch.matmul(p, v.to(torch.float32))
 
 
 def quantized_attention_plain(q_q, k_q, v_q, *, scale: float,
                               p_width: int | None = 8, group: int = 16,
                               causal: bool = True) -> torch.Tensor:
-    S, L = q_q.shape[1], k_q.shape[1]
-    s = ordered_dot(q_q.to(torch.float32),
-                    k_q.to(torch.float32).transpose(1, 2)) * scale
-    if causal:
-        ok = (torch.arange(L, device=s.device)[None, :]
-              <= torch.arange(S, device=s.device)[:, None])
-        s = torch.where(ok, s, torch.full_like(s, float("-inf")))
-    p = exp_ref(s - s.amax(-1, keepdim=True))
-    p = p / ordered_sum(p, 32)
-    if p_width is not None:
-        p = _quantize_sublane_groups(p, p_width - 1, group)
-    vf = v_q.to(torch.float32)
-    out = torch.zeros(*p.shape[:-1], vf.shape[-1], dtype=torch.float32,
-                      device=p.device)
-    for j in range(L):
-        out = out + p[..., j, None] * vf[:, None, j, :]
-    return out
+    return attend_plain(prefill_scores(q_q, k_q, scale=scale, causal=causal),
+                        v_q, p_width, group)
 
 
 def quantized_attention(q_q: torch.Tensor, k_q: torch.Tensor,

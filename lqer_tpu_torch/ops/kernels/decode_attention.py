@@ -11,9 +11,7 @@ One layer per call, on per-layer views of the layer-stacked cache
 encoded into ring lane ``pos % 64`` IN PLACE, where the JAX kernel aliases
 the ring arrays to its outputs. Scores run over main ``[0, flushed)`` and
 the ring's ``[flushed, pos]`` with one exact f32 softmax; P is quantized
-per 16 along the concatenated ``[main L | ring 64]`` axis, then P·V. The
-plain version rounds every step as the kernel does (same summation orders,
-``exp_ref``), so the two agree bit for bit on any device.
+per 16 along the concatenated ``[main L | ring 64]`` axis, then P·V.
 """
 
 from __future__ import annotations
@@ -22,10 +20,10 @@ import torch
 
 from ...parallel.collectives import fill_zero_groups, mx8_decode, mx_values
 from . import _build
-from .attention import _quantize_sublane_groups, exp_ref, ordered_dot, ordered_sum
+from .attention import attend_plain
 from .cache_write import _encode_t
 
-THREADS = 128  # the kernel's block size; the softmax sum follows its order
+THREADS = 128  # the kernel's block size: the main length must be a multiple
 
 
 def _quantize_sublane_groups_signed(x: torch.Tensor, mb: int, group: int
@@ -53,56 +51,57 @@ def _write_ring(ring_codes, ring_exps, new_codes, new_exps, lane):
         arr.scatter_(3, idx, new[..., None])
 
 
-def staged_decode_plain(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
-                        ks_exps, vs_codes, vs_exps, kh, vh, positions,
-                        flushed, *, scaling: float, scale_query: bool = False,
-                        group: int = 16, q_width: int | None = 8,
-                        p_width: int | None = 8) -> torch.Tensor:
+def staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps,
+                  vs_codes, vs_exps, positions, flushed, *, scaling: float,
+                  group: int = 16, q_width: int | None = 8):
+    """Masked scores (B, H, L + 64) and values (B, H, L + 64, d) over the
+    concatenated ``[main L | ring 64]`` axis, read after the ring write:
+    main columns count below ``flushed``, ring lanes where the position
+    they hold is at least ``flushed``."""
     B, H, _, d = q.shape
     KVH, L = k_codes.shape[1], k_codes.shape[-1]
     SW = ks_codes.shape[-1]
     n_rep = H // KVH
     qs = q[:, :, 0, :].to(torch.float32)
-    if scale_query:
-        qs = qs * scaling
     if q_width is not None:
         qs = _quantize_sublane_groups_signed(qs, q_width - 1, group)
-    lane = positions % SW
-    for rc, re, new in ((ks_codes, ks_exps, kh), (vs_codes, vs_exps, vh)):
-        codes, exps = _encode_t(new[:, :, 0, :].to(torch.float32)[..., None],
-                                group)
-        _write_ring(rc, re, codes[..., 0], exps[..., 0], lane)
-    kv = {}
-    for name, (mc, me, rc, re) in (("k", (k_codes, k_exps, ks_codes, ks_exps)),
-                                   ("v", (v_codes, v_exps, vs_codes, vs_exps))):
+    kv = []
+    for mc, me, rc, re in ((k_codes, k_exps, ks_codes, ks_exps),
+                           (v_codes, v_exps, vs_codes, vs_exps)):
         cat = torch.cat([_decode_cache_block(mc, me, group),
                          _decode_cache_block(rc, re, group)], dim=-1)
-        kv[name] = cat.repeat_interleave(n_rep, dim=1)   # (B, H, d, L + SW)
-    s = ordered_dot(qs[:, :, None, :], kv["k"])[:, :, 0, :]
-    if not scale_query:
-        s = s * scaling
+        kv.append(cat.repeat_interleave(n_rep, dim=1))     # (B, H, d, L + SW)
+    s = torch.matmul(qs[:, :, None, :], kv[0])[:, :, 0, :] * scaling
     j = torch.arange(L + SW, device=q.device)
     t_lane = positions[:, None] - torch.remainder(
         positions[:, None] - (j[None, :] - L), SW)
     ok = torch.where(j[None, :] < L, j[None, :] < flushed[:, None],
                      t_lane >= flushed[:, None])
     s = torch.where(ok[:, None, :], s, torch.full_like(s, float("-inf")))
-    p = exp_ref(s - s.amax(-1, keepdim=True))
-    p = p / ordered_sum(p, THREADS)
-    if p_width is not None:
-        p = _quantize_sublane_groups(p, p_width - 1, group)
-    # P·V in the kernel's order: over [main L | ring] in turn
-    out = torch.zeros(B, H, d, dtype=torch.float32, device=q.device)
-    for j in range(L + SW):
-        out = out + p[:, :, j, None] * kv["v"][..., j]
-    return out[:, :, None, :]
+    return s, kv[1].transpose(-1, -2)
+
+
+def staged_decode_plain(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
+                        ks_exps, vs_codes, vs_exps, kh, vh, positions,
+                        flushed, *, scaling: float, group: int = 16,
+                        q_width: int | None = 8,
+                        p_width: int | None = 8) -> torch.Tensor:
+    lane = positions % ks_codes.shape[-1]
+    for rc, re, new in ((ks_codes, ks_exps, kh), (vs_codes, vs_exps, vh)):
+        codes, exps = _encode_t(new[:, :, 0, :].to(torch.float32)[..., None],
+                                group)
+        _write_ring(rc, re, codes[..., 0], exps[..., 0], lane)
+    s, v = staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
+                         ks_exps, vs_codes, vs_exps, positions, flushed,
+                         scaling=scaling, group=group, q_width=q_width)
+    return attend_plain(s[:, :, None, :], v, p_width, group)
 
 
 def decode_attention_quantized_staged(
         q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
         vs_exps, kh, vh, positions, flushed, *, scaling: float,
-        scale_query: bool = False, group: int = 16,
-        q_width: int | None = 8, p_width: int | None = 8) -> torch.Tensor:
+        group: int = 16, q_width: int | None = 8,
+        p_width: int | None = 8) -> torch.Tensor:
     """One layer of staged decode attention.
 
     q (B, H, 1, d) raw queries (rope applied); main cache codes
@@ -120,9 +119,8 @@ def decode_attention_quantized_staged(
     if q.device.type == "cpu":
         return staged_decode_plain(
             q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
-            vs_exps, kh, vh, positions, flushed, scaling=scaling,
-            scale_query=scale_query, group=group, q_width=q_width,
-            p_width=p_width)
+            vs_exps, kh, vh, positions, flushed, scaling=scaling, group=group,
+            q_width=q_width, p_width=p_width)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
     if q_width is None or d not in (64, 128) or L % THREADS or H % KVH:
@@ -143,8 +141,7 @@ def decode_attention_quantized_staged(
                   *(a.data_ptr() for a in arrays), khf.data_ptr(),
                   vhf.data_ptr(), pos.data_ptr(), fl.data_ptr(),
                   out.data_ptr(), B, KVH, H // KVH, d, L, SW, float(scaling),
-                  int(scale_query), q_width - 1,
-                  -1 if p_width is None else p_width - 1)
+                  q_width - 1, -1 if p_width is None else p_width - 1)
     decode_attention_quantized_staged.launches += 1
     return out
 

@@ -9,10 +9,9 @@ version and the counterpart of ``qlinear_w4_fused_emulation`` /
 
 ``q_xa``/``q_out`` are the per-row block_fp quantizers in groups of 16
 (:func:`_quantize_rows_mx`; one whole-row group when the width is not a
-multiple of 16). X·A and the correction are summed in the kernel's fixed
-order, so both quantizers see bit-identical inputs on the card and here;
-the main product is a plain f32 matmul (exact products, another summation
-order: allclose).
+multiple of 16). Every product is exact in f32; the kernel and the plain
+version sum in different orders (allclose, see ``lqer_tpu_torch/testing.py``
+for the limit).
 
 :func:`qlinear_w4_fused` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors. Every M goes through the kernel: the JAX
@@ -23,14 +22,12 @@ port of its unpack kernel.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ...parallel.collectives import fill_zero_groups, mx_values
 from ..storage import MXINT4, MXFormat, dequantize_packed, pack_weight, quantize_mx
 from . import _build
 
-XA_KC = 256       # K chunk of the kernel's X·A phase
-XA_THREADS = 256  # threads of that phase
+XA_KC = 256       # K chunk of the kernel's X·A phase (its scratch rows)
 MAX_RANK = 128    # largest (fused) rank the kernel's shared memory holds
 
 
@@ -47,47 +44,18 @@ def _quantize_rows_mx(x: torch.Tensor, mb: int, group: int = 16
     return mx_values(v, bmax, mb).reshape(m, n)
 
 
-def _xa_lanes(rank: int) -> int:
-    """K lanes per rank column in the X·A phase: the largest power of two
-    with ``lanes · rank <= XA_THREADS``."""
-    nks = 1
-    while nks * 2 * rank <= XA_THREADS:
-        nks *= 2
-    return nks
-
-
-def ordered_xa(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """X·A (f32) summed in the kernel's order: K chunks of 256; inside a
-    chunk, lane ``j`` of ``nks`` sums ``k = j, j + nks, ...``; lanes add in
-    order, then chunks add in order. Products of bf16-exact values are
-    exact, so each step rounds exactly as the kernel's FMA does."""
-    M, K = x.shape
-    R = a.shape[1]
-    nks = _xa_lanes(R)
-    KS = -(-K // XA_KC)
-    pad = KS * XA_KC - K
-    xf = F.pad(x.to(torch.float32), (0, pad)).reshape(M, KS, XA_KC // nks, nks)
-    af = F.pad(a.to(torch.float32), (0, 0, 0, pad)).reshape(
-        KS, XA_KC // nks, nks, R)
-    acc = torch.zeros(M, KS, nks, R, dtype=torch.float32, device=x.device)
-    for i in range(XA_KC // nks):
-        acc = acc + xf[:, :, i, :, None] * af[None, :, i]
-    part = torch.zeros(M, KS, R, dtype=torch.float32, device=x.device)
-    for j in range(nks):
-        part = part + acc[:, :, j]
-    xa = torch.zeros(M, R, dtype=torch.float32, device=x.device)
-    for s in range(KS):
-        xa = xa + part[:, s]
-    return xa
-
-
-def ordered_corr(xa: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``xa (M, R) · b (R, N)`` summed over R in order (the kernel's loop)."""
-    bf = b.to(torch.float32)
-    corr = torch.zeros(xa.shape[0], bf.shape[1], dtype=torch.float32,
-                       device=xa.device)
-    for r in range(bf.shape[0]):
-        corr = corr + xa[:, r, None] * bf[r]
+def lqer_correction(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                    quant_xa_width: int | None = 8,
+                    quant_out_width: int | None = 8) -> torch.Tensor:
+    """``q_out(bf16(q_xa(x · a)) · b)`` in f32: the rank-k epilogue of
+    kernel 1 for ``x (M, K)``, ``a (K, R)``, ``b (R, N)``."""
+    xa = torch.matmul(x.to(torch.float32), a.to(torch.float32))
+    if quant_xa_width is not None:
+        xa = _quantize_rows_mx(xa, quant_xa_width - 1)
+    corr = torch.matmul(xa.to(torch.bfloat16).to(torch.float32),
+                        b.to(torch.float32))
+    if quant_out_width is not None:
+        corr = _quantize_rows_mx(corr, quant_out_width - 1)
     return corr
 
 
@@ -113,13 +81,9 @@ def qlinear_w4_plain(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
     xf = x_q.to(torch.bfloat16).to(torch.float32)
     y = torch.matmul(xf, w)
     if prep.get("a") is not None:
-        xa = ordered_xa(xf, prep["a"])
-        if quant_xa_width is not None:
-            xa = _quantize_rows_mx(xa, quant_xa_width - 1)
-        corr = ordered_corr(xa.to(torch.bfloat16).to(torch.float32), prep["b"])
-        if quant_out_width is not None:
-            corr = _quantize_rows_mx(corr, quant_out_width - 1)
-        y = y + corr
+        y = y + lqer_correction(xf, prep["a"], prep["b"],
+                                quant_xa_width=quant_xa_width,
+                                quant_out_width=quant_out_width)
     if prep.get("bias") is not None:
         y = y + prep["bias"].to(torch.float32)
     return y

@@ -20,6 +20,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.nn.functional import silu
 
 from .. import models
 from ..models import llama as llama_mod
@@ -31,7 +32,6 @@ from ..models.common import (
     repeat_kv,
     rms_norm,
     rotary_tables,
-    silu,
     supports_fused_attention,
 )
 from ..ops.kernels.cache_write import flush_stage_to_main
@@ -51,8 +51,7 @@ from .kv_cache import (
 
 FLUSH_RESIDUE = 48  # flush once a ring holds 48 tokens: < 64 lanes always
 
-# one (cos, sin) table pair per (head_dim, length, theta, device): small,
-# and built on the host in double
+# one (cos, sin) table pair per (head_dim, length, theta, device)
 _rotary = functools.lru_cache(maxsize=8)(rotary_tables)
 
 

@@ -199,13 +199,14 @@ def _fuse_members(layer_prefix: str, members, params, layer_qcfg):
 
 def prepare_serving_params(params: dict, cfg, layer_qcfgs,
                            tile_k: int = TILE_K,
-                           fuse_projections: bool = True,
                            fuse_mlp: bool = False) -> dict:
     """Pack every quantized linear: ``{"arrays": {prefix: {codes, exps, a,
     b, bias}}, "meta": {prefix: {fmt, xa_width, out_width[, splits]}}}``.
     ``params`` holds the original (un-PTQ'd) weights; packing runs on their
-    device. ``fuse_projections`` packs q|k|v and gate|up as one entry each
-    (``{layer}.self_attn.qkv_proj``, ``{layer}.mlp.gateup_proj``)."""
+    device. A fusable group (q|k|v, gate|up: identical activation-side
+    quantizers, see :func:`_fusable`) packs as one entry
+    (``{layer}.self_attn.qkv_proj``, ``{layer}.mlp.gateup_proj``); other
+    members pack one by one."""
     if fuse_mlp:
         raise NotImplementedError(
             "the MLP megakernel (mlp_fused._mlp_kernel) is not ported yet; "
@@ -225,19 +226,18 @@ def prepare_serving_params(params: dict, cfg, layer_qcfgs,
     for i in range(cfg.num_hidden_layers):
         fused_members: set[str] = set()
         lp = arch.layer_prefix(i)
-        if fuse_projections:
-            for fused_rel, member_rels in fuse_groups_for(cfg):
-                if not _fusable(lp, member_rels, params, layer_qcfgs[i]):
-                    continue
-                widths = _member_widths(lp, member_rels, params,
-                                        layer_qcfgs[i], tile_k)
-                if widths is None:
-                    continue
-                w, a, b, bias, splits = _fuse_members(lp, member_rels, params,
-                                                      layer_qcfgs[i])
-                pack_one(f"{lp}.{fused_rel}", w, a, b, bias, widths[0],
-                         widths[1], splits=splits)
-                fused_members.update(f"{lp}.{m}" for m in member_rels)
+        for fused_rel, member_rels in fuse_groups_for(cfg):
+            if not _fusable(lp, member_rels, params, layer_qcfgs[i]):
+                continue
+            widths = _member_widths(lp, member_rels, params,
+                                    layer_qcfgs[i], tile_k)
+            if widths is None:
+                continue
+            w, a, b, bias, splits = _fuse_members(lp, member_rels, params,
+                                                  layer_qcfgs[i])
+            pack_one(f"{lp}.{fused_rel}", w, a, b, bias, widths[0],
+                     widths[1], splits=splits)
+            fused_members.update(f"{lp}.{m}" for m in member_rels)
         for prefix, proj in models.quantizable_module_prefixes(cfg, i):
             if prefix in fused_members:
                 continue

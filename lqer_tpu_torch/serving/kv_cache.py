@@ -70,21 +70,17 @@ def is_staged_cache(cache: dict) -> bool:
     return "k_stage_codes" in cache
 
 
-def stage_boundary_sync(cache: dict, new_positions: torch.Tensor,
-                        slot_mask: torch.Tensor | None = None) -> dict:
+def stage_boundary_sync(cache: dict, new_positions: torch.Tensor) -> dict:
     """After a prefill wrote tokens ``[0, new_positions)`` into the main
     cache: ``flushed = floor32(new_positions)`` and the boundary tokens
     ``[flushed, new_positions)`` copied into the ring (lane = token % SW).
-    ``slot_mask`` limits the sync to admitted slots. Updates in place."""
+    Updates in place."""
     SW = cache["k_stage_codes"].shape[-1]
     L = cache["k_codes"].shape[-1]
-    B = new_positions.shape[0]
     fl = (new_positions // 32) * 32
-    if slot_mask is None:
-        slot_mask = torch.ones(B, dtype=torch.bool, device=fl.device)
     j = torch.arange(SW, device=fl.device)[None, :]
     t = fl[:, None] + torch.remainder(j - fl[:, None], SW)          # (B, SW)
-    valid = (t < new_positions[:, None]) & slot_mask[:, None]
+    valid = t < new_positions[:, None]
     tc = t.clamp(0, L - 1).to(torch.int64)
     for main_key, stage_key in zip(MAIN_KEYS, STAGE_KEYS):
         main = cache[main_key]
@@ -92,6 +88,5 @@ def stage_boundary_sync(cache: dict, new_positions: torch.Tensor,
         gathered = torch.gather(main, -1, idx)
         ring = cache[stage_key]
         ring.copy_(torch.where(valid[None, :, None, None, :], gathered, ring))
-    cache["flushed"].copy_(torch.where(slot_mask, fl.to(torch.int32),
-                                       cache["flushed"]))
+    cache["flushed"].copy_(fl.to(torch.int32))
     return cache

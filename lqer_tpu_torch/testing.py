@@ -1,0 +1,139 @@
+"""How close a kernel must come to its plain PyTorch version, and the card
+path to the CPU path.
+
+A kernel and its plain version compute the same function, but their f32
+sums run in different orders (and CUDA's ``expf`` is not the CPU's
+``exp``), so results differ in the last bits: within rtol = atol = 2e-4,
+the tolerance of the JAX package's own staged test
+(``tests/test_staged_serving.py:82``). Several steps then quantize such a
+sum to 8 bits: X·A and the correction in kernel 1, P in kernels 2 and 3,
+and every activation and cache write of the served path. Where a value
+lies within a few ulps of a rounding boundary, the two sides round it one
+code step apart. Each limit below adds the most that one such flip can
+move the result, counted in code steps of the 16-group it lands in. A
+flip moves one value by one step; an error of the function (a missing
+quantizer, a wrong group or mask) moves most values, which the fraction
+of values past the plain tolerance shows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .ops.kernels.dequant_gemm import lqer_correction
+from .parallel.collectives import ceil_log2_exact, exp2_int, floor_log2_exact
+
+RTOL = ATOL = 2e-4
+GROUP = 16  # values per shared exponent in every 8-bit quantizer here
+
+
+def code_step(v: torch.Tensor, width: int | None) -> torch.Tensor:
+    """Per element of ``v``, one code step of the quantizer that rounds it:
+    ``2^(e − (width − 1))`` with ``e`` the exact exponent of its group of 16
+    along the last axis (the whole row when 16 does not divide it); with
+    ``width`` None, one bf16 ulp of the element."""
+    v = v.to(torch.float32)
+    if width is None:
+        return exp2_int(floor_log2_exact(v.abs()) - 7)
+    n = v.shape[-1]
+    g = GROUP if n % GROUP == 0 else n
+    bmax = v.abs().reshape(*v.shape[:-1], n // g, g).amax(-1, keepdim=True)
+    step = exp2_int(ceil_log2_exact(bmax) - (width - 1))
+    return step.expand(*v.shape[:-1], n // g, g).reshape(v.shape)
+
+
+def dequant_gemm_limit(x: torch.Tensor, prep: dict, ref: torch.Tensor, *,
+                       quant_xa_width: int | None,
+                       quant_out_width: int | None) -> torch.Tensor:
+    """Per-element limit of ``|kernel − plain|`` for kernel 1 on ``x``.
+
+    One flipped rounding of X·A (a q_xa code step, or a bf16 ulp when q_xa
+    is off) moves the correction by at most that step times ``|B[r, n]|``;
+    q_out then rounds the moved value at most one code step of its group
+    away, and one more where the move lifts the group's exponent."""
+    lim = ATOL + RTOL * ref.abs()
+    if prep.get("a") is None:
+        return lim
+    xf = x.to(torch.float32)
+    xa_step = code_step(torch.matmul(xf, prep["a"].to(torch.float32)),
+                        quant_xa_width)
+    shift = (xa_step[:, :, None] * prep["b"].to(torch.float32).abs()[None]
+             ).amax(1)
+    if quant_out_width is None:
+        return lim + shift
+    corr = lqer_correction(xf, prep["a"], prep["b"],
+                           quant_xa_width=quant_xa_width,
+                           quant_out_width=quant_out_width)
+    return lim + shift + 2 * code_step(corr, quant_out_width)
+
+
+def attention_limit(s: torch.Tensor, v: torch.Tensor, ref: torch.Tensor, *,
+                    p_width: int | None) -> torch.Tensor:
+    """Per-element limit of ``|kernel − plain|`` for an attention output
+    ``ref (..., S, D)`` from masked scores ``s (..., S, L)`` and values
+    ``v (..., L, D)``: one flipped rounding of a p moves the output by that
+    p's code step (at most the row's largest) times ``|v|``."""
+    lim = ATOL + RTOL * ref.abs()
+    if p_width is None:
+        return lim
+    p = torch.softmax(s.to(torch.float32), dim=-1)
+    step = code_step(p, p_width).amax(-1, keepdim=True)
+    return lim + step * v.to(torch.float32).abs().amax(-2, keepdim=True)
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                limit: torch.Tensor, max_flipped: float) -> dict:
+    """Raise unless every element is within ``limit`` and at most the
+    fraction ``max_flipped`` lies past the plain rtol/atol band; return
+    ``{max_abs_err, flipped, of_limit}`` (``of_limit``: the largest
+    ``|diff| / limit``)."""
+    diff = (got.to(torch.float32) - want.to(torch.float32)).abs()
+    flipped = float((diff > ATOL + RTOL * want.abs()).float().mean())
+    out = {"max_abs_err": float(diff.max()), "flipped": flipped,
+           "of_limit": float((diff / limit).max())}
+    if out["of_limit"] > 1 or flipped > max_flipped:
+        raise AssertionError(
+            f"{name}: |diff| reaches {out['of_limit']:.3g} x its limit, "
+            f"{flipped:.4%} of elements past rtol=atol={RTOL} (at most "
+            f"{max_flipped:.2%}), max |diff| {out['max_abs_err']:.3g}")
+    return out
+
+
+def logits_steps(got: torch.Tensor, want: torch.Tensor
+                 ) -> tuple[float, float]:
+    """(max, RMS) of ``|got − want|`` in 8-bit code steps of each row's
+    scale, ``2^(ceil_log2(max |want row|) − 7)``."""
+    want = want.to(torch.float32)
+    step = exp2_int(ceil_log2_exact(want.abs().amax(-1, keepdim=True)) - 7)
+    d = (got.to(torch.float32) - want) / step
+    return float(d.abs().max()), float(d.square().mean().sqrt())
+
+
+def cache_agreement(a: dict, b: dict) -> tuple[float, float]:
+    """Main caches ``a`` and ``b`` below their (equal) ``flushed``: the
+    fraction of equal code and exponent bytes, and the largest difference
+    of decoded values in code steps of the coarser exponent of the two."""
+    fl = a["flushed"].cpu()
+    if not torch.equal(fl, b["flushed"].cpu()):
+        raise AssertionError(f"flushed differs: {fl} vs {b['flushed']}")
+    eq = total = 0
+    worst = 0.0
+    for side in ("k", "v"):
+        ca, cb = a[f"{side}_codes"].cpu(), b[f"{side}_codes"].cpu()
+        ea, eb = a[f"{side}_exps"].cpu(), b[f"{side}_exps"].cpu()
+        for s in range(fl.shape[0]):
+            f = int(fl[s])
+            if f == 0:
+                continue
+            xa, xb = ca[:, s, ..., :f], cb[:, s, ..., :f]
+            ya, yb = ea[:, s, ..., :f], eb[:, s, ..., :f]
+            eq += int((xa == xb).sum()) + int((ya == yb).sum())
+            total += xa.numel() + ya.numel()
+            rows = xa.shape[-2] // ya.shape[-2]
+            ya, yb = (y.to(torch.int32).repeat_interleave(rows, -2)
+                      for y in (ya, yb))
+            emax = torch.maximum(ya, yb)
+            da = xa.float() * exp2_int(ya - emax)
+            db = xb.float() * exp2_int(yb - emax)
+            worst = max(worst, float((da - db).abs().max()))
+    return eq / max(total, 1), worst

@@ -3,10 +3,9 @@ the JAX package's ``quantized_attention`` (Pallas in interpret mode) and the
 model-level ``fused_quantized_attention`` around it.
 
 Tolerance rtol = atol = 2e-4: scores and products are exact on both sides;
-exp (the port evaluates it in double and rounds once, XLA in float) and
-the f32 summation order of the softmax sum and of P·V differ. A one-ulp
-difference could flip one 8-bit rounding of p, moving an output by one
-quantization step of its 16-group; none does on these seeds.
+exp and the f32 summation order of the softmax sum and of P·V differ. A
+one-ulp difference could flip one 8-bit rounding of p, moving an output by
+one quantization step of its 16-group; none does on these seeds.
 """
 
 import jax.numpy as jnp
@@ -19,6 +18,7 @@ from lqer_tpu.models import LlamaConfig as JLlamaConfig
 from lqer_tpu.models.common import (
     fused_quantized_attention as jax_fused_attention,
 )
+from lqer_tpu.ops.pallas.attention import _quantize_sublane_groups as jax_quantize_p
 from lqer_tpu.ops.pallas.attention import quantized_attention as jax_attention
 from lqer_tpu.parallel.collectives import mx8_decode, mx8_encode
 from lqer_tpu_torch import models as tmodels
@@ -60,12 +60,20 @@ def test_plain_matches_jax(s, d, causal, p_width):
     np.testing.assert_allclose(ours, ref, **TOL)
 
 
-def test_plain_softmax_row_sums_in_block_order():
-    p = torch.rand(3, 5, 200)
-    ref = p.sum(-1, keepdim=True)
-    for threads in (32, 128):
-        got = k2.ordered_sum(p, threads)
-        torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+def test_p_quantizer_and_attend_match_jax():
+    """P is quantized per 16 keys exactly as the JAX kernel's
+    ``_quantize_sublane_groups`` does (bit-exact on the same p; masked keys
+    give p = 0, which passes through), and ``attend_plain`` is softmax, that
+    quantizer, then P·V."""
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy((rng.standard_normal((6, 64)) * 3).astype(np.float32))
+    s[:3, 40:] = float("-inf")
+    p = torch.softmax(s, -1)
+    ours = k2._quantize_sublane_groups(p, 7, 16)
+    ref = jax_quantize_p(jnp.asarray(p.numpy().T), 7, 16).T
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    assert bool((ours[:3, 40:] == 0).all())
+    assert torch.equal(k2.attend_plain(s, torch.eye(64), 8), ours)
 
 
 @pytest.mark.parametrize("pre_quantized", [False, True])

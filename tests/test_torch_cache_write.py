@@ -60,11 +60,8 @@ def test_stage_boundary_sync_matches_jax():
         jcache[key] = jnp.asarray(a)
         tcache[key].copy_(torch.from_numpy(a))
     new_pos = np.array([63, 32, 100], np.int32)
-    mask = np.array([True, False, True])
-    jout = jkv.stage_boundary_sync(jcache, jnp.asarray(new_pos),
-                                   jnp.asarray(mask))
-    tkv.stage_boundary_sync(tcache, torch.from_numpy(new_pos),
-                            torch.from_numpy(mask))
+    jout = jkv.stage_boundary_sync(jcache, jnp.asarray(new_pos))
+    tkv.stage_boundary_sync(tcache, torch.from_numpy(new_pos))
     for key in tkv.STAGE_KEYS + ("flushed",):
         np.testing.assert_array_equal(tcache[key].numpy(),
                                       np.asarray(jout[key]), err_msg=key)

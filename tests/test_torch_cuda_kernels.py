@@ -3,8 +3,10 @@ on the card, at small shapes. Needs an NVIDIA GPU with nvcc; skips
 elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
-Kernel and plain version round every step alike (exact products, the
-kernel's summation orders, exp in double), so the comparisons are exact.
+Outputs are held to the limits of ``lqer_tpu_torch/testing.py``: rtol =
+atol = 2e-4 for the summation order, plus one 8-bit code step of each
+quantizer whose rounding that order can flip. Ring and flush bytes are
+bit-exact.
 """
 
 import pytest
@@ -19,6 +21,11 @@ from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
 from lqer_tpu_torch.parallel.collectives import mx8_decode, mx8_encode
 from lqer_tpu_torch.serving.kernel_backend import pack_lm_head
 from lqer_tpu_torch.serving.random_model import build_random_model
+from lqer_tpu_torch.testing import (
+    attention_limit,
+    check_close,
+    dequant_gemm_limit,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -51,7 +58,8 @@ def test_dequant_gemm(gen, m):
                   quant_out_width=meta["out_width"])
         got = k1.qlinear_w4_fused(x, prep, meta["fmt"], **kw)
         want = k1.qlinear_w4_plain(x, prep, meta["fmt"], **kw)
-        assert torch.equal(got, want), key
+        check_close(key, got, want, dequant_gemm_limit(x, prep, want, **kw),
+                    max_flipped=0.01)
 
 
 @pytest.mark.parametrize("bh,s,l,causal", [
@@ -65,7 +73,10 @@ def test_prefill_attention(gen, bh, s, l, causal):
                        16, torch.bfloat16) for _ in range(2))
     kw = dict(scale=128 ** -0.5, causal=causal)
     got = k2.quantized_attention(q, k, v, **kw)
-    assert torch.equal(got, k2.quantized_attention_plain(q, k, v, **kw))
+    want = k2.quantized_attention_plain(q, k, v, **kw)
+    check_close("prefill attention", got, want,
+                attention_limit(k2.prefill_scores(q, k, **kw), v, want,
+                                p_width=8), max_flipped=0.05)
 
 
 def test_staged_decode_attention(gen):
@@ -88,8 +99,11 @@ def test_staged_decode_attention(gen):
                                                fl, scaling=0.125)
     want = k3.staged_decode_plain(q, *main, *r_p, kh, vh, pos, fl,
                                   scaling=0.125)
-    assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(r_k, r_p))
+    s, vals = k3.staged_scores(q, *main, *r_p, pos, fl, scaling=0.125)
+    check_close("staged decode attention", got, want,
+                attention_limit(s[:, :, None, :], vals, want, p_width=8),
+                max_flipped=0.05)
 
 
 def test_flush(gen):

@@ -15,6 +15,7 @@ import torch
 
 from lqer_tpu.ops import storage as jstorage
 from lqer_tpu.ops.pallas.dequant_gemm import (
+    _quantize_rows_mx as jax_rows_mx,
     prepare_w4_weights as jax_prepare,
     qlinear_w4_dense_largeM,
     qlinear_w4_fused as jax_fused,
@@ -82,15 +83,16 @@ def test_partial_quantizers_off_and_w8_head_path():
         np.testing.assert_allclose(ours, ref, **TOL)
 
 
-def test_ordered_xa_is_the_fixed_order_sum():
-    """The plain X·A follows the kernel's fixed order; with exact products
-    it equals the float64 sum rounded once whenever that sum is exact."""
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.integers(-8, 8, (5, 600)).astype(np.float32))
-    a = torch.from_numpy(rng.integers(-8, 8, (600, 24)).astype(np.float32))
-    xa = k1.ordered_xa(x, a)
-    assert torch.equal(xa, (x.double() @ a.double()).float())
-    assert k1._xa_lanes(32) == 8 and k1._xa_lanes(96) == 2
+@pytest.mark.parametrize("n", [8, 32, 48])
+def test_row_quantizer_matches_jax(n):
+    """The A_out/B_out row quantizer: 16-groups along the row, one
+    whole-row group when 16 does not divide it (rank 8); bit-exact."""
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((5, n)) * 0.3).astype(np.float32)
+    x[1] = 0.0
+    ours = k1._quantize_rows_mx(torch.from_numpy(x), 7)
+    np.testing.assert_array_equal(ours.numpy(),
+                                  np.asarray(jax_rows_mx(jnp.asarray(x), 7)))
 
 
 def test_wrapper_rejects_other_devices():

@@ -138,7 +138,7 @@ def test_building_blocks_match_jax():
         tcommon.merge_heads(torch.from_numpy(q)).numpy(),
         np.asarray(jcommon.merge_heads(jnp.asarray(q))))
     g = rng.standard_normal(100).astype(np.float32)
-    np.testing.assert_allclose(tcommon.silu(torch.from_numpy(g)).numpy(),
+    np.testing.assert_allclose(tdecode.silu(torch.from_numpy(g)).numpy(),
                                np.asarray(jax.nn.silu(jnp.asarray(g))),
                                rtol=1e-6, atol=1e-7)
 
@@ -245,17 +245,30 @@ def test_unported_options_raise():
 
 
 def test_unfused_projections_serve_like_fused():
-    """``fuse_projections=False`` packs q, k, v, gate and up one by one; the
-    step then launches each member, and greedy tokens stay the same."""
+    """Group members whose activation quantizers are distinct objects (here
+    k_proj and up_proj with an equal-valued config written with a tuple
+    block size) are not fusable: they pack one by one and the step launches
+    each member. The function is the same, so greedy tokens stay the
+    same."""
     jcfg, params, _, _ = _jax_model(4)
     cfg = LlamaConfig.tiny(**TINY)
-    tq = tmodels.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": RANK}})
+    lin, mm = Q_CONFIG["linear"], Q_CONFIG["matmul"]
+    lin_t = {**lin, "x_quantizer": {**lin["x_quantizer"],
+                                    "block_size": (1, 16)}}
+    q_split = dict(Q_CONFIG)
+    for i in range(cfg.num_hidden_layers):
+        q_split[f"model_layer_{i}"] = {
+            "self_attn": {"q_proj": lin, "k_proj": lin_t, "v_proj": lin,
+                          "o_proj": lin, "matmul_0": mm, "matmul_1": mm},
+            "mlp": {"gate_proj": lin, "up_proj": lin_t, "down_proj": lin}}
     tparams = params_from_jax({k: np.asarray(v) for k, v in params.items()})
     outs = []
-    for fuse in (True, False):
-        backend = tbackend.prepare_serving_params(tparams, cfg, tq,
-                                                  fuse_projections=fuse)
-        assert ("model.layers.0.self_attn.qkv_proj" in backend["meta"]) == fuse
+    for fused, q_config in ((True, Q_CONFIG), (False, q_split)):
+        tq = tmodels.quantize_model(cfg, q_config, {"linear": {"rank": RANK}})
+        backend = tbackend.prepare_serving_params(tparams, cfg, tq)
+        for rel in ("self_attn.qkv_proj", "mlp.gateup_proj"):
+            assert (f"model.layers.0.{rel}" in backend["meta"]) == fused
+        assert ("model.layers.0.self_attn.k_proj" in backend["meta"]) != fused
         engine = DecodeEngine(tparams, cfg, tq, num_slots=2, max_len=MAX_LEN,
                               pallas_backend=backend, lm_head_width=8,
                               device="cpu")
