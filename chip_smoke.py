@@ -5,26 +5,38 @@ NVIDIA GPU (written for an H100).
 Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: the four kernels from ``lqer_tpu_torch/csrc`` (one nvcc each, in
+2. build: the six kernels from ``lqer_tpu_torch/csrc`` (one nvcc each, in
    parallel);
 3. each kernel against its plain PyTorch version on the card at the 7B
    serving shapes, held to the limits of ``lqer_tpu_torch/testing.py``
    (rtol = atol = 2e-4 plus one 8-bit code step of each quantizer a
-   summation order can flip; ring and flush bytes bit-exact): max
-   difference, kernel, plain, bound and library times (CUDA events,
-   medians, L2 flushed between launches);
-4. a 2-layer Llama at full 7B width, teacher-forced through an admission
-   and 20 decode steps that cross a flush, three ways: through the kernels
-   on the card, through the plain versions on the card, and through the
-   plain versions on the CPU. Logits within LOGIT_MAX_STEPS and
-   LOGIT_RMS_STEPS 8-bit code steps at every step for each pair; the main
-   cache below ``flushed`` of kernels vs plain on the card equal on >= 99.9%
-   and within one code step, and against the CPU within CACHE_CPU_STEPS. A
-   fourth run through the kernels with one linear's correction left out
-   must fail the RMS limit at every step;
+   summation order can flip; ring, flush and unpacked weight bytes
+   bit-exact): max difference, kernel, plain, bound and library times (CUDA
+   events, medians, L2 flushed between launches). Kernel 1 runs at 8
+   rows on the main path's linears and on gate|up and down of the
+   ``fuse_mlp=False`` packing, the MLP megakernel at 8 and 256 rows, the
+   unpack kernel on the five weights of a layer, the large-M route (q|k|v
+   and the whole MLP) at 2048 rows, the prefill attention kernel at 8 x 64
+   and at 1 x 2048 tokens;
+4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
+   default (each MLP whole, for the megakernel), teacher-forced through an
+   8 x 64-token admission (512 rows: the large-M route) and 20 decode
+   steps (the megakernel) that cross a flush, three ways: through the
+   kernels on the card, through the plain versions on the card, and
+   through the plain versions on the CPU. Logits within LOGIT_MAX_STEPS
+   and LOGIT_RMS_STEPS 8-bit code steps at every step for each pair; the
+   main cache below ``flushed`` of kernels vs plain on the card equal on
+   >= 99.9% and within one code step, and against the CPU within
+   CACHE_CPU_STEPS. A fourth run through the kernels with layer 1's down
+   correction left out must fail the RMS limit at every step. Then the
+   same model packed with ``fuse_mlp=False`` (gate|up and down through
+   kernel 1), kernels vs plain versions on the card, the same limits;
 5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head,
-   mxint8-staged, 8 slots, max_len 2048) serving 8 greedy requests, then
-   a torch.profiler window of 5 decode steps (device busy vs wall time);
+   mxint8-staged, 8 slots, max_len 2048) serving 8 greedy requests,
+   torch.profiler windows of 5 decode steps and of one 8 x 64-token
+   admission (device busy vs wall time, each kernel's time per launch),
+   then one 2048-token admission on the same engine (one slot, fresh
+   cache, last logits only) and its profile;
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
    phase-3 numbers.
 
@@ -42,6 +54,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 SEED = 0
 # Phase 4 limits, in 8-bit code steps of each logit row's scale
@@ -63,9 +77,9 @@ LOGIT_RMS_STEPS = 0.4
 # twice that.
 CACHE_CPU_STEPS = 14
 # Fraction of a kernel's outputs allowed past the plain rtol/atol band: a
-# flipped P rounding moves a whole output row, a flipped correction code
-# one element (``testing.check_close``).
-FLIPPED = {"dequant_gemm": 0.01, "attention": 0.05}
+# flipped P or H rounding moves a whole output row, a flipped correction
+# code one element (``testing.check_close``).
+FLIPPED = {"dequant_gemm": 0.01, "attention": 0.05, "mlp_fused": 0.05}
 
 
 def card_line() -> str:
@@ -126,6 +140,7 @@ def phase_kernels(torch, timer, rates):
     from lqer_tpu_torch.ops.kernels import cache_write as k4
     from lqer_tpu_torch.ops.kernels import decode_attention as k3
     from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+    from lqer_tpu_torch.ops.kernels import mlp_fused as k5
     from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
     from lqer_tpu_torch.ops.storage import dequantize_packed
     from lqer_tpu_torch.parallel.collectives import mx8_decode, mx8_encode
@@ -135,6 +150,7 @@ def phase_kernels(torch, timer, rates):
         attention_limit,
         check_close,
         dequant_gemm_limit,
+        mlp_limit,
     )
 
     bw, ops_rate = rates
@@ -151,21 +167,29 @@ def phase_kernels(torch, timer, rates):
         return block_fp_quantizer(x, width=8, exponent_width=8,
                                   block_size=[1, 16], skip_first_dim=True)
 
-    # ---- kernel 1: the four linears of one layer and the W8 head, M = 8
+    # ---- kernel 1, M = 8: the linears it serves on the main path (qkv, o;
+    # the MLP runs in kernel 5) and the W8 head, summed into the kernels
+    # line; then gate|up and down of the fuse_mlp=False packing, which
+    # kernel 1 serves on that path
     cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=1)
     backend, params, _ = build_random_model(cfg, rank=32, seed=SEED + 1)
     params["model.embed_tokens.weight"] = \
         params["model.embed_tokens.weight"].to(torch.bfloat16)
     backend = pack_lm_head(backend, params, width=8)
+    unfused, _, _ = build_random_model(cfg, rank=32, seed=SEED + 1,
+                                       fuse_mlp=False)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "err": 0.0, "of_limit": 0.0}
     bound_by = set()
-    for name, key in (("qkv", "model.layers.0.self_attn.qkv_proj"),
-                      ("o", "model.layers.0.self_attn.o_proj"),
-                      ("gate|up", "model.layers.0.mlp.gateup_proj"),
-                      ("down", "model.layers.0.mlp.down_proj"),
-                      ("w8 head", "lm_head")):
-        prep, meta = backend["arrays"][key], backend["meta"][key]
+    for name, packing, key in (
+            ("qkv", backend, "model.layers.0.self_attn.qkv_proj"),
+            ("o", backend, "model.layers.0.self_attn.o_proj"),
+            ("w8 head", backend, "lm_head"),
+            ("gate|up (fuse_mlp=False)", unfused,
+             "model.layers.0.mlp.gateup_proj"),
+            ("down (fuse_mlp=False)", unfused,
+             "model.layers.0.mlp.down_proj")):
+        prep, meta = packing["arrays"][key], packing["meta"][key]
         fmt = meta["fmt"]
         K = prep["exps"].shape[0] * 16
         N = prep["exps"].shape[1]
@@ -189,12 +213,14 @@ def phase_kernels(torch, timer, rates):
         b_ms, b_by = bound(nbytes(x, prep["codes"], prep["exps"], prep["a"],
                                   prep["b"], prep["bias"]) + 8 * N * 4,
                            2 * 8 * N * K + 2 * 8 * R * (K + N))
-        bound_by.add(b_by)
         print(f"kernel 1 dequant_gemm {name} M=8 K={K} N={N} R={R}: "
               f"max_abs_err={err:.3g} ({c['of_limit']:.3g} of its limit, "
               f"{c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} plain_ms="
               f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
               "(torch.matmul, dense bf16 weight)", flush=True)
+        if packing is unfused:
+            continue
+        bound_by.add(b_by)
         for k, v in (("ms", ms), ("plain_ms", plain_ms),
                      ("library_ms", lib_ms), ("bound_ms", b_ms)):
             tot[k] += v
@@ -204,8 +230,105 @@ def phase_kernels(torch, timer, rates):
         max_abs_err=tot["err"], of_limit=tot["of_limit"], ms=tot["ms"], plain_ms=tot["plain_ms"],
         bound_ms=tot["bound_ms"], bound_by="/".join(sorted(bound_by)),
         library_ms=tot["library_ms"],
-        shape="sum over qkv, o, gate|up, down and the W8 head at M=8")
-    del backend, params, w_dense
+        shape="sum over qkv, o and the W8 head at M=8")
+    del w_dense, unfused
+
+    # ---- kernel 5: the whole MLP of one layer, M = 8 (decode) and 256
+    key = "model.layers.0.mlp_fused"
+    prep, meta = backend["arrays"][key], backend["meta"][key]
+    fmt = meta["fmt"]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    K = prep["exps_g"].shape[0] * 16
+    I, N = prep["exps_g"].shape[1], prep["exps_d"].shape[1]
+    R = prep["a_d"].shape[1]
+    w_gu = torch.cat([dequantize_packed(prep[f"codes_{h}"], prep[f"exps_{h}"],
+                                        fmt) for h in ("g", "u")],
+                     1).to(torch.bfloat16)
+    w_d = dequantize_packed(prep["codes_d"], prep["exps_d"], fmt).to(
+        torch.bfloat16)
+    weights = nbytes(*(prep[k] for k in prep))
+    for M in (8, 256):
+        x = act((M, K)).to(torch.bfloat16)
+        y = k5.mlp_w4_fused(x, prep, fmt, **kw)
+        ref = k5.mlp_w4_plain(x, prep, fmt, **kw)
+        c = check_close(f"kernel 5 M={M}", y, ref,
+                        mlp_limit(x, prep, ref, **kw), FLIPPED["mlp_fused"])
+        ms = timer(lambda: k5.mlp_w4_fused(x, prep, fmt, **kw))
+        plain_ms = timer(lambda: k5.mlp_w4_plain(x, prep, fmt, **kw), 5)
+        h = torch.zeros(M, I, dtype=torch.bfloat16, device="cuda")
+        lib_ms = (timer(lambda: torch.matmul(x, w_gu))
+                  + timer(lambda: torch.matmul(h, w_d)))
+        b_ms, b_by = bound(weights + nbytes(x) + M * N * 4,
+                           2 * M * (2 * K * I + I * N)
+                           + 2 * M * R * (2 * K + 2 * I + I + N))
+        print(f"kernel 5 mlp_fused M={M} K={K} I={I} N={N} R={R}: "
+              f"max_abs_err={c['max_abs_err']:.3g} ({c['of_limit']:.3g} of "
+              f"its limit, {c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} library_ms="
+              f"{lib_ms:.4f} (torch.matmul gate|up + down, dense bf16 "
+              "weights)", flush=True)
+        if M == 8:
+            results["mlp_fused"] = dict(
+                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"one layer's MLP, M=8, I={I}")
+    del w_gu, w_d, h
+
+    # ---- kernel 6: unpack the five packed weights of one layer
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    shapes = []
+    for key, halves in (("model.layers.0.self_attn.qkv_proj", ("",)),
+                        ("model.layers.0.self_attn.o_proj", ("",)),
+                        ("model.layers.0.mlp_fused", ("_g", "_u", "_d"))):
+        entry, fmt = backend["arrays"][key], backend["meta"][key]["fmt"]
+        for half in halves:
+            codes, exps = entry["codes" + half], entry["exps" + half]
+            w = k1.unpack_packed_to_bf16(codes, exps, fmt)
+            if not torch.equal(w, k1.unpack_plain(codes, exps, fmt)):
+                raise AssertionError(f"kernel 6: {key}{half} differs")
+            tot["ms"] += timer(lambda: k1.unpack_packed_to_bf16(codes, exps,
+                                                                fmt))
+            tot["plain_ms"] += timer(lambda: k1.unpack_plain(codes, exps,
+                                                             fmt), 5)
+            tot["bound_ms"] += bound(nbytes(codes, exps, w), 0)[0]
+            shapes.append("x".join(map(str, w.shape)))
+    print(f"kernel 6 unpack {', '.join(shapes)}: bit-exact kernel_ms="
+          f"{tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} bound_ms="
+          f"{tot['bound_ms']:.4f} library_ms=null (sums over the five)",
+          flush=True)
+    results["unpack"] = dict(max_abs_err=0.0, of_limit=0.0, bound_by="bytes",
+                             library_ms=None, shape="sum over qkv, o, gate, "
+                             "up and down of one layer (K x N: " +
+                             ", ".join(shapes) + ")", **tot)
+    del w
+
+    # ---- the large-M route at the 2048-token admission's 2048 rows: q|k|v
+    # and the whole MLP (kernel 6, then one dense product each)
+    M = 2048
+    x = act((M, 4096)).to(torch.bfloat16)
+    for name, key, route, plain, limit, flipped in (
+            ("qkv", "model.layers.0.self_attn.qkv_proj",
+             k1.qlinear_w4_dense_largeM, k1.qlinear_w4_plain,
+             dequant_gemm_limit, FLIPPED["dequant_gemm"]),
+            ("mlp", "model.layers.0.mlp_fused", k5.mlp_w4_dense_largeM,
+             k5.mlp_w4_plain, mlp_limit, FLIPPED["mlp_fused"])):
+        prep, meta = backend["arrays"][key], backend["meta"][key]
+        kw = dict(quant_xa_width=meta["xa_width"],
+                  quant_out_width=meta["out_width"])
+        if name == "mlp":
+            kw["act_width"] = meta["act_width"]
+        y = route(x, prep, meta["fmt"], **kw)
+        ref = plain(x, prep, meta["fmt"], **kw)
+        c = check_close(f"large-M {name}", y, ref,
+                        limit(x, prep, ref, **kw), flipped)
+        ms = timer(lambda: route(x, prep, meta["fmt"], **kw), 5)
+        plain_ms = timer(lambda: plain(x, prep, meta["fmt"], **kw), 3)
+        print(f"large-M route {name} M={M}: max_abs_err="
+              f"{c['max_abs_err']:.3g} ({c['of_limit']:.3g} of its limit, "
+              f"{c['flipped']:.4%} past 2e-4) route_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f}", flush=True)
+    del backend, params, x, y, ref
 
     # ---- kernel 2: 8 prompts x 64 tokens, 32 heads, d = 128
     BH, S, D = 8 * 32, 64, 128
@@ -241,6 +364,31 @@ def phase_kernels(torch, timer, rates):
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=lib_ms,
                                 shape="8 prompts x 64 tokens, 32 heads, d=128")
+    # the 2048-token admission's shape: one prompt, 32 heads
+    BH, S = 32, 2048
+    q = act((BH, S, D)).to(torch.bfloat16)
+    k, v = (mx8_decode(*mx8_encode(torch.randn(BH, S, D, generator=gen,
+                                               device="cuda"), 16, 1.0),
+                       16, torch.bfloat16) for _ in range(2))
+    y = k2.quantized_attention(q, k, v, scale=scale)
+    ref = k2.quantized_attention_plain(q, k, v, scale=scale)
+    c = check_close("kernel 2 S=2048", y, ref, attention_limit(
+        k2.prefill_scores(q, k, scale=scale), v, ref, p_width=8),
+        FLIPPED["attention"])
+    ms = timer(lambda: k2.quantized_attention(q, k, v, scale=scale), 5)
+    plain_ms = timer(lambda: k2.quantized_attention_plain(q, k, v,
+                                                          scale=scale), 3)
+    q4, k4_, v4 = (t.reshape(1, BH, S, D) for t in (q, k, v))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(q4, k4_, v4,
+                                                          is_causal=True))
+    b_ms, _ = bound(nbytes(q, k, v) + BH * S * D * 4,
+                    2 * 2 * BH * (S * (S + 1) // 2) * D)
+    print(f"kernel 2 attention BH={BH} S=L={S} d={D}: max_abs_err="
+          f"{c['max_abs_err']:.3g} ({c['of_limit']:.3g} of its limit, "
+          f"{c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+          "(causal scaled_dot_product_attention)", flush=True)
+    del q, k, v, y, ref, q4, k4_, v4
 
     # ---- kernel 3: B = 8, 32 kv heads, L = 2048, one layer
     B, KVH, L, SW = 8, 32, 2048, 64
@@ -343,10 +491,13 @@ def plain_versions_on_card():
     from lqer_tpu_torch.ops.kernels import decode_attention as k3
     from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.ops.kernels import mlp_fused as k5
     from lqer_tpu_torch.serving import decode, kernel_backend
 
     swaps = [(kernel_backend, "qlinear_w4_fused", k1.qlinear_w4_plain),
              (decode, "qlinear_w4_fused", k1.qlinear_w4_plain),
+             (kernel_backend, "mlp_w4_fused", k5.mlp_w4_plain),
+             (k1, "unpack_packed_to_bf16", k1.unpack_plain),
              (decode, "decode_attention_quantized_staged",
               k3.staged_decode_plain),
              (decode, "flush_stage_to_main", k4.flush_plain),
@@ -365,17 +516,77 @@ def plain_versions_on_card():
                              f"{launch_counts()}")
 
 
+def teacher_force(torch, engines, padded, lengths, steps):
+    """One admission and ``steps`` decode steps through each engine, all fed
+    the greedy tokens of the first ("kernels"); returns each engine's
+    logits per step and the kernel launches of the first."""
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    logits, tokens = {}, []
+    for name, engine in engines.items():
+        ctx = (plain_versions_on_card() if name == "plain"
+               else contextlib.nullcontext())
+        reset_launch_counts()
+        with ctx:
+            lg = engine.prefill(padded, np.arange(len(padded)), lengths)
+            engine.lengths[:] = lengths
+            logits[name] = [lg.float().cpu()]
+            for i in range(steps):
+                if name == "kernels":
+                    tokens.append(torch.argmax(lg, -1).cpu().numpy())
+                lg = engine.decode_logits(tokens[i])
+                engine.lengths += 1
+                logits[name].append(lg.float().cpu())
+        if name == "kernels":
+            routes = launch_counts()
+    return logits, routes
+
+
+def compare_runs(engines, logits, pairs, what: str, t0: float) -> list:
+    """Logits and main cache of each pair of runs against the phase-4
+    limits; prints one line per pair and returns what failed."""
+    from lqer_tpu_torch.testing import cache_agreement, logits_steps
+
+    fl = engines["kernels"].cache["flushed"].tolist()
+    failed = [] if min(fl) >= 64 else [f"{what}: no flush crossed: {fl}"]
+    for one, other in pairs:
+        seen = [logits_steps(a, b) for a, b in zip(logits[one],
+                                                   logits[other])]
+        worst = max(m for m, _ in seen)
+        rms = max(r for _, r in seen)
+        least = min(r for _, r in seen)
+        frac, cache_steps = cache_agreement(engines[one].cache,
+                                            engines[other].cache)
+        print(f"teacher-forced {what}, {one} vs {other} "
+              f"({'CPU' if other == 'cpu' else 'card'}): admission + "
+              f"{len(seen) - 1} decode steps, logits |diff| in code steps "
+              f"max {worst:.3g} (limit {LOGIT_MAX_STEPS}), RMS {least:.3g} "
+              f"to {rms:.3g} (limit {LOGIT_RMS_STEPS}); flushed={fl}, main "
+              f"cache bytes equal {frac:.6f}, largest value diff "
+              f"{cache_steps:.3g} code step(s), "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        if other == "no correction":
+            if least <= LOGIT_RMS_STEPS:
+                failed.append("the RMS limit passed a missing correction")
+            continue
+        if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
+            failed.append(f"{what}, {one} vs {other}: logits")
+        if other == "plain" and (frac < 0.999 or cache_steps > 1):
+            failed.append(f"{what}, {one} vs {other}: cache")
+        if other == "cpu" and cache_steps > CACHE_CPU_STEPS:
+            failed.append(f"{what}, {one} vs {other}: cache")
+    return failed
+
+
 def phase_teacher_forced(torch):
     """Phase 4: kernels on the card vs plain versions on the card and on
-    the CPU, teacher-forced with the kernels' greedy tokens."""
+    the CPU, teacher-forced with the kernels' greedy tokens; then the
+    ``fuse_mlp=False`` packing, kernels vs plain versions on the card."""
     import dataclasses
-
-    import numpy as np
 
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.serving import DecodeEngine
     from lqer_tpu_torch.serving.random_model import build_random_model
-    from lqer_tpu_torch.testing import cache_agreement, logits_steps
 
     cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=2)
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 2)
@@ -388,11 +599,12 @@ def phase_teacher_forced(torch):
     kw = dict(num_slots=8, max_len=256, lm_head_width=8)
     # the negative control: the kernels with one linear's correction left
     # out (of the layers' o, qkv and down, the one whose loss moved the
-    # logits least)
+    # logits least): layer 1's down projection, inside its megakernel entry
     broken = {"arrays": dict(backend["arrays"]), "meta": backend["meta"]}
-    key = "model.layers.1.mlp.down_proj"
-    broken["arrays"][key] = dict(broken["arrays"][key],
-                                 b=torch.zeros_like(backend["arrays"][key]["b"]))
+    key = "model.layers.1.mlp_fused"
+    broken["arrays"][key] = dict(
+        broken["arrays"][key],
+        b_d=torch.zeros_like(backend["arrays"][key]["b_d"]))
     engines = {
         "kernels": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
                                 device="cuda", **kw),
@@ -410,61 +622,44 @@ def phase_teacher_forced(torch):
     lengths = np.full(8, prompt_len, dtype=np.int32)
     steps = 20
     t0 = time.perf_counter()
-    logits = {}
-    tokens = []
-    for name, engine in engines.items():
-        ctx = (plain_versions_on_card() if name == "plain"
-               else contextlib.nullcontext())
-        with ctx:
-            lg = engine.prefill(padded, np.arange(8), lengths)
-            engine.lengths[:] = lengths
-            logits[name] = [lg.float().cpu()]
-            for i in range(steps):
-                if name == "kernels":
-                    tokens.append(torch.argmax(lg, -1).cpu().numpy())
-                lg = engine.decode_logits(tokens[i])
-                engine.lengths += 1
-                logits[name].append(lg.float().cpu())
-    fl = engines["kernels"].cache["flushed"].tolist()
-    if min(fl) < 64:
-        raise AssertionError(f"phase 4 did not cross a flush: {fl}")
-    failed = []
-    for one, other in (("kernels", "plain"), ("kernels", "cpu"),
-                       ("plain", "cpu"), ("kernels", "no correction")):
-        seen = [logits_steps(a, b) for a, b in zip(logits[one],
-                                                   logits[other])]
-        worst = max(m for m, _ in seen)
-        rms = max(r for _, r in seen)
-        least = min(r for _, r in seen)
-        frac, cache_steps = cache_agreement(engines[one].cache,
-                                            engines[other].cache)
-        print(f"teacher-forced 2-layer 7B-width path, {one} vs {other} "
-              f"({'CPU' if other == 'cpu' else 'card'}): admission + {steps} "
-              f"decode steps, logits |diff| in code steps max {worst:.3g} "
-              f"(limit {LOGIT_MAX_STEPS}), RMS {least:.3g} to {rms:.3g} "
-              f"(limit {LOGIT_RMS_STEPS}); flushed={fl}, main cache bytes "
-              f"equal {frac:.6f}, largest value diff {cache_steps:.3g} code "
-              f"step(s), {time.perf_counter() - t0:.1f}s", flush=True)
-        if other == "no correction":
-            if least <= LOGIT_RMS_STEPS:
-                failed.append("the RMS limit passed a missing correction")
-            continue
-        if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
-            failed.append(f"{one} vs {other}: logits")
-        if other == "plain" and (frac < 0.999 or cache_steps > 1):
-            failed.append(f"{one} vs {other}: cache")
-        if other == "cpu" and cache_steps > CACHE_CPU_STEPS:
-            failed.append(f"{one} vs {other}: cache")
+    logits, routes = teacher_force(torch, engines, padded, lengths, steps)
+    # the 512-row admission took the large-M route (5 unpacks per layer),
+    # every decode step the megakernel (one launch per layer)
+    if routes["unpack"] != 5 * 2 or routes["mlp_fused"] != steps * 2:
+        raise AssertionError(f"phase 4 routes: {routes}")
+    what = "2-layer 7B-width path"
+    print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+    failed = compare_runs(engines, logits, (
+        ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu"),
+        ("kernels", "no correction")), what, t0)
+    del engines, backend, broken, cpu_backend
+
+    # the fuse_mlp=False packing: gate|up and down through kernel 1 at
+    # decode, through the large-M route at the 512-row admission
+    backend, _, _ = build_random_model(cfg, rank=32, seed=SEED + 2,
+                                       fuse_mlp=False)
+    engines = {name: DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
+                                  device="cuda", **kw)
+               for name in ("kernels", "plain")}
+    t0 = time.perf_counter()
+    logits, routes = teacher_force(torch, engines, padded, lengths, steps)
+    # 4 unpacks per layer at admission; per decode step kernel 1 for q|k|v,
+    # o, gate|up and down of both layers and the head, plus the admission's
+    # head (8 rows)
+    if (routes["unpack"] != 4 * 2 or routes["mlp_fused"] != 0
+            or routes["dequant_gemm"] != steps * (4 * 2 + 1) + 1):
+        raise AssertionError(f"phase 4 fuse_mlp=False routes: {routes}")
+    what = "2-layer 7B-width path, fuse_mlp=False"
+    print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+    failed += compare_runs(engines, logits, (("kernels", "plain"),), what, t0)
     if failed:
         raise AssertionError(f"phase 4 past its limits: {failed}")
-    del engines, backend, broken, params, cpu_backend
+    del engines, backend, params
     torch.cuda.empty_cache()
 
 
 def phase_serve(torch, layers: int = 32):
     """Phase 5: the engine at Llama-2-7B shape; returns launch counts."""
-    import numpy as np
-
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from lqer_tpu_torch.serving import DecodeEngine, Request
@@ -510,7 +705,6 @@ def phase_serve(torch, layers: int = 32):
     engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    counts = launch_counts()
     finished = sum(r.done for r in reqs)
     produced = sum(len(r.output_ids) for r in reqs)
     fl = engine.cache["flushed"].tolist()
@@ -524,53 +718,98 @@ def phase_serve(torch, layers: int = 32):
           f"{statistics.median(step_ms):.2f} ms over {len(step_ms)} steps, "
           f"{8 * len(step_ms) / decode_s:.1f} tok/s (8 slots x steps / "
           f"decode time), admission {sum(admit_ms):.1f} ms, "
-          f"{counts['cache_write']} flushes, flushed={fl}, wall "
+          f"{launch_counts()['cache_write']} flushes, flushed={fl}, wall "
           f"{wall:.2f}s, packing {pack_s:.1f}s", flush=True)
-    profile_steps(torch, decode_logits)
+    counts = launch_counts()
+    tokens = np.zeros(8, dtype=np.int64)
+    profile_window(torch, lambda: decode_logits(tokens), 5, "decode steps")
+    ids = rng.integers(0, cfg.vocab_size, (8, 64))
+    profile_window(torch, lambda: prefill(ids, np.arange(8),
+                                          np.full(8, 64, dtype=np.int32)),
+                   1, "8 x 64-token admission")
+    # last: the long admission leaves slot 0 holding 2048 tokens
+    reset_launch_counts()
+    long_prompt(torch, prefill, cfg, rng)
+    counts = {k: n + launch_counts()[k] for k, n in counts.items()}
     del engine
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_steps(torch, decode_logits, steps: int = 5) -> None:
-    """Device busy time of decode steps (torch.profiler, kernel self time)
-    against their wall time, and the kernels that take the most of it."""
-    import numpy as np
+def long_prompt(torch, prefill, cfg, rng, length: int = 2048) -> None:
+    """One ``length``-token admission into slot 0 on a fresh cache, last
+    logits only (the prefill chunk of ``bench.py``): every layer takes the
+    large-M route. Prints its time (host clock around a synchronised
+    call, after one warm-up), checks the logits, then profiles one more."""
+    ids = rng.integers(0, cfg.vocab_size, (1, length))
+    args = (ids, np.zeros(1, dtype=np.int64),
+            np.full(1, length, dtype=np.int32))
+    prefill(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = prefill(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    if logits.shape != (1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{length}-token admission: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    print(f"one {length}-token admission ({cfg.num_hidden_layers} layers, "
+          f"fresh cache, last logits only): {ms:.1f} ms, "
+          f"{length / ms * 1e3:.0f} tokens/s", flush=True)
+    profile_window(torch, lambda: prefill(*args), 1,
+                   f"{length}-token admission")
+
+
+def profile_window(torch, fn, steps: int, what: str) -> None:
+    """Device busy time of ``steps`` calls of ``fn`` (torch.profiler,
+    device-side kernel time) against their wall time, the kernels that take
+    the most of it and each of the port's kernels per call and launch."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tokens = np.zeros(8, dtype=np.int64)
-    decode_logits(tokens)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(steps):
-            decode_logits(tokens)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # device-side events only: a CPU op's self device time is the time of
+    # the kernels it launched, which the kernels' own events count already
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     if not events:
-        print(f"profile of {steps} decode steps: {wall_ms:.2f} ms wall per "
-              "step; device time not recorded by torch.profiler (not "
-              "measured)", flush=True)
+        print(f"profile of {steps} {what}: {wall_ms:.2f} ms wall per call; "
+              "device time not recorded by torch.profiler (not measured)",
+              flush=True)
         return
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.2f}"
                       for e in top)
     # the port's kernels sit in anonymous namespaces of csrc/*.cu; PyTorch's
-    # own anonymous ones are inside at::
+    # own anonymous ones are inside at:: or native::
     tag = "(anonymous namespace)::"
     ours = "; ".join(
         f"{e.key.split(tag)[1].split('(')[0]} "
-        f"{e.self_device_time_total / 1e3 / steps:.3f} ms per step, "
+        f"{e.self_device_time_total / 1e3 / steps:.3f} ms per call, "
         f"{e.self_device_time_total / e.count:.1f} us per launch"
-        for e in events if tag in e.key and "at::" not in e.key)
-    print(f"profile of {steps} decode steps (torch.profiler): device busy "
-          f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall per step "
+        for e in events if tag in e.key and "at::" not in e.key
+        and not e.key.split(tag)[1].startswith("native"))
+    kernels = sum(e.count for e in events) / steps
+    aten = sum(e.count for e in prof.key_averages()
+               if e.key.startswith("aten::")) / steps
+    print(f"profile of {steps} {what} (torch.profiler): device busy "
+          f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall per call "
           f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler overhead "
-          f"included); top device ms per step: {names}; the port's "
-          f"kernels: {ours}", flush=True)
+          f"included); {kernels:.0f} device kernels and {aten:.0f} aten ops "
+          f"(nested ones included) per call; top device ms per call: "
+          f"{names}; the port's kernels: {ours}", flush=True)
 
 
 def main() -> int:
@@ -581,7 +820,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from lqer_tpu_torch.ops.kernels import KERNELS
-    from lqer_tpu_torch.ops.kernels._build import build_all
+    from lqer_tpu_torch.ops.kernels._build import SOURCES, build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -592,7 +831,8 @@ def main() -> int:
           f"{torch.version.cuda} | peaks {rates[0] / 1e12:.2f} TB/s, "
           f"{rates[1] / 1e12:.0f} TFLOP/s bf16", flush=True)
     secs = build_all()
-    print(f"build: 4 kernels (nvcc sm_90a) in {secs:.1f}s", flush=True)
+    print(f"build: {len(SOURCES)} kernels (nvcc sm_90a) in {secs:.1f}s",
+          flush=True)
     timer = Timer(torch)
     results = phase_kernels(torch, timer, rates)
     phase_teacher_forced(torch)

@@ -5,7 +5,9 @@
 * :func:`backend_from_jax` turns a JAX ``prepare_serving_params`` (plus
   ``pack_lm_head``) backend, its arrays as numpy, into the port's packed
   layout: the tile-major K-split slabs are read back to codes and exponents
-  and repacked as ``ops/storage.py`` words, bit for bit.
+  and repacked as ``ops/storage.py`` words, bit for bit. MLP-megakernel
+  entries (``kind == "mlp"``, packed with ``fuse_mlp=True``) keep the JAX
+  package's zero padding of the intermediate dim.
 
 Neither imports JAX: the caller hands over numpy arrays and the JAX meta
 dicts, whose format objects are read by attribute only.
@@ -30,17 +32,42 @@ def params_from_jax(params_np: dict) -> dict:
     return {k: _tensor(v) for k, v in params_np.items()}
 
 
-def _entry_from_jax(arrays: dict, fmt: MXFormat, tile_k: int) -> dict:
-    tiles = _tensor(arrays["tiles"])
+def _words_from_jax(tiles, fmt: MXFormat, tile_k: int) -> dict:
+    """Tile-major slabs (``(L, ...)`` when layer-stacked) → ``{codes,
+    exps}``."""
+    tiles = _tensor(tiles)
     stacked = tiles.ndim == 5
     layers = list(tiles) if stacked else [tiles]
     packs = [pack_weight(*codes_exps_from_jax_tiles(t, tile_k, fmt), fmt)
              for t in layers]
-    out = {k: (torch.stack([p[k] for p in packs]) if stacked else packs[0][k])
-           for k in ("codes", "exps")}
+    return {k: (torch.stack([p[k] for p in packs]) if stacked else packs[0][k])
+            for k in ("codes", "exps")}
+
+
+def _bf16(arr):
+    return None if arr is None else _tensor(arr).to(torch.bfloat16)
+
+
+def _mlp_from_jax(arrays: dict, m: dict, fmt: MXFormat) -> dict:
+    if not m["gated"] or any(arrays.get(k) is not None
+                             for k in ("bias_g", "bias_u", "bias_d")):
+        raise NotImplementedError("only the gated MLP without biases (Llama) "
+                                  "is ported")
+    out = {}
+    for half, tiles, tile_k in (("g", "tg", m["tile_k"]),
+                                ("u", "tu", m["tile_k"]),
+                                ("d", "td", m["tile_k2"])):
+        w = _words_from_jax(arrays[tiles], fmt, tile_k)
+        out[f"codes_{half}"], out[f"exps_{half}"] = w["codes"], w["exps"]
+    for k in ("a_gu", "b_g", "b_u", "a_d", "b_d"):
+        out[k] = _bf16(arrays.get(k))
+    return out
+
+
+def _entry_from_jax(arrays: dict, fmt: MXFormat, tile_k: int) -> dict:
+    out = _words_from_jax(arrays["tiles"], fmt, tile_k)
     for k in ("a", "b"):
-        out[k] = None if arrays.get(k) is None else \
-            _tensor(arrays[k]).to(torch.bfloat16)
+        out[k] = _bf16(arrays.get(k))
     bias = arrays.get("bias")
     out["bias"] = None if bias is None else \
         _tensor(bias).to(torch.float32).squeeze(-2)  # (.., 1, N) -> (.., N)
@@ -49,17 +76,18 @@ def _entry_from_jax(arrays: dict, fmt: MXFormat, tile_k: int) -> dict:
 
 def backend_from_jax(arrays_np: dict, meta: dict) -> dict:
     """JAX backend ``{"arrays", "meta"}`` (arrays as numpy) → the port's
-    backend. MLP-megakernel entries (``fuse_mlp=True``) are refused: their
-    kernel is not ported yet."""
+    backend, with the megakernel entries of ``fuse_mlp=True``."""
     arrays, out_meta = {}, {}
     for key, m in meta.items():
-        if m.get("kind") == "mlp":
-            raise NotImplementedError(
-                f"{key}: MLP-megakernel packing is not ported; pack the JAX "
-                "backend with fuse_mlp=False")
         fmt = MXFormat(width=m["fmt"].width,
                        exponent_width=m["fmt"].exponent_width,
                        group_size=m["fmt"].group_size)
+        if m.get("kind") == "mlp":
+            arrays[key] = _mlp_from_jax(arrays_np[key], m, fmt)
+            out_meta[key] = {"kind": "mlp", "fmt": fmt,
+                             **{k: m[k] for k in ("act_width", "xa_width",
+                                                  "out_width")}}
+            continue
         arrays[key] = _entry_from_jax(arrays_np[key], fmt, m["tile_k"])
         out_meta[key] = {"fmt": fmt, "xa_width": m["xa_width"],
                          "out_width": m["out_width"]}

@@ -1,0 +1,215 @@
+// Kernel 5: the whole-MLP megakernel, one cooperative launch per MLP.
+//
+// Replaces lqer_tpu/ops/pallas/mlp_fused.py::_mlp_kernel (entry
+// mlp_w4_fused), gated silu variant with LQER corrections, for fewer than
+// 512 rows. Computes
+//     y_g = X W_g^T + q_out(bf16(q_xa(X A_g)) B_g)      (likewise y_u)
+//     H   = bf16(q_act(silu(y_g) · y_u))
+//     Y   = H W_d^T + q_out(bf16(q_xa(H A_d)) B_d)
+// with MXINT4 weights (code · 2^(e − 3)) and the per-row block_fp
+// quantizers in groups of 16; y_g and y_u stay f32 until H is quantized.
+//
+// What bounds it on an H100: at decode (8 rows) it streams the three packed
+// weights (about 0.53 byte per weight, 79 MB at 7B width) at 3.35 TB/s.
+//
+// Design. The TPU kernel walks a sequential two-phase grid and carries the
+// (M, I) intermediate in VMEM. CUDA blocks run in no order, so this is a
+// persistent cooperative launch (cudaLaunchCooperativeKernel, a grid no
+// larger than the co-resident blocks) whose phases are separated by grid
+// barriers (cooperative_groups::this_grid().sync(); CUDA 12 needs no -rdc
+// for it):
+//   A. X·[A_g|A_u] partials per (8-row tile, 256-wide K chunk), barrier;
+//      then per (row, rank column) the sum of the partials, q_xa per 16
+//      columns (half-warps), bf16, into the xa scratch; barrier.
+//   B. blocks walk (8-row tile, 32 columns of I): the gate and up W4 GEMM
+//      tiles of kernel 1 (w4_gemm.cuh), both corrections, silu·mul and the
+//      MXINT8 quantizer of H per 16 columns (a half-warp), all in the
+//      block; H goes to a global bf16 scratch (M x I: 180 KB at M = 8, it
+//      stays in L2); barrier.
+//   C. H·A_d like A, into the xa scratch; barriers.
+//   D. blocks walk (8-row tile, 32 columns of N): the down W4 GEMM tile and
+//      its correction epilogue, written as f32.
+// Reads of H, the partials and the quantized X·A go through L2 (__ldcg).
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "w4_gemm.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace lqer;
+
+struct MlpArgs {
+  const __nv_bfloat16* x;                     // (M, K)
+  const int* codes_g; const int8_t* exps_g;   // (K/8, I), (K/16, I)
+  const int* codes_u; const int8_t* exps_u;
+  const int* codes_d; const int8_t* exps_d;   // (I/8, N), (I/16, N)
+  const __nv_bfloat16* a_gu;                  // (K, 2R)
+  const __nv_bfloat16* b_g;                   // (R, I)
+  const __nv_bfloat16* b_u;                   // (R, I)
+  const __nv_bfloat16* a_d;                   // (I, R)
+  const __nv_bfloat16* b_d;                   // (R, N)
+  __nv_bfloat16* h;                           // (Mt * 8, I) scratch
+  float* part;                                // X·A chunk partials scratch
+  float* xa;                                  // (Mt * 8, 3R) scratch
+  float* out;                                 // (M, N)
+  int M, K, I, N, R, act_mb, xa_mb, out_mb;
+};
+
+// X·A (rows of x times a (K, W)) of every row into xa[:, off:off + W],
+// quantized per 16 columns and rounded to bf16. Ends at a grid barrier.
+template <bool COH>
+__device__ void xa_phase(cg::grid_group& grid, const __nv_bfloat16* x,
+                         const __nv_bfloat16* a, int K, int W, int off,
+                         const MlpArgs& p, Smem& sm) {
+  const int Mt = (p.M + MT - 1) / MT;
+  const int KS = (K + XA_KC - 1) / XA_KC;
+  for (int item = blockIdx.x; item < Mt * KS; item += gridDim.x)
+    xa_partial_tile<COH>(x, a, p.part, p.M, K, W, item / KS, item % KS, KS,
+                         sm.chunk);
+  grid.sync();
+  // W % 16 == 0, so a 16-column group of a row is one half-warp
+  const int total = p.M * W;
+  for (int base = blockIdx.x * NTHREADS; base < total;
+       base += gridDim.x * NTHREADS) {
+    const int idx = base + threadIdx.x;
+    const int row = idx / W, col = idx % W;
+    float v = 0.f;
+    if (idx < total) {
+      const float* src = p.part + ((size_t)(row / MT) * KS * MT + row % MT) * W + col;
+      for (int s = 0; s < KS; ++s) v += __ldcg(src + (size_t)s * MT * W);
+    }
+    v = bf16_round(quantize_half_warp(v, p.xa_mb));
+    if (idx < total) p.xa[(size_t)row * 3 * p.R + off + col] = v;
+  }
+  grid.sync();
+}
+
+// Quantized X·A columns [off, off + W) of rows m0..m0+7 into shared memory.
+__device__ __forceinline__ void load_xa(GemmSmem& sm, const MlpArgs& p,
+                                        int m0, int off, int W) {
+  for (int i = threadIdx.x; i < MT * W; i += NTHREADS) {
+    const int m = i / W, c = i % W, row = m0 + m;
+    sm.xa[m][c] = row < p.M ? __ldcg(p.xa + (size_t)row * 3 * p.R + off + c) : 0.f;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void zero(float (&acc)[MT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
+  __shared__ Smem sm;
+  cg::grid_group grid = cg::this_grid();
+  const int t = threadIdx.x;
+  const int Mt = (p.M + MT - 1) / MT;
+  const int R = p.R;
+  const int m = t / TN, col = t % TN;
+
+  if (R > 0) xa_phase<false>(grid, p.x, p.a_gu, p.K, 2 * R, 0, p, sm);
+
+  // B: gate and up tiles, corrections, silu·mul, act quantizer -> H
+  const int nI = p.I / TN;
+  for (int item = blockIdx.x; item < Mt * nI; item += gridDim.x) {
+    const int m0 = (item / nI) * MT, nb = (item % nI) * TN;
+    float acc_g[MT][4], acc_u[MT][4];
+    zero(acc_g);
+    zero(acc_u);
+    w_accumulate<3, false>(p.x, p.codes_g, p.exps_g, p.M, p.I, p.K, m0,
+                           nb + (t % CT) * 4, t / CT, acc_g);
+    w_accumulate<3, false>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
+                           nb + (t % CT) * 4, t / CT, acc_u);
+    float yg = slice_sum(acc_g, sm.gemm);
+    float yu = slice_sum(acc_u, sm.gemm);
+    const int n = nb + col, row = m0 + m;
+    if (R > 0) {
+      load_xa(sm.gemm, p, m0, 0, 2 * R);
+      yg += correction(sm.gemm.xa[m], p.b_g, R, p.I, n, p.out_mb);
+      yu += correction(sm.gemm.xa[m] + R, p.b_u, R, p.I, n, p.out_mb);
+    }
+    const float hv = bf16_round(
+        quantize_half_warp(yg / (1.f + expf(-yg)) * yu, p.act_mb));
+    if (row < p.M) p.h[(size_t)row * p.I + n] = __float2bfloat16_rn(hv);
+  }
+  grid.sync();
+
+  if (R > 0) xa_phase<true>(grid, p.h, p.a_d, p.I, R, 2 * R, p, sm);
+
+  // D: down tiles over H, correction epilogue -> Y
+  const int nN = p.N / TN;
+  for (int item = blockIdx.x; item < Mt * nN; item += gridDim.x) {
+    const int m0 = (item / nN) * MT, nb = (item % nN) * TN;
+    float acc[MT][4];
+    zero(acc);
+    w_accumulate<3, true>(p.h, p.codes_d, p.exps_d, p.M, p.N, p.I, m0,
+                          nb + (t % CT) * 4, t / CT, acc);
+    float y = slice_sum(acc, sm.gemm);
+    const int n = nb + col, row = m0 + m;
+    if (R > 0) {
+      load_xa(sm.gemm, p, m0, 2 * R, R);
+      y += correction(sm.gemm.xa[m], p.b_d, R, p.N, n, p.out_mb);
+    }
+    if (row < p.M) p.out[(size_t)row * p.N + n] = y;
+  }
+}
+
+}  // namespace
+
+// x (M, K) bf16; codes/exps of gate, up (K/8, I), (K/16, I) and down
+// (I/8, N), (I/16, N); a_gu (K, 2R), b_g and b_u (R, I), a_d (I, R),
+// b_d (R, N) bf16 (null when R == 0); scratch h (ceil(M/8) * 8, I) bf16,
+// part (ceil(M/8), ceil(max(K, I)/256), 8, 2R) f32, xa (ceil(M/8) * 8, 3R)
+// f32; out (M, N) f32. R % 16 == 0 and 2R <= 128; K % 16, I % 32 and
+// N % 32 == 0. act_mb: mantissa bits of the H quantizer; xa_mb / out_mb
+// -1 for no partial-product quantizer.
+LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
+                            const void* exps_g, const void* codes_u,
+                            const void* exps_u, const void* codes_d,
+                            const void* exps_d, const void* a_gu,
+                            const void* b_g, const void* b_u, const void* a_d,
+                            const void* b_d, void* h, void* part, void* xa,
+                            void* out, int M, int K, int I, int N, int R,
+                            int act_mb, int xa_mb, int out_mb, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (M <= 0 || R % 16 || 2 * R > RMAX || K % 16 || I % TN || N % TN)
+    return (int)cudaErrorInvalidValue;
+  static int resident = 0;   // co-resident blocks on this card
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_kernel,
+                                                        NTHREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    resident = per_sm * sms;
+  }
+  const int Mt = (M + MT - 1) / MT;
+  const int blocks = std::min(resident, Mt * std::max(I, N) / TN);
+  MlpArgs p{static_cast<const __nv_bfloat16*>(x),
+            static_cast<const int*>(codes_g), static_cast<const int8_t*>(exps_g),
+            static_cast<const int*>(codes_u), static_cast<const int8_t*>(exps_u),
+            static_cast<const int*>(codes_d), static_cast<const int8_t*>(exps_d),
+            static_cast<const __nv_bfloat16*>(a_gu),
+            static_cast<const __nv_bfloat16*>(b_g),
+            static_cast<const __nv_bfloat16*>(b_u),
+            static_cast<const __nv_bfloat16*>(a_d),
+            static_cast<const __nv_bfloat16*>(b_d),
+            static_cast<__nv_bfloat16*>(h), static_cast<float*>(part),
+            static_cast<float*>(xa), static_cast<float*>(out),
+            M, K, I, N, R, act_mb, xa_mb, out_mb};
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(mlp_kernel), dim3(blocks), dim3(NTHREADS), args,
+      0, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,206 @@
+// Device code shared by kernel 1 (dequant_gemm.cu) and the MLP megakernel
+// (mlp_fused.cu): the MXINT4/MXINT8 weight-streaming GEMM tile, the X·A
+// partial of one K chunk, and the rank-k correction epilogue.
+//
+// A block of NTHREADS = 256 threads owns an 8-row by 32-column output tile.
+// Layout (lqer_tpu_torch/ops/storage.py): int32 words (K/per, N), one word =
+// 8 W4 codes (or 4 W8 codes) of one column along K; exponents (K/16, N)
+// int8. A thread owns 4 adjacent columns and reads 16 contiguous bytes per
+// load; eight column threads cover the 32 columns, and 32 K-slices of the
+// block take the 16-row groups of K in turn (slice s: groups s, s + 32, ...).
+// The slices are summed through shared memory.
+//
+// Loads of operands that the same launch wrote (the megakernel's H, X·A
+// partials and quantized X·A) go through L2 (__ldcg): the read-only path and
+// L1 are not coherent with another block's writes inside one launch. Inputs
+// written before the launch take the read-only path (__ldg).
+#pragma once
+
+#include "mx_common.cuh"
+
+namespace lqer {
+
+constexpr int MT = 8;        // rows per block
+constexpr int TN = 32;       // columns per block
+constexpr int CT = 8;        // column threads, 4 columns each
+constexpr int KSL = 32;      // K slices per block
+constexpr int NTHREADS = CT * KSL;
+constexpr int XA_KC = 256;   // K chunk of the X·A phase
+constexpr int RMAX = 128;    // widest X·A row (fused rank)
+
+// Shared memory of one block: the X·A phase and the GEMM epilogue use it in
+// turn.
+struct XaSmem {
+  float xs[MT][XA_KC];
+  __align__(16) __nv_bfloat16 as[XA_KC / 2 * RMAX];
+};
+struct GemmSmem {
+  float red[KSL][MT][TN];
+  float xa[MT][RMAX];
+};
+union Smem {
+  XaSmem chunk;
+  GemmSmem gemm;
+};
+
+template <bool COH, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (COH) return __ldcg(p);
+  else return __ldg(p);
+}
+
+// X·A over one K chunk: part[((mt * KS + s) * MT + m) * R + r] for the rows
+// of 8-row tile mt and rank r < R (R <= RMAX), summed over
+// k in [s * XA_KC, (s + 1) * XA_KC). x (M, K) bf16, a (K, R) bf16. Each
+// thread sums whole (row, rank) outputs over the chunk staged in shared
+// memory.
+template <bool COH>
+__device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
+                                const __nv_bfloat16* __restrict__ a,
+                                float* part, int M, int K, int R, int mt,
+                                int s, int KS, XaSmem& sm) {
+  constexpr int HALF = XA_KC / 2;
+  constexpr int OUT = MT * RMAX / NTHREADS;   // outputs per thread
+  const int t = threadIdx.x;
+  const int k0 = s * XA_KC, kn = min(XA_KC, K - k0);
+  __syncthreads();   // the block's previous use of shared memory is done
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
+  for (int i = t; i < MT * XA_KC; i += NTHREADS) {
+    const int m = i / XA_KC, kk = i % XA_KC, row = mt * MT + m;
+    sm.xs[m][kk] = (row < M && kk < kn)
+        ? __uint_as_float((uint32_t)ld<COH>(xb + (size_t)row * K + k0 + kk) << 16)
+        : 0.f;
+  }
+  float acc[OUT];
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) acc[o] = 0.f;
+  for (int h = 0; h < kn; h += HALF) {
+    // rows [k0 + h, k0 + h + HALF) of A are one contiguous span
+    const int n = min(HALF, kn - h) * R;
+    const __nv_bfloat16* src = a + (size_t)(k0 + h) * R;
+    __syncthreads();
+    if (R % 8 == 0) {
+      for (int i = t; i < n / 8; i += NTHREADS)
+        reinterpret_cast<uint4*>(sm.as)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+    } else {
+      for (int i = t; i < n; i += NTHREADS) sm.as[i] = src[i];
+    }
+    __syncthreads();
+    const int kh = n / R;
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) {
+      const int idx = o * NTHREADS + t;
+      if (idx < MT * R) {
+        const int m = idx / R, r = idx % R;
+        float v = acc[o];
+#pragma unroll 8
+        for (int kk = 0; kk < kh; ++kk)
+          v = fmaf(sm.xs[m][h + kk], __bfloat162float(sm.as[kk * R + r]), v);
+        acc[o] = v;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) {
+    const int idx = o * NTHREADS + t;
+    if (idx < MT * R) part[((size_t)mt * KS + s) * MT * R + idx] = acc[o];
+  }
+}
+
+// Accumulate rows m0..m0+7 of x (M, K) bf16 times the packed weight's
+// columns n0..n0+3 over this thread's K slice into acc (MB 3: W4, 7: W8).
+template <int MB, bool COH>
+__device__ __forceinline__ void w_accumulate(
+    const __nv_bfloat16* x, const int* __restrict__ words,
+    const int8_t* __restrict__ exps, int M, int N, int K, int m0, int n0,
+    int sl, float (&acc)[MT][4]) {
+  constexpr int BITS = (MB == 3) ? 4 : 8;
+  constexpr int PER = 32 / BITS;   // codes per word
+  constexpr int WPG = 16 / PER;    // words per 16-group
+  const int G = K / 16;
+  for (int g = sl; g < G; g += KSL) {
+    const char4 e4 = *reinterpret_cast<const char4*>(exps + (size_t)g * N + n0);
+    const float sc[4] = {exp2_int(e4.x - MB), exp2_int(e4.y - MB),
+                         exp2_int(e4.z - MB), exp2_int(e4.w - MB)};
+#pragma unroll
+    for (int wi = 0; wi < WPG; ++wi) {
+      const int o = g * WPG + wi;
+      const int4 w4 = __ldg(reinterpret_cast<const int4*>(words + (size_t)o * N + n0));
+      const int wv[4] = {w4.x, w4.y, w4.z, w4.w};
+      const int k0 = g * 16 + wi * PER;
+      uint32_t xr[MT][PER / 2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int row = m0 + m;
+        if (row < M) {
+          const __nv_bfloat16* src = x + (size_t)row * K + k0;
+          if constexpr (PER == 8) {
+            const uint4 u = ld<COH>(reinterpret_cast<const uint4*>(src));
+            xr[m][0] = u.x; xr[m][1] = u.y; xr[m][2] = u.z; xr[m][3] = u.w;
+          } else {
+            const uint2 u = ld<COH>(reinterpret_cast<const uint2*>(src));
+            xr[m][0] = u.x; xr[m][1] = u.y;
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < PER / 2; ++h) xr[m][h] = 0u;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        float wf[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          wf[c] = (float)((int)((unsigned)wv[c] << (32 - BITS * (i + 1))) >> (32 - BITS)) * sc[c];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float xv = (i & 1) ? bf16_hi(xr[m][i / 2]) : bf16_lo(xr[m][i / 2]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, wf[c], acc[m][c]);
+        }
+      }
+    }
+  }
+}
+
+// Sum the K slices of acc through shared memory; thread t gets the output
+// of row t / TN, column t % TN of the block's tile.
+__device__ __forceinline__ float slice_sum(const float (&acc)[MT][4],
+                                           GemmSmem& sm) {
+  const int t = threadIdx.x;
+  const int ct = t % CT, sl = t / CT;
+  __syncthreads();   // the block's previous use of shared memory is done
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sm.red[sl][m][ct * 4 + c] = acc[m][c];
+  __syncthreads();
+  const int m = t / TN, col = t % TN;
+  float y = 0.f;
+  for (int s = 0; s < KSL; ++s) y += sm.red[s][m][col];
+  return y;
+}
+
+// Quantize v per 16 columns: the group is this half-warp (every lane of
+// the warp must call it). mb < 0: no quantizer.
+__device__ __forceinline__ float quantize_half_warp(float v, int mb) {
+  if (mb < 0) return v;
+  float bmax = fabsf(v);
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
+  return mx_value(v, group_exponent(bmax), mb);
+}
+
+// q_out(xa_row · B[:, n]) for the quantized, bf16-rounded X·A row xa
+// (R values) and B (R, N) bf16; the 16-column groups are half-warps.
+__device__ __forceinline__ float correction(const float* xa,
+                                            const __nv_bfloat16* __restrict__ bmat,
+                                            int R, int N, int n, int out_mb) {
+  float corr = 0.f;
+  for (int r = 0; r < R; ++r)
+    corr = fmaf(xa[r], __bfloat162float(bmat[(size_t)r * N + n]), corr);
+  return quantize_half_warp(corr, out_mb);
+}
+
+}  // namespace lqer

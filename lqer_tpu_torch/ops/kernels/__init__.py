@@ -8,7 +8,8 @@ from __future__ import annotations
 from .attention import quantized_attention
 from .cache_write import flush_stage_to_main
 from .decode_attention import decode_attention_quantized_staged
-from .dequant_gemm import qlinear_w4_fused
+from .dequant_gemm import qlinear_w4_fused, unpack_packed_to_bf16
+from .mlp_fused import mlp_w4_fused
 
 # name -> (wrapper, CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -21,6 +22,10 @@ KERNELS = {
                          "lqer_tpu/ops/pallas/decode_attention.py:575"),
     "cache_write": (flush_stage_to_main, "lqer_tpu_torch/csrc/cache_write.cu",
                     "lqer_tpu/ops/pallas/cache_write.py:333"),
+    "unpack": (unpack_packed_to_bf16, "lqer_tpu_torch/csrc/unpack.cu",
+               "lqer_tpu/ops/pallas/dequant_gemm.py:401"),
+    "mlp_fused": (mlp_w4_fused, "lqer_tpu_torch/csrc/mlp_fused.cu",
+                  "lqer_tpu/ops/pallas/mlp_fused.py:63"),
 }
 
 

@@ -5,7 +5,10 @@ with a plain C interface under ``build/lqer_tpu_torch/`` (the library name
 carries a hash of the sources and flags, so an edit rebuilds), and loads
 through ``ctypes``. :func:`build_all` starts one ``nvcc`` per source, all
 at once. Nothing is compiled when a module is imported: the first launch,
-or an explicit :func:`build_all`, builds.
+or an explicit :func:`build_all`, builds. The megakernel's grid barrier
+(``cooperative_groups::this_grid().sync()`` under
+``cudaLaunchCooperativeKernel``) needs no ``-rdc=true`` with CUDA 12, so
+every source stays one whole-program ``nvcc`` call.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lqer_tpu_torch"
-SOURCES = ("dequant_gemm", "attention", "decode_attention", "cache_write")
+SOURCES = ("dequant_gemm", "attention", "decode_attention", "cache_write",
+           "unpack", "mlp_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,6 +36,8 @@ SIGNATURES = {
                          [P] * 14 + [I] * 6 + [F, I, I, P]),
     "cache_write": ("lqer_flush_stage", [P] * 8 + [I] * 4 + [P] * 2 + [I] * 5
                     + [P]),
+    "unpack": ("lqer_unpack", [P] * 3 + [I] * 3 + [P]),
+    "mlp_fused": ("lqer_mlp_fused", [P] * 16 + [I] * 8 + [P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -51,7 +57,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "mx_common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -1,9 +1,9 @@
-"""Kernel 1: MXINT4/MXINT8 dequant-GEMM with the rank-k LQER epilogue.
+"""Kernel 1: MXINT4/MXINT8 dequant-GEMM with the rank-k LQER epilogue, and
+the unpack kernel of the large-M route.
 
 Port of ``lqer_tpu/ops/pallas/dequant_gemm.py``. The CUDA kernel is
 ``csrc/dequant_gemm.cu``; :func:`qlinear_w4_plain` is its plain PyTorch
-version and the counterpart of ``qlinear_w4_fused_emulation`` /
-``qlinear_w4_dense_largeM``:
+version and the counterpart of ``qlinear_w4_fused_emulation``:
 
     Y = X_q · deq(W)^T + q_out(bf16(q_xa(X_q · A)) · B) + bias
 
@@ -14,9 +14,14 @@ version sum in different orders (allclose, see ``lqer_tpu_torch/testing.py``
 for the limit).
 
 :func:`qlinear_w4_fused` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors. Every M goes through the kernel: the JAX
-package's large-M route (dequantize once, then a dense dot) waits for the
-port of its unpack kernel.
+plain version for CPU tensors.
+
+The large-M route (:func:`qlinear_w4_dense_largeM`, 512 rows and more)
+dequantizes the packed weight once to a dense bf16 ``(K, N)`` with
+kernel 6 (``csrc/unpack.cu``, wrapper :func:`unpack_packed_to_bf16`,
+plain version :func:`unpack_plain`; bit-exact), then runs one dense
+product with f32 output (:func:`dense_f32`), as the JAX package leaves it
+to XLA.
 """
 
 from __future__ import annotations
@@ -82,6 +87,70 @@ def qlinear_w4_plain(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
     y = torch.matmul(xf, w)
     if prep.get("a") is not None:
         y = y + lqer_correction(xf, prep["a"], prep["b"],
+                                quant_xa_width=quant_xa_width,
+                                quant_out_width=quant_out_width)
+    if prep.get("bias") is not None:
+        y = y + prep["bias"].to(torch.float32)
+    return y
+
+
+def unpack_plain(codes: torch.Tensor, exps: torch.Tensor, fmt: MXFormat
+                 ) -> torch.Tensor:
+    """Plain version of the unpack kernel: ``code · 2^(e − mb)`` as bf16
+    (exact for widths <= 9)."""
+    return dequantize_packed(codes, exps, fmt).to(torch.bfloat16)
+
+
+def unpack_packed_to_bf16(codes: torch.Tensor, exps: torch.Tensor,
+                          fmt: MXFormat) -> torch.Tensor:
+    """Packed words ``(K/per, N)`` + exps ``(K/16, N)`` (one layer's views
+    of a stacked prep pass as they are) → dense bf16 ``(K, N)``. CPU
+    tensors run :func:`unpack_plain`; CUDA tensors launch
+    ``csrc/unpack.cu``."""
+    if codes.device.type == "cpu":
+        return unpack_plain(codes, exps, fmt)
+    if not codes.is_cuda:
+        raise ValueError(f"unsupported device {codes.device}")
+    W, N = codes.shape
+    K = W * fmt.codes_per_word
+    if N % 8 or fmt.width not in (4, 8):
+        raise ValueError(f"unsupported unpack shape K={K} N={N} "
+                         f"width={fmt.width}")
+    _check_cuda("codes", codes, torch.int32, (W, N))
+    _check_cuda("exps", exps, torch.int8, (K // 16, N))
+    if codes.data_ptr() % 16 or exps.data_ptr() % 8:
+        raise ValueError("unpack reads words 16 and exponents 8 bytes at a "
+                         "time; their views must be aligned to that")
+    out = torch.empty(K, N, dtype=torch.bfloat16, device=codes.device)
+    _build.launch("unpack", codes.data_ptr(), exps.data_ptr(),
+                  out.data_ptr(), K, N, fmt.mantissa_bits)
+    unpack_packed_to_bf16.launches += 1
+    return out
+
+
+unpack_packed_to_bf16.launches = 0
+
+
+def dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (M, K) · w (K, N)`` of bf16 operands with f32 output, as
+    ``jnp.dot(..., preferred_element_type=f32)``: every product is exact,
+    only the f32 summation order is the library's. On the card one bf16
+    GEMM with an f32 output; the CPU has no such kernel, so it upcasts."""
+    if x.is_cuda:
+        return torch.mm(x.to(torch.bfloat16), w, out_dtype=torch.float32)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def qlinear_w4_dense_largeM(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
+                            quant_xa_width: int | None = 8,
+                            quant_out_width: int | None = 8) -> torch.Tensor:
+    """Large-M route (counterpart of ``qlinear_w4_dense_largeM``): unpack
+    once, one dense product, then the rank-k correction and the bias.
+    Returns (M, N) f32; the same function as :func:`qlinear_w4_plain`."""
+    w = unpack_packed_to_bf16(prep["codes"], prep["exps"], fmt)
+    y = dense_f32(x_q, w)
+    if prep.get("a") is not None:
+        y = y + lqer_correction(x_q, prep["a"], prep["b"],
                                 quant_xa_width=quant_xa_width,
                                 quant_out_width=quant_out_width)
     if prep.get("bias") is not None:

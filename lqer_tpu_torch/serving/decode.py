@@ -8,11 +8,15 @@ per-layer views of the layer-stacked weights and cache (``stacked[li]`` is
 a zero-copy view), so no slice is copied. The cache is updated in place.
 
 Per layer: RMSNorm → fused q|k|v (kernel 1) → rotary → attention → o
-(kernel 1) → RMSNorm → fused gate|up (kernel 1) → silu·up → down
-(kernel 1). Attention is the prefill kernel (kernel 2) at admission and the
-staged decode kernel (kernel 3) at s = 1; a decode step first flushes the
-rings into the main cache (kernel 4) once any slot's ring residue reaches
-48. The W8 lm_head is kernel 1 again.
+(kernel 1) → RMSNorm → the whole MLP in one megakernel launch (kernel 5;
+with ``fuse_mlp=False`` packing: fused gate|up (kernel 1) → silu·up → down
+(kernel 1)). Attention is the prefill kernel (kernel 2) at admission and
+the staged decode kernel (kernel 3) at s = 1; a decode step first flushes
+the rings into the main cache (kernel 4) once any slot's ring residue
+reaches 48. The W8 lm_head is kernel 1 again. At 512 rows and more (an
+admission of 8 x 64 tokens, a 2048-token prompt) every packed linear, the
+MLP and the head take the large-M route instead: unpack each weight once
+(kernel 6), then one dense product.
 """
 
 from __future__ import annotations
@@ -36,9 +40,14 @@ from ..models.common import (
 )
 from ..ops.kernels.cache_write import flush_stage_to_main
 from ..ops.kernels.decode_attention import decode_attention_quantized_staged
-from ..ops.kernels.dequant_gemm import qlinear_w4_fused
+from ..ops.kernels.dequant_gemm import qlinear_w4_dense_largeM, qlinear_w4_fused
 from ..parallel.collectives import mx8_decode, mx8_encode
-from .kernel_backend import serving_linear, serving_linear_split
+from .kernel_backend import (
+    _LARGEM_THRESHOLD,
+    serving_linear,
+    serving_linear_split,
+    serving_mlp,
+)
 from .kv_cache import (
     MAIN_KEYS,
     STAGE_KEYS,
@@ -109,6 +118,14 @@ def _lin_group(x, fused_rel, member_rels, qcs, backend, li):
             for rel, qc in zip(member_rels, qcs)]
 
 
+def _mlp_fused_or_none(x, qc_first, backend, li):
+    """The whole MLP through the megakernel when the backend packed it
+    (``mlp_fused``), else None (the caller runs the per-linear path)."""
+    if "mlp_fused" not in backend["meta"]:
+        return None
+    return serving_mlp(x, "mlp_fused", backend, qc_first, layer_index=li)
+
+
 def _heads(y: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, s, _ = y.shape
     return y.reshape(b, s, num_heads, -1).transpose(1, 2)
@@ -140,14 +157,17 @@ def _last_valid_h(h, valid_lengths, s, logits_last_only):
 
 
 def _lm_head_logits(h, lm_head, backend):
-    """Packed W8 head through kernel 1 (activation enters as bf16,
-    unquantized; padded vocab sliced off), else the dense matmul."""
+    """Packed W8 head through kernel 1, or the large-M route at 512 rows
+    and more (activation enters as bf16, unquantized; padded vocab sliced
+    off), else the dense matmul."""
     if backend is not None and "lm_head" in backend["meta"]:
         meta = backend["meta"]["lm_head"]
         b, s, k = h.shape
-        y = qlinear_w4_fused(h.to(torch.bfloat16).reshape(b * s, k),
-                             backend["arrays"]["lm_head"], meta["fmt"],
-                             quant_xa_width=None, quant_out_width=None)
+        route = (qlinear_w4_dense_largeM if b * s >= _LARGEM_THRESHOLD
+                 else qlinear_w4_fused)
+        y = route(h.to(torch.bfloat16).reshape(b * s, k),
+                  backend["arrays"]["lm_head"], meta["fmt"],
+                  quant_xa_width=None, quant_out_width=None)
         return y[:, :meta["n_real"]].reshape(b, s, -1).to(h.dtype)
     return torch.matmul(h, lm_head.T.to(h.dtype))
 
@@ -281,13 +301,15 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         hn = rms_norm(h, {"weight":
                           stacked["post_attention_layernorm.weight"][li]},
                       cfg.rms_norm_eps)
-        gate, up = _lin_group(hn, "mlp.gateup_proj",
-                              ("mlp.gate_proj", "mlp.up_proj"),
-                              (q["gate_proj"], q["up_proj"]), backend_stacked,
-                              li)
-        y = serving_linear(silu(gate) * up,
-                           "mlp.down_proj", backend_stacked, q["down_proj"],
-                           layer_index=li)
+        y = _mlp_fused_or_none(hn, q["gate_proj"], backend_stacked, li)
+        if y is None:
+            gate, up = _lin_group(hn, "mlp.gateup_proj",
+                                  ("mlp.gate_proj", "mlp.up_proj"),
+                                  (q["gate_proj"], q["up_proj"]),
+                                  backend_stacked, li)
+            y = serving_linear(silu(gate) * up, "mlp.down_proj",
+                               backend_stacked, q["down_proj"],
+                               layer_index=li)
         h = (residual + y).to(h_dtype)
 
     h = rms_norm(h, {"weight": rest["model.norm.weight"]}, cfg.rms_norm_eps)

@@ -1,13 +1,18 @@
 """Kernel serving backend: every quantized linear runs through the
 dequant-GEMM kernel (``ops/kernels/dequant_gemm.py``) on packed MXINT4
-weights, and the lm_head optionally on packed MXINT8 weights.
+weights, the lm_head optionally on packed MXINT8 weights, and each layer's
+whole MLP through the megakernel (``ops/kernels/mlp_fused.py``). At 512
+rows and more the linears and the MLP take the large-M route instead:
+unpack each weight once (kernel 6), then one dense product.
 
 Port of ``lqer_tpu/serving/pallas_backend.py``: the same eligibility checks
 decide which linears are packed (an ineligible one is not packed; the port
-has no emulated fallback yet, so serving such a model raises), the same
-fuse groups (q|k|v, gate|up) share one launch, and ``pad_to_tile``
-pads the vocab to 32768 as the JAX head does. The whole-MLP megakernel
-(``fuse_mlp=True``) is not ported yet, so ``fuse_mlp`` defaults to False.
+has no emulated fallback yet, so serving such a model raises), the MLP is
+packed whole (``{layer}.mlp_fused``, ``fuse_mlp=True``, the default) where
+:func:`_mlp_fusable` allows, the same fuse groups (q|k|v, and gate|up when
+the MLP is not packed whole) share one launch, and ``pad_to_tile`` pads the
+vocab to 32768 and the intermediate dim (11008 to 11264) as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -17,17 +22,25 @@ import logging
 import torch
 
 from .. import models
-from ..ops.kernels.dequant_gemm import prepare_w4_weights, qlinear_w4_fused
+from ..ops.kernels.dequant_gemm import (
+    prepare_w4_weights,
+    qlinear_w4_dense_largeM,
+    qlinear_w4_fused,
+)
+from ..ops.kernels.mlp_fused import (
+    mlp_w4_dense_largeM,
+    mlp_w4_fused,
+    prepare_mlp_weights,
+)
 from ..ops.qlinear import bf16_exact
 from ..ops.storage import MXINT4, MXFormat
 
 logger = logging.getLogger(__name__)
 
 TILE_K = 2048
-# Token count at which the JAX package switches its linears to the
-# dequantize-once + dense-dot route. The port sends every M through kernel 1
-# until the unpack kernel (ROADMAP §2 row 2, dequant_gemm.py::_unpack_kernel,
-# open item 1: the next slice) lands and takes this route over.
+# Token count at which the linears and the MLP switch from kernel 1 and the
+# megakernel (which re-dequantize the weights in every 8-row tile) to the
+# dequantize-once + dense-product route, as in the JAX package.
 _LARGEM_THRESHOLD = 512
 
 _FUSE_GROUPS_LLAMA = (
@@ -43,6 +56,11 @@ def fuse_groups_for(cfg):
     if cfg.arch != "llama":
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported")
     return _FUSE_GROUPS_LLAMA
+
+
+# (gate, up, down) of the megakernel (``mlp_members_for`` of the JAX
+# package, Llama only)
+_MLP_MEMBERS = ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 
 
 def _is_mx4_weight(w_cfg: dict | None) -> bool:
@@ -116,6 +134,52 @@ def _member_widths(layer_prefix, members, params, layer_qcfg, tile_k):
             return None
         widths.add((xa_w, out_w))
     return widths.pop() if len(widths) == 1 else None
+
+
+def _mlp_fusable(layer_prefix, params, layer_qcfg, tile_k):
+    """(xa_width, out_width, act_width) when the layer's whole MLP can run
+    through the megakernel, else None: the three linears fuse
+    (:func:`_fusable`) and pack alike, down's activation quantizer is one
+    the kernel reproduces on H (``act_width``), the dims tile, and no linear
+    has a bias (the bias variant belongs to OPT and is not ported)."""
+    if not _fusable(layer_prefix, _MLP_MEMBERS, params, layer_qcfg):
+        return None
+    if any(params.get(f"{layer_prefix}.{m}.bias") is not None
+           for m in _MLP_MEMBERS):
+        return None
+    widths = _member_widths(layer_prefix, _MLP_MEMBERS, params, layer_qcfg,
+                            tile_k)
+    if widths is None:
+        return None
+    w_gate = params[f"{layer_prefix}.{_MLP_MEMBERS[0]}.weight"]
+    w_down = params[f"{layer_prefix}.{_MLP_MEMBERS[2]}.weight"]
+    act_width = _partial_quant_width(
+        models._proj_qcfg(layer_qcfg, "down_proj").x_cfg, w_down.shape[1])
+    if act_width is None or act_width is _INELIGIBLE:
+        return None
+    if (_pick_tile_k(w_down.shape[1], tile_k) == 0 or w_down.shape[0] % 128
+            or w_gate.shape[0] % 128):
+        return None
+    return (*widths, act_width)
+
+
+def _pack_mlp(layer_prefix, params, arrays, meta, xa_width, out_width,
+              act_width) -> set:
+    """Pack a layer's whole MLP under ``{layer}.mlp_fused``, the
+    intermediate dim zero-padded by :func:`pad_to_tile`; returns the packed
+    members' prefixes."""
+    gate, up, down = (f"{layer_prefix}.{m}" for m in _MLP_MEMBERS)
+    key = f"{layer_prefix}.mlp_fused"
+    arrays[key] = prepare_mlp_weights(
+        params[gate + ".weight"], params[up + ".weight"],
+        params[down + ".weight"], a_gate=params.get(gate + ".A"),
+        b_gate=params.get(gate + ".B"), a_up=params.get(up + ".A"),
+        b_up=params.get(up + ".B"), a_down=params.get(down + ".A"),
+        b_down=params.get(down + ".B"),
+        pad_i=pad_to_tile(params[gate + ".weight"].shape[0])[0])
+    meta[key] = {"kind": "mlp", "fmt": MXINT4, "act_width": act_width,
+                 "xa_width": xa_width, "out_width": out_width}
+    return {gate, up, down}
 
 
 def pad_to_tile(n: int, cap: int = 1024, max_overhead: float = 0.06):
@@ -199,18 +263,17 @@ def _fuse_members(layer_prefix: str, members, params, layer_qcfg):
 
 def prepare_serving_params(params: dict, cfg, layer_qcfgs,
                            tile_k: int = TILE_K,
-                           fuse_mlp: bool = False) -> dict:
+                           fuse_mlp: bool = True) -> dict:
     """Pack every quantized linear: ``{"arrays": {prefix: {codes, exps, a,
     b, bias}}, "meta": {prefix: {fmt, xa_width, out_width[, splits]}}}``.
     ``params`` holds the original (un-PTQ'd) weights; packing runs on their
-    device. A fusable group (q|k|v, gate|up: identical activation-side
-    quantizers, see :func:`_fusable`) packs as one entry
+    device. With ``fuse_mlp`` a layer's whole MLP packs as one megakernel
+    entry ``{layer}.mlp_fused`` (``{codes,exps}_{g,u,d}, a_gu, b_g, b_u,
+    a_d, b_d``; meta ``kind="mlp"`` and ``act_width``) where
+    :func:`_mlp_fusable` allows. A fusable group (q|k|v, gate|up: identical
+    activation-side quantizers, see :func:`_fusable`) packs as one entry
     (``{layer}.self_attn.qkv_proj``, ``{layer}.mlp.gateup_proj``); other
     members pack one by one."""
-    if fuse_mlp:
-        raise NotImplementedError(
-            "the MLP megakernel (mlp_fused._mlp_kernel) is not ported yet; "
-            "pack with fuse_mlp=False")
     arrays: dict = {}
     meta: dict = {}
     skipped: list[str] = []
@@ -226,7 +289,13 @@ def prepare_serving_params(params: dict, cfg, layer_qcfgs,
     for i in range(cfg.num_hidden_layers):
         fused_members: set[str] = set()
         lp = arch.layer_prefix(i)
+        if fuse_mlp:
+            widths = _mlp_fusable(lp, params, layer_qcfgs[i], tile_k)
+            if widths is not None:
+                fused_members |= _pack_mlp(lp, params, arrays, meta, *widths)
         for fused_rel, member_rels in fuse_groups_for(cfg):
+            if any(f"{lp}.{m}" in fused_members for m in member_rels):
+                continue
             if not _fusable(lp, member_rels, params, layer_qcfgs[i]):
                 continue
             widths = _member_widths(lp, member_rels, params,
@@ -297,10 +366,29 @@ def layer_prep(prep: dict, layer_index: int | None) -> dict:
     return {k: (None if v is None else v[layer_index]) for k, v in prep.items()}
 
 
+def serving_mlp(x: torch.Tensor, key: str, backend: dict, qc_first, *,
+                layer_index: int | None = None) -> torch.Tensor:
+    """A layer's whole MLP: quantize the activations with the gate's
+    quantizer, then one megakernel launch (fewer than 512 rows) or the
+    large-M route. ``x (b, s, hidden)`` → ``(b, s, hidden)`` in x's
+    dtype."""
+    prep = layer_prep(backend["arrays"][key], layer_index)
+    meta = backend["meta"][key]
+    b, s, k = x.shape
+    x_q = qc_first.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
+    route = (mlp_w4_dense_largeM if b * s >= _LARGEM_THRESHOLD
+             else mlp_w4_fused)
+    y = route(x_q, prep, meta["fmt"], act_width=meta["act_width"],
+              quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    return y.reshape(b, s, -1).to(x.dtype)
+
+
 def serving_linear(x: torch.Tensor, prefix: str, backend: dict, qc, *,
                    layer_index: int | None = None) -> torch.Tensor:
     """Quantize the activations (exact-in-bf16 MXINT8 values), then run the
-    dequant-GEMM kernel. ``x (b, s, in)`` → ``(b, s, out)`` in x's dtype."""
+    dequant-GEMM kernel (fewer than 512 rows) or the large-M route.
+    ``x (b, s, in)`` → ``(b, s, out)`` in x's dtype."""
     if prefix not in backend["meta"]:
         raise NotImplementedError(
             f"{prefix} is not packed for the kernel (ineligible quantizer "
@@ -309,9 +397,10 @@ def serving_linear(x: torch.Tensor, prefix: str, backend: dict, qc, *,
     meta = backend["meta"][prefix]
     b, s, k = x.shape
     x_q = qc.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
-    y = qlinear_w4_fused(x_q, prep, meta["fmt"],
-                         quant_xa_width=meta["xa_width"],
-                         quant_out_width=meta["out_width"])
+    route = (qlinear_w4_dense_largeM if b * s >= _LARGEM_THRESHOLD
+             else qlinear_w4_fused)
+    y = route(x_q, prep, meta["fmt"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
     return y.reshape(b, s, -1).to(x.dtype)
 
 

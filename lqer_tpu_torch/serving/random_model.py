@@ -3,7 +3,9 @@ device (port of ``experiments/bench_e2e_llama7b.py::build_7b_backend_and_params`
 
 Each layer's fp32 weights (and bf16-exact rank-``rank`` A/B factors) are
 drawn on the device from a ``torch.Generator`` seeded with
-``seed * 1000 + layer``, packed into the kernel backend and freed, so only
+``seed * 1000 + layer``, packed into the kernel backend (by default as the
+JAX package packs: each MLP whole, for the megakernel; ``fuse_mlp=False``
+packs gate|up and down for kernel 1) and freed, so only
 one layer's fp32 weights exist at a time. The returned params keep the
 embedding, the norms and nothing else: every linear is served from the
 backend, and the head is the tied embedding (``pack_lm_head``).
@@ -47,7 +49,8 @@ def layer_shapes(cfg) -> dict:
             "mlp.down_proj": (h, inter)}
 
 
-def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda"):
+def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda",
+                       fuse_mlp: bool = True):
     """``(backend, params, layer_qcfgs)`` for ``cfg`` with random weights;
     ``rank=0`` leaves out the low-rank correction."""
     dev = resolve_device(device)
@@ -77,7 +80,8 @@ def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda"):
                     layer[f"{p0}.{rel}.{name}"] = (torch.randn(
                         *shape, generator=gen, device=dev) * 0.01).to(
                         torch.bfloat16).to(torch.float32)
-        packed = prepare_serving_params(layer, one_layer, [qcfgs[i]])
+        packed = prepare_serving_params(layer, one_layer, [qcfgs[i]],
+                                        fuse_mlp=fuse_mlp)
         del layer
         arrays.update({k.replace(p0, p, 1): v
                        for k, v in packed["arrays"].items()})

@@ -6,8 +6,9 @@ sums run in different orders (and CUDA's ``expf`` is not the CPU's
 ``exp``), so results differ in the last bits: within rtol = atol = 2e-4,
 the tolerance of the JAX package's own staged test
 (``tests/test_staged_serving.py:82``). Several steps then quantize such a
-sum to 8 bits: X·A and the correction in kernel 1, P in kernels 2 and 3,
-and every activation and cache write of the served path. Where a value
+sum to 8 bits: X·A and the correction in kernels 1 and 5, H in kernel 5,
+P in kernels 2 and 3, and every activation and cache write of the served
+path. Where a value
 lies within a few ulps of a rounding boundary, the two sides round it one
 code step apart. Each limit below adds the most that one such flip can
 move the result, counted in code steps of the 16-group it lands in. A
@@ -20,7 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from .ops.kernels import mlp_fused
 from .ops.kernels.dequant_gemm import lqer_correction
+from .ops.storage import MXINT4, dequantize_packed
 from .parallel.collectives import ceil_log2_exact, exp2_int, floor_log2_exact
 
 RTOL = ATOL = 2e-4
@@ -65,6 +68,36 @@ def dequant_gemm_limit(x: torch.Tensor, prep: dict, ref: torch.Tensor, *,
                            quant_xa_width=quant_xa_width,
                            quant_out_width=quant_out_width)
     return lim + shift + 2 * code_step(corr, quant_out_width)
+
+
+def mlp_limit(x: torch.Tensor, prep: dict, ref: torch.Tensor, *,
+              act_width: int, quant_xa_width: int | None,
+              quant_out_width: int | None) -> torch.Tensor:
+    """Per-element limit of ``|kernel − plain|`` for the MLP megakernel on
+    ``x``.
+
+    Every rounding upstream of the down projection that a summation order
+    can flip (q_xa of X·[A_g|A_u], the gate and up corrections' q_out, and
+    silu's ``exp``) moves gate or up by far less than one code step of H,
+    so it reaches H as one flipped act code step of one value, or two where
+    the move lifts the group's exponent; the down projection carries it by
+    ``|W_d|``. The limit allows one such value per row (its largest step ×
+    ``|W_d[i, n]|`` over the row), then the down projection's own flips of
+    q_xa and q_out as kernel 1 has them (:func:`dequant_gemm_limit` on
+    H)."""
+    h = mlp_fused.hidden_plain(x, prep, MXINT4, act_width=act_width,
+                               quant_xa_width=quant_xa_width,
+                               quant_out_width=quant_out_width)
+    m, i = h.shape
+    # one step per 16-group of H against the group's largest |W_d| row
+    step = code_step(h, act_width)[:, ::GROUP]                   # (M, I/16)
+    wd = dequantize_packed(prep["codes_d"], prep["exps_d"], MXINT4).abs()
+    wd = wd.reshape(i // GROUP, GROUP, -1).amax(1)               # (I/16, N)
+    shift = torch.cat([(step[r:r + GROUP, :, None] * wd[None]).amax(1)
+                       for r in range(0, m, GROUP)])
+    return dequant_gemm_limit(h, mlp_fused.down_prep(prep), ref,
+                              quant_xa_width=quant_xa_width,
+                              quant_out_width=quant_out_width) + 2 * shift
 
 
 def attention_limit(s: torch.Tensor, v: torch.Tensor, ref: torch.Tensor, *,

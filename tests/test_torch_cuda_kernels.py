@@ -1,12 +1,13 @@
-"""The four CUDA kernels of the port against their plain PyTorch versions
-on the card, at small shapes. Needs an NVIDIA GPU with nvcc; skips
-elsewhere. Run on the card with
+"""The six CUDA kernels of the port against their plain PyTorch versions
+on the card, at small shapes (the unpack kernel at the 7B shapes, prefill
+attention also at the 2048-token admission's), and the large-M route. Needs an
+NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 Outputs are held to the limits of ``lqer_tpu_torch/testing.py``: rtol =
 atol = 2e-4 for the summation order, plus one 8-bit code step of each
-quantizer whose rounding that order can flip. Ring and flush bytes are
-bit-exact.
+quantizer whose rounding that order can flip. Ring, flush and unpacked
+weight bytes are bit-exact.
 """
 
 import pytest
@@ -17,7 +18,9 @@ from lqer_tpu_torch.ops.kernels import attention as k2
 from lqer_tpu_torch.ops.kernels import cache_write as k4
 from lqer_tpu_torch.ops.kernels import decode_attention as k3
 from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+from lqer_tpu_torch.ops.kernels import mlp_fused as k5
 from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
+from lqer_tpu_torch.ops.storage import MXFormat
 from lqer_tpu_torch.parallel.collectives import mx8_decode, mx8_encode
 from lqer_tpu_torch.serving.kernel_backend import pack_lm_head
 from lqer_tpu_torch.serving.random_model import build_random_model
@@ -25,6 +28,7 @@ from lqer_tpu_torch.testing import (
     attention_limit,
     check_close,
     dequant_gemm_limit,
+    mlp_limit,
 )
 
 pytestmark = pytest.mark.cuda
@@ -47,10 +51,14 @@ def _act(shape, gen):
 
 @pytest.mark.parametrize("m", [1, 8, 40])
 def test_dequant_gemm(gen, m):
+    """Every linear kernel 1 serves: q|k|v, o, gate|up and down (packed with
+    ``fuse_mlp=False``) and the W8 head."""
     cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
                            inter=512)
-    backend, params, _ = build_random_model(cfg, rank=32, seed=1)
+    backend, params, _ = build_random_model(cfg, rank=32, seed=1,
+                                            fuse_mlp=False)
     backend = pack_lm_head(backend, params, width=8)
+    assert "model.layers.0.mlp.gateup_proj" in backend["meta"]
     for key, meta in backend["meta"].items():
         prep = backend["arrays"][key]
         x = _act((m, prep["exps"].shape[0] * 16), gen)
@@ -62,10 +70,72 @@ def test_dequant_gemm(gen, m):
                     max_flipped=0.01)
 
 
+@pytest.mark.parametrize("rank", [0, 32])
+@pytest.mark.parametrize("m", [1, 8, 200, 511])
+def test_mlp_fused(gen, m, rank):
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
+                           inter=512)
+    backend, _, _ = build_random_model(cfg, rank=rank, seed=2)
+    meta = backend["meta"]["model.layers.0.mlp_fused"]
+    prep = backend["arrays"]["model.layers.0.mlp_fused"]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    x = _act((m, 256), gen)
+    before = k5.mlp_w4_fused.launches
+    got = k5.mlp_w4_fused(x, prep, meta["fmt"], **kw)
+    assert k5.mlp_w4_fused.launches == before + 1
+    want = k5.mlp_w4_plain(x, prep, meta["fmt"], **kw)
+    check_close("megakernel", got, want, mlp_limit(x, prep, want, **kw),
+                max_flipped=0.05)
+
+
+@pytest.mark.parametrize("m", [600, 2048])
+def test_large_m_route(gen, m):
+    """The dequantize-once route (kernel 6, then one dense product) of a
+    linear and of the whole MLP against the plain versions."""
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
+                           inter=512)
+    backend, _, _ = build_random_model(cfg, rank=32, seed=3)
+    x = _act((m, 256), gen)
+    key = "model.layers.0.self_attn.qkv_proj"
+    prep, meta = backend["arrays"][key], backend["meta"][key]
+    kw = dict(quant_xa_width=meta["xa_width"], quant_out_width=meta["out_width"])
+    before = k1.unpack_packed_to_bf16.launches
+    got = k1.qlinear_w4_dense_largeM(x, prep, meta["fmt"], **kw)
+    want = k1.qlinear_w4_plain(x, prep, meta["fmt"], **kw)
+    check_close(key, got, want, dequant_gemm_limit(x, prep, want, **kw),
+                max_flipped=0.01)
+    key = "model.layers.0.mlp_fused"
+    prep, meta = backend["arrays"][key], backend["meta"][key]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    got = k5.mlp_w4_dense_largeM(x, prep, meta["fmt"], **kw)
+    want = k5.mlp_w4_plain(x, prep, meta["fmt"], **kw)
+    assert k1.unpack_packed_to_bf16.launches == before + 4
+    check_close(key, got, want, mlp_limit(x, prep, want, **kw),
+                max_flipped=0.05)
+
+
+@pytest.mark.parametrize("width,k,n", [
+    (4, 4096, 12288), (4, 4096, 4096), (4, 4096, 11264), (4, 11264, 4096),
+    (8, 4096, 32768)])
+def test_unpack_7b_shapes(gen, width, k, n):
+    """qkv, o, gate|up (intermediate padded to 11264), down, the W8 head:
+    random words (every bit pattern is a valid code) and exponents."""
+    fmt = MXFormat(width)
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (k // fmt.codes_per_word, n),
+                          generator=gen, device="cuda", dtype=torch.int32)
+    exps = torch.randint(-40, 12, (k // 16, n), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    got = k1.unpack_packed_to_bf16(words, exps, fmt)
+    assert torch.equal(got, k1.unpack_plain(words, exps, fmt))
+
+
 @pytest.mark.parametrize("bh,s,l,causal", [
     (6, 48, 48, True),          # scores of 8 rows in shared memory
     (1, 6400, 6400, True),      # rows too long for it: three passes over K
-    (2, 16, 8192, False)])
+    (2, 16, 8192, False),
+    (32, 2048, 2048, True)])    # the 2048-token admission: 32 heads
 def test_prefill_attention(gen, bh, s, l, causal):
     q = _act((bh, s, 128), gen)
     k, v = (mx8_decode(*mx8_encode(torch.randn(bh, l, 128, generator=gen,

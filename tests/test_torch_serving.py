@@ -1,7 +1,8 @@
 """The served slice as a whole: the port's ``DecodeEngine`` against the JAX
 ``DecodeEngine(scan_layers=True, cache_dtype="mxint8-staged",
-lm_head_width=8)`` on the same weights (the JAX ``fuse_mlp=False`` backend,
-converted), plus the model and serving pieces around it.
+lm_head_width=8)`` on the same weights (the JAX backend packed with
+``fuse_mlp=True``, its default, and with ``fuse_mlp=False``, converted),
+plus the model and serving pieces around it.
 
 Greedy tokens must be equal. Main cache codes below ``flushed`` must be
 equal on at least 99.9% of entries and within one code step elsewhere:
@@ -41,7 +42,7 @@ TINY = dict(vocab_size=128, hidden=256, layers=2, heads=4, kv_heads=2,
 RANK = 32
 
 
-def _jax_model(seed=0):
+def _jax_model(seed=0, fuse_mlp=False):
     """Tiny Llama (tests/test_staged_serving.py:38 shape) with rank-32 A/B
     factors on every linear (bf16-exact values) and a wider embedding so
     greedy decoding does not collapse onto one token."""
@@ -58,38 +59,57 @@ def _jax_model(seed=0):
                     v.astype(np.float32))
     qcfgs = jmodels.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": RANK}})
     backend = jbackend.prepare_serving_params(params, cfg, qcfgs,
-                                              fuse_mlp=False)
+                                              fuse_mlp=fuse_mlp)
     return cfg, params, qcfgs, backend
 
 
-def _requests(cls, rng):
-    return [cls(prompt_ids=[int(t) for t in rng.integers(0, 128, 63)],
-                max_new_tokens=20),
-            cls(prompt_ids=[int(t) for t in rng.integers(0, 128, 21)],
-                max_new_tokens=20)]
+def _requests(cls, rng, n=2):
+    """Prompts of 63 and 21 tokens (then 64, 40, 33, ...): every admission
+    pads to the 64-token bucket."""
+    lengths = [63, 21, 64, 40, 33, 50, 57, 45][:n]
+    return [cls(prompt_ids=[int(t) for t in rng.integers(0, 128, k)],
+                max_new_tokens=20) for k in lengths]
 
 
-def test_engine_matches_jax_engine():
-    jcfg, params, jq, jb = _jax_model()
+@pytest.mark.parametrize("fuse_mlp,slots", [
+    (False, 2),
+    (True, 2),    # a 128-row admission: the megakernel at every step
+    (True, 8),    # a 512-row admission: the large-M route, then the megakernel
+])
+def test_engine_matches_jax_engine(monkeypatch, fuse_mlp, slots):
+    jcfg, params, jq, jb = _jax_model(fuse_mlp=fuse_mlp)
     jengine = JDecodeEngine(jmodels.prepare_ptq(params, jcfg, jq), jcfg, jq,
-                            num_slots=2, max_len=MAX_LEN,
+                            num_slots=slots, max_len=MAX_LEN,
                             cache_dtype="mxint8-staged", pallas_backend=jb,
                             scan_layers=True, lm_head_width=8)
-    jreqs = _requests(JRequest, np.random.default_rng(1))
+    jreqs = _requests(JRequest, np.random.default_rng(1), slots)
     jengine.run(jreqs)
 
     cfg = LlamaConfig.tiny(**TINY)
     tq = tmodels.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": RANK}})
     backend = backend_from_jax(jax.tree.map(np.asarray, jb["arrays"]),
                                jb["meta"])
+    assert ("model.layers.0.mlp_fused" in backend["meta"]) == fuse_mlp
     engine = DecodeEngine(params_from_jax({k: np.asarray(v)
                                            for k, v in params.items()}),
-                          cfg, tq, num_slots=2, max_len=MAX_LEN,
+                          cfg, tq, num_slots=slots, max_len=MAX_LEN,
                           pallas_backend=backend, lm_head_width=8,
                           device="cpu")
-    reqs = _requests(Request, np.random.default_rng(1))
+    rows = []           # rows of each MLP call, by route
+    for name in ("mlp_w4_fused", "mlp_w4_dense_largeM"):
+        real = getattr(tbackend, name)
+        monkeypatch.setattr(tbackend, name, lambda x, *a, _r=real, _n=name, **k:
+                            rows.append((_n, x.shape[0])) or _r(x, *a, **k))
+    reqs = _requests(Request, np.random.default_rng(1), slots)
     engine.run(reqs)
 
+    if fuse_mlp:
+        large = [m for n, m in rows if n == "mlp_w4_dense_largeM"]
+        assert large == ([512] * 2 if slots == 8 else [])
+        assert ("mlp_w4_fused", 128) in rows or slots == 8
+        assert ("mlp_w4_fused", slots) in rows        # decode steps
+    else:
+        assert rows == []
     assert [r.output_ids for r in reqs] == [r.output_ids for r in jreqs]
     assert len(set(reqs[0].output_ids)) > 3       # not a collapsed stream
     fl = engine.cache["flushed"].numpy()
@@ -97,7 +117,7 @@ def test_engine_matches_jax_engine():
     assert fl.max() >= 64                         # a flush happened
     total = equal = 0
     for side in ("k", "v"):
-        for b in range(2):
+        for b in range(slots):
             f = int(fl[b])
             a = engine.cache[f"{side}_codes"][:, b, ..., :f].numpy()
             j = np.asarray(jengine.cache[f"{side}_codes"])[:, b, ..., :f]
@@ -236,12 +256,8 @@ def test_card_requests_raise_without_a_card(monkeypatch):
 
 def test_unported_options_raise():
     cfg = LlamaConfig.tiny(**TINY)
-    with pytest.raises(NotImplementedError, match="megakernel"):
-        tbackend.prepare_serving_params({}, cfg, [], fuse_mlp=True)
     with pytest.raises(NotImplementedError):
         tdecode.make_cache(cfg, 2, MAX_LEN, "mxint8", device="cpu")
-    with pytest.raises(NotImplementedError, match="fuse_mlp=False"):
-        backend_from_jax({}, {"x": {"kind": "mlp"}})
 
 
 def test_unfused_projections_serve_like_fused():
@@ -265,7 +281,8 @@ def test_unfused_projections_serve_like_fused():
     outs = []
     for fused, q_config in ((True, Q_CONFIG), (False, q_split)):
         tq = tmodels.quantize_model(cfg, q_config, {"linear": {"rank": RANK}})
-        backend = tbackend.prepare_serving_params(tparams, cfg, tq)
+        backend = tbackend.prepare_serving_params(tparams, cfg, tq,
+                                                  fuse_mlp=False)
         for rel in ("self_attn.qkv_proj", "mlp.gateup_proj"):
             assert (f"model.layers.0.{rel}" in backend["meta"]) == fused
         assert ("model.layers.0.self_attn.k_proj" in backend["meta"]) != fused

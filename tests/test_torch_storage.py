@@ -79,9 +79,9 @@ def test_converter_roundtrip_vs_unpack_tiles(width, tile_k, tile_n):
         ref)
 
 
-def _tiny_params(seed=0, rank=32):
+def _tiny_params(seed=0, rank=32, inter=256):
     cfg = JLlamaConfig.tiny(vocab_size=128, hidden=256, layers=2, heads=4,
-                            kv_heads=2, inter=256, max_pos=128)
+                            kv_heads=2, inter=inter, max_pos=128)
     params = jmodels.init_params(cfg, jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
     for i in range(cfg.num_hidden_layers):
@@ -96,26 +96,42 @@ def _tiny_params(seed=0, rank=32):
     return cfg, params
 
 
-def test_port_packing_matches_converted_jax_backend():
-    jcfg, params = _tiny_params()
+@pytest.mark.parametrize("fuse_mlp,inter", [
+    (False, 256),
+    (True, 256),
+    (True, 2432),     # the JAX packing pads it to 2560, as 7B's 11008 to 11264
+])
+def test_port_packing_matches_converted_jax_backend(fuse_mlp, inter):
+    """The port's packing (``fuse_mlp=True`` by default) is bit-equal to
+    ``backend_from_jax`` of the JAX backend packed the same way."""
+    jcfg, params = _tiny_params(inter=inter)
     jq = jmodels.quantize_model(jcfg, Q_CONFIG, {"linear": {"rank": 32}})
-    jb = jbackend.prepare_serving_params(params, jcfg, jq, fuse_mlp=False)
+    jb = jbackend.prepare_serving_params(params, jcfg, jq, fuse_mlp=fuse_mlp)
     jb = jbackend.pack_lm_head(jb, params, width=8)
     conv = backend_from_jax(jax.tree.map(np.asarray, jb["arrays"]), jb["meta"])
 
     cfg = LlamaConfig.tiny(vocab_size=128, hidden=256, layers=2, heads=4,
-                           kv_heads=2, inter=256, max_pos=128)
+                           kv_heads=2, inter=inter, max_pos=128)
     tq = tmodels.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": 32}})
     tparams = params_from_jax({k: np.asarray(v) for k, v in params.items()})
-    own = tbackend.prepare_serving_params(tparams, cfg, tq)
+    own = (tbackend.prepare_serving_params(tparams, cfg, tq) if fuse_mlp
+           else tbackend.prepare_serving_params(tparams, cfg, tq,
+                                                fuse_mlp=False))
     own = tbackend.pack_lm_head(own, tparams, width=8)
 
     assert sorted(own["meta"]) == sorted(conv["meta"])
     assert "model.layers.0.self_attn.qkv_proj" in own["meta"]
-    assert "model.layers.0.mlp.gateup_proj" in own["meta"]
+    assert ("model.layers.0.mlp.gateup_proj" in own["meta"]) != fuse_mlp
+    assert ("model.layers.0.mlp_fused" in own["meta"]) == fuse_mlp
+    if fuse_mlp:
+        i_pad = jbackend.pad_to_tile(inter)[0]
+        assert own["arrays"]["model.layers.0.mlp_fused"]["codes_d"].shape \
+            == (i_pad // 8, 256)
+        assert own["meta"]["model.layers.0.mlp_fused"]["kind"] == "mlp"
     for key in own["meta"]:
         assert own["meta"][key] == conv["meta"][key], key
-        for name in ("codes", "exps", "a", "b", "bias"):
+        assert sorted(own["arrays"][key]) == sorted(conv["arrays"][key]), key
+        for name in own["arrays"][key]:
             a, b = own["arrays"][key][name], conv["arrays"][key][name]
             assert (a is None) == (b is None), (key, name)
             if a is not None:

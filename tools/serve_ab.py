@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Time the port's serving path in two or more checkouts on one card, in
+one call, so that the host's speed (which varies between machines) is the
+same for each.
+
+    python3 tools/serve_ab.py ROOT [ROOT ...]
+
+Each ROOT is a directory that holds a ``lqer_tpu_torch`` package (for
+example ``build/parent`` made with ``git archive``, and ``.``); list them
+as parent, change, change, parent. Each runs in its own process, one after
+another, and builds the Llama-2-7B-shape model of ``chip_smoke.py``'s
+serve phase with its own default packing (32 layers, seeded random
+weights, rank 32, W8 head, ``mxint8-staged``, 8 slots, max_len 2048). It
+then times, on the host clock around synchronised calls:
+
+- three 8 x 64-token admissions (512 rows),
+- 40 decode steps of all 8 slots after the last admission,
+- one 2048-token admission into slot 0 (fresh cache, last logits only),
+  after one untimed warm-up, twice.
+
+Each process prints one JSON line; the card's name and power limit come
+first. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def child(root: str) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import lqer_tpu_torch
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.ops.kernels._build import build_all
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import build_random_model
+
+    if not Path(lqer_tpu_torch.__file__).resolve().is_relative_to(
+            Path(root).resolve()):
+        raise RuntimeError(f"imported {lqer_tpu_torch.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()
+    cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=32)
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=3)
+    params["model.embed_tokens.weight"] = \
+        params["model.embed_tokens.weight"].to(torch.bfloat16)
+    engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
+                          pallas_backend=backend, consume_backend=True,
+                          lm_head_width=8, device="cuda")
+    del backend
+    rng = np.random.default_rng(5)
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(*a)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    ids = rng.integers(0, cfg.vocab_size, (8, 64))
+    full = np.full(8, 64, dtype=np.int32)
+    admission = [timed(engine.prefill, ids, np.arange(8), full)
+                 for _ in range(3)]
+    engine.lengths[:] = full
+    tokens = np.zeros(8, dtype=np.int64)
+    steps = []
+    for _ in range(40):
+        steps.append(timed(engine.decode_logits, tokens))
+        engine.lengths += 1
+    long_ids = rng.integers(0, cfg.vocab_size, (1, 2048))
+    long_args = (long_ids, np.zeros(1, dtype=np.int64),
+                 np.full(1, 2048, dtype=np.int32))
+    engine.prefill(*long_args)
+    long = [timed(engine.prefill, *long_args) for _ in range(2)]
+    print(json.dumps({"root": root, "admission_8x64_ms": admission,
+                      "decode_step_ms_median": statistics.median(steps),
+                      "decode_steps_ms": [round(t, 2) for t in steps],
+                      "admission_2048_ms": long}), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+        child(sys.argv[2])
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    for root in sys.argv[1:]:
+        subprocess.run([sys.executable, __file__, "--child", root], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
