@@ -5,37 +5,48 @@ NVIDIA GPU (written for an H100).
 Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: the six kernels from ``lqer_tpu_torch/csrc`` (one nvcc each, in
-   parallel);
+2. build: the eight sources of ``lqer_tpu_torch/csrc`` (one nvcc each, in
+   parallel), which hold the ten kernels;
 3. each kernel against its plain PyTorch version on the card at the 7B
    serving shapes, held to the limits of ``lqer_tpu_torch/testing.py``
    (rtol = atol = 2e-4 plus one 8-bit code step of each quantizer a
-   summation order can flip; ring, flush and unpacked weight bytes
-   bit-exact): max difference, kernel, plain, bound and library times (CUDA
-   events, medians, L2 flushed between launches). Kernel 1 runs at 8
-   rows on the main path's linears and on gate|up and down of the
-   ``fuse_mlp=False`` packing, the MLP megakernel at 8 and 256 rows, the
-   unpack kernel on the five weights of a layer, the large-M route (q|k|v
-   and the whole MLP) at 2048 rows, the prefill attention kernel at 8 x 64
-   and at 1 x 2048 tokens;
+   summation order can flip; ring, flush, row-write, written-column and
+   unpacked weight bytes bit-exact): max difference, kernel, plain, bound
+   and library times (CUDA events, medians, L2 flushed between launches).
+   Kernel 1 runs at 8 rows on the main path's linears and on gate|up and
+   down of the ``fuse_mlp=False`` packing, the MLP megakernel at 8 and 256
+   rows, the unpack kernel on the five weights of a layer, the large-M
+   route (q|k|v and the whole MLP) at 2048 rows, the prefill attention
+   kernel at 8 x 64 and at 1 x 2048 tokens; the decode kernels at 8 slots,
+   32 kv heads, L = 2048 and positions 64..1984: staged (with the flush),
+   fp-cache, quantized at widths 8 and 4, the fused MXINT8 write + attend,
+   and the row write in both orientations;
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
    default (each MLP whole, for the megakernel), teacher-forced through an
    8 x 64-token admission (512 rows: the large-M route) and 20 decode
-   steps (the megakernel) that cross a flush, three ways: through the
-   kernels on the card, through the plain versions on the card, and
-   through the plain versions on the CPU. Logits within LOGIT_MAX_STEPS
+   steps (the megakernel), per cache: ``mxint8-staged`` (crossing a flush),
+   ``bfloat16``, ``mxint8`` at max_len 256 and 272, and ``mxint4`` (the KV4
+   configuration), each three ways: through the kernels on the card,
+   through the plain versions on the card, and through the plain versions
+   on the CPU (the 272 run on the card only). Logits within LOGIT_MAX_STEPS
    and LOGIT_RMS_STEPS 8-bit code steps at every step for each pair; the
-   main cache below ``flushed`` of kernels vs plain on the card equal on
-   >= 99.9% and within one code step, and against the CPU within
-   CACHE_CPU_STEPS. A fourth run through the kernels with layer 1's down
-   correction left out must fail the RMS limit at every step. Then the
+   cache (below ``flushed`` for the staged one) of kernels vs plain on the
+   card equal on >= 99.9% and within one code step (a direct-write cache:
+   in layer 0, and in later layers, whose decode-written K/V carry a
+   flipped p of the layers before, within the CPU limit), and against the
+   CPU within CACHE_CPU_STEPS (the MXINT4 cache within
+   CACHE_CPU_STEPS_MXINT4 4-bit steps). A run through the
+   kernels with layer 1's down correction left out must fail the RMS limit
+   at every step; the direct-write ``mxint8`` run must match a staged run
+   fed the same tokens as the kernels match the plain versions. Then the
    same model packed with ``fuse_mlp=False`` (gate|up and down through
    kernel 1), kernels vs plain versions on the card, the same limits;
-5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head,
-   mxint8-staged, 8 slots, max_len 2048) serving 8 greedy requests,
-   torch.profiler windows of 5 decode steps and of one 8 x 64-token
-   admission (device busy vs wall time, each kernel's time per launch),
-   then one 2048-token admission on the same engine (one slot, fresh
+5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head, 8
+   slots, max_len 2048) serving 8 greedy requests over each cache
+   (``mxint8-staged`` 80 new tokens each, the others 40), a torch.profiler
+   window of 5 decode steps per cache (device busy vs wall time, each
+   kernel's time per launch), and on the staged cache a profile of one
+   8 x 64-token admission, then one 2048-token admission (one slot, fresh
    cache, last logits only) and its profile;
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
    phase-3 numbers.
@@ -76,6 +87,11 @@ LOGIT_RMS_STEPS = 0.4
 # much as the kernels do (7 steps at most in layer 1, PERF.md); the limit is
 # twice that.
 CACHE_CPU_STEPS = 14
+# The MXINT4 cache against the CPU, in 4-bit code steps (one is sixteen
+# 8-bit steps): the same divergence lands on a grid sixteen times coarser;
+# on the H100 it moved values by at most one step (PERF.md), the limit is
+# twice that.
+CACHE_CPU_STEPS_MXINT4 = 2
 # Fraction of a kernel's outputs allowed past the plain rtol/atol band: a
 # flipped P or H rounding moves a whole output row, a flipped correction
 # code one element (``testing.check_close``).
@@ -482,6 +498,215 @@ def phase_kernels(torch, timer, rates):
     return results
 
 
+def phase_direct_kernels(torch, timer, rates, results):
+    """Phase 3, the direct-write caches' kernels at the 7B decode shape: B = 8
+    slots, 32 heads and kv heads, d = 128, L = 2048, layer 1 of a two-layer
+    cache, positions spread over 64..1984."""
+    import torch.nn.functional as F
+
+    from lqer_tpu_torch.ops.kernels import cache_write as kcw
+    from lqer_tpu_torch.ops.kernels import fp_decode as kfp
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+    from lqer_tpu_torch.parallel.collectives import (
+        mx4_decode,
+        mx4_encode,
+        mx8_encode,
+    )
+    from lqer_tpu_torch.testing import attention_limit, check_close
+
+    bw, ops_rate = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    NL, B, H, KVH, D, L, li = 2, 8, 32, 32, 128, 2048, 1
+    scale = D ** -0.5
+    pos = torch.tensor([64, 303, 560, 815, 1088, 1343, 1600, 1984],
+                       dtype=torch.int32, device="cuda")
+    ntok = ((pos + 16) // 16 * 16).clamp(max=L)
+    tokens = int(ntok.sum())
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda")
+    out_bytes = B * H * D * 4
+    keep = torch.arange(L, device="cuda")[None, :] <= pos[:, None].long()
+    mask = keep[:, None, None, :]                    # SDPA: True = attend
+
+    def bound(nb, ops):
+        t_bytes, t_ops = nb / bw * 1e3, ops / ops_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def sdpa_ms(k_bf16, v_bf16):
+        # contiguous (B, H, L, d) operands, as the fused kernels take them
+        qb, kb, vb = (t.to(torch.bfloat16).contiguous()
+                      for t in (q, k_bf16, v_bf16))
+        return timer(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask))
+
+    def report(key, what, c, ms, plain_ms, b_ms, b_by, lib_ms, shape,
+               extra=""):
+        print(f"{what}: max_abs_err={c['max_abs_err']:.3g} "
+              f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+              f"2e-4){extra} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+              "(scaled_dot_product_attention on the unquantized bf16 "
+              "values, the unquantized yardstick)", flush=True)
+        if key:
+            results[key] = dict(
+                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=shape)
+
+    # ---- the fp-cache kernel over a bf16 cache with every row filled
+    k, v = (torch.randn(NL, B, KVH, L, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    kw = dict(scaling=scale)
+    y = kfp.decode_attention_fp(q, k, v, pos, li, **kw)
+    ref = kfp.fp_decode_plain(q, k, v, pos, li, **kw)
+    sc, vals = kfp.fp_scores(q, k, v, pos, li, **kw)
+    c = check_close("fp decode attention", y, ref,
+                    attention_limit(sc, vals, ref, p_width=8),
+                    FLIPPED["attention"])
+    del sc, vals
+    ms = timer(lambda: kfp.decode_attention_fp(q, k, v, pos, li, **kw))
+    plain_ms = timer(lambda: kfp.fp_decode_plain(q, k, v, pos, li, **kw), 5)
+    lib_ms = sdpa_ms(k[li], v[li])
+    b_ms, b_by = bound(tokens * KVH * D * 2 * 2 + nbytes(q) + out_bytes,
+                       2 * 2 * H * tokens * D)
+    report("decode_attention_fp", f"fp decode attention B={B} KVH={KVH} "
+           f"L={L} pos={pos.tolist()}", c, ms, plain_ms, b_ms, b_by, lib_ms,
+           "one layer of a bf16 cache, B=8, 32 kv heads, L=2048, pos "
+           "64..1984")
+    del k, v
+
+    # ---- the MXINT8 and MXINT4 caches: read-only kernel, then (width 8)
+    # the fused write + attend
+    def cache(width):
+        enc = mx8_encode if width == 8 else mx4_encode
+        out = []
+        for _ in range(2):
+            c_, e_ = enc(torch.randn(NL, B, KVH, L, D, generator=gen,
+                                     device="cuda"), 16, zero_fill=1.0)
+            out += [c_.transpose(-1, -2).contiguous(),
+                    e_.transpose(-1, -2).contiguous()]
+        return out
+
+    for width in (8, 4):
+        arrays = cache(width)
+        y = kq.decode_attention_quantized(q, *arrays, pos, li, **kw)
+        ref = kq.quantized_decode_plain(q, *arrays, pos, li, **kw)
+        sc, vals = kq.quantized_scores(q, *arrays, pos, li, **kw)
+        c = check_close(f"quantized decode attention width {width}", y, ref,
+                        attention_limit(sc, vals, ref, p_width=8),
+                        FLIPPED["attention"])
+        lib_ms = sdpa_ms(*(t.transpose(-1, -2).to(torch.bfloat16)
+                           for t in (kq._decode_cache_block(
+                               arrays[0][li], arrays[1][li]),
+                               kq._decode_cache_block(arrays[2][li],
+                                                      arrays[3][li]))))
+        del sc, vals
+        ms = timer(lambda: kq.decode_attention_quantized(q, *arrays, pos, li,
+                                                         **kw))
+        plain_ms = timer(lambda: kq.quantized_decode_plain(
+            q, *arrays, pos, li, **kw), 5)
+        per_token = KVH * (arrays[0].shape[-2] + D // 16) * 2
+        b_ms, b_by = bound(tokens * per_token + nbytes(q) + out_bytes,
+                           2 * 2 * H * tokens * D)
+        report("decode_attention_quantized" if width == 4 else None,
+               f"quantized decode attention width {width} B={B} KVH={KVH} "
+               f"L={L}", c, ms, plain_ms, b_ms, b_by, lib_ms,
+               "one layer of an MXINT4 cache, B=8, 32 kv heads, L=2048, pos "
+               "64..1984 (width 8 printed beside it)")
+        if width == 4:
+            del arrays
+            continue
+        kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+                  for _ in range(2))
+        mine = [a.clone() for a in arrays]
+        theirs = [a.clone() for a in arrays]
+        y = kq.decode_attention_quantized_write(q, *mine, kh, vh, pos, li,
+                                                **kw)
+        ref = kq.quantized_write_plain(q, *theirs, kh, vh, pos, li, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+            raise AssertionError("fused write + attend: written cache bytes "
+                                 "differ from the plain version")
+        sc, vals = kq.quantized_scores(q, *theirs, pos, li, **kw)
+        c = check_close("fused write + attend", y, ref,
+                        attention_limit(sc, vals, ref, p_width=8),
+                        FLIPPED["attention"])
+        del sc, vals
+        ms = timer(lambda: kq.decode_attention_quantized_write(
+            q, *mine, kh, vh, pos, li, **kw))
+        plain_ms = timer(lambda: kq.quantized_write_plain(
+            q, *theirs, kh, vh, pos, li, **kw), 5)
+        b_ms, b_by = bound(tokens * per_token + nbytes(q, kh, vh) + out_bytes
+                           + B * KVH * (D + D // 16) * 2,
+                           2 * 2 * H * tokens * D)
+        report("decode_attention_write", f"fused write + attend B={B} "
+               f"KVH={KVH} L={L}", c, ms, plain_ms, b_ms, b_by, lib_ms,
+               "one layer of an MXINT8 cache, B=8, 32 kv heads, L=2048, pos "
+               "64..1984", ", written column bit-exact")
+        del arrays, mine, theirs
+
+    # ---- the row write: bf16 rows (token axis on dim 3), then the four
+    # MXINT4 columns (token axis on dim 4)
+    def index_put(arrays, news, lane):
+        b = torch.arange(B, device="cuda")
+        kv = torch.arange(KVH, device="cuda")
+        p64 = pos.long()
+        for arr, new in zip(arrays, news):
+            layer = arr[li]
+            if lane:
+                r = torch.arange(arr.shape[3], device="cuda")
+                layer.index_put_((b[:, None, None], kv[None, :, None],
+                                  r[None, None, :], p64[:, None, None]),
+                                 new[..., 0].to(arr.dtype))
+            else:
+                layer.index_put_((b[:, None], kv[None, :], p64[:, None]),
+                                 new[:, :, 0, :].to(arr.dtype))
+
+    for lane in (False, True):
+        if lane:
+            arrays = cache(4)
+            news = []
+            for _ in range(2):
+                news += [t.transpose(-1, -2).contiguous() for t in mx4_encode(
+                    torch.randn(B, KVH, 1, D, generator=gen, device="cuda"),
+                    16, zero_fill=1.0)]
+        else:
+            arrays = [torch.randn(NL, B, KVH, L, D, generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                      for _ in range(2)]
+            news = [torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+                    for _ in range(2)]
+        mine = [a.clone() for a in arrays]
+        theirs = [a.clone() for a in arrays]
+        kcw.write_kv_rows_stacked(tuple(mine), tuple(news), li, pos)
+        kcw.write_rows_plain(tuple(theirs), tuple(news), li, pos)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+            raise AssertionError(f"row write (token axis on dim "
+                                 f"{4 if lane else 3}) differs")
+        ms = timer(lambda: kcw.write_kv_rows_stacked(tuple(mine), tuple(news),
+                                                    li, pos))
+        plain_ms = timer(lambda: kcw.write_rows_plain(tuple(theirs),
+                                                      tuple(news), li, pos), 5)
+        lib_ms = timer(lambda: index_put(theirs, news, lane))
+        moved = sum(n.numel() * (n.element_size() + a.element_size())
+                    for a, n in zip(arrays, news))
+        b_ms, b_by = bound(moved, 0)
+        what = ("the four MXINT4 columns" if lane
+                else "the bf16 K and V rows")
+        print(f"row write, {what} of {B} slots, 32 kv heads: bit-exact "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+              f"{b_ms:.4f} library_ms={lib_ms:.4f} (index_put_)", flush=True)
+        if not lane:
+            results["row_write"] = dict(
+                max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                shape="the bf16 K and V rows of 8 slots, 32 kv heads, d=128 "
+                "(the four MXINT4 columns printed beside it)")
+        del arrays, mine, theirs
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
     """Route the served path's kernel calls to the plain versions, which
@@ -490,8 +715,10 @@ def plain_versions_on_card():
     from lqer_tpu_torch.ops.kernels import cache_write as k4
     from lqer_tpu_torch.ops.kernels import decode_attention as k3
     from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+    from lqer_tpu_torch.ops.kernels import fp_decode as kfp
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from lqer_tpu_torch.ops.kernels import mlp_fused as k5
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
     from lqer_tpu_torch.serving import decode, kernel_backend
 
     swaps = [(kernel_backend, "qlinear_w4_fused", k1.qlinear_w4_plain),
@@ -501,7 +728,12 @@ def plain_versions_on_card():
              (decode, "decode_attention_quantized_staged",
               k3.staged_decode_plain),
              (decode, "flush_stage_to_main", k4.flush_plain),
-             (k2, "quantized_attention", k2.quantized_attention_plain)]
+             (k2, "quantized_attention", k2.quantized_attention_plain),
+             (decode, "decode_attention_fp", kfp.fp_decode_plain),
+             (decode, "decode_attention_quantized", kq.quantized_decode_plain),
+             (decode, "decode_attention_quantized_write",
+              kq.quantized_write_plain),
+             (decode, "write_kv_rows_stacked", k4.write_rows_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     reset_launch_counts()
     for m, n, f in swaps:
@@ -542,28 +774,52 @@ def teacher_force(torch, engines, padded, lengths, steps):
     return logits, routes
 
 
-def compare_runs(engines, logits, pairs, what: str, t0: float) -> list:
-    """Logits and main cache of each pair of runs against the phase-4
-    limits; prints one line per pair and returns what failed."""
+def compare_runs(engines, logits, pairs, what: str, t0: float,
+                 cpu_steps: float = None) -> list:
+    """Logits and cache of each pair of runs against the phase-4 limits
+    (the cache over the tokens every slot holds: below ``flushed`` of a
+    staged cache); prints one line per pair and returns what failed."""
     from lqer_tpu_torch.testing import cache_agreement, logits_steps
 
-    fl = engines["kernels"].cache["flushed"].tolist()
-    failed = [] if min(fl) >= 64 else [f"{what}: no flush crossed: {fl}"]
+    cpu_steps = CACHE_CPU_STEPS if cpu_steps is None else cpu_steps
+    first = engines["kernels"]
+    staged = "flushed" in first.cache
+    held = (first.cache["flushed"].tolist() if staged
+            else first.lengths.tolist())
+    failed = ([] if not staged or min(held) >= 64
+              else [f"{what}: no flush crossed: {held}"])
     for one, other in pairs:
         seen = [logits_steps(a, b) for a, b in zip(logits[one],
                                                    logits[other])]
         worst = max(m for m, _ in seen)
         rms = max(r for _, r in seen)
         least = min(r for _, r in seen)
+        ranges = held
+        if "flushed" in engines[other].cache:
+            theirs = engines[other].cache["flushed"].tolist()
+            if staged and theirs != held:
+                failed.append(f"{what}, {one} vs {other}: flushed {held} "
+                              f"vs {theirs}")
+            ranges = theirs
         frac, cache_steps = cache_agreement(engines[one].cache,
-                                            engines[other].cache)
+                                            engines[other].cache, ranges)
+        # layer 0's K/V come straight from the bit-exact GEMMs; a later
+        # layer's decode-written K/V (the ring holds them in a staged
+        # cache, out of this comparison) carry a flipped p of the layers
+        # before, as the CPU comparison's do
+        first0 = {k: v[:1] for k, v in engines[one].cache.items()
+                  if v.ndim == 5}
+        other0 = {k: v[:1] for k, v in engines[other].cache.items()
+                  if v.ndim == 5}
+        steps0 = cache_agreement(first0, other0, ranges)[1]
         print(f"teacher-forced {what}, {one} vs {other} "
               f"({'CPU' if other == 'cpu' else 'card'}): admission + "
               f"{len(seen) - 1} decode steps, logits |diff| in code steps "
               f"max {worst:.3g} (limit {LOGIT_MAX_STEPS}), RMS {least:.3g} "
-              f"to {rms:.3g} (limit {LOGIT_RMS_STEPS}); flushed={fl}, main "
-              f"cache bytes equal {frac:.6f}, largest value diff "
-              f"{cache_steps:.3g} code step(s), "
+              f"to {rms:.3g} (limit {LOGIT_RMS_STEPS}); cache over tokens "
+              f"{ranges} ({'below flushed' if staged else 'held'}): bytes "
+              f"equal {frac:.6f}, largest value diff {cache_steps:.3g} code "
+              f"step(s) ({steps0:.3g} in layer 0), "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         if other == "no correction":
             if least <= LOGIT_RMS_STEPS:
@@ -571,32 +827,42 @@ def compare_runs(engines, logits, pairs, what: str, t0: float) -> list:
             continue
         if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
             failed.append(f"{what}, {one} vs {other}: logits")
-        if other == "plain" and (frac < 0.999 or cache_steps > 1):
+        later = 1 if staged else cpu_steps
+        if other != "cpu" and (frac < 0.999 or steps0 > 1
+                               or cache_steps > later):
             failed.append(f"{what}, {one} vs {other}: cache")
-        if other == "cpu" and cache_steps > CACHE_CPU_STEPS:
+        if other == "cpu" and cache_steps > cpu_steps:
             failed.append(f"{what}, {one} vs {other}: cache")
     return failed
 
 
 def phase_teacher_forced(torch):
     """Phase 4: kernels on the card vs plain versions on the card and on
-    the CPU, teacher-forced with the kernels' greedy tokens; then the
+    the CPU, teacher-forced with the kernels' greedy tokens, for each cache;
+    the direct-write MXINT8 cache against the staged one; then the
     ``fuse_mlp=False`` packing, kernels vs plain versions on the card."""
     import dataclasses
 
+    from lqer_tpu_torch import models
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.serving import DecodeEngine
-    from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.serving.random_model import (
+        KV4_Q_CONFIG,
+        build_random_model,
+    )
 
     cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=2)
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 2)
+    kv4 = models.quantize_model(cfg, KV4_Q_CONFIG, {"linear": {"rank": 32}})
     params["model.embed_tokens.weight"] = \
         params["model.embed_tokens.weight"].to(torch.bfloat16)
     cpu_backend = {"arrays": {k: {n: None if t is None else t.cpu()
                                   for n, t in v.items()}
                               for k, v in backend["arrays"].items()},
                    "meta": dict(backend["meta"])}
-    kw = dict(num_slots=8, max_len=256, lm_head_width=8)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    kw = dict(num_slots=8, lm_head_width=8)
+    staged = dict(kw, max_len=256, cache_dtype="mxint8-staged")
     # the negative control: the kernels with one linear's correction left
     # out (of the layers' o, qkv and down, the one whose loss moved the
     # logits least): layer 1's down projection, inside its megakernel entry
@@ -607,15 +873,14 @@ def phase_teacher_forced(torch):
         b_d=torch.zeros_like(backend["arrays"][key]["b_d"]))
     engines = {
         "kernels": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                                device="cuda", **kw),
+                                device="cuda", **staged),
         "plain": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                              device="cuda", **kw),
-        "cpu": DecodeEngine({k: v.cpu() for k, v in params.items()}, cfg,
-                            qcfgs, pallas_backend=cpu_backend, device="cpu",
-                            **kw),
+                              device="cuda", **staged),
+        "cpu": DecodeEngine(cpu_params, cfg, qcfgs, pallas_backend=cpu_backend,
+                            device="cpu", **staged),
         "no correction": DecodeEngine(params, cfg, qcfgs,
                                       pallas_backend=broken, device="cuda",
-                                      **kw)}
+                                      **staged)}
     rng = np.random.default_rng(SEED)
     prompt_len = 63                      # 63 = 32 + 31: residue 31
     padded = rng.integers(0, cfg.vocab_size, (8, 64))
@@ -632,14 +897,64 @@ def phase_teacher_forced(torch):
     failed = compare_runs(engines, logits, (
         ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu"),
         ("kernels", "no correction")), what, t0)
-    del engines, backend, broken, cpu_backend
+    del engines, broken
+
+    # the direct-write caches: each decode step launches, per layer, the
+    # kernels named here (and no staged kernel)
+    per_layer = {"bfloat16": ("row_write", "decode_attention_fp"),
+                 "mxint8": ("decode_attention_write",),
+                 "mxint4": ("row_write", "decode_attention_quantized")}
+    for cache_dtype, max_len, layer_qcfgs in (
+            ("bfloat16", 256, qcfgs), ("mxint8", 256, qcfgs),
+            ("mxint8", 272, qcfgs), ("mxint4", 256, kv4)):
+        direct = dict(kw, max_len=max_len, cache_dtype=cache_dtype)
+        engines = {
+            "kernels": DecodeEngine(params, cfg, layer_qcfgs,
+                                    pallas_backend=backend, device="cuda",
+                                    **direct),
+            "plain": DecodeEngine(params, cfg, layer_qcfgs,
+                                  pallas_backend=backend, device="cuda",
+                                  **direct),
+        }
+        pairs = [("kernels", "plain")]
+        if max_len == 256:      # the 272 run checks the route on the card
+            engines["cpu"] = DecodeEngine(cpu_params, cfg, layer_qcfgs,
+                                          pallas_backend=cpu_backend,
+                                          device="cpu", **direct)
+            pairs += [("kernels", "cpu"), ("plain", "cpu")]
+        if (cache_dtype, max_len) == ("mxint8", 256):
+            # the JAX package holds the direct-write and the staged MXINT8
+            # caches to be one function: so are they here, on the card
+            engines["staged"] = DecodeEngine(params, cfg, qcfgs,
+                                             pallas_backend=backend,
+                                             device="cuda", **staged)
+            pairs.append(("kernels", "staged"))
+        t0 = time.perf_counter()
+        logits, routes = teacher_force(torch, engines, padded, lengths, steps)
+        want = {k: steps * 2 for k in per_layer[cache_dtype]}
+        got = {k: routes[k] for k in ("row_write", "decode_attention_fp",
+                                      "decode_attention_quantized",
+                                      "decode_attention_write",
+                                      "decode_attention", "cache_write")}
+        if got != {k: want.get(k, 0) for k in got} \
+                or routes["mlp_fused"] != steps * 2:
+            raise AssertionError(f"phase 4 {cache_dtype} routes: {routes}")
+        what = (f"2-layer 7B-width path, {cache_dtype} cache, max_len "
+                f"{max_len}")
+        print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+        failed += compare_runs(
+            engines, logits, pairs, what, t0,
+            cpu_steps=CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
+            else None)
+        del engines
+    del cpu_backend, cpu_params
 
     # the fuse_mlp=False packing: gate|up and down through kernel 1 at
     # decode, through the large-M route at the 512-row admission
     backend, _, _ = build_random_model(cfg, rank=32, seed=SEED + 2,
                                        fuse_mlp=False)
     engines = {name: DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                                  device="cuda", **kw)
+                                  device="cuda", **staged)
                for name in ("kernels", "plain")}
     t0 = time.perf_counter()
     logits, routes = teacher_force(torch, engines, padded, lengths, steps)
@@ -659,28 +974,68 @@ def phase_teacher_forced(torch):
 
 
 def phase_serve(torch, layers: int = 32):
-    """Phase 5: the engine at Llama-2-7B shape; returns launch counts."""
+    """Phase 5: the engine at Llama-2-7B shape over each cache; returns the
+    launch counts of the served requests and the long prompt."""
+    import dataclasses
+
+    from lqer_tpu_torch import models
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from lqer_tpu_torch.serving import DecodeEngine, Request
-    from lqer_tpu_torch.serving.random_model import build_random_model
-
-    import dataclasses
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import (
+        KV4_Q_CONFIG,
+        build_random_model,
+    )
 
     cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=layers)
     t0 = time.perf_counter()
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 3)
+    kv4 = models.quantize_model(cfg, KV4_Q_CONFIG, {"linear": {"rank": 32}})
     params["model.embed_tokens.weight"] = \
         params["model.embed_tokens.weight"].to(torch.bfloat16)
-    engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
-                          pallas_backend=backend, consume_backend=True,
-                          lm_head_width=8, device="cuda")
-    del backend
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    counts = None
+    # the staged cache serves 80 new tokens per request, then profiles an
+    # admission and runs the long prompt; the direct-write caches serve 40
+    for cache_dtype, layer_qcfgs, new_tokens in (
+            ("mxint8-staged", qcfgs, 80), ("bfloat16", qcfgs, 40),
+            ("mxint8", qcfgs, 40), ("mxint4", kv4, 40)):
+        engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=8,
+                              max_len=2048, cache_dtype=cache_dtype,
+                              pallas_backend=backend, lm_head_width=8,
+                              device="cuda")
+        run = serve_requests(torch, engine, cfg, cache_dtype, new_tokens,
+                             pack_s)
+        counts = run if counts is None else {k: n + run[k]
+                                             for k, n in counts.items()}
+        rng = np.random.default_rng(SEED + 7)
+        tokens = np.zeros(8, dtype=np.int64)
+        profile_window(torch, lambda: engine.decode_logits(tokens), 5,
+                       f"decode steps, {cache_dtype} cache")
+        if cache_dtype == "mxint8-staged":
+            ids = rng.integers(0, cfg.vocab_size, (8, 64))
+            profile_window(torch, lambda: engine.prefill(
+                ids, np.arange(8), np.full(8, 64, dtype=np.int32)), 1,
+                "8 x 64-token admission")
+            # last: the long admission leaves slot 0 holding 2048 tokens
+            reset_launch_counts()
+            long_prompt(torch, engine.prefill, cfg, rng)
+            counts = {k: n + launch_counts()[k] for k, n in counts.items()}
+        del engine
+        torch.cuda.empty_cache()
+    return counts
+
+
+def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s):
+    """8 greedy requests of 20..64 prompt tokens through ``engine``; prints
+    the step and admission times and returns the kernel launches."""
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.serving import Request
+
     rng = np.random.default_rng(SEED + 5)
     reqs = [Request(prompt_ids=[int(t) for t in rng.integers(
-        0, cfg.vocab_size, int(n))], max_new_tokens=80)
+        0, cfg.vocab_size, int(n))], max_new_tokens=new_tokens)
         for n in rng.integers(20, 65, 8)]
     step_ms, admit_ms = [], []
     decode_logits, prefill = engine.decode_logits, engine.prefill
@@ -705,35 +1060,25 @@ def phase_serve(torch, layers: int = 32):
     engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
+    engine.decode_logits, engine.prefill = decode_logits, prefill
     finished = sum(r.done for r in reqs)
     produced = sum(len(r.output_ids) for r in reqs)
-    fl = engine.cache["flushed"].tolist()
-    if finished != len(reqs) or min(fl) == 0:
-        raise AssertionError(f"serve: {finished}/{len(reqs)} finished, "
-                             f"flushed={fl}")
+    staged = "flushed" in engine.cache
+    fl = engine.cache["flushed"].tolist() if staged else None
+    if finished != len(reqs) or (staged and min(fl) == 0):
+        raise AssertionError(f"serve {cache_dtype}: {finished}/{len(reqs)} "
+                             f"finished, flushed={fl}")
     decode_s = sum(step_ms) / 1e3
-    print(f"serve Llama-2-7B shape {layers} layers rank 32 W8 head "
-          f"mxint8-staged 8 slots max_len 2048: {finished} requests "
+    flushes = (f"{launch_counts()['cache_write']} flushes, flushed={fl}, "
+               if staged else "")
+    print(f"serve Llama-2-7B shape {cfg.num_hidden_layers} layers rank 32 W8 "
+          f"head {cache_dtype} 8 slots max_len 2048: {finished} requests "
           f"finished, {produced} tokens, median decode step "
           f"{statistics.median(step_ms):.2f} ms over {len(step_ms)} steps, "
           f"{8 * len(step_ms) / decode_s:.1f} tok/s (8 slots x steps / "
-          f"decode time), admission {sum(admit_ms):.1f} ms, "
-          f"{launch_counts()['cache_write']} flushes, flushed={fl}, wall "
+          f"decode time), admission {sum(admit_ms):.1f} ms, {flushes}wall "
           f"{wall:.2f}s, packing {pack_s:.1f}s", flush=True)
-    counts = launch_counts()
-    tokens = np.zeros(8, dtype=np.int64)
-    profile_window(torch, lambda: decode_logits(tokens), 5, "decode steps")
-    ids = rng.integers(0, cfg.vocab_size, (8, 64))
-    profile_window(torch, lambda: prefill(ids, np.arange(8),
-                                          np.full(8, 64, dtype=np.int32)),
-                   1, "8 x 64-token admission")
-    # last: the long admission leaves slot 0 holding 2048 tokens
-    reset_launch_counts()
-    long_prompt(torch, prefill, cfg, rng)
-    counts = {k: n + launch_counts()[k] for k, n in counts.items()}
-    del engine
-    torch.cuda.empty_cache()
-    return counts
+    return launch_counts()
 
 
 def long_prompt(torch, prefill, cfg, rng, length: int = 2048) -> None:
@@ -820,7 +1165,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from lqer_tpu_torch.ops.kernels import KERNELS
-    from lqer_tpu_torch.ops.kernels._build import SOURCES, build_all
+    from lqer_tpu_torch.ops.kernels._build import ENTRIES, SOURCES, build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -831,10 +1176,12 @@ def main() -> int:
           f"{torch.version.cuda} | peaks {rates[0] / 1e12:.2f} TB/s, "
           f"{rates[1] / 1e12:.0f} TFLOP/s bf16", flush=True)
     secs = build_all()
-    print(f"build: {len(SOURCES)} kernels (nvcc sm_90a) in {secs:.1f}s",
+    print(f"build: {len(SOURCES)} sources, {len(ENTRIES)} entry points, "
+          f"{len(KERNELS)} kernels (nvcc sm_90a, in parallel) in {secs:.1f}s",
           flush=True)
     timer = Timer(torch)
     results = phase_kernels(torch, timer, rates)
+    phase_direct_kernels(torch, timer, rates, results)
     phase_teacher_forced(torch)
     counts = phase_serve(torch)
     missing = [k for k, n in counts.items() if n <= 0]

@@ -1,4 +1,7 @@
-// Kernel 4: flush of the staging ring into the main KV cache.
+// Two in-place cache writes: the flush of the staging ring into the main
+// MXINT8 cache, and the one-row-per-slot write of a decode token.
+//
+// The flush.
 //
 // Replaces lqer_tpu/ops/pallas/cache_write.py::_kernel_flush (entry
 // flush_stage_to_main). For every layer, slot, kv head and row of the four
@@ -15,6 +18,27 @@
 // two aliased passes (Mosaic tiling and one alias per buffer); here a
 // block per (layer x slot, array) writes just the span, in place, with
 // consecutive threads on consecutive tokens of a row.
+//
+// The row write.
+//
+// Replaces lqer_tpu/ops/pallas/cache_write.py::_kernel (entry
+// write_kv_rows_stacked). For each of up to four layer-stacked arrays
+// (NL, B, KVH, R, C) and each slot b, the new row of that slot lands at
+// token positions[b] of layer li, in place: on dim 3 (a row of C values:
+// the bf16 K/V of the fp cache) or on dim 4 (a column of R values: the
+// token-axis-last MXINT codes and exponents). f32 rows stored into a bf16
+// array round to nearest even, as astype does; int8 rows are copied. A
+// position outside [0, L) writes nothing (checked on the device, no host
+// sync); the JAX kernel states in-range positions as its precondition.
+//
+// What bounds it on an H100: the bytes, a read of the new rows and a write
+// of the stored values (the bf16 K and V rows of 8 slots at 32 kv heads,
+// d = 128: 256 KB of f32 read, 128 KB written): far below a launch's own
+// cost, so it is launch-bound.
+//
+// Design: the TPU kernel read-modify-wrote aligned (32-row or 128-lane)
+// windows because Mosaic cannot store one dynamic row; here a block per
+// (slot, array) stores just the row, one launch for all arrays of a call.
 #include "mx_common.cuh"
 
 namespace {
@@ -41,6 +65,39 @@ __global__ void flush_kernel(FlushArrays a, const int* __restrict__ fl_p,
     const size_t row = i / span;
     const int tok = f + (int)(i % span);
     main[row * L + tok] = ring[row * SW + tok % SW];
+  }
+}
+
+struct RowArrays {
+  void* dst[4];        // (NL, B, KVH, R, C)
+  const void* src[4];  // (B, KVH, C) rows or (B, KVH, R) columns
+  int lane[4];         // 1: token axis on dim 4 (C = L); 0: on dim 3 (R = L)
+  int rows[4];         // R
+  int cols[4];         // C
+  int kind[4];         // 0: int8 copy; 1: f32 -> bf16
+};
+
+__global__ void row_write_kernel(RowArrays a, const int* __restrict__ pos_p,
+                                 int li, int B, int KVH) {
+  const int b = blockIdx.x, arr = blockIdx.y;
+  const int R = a.rows[arr], C = a.cols[arr];
+  const bool lane = a.lane[arr] != 0;
+  const int pos = pos_p[b];
+  if (pos < 0 || pos >= (lane ? C : R)) return;
+  const int n = lane ? R : C;  // values per (slot, kv head)
+  const size_t slab = (size_t)R * C;
+  const size_t base = ((size_t)li * B + b) * KVH * slab;
+  for (int i = threadIdx.x; i < KVH * n; i += blockDim.x) {
+    const int kv = i / n, k = i % n;
+    const size_t off = base + kv * slab +
+                       (lane ? (size_t)k * C + pos : (size_t)pos * C + k);
+    const size_t so = ((size_t)b * KVH + kv) * n + k;
+    if (a.kind[arr] == 1)
+      static_cast<__nv_bfloat16*>(a.dst[arr])[off] =
+          __float2bfloat16_rn(static_cast<const float*>(a.src[arr])[so]);
+    else
+      static_cast<int8_t*>(a.dst[arr])[off] =
+          static_cast<const int8_t*>(a.src[arr])[so];
   }
 }
 
@@ -72,5 +129,27 @@ LQER_API int lqer_flush_stage(void* main0, void* main1, void* main2,
   flush_kernel<<<dim3(NL * B, 4), 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int*>(flushed), static_cast<const int*>(new_flushed),
       B, KVH, L, SW);
+  return (int)cudaGetLastError();
+}
+
+// dst_i: n layer-stacked arrays (NL, B, KVH, rows_i, cols_i), updated in
+// place at layer li; src_i: the new (B, KVH, ·) rows, f32 for kind 1
+// (stored as bf16) or int8 for kind 0; lane_i says which dim is the token
+// axis; positions (B) int32.
+LQER_API int lqer_write_rows(void* dst0, void* dst1, void* dst2, void* dst3,
+                             const void* src0, const void* src1,
+                             const void* src2, const void* src3, int lane0,
+                             int lane1, int lane2, int lane3, int rows0,
+                             int rows1, int rows2, int rows3, int cols0,
+                             int cols1, int cols2, int cols3, int kind0,
+                             int kind1, int kind2, int kind3,
+                             const void* positions, int n, int li, int B,
+                             int KVH, void* stream) {
+  if (n < 1 || n > 4) return (int)cudaErrorInvalidValue;
+  RowArrays a{{dst0, dst1, dst2, dst3}, {src0, src1, src2, src3},
+              {lane0, lane1, lane2, lane3}, {rows0, rows1, rows2, rows3},
+              {cols0, cols1, cols2, cols3}, {kind0, kind1, kind2, kind3}};
+  row_write_kernel<<<dim3(B, n), 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int*>(positions), li, B, KVH);
   return (int)cudaGetLastError();
 }

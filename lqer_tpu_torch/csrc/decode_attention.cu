@@ -27,22 +27,14 @@
 // 4 consecutive tokens (char4 loads, a warp reads 128 consecutive bytes of
 // a d row) and walks d; for P·V a thread owns a d row and walks its tokens,
 // 16 per 16-byte load. The softmax sum runs thread-strided, then through a
-// xor butterfly, then over warps.
-#include "mx_common.cuh"
+// xor butterfly, then over warps. Those loops, the query quantizer and the
+// row encode live in decode_common.cuh, shared with the direct-write
+// decode kernels (decode_attention_quantized.cu).
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int NT = 128;
-constexpr int NW = NT / 32;
-constexpr int NREP_MAX = 8;
-
-struct Cache {
-  const int8_t* kc;  // (d, L) codes of this (slot, kv head)
-  const int8_t* ke;  // (d/16, L) exponents
-  const int8_t* vc;
-  const int8_t* ve;
-  int stride;        // L for the main cache, SW for the ring
-};
+using namespace decode;
 
 template <int D>
 __device__ __forceinline__ void score_column(const Cache& c, int col,
@@ -63,60 +55,6 @@ __device__ __forceinline__ void score_column(const Cache& c, int col,
   }
 }
 
-// Scores of the 4 consecutive main columns col..col+3 (one char4 per row):
-// each column sums over d.
-template <int D>
-__device__ __forceinline__ void score_4_columns(const Cache& c, int col,
-                                                const float* qs, int nrep,
-                                                float (&s)[4][NREP_MAX]) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h) s[u][h] = 0.f;
-  for (int g = 0; g < D / 16; ++g) {
-    const char4 e4 = *reinterpret_cast<const char4*>(c.ke + (size_t)g * c.stride + col);
-    const float scl[4] = {exp2_int(e4.x - 7), exp2_int(e4.y - 7),
-                          exp2_int(e4.z - 7), exp2_int(e4.w - 7)};
-#pragma unroll 4
-    for (int jj = 0; jj < 16; ++jj) {
-      const int d = g * 16 + jj;
-      const char4 c4 = *reinterpret_cast<const char4*>(c.kc + (size_t)d * c.stride + col);
-      const float kv[4] = {(float)c4.x * scl[0], (float)c4.y * scl[1],
-                           (float)c4.z * scl[2], (float)c4.w * scl[3]};
-#pragma unroll
-      for (int h = 0; h < NREP_MAX; ++h)
-        if (h < nrep) {
-          const float qv = qs[h * D + d];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) s[u][h] = fmaf(qv, kv[u], s[u][h]);
-        }
-    }
-  }
-}
-
-// Σ_j p_j · v[dd][j] over 16-token chunks of one d row.
-__device__ __forceinline__ void pv_row(const Cache& c, int dd, int ntok,
-                                       const float* p, int LS, int nrep,
-                                       float (&acc)[NREP_MAX]) {
-  const int8_t* crow = c.vc + (size_t)dd * c.stride;
-  const int8_t* erow = c.ve + (size_t)(dd / 16) * c.stride;
-  for (int j0 = 0; j0 < ntok; j0 += 16) {
-    const int4 cw = *reinterpret_cast<const int4*>(crow + j0);
-    const int4 ew = *reinterpret_cast<const int4*>(erow + j0);
-    const int cv[4] = {cw.x, cw.y, cw.z, cw.w};
-    const int ev[4] = {ew.x, ew.y, ew.z, ew.w};
-#pragma unroll
-    for (int u = 0; u < 16; ++u) {
-      const int code = (int)(int8_t)(cv[u >> 2] >> ((u & 3) * 8));
-      const int e = (int)(int8_t)(ev[u >> 2] >> ((u & 3) * 8));
-      const float vval = (float)code * exp2_int(e - 7);
-#pragma unroll
-      for (int h = 0; h < NREP_MAX; ++h)
-        if (h < nrep) acc[h] = fmaf(p[h * LS + j0 + u], vval, acc[h]);
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT)
 staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
@@ -129,11 +67,7 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
                      int q_mb, int p_mb) {
   constexpr int GD = D / 16;
   extern __shared__ float smem[];
-  __shared__ float red[NW][NREP_MAX];
-  __shared__ float m_stat[NREP_MAX];
-  __shared__ float s_stat[NREP_MAX];
   const int b = blockIdx.x, kv = blockIdx.y, t = threadIdx.x;
-  const int lane = t % 32, w = t / 32;
   const int H = KVH * nrep, LS = L + SW;
   float* qs = smem;            // nrep x D
   float* sc = qs + nrep * D;   // nrep x (L + SW)
@@ -146,44 +80,21 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
                      vse + bk * GD * SW, SW};
 
   // 1. quantized queries
-  for (int idx = t; idx < nrep * GD; idx += NT) {
-    const int h = idx / GD, g = idx % GD;
-    const float* qrow = q + ((size_t)b * H + kv * nrep + h) * D + g * 16;
-    float vals[16];
-    float bmax = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      vals[j] = qrow[j];
-      bmax = fmaxf(bmax, fabsf(vals[j]));
-    }
-    const int e = group_exponent(bmax);
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      qs[h * D + g * 16 + j] = q_mb >= 0 ? mx_value(vals[j], e, q_mb) : vals[j];
-  }
+  quantize_queries<D>(q + ((size_t)b * H + kv * nrep) * D, qs, nrep, q_mb);
   // 2. encode the fresh K/V rows into ring lane r, in place
   for (int idx = t; idx < 2 * GD; idx += NT) {
     const int g = idx % GD;
     const bool is_v = idx >= GD;
-    const float* src = (is_v ? vh : kh) + bk * D + g * 16;
-    int8_t* codes = (is_v ? vsc : ksc) + bk * D * SW;
-    int8_t* exps = (is_v ? vse : kse) + bk * GD * SW;
-    float bmax = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) bmax = fmaxf(bmax, fabsf(src[j]));
-    const int e = group_exponent(bmax);
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      codes[(g * 16 + j) * SW + r] =
-          (int8_t)(int)__fmul_rn(sign_eps(src[j]), mx_mant(src[j], e, 7));
-    exps[g * SW + r] = (int8_t)e;
+    encode_group((is_v ? vh : kh) + bk * D + g * 16,
+                 (is_v ? vsc : ksc) + bk * D * SW,
+                 (is_v ? vse : kse) + bk * GD * SW, SW, r, g);
   }
   __syncthreads();
 
   // 3. scores: main columns [0, fl) and ring lanes (index L + lane)
   for (int j = 4 * t; j < fl; j += 4 * NT) {   // fl is a multiple of 32
     float s4[4][NREP_MAX];
-    score_4_columns<D>(main_c, j, qs, nrep, s4);
+    score_4_columns<D, 8>(main_c, j, qs, nrep, s4);
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -204,90 +115,18 @@ staged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   }
   __syncthreads();
 
-  // 4. row max
-  float acc[NREP_MAX];
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) acc[h] = -INFINITY;
-  for (int j = t; j < fl; j += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) acc[h] = fmaxf(acc[h], sc[h * LS + j]);
-  for (int jr = t; jr < SW; jr += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) acc[h] = fmaxf(acc[h], sc[h * LS + L + jr]);
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) {
-    acc[h] = warp_max_xor(acc[h]);
-    if (lane == 0) red[w][h] = acc[h];
-  }
-  __syncthreads();
-  if (t < nrep) {
-    float m = -INFINITY;
-    for (int i = 0; i < NW; ++i) m = fmaxf(m, red[i][t]);
-    m_stat[t] = m;
-  }
-  __syncthreads();
-
-  // 5. exp and the sum: each thread over its indices (main, then ring),
-  //    xor butterfly, then the warps
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-  for (int j = t; j < fl; j += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) {
-        const float p = expf(sc[h * LS + j] - m_stat[h]);
-        sc[h * LS + j] = p;
-        acc[h] += p;
-      }
-  for (int jr = t; jr < SW; jr += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) {
-        const float p = expf(sc[h * LS + L + jr] - m_stat[h]);
-        sc[h * LS + L + jr] = p;
-        acc[h] += p;
-      }
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) {
-    acc[h] = warp_sum_xor(acc[h]);
-    if (lane == 0) red[w][h] = acc[h];
-  }
-  __syncthreads();
-  if (t < nrep) {
-    float tot = 0.f;
-    for (int i = 0; i < NW; ++i) tot += red[i][t];
-    s_stat[t] = tot;
-  }
-  __syncthreads();
-
-  // 6. normalize and quantize p per 16 (main groups below fl, ring groups)
-  const int gm = fl / 16, ngr = gm + SW / 16;
-  for (int idx = t; idx < nrep * ngr; idx += NT) {
-    const int h = idx / ngr, gi = idx % ngr;
-    float* pg = sc + h * LS + (gi < gm ? gi * 16 : L + (gi - gm) * 16);
-    float bmax = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      pg[j] = pg[j] / s_stat[h];
-      bmax = fmaxf(bmax, pg[j]);
-    }
-    if (p_mb >= 0) {
-      const int e = group_exponent(bmax);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) pg[j] = mx_value(pg[j], e, p_mb);
-    }
-  }
-  __syncthreads();
+  // 4.-6. the softmax over main [0, fl) and the ring lanes, p per 16
+  //    (main groups below fl, ring groups)
+  softmax_quantize_p(sc, LS, fl, L, SW, nrep, p_mb);
 
   // 7. P·V: thread dd owns d row dd and walks the tokens, main [0, fl)
   //    then the 64 ring lanes, 16 tokens per 16-byte load
   for (int dd = t; dd < D; dd += NT) {
+    float acc[NREP_MAX];
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-    pv_row(main_c, dd, fl, sc, LS, nrep, acc);
-    pv_row(ring_c, dd, SW, sc + L, LS, nrep, acc);
+    pv_row<D, 8>(main_c, dd, fl, sc, LS, nrep, acc);
+    pv_row<D, 8>(ring_c, dd, SW, sc + L, LS, nrep, acc);
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep) out[((size_t)b * H + kv * nrep + h) * D + dd] = acc[h];

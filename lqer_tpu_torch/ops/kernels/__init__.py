@@ -6,8 +6,13 @@ version and counts nothing."""
 from __future__ import annotations
 
 from .attention import quantized_attention
-from .cache_write import flush_stage_to_main
+from .cache_write import flush_stage_to_main, write_kv_rows_stacked
 from .decode_attention import decode_attention_quantized_staged
+from .fp_decode import decode_attention_fp
+from .quantized_decode import (
+    decode_attention_quantized,
+    decode_attention_quantized_write,
+)
 from .dequant_gemm import qlinear_w4_fused, unpack_packed_to_bf16
 from .mlp_fused import mlp_w4_fused
 
@@ -26,6 +31,19 @@ KERNELS = {
                "lqer_tpu/ops/pallas/dequant_gemm.py:401"),
     "mlp_fused": (mlp_w4_fused, "lqer_tpu_torch/csrc/mlp_fused.cu",
                   "lqer_tpu/ops/pallas/mlp_fused.py:63"),
+    "decode_attention_fp": (decode_attention_fp,
+                            "lqer_tpu_torch/csrc/decode_attention_fp.cu",
+                            "lqer_tpu/ops/pallas/decode_attention.py:67"),
+    "decode_attention_quantized": (
+        decode_attention_quantized,
+        "lqer_tpu_torch/csrc/decode_attention_quantized.cu",
+        "lqer_tpu/ops/pallas/decode_attention.py:290"),
+    "decode_attention_write": (
+        decode_attention_quantized_write,
+        "lqer_tpu_torch/csrc/decode_attention_quantized.cu",
+        "lqer_tpu/ops/pallas/decode_attention.py:1504"),
+    "row_write": (write_kv_rows_stacked, "lqer_tpu_torch/csrc/cache_write.cu",
+                  "lqer_tpu/ops/pallas/cache_write.py:48"),
 }
 
 

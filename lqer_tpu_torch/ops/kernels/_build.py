@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface under ``build/lqer_tpu_torch/`` (the library name
 carries a hash of the sources and flags, so an edit rebuilds), and loads
-through ``ctypes``. :func:`build_all` starts one ``nvcc`` per source, all
+through ``ctypes``; a source may export several entry points
+(:data:`ENTRIES`). :func:`build_all` starts one ``nvcc`` per source, all
 at once. Nothing is compiled when a module is imported: the first launch,
 or an explicit :func:`build_all`, builds. The megakernel's grid barrier
 (``cooperative_groups::this_grid().sync()`` under
@@ -24,23 +25,34 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lqer_tpu_torch"
 SOURCES = ("dequant_gemm", "attention", "decode_attention", "cache_write",
-           "unpack", "mlp_fused")
+           "unpack", "mlp_fused", "decode_attention_quantized",
+           "decode_attention_fp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SIGNATURES = {
-    "dequant_gemm": ("lqer_dequant_gemm", [P] * 8 + [I] * 7 + [P]),
-    "attention": ("lqer_prefill_attention", [P] * 4 + [I] * 4 + [F, I, I, P]),
-    "decode_attention": ("lqer_staged_decode_attention",
-                         [P] * 14 + [I] * 6 + [F, I, I, P]),
-    "cache_write": ("lqer_flush_stage", [P] * 8 + [I] * 4 + [P] * 2 + [I] * 5
-                    + [P]),
-    "unpack": ("lqer_unpack", [P] * 3 + [I] * 3 + [P]),
-    "mlp_fused": ("lqer_mlp_fused", [P] * 16 + [I] * 8 + [P]),
+# entry -> (source, C function, argument types before the stream)
+ENTRIES = {
+    "dequant_gemm": ("dequant_gemm", "lqer_dequant_gemm", [P] * 8 + [I] * 7),
+    "attention": ("attention", "lqer_prefill_attention",
+                  [P] * 4 + [I] * 4 + [F, I, I]),
+    "decode_attention": ("decode_attention", "lqer_staged_decode_attention",
+                         [P] * 14 + [I] * 6 + [F, I, I]),
+    "cache_write": ("cache_write", "lqer_flush_stage",
+                    [P] * 8 + [I] * 4 + [P] * 2 + [I] * 5),
+    "row_write": ("cache_write", "lqer_write_rows",
+                  [P] * 8 + [I] * 16 + [P] + [I] * 4),
+    "unpack": ("unpack", "lqer_unpack", [P] * 3 + [I] * 3),
+    "mlp_fused": ("mlp_fused", "lqer_mlp_fused", [P] * 16 + [I] * 8),
+    "decode_attention_quantized": (
+        "decode_attention_quantized", "lqer_decode_attention_quantized",
+        [P] * 9 + [I] * 6 + [F, I, I]),
+    "decode_attention_fp": ("decode_attention_fp", "lqer_decode_attention_fp",
+                            [P] * 5 + [I] * 5 + [F] + [I] * 4),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[str, object] = {}
 BUILD_LOGS: dict[str, str] = {}
 
 
@@ -92,28 +104,29 @@ def build_all(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
+def _function(entry: str):
+    fn = _FUNCS.get(entry)
+    if fn is None:
+        source, fn_name, argtypes = ENTRIES[entry]
+        lib = _LIBS.get(source)
+        if lib is None:
+            build_all((source,))
+            lib = _LIBS[source] = ctypes.CDLL(str(_lib_path(source)))
         fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
+        fn.argtypes = [*argtypes, P]
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+        _FUNCS[entry] = fn
+    return fn
 
 
-def launch(name: str, *args) -> None:
-    """Call the C entry point of ``name`` on the current stream; raise on a
+def launch(entry: str, *args) -> None:
+    """Call the C entry point ``entry`` on the current stream; raise on a
     non-zero ``cudaGetLastError``."""
     import torch
 
-    fn = getattr(library(name), SIGNATURES[name][0])
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = _function(entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: error {err}")
 
 
 def ptr(t) -> int | None:

@@ -1,11 +1,20 @@
-"""Kernel 4: flush of the staging ring into the main KV cache, and the
-cache-row encode the staged decode kernel uses.
+"""In-place KV-cache writes: the flush of the staging ring into the main
+cache, the one-row-per-slot decode write, and the cache-row encode the
+decode kernels use.
 
-Port of the flush and ``_encode_t`` of ``lqer_tpu/ops/pallas/cache_write.py``.
-The CUDA kernel is ``csrc/cache_write.cu``; :func:`flush_plain` is its
-plain PyTorch version. Both write in place: for every layer, slot, kv head
-and row, ``main[..., t] = ring[..., t % SW]`` for ``t`` in
-``[flushed[b], new_flushed[b])``. The copy is bit-exact.
+Port of ``flush_stage_to_main``, ``write_kv_rows_stacked`` and ``_encode_t``
+of ``lqer_tpu/ops/pallas/cache_write.py``. Both CUDA kernels are in
+``csrc/cache_write.cu``; :func:`flush_plain` and :func:`write_rows_plain`
+are their plain PyTorch versions. All write in place and bit-exact:
+
+- the flush, for every layer, slot, kv head and row,
+  ``main[..., t] = ring[..., t % SW]`` for ``t`` in
+  ``[flushed[b], new_flushed[b])``;
+- the row write, for each layer-stacked array and slot ``b``, the slot's new
+  row at token ``positions[b]`` of layer ``layer_index``, on dim 3 (bf16 K/V
+  rows of the fp cache, f32 rows rounded to nearest even) or dim 4 (int8
+  MXINT code and exponent columns); a position outside ``[0, L)`` writes
+  nothing.
 """
 
 from __future__ import annotations
@@ -68,3 +77,84 @@ def flush_stage_to_main(cache_arrays: tuple, stage_arrays: tuple,
 
 
 flush_stage_to_main.launches = 0
+
+
+def _token_axis_last(array: torch.Tensor, new: torch.Tensor) -> bool:
+    """The orientation rule of the JAX kernel: a new row ``(B, KVH, R, 1)``
+    is a column on dim 4, a new row ``(B, KVH, 1, C)`` a row on dim 3."""
+    return new.shape[3] == 1 and array.shape[4] > 1
+
+
+def write_rows_plain(cache_arrays, new_rows, layer_index: int,
+                     positions: torch.Tensor) -> tuple:
+    for arr, new in zip(cache_arrays, new_rows):
+        lane = _token_axis_last(arr, new)
+        dim = 3 if lane else 2                     # in the layer view
+        L = arr.shape[dim + 1]
+        layer = arr[layer_index]                   # (B, KVH, R, C) view
+        ok = ((positions >= 0) & (positions < L))[:, None, None, None]
+        idx = positions.clamp(0, L - 1).to(torch.int64)[
+            :, None, None, None].expand(new.shape)
+        val = torch.where(ok, new.to(arr.dtype), torch.gather(layer, dim, idx))
+        layer.scatter_(dim, idx, val)
+    return tuple(cache_arrays)
+
+
+def write_kv_rows_stacked(cache_arrays: tuple, new_rows: tuple,
+                          layer_index: int, positions: torch.Tensor) -> tuple:
+    """Write one new row per slot into layer ``layer_index`` of up to four
+    layer-stacked arrays ``(NL, B, KVH, ·, ·)``, in place; returns them.
+    ``new_rows``: ``(B, KVH, 1, C)`` rows (token axis on dim 3; f32 or bf16
+    into a bf16 array) or ``(B, KVH, R, 1)`` int8 columns (token axis on
+    dim 4); ``positions`` (B,). CPU tensors run :func:`write_rows_plain`;
+    CUDA tensors launch ``csrc/cache_write.cu`` (one launch for all
+    arrays)."""
+    a0 = cache_arrays[0]
+    if a0.device.type == "cpu":
+        return write_rows_plain(cache_arrays, new_rows, layer_index, positions)
+    if not a0.is_cuda:
+        raise ValueError(f"unsupported device {a0.device}")
+    NL, B, KVH = a0.shape[:3]
+    if not 1 <= len(cache_arrays) == len(new_rows) <= 4 \
+            or not 0 <= layer_index < NL:
+        raise ValueError(f"need 1 to 4 arrays and rows and a layer in "
+                         f"[0, {NL}) (layer {layer_index})")
+    cols = {"dst": [], "src": [], "lane": [], "rows": [], "cols": [],
+            "kind": []}
+    for arr, new in zip(cache_arrays, new_rows):
+        lane = _token_axis_last(arr, new)
+        want = ((B, KVH, arr.shape[3], 1) if lane
+                else (B, KVH, 1, arr.shape[4]))
+        if not (arr.is_cuda and new.is_cuda and arr.is_contiguous()
+                and arr.ndim == 5 and tuple(arr.shape[:3]) == (NL, B, KVH)
+                and tuple(new.shape) == want):
+            raise ValueError(f"row write needs contiguous CUDA arrays "
+                             f"(NL, B, KVH, ·, ·) and rows {want} (got "
+                             f"{tuple(arr.shape)} and {tuple(new.shape)})")
+        if arr.dtype == torch.bfloat16 and new.dtype in (torch.float32,
+                                                         torch.bfloat16):
+            kind, src = 1, new.to(torch.float32).contiguous()
+        elif arr.dtype == new.dtype == torch.int8:
+            kind, src = 0, new.contiguous()
+        else:
+            raise ValueError(f"row write stores f32/bf16 into bf16 or int8 "
+                             f"into int8 (got {new.dtype} into {arr.dtype})")
+        for key, val in (("dst", arr), ("src", src), ("lane", int(lane)),
+                         ("rows", arr.shape[3]), ("cols", arr.shape[4]),
+                         ("kind", kind)):
+            cols[key].append(val)
+    n = len(cache_arrays)
+    pad = 4 - n
+    pos = positions.to(torch.int32).contiguous()
+    _build.launch("row_write",
+                  *(a.data_ptr() for a in cols["dst"]), *[None] * pad,
+                  *(s.data_ptr() for s in cols["src"]), *[None] * pad,
+                  *(cols[k][i] if i < n else 0 for k in ("lane", "rows",
+                                                          "cols", "kind")
+                    for i in range(4)),
+                  pos.data_ptr(), n, int(layer_index), B, KVH)
+    write_kv_rows_stacked.launches += 1
+    return tuple(cache_arrays)
+
+
+write_kv_rows_stacked.launches = 0

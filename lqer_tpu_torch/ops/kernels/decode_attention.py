@@ -18,7 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from ...parallel.collectives import fill_zero_groups, mx8_decode, mx_values
+from ...parallel.collectives import (
+    fill_zero_groups,
+    mx4_decode,
+    mx8_decode,
+    mx_values,
+)
 from . import _build
 from .attention import attend_plain
 from .cache_write import _encode_t
@@ -38,9 +43,14 @@ def _quantize_sublane_groups_signed(x: torch.Tensor, mb: int, group: int
 
 def _decode_cache_block(codes: torch.Tensor, exps: torch.Tensor,
                         group: int = 16) -> torch.Tensor:
-    """MXINT8 codes (…, d, N) + exps (…, d/g, N) → f32 values (…, d, N)."""
-    return mx8_decode(codes.transpose(-1, -2), exps.transpose(-1, -2),
-                      group).transpose(-1, -2)
+    """Token-axis-last MXINT codes + exps (…, d/g, N) → f32 values
+    (…, d, N): MXINT8 codes (…, d, N), or nibble-packed d-split MXINT4
+    codes (…, d/2, N) (low nibble of packed row i is value i, high nibble
+    value i + d/2)."""
+    dec = mx8_decode if codes.shape[-2] == exps.shape[-2] * group \
+        else mx4_decode
+    return dec(codes.transpose(-1, -2), exps.transpose(-1, -2),
+               group).transpose(-1, -2)
 
 
 def _write_ring(ring_codes, ring_exps, new_codes, new_exps, lane):

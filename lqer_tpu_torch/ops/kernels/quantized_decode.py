@@ -1,0 +1,198 @@
+"""Decode attention over the direct-write MXINT cache, and the same with the
+fresh token's cache write in one launch.
+
+Port of ``decode_attention_quantized`` (body ``_kernel_quantized``, codes of
+width 8 or 4) and ``decode_attention_quantized_write`` (body
+``_kernel_quantized_write``, width 8) of
+``lqer_tpu/ops/pallas/decode_attention.py``, with
+``decode_attention_widths_quantized``. Both CUDA kernels are
+``csrc/decode_attention_quantized.cu``; :func:`quantized_decode_plain` and
+:func:`quantized_write_plain` are their plain PyTorch versions.
+
+Quantize once at write: the cache's MXINT values are the QK^T and P·V
+operands; only q (per 16 along d) and p (per 16 tokens) quantize at use
+time. One layer per call, read in place from the layer-stacked cache at
+``layer_index``. The write variant MXINT8-encodes the fresh K/V rows into
+column ``positions[b]`` of that layer in place (where the JAX kernel
+aliases the cache to its outputs), then attends over ``[0, pos]`` with the
+fresh column: bitwise the write followed by the read-only kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .attention import attend_plain
+from .cache_write import _encode_t, write_rows_plain
+from .decode_attention import (
+    _decode_cache_block,
+    _quantize_sublane_groups_signed,
+)
+from .fp_decode import SMEM_LIMIT, _mb, decode_attention_widths
+
+
+def smem_bytes(n_rep: int, max_len: int, head_dim: int) -> int:
+    """Shared memory of the kernels: queries and score rows of the n_rep
+    heads."""
+    return 4 * n_rep * (head_dim + max_len)
+
+
+def decode_attention_widths_quantized(attn_cfg) -> dict:
+    """Widths of the MXINT-cache kernels: only q and p quantize at use time
+    (the cache's format fixes the K/V operands)."""
+    w = decode_attention_widths(attn_cfg)
+    return {"q_width": w["q_width"], "p_width": w["p_width"]}
+
+
+def quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
+                     layer_index: int, *, scaling: float, group: int = 16,
+                     q_width: int | None = 8):
+    """Masked scores (B, H, 1, L) and decoded values (B, H, L, d) of one
+    layer."""
+    B, H, _, d = q.shape
+    k = _decode_cache_block(k_codes[layer_index], k_exps[layer_index], group)
+    v = _decode_cache_block(v_codes[layer_index], v_exps[layer_index], group)
+    n_rep = H // k.shape[1]
+    k, v = (t.repeat_interleave(n_rep, dim=1) for t in (k, v))  # (B, H, d, L)
+    qs = q[:, :, 0, :].to(torch.float32)
+    if q_width is not None:
+        qs = _quantize_sublane_groups_signed(qs, q_width - 1, group)
+    s = torch.matmul(qs[:, :, None, :], k) * scaling
+    j = torch.arange(k.shape[-1], device=q.device)
+    ok = j[None, :] <= positions[:, None]
+    return (torch.where(ok[:, None, None, :], s, float("-inf")),
+            v.transpose(-1, -2))
+
+
+def quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps, positions,
+                           layer_index: int, *, scaling: float,
+                           group: int = 16, q_width: int | None = 8,
+                           p_width: int | None = 8) -> torch.Tensor:
+    s, v = quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
+                            layer_index, scaling=scaling, group=group,
+                            q_width=q_width)
+    return attend_plain(s, v, p_width, group)
+
+
+def encode_rows(kh: torch.Tensor, vh: torch.Tensor, group: int = 16) -> tuple:
+    """Fresh (B, KVH, 1, d) K/V rows → the four MXINT8 cache columns
+    (codes (B, KVH, d, 1), exps (B, KVH, d/16, 1)) of ``_encode_t``."""
+    out = []
+    for new in (kh, vh):
+        out += _encode_t(new[:, :, 0, :].to(torch.float32)[..., None], group)
+    return tuple(out)
+
+
+def quantized_write_plain(q, k_codes, k_exps, v_codes, v_exps, kh, vh,
+                          positions, layer_index: int, *, scaling: float,
+                          group: int = 16, q_width: int | None = 8,
+                          p_width: int | None = 8) -> torch.Tensor:
+    write_rows_plain((k_codes, k_exps, v_codes, v_exps),
+                     encode_rows(kh, vh, group), layer_index, positions)
+    return quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps,
+                                  positions, layer_index, scaling=scaling,
+                                  group=group, q_width=q_width,
+                                  p_width=p_width)
+
+
+def _check_cache(q, k_codes, k_exps, v_codes, v_exps, group) -> int:
+    """Shape checks shared by both wrappers; returns the code width."""
+    B, H, S, d = q.shape
+    rows, L = k_codes.shape[-2], k_codes.shape[-1]
+    if (S != 1 or group != 16 or k_codes.ndim != 5 or rows not in (d, d // 2)
+            or k_exps.shape[-2] * group != d or k_exps.shape[-1] != L
+            or L % group):
+        raise ValueError(f"quantized decode attention needs s=1, codes "
+                         f"(NL, B, KVH, d or d/2, L) and exps "
+                         f"(NL, B, KVH, d/16, L) with L % 16 == 0 (s={S}, "
+                         f"codes {tuple(k_codes.shape)}, exps "
+                         f"{tuple(k_exps.shape)})")
+    return 8 if rows == d else 4
+
+
+def _check_cuda(q, arrays, layer_index):
+    B, H, _, d = q.shape
+    NL, KVH, L = arrays[0].shape[0], arrays[0].shape[2], arrays[0].shape[-1]
+    if not q.is_cuda:
+        raise ValueError(f"unsupported device {q.device}")
+    if (d not in (64, 128) or H % KVH or not 0 <= layer_index < NL
+            or smem_bytes(H // KVH, L, d) > SMEM_LIMIT):
+        raise ValueError(f"unsupported decode shape d={d} H={H} KVH={KVH} "
+                         f"L={L} layer {layer_index} of {NL}")
+    for a in arrays:
+        if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
+            raise ValueError("cache arrays must be contiguous int8 CUDA "
+                             "tensors")
+
+
+def _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
+            q_width, p_width) -> torch.Tensor:
+    B, H, _, d = q.shape
+    KVH, L = arrays[0].shape[2], arrays[0].shape[-1]
+    qf = q.to(torch.float32).contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    new = [None if t is None else t.to(torch.float32).contiguous()
+           for t in (kh, vh)]
+    out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
+    _build.launch("decode_attention_quantized", qf.data_ptr(),
+                  *(a[layer_index].data_ptr() for a in arrays),
+                  *(_build.ptr(t) for t in new), pos.data_ptr(),
+                  out.data_ptr(), B, KVH, H // KVH, d, L, width,
+                  float(scaling), _mb(q_width), _mb(p_width))
+    return out
+
+
+def decode_attention_quantized(q, k_codes, k_exps, v_codes, v_exps,
+                               positions, layer_index: int, *, scaling: float,
+                               group: int = 16, q_width: int | None = 8,
+                               p_width: int | None = 8) -> torch.Tensor:
+    """One layer of decode attention over the MXINT8 or MXINT4 cache.
+
+    q (B, H, 1, d) raw queries (rope applied); codes (NL, B, KVH, d, L) or
+    (NL, B, KVH, d/2, L) and exps (NL, B, KVH, d/16, L) int8, read at
+    ``layer_index``; positions (B,). Returns (B, H, 1, d) f32. CPU tensors
+    run :func:`quantized_decode_plain`; CUDA tensors launch
+    ``csrc/decode_attention_quantized.cu``."""
+    width = _check_cache(q, k_codes, k_exps, v_codes, v_exps, group)
+    arrays = (k_codes, k_exps, v_codes, v_exps)
+    kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width)
+    if q.device.type == "cpu":
+        return quantized_decode_plain(q, *arrays, positions, layer_index,
+                                      **kw)
+    _check_cuda(q, arrays, layer_index)
+    out = _launch(q, arrays, None, None, positions, layer_index, width,
+                  scaling, q_width, p_width)
+    decode_attention_quantized.launches += 1
+    return out
+
+
+def decode_attention_quantized_write(q, k_codes, k_exps, v_codes, v_exps, kh,
+                                     vh, positions, layer_index: int, *,
+                                     scaling: float, group: int = 16,
+                                     q_width: int | None = 8,
+                                     p_width: int | None = 8
+                                     ) -> torch.Tensor:
+    """:func:`decode_attention_quantized` over the MXINT8 cache, with the
+    fresh rows kh, vh (B, KVH, 1, d) encoded into column ``positions[b]``
+    of layer ``layer_index`` in place first (one launch on the card)."""
+    width = _check_cache(q, k_codes, k_exps, v_codes, v_exps, group)
+    arrays = (k_codes, k_exps, v_codes, v_exps)
+    if width != 8 or tuple(kh.shape) != (q.shape[0], k_codes.shape[2], 1,
+                                         q.shape[-1]) or kh.shape != vh.shape:
+        raise ValueError(f"the fused write takes the MXINT8 cache and rows "
+                         f"(B, KVH, 1, d) (width {width}, rows "
+                         f"{tuple(kh.shape)})")
+    kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width)
+    if q.device.type == "cpu":
+        return quantized_write_plain(q, *arrays, kh, vh, positions,
+                                     layer_index, **kw)
+    _check_cuda(q, arrays, layer_index)
+    out = _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
+                  q_width, p_width)
+    decode_attention_quantized_write.launches += 1
+    return out
+
+
+decode_attention_quantized.launches = 0
+decode_attention_quantized_write.launches = 0

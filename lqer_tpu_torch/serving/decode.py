@@ -2,21 +2,34 @@
 kernels.
 
 Port of the Llama serving path of ``lqer_tpu/serving/decode.py``:
-``llama_step_scan`` on the packed backend with the ring-staged MXINT8
-cache. The ``lax.scan`` over layers becomes a Python loop; each kernel takes
-per-layer views of the layer-stacked weights and cache (``stacked[li]`` is
-a zero-copy view), so no slice is copied. The cache is updated in place.
+``llama_step_scan`` on the packed backend. The ``lax.scan`` over layers
+becomes a Python loop; each kernel takes per-layer views of the
+layer-stacked weights and cache (``stacked[li]`` is a zero-copy view), so no
+slice is copied. The cache is updated in place.
 
 Per layer: RMSNorm → fused q|k|v (kernel 1) → rotary → attention → o
-(kernel 1) → RMSNorm → the whole MLP in one megakernel launch (kernel 5;
-with ``fuse_mlp=False`` packing: fused gate|up (kernel 1) → silu·up → down
-(kernel 1)). Attention is the prefill kernel (kernel 2) at admission and
-the staged decode kernel (kernel 3) at s = 1; a decode step first flushes
-the rings into the main cache (kernel 4) once any slot's ring residue
-reaches 48. The W8 lm_head is kernel 1 again. At 512 rows and more (an
-admission of 8 x 64 tokens, a 2048-token prompt) every packed linear, the
-MLP and the head take the large-M route instead: unpack each weight once
-(kernel 6), then one dense product.
+(kernel 1) → RMSNorm → the whole MLP in one megakernel launch (with
+``fuse_mlp=False`` packing: fused gate|up (kernel 1) → silu·up → down
+(kernel 1)). At admission, attention is the prefill kernel and the new rows
+are written into the cache in plain PyTorch (the JAX package's XLA
+update). At s = 1 the route follows the cache (``make_cache``):
+
+- ``mxint8-staged``: the staged decode kernel writes the fresh token into
+  the ring and attends; a step first flushes the rings into the main cache
+  once any slot's ring residue reaches 48;
+- ``mxint8``: one launch encodes the fresh token into column ``pos`` and
+  attends (``decode_attention_quantized_write``);
+- ``mxint4``: the fresh rows MXINT4-encoded, the row-write kernel stores
+  the four columns, the quantized decode kernel attends at width 4;
+- ``bfloat16`` (the default, as in the JAX package): the row-write kernel
+  stores the bf16 rows, the fp-cache decode kernel attends, quantizing
+  every operand at use.
+
+The W8 lm_head is kernel 1 again. At 512 rows and more (an admission of
+8 x 64 tokens, a 2048-token prompt) every packed linear, the MLP and the
+head take the large-M route instead: unpack each weight once, then one
+dense product. Regimes for which the JAX package takes a path without a
+ported kernel raise ``NotImplementedError`` before any work.
 """
 
 from __future__ import annotations
@@ -38,10 +51,22 @@ from ..models.common import (
     rotary_tables,
     supports_fused_attention,
 )
-from ..ops.kernels.cache_write import flush_stage_to_main
+from ..ops.kernels import fp_decode, quantized_decode
+from ..ops.kernels.cache_write import flush_stage_to_main, write_kv_rows_stacked
 from ..ops.kernels.decode_attention import decode_attention_quantized_staged
+from ..ops.kernels.fp_decode import (
+    SMEM_LIMIT,
+    decode_attention_fp,
+    decode_attention_widths,
+    supports_decode_attention,
+)
+from ..ops.kernels.quantized_decode import (
+    decode_attention_quantized,
+    decode_attention_quantized_write,
+    decode_attention_widths_quantized,
+)
 from ..ops.kernels.dequant_gemm import qlinear_w4_dense_largeM, qlinear_w4_fused
-from ..parallel.collectives import mx8_decode, mx8_encode
+from ..parallel.collectives import mx4_decode, mx4_encode, mx8_decode, mx8_encode
 from .kernel_backend import (
     _LARGEM_THRESHOLD,
     serving_linear,
@@ -53,27 +78,155 @@ from .kv_cache import (
     STAGE_KEYS,
     cache_code_width,
     cache_group,
+    cache_max_len,
+    init_kv_cache,
     init_quantized_kv_cache,
+    is_quantized_cache,
     is_staged_cache,
     stage_boundary_sync,
 )
 
 FLUSH_RESIDUE = 48  # flush once a ring holds 48 tokens: < 64 lanes always
+CACHE_DTYPES = ("bfloat16", "float32", "mxint8", "mxint8-staged", "mxint4",
+                "mxint4-staged")
 
 # one (cos, sin) table pair per (head_dim, length, theta, device)
 _rotary = functools.lru_cache(maxsize=8)(rotary_tables)
 
 
-def make_cache(cfg, batch: int, max_len: int, dtype="mxint8-staged",
+def _fp_cache_kernel_fits(max_len: int, head_dim: int, itemsize: int) -> bool:
+    """The JAX fp-cache kernel's one-pass length: one head's double-buffered
+    whole-L K and V in its 12 MB budget (beyond it the JAX package takes the
+    eager path)."""
+    return 2 * max_len * head_dim * itemsize * 2 <= 12 * 1024 * 1024
+
+
+def _kvh_chunk_fits(max_len: int, head_dim: int, group: int = 16) -> bool:
+    """The JAX MXINT-cache kernels' one-pass length (beyond it the JAX
+    package streams L in chunks: ``decode_attention_quantized_streaming``
+    and ``write_kv_tokens_fused``)."""
+    return 2 * max_len * head_dim * (1 + 1 / group) * 2 <= 12 * 1024 * 1024
+
+
+def _cache_kind(cache: dict) -> str:
+    if is_staged_cache(cache):
+        return "mxint8-staged"
+    if is_quantized_cache(cache):
+        return f"mxint{cache_code_width(cache)}"
+    return {torch.bfloat16: "bfloat16", torch.float32: "float32"}.get(
+        cache["k"].dtype, str(cache["k"].dtype))
+
+
+def _check_cache_regime(kind: str, max_len: int, head_dim: int) -> None:
+    """Raise ``NotImplementedError`` where the JAX package serves a cache of
+    this kind and length through a path the port has no kernel for."""
+    if kind == "float32":
+        raise NotImplementedError(
+            "the float32 cache is not ported (JAX: init_kv_cache with "
+            "dtype=float32, served by the eager path serving/decode.py::"
+            "_attend)")
+    if kind not in ("bfloat16", "mxint8", "mxint8-staged", "mxint4"):
+        raise NotImplementedError(f"cache {kind!r} is not ported")
+    if max_len < 128 or max_len % 16 or head_dim % 16:
+        raise NotImplementedError(
+            f"decode at max_len={max_len}, head_dim={head_dim} takes the JAX "
+            "package's eager path (serving/decode.py::_attend; its kernels "
+            "need max_len >= 128 and max_len, head_dim multiples of 16), "
+            "which is not ported")
+    if kind == "bfloat16" and not _fp_cache_kernel_fits(max_len, head_dim, 2):
+        raise NotImplementedError(
+            f"the bf16 cache at max_len={max_len} is past the fp kernel's "
+            "one-pass length (serving/decode.py::_fp_cache_kernel_fits); the "
+            "JAX package takes its eager path (_attend), which is not ported")
+    if kind in ("mxint8", "mxint4") and not _kvh_chunk_fits(max_len,
+                                                            head_dim):
+        raise NotImplementedError(
+            f"the {kind} cache at max_len={max_len} is past the one-pass "
+            "length (ops/pallas/decode_attention.py::_kvh_chunk_fits); the "
+            "JAX package streams L there (decode_attention_quantized_"
+            "streaming, write_kv_tokens_fused), which is not ported")
+
+
+def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                device="cuda") -> dict:
-    """Only the ring-staged MXINT8 cache is ported (``"mxint8-staged"``)."""
-    if dtype != "mxint8-staged":
-        raise NotImplementedError(f"cache dtype {dtype!r} is not ported; "
-                                  "use 'mxint8-staged'")
+    """The JAX package's ``make_cache``: ``"bfloat16"`` (the default;
+    ``torch.bfloat16`` too), ``"mxint8"``, ``"mxint8-staged"`` (the
+    direct-write ``"mxint8"`` where ``max_len % 128 != 0``, as in JAX) and
+    ``"mxint4"``. ``"float32"``, a staged ``"mxint4-staged"``, sliding
+    windows and lengths the kernels do not serve raise
+    ``NotImplementedError``."""
+    name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}.get(dtype,
+                                                                      dtype)
+    if name not in CACHE_DTYPES:
+        raise ValueError(f"unknown cache dtype {dtype!r} ({CACHE_DTYPES})")
     if getattr(cfg, "sliding_window", None) is not None:
         raise NotImplementedError("sliding-window attention is not ported")
-    return init_quantized_kv_cache(cfg.num_hidden_layers, batch, cfg.kv_heads,
-                                   cfg.head_dim, max_len, device=device)
+    staged = name.endswith("-staged") and max_len % 128 == 0
+    if name == "mxint4-staged" and staged:
+        raise NotImplementedError(
+            "the staged MXINT4 cache is not ported (JAX: "
+            "decode_attention_quantized_staged at code width 4)")
+    kind = name.removesuffix("-staged") if not staged else name
+    _check_cache_regime(kind, max_len, cfg.head_dim)
+    shape = (cfg.num_hidden_layers, batch, cfg.kv_heads, cfg.head_dim,
+             max_len)
+    if kind == "bfloat16":
+        return init_kv_cache(*shape, dtype=torch.bfloat16, device=device)
+    return init_quantized_kv_cache(*shape, staged=staged,
+                                   code_width=4 if kind == "mxint4" else 8,
+                                   device=device)
+
+
+def _kv_config_is_cache_format(attn_cfg, width: int) -> bool:
+    """The K/V-side operand quantizers coincide with the MXINT cache's
+    write grid (only then does the cache format stand in for them)."""
+    qk, pv = attn_cfg.qk_cfg, attn_cfg.pv_cfg
+    if qk is None or pv is None:
+        return qk is None and pv is None
+    kx = qk.get("w_quantizer") or qk.get("default")
+    vx = pv.get("w_quantizer") or pv.get("default")
+    return all(_std_a8(c) and c.get("width") == width for c in (kx, vx))
+
+
+def check_servable(cache: dict, attn_cfgs, head_dim: int, n_rep: int
+                   ) -> None:
+    """Raise ``NotImplementedError`` unless every admission and decode step
+    over ``cache`` with these attention configs runs through a ported
+    kernel: the JAX package's eager attention (``serving/decode.py::
+    _attend``) is not ported, nor are its streaming kernels."""
+    kind = _cache_kind(cache)
+    max_len = cache_max_len(cache)
+    _check_cache_regime(kind, max_len, head_dim)
+    quantized = is_quantized_cache(cache)
+    width = cache_code_width(cache) if quantized else 8
+    if kind == "bfloat16":
+        smem = fp_decode.smem_bytes(n_rep, max_len, head_dim)
+    elif not is_staged_cache(cache):
+        smem = quantized_decode.smem_bytes(n_rep, max_len, head_dim)
+    else:
+        smem = 0
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the decode kernel's scores at n_rep={n_rep}, max_len={max_len} "
+            f"need {smem} bytes of shared memory (at most "
+            f"{SMEM_LIMIT}); no streaming variant is ported")
+    # layers resolved from one config share its matmul dicts
+    for attn_cfg in {(id(c.qk_cfg), id(c.pv_cfg)): c
+                     for c in attn_cfgs}.values():
+        if not supports_decode_attention(attn_cfg, width):
+            raise NotImplementedError(
+                f"decode attention of this configuration over the {kind} "
+                "cache takes the JAX package's eager path (serving/decode.py"
+                "::_attend; the kernels need the MXINT attention formats "
+                f"with K/V at the cache's width {width}), which is not "
+                "ported")
+        if not supports_fused_attention(attn_cfg, kv_pre_quantized=quantized) \
+                or (quantized and not _kv_config_is_cache_format(attn_cfg,
+                                                                 width)):
+            raise NotImplementedError(
+                f"admission attention of this configuration over the {kind} "
+                "cache takes the JAX package's eager path (serving/decode.py"
+                "::_fresh_prefill_attend returns None), which is not ported")
 
 
 def stack_backend(backend: dict, cfg, consume: bool = False) -> dict:
@@ -131,20 +284,6 @@ def _heads(y: torch.Tensor, num_heads: int) -> torch.Tensor:
     return y.reshape(b, s, num_heads, -1).transpose(1, 2)
 
 
-def _widths(attn_cfg) -> tuple[int, int]:
-    """(q_width, p_width) of the attention kernels; the K/V side is the
-    cache's MXINT8 write grid."""
-    qk, pv = attn_cfg.qk_cfg, attn_cfg.pv_cfg
-    cfgs = [None if c is None else (c.get(k) or c.get("default"))
-            for c in (qk, pv) for k in ("x_quantizer", "w_quantizer")]
-    if not all(_std_a8(c) and c["width"] <= 9 for c in cfgs) \
-            or cfgs[1]["width"] != 8 or cfgs[3]["width"] != 8:
-        raise NotImplementedError(
-            "the ported attention kernels need the MXINT8 activation format "
-            f"on both matmuls with 8-bit K/V (got {qk}, {pv})")
-    return int(cfgs[0]["width"]), int(cfgs[2]["width"])
-
-
 def _last_valid_h(h, valid_lengths, s, logits_last_only):
     """(b, s, e) → (b, 1, e) at each slot's last valid position."""
     if not logits_last_only or s == 1:
@@ -173,14 +312,22 @@ def _lm_head_logits(h, lm_head, backend):
 
 
 def _cache_write_full(cache, li, kh, vh, positions):
-    """Prefill write (s > 1): MXINT8-encode the new rows (exact exponents,
-    zero fill 1.0) and store them token-axis-last at ``positions[b] + t``."""
+    """Admission write (s > 1) of the new rows at ``positions[b] + t``: the
+    bf16 rows into the fp cache, or their MXINT8/MXINT4 encode (exact
+    exponents, zero fill 1.0) token-axis-last into the MXINT cache."""
     s = kh.shape[2]
-    group = cache_group(cache)
     idx_t = (positions[:, None] + torch.arange(s, device=kh.device)).to(
         torch.int64)
+    if not is_quantized_cache(cache):
+        for key, new in (("k", kh), ("v", vh)):
+            arr = cache[key][li]                       # (B, KVH, L, d)
+            val = new.to(arr.dtype)
+            arr.scatter_(2, idx_t[:, None, :, None].expand_as(val), val)
+        return
+    group = cache_group(cache)
+    enc = mx4_encode if cache_code_width(cache) == 4 else mx8_encode
     for side, new in (("k", kh), ("v", vh)):
-        codes, exps = mx8_encode(new, group, zero_fill=1.0)
+        codes, exps = enc(new, group, zero_fill=1.0)
         for key, val in ((f"{side}_codes", codes), (f"{side}_exps", exps)):
             arr = cache[key][li]                       # (B, KVH, rows, L)
             val_t = val.transpose(-1, -2)              # (B, KVH, rows, s)
@@ -188,33 +335,69 @@ def _cache_write_full(cache, li, kh, vh, positions):
             arr.scatter_(-1, idx, val_t)
 
 
+def _cache_write_row(cache, li, kh, vh, positions):
+    """Decode write (s = 1) through the row-write kernel: the bf16 rows
+    into the fp cache, or the four MXINT4 columns of the encoded rows."""
+    if not is_quantized_cache(cache):
+        write_kv_rows_stacked((cache["k"], cache["v"]), (kh, vh), li,
+                              positions)
+        return
+    group = cache_group(cache)
+    cols = []
+    for new in (kh, vh):
+        cols += [t.transpose(-1, -2) for t in mx4_encode(new, group,
+                                                         zero_fill=1.0)]
+    write_kv_rows_stacked(tuple(cache[k] for k in MAIN_KEYS), tuple(cols),
+                          li, positions)
+
+
 def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache):
     """Admission attention (positions 0, fresh cache) through the prefill
-    kernel; K/V enter as their MXINT8 cache-write grid."""
-    if cache_code_width(cache) != 8 or not supports_fused_attention(
-            attn_cfg, kv_pre_quantized=True):
-        raise NotImplementedError("prefill attention needs the MXINT8 cache "
-                                  "and the MXINT8 attention formats")
+    kernel. Over an MXINT cache K/V enter as their cache-write grid (the
+    round trip through the cache's encode); over the fp cache as the f32
+    rows, quantized at use (K^T per 16 tokens, V per 16 along d)."""
     b, h, s, d = qh.shape
     if d % 16 or s % 16 or s < 16:
         raise ValueError(f"prefill chunk must be a multiple of 16 (s={s})")
-    g = cache_group(cache)
-    kr = mx8_decode(*mx8_encode(kh, g, zero_fill=1.0), g, torch.bfloat16)
-    vr = mx8_decode(*mx8_encode(vh, g, zero_fill=1.0), g, torch.bfloat16)
+    quantized = is_quantized_cache(cache)
+    if quantized:
+        g = cache_group(cache)
+        enc, dec = ((mx4_encode, mx4_decode) if cache_code_width(cache) == 4
+                    else (mx8_encode, mx8_decode))
+        kh = dec(*enc(kh, g, zero_fill=1.0), g, torch.bfloat16)
+        vh = dec(*enc(vh, g, zero_fill=1.0), g, torch.bfloat16)
     return fused_quantized_attention(
-        qh, repeat_kv(kr, n_rep), repeat_kv(vr, n_rep), attn_cfg, scaling,
-        kv_values_pre_quantized=True)
+        qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep), attn_cfg, scaling,
+        kv_values_pre_quantized=quantized)
+
+
+def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling):
+    """Decode attention (s = 1) with the fresh token written into layer
+    ``li`` of the direct-write cache: one fused launch for MXINT8, the row
+    write then the read-only kernel for MXINT4 and bf16."""
+    if is_quantized_cache(cache) and cache_code_width(cache) == 8:
+        return decode_attention_quantized_write(
+            qh, *(cache[k] for k in MAIN_KEYS), kh, vh, positions, li,
+            scaling=scaling, **decode_attention_widths_quantized(attn_cfg))
+    _cache_write_row(cache, li, kh, vh, positions)
+    if is_quantized_cache(cache):
+        return decode_attention_quantized(
+            qh, *(cache[k] for k in MAIN_KEYS), positions, li,
+            scaling=scaling, **decode_attention_widths_quantized(attn_cfg))
+    return decode_attention_fp(qh, cache["k"], cache["v"], positions, li,
+                               scaling=scaling,
+                               **decode_attention_widths(attn_cfg))
 
 
 def _staged_write_attend(cache, qh, kh, vh, positions, li, attn_cfg,
                          scaling):
     """Decode attention through the staged kernel; the fresh rows land in
     layer ``li``'s rings in place."""
-    q_width, p_width = _widths(attn_cfg)
     return decode_attention_quantized_staged(
         qh, *(cache[k][li] for k in MAIN_KEYS),
         *(cache[k][li] for k in STAGE_KEYS), kh, vh, positions,
-        cache["flushed"], scaling=scaling, q_width=q_width, p_width=p_width)
+        cache["flushed"], scaling=scaling,
+        **decode_attention_widths_quantized(attn_cfg))
 
 
 def _staged_flush_maybe(cache, positions):
@@ -243,14 +426,17 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     if backend_stacked is None:
         raise NotImplementedError("the port serves through the kernel "
                                   "backend only (backend_stacked)")
-    if not is_staged_cache(cache):
-        raise NotImplementedError("the port serves the staged cache only")
     b, s = input_ids.shape
     if s > 1 and not fresh_prefill:
         raise NotImplementedError("chunked prefill into a filled cache is "
                                   "not ported")
-    max_len = cache["k_codes"].shape[-1]
-    if s == 1:
+    qcfgs = (layer_qcfg if isinstance(layer_qcfg, list)
+             else [layer_qcfg] * cfg.num_hidden_layers)
+    n_rep = cfg.num_attention_heads // cfg.kv_heads
+    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, n_rep)
+    staged = is_staged_cache(cache)
+    max_len = cache_max_len(cache)
+    if s == 1 and staged:
         _staged_flush_maybe(cache, positions)
     embed = rest["model.embed_tokens.weight"]
     h = embed[input_ids]
@@ -259,14 +445,11 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         torch.int64)
     cos, sin = _rotary(cfg.head_dim, max(max_len, cfg.max_position_embeddings),
                        cfg.rope_theta, h.device)
-    n_rep = cfg.num_attention_heads // cfg.kv_heads
     scaling = cfg.head_dim ** -0.5
     kv_valid = None
     if valid_lengths is not None:
         kv_valid = (torch.arange(s, device=h.device)[None, :]
                     < valid_lengths[:, None])
-    qcfgs = (layer_qcfg if isinstance(layer_qcfg, list)
-             else [layer_qcfg] * cfg.num_hidden_layers)
 
     for li in range(cfg.num_hidden_layers):
         q = qcfgs[li]
@@ -290,9 +473,12 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
             attn = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling,
                                          n_rep, cache)
             _cache_write_full(cache, li, kh, vh, positions)
-        else:
+        elif staged:
             attn = _staged_write_attend(cache, qh, kh, vh, positions, li,
                                         attn_cfg, scaling)
+        else:
+            attn = _decode_attend(cache, qh, kh, vh, positions, li,
+                                  attn_cfg, scaling)
         attn = serving_linear(merge_heads(attn),
                               "self_attn.o_proj", backend_stacked,
                               attn_cfg.o_proj, layer_index=li)
@@ -314,7 +500,7 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
 
     h = rms_norm(h, {"weight": rest["model.norm.weight"]}, cfg.rms_norm_eps)
     h = _last_valid_h(h, valid_lengths, s, logits_last_only)
-    if s > 1:
+    if s > 1 and staged:
         new_pos = positions + (valid_lengths if valid_lengths is not None
                                else s)
         stage_boundary_sync(cache, new_pos)

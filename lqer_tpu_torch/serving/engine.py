@@ -17,7 +17,7 @@ import torch
 
 from .. import models
 from ..device import resolve_device
-from .decode import llama_step_scan, make_cache, stack_backend
+from .decode import check_servable, llama_step_scan, make_cache, stack_backend
 from .kernel_backend import pack_lm_head
 
 
@@ -52,11 +52,14 @@ class DecodeEngine:
 
     ``pallas_backend`` comes from ``kernel_backend.prepare_serving_params``
     (or ``convert.backend_from_jax``); ``lm_head_width=8`` packs the head
-    for the W8 kernel. ``device`` defaults to the card and raises when
-    there is none; params and backend move to it."""
+    for the W8 kernel. ``cache_dtype`` is one of ``decode.make_cache``'s
+    (the bf16 cache by default, as in the JAX package). ``device`` defaults
+    to the card and raises when there is none; params and backend move to
+    it. A cache and configuration that would take a path without a ported
+    kernel raise ``NotImplementedError`` here."""
 
     def __init__(self, params: dict, cfg, layer_qcfgs, num_slots: int = 4,
-                 max_len: int = 512, cache_dtype="mxint8-staged",
+                 max_len: int = 512, cache_dtype="bfloat16",
                  rng_seed: int = 0, pallas_backend: dict | None = None,
                  consume_backend: bool = False,
                  lm_head_width: int | None = None, device="cuda"):
@@ -73,6 +76,8 @@ class DecodeEngine:
             backend = pack_lm_head(backend, params, width=lm_head_width)
         self.cache = make_cache(cfg, num_slots, max_len, cache_dtype,
                                 device=self.device)
+        check_servable(self.cache, [q["attn"] for q in layer_qcfgs],
+                       cfg.head_dim, cfg.num_attention_heads // cfg.kv_heads)
         self.lengths = np.zeros(num_slots, dtype=np.int32)  # tokens in cache
         self.slot_req: list[Request | None] = [None] * num_slots
         self.generator = torch.Generator(device=self.device)

@@ -1,13 +1,22 @@
-"""Ring-staged MXINT8 KV cache (port of the staged parts of
-``lqer_tpu/serving/kv_cache.py``).
+"""KV caches (port of ``lqer_tpu/serving/kv_cache.py``).
 
-Codes and exponents keep the JAX package's token-axis-last layout:
-codes ``(NL, B, KVH, d, L)``, exps ``(NL, B, KVH, d/16, L)``; a 64-lane
-staging ring of the same row shapes takes each decode token at lane
-``pos % 64``; per slot, ``flushed`` (32-aligned) splits positions between
-the main cache ``[0, flushed)`` and the ring ``[flushed, pos]``. On the card
-the layout reads consecutive tokens across a warp in both phases of the
-decode kernel (``csrc/decode_attention.cu``).
+Three layouts, each layer-stacked with a leading layer axis:
+
+- the fp cache (``init_kv_cache``): ``k``, ``v`` of shape
+  ``(NL, B, KVH, L, d)``, token-major;
+- the MXINT cache (``init_quantized_kv_cache``): codes and exponents keep the
+  JAX package's token-axis-last layout, codes ``(NL, B, KVH, d, L)`` (MXINT8)
+  or ``(NL, B, KVH, d/2, L)`` (MXINT4, nibble-packed d-split: packed row
+  ``i`` holds value ``i`` low and ``i + d/2`` high), exps
+  ``(NL, B, KVH, d/16, L)``; decode tokens are written straight into
+  column ``pos``;
+- with ``staged``, the MXINT8 cache adds a 64-lane staging ring of the same
+  row shapes that takes each decode token at lane ``pos % 64``; per slot,
+  ``flushed`` (32-aligned) splits positions between the main cache
+  ``[0, flushed)`` and the ring ``[flushed, pos]``.
+
+On the card the token-axis-last layout reads consecutive tokens across a
+warp in both phases of the decode kernels (``csrc/decode_common.cuh``).
 """
 
 from __future__ import annotations
@@ -21,24 +30,29 @@ STAGE_KEYS = ("k_stage_codes", "k_stage_exps", "v_stage_codes",
               "v_stage_exps")
 
 
+def init_kv_cache(num_layers: int, batch: int, kv_heads: int, head_dim: int,
+                  max_len: int, dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zeroed fp cache ``{"k", "v"}`` of shape (NL, B, KVH, L, d)."""
+    shape = (num_layers, batch, kv_heads, max_len, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_quantized_kv_cache(num_layers: int, batch: int, kv_heads: int,
                             head_dim: int, max_len: int, group: int = 16,
-                            staged: bool = True,
+                            staged: bool = False,
                             stage_width: int = STAGE_WIDTH,
-                            device="cuda") -> dict:
-    """Zeroed MXINT8 cache; with ``staged`` the 64-lane rings and
-    ``flushed`` too. Only the staged MXINT8 layout is ported."""
-    if not staged:
-        raise NotImplementedError("only the staged MXINT8 cache is ported")
-    if stage_width != STAGE_WIDTH:
-        raise ValueError(
-            f"stage_width must be {STAGE_WIDTH}: the decode step flushes when "
-            f"a slot's ring residue reaches 48, which keeps it below 64 lanes "
-            f"(got {stage_width})")
-    if head_dim % group or max_len % 128:
-        raise ValueError(f"need head_dim % {group} == 0 and max_len % 128 "
-                         f"== 0 (head_dim={head_dim}, max_len={max_len})")
-    shape_c = (num_layers, batch, kv_heads, head_dim, max_len)
+                            code_width: int = 8, device="cuda") -> dict:
+    """Zeroed MXINT8 (``code_width=8``) or MXINT4 (``code_width=4``) cache;
+    with ``staged`` the 64-lane rings and ``flushed`` too (MXINT8 only: the
+    staged MXINT4 kernel is not ported)."""
+    if code_width not in (4, 8):
+        raise ValueError(f"code_width must be 4 or 8 (got {code_width})")
+    if head_dim % (group if code_width == 8 else 2 * group):
+        raise ValueError(f"head_dim {head_dim} does not split into groups "
+                         f"of {group} at code width {code_width}")
+    code_rows = head_dim if code_width == 8 else head_dim // 2
+    shape_c = (num_layers, batch, kv_heads, code_rows, max_len)
     shape_e = (num_layers, batch, kv_heads, head_dim // group, max_len)
     out = {}
     for side in ("k", "v"):
@@ -46,6 +60,21 @@ def init_quantized_kv_cache(num_layers: int, batch: int, kv_heads: int,
                                            device=device)
         out[f"{side}_exps"] = torch.zeros(shape_e, dtype=torch.int8,
                                           device=device)
+    if not staged:
+        return out
+    if code_width != 8:
+        raise NotImplementedError(
+            "the staged MXINT4 cache is not ported (JAX: "
+            "decode_attention_quantized_staged at code width 4)")
+    if stage_width != STAGE_WIDTH:
+        raise ValueError(
+            f"stage_width must be {STAGE_WIDTH}: the decode step flushes when "
+            f"a slot's ring residue reaches 48, which keeps it below 64 lanes "
+            f"(got {stage_width})")
+    if max_len % 128:
+        raise ValueError(f"the staged cache needs max_len % 128 == 0 "
+                         f"(max_len={max_len})")
+    for side in ("k", "v"):
         out[f"{side}_stage_codes"] = torch.zeros(
             shape_c[:-1] + (stage_width,), dtype=torch.int8, device=device)
         out[f"{side}_stage_exps"] = torch.zeros(
@@ -64,6 +93,17 @@ def cache_code_width(cache: dict) -> int:
     """8 (one int8 code per value) or 4 (two codes per byte)."""
     r = cache["k_codes"].shape[-2] // cache["k_exps"].shape[-2]
     return 4 if r == 8 else 8
+
+
+def cache_max_len(cache: dict) -> int:
+    """Token capacity: the last axis of the codes, dim 3 of the fp cache."""
+    if is_quantized_cache(cache):
+        return cache["k_codes"].shape[-1]
+    return cache["k"].shape[3]
+
+
+def is_quantized_cache(cache: dict) -> bool:
+    return "k_codes" in cache
 
 
 def is_staged_cache(cache: dict) -> bool:

@@ -39,6 +39,15 @@ Q_CONFIG = {
                "w_quantizer": _q(8, [1, 16], True)},
 }
 
+# The same linears with KV4 attention: q and p at width 8, K and V at width
+# 4, the write grid of the MXINT4 cache (the JAX package's
+# tests/test_kv4_cache.py::_kv4_qconfig). The linears pack identically.
+KV4_Q_CONFIG = {
+    "linear": Q_CONFIG["linear"],
+    "matmul": {"name": "flexible", "x_quantizer": _q(8, [1, 16], True),
+               "w_quantizer": _q(4, [1, 16], True)},
+}
+
 
 def layer_shapes(cfg) -> dict:
     h, inter = cfg.hidden_size, cfg.intermediate_size

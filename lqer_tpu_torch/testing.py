@@ -24,7 +24,12 @@ import torch
 from .ops.kernels import mlp_fused
 from .ops.kernels.dequant_gemm import lqer_correction
 from .ops.storage import MXINT4, dequantize_packed
-from .parallel.collectives import ceil_log2_exact, exp2_int, floor_log2_exact
+from .parallel.collectives import (
+    ceil_log2_exact,
+    exp2_int,
+    floor_log2_exact,
+    unpack_nibbles,
+)
 
 RTOL = ATOL = 2e-4
 GROUP = 16  # values per shared exponent in every 8-bit quantizer here
@@ -142,31 +147,49 @@ def logits_steps(got: torch.Tensor, want: torch.Tensor
     return float(d.abs().max()), float(d.square().mean().sqrt())
 
 
-def cache_agreement(a: dict, b: dict) -> tuple[float, float]:
-    """Main caches ``a`` and ``b`` below their (equal) ``flushed``: the
-    fraction of equal code and exponent bytes, and the largest difference
-    of decoded values in code steps of the coarser exponent of the two."""
-    fl = a["flushed"].cpu()
-    if not torch.equal(fl, b["flushed"].cpu()):
-        raise AssertionError(f"flushed differs: {fl} vs {b['flushed']}")
+def _cache_rows(cache: dict, side: str, s: int, f: int):
+    """Slot ``s``'s first ``f`` tokens of one side of the cache, d along
+    dim -2: (entries to count, values in code steps at their exponents,
+    exponents per value) with the code width; the bf16 cache counts values
+    and reads them in 8-bit steps of their 16-group along d."""
+    if f"{side}_codes" not in cache:
+        x = cache[side][:, s, :, :f, :].to(torch.float32).transpose(-1, -2)
+        e = ceil_log2_exact(x.abs().transpose(-1, -2).reshape(
+            *x.shape[:-2], f, -1, GROUP).amax(-1).clamp(min=2 ** -126))
+        e = e.transpose(-1, -2).repeat_interleave(GROUP, -2)
+        return (x,), x * exp2_int(7 - e), e, 8
+    codes = cache[f"{side}_codes"][:, s, ..., :f]
+    exps = cache[f"{side}_exps"][:, s, ..., :f]
+    width = 4 if codes.shape[-2] * 2 == exps.shape[-2] * GROUP else 8
+    vals = (torch.cat(unpack_nibbles(codes), -2) if width == 4
+            else codes.to(torch.int32))
+    rows = vals.shape[-2] // exps.shape[-2]
+    e = exps.to(torch.int32).repeat_interleave(rows, -2)
+    return (codes, exps), vals.to(torch.float32), e, width
+
+
+def cache_agreement(a: dict, b: dict, lengths) -> tuple[float, float]:
+    """Caches ``a`` and ``b`` over the first ``lengths[s]`` tokens of each
+    slot ``s`` (for a staged cache, its ``flushed``: the main part): the
+    fraction of equal entries (code and exponent bytes, or bf16 values) and
+    the largest difference of values in code steps of the cache's width
+    (4-bit steps for MXINT4, 8-bit steps otherwise; the bf16 cache in steps
+    of its 16-groups along d) at the coarser exponent of the two."""
     eq = total = 0
     worst = 0.0
     for side in ("k", "v"):
-        ca, cb = a[f"{side}_codes"].cpu(), b[f"{side}_codes"].cpu()
-        ea, eb = a[f"{side}_exps"].cpu(), b[f"{side}_exps"].cpu()
-        for s in range(fl.shape[0]):
-            f = int(fl[s])
+        for s, f in enumerate(int(n) for n in lengths):
             if f == 0:
                 continue
-            xa, xb = ca[:, s, ..., :f], cb[:, s, ..., :f]
-            ya, yb = ea[:, s, ..., :f], eb[:, s, ..., :f]
-            eq += int((xa == xb).sum()) + int((ya == yb).sum())
-            total += xa.numel() + ya.numel()
-            rows = xa.shape[-2] // ya.shape[-2]
-            ya, yb = (y.to(torch.int32).repeat_interleave(rows, -2)
-                      for y in (ya, yb))
+            ea_, va, ya, width = _cache_rows(a, side, s, f)
+            eb_, vb, yb, _ = _cache_rows(b, side, s, f)
+            for xa, xb in zip(ea_, eb_):
+                xa, xb = xa.cpu(), xb.cpu()
+                eq += int((xa == xb).sum())
+                total += xa.numel()
+            va, vb, ya, yb = (t.cpu() for t in (va, vb, ya, yb))
             emax = torch.maximum(ya, yb)
-            da = xa.float() * exp2_int(ya - emax)
-            db = xb.float() * exp2_int(yb - emax)
+            da = va * exp2_int(ya - emax)
+            db = vb * exp2_int(yb - emax)
             worst = max(worst, float((da - db).abs().max()))
     return eq / max(total, 1), worst

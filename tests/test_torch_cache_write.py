@@ -54,7 +54,8 @@ def test_encode_t_matches_jax():
 def test_stage_boundary_sync_matches_jax():
     rng = np.random.default_rng(4)
     jcache = jkv.init_quantized_kv_cache(NL, B, KVH, D, L, staged=True)
-    tcache = tkv.init_quantized_kv_cache(NL, B, KVH, D, L, device="cpu")
+    tcache = tkv.init_quantized_kv_cache(NL, B, KVH, D, L, staged=True,
+                                         device="cpu")
     for key in tkv.MAIN_KEYS:
         a = rng.integers(-128, 128, jcache[key].shape).astype(np.int8)
         jcache[key] = jnp.asarray(a)
@@ -71,9 +72,10 @@ def test_stage_width_other_than_64_is_rejected():
     """The decode step flushes at a ring residue of 48, which stays below
     the ring width only for 64 lanes; the JAX cache accepts other widths."""
     with pytest.raises(ValueError, match="stage_width must be 64"):
-        tkv.init_quantized_kv_cache(1, 2, 2, 32, 256, stage_width=32,
-                                    device="cpu")
-    cache = tkv.init_quantized_kv_cache(1, 2, 2, 32, 256, device="cpu")
+        tkv.init_quantized_kv_cache(1, 2, 2, 32, 256, staged=True,
+                                    stage_width=32, device="cpu")
+    cache = tkv.init_quantized_kv_cache(1, 2, 2, 32, 256, staged=True,
+                                        device="cpu")
     assert cache["k_stage_codes"].shape[-1] == 64
     assert tkv.cache_group(cache) == 16 and tkv.cache_code_width(cache) == 8
     assert tkv.is_staged_cache(cache)

@@ -1,13 +1,15 @@
-"""The six CUDA kernels of the port against their plain PyTorch versions
+"""The ten CUDA kernels of the port against their plain PyTorch versions
 on the card, at small shapes (the unpack kernel at the 7B shapes, prefill
-attention also at the 2048-token admission's), and the large-M route. Needs an
+attention also at the 2048-token admission's, the decode kernels of the
+direct-write caches also at the 7B decode shape), and the large-M route.
+Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 Outputs are held to the limits of ``lqer_tpu_torch/testing.py``: rtol =
 atol = 2e-4 for the summation order, plus one 8-bit code step of each
-quantizer whose rounding that order can flip. Ring, flush and unpacked
-weight bytes are bit-exact.
+quantizer whose rounding that order can flip. Ring, flush, row-write,
+written-column and unpacked weight bytes are bit-exact.
 """
 
 import pytest
@@ -18,10 +20,16 @@ from lqer_tpu_torch.ops.kernels import attention as k2
 from lqer_tpu_torch.ops.kernels import cache_write as k4
 from lqer_tpu_torch.ops.kernels import decode_attention as k3
 from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+from lqer_tpu_torch.ops.kernels import fp_decode as kfp
 from lqer_tpu_torch.ops.kernels import mlp_fused as k5
+from lqer_tpu_torch.ops.kernels import quantized_decode as kq
 from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
 from lqer_tpu_torch.ops.storage import MXFormat
-from lqer_tpu_torch.parallel.collectives import mx8_decode, mx8_encode
+from lqer_tpu_torch.parallel.collectives import (
+    mx4_encode,
+    mx8_decode,
+    mx8_encode,
+)
 from lqer_tpu_torch.serving.kernel_backend import pack_lm_head
 from lqer_tpu_torch.serving.random_model import build_random_model
 from lqer_tpu_torch.testing import (
@@ -190,3 +198,105 @@ def test_flush(gen):
     k4.flush_stage_to_main(tuple(mains), tuple(rings), fl, nf)
     k4.flush_plain(tuple(plain), tuple(rings), fl, nf)
     assert all(torch.equal(a, b) for a, b in zip(mains, plain))
+
+
+# the decode kernels of the direct-write caches: (slots, kv heads, n_rep, d,
+# L, positions); the last is the 7B decode shape
+DECODE_SHAPES = [
+    (3, 2, 2, 64, 256, [15, 16, 255]),
+    (2, 4, 1, 128, 512, [0, 47]),
+    (3, 1, 4, 128, 144, [31, 100, 143]),
+    (8, 32, 1, 128, 2048, [64, 303, 560, 815, 1088, 1343, 1600, 1984])]
+
+
+def _positions(pos):
+    return torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("widths", [8, None])
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos", DECODE_SHAPES)
+def test_fp_decode_attention(gen, b, kvh, nrep, d, l, pos, widths):
+    """Every cache row holds a value, past each position too; ``None``
+    leaves K and V unquantized."""
+    k, v = (torch.randn(2, b, kvh, l, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kw = dict(scaling=d ** -0.5, k_width=widths, v_width=widths)
+    p = _positions(pos)
+    before = kfp.decode_attention_fp.launches
+    got = kfp.decode_attention_fp(q, k, v, p, 1, **kw)
+    assert kfp.decode_attention_fp.launches == before + 1
+    want = kfp.fp_decode_plain(q, k, v, p, 1, **kw)
+    s, vals = kfp.fp_scores(q, k, v, p, 1, **kw)
+    check_close("fp decode attention", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+def _mx_cache(gen, width, b, kvh, d, l):
+    enc = mx8_encode if width == 8 else mx4_encode
+    out = []
+    for _ in range(2):
+        c, e = enc(torch.randn(2, b, kvh, l, d, generator=gen, device="cuda"),
+                   16, zero_fill=1.0)
+        out += [c.transpose(-1, -2).contiguous(),
+                e.transpose(-1, -2).contiguous()]
+    return out
+
+
+@pytest.mark.parametrize("width", [8, 4])
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos", DECODE_SHAPES)
+def test_quantized_decode_attention(gen, b, kvh, nrep, d, l, pos, width):
+    cache = _mx_cache(gen, width, b, kvh, d, l)
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    p = _positions(pos)
+    got = kq.decode_attention_quantized(q, *cache, p, 1, scaling=0.125)
+    want = kq.quantized_decode_plain(q, *cache, p, 1, scaling=0.125)
+    s, vals = kq.quantized_scores(q, *cache, p, 1, scaling=0.125)
+    check_close(f"quantized decode attention width {width}", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos", DECODE_SHAPES)
+def test_fused_write_attend(gen, b, kvh, nrep, d, l, pos):
+    cache = _mx_cache(gen, 8, b, kvh, d, l)
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    kh[0, 0, 0, :16] = 0.0                      # an all-zero group
+    p = _positions(pos)
+    mine, theirs = [a.clone() for a in cache], [a.clone() for a in cache]
+    got = kq.decode_attention_quantized_write(q, *mine, kh, vh, p, 1,
+                                              scaling=0.125)
+    want = kq.quantized_write_plain(q, *theirs, kh, vh, p, 1, scaling=0.125)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    assert not all(torch.equal(a, b) for a, b in zip(mine, cache))
+    s, vals = kq.quantized_scores(q, *theirs, p, 1, scaling=0.125)
+    check_close("fused write + attend", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("pos", [[0, 17, 255], [255, 256, 3]])
+def test_row_write(gen, lane, pos):
+    """Both orientations, one launch for all arrays; a position past the
+    cache (256) writes nothing."""
+    b, kvh, d, l = 3, 2, 64, 256
+    if lane:
+        arrays = _mx_cache(gen, 4, b, kvh, d, l)
+        news = []
+        for _ in range(2):
+            news += [t.transpose(-1, -2).contiguous() for t in mx4_encode(
+                torch.randn(b, kvh, 1, d, generator=gen, device="cuda"), 16,
+                zero_fill=1.0)]
+    else:
+        arrays = [torch.randn(2, b, kvh, l, d, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        news = [torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+                for _ in range(2)]
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    p = _positions(pos)
+    k4.write_kv_rows_stacked(tuple(mine), tuple(news), 1, p)
+    k4.write_rows_plain(tuple(theirs), tuple(news), 1, p)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(mine, arrays))

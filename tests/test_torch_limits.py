@@ -80,5 +80,26 @@ def test_logits_steps_and_cache_agreement():
     b = {k: v.clone() for k, v in a.items()}
     b["v_codes"][0, 0, 0, 3, 5] = 1
     b["v_codes"][0, 0, 0, 3, 40] = 9      # past flushed: not compared
-    frac, worst = cache_agreement(a, b)
+    frac, worst = cache_agreement(a, b, a["flushed"])
     assert worst == 1.0 and frac == 1 - 1 / (2 * 17 * 32)
+
+
+def test_cache_agreement_of_direct_caches():
+    """Over the first ``lengths[s]`` tokens of each slot: bf16 values in
+    8-bit steps of their 16-group along d, MXINT4 codes in 4-bit steps."""
+    k = torch.zeros(1, 2, 1, 8, 16, dtype=torch.bfloat16)
+    k[0, 0, 0, :, 0] = 1.0                         # group exponent 0
+    a = {"k": k, "v": k.clone()}
+    b = {key: v.clone() for key, v in a.items()}
+    b["k"][0, 0, 0, 2, 1] = 2 ** -6                # two 8-bit steps
+    b["k"][0, 1, 0, 5, 3] = 1.0                    # past slot 1's length
+    frac, worst = cache_agreement(a, b, [4, 5])
+    assert worst == 2.0 and frac == 1 - 1 / (2 * 16 * 9)
+    codes = torch.zeros(1, 1, 1, 8, 32, dtype=torch.int8)
+    exps = torch.zeros(1, 1, 1, 1, 32, dtype=torch.int8)
+    a = {"k_codes": codes, "k_exps": exps, "v_codes": codes.clone(),
+         "v_exps": exps.clone()}
+    b = {key: v.clone() for key, v in a.items()}
+    b["k_codes"][0, 0, 0, 1, 2] = 0x30              # value 9 (high nibble): 3
+    frac, worst = cache_agreement(a, b, [8])
+    assert worst == 3.0 and frac == 1 - 1 / (2 * 9 * 8)

@@ -42,7 +42,7 @@ TINY = dict(vocab_size=128, hidden=256, layers=2, heads=4, kv_heads=2,
 RANK = 32
 
 
-def _jax_model(seed=0, fuse_mlp=False):
+def _jax_model(seed=0, fuse_mlp=False, q_config=Q_CONFIG):
     """Tiny Llama (tests/test_staged_serving.py:38 shape) with rank-32 A/B
     factors on every linear (bf16-exact values) and a wider embedding so
     greedy decoding does not collapse onto one token."""
@@ -57,7 +57,7 @@ def _jax_model(seed=0, fuse_mlp=False):
                 v = (rng.standard_normal(shape) * 0.05).astype(jnp.bfloat16)
                 params[f"model.layers.{i}.{rel}.{name}"] = jnp.asarray(
                     v.astype(np.float32))
-    qcfgs = jmodels.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": RANK}})
+    qcfgs = jmodels.quantize_model(cfg, q_config, {"linear": {"rank": RANK}})
     backend = jbackend.prepare_serving_params(params, cfg, qcfgs,
                                               fuse_mlp=fuse_mlp)
     return cfg, params, qcfgs, backend
@@ -93,8 +93,8 @@ def test_engine_matches_jax_engine(monkeypatch, fuse_mlp, slots):
     engine = DecodeEngine(params_from_jax({k: np.asarray(v)
                                            for k, v in params.items()}),
                           cfg, tq, num_slots=slots, max_len=MAX_LEN,
-                          pallas_backend=backend, lm_head_width=8,
-                          device="cpu")
+                          cache_dtype="mxint8-staged", pallas_backend=backend,
+                          lm_head_width=8, device="cpu")
     rows = []           # rows of each MLP call, by route
     for name in ("mlp_w4_fused", "mlp_w4_dense_largeM"):
         real = getattr(tbackend, name)
@@ -196,7 +196,7 @@ def test_config_expansion_and_stacking_match_jax():
         tmodels.get_arch_module(dataclasses.replace(cfg, arch="opt"))
 
 
-def _port_engine(num_slots, device="cpu", **kw):
+def _port_engine(num_slots, device="cpu", cache_dtype="mxint8-staged", **kw):
     jcfg, params, _, jb = _jax_model(3)
     cfg = LlamaConfig.tiny(**TINY)
     tq = tmodels.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": RANK}})
@@ -205,7 +205,8 @@ def _port_engine(num_slots, device="cpu", **kw):
     return DecodeEngine(params_from_jax({k: np.asarray(v)
                                          for k, v in params.items()}),
                         cfg, tq, num_slots=num_slots, max_len=MAX_LEN,
-                        pallas_backend=backend, device=device, **kw)
+                        cache_dtype=cache_dtype, pallas_backend=backend,
+                        device=device, **kw)
 
 
 def test_partial_admission_and_seeded_sampling():
@@ -254,10 +255,32 @@ def test_card_requests_raise_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize("cache_dtype,max_len,q_config,path", [
+    ("float32", MAX_LEN, Q_CONFIG, "float32"),
+    ("mxint4-staged", MAX_LEN, Q_CONFIG, "staged MXINT4"),
+    ("mxint8", 46272, Q_CONFIG, "_kvh_chunk_fits"),    # d = 64: > 46260
+    ("bfloat16", 24592, Q_CONFIG, "_fp_cache_kernel_fits"),
+    ("bfloat16", 64, Q_CONFIG, "_attend"),             # short: eager in JAX
+    ("mxint4", MAX_LEN, Q_CONFIG, "_attend"),          # K/V width 8 over 4
+    ("mxint8", MAX_LEN, None, "_attend"),              # fp attention config
+])
+def test_unported_options_raise(cache_dtype, max_len, q_config, path):
+    """Regimes whose JAX path has no ported kernel raise before any work,
+    naming that path: the cache through ``make_cache``, the configuration
+    through the engine."""
     cfg = LlamaConfig.tiny(**TINY)
-    with pytest.raises(NotImplementedError):
-        tdecode.make_cache(cfg, 2, MAX_LEN, "mxint8", device="cpu")
+    if q_config is Q_CONFIG and path != "_attend":
+        with pytest.raises(NotImplementedError, match=path):
+            tdecode.make_cache(cfg, 2, max_len, cache_dtype, device="cpu")
+        return
+    if q_config is None:
+        q_config = {**Q_CONFIG, "matmul": None}
+    tq = tmodels.quantize_model(cfg, q_config, {"linear": {"rank": RANK}})
+    params = {"model.embed_tokens.weight": torch.zeros(128, 256),
+              "model.norm.weight": torch.ones(256)}
+    with pytest.raises(NotImplementedError, match=path):
+        DecodeEngine(params, cfg, tq, num_slots=2, max_len=max_len,
+                     cache_dtype=cache_dtype, pallas_backend={}, device="cpu")
 
 
 def test_unfused_projections_serve_like_fused():
@@ -287,6 +310,7 @@ def test_unfused_projections_serve_like_fused():
             assert (f"model.layers.0.{rel}" in backend["meta"]) == fused
         assert ("model.layers.0.self_attn.k_proj" in backend["meta"]) != fused
         engine = DecodeEngine(tparams, cfg, tq, num_slots=2, max_len=MAX_LEN,
+                              cache_dtype="mxint8-staged",
                               pallas_backend=backend, lm_head_width=8,
                               device="cpu")
         reqs = _requests(Request, np.random.default_rng(2))

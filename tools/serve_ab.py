@@ -55,6 +55,7 @@ def child(root: str) -> None:
     params["model.embed_tokens.weight"] = \
         params["model.embed_tokens.weight"].to(torch.bfloat16)
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
+                          cache_dtype="mxint8-staged",
                           pallas_backend=backend, consume_backend=True,
                           lm_head_width=8, device="cuda")
     del backend
