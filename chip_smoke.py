@@ -5,8 +5,8 @@ NVIDIA GPU (written for an H100).
 Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: the eight sources of ``lqer_tpu_torch/csrc`` (one nvcc each, in
-   parallel), which hold the ten kernels;
+2. build: the nine sources of ``lqer_tpu_torch/csrc`` (one nvcc each, in
+   parallel), which hold the thirteen kernels;
 3. each kernel against its plain PyTorch version on the card at the 7B
    serving shapes, held to the limits of ``lqer_tpu_torch/testing.py``
    (rtol = atol = 2e-4 plus one 8-bit code step of each quantizer a
@@ -20,7 +20,11 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    kernel at 8 x 64 and at 1 x 2048 tokens; the decode kernels at 8 slots,
    32 kv heads, L = 2048 and positions 64..1984: staged (with the flush),
    fp-cache, quantized at widths 8 and 4, the fused MXINT8 write + attend,
-   and the row write in both orientations;
+   and the row write in both orientations; the long-context kernels at 8
+   slots, 32 kv heads, L = 32768 and positions 64..32767: streaming decode
+   at widths 8 and 4, streaming staged decode (rings bit-exact), the fused
+   MXINT8 encode + write (columns bit-exact), and at L = 24576 each
+   streaming kernel against its one-pass kernel on the same inputs;
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
    default (each MLP whole, for the megakernel), teacher-forced through an
    8 x 64-token admission (512 rows: the large-M route) and 20 decode
@@ -28,16 +32,24 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    ``bfloat16``, ``mxint8`` at max_len 256 and 272, and ``mxint4`` (the KV4
    configuration), each three ways: through the kernels on the card,
    through the plain versions on the card, and through the plain versions
-   on the CPU (the 272 run on the card only). Logits within LOGIT_MAX_STEPS
-   and LOGIT_RMS_STEPS 8-bit code steps at every step for each pair; the
-   cache (below ``flushed`` for the staged one) of kernels vs plain on the
-   card equal on >= 99.9% and within one code step (a direct-write cache:
-   in layer 0, and in later layers, whose decode-written K/V carry a
-   flipped p of the layers before, within the CPU limit), and against the
-   CPU within CACHE_CPU_STEPS (the MXINT4 cache within
-   CACHE_CPU_STEPS_MXINT4 4-bit steps). A run through the
+   on the CPU, each packed weight decoded once (the 272 run on the card
+   only); then ``mxint8``, ``mxint8-staged`` and ``mxint4`` at max_len
+   24576 (the streaming routes), kernels against plain versions on the
+   card over prompts of 500..600 tokens (decode positions across the
+   streaming kernels' 512-token chunk boundary), and against the CPU (one
+   slot, LONG_CPU_STEPS steps) from a copy of the card's cache at
+   positions 520.. and over the short prompts. Logits within
+   LOGIT_MAX_STEPS and LOGIT_RMS_STEPS 8-bit code steps at every step for
+   each pair; the cache (below ``flushed`` for the staged one) of kernels
+   vs plain on the card equal on >= 99.9% and within one code step (a
+   direct-write cache: in layer 0, and in later layers, whose
+   decode-written K/V carry a flipped p of the layers before, within the
+   CPU limit), and against the CPU within CACHE_CPU_STEPS (the MXINT4
+   cache within CACHE_CPU_STEPS_MXINT4 4-bit steps); at long context a
+   staged cache's decode-written tokens, once flushed, as a direct-write
+   cache's. A run through the
    kernels with layer 1's down correction left out must fail the RMS limit
-   at every step; the direct-write ``mxint8`` run must match a staged run
+   at every step; the direct-write ``mxint8`` runs must match staged runs
    fed the same tokens as the kernels match the plain versions. Then the
    same model packed with ``fuse_mlp=False`` (gate|up and down through
    kernel 1), kernels vs plain versions on the card, the same limits;
@@ -47,7 +59,11 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    window of 5 decode steps per cache (device busy vs wall time, each
    kernel's time per launch), and on the staged cache a profile of one
    8 x 64-token admission, then one 2048-token admission (one slot, fresh
-   cache, last logits only) and its profile;
+   cache, last logits only) and its profile; then, per MXINT cache, 4
+   slots at max_len 32768: the same requests with 16 new tokens, and 10
+   decode steps at positions 32000.. over a cache filled by tiling one
+   encoded block of 2048 seeded rows (median step, tok/s, a profile of 5
+   steps beside the predicted cache-read floor);
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
    phase-3 numbers.
 
@@ -59,6 +75,7 @@ a directory without the ``lqer_tpu_torch`` package next to this file.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -92,6 +109,10 @@ CACHE_CPU_STEPS = 14
 # on the H100 it moved values by at most one step (PERF.md), the limit is
 # twice that.
 CACHE_CPU_STEPS_MXINT4 = 2
+# Decode steps of the CPU side of the long-context runs (one slot): the
+# plain versions decode the whole max_len 24576 cache of each layer per
+# call, a few seconds per step.
+LONG_CPU_STEPS = 4
 # Fraction of a kernel's outputs allowed past the plain rtol/atol band: a
 # flipped P or H rounding moves a whole output row, a flipped correction
 # code one element (``testing.check_close``).
@@ -707,6 +728,234 @@ def phase_direct_kernels(torch, timer, rates, results):
     torch.cuda.empty_cache()
 
 
+def phase_stream_kernels(torch, timer, rates, results):
+    """Phase 3, the long-context kernels at the 7B decode shape past the
+    one-pass length: B = 8 slots, 32 heads and kv heads, d = 128,
+    L = 32768, positions spread over 64..32767; then at L = 24576, where
+    n_rep = 1 fits the one-pass kernels too, each streaming kernel against
+    its one-pass counterpart on the same inputs."""
+    import torch.nn.functional as F
+
+    from lqer_tpu_torch.ops.kernels import cache_write as kcw
+    from lqer_tpu_torch.ops.kernels import decode_attention as k3
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+    from lqer_tpu_torch.ops.kernels import streaming_decode as ks
+    from lqer_tpu_torch.parallel.collectives import mx4_encode, mx8_encode
+    from lqer_tpu_torch.testing import attention_limit, check_close
+
+    bw, ops_rate = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    B, H, KVH, D, li, SW = 8, 32, 32, 128, 1, 64
+    scale = D ** -0.5
+    kw = dict(scaling=scale)
+    # a chunk's last and first token (511, 512), the cache's last (32767)
+    pos = torch.tensor([64, 511, 512, 4095, 12288, 20001, 28671, 32767],
+                       dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda")
+    out_bytes = B * H * D * 4
+
+    def bound(nb, ops):
+        t_bytes, t_ops = nb / bw * 1e3, ops / ops_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def cache(width, L, NL=2):
+        """Layer ``li`` of an NL-layer cache holds seeded values; the other
+        layers stay zero (only ``li`` is read)."""
+        enc = mx8_encode if width == 8 else mx4_encode
+        out = []
+        for _ in range(2):
+            c_, e_ = enc(torch.randn(B, KVH, L, D, generator=gen,
+                                     device="cuda"), 16, zero_fill=1.0)
+            for t in (c_, e_):
+                full = torch.zeros(NL, *t.transpose(-1, -2).shape,
+                                   dtype=torch.int8, device="cuda")
+                full[li] = t.transpose(-1, -2)
+                out.append(full)
+        return out
+
+    def sdpa_ms(arrays, keep):
+        """SDPA on the unquantized bf16 values of the cache's layer."""
+        k, v = (kq._decode_cache_block(arrays[i][li], arrays[i + 1][li])
+                .transpose(-1, -2).to(torch.bfloat16).contiguous()
+                for i in (0, 2))
+        qb = q.to(torch.bfloat16)
+        ms = timer(lambda: F.scaled_dot_product_attention(
+            qb, k, v, attn_mask=keep[:, None, None, :]))
+        del k, v
+        return ms
+
+    def report(key, what, c, ms, plain_ms, b_ms, b_by, lib_ms, lib_what,
+               shape, extra=""):
+        print(f"{what}: max_abs_err={c['max_abs_err']:.3g} "
+              f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+              f"2e-4){extra} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} ({lib_what})",
+              flush=True)
+        if key:
+            results[key] = dict(
+                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=shape)
+
+    # ---- row 8 at widths 8 and 4: whole 16-token groups up to pos
+    L = 32768
+    ntok = ((pos + 16) // 16 * 16).clamp(max=L)
+    tokens = int(ntok.sum())
+    keep = torch.arange(L, device="cuda")[None, :] <= pos[:, None].long()
+    for width in (8, 4):
+        arrays = cache(width, L)
+        y = ks.decode_attention_quantized_streaming(q, *arrays, pos, li, **kw)
+        ref = kq.quantized_decode_plain(q, *arrays, pos, li, **kw)
+        sc, vals = kq.quantized_scores(q, *arrays, pos, li, **kw)
+        c = check_close(f"streaming decode attention width {width}", y, ref,
+                        attention_limit(sc, vals, ref, p_width=8),
+                        FLIPPED["attention"])
+        del sc, vals, ref
+        ms = timer(lambda: ks.decode_attention_quantized_streaming(
+            q, *arrays, pos, li, **kw))
+        plain_ms = timer(lambda: kq.quantized_decode_plain(
+            q, *arrays, pos, li, **kw), 3)
+        lib_ms = sdpa_ms(arrays, keep)
+        k_bytes = tokens * KVH * (arrays[0].shape[-2] + D // 16)
+        b_ms, b_by = bound(2 * k_bytes + nbytes(q) + out_bytes,
+                           2 * 2 * H * tokens * D)
+        second_k = k_bytes / bw * 1e3
+        report("decode_attention_streaming" if width == 8 else None,
+               f"streaming decode attention width {width} B={B} KVH={KVH} "
+               f"L={L} pos={pos.tolist()}", c, ms, plain_ms, b_ms, b_by,
+               lib_ms, "scaled_dot_product_attention on the unquantized "
+               "bf16 values, the unquantized yardstick",
+               "one layer of an MXINT8 cache, B=8, 32 kv heads, L=32768, pos "
+               "64..32767 (width 4 printed beside it)",
+               f", K's second read (the TPU kernel's two passes) would add "
+               f"{second_k:.4f} ms to the bound")
+        del arrays
+
+    # ---- row 9: the main cache below flushed = floor32(pos), the ring
+    def staged(L):
+        main = [a[li] for a in cache(8, L)]
+        rings = [a[li].contiguous() for a in cache(8, SW)]
+        kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+                  for _ in range(2))
+        return main, rings, kh, vh
+
+    main, rings, kh, vh = staged(L)
+    fl = (pos // 32) * 32
+    r_k, r_p = [t.clone() for t in rings], [t.clone() for t in rings]
+    y = ks.decode_attention_quantized_streaming_staged(
+        q, *main, *r_k, kh, vh, pos, fl, **kw)
+    ref = k3.staged_decode_plain(q, *main, *r_p, kh, vh, pos, fl, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(r_k, r_p)):
+        raise AssertionError("streaming staged decode: ring bytes differ "
+                             "from the plain version")
+    sc, vals = k3.staged_scores(q, *main, *r_p, pos, fl, **kw)
+    c = check_close("streaming staged decode attention", y, ref,
+                    attention_limit(sc[:, :, None, :], vals, ref, p_width=8),
+                    FLIPPED["attention"])
+    del sc, vals, ref
+    ms = timer(lambda: ks.decode_attention_quantized_streaming_staged(
+        q, *main, *r_k, kh, vh, pos, fl, **kw))
+    plain_ms = timer(lambda: k3.staged_decode_plain(
+        q, *main, *r_p, kh, vh, pos, fl, **kw), 3)
+    held = int(fl.sum()) + int((pos - fl + 1).sum())   # main + ring tokens
+    keep = torch.arange(L, device="cuda")[None, :] <= pos[:, None].long()
+    lib_ms = sdpa_ms([t[None].expand(2, *t.shape) for t in main], keep)
+    per_token = KVH * (D + D // 16)
+    b_ms, b_by = bound(2 * held * per_token + nbytes(q, kh, vh) + out_bytes
+                       + 2 * B * KVH * (D + D // 16), 2 * 2 * H * held * D)
+    report("decode_attention_streaming_staged", f"streaming staged decode "
+           f"attention B={B} KVH={KVH} L={L} flushed={fl.tolist()}", c, ms,
+           plain_ms, b_ms, b_by, lib_ms, "scaled_dot_product_attention on "
+           "the unquantized bf16 values of the main cache, the unquantized "
+           "yardstick", "one layer, B=8, 32 kv heads, L=32768, flushed "
+           "64..32736", f", rings bit-exact, K's second read would add "
+           f"{held * per_token / bw * 1e3:.4f} ms to the bound")
+    del main, rings, r_k, r_p
+
+    # ---- row 13: the fresh rows encoded into column pos of four arrays
+    arrays = cache(8, L)
+    kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+              for _ in range(2))
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    kcw.write_kv_tokens_fused(tuple(mine), kh, vh, li, pos)
+    kcw.encode_write_plain(tuple(theirs), kh, vh, li, pos)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        raise AssertionError("fused encode + write: cache bytes differ from "
+                             "the plain version")
+    del theirs
+    cols = kcw.encode_rows(kh, vh)
+    bi = torch.arange(B, device="cuda")[:, None, None]
+    kvi = torch.arange(KVH, device="cuda")[None, :, None]
+    p64 = pos.long()[:, None, None]
+
+    def index_put():
+        for arr, col in zip(arrays, cols):
+            r = torch.arange(arr.shape[3], device="cuda")[None, None, :]
+            arr[li].index_put_((bi, kvi, r, p64), col[..., 0])
+
+    ms = timer(lambda: kcw.write_kv_tokens_fused(tuple(mine), kh, vh, li,
+                                                 pos))
+    plain_ms = timer(lambda: kcw.encode_write_plain(tuple(arrays), kh, vh,
+                                                    li, pos), 5)
+    lib_ms = timer(index_put)
+    b_ms, b_by = bound(nbytes(kh, vh) + 2 * B * KVH * (D + D // 16), 0)
+    print(f"fused encode + write B={B} KVH={KVH} L={L}: bit-exact "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+          f"library_ms={lib_ms:.4f} (index_put_ of the pre-encoded columns)",
+          flush=True)
+    results["encode_write_tokens"] = dict(
+        max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape="the K and V rows of 8 slots, 32 kv heads, d=128, L=32768")
+    del arrays, mine, cols
+
+    # ---- at L = 24576: each streaming kernel against its one-pass kernel
+    L = 24576
+    pos = pos.clamp(max=L - 1)
+    fl = (pos // 32) * 32
+    arrays = cache(8, L)
+    y = ks.decode_attention_quantized_streaming(q, *arrays, pos, li, **kw)
+    one = kq.decode_attention_quantized(q, *arrays, pos, li, **kw)
+    sc, vals = kq.quantized_scores(q, *arrays, pos, li, **kw)
+    c = check_close("streaming vs one-pass", y, one,
+                    attention_limit(sc, vals, one, p_width=8),
+                    FLIPPED["attention"])
+    del sc, vals
+    ms = timer(lambda: ks.decode_attention_quantized_streaming(
+        q, *arrays, pos, li, **kw))
+    one_ms = timer(lambda: kq.decode_attention_quantized(q, *arrays, pos, li,
+                                                         **kw))
+    del arrays
+    main, rings, kh, vh = staged(L)
+    r_one = [t.clone() for t in rings]
+    ys = ks.decode_attention_quantized_streaming_staged(
+        q, *main, *rings, kh, vh, pos, fl, **kw)
+    ones = k3.decode_attention_quantized_staged(q, *main, *r_one, kh, vh,
+                                                pos, fl, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(rings, r_one)):
+        raise AssertionError("streaming vs one-pass staged: rings differ")
+    sc, vals = k3.staged_scores(q, *main, *r_one, pos, fl, **kw)
+    cs = check_close("streaming staged vs one-pass staged", ys, ones,
+                     attention_limit(sc[:, :, None, :], vals, ones,
+                                     p_width=8), FLIPPED["attention"])
+    ms_s = timer(lambda: ks.decode_attention_quantized_streaming_staged(
+        q, *main, *rings, kh, vh, pos, fl, **kw))
+    one_ms_s = timer(lambda: k3.decode_attention_quantized_staged(
+        q, *main, *r_one, kh, vh, pos, fl, **kw))
+    print(f"at L={L} pos={pos.tolist()}, kernels against kernels: "
+          f"streaming vs one-pass max_abs_err={c['max_abs_err']:.3g} "
+          f"({c['of_limit']:.3g} of its limit), {ms:.4f} vs {one_ms:.4f} "
+          f"ms; streaming staged vs one-pass staged max_abs_err="
+          f"{cs['max_abs_err']:.3g} ({cs['of_limit']:.3g} of its limit), "
+          f"rings bit-exact, {ms_s:.4f} vs {one_ms_s:.4f} ms", flush=True)
+    del main, rings, r_one, sc, vals
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
     """Route the served path's kernel calls to the plain versions, which
@@ -733,7 +982,12 @@ def plain_versions_on_card():
              (decode, "decode_attention_quantized", kq.quantized_decode_plain),
              (decode, "decode_attention_quantized_write",
               kq.quantized_write_plain),
-             (decode, "write_kv_rows_stacked", k4.write_rows_plain)]
+             (decode, "write_kv_rows_stacked", k4.write_rows_plain),
+             (decode, "write_kv_tokens_fused", k4.encode_write_plain),
+             (decode, "decode_attention_quantized_streaming",
+              kq.quantized_decode_plain),
+             (decode, "decode_attention_quantized_streaming_staged",
+              k3.staged_decode_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     reset_launch_counts()
     for m, n, f in swaps:
@@ -748,25 +1002,67 @@ def plain_versions_on_card():
                              f"{launch_counts()}")
 
 
+@contextlib.contextmanager
+def weights_decoded_once():
+    """Decode each packed weight once while the plain versions run on the
+    CPU. They decode every weight per call, nine tenths of a CPU decode
+    step at 7B width; a decoded weight is a function of its packed words
+    alone, so every value stays the same. The memo holds each packed
+    tensor, so no other weight can take its address while it lives."""
+    from lqer_tpu_torch.ops import storage
+    from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+    from lqer_tpu_torch.ops.kernels import mlp_fused as k5
+
+    memo = {}
+
+    def decoded(words, exps, fmt):
+        key = (words.data_ptr(), tuple(words.shape), words.stride(),
+               exps.data_ptr(), tuple(exps.shape), exps.stride(), fmt)
+        if key not in memo:
+            memo[key] = (words, exps,
+                         storage.dequantize_packed(words, exps, fmt))
+        return memo[key][2]
+
+    saved = [(m, m.dequantize_packed) for m in (k1, k5)]
+    for m, _ in saved:
+        m.dequantize_packed = decoded
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m.dequantize_packed = f
+
+
+def run_context(name: str):
+    """How the engine called ``name`` runs: "plain" through the plain
+    versions on the card, "cpu" through them on the CPU with each weight
+    decoded once, any other through the kernels."""
+    if name == "plain":
+        return plain_versions_on_card()
+    if name == "cpu":
+        return weights_decoded_once()
+    return contextlib.nullcontext()
+
+
 def teacher_force(torch, engines, padded, lengths, steps):
     """One admission and ``steps`` decode steps through each engine, all fed
-    the greedy tokens of the first ("kernels"); returns each engine's
-    logits per step and the kernel launches of the first."""
+    the greedy tokens of the first ("kernels"); an engine of fewer slots
+    takes the first ones. Returns each engine's logits per step and the
+    kernel launches of the first."""
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     logits, tokens = {}, []
     for name, engine in engines.items():
-        ctx = (plain_versions_on_card() if name == "plain"
-               else contextlib.nullcontext())
+        n = engine.num_slots
         reset_launch_counts()
-        with ctx:
-            lg = engine.prefill(padded, np.arange(len(padded)), lengths)
-            engine.lengths[:] = lengths
+        with run_context(name):
+            lg = engine.prefill(padded[:n], np.arange(n), lengths[:n])
+            engine.lengths[:] = lengths[:n]
             logits[name] = [lg.float().cpu()]
             for i in range(steps):
                 if name == "kernels":
                     tokens.append(torch.argmax(lg, -1).cpu().numpy())
-                lg = engine.decode_logits(tokens[i])
+                lg = engine.decode_logits(tokens[i][:n])
                 engine.lengths += 1
                 logits[name].append(lg.float().cpu())
         if name == "kernels":
@@ -774,47 +1070,81 @@ def teacher_force(torch, engines, padded, lengths, steps):
     return logits, routes
 
 
+def continue_from_card(torch, card, cpu, last, steps):
+    """``steps`` more decode steps of the card engine and of the CPU one
+    (fewer slots: the first), both fed the card's greedy tokens from its
+    ``last`` logits, the CPU engine starting from a copy of the card's
+    cache and lengths: decode positions past the streaming kernels' first
+    512-token chunk, without the drift the card's and the CPU's libraries
+    build up over a long admission. Returns each engine's logits per
+    step."""
+    n = cpu.num_slots
+    for key, t in card.cache.items():
+        cpu.cache[key].copy_(t[:, :n] if t.ndim == 5 else t[:n])
+    cpu.lengths[:] = card.lengths[:n]
+    logits = {"kernels": [], "cpu": []}
+    for _ in range(steps):
+        tokens = torch.argmax(last, -1).cpu().numpy()
+        last = card.decode_logits(tokens)
+        card.lengths += 1
+        logits["kernels"].append(last.float().cpu())
+        with run_context("cpu"):
+            logits["cpu"].append(cpu.decode_logits(tokens[:n]).float())
+        cpu.lengths += 1
+    return logits
+
+
 def compare_runs(engines, logits, pairs, what: str, t0: float,
-                 cpu_steps: float = None) -> list:
+                 cpu_steps: float = None, flushed_steps: float = 1,
+                 admitted: bool = True, flush: bool = True) -> list:
     """Logits and cache of each pair of runs against the phase-4 limits
     (the cache over the tokens every slot holds: below ``flushed`` of a
-    staged cache); prints one line per pair and returns what failed."""
+    staged cache, which with ``flush`` must have crossed one); prints one
+    line per pair and returns what failed. ``flushed_steps`` holds a
+    staged cache against another card run; ``admitted``: the logits start
+    with an admission's."""
     from lqer_tpu_torch.testing import cache_agreement, logits_steps
 
     cpu_steps = CACHE_CPU_STEPS if cpu_steps is None else cpu_steps
-    first = engines["kernels"]
-    staged = "flushed" in first.cache
-    held = (first.cache["flushed"].tolist() if staged
-            else first.lengths.tolist())
-    failed = ([] if not staged or min(held) >= 64
-              else [f"{what}: no flush crossed: {held}"])
+
+    def held(engine):
+        """Tokens each slot holds: below ``flushed`` for a staged cache."""
+        if "flushed" in engine.cache:
+            return engine.cache["flushed"].tolist()
+        return engine.lengths.tolist()
+
+    staged = "flushed" in engines["kernels"].cache
+    flushed = held(engines["kernels"])
+    failed = ([] if not staged or not flush or min(flushed) >= 64
+              else [f"{what}: no flush crossed: {flushed}"])
     for one, other in pairs:
-        seen = [logits_steps(a, b) for a, b in zip(logits[one],
-                                                   logits[other])]
+        n = min(engines[one].num_slots, engines[other].num_slots)
+        seen = [logits_steps(a[:n], b[:n])
+                for a, b in zip(logits[one], logits[other])]
         worst = max(m for m, _ in seen)
         rms = max(r for _, r in seen)
         least = min(r for _, r in seen)
-        ranges = held
-        if "flushed" in engines[other].cache:
-            theirs = engines[other].cache["flushed"].tolist()
-            if staged and theirs != held:
-                failed.append(f"{what}, {one} vs {other}: flushed {held} "
-                              f"vs {theirs}")
-            ranges = theirs
+        mine, theirs = held(engines[one])[:n], held(engines[other])[:n]
+        if staged and "flushed" in engines[other].cache and theirs != mine:
+            failed.append(f"{what}, {one} vs {other}: flushed {mine} vs "
+                          f"{theirs}")
+        ranges = [min(a, b) for a, b in zip(mine, theirs)]
         frac, cache_steps = cache_agreement(engines[one].cache,
                                             engines[other].cache, ranges)
         # layer 0's K/V come straight from the bit-exact GEMMs; a later
-        # layer's decode-written K/V (the ring holds them in a staged
-        # cache, out of this comparison) carry a flipped p of the layers
-        # before, as the CPU comparison's do
+        # layer's decode-written K/V carry a flipped p of the layers
+        # before, as the CPU comparison's do. A staged cache holds them in
+        # its ring, out of this comparison, until a flush moves them below
+        # ``flushed``: held there to ``flushed_steps``
         first0 = {k: v[:1] for k, v in engines[one].cache.items()
                   if v.ndim == 5}
         other0 = {k: v[:1] for k, v in engines[other].cache.items()
                   if v.ndim == 5}
         steps0 = cache_agreement(first0, other0, ranges)[1]
         print(f"teacher-forced {what}, {one} vs {other} "
-              f"({'CPU' if other == 'cpu' else 'card'}): admission + "
-              f"{len(seen) - 1} decode steps, logits |diff| in code steps "
+              f"({'CPU' if other == 'cpu' else 'card'}): "
+              f"{'admission + ' if admitted else ''}"
+              f"{len(seen) - admitted} decode steps, logits |diff| in code steps "
               f"max {worst:.3g} (limit {LOGIT_MAX_STEPS}), RMS {least:.3g} "
               f"to {rms:.3g} (limit {LOGIT_RMS_STEPS}); cache over tokens "
               f"{ranges} ({'below flushed' if staged else 'held'}): bytes "
@@ -827,7 +1157,7 @@ def compare_runs(engines, logits, pairs, what: str, t0: float,
             continue
         if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
             failed.append(f"{what}, {one} vs {other}: logits")
-        later = 1 if staged else cpu_steps
+        later = flushed_steps if staged else cpu_steps
         if other != "cpu" and (frac < 0.999 or steps0 > 1
                                or cache_steps > later):
             failed.append(f"{what}, {one} vs {other}: cache")
@@ -846,6 +1176,7 @@ def phase_teacher_forced(torch):
     from lqer_tpu_torch import models
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.decode import decode_route
     from lqer_tpu_torch.serving.random_model import (
         KV4_Q_CONFIG,
         build_random_model,
@@ -899,54 +1230,90 @@ def phase_teacher_forced(torch):
         ("kernels", "no correction")), what, t0)
     del engines, broken
 
-    # the direct-write caches: each decode step launches, per layer, the
-    # kernels named here (and no staged kernel)
-    per_layer = {"bfloat16": ("row_write", "decode_attention_fp"),
-                 "mxint8": ("decode_attention_write",),
-                 "mxint4": ("row_write", "decode_attention_quantized")}
+    # the direct-write caches, then the long-context ones at max_len 24576
+    # (the smallest multiple of 2048 past the one-pass length at d = 128):
+    # each decode step launches, per layer, the kernels decode_route names
+    # (and no other decode kernel). At long context the kernels meet the
+    # plain versions on the card over long prompts (500..600 tokens, one
+    # 1024-token bucket), so the decode positions cross the streaming
+    # kernels' 512-token chunk boundary and some staged slots hold two main
+    # chunks. They meet the CPU (one slot) twice: from a copy of the card's
+    # cache after those steps (positions 520.., past the first chunk), and
+    # over the short prompts from the admission on. A CPU admission of a
+    # long prompt drifts from the card's by the libraries' flipped
+    # roundings, which cascade through every token of it (PERF.md).
+    long_len = 24576
+    long_lengths = np.array([500, 505, 510, 511, 512, 530, 560, 600],
+                            dtype=np.int32)
+    long_padded = rng.integers(0, cfg.vocab_size, (8, 1024))
+    decode_kernels = ("row_write", "decode_attention_fp",
+                      "decode_attention_quantized", "decode_attention_write",
+                      "decode_attention", "encode_write_tokens",
+                      "decode_attention_streaming",
+                      "decode_attention_streaming_staged")
     for cache_dtype, max_len, layer_qcfgs in (
             ("bfloat16", 256, qcfgs), ("mxint8", 256, qcfgs),
-            ("mxint8", 272, qcfgs), ("mxint4", 256, kv4)):
+            ("mxint8", 272, qcfgs), ("mxint4", 256, kv4),
+            ("mxint8", long_len, qcfgs), ("mxint8-staged", long_len, qcfgs),
+            ("mxint4", long_len, kv4)):
+        long = max_len == long_len
         direct = dict(kw, max_len=max_len, cache_dtype=cache_dtype)
-        engines = {
-            "kernels": DecodeEngine(params, cfg, layer_qcfgs,
-                                    pallas_backend=backend, device="cuda",
-                                    **direct),
-            "plain": DecodeEngine(params, cfg, layer_qcfgs,
-                                  pallas_backend=backend, device="cuda",
-                                  **direct),
-        }
+        engines = {name: DecodeEngine(params, cfg, layer_qcfgs,
+                                      pallas_backend=backend, device="cuda",
+                                      **direct)
+                   for name in ("kernels", "plain")}
+        cpu = None
+        if max_len != 272:      # the 272 run checks the route on the card
+            cpu = DecodeEngine(cpu_params, cfg, layer_qcfgs,
+                               pallas_backend=cpu_backend, device="cpu",
+                               **dict(direct, num_slots=1 if long else 8))
         pairs = [("kernels", "plain")]
-        if max_len == 256:      # the 272 run checks the route on the card
-            engines["cpu"] = DecodeEngine(cpu_params, cfg, layer_qcfgs,
-                                          pallas_backend=cpu_backend,
-                                          device="cpu", **direct)
+        if not long and cpu is not None:
+            engines["cpu"] = cpu
             pairs += [("kernels", "cpu"), ("plain", "cpu")]
-        if (cache_dtype, max_len) == ("mxint8", 256):
+        if cache_dtype == "mxint8" and max_len != 272:
             # the JAX package holds the direct-write and the staged MXINT8
             # caches to be one function: so are they here, on the card
-            engines["staged"] = DecodeEngine(params, cfg, qcfgs,
-                                             pallas_backend=backend,
-                                             device="cuda", **staged)
+            engines["staged"] = DecodeEngine(
+                params, cfg, qcfgs, pallas_backend=backend, device="cuda",
+                **dict(staged, max_len=max_len))
             pairs.append(("kernels", "staged"))
         t0 = time.perf_counter()
-        logits, routes = teacher_force(torch, engines, padded, lengths, steps)
-        want = {k: steps * 2 for k in per_layer[cache_dtype]}
-        got = {k: routes[k] for k in ("row_write", "decode_attention_fp",
-                                      "decode_attention_quantized",
-                                      "decode_attention_write",
-                                      "decode_attention", "cache_write")}
-        if got != {k: want.get(k, 0) for k in got} \
+        logits, routes = teacher_force(
+            torch, engines, long_padded if long else padded,
+            long_lengths if long else lengths, steps)
+        route = decode_route(cache_dtype, max_len, cfg.head_dim, 1)
+        got = {k: routes[k] for k in decode_kernels}
+        if got != {k: steps * 2 * (k in route) for k in decode_kernels} \
                 or routes["mlp_fused"] != steps * 2:
             raise AssertionError(f"phase 4 {cache_dtype} routes: {routes}")
         what = (f"2-layer 7B-width path, {cache_dtype} cache, max_len "
                 f"{max_len}")
         print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
-        failed += compare_runs(
-            engines, logits, pairs, what, t0,
-            cpu_steps=CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
-            else None)
-        del engines
+        cpu_limit = (CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
+                     else CACHE_CPU_STEPS)
+        # at long context the staged cache's flushes move decode-written
+        # tokens of layer 1 below flushed (6 code steps from the plain
+        # versions on the H100, as a direct-write cache's, PERF.md)
+        failed += compare_runs(engines, logits, pairs, what, t0,
+                               cpu_steps=cpu_limit,
+                               flushed_steps=cpu_limit if long else 1)
+        if long:
+            card = engines["kernels"]
+            engines = {"kernels": card, "cpu": cpu}
+            logits = continue_from_card(torch, card, cpu,
+                                        logits["kernels"][-1], LONG_CPU_STEPS)
+            failed += compare_runs(
+                engines, logits, [("kernels", "cpu")],
+                f"{what}, from the card's cache at positions "
+                f"{cpu.lengths[0] - LONG_CPU_STEPS}..{cpu.lengths[0] - 1}",
+                t0, cpu_steps=cpu_limit, admitted=False)
+            logits, _ = teacher_force(torch, engines, padded, lengths,
+                                      LONG_CPU_STEPS)
+            failed += compare_runs(engines, logits, [("kernels", "cpu")],
+                                   f"{what}, short prompts", t0,
+                                   cpu_steps=cpu_limit, flush=False)
+        del engines, cpu
     del cpu_backend, cpu_params
 
     # the fuse_mlp=False packing: gate|up and down through kernel 1 at
@@ -973,9 +1340,10 @@ def phase_teacher_forced(torch):
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch, layers: int = 32):
-    """Phase 5: the engine at Llama-2-7B shape over each cache; returns the
-    launch counts of the served requests and the long prompt."""
+def phase_serve(torch, rates, layers: int = 32):
+    """Phase 5: the engine at Llama-2-7B shape over each cache, then over
+    each MXINT cache at long context; returns the launch counts of the
+    served requests, the long prompt and the long-context steps."""
     import dataclasses
 
     from lqer_tpu_torch import models
@@ -996,8 +1364,9 @@ def phase_serve(torch, layers: int = 32):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     counts = None
-    # the staged cache serves 80 new tokens per request, then profiles an
-    # admission and runs the long prompt; the direct-write caches serve 40
+    # the staged cache serves 80 new tokens per request (every slot
+    # flushes), then profiles an admission and runs the long prompt; the
+    # direct-write caches serve 40
     for cache_dtype, layer_qcfgs, new_tokens in (
             ("mxint8-staged", qcfgs, 80), ("bfloat16", qcfgs, 40),
             ("mxint8", qcfgs, 40), ("mxint4", kv4, 40)):
@@ -1010,7 +1379,7 @@ def phase_serve(torch, layers: int = 32):
         counts = run if counts is None else {k: n + run[k]
                                              for k, n in counts.items()}
         rng = np.random.default_rng(SEED + 7)
-        tokens = np.zeros(8, dtype=np.int64)
+        tokens = np.zeros(engine.num_slots, dtype=np.int64)
         profile_window(torch, lambda: engine.decode_logits(tokens), 5,
                        f"decode steps, {cache_dtype} cache")
         if cache_dtype == "mxint8-staged":
@@ -1024,12 +1393,31 @@ def phase_serve(torch, layers: int = 32):
             counts = {k: n + launch_counts()[k] for k, n in counts.items()}
         del engine
         torch.cuda.empty_cache()
+    # long context: 4 slots at max_len 32768, past the one-pass length, per
+    # MXINT cache (36.5 GB at width 8, 19.3 GB at width 4, freed after
+    # each): the request mix with 16 new tokens, then decode steps at
+    # positions near 32000
+    for cache_dtype, layer_qcfgs in (("mxint8-staged", qcfgs),
+                                     ("mxint8", qcfgs), ("mxint4", kv4)):
+        engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=4,
+                              max_len=32768, cache_dtype=cache_dtype,
+                              pallas_backend=backend, lm_head_width=8,
+                              device="cuda")
+        run = serve_requests(torch, engine, cfg, cache_dtype, 16, pack_s)
+        reset_launch_counts()
+        long_context_steps(torch, engine, cfg, cache_dtype, rates)
+        counts = {k: n + run[k] + launch_counts()[k]
+                  for k, n in counts.items()}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     return counts
 
 
 def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s):
     """8 greedy requests of 20..64 prompt tokens through ``engine``; prints
-    the step and admission times and returns the kernel launches."""
+    the step and admission times and returns the kernel launches. With 64
+    new tokens or more every staged slot must have flushed."""
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from lqer_tpu_torch.serving import Request
 
@@ -1060,25 +1448,88 @@ def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s):
     engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    engine.decode_logits, engine.prefill = decode_logits, prefill
+    del engine.decode_logits, engine.prefill   # no cycle keeps the cache
     finished = sum(r.done for r in reqs)
     produced = sum(len(r.output_ids) for r in reqs)
     staged = "flushed" in engine.cache
     fl = engine.cache["flushed"].tolist() if staged else None
-    if finished != len(reqs) or (staged and min(fl) == 0):
+    if finished != len(reqs) or (staged and new_tokens >= 64
+                                 and min(fl) == 0):
         raise AssertionError(f"serve {cache_dtype}: {finished}/{len(reqs)} "
                              f"finished, flushed={fl}")
     decode_s = sum(step_ms) / 1e3
     flushes = (f"{launch_counts()['cache_write']} flushes, flushed={fl}, "
                if staged else "")
+    slots = engine.num_slots
     print(f"serve Llama-2-7B shape {cfg.num_hidden_layers} layers rank 32 W8 "
-          f"head {cache_dtype} 8 slots max_len 2048: {finished} requests "
-          f"finished, {produced} tokens, median decode step "
-          f"{statistics.median(step_ms):.2f} ms over {len(step_ms)} steps, "
-          f"{8 * len(step_ms) / decode_s:.1f} tok/s (8 slots x steps / "
-          f"decode time), admission {sum(admit_ms):.1f} ms, {flushes}wall "
-          f"{wall:.2f}s, packing {pack_s:.1f}s", flush=True)
+          f"head {cache_dtype} {slots} slots max_len {engine.max_len}: "
+          f"{finished} requests finished, {produced} tokens, median decode "
+          f"step {statistics.median(step_ms):.2f} ms over {len(step_ms)} "
+          f"steps, {slots * len(step_ms) / decode_s:.1f} tok/s ({slots} "
+          f"slots x steps / decode time), admission {sum(admit_ms):.1f} ms, "
+          f"{flushes}kernel launches {launch_counts()}, wall {wall:.2f}s, "
+          f"packing {pack_s:.1f}s", flush=True)
     return launch_counts()
+
+
+def long_context_steps(torch, engine, cfg, cache_dtype, rates,
+                       position: int = 32000, steps: int = 10) -> None:
+    """Decode steps of every slot at ``position`` onwards: the cache's
+    ``[0, position)`` in every layer and slot holds one MXINT-encoded block
+    of 2048 seeded random rows tiled along the token axis (a staged cache
+    with ``flushed = position``). Prints the median step (host clock around
+    a synchronised step), tok/s, the predicted cache-read floor beside the
+    profiled device time, and checks the logits."""
+    from lqer_tpu_torch.parallel.collectives import mx4_encode, mx8_encode
+    from lqer_tpu_torch.serving.kv_cache import MAIN_KEYS, cache_code_width
+
+    cache = engine.cache
+    NL, B, KVH, _, _ = cache["k_codes"].shape
+    D = cfg.head_dim
+    dev = cache["k_codes"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    enc = mx4_encode if cache_code_width(cache) == 4 else mx8_encode
+    block = []
+    for _ in range(2):
+        c, e = enc(torch.randn(B, KVH, 2048, D, generator=gen, device=dev),
+                   16, zero_fill=1.0)
+        block += [c.transpose(-1, -2), e.transpose(-1, -2)]
+    for key, blk in zip(MAIN_KEYS, block):
+        for t0 in range(0, position, 2048):
+            n = min(2048, position - t0)
+            cache[key][..., t0:t0 + n].copy_(blk[..., :n])
+    if "flushed" in cache:
+        cache["flushed"].fill_(position)
+    engine.lengths[:] = position
+    tokens = np.zeros(B, dtype=np.int64)
+    step_ms = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        logits = engine.decode_logits(tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        engine.lengths += 1
+        tokens = torch.argmax(logits, -1).cpu().numpy()
+    if logits.shape != (B, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"long-context steps {cache_dtype}: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    per_token = KVH * (cache["k_codes"].shape[3] + D // 16) * 2
+    floor_ms = NL * B * per_token * (position + steps) / rates[0] * 1e3
+    med = statistics.median(step_ms)
+    print(f"long-context decode, {cache_dtype} cache, {NL} layers, {B} slots "
+          f"at positions {position}..{position + steps - 1} (max_len "
+          f"{engine.max_len}): median step {med:.2f} ms over {steps} steps, "
+          f"{B / med * 1e3:.1f} tok/s; predicted cache-read floor "
+          f"{floor_ms:.2f} ms per step ({NL * B * per_token * position / 1e9:.2f}"
+          f" GB / {rates[0] / 1e12:.2f} TB/s)", flush=True)
+    busy = profile_window(torch, lambda: engine.decode_logits(tokens), 5,
+                          f"long-context decode steps, {cache_dtype} cache")
+    print(f"long-context {cache_dtype}: device busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'} per step "
+          f"against the cache-read floor {floor_ms:.2f} ms", flush=True)
 
 
 def long_prompt(torch, prefill, cfg, rng, length: int = 2048) -> None:
@@ -1107,10 +1558,12 @@ def long_prompt(torch, prefill, cfg, rng, length: int = 2048) -> None:
                    f"{length}-token admission")
 
 
-def profile_window(torch, fn, steps: int, what: str) -> None:
+def profile_window(torch, fn, steps: int, what: str) -> float | None:
     """Device busy time of ``steps`` calls of ``fn`` (torch.profiler,
     device-side kernel time) against their wall time, the kernels that take
-    the most of it and each of the port's kernels per call and launch."""
+    the most of it and each of the port's kernels per call and launch;
+    returns the busy ms per call (None where the profiler recorded no
+    device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1133,7 +1586,7 @@ def profile_window(torch, fn, steps: int, what: str) -> None:
         print(f"profile of {steps} {what}: {wall_ms:.2f} ms wall per call; "
               "device time not recorded by torch.profiler (not measured)",
               flush=True)
-        return
+        return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / steps:.2f}"
                       for e in top)
@@ -1155,6 +1608,7 @@ def profile_window(torch, fn, steps: int, what: str) -> None:
           f"included); {kernels:.0f} device kernels and {aten:.0f} aten ops "
           f"(nested ones included) per call; top device ms per call: "
           f"{names}; the port's kernels: {ours}", flush=True)
+    return busy_ms
 
 
 def main() -> int:
@@ -1180,10 +1634,15 @@ def main() -> int:
           f"{len(KERNELS)} kernels (nvcc sm_90a, in parallel) in {secs:.1f}s",
           flush=True)
     timer = Timer(torch)
+    t0 = time.perf_counter()
     results = phase_kernels(torch, timer, rates)
     phase_direct_kernels(torch, timer, rates, results)
+    phase_stream_kernels(torch, timer, rates, results)
+    print(f"phase 3 done at {time.perf_counter() - t0:.0f}s", flush=True)
     phase_teacher_forced(torch)
-    counts = phase_serve(torch)
+    print(f"phase 4 done at {time.perf_counter() - t0:.0f}s", flush=True)
+    counts = phase_serve(torch, rates)
+    print(f"phase 5 done at {time.perf_counter() - t0:.0f}s", flush=True)
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")

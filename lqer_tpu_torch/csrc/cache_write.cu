@@ -1,5 +1,6 @@
-// Two in-place cache writes: the flush of the staging ring into the main
-// MXINT8 cache, and the one-row-per-slot write of a decode token.
+// Three in-place cache writes: the flush of the staging ring into the main
+// MXINT8 cache, the one-row-per-slot write of a decode token, and the same
+// for the MXINT8 cache with the token's encode in the launch.
 //
 // The flush.
 //
@@ -39,7 +40,29 @@
 // Design: the TPU kernel read-modify-wrote aligned (32-row or 128-lane)
 // windows because Mosaic cannot store one dynamic row; here a block per
 // (slot, array) stores just the row, one launch for all arrays of a call.
-#include "mx_common.cuh"
+//
+// The fused MXINT8 encode + write.
+//
+// Replaces lqer_tpu/ops/pallas/cache_write.py::_kernel_fused (entry
+// write_kv_tokens_fused). The fresh K and V rows (B, KVH, d) f32 of one
+// decode step are MXINT8-encoded as _encode_t encodes them (per-16 absmax,
+// an all-zero group takes exponent 0, the exponent from the float's bits,
+// sign(v + 1e-9) and round((|v| + 1e-9) / 2^e * 128) clamped to 127) and
+// stored into column positions[b] of layer li of the four token-axis-last
+// arrays (K codes, K exponents, V codes, V exponents), in place; bitwise
+// mx8_encode(zero_fill=1.0) followed by the row write. A position outside
+// [0, L) writes nothing (checked on the device, no host sync).
+//
+// What bounds it on an H100: the bytes, 2 x 4 x d f32 read and 2 x (d +
+// d/16) int8 written per slot and kv head (at 8 slots x 32 kv heads, d =
+// 128: 256 KB read, 68 KB written): far below a launch's own cost, so it is
+// launch-bound.
+//
+// Design: the TPU kernel read-modify-wrote the 128-lane window holding pos
+// (a Mosaic store needs an aligned window); here a block per slot encodes
+// one 16-value group per thread (decode_common.cuh's encode_group, the
+// decode kernels' own) and stores the bytes of column pos only.
+#include "decode_common.cuh"
 
 namespace {
 
@@ -101,6 +124,24 @@ __global__ void row_write_kernel(RowArrays a, const int* __restrict__ pos_p,
   }
 }
 
+__global__ void encode_write_kernel(const float* __restrict__ kh,
+                                    const float* __restrict__ vh, int8_t* kc,
+                                    int8_t* ke, int8_t* vc, int8_t* ve,
+                                    const int* __restrict__ pos_p, int li,
+                                    int B, int KVH, int D, int L) {
+  const int b = blockIdx.x, GD = D / 16;
+  const int pos = pos_p[b];
+  if (pos < 0 || pos >= L) return;
+  for (int idx = threadIdx.x; idx < 2 * KVH * GD; idx += blockDim.x) {
+    const int g = idx % GD, kv = idx / GD % KVH;
+    const bool is_v = idx >= KVH * GD;
+    const size_t bk = ((size_t)li * B + b) * KVH + kv;
+    decode::encode_group((is_v ? vh : kh) + ((size_t)b * KVH + kv) * D + g * 16,
+                         (is_v ? vc : kc) + bk * D * L,
+                         (is_v ? ve : ke) + bk * GD * L, L, pos, g);
+  }
+}
+
 }  // namespace
 
 // main_*: (NL, B, KVH, rows, L) int8, updated in place; ring_*: the
@@ -151,5 +192,21 @@ LQER_API int lqer_write_rows(void* dst0, void* dst1, void* dst2, void* dst3,
               {cols0, cols1, cols2, cols3}, {kind0, kind1, kind2, kind3}};
   row_write_kernel<<<dim3(B, n), 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int*>(positions), li, B, KVH);
+  return (int)cudaGetLastError();
+}
+
+// kh, vh: the fresh (B, KVH, D) f32 rows; kc, vc (NL, B, KVH, D, L) and ke,
+// ve (NL, B, KVH, D/16, L) int8, written in place at column positions[b] of
+// layer li; positions (B) int32.
+LQER_API int lqer_encode_write_tokens(const void* kh, const void* vh, void* kc,
+                                      void* ke, void* vc, void* ve,
+                                      const void* positions, int li, int B,
+                                      int KVH, int D, int L, void* stream) {
+  if (D % 16 != 0) return (int)cudaErrorInvalidValue;
+  encode_write_kernel<<<B, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(kh), static_cast<const float*>(vh),
+      static_cast<int8_t*>(kc), static_cast<int8_t*>(ke),
+      static_cast<int8_t*>(vc), static_cast<int8_t*>(ve),
+      static_cast<const int*>(positions), li, B, KVH, D, L);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,9 @@
 //   - scores of 4 consecutive tokens of a token-axis-last MXINT8 or MXINT4
 //     cache (one char4 load per code row) and P·V along one d row (16 tokens
 //     per 16-byte load);
-//   - the exact f32 softmax over the score rows in shared memory and the
-//     quantization of p per 16 tokens.
+//   - the block-wide max and sum of the n_rep rows, the exact f32 softmax
+//     over the score rows in shared memory and the quantization of p per
+//     16 tokens.
 // The MXINT4 layout is d-split: packed row i holds value i in its low
 // nibble and value i + d/2 in its high nibble, both sign-extended; a code of
 // width w decodes as code * 2^(e - (w - 1)).
@@ -171,6 +172,55 @@ __device__ __forceinline__ void pv_row(const Cache& c, int dd, int ntok,
   }
 }
 
+// Reduces acc[h] (h < nrep) over the block, the max (MAX) or the sum: each
+// warp through a xor butterfly, then the warps in order; out[h] (shared
+// memory) takes the result. Ends synchronised.
+template <bool MAX>
+__device__ __forceinline__ void block_reduce(float (&acc)[NREP_MAX], int nrep,
+                                             float* out) {
+  __shared__ float red[NW][NREP_MAX];
+  const int t = threadIdx.x, lane = t % 32, w = t / 32;
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h) {
+    acc[h] = MAX ? warp_max_xor(acc[h]) : warp_sum_xor(acc[h]);
+    if (lane == 0) red[w][h] = acc[h];
+  }
+  __syncthreads();
+  if (t < nrep) {
+    float r = MAX ? -INFINITY : 0.f;
+    for (int i = 0; i < NW; ++i) r = MAX ? fmaxf(r, red[i][t]) : r + red[i][t];
+    out[t] = r;
+  }
+  __syncthreads();
+}
+
+// Over the 16-token groups of the nrep score rows sc[h * LS + j] in
+// [0, n0) and [off1, off1 + n1) that hold p = exp(s - max): p divided by
+// den[h] and, with p_mb >= 0, quantized per 16 (unsigned block_fp). Ends
+// synchronised.
+__device__ __forceinline__ void normalize_quantize_p(float* sc, int LS, int n0,
+                                                     int off1, int n1,
+                                                     int nrep, const float* den,
+                                                     int p_mb) {
+  const int g0 = n0 / 16, ngr = g0 + n1 / 16;
+  for (int idx = threadIdx.x; idx < nrep * ngr; idx += NT) {
+    const int h = idx / ngr, gi = idx % ngr;
+    float* pg = sc + h * LS + (gi < g0 ? gi * 16 : off1 + (gi - g0) * 16);
+    float bmax = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      pg[j] = pg[j] / den[h];
+      bmax = fmaxf(bmax, pg[j]);
+    }
+    if (p_mb >= 0) {
+      const int e = group_exponent(bmax);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pg[j] = mx_value(pg[j], e, p_mb);
+    }
+  }
+  __syncthreads();
+}
+
 // Over the score rows sc[h * LS + j] of the nrep heads, for j in [0, n0) and
 // [off1, off1 + n1) (n0, n1 multiples of 16; masked scores are -inf): the
 // row max, p = exp(s - max) and its sum (thread-strided over the first range
@@ -179,10 +229,9 @@ __device__ __forceinline__ void pv_row(const Cache& c, int dd, int ntok,
 __device__ __forceinline__ void softmax_quantize_p(float* sc, int LS, int n0,
                                                    int off1, int n1, int nrep,
                                                    int p_mb) {
-  __shared__ float red[NW][NREP_MAX];
   __shared__ float m_stat[NREP_MAX];
   __shared__ float s_stat[NREP_MAX];
-  const int t = threadIdx.x, lane = t % 32, w = t / 32;
+  const int t = threadIdx.x;
   float acc[NREP_MAX];
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) acc[h] = -INFINITY;
@@ -194,18 +243,7 @@ __device__ __forceinline__ void softmax_quantize_p(float* sc, int LS, int n0,
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep) acc[h] = fmaxf(acc[h], sc[h * LS + off1 + j]);
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) {
-    acc[h] = warp_max_xor(acc[h]);
-    if (lane == 0) red[w][h] = acc[h];
-  }
-  __syncthreads();
-  if (t < nrep) {
-    float m = -INFINITY;
-    for (int i = 0; i < NW; ++i) m = fmaxf(m, red[i][t]);
-    m_stat[t] = m;
-  }
-  __syncthreads();
+  block_reduce<true>(acc, nrep, m_stat);
 
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
@@ -225,36 +263,8 @@ __device__ __forceinline__ void softmax_quantize_p(float* sc, int LS, int n0,
         sc[h * LS + off1 + j] = p;
         acc[h] += p;
       }
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) {
-    acc[h] = warp_sum_xor(acc[h]);
-    if (lane == 0) red[w][h] = acc[h];
-  }
-  __syncthreads();
-  if (t < nrep) {
-    float tot = 0.f;
-    for (int i = 0; i < NW; ++i) tot += red[i][t];
-    s_stat[t] = tot;
-  }
-  __syncthreads();
-
-  const int g0 = n0 / 16, ngr = g0 + n1 / 16;
-  for (int idx = t; idx < nrep * ngr; idx += NT) {
-    const int h = idx / ngr, gi = idx % ngr;
-    float* pg = sc + h * LS + (gi < g0 ? gi * 16 : off1 + (gi - g0) * 16);
-    float bmax = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      pg[j] = pg[j] / s_stat[h];
-      bmax = fmaxf(bmax, pg[j]);
-    }
-    if (p_mb >= 0) {
-      const int e = group_exponent(bmax);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) pg[j] = mx_value(pg[j], e, p_mb);
-    }
-  }
-  __syncthreads();
+  block_reduce<false>(acc, nrep, s_stat);
+  normalize_quantize_p(sc, LS, n0, off1, n1, nrep, s_stat, p_mb);
 }
 
 }  // namespace decode

@@ -6,7 +6,11 @@ version and counts nothing."""
 from __future__ import annotations
 
 from .attention import quantized_attention
-from .cache_write import flush_stage_to_main, write_kv_rows_stacked
+from .cache_write import (
+    flush_stage_to_main,
+    write_kv_rows_stacked,
+    write_kv_tokens_fused,
+)
 from .decode_attention import decode_attention_quantized_staged
 from .fp_decode import decode_attention_fp
 from .quantized_decode import (
@@ -15,6 +19,10 @@ from .quantized_decode import (
 )
 from .dequant_gemm import qlinear_w4_fused, unpack_packed_to_bf16
 from .mlp_fused import mlp_w4_fused
+from .streaming_decode import (
+    decode_attention_quantized_streaming,
+    decode_attention_quantized_streaming_staged,
+)
 
 # name -> (wrapper, CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -44,6 +52,17 @@ KERNELS = {
         "lqer_tpu/ops/pallas/decode_attention.py:1504"),
     "row_write": (write_kv_rows_stacked, "lqer_tpu_torch/csrc/cache_write.cu",
                   "lqer_tpu/ops/pallas/cache_write.py:48"),
+    "decode_attention_streaming": (
+        decode_attention_quantized_streaming,
+        "lqer_tpu_torch/csrc/decode_attention_streaming.cu",
+        "lqer_tpu/ops/pallas/decode_attention.py:819"),
+    "decode_attention_streaming_staged": (
+        decode_attention_quantized_streaming_staged,
+        "lqer_tpu_torch/csrc/decode_attention_streaming.cu",
+        "lqer_tpu/ops/pallas/decode_attention.py:1145"),
+    "encode_write_tokens": (write_kv_tokens_fused,
+                            "lqer_tpu_torch/csrc/cache_write.cu",
+                            "lqer_tpu/ops/pallas/cache_write.py:248"),
 }
 
 

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lqer_tpu_torch"
 SOURCES = ("dequant_gemm", "attention", "decode_attention", "cache_write",
            "unpack", "mlp_fused", "decode_attention_quantized",
-           "decode_attention_fp")
+           "decode_attention_fp", "decode_attention_streaming")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,11 @@ ENTRIES = {
         [P] * 9 + [I] * 6 + [F, I, I]),
     "decode_attention_fp": ("decode_attention_fp", "lqer_decode_attention_fp",
                             [P] * 5 + [I] * 5 + [F] + [I] * 4),
+    "decode_attention_streaming": (
+        "decode_attention_streaming", "lqer_decode_attention_streaming",
+        [P] * 18 + [I] * 7 + [F, I, I]),
+    "encode_write_tokens": ("cache_write", "lqer_encode_write_tokens",
+                            [P] * 7 + [I] * 5),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

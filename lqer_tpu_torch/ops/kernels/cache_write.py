@@ -1,11 +1,13 @@
 """In-place KV-cache writes: the flush of the staging ring into the main
-cache, the one-row-per-slot decode write, and the cache-row encode the
-decode kernels use.
+cache, the one-row-per-slot decode write, the same with the MXINT8 encode in
+the launch, and the cache-row encode the decode kernels use.
 
-Port of ``flush_stage_to_main``, ``write_kv_rows_stacked`` and ``_encode_t``
-of ``lqer_tpu/ops/pallas/cache_write.py``. Both CUDA kernels are in
-``csrc/cache_write.cu``; :func:`flush_plain` and :func:`write_rows_plain`
-are their plain PyTorch versions. All write in place and bit-exact:
+Port of ``flush_stage_to_main``, ``write_kv_rows_stacked``,
+``write_kv_tokens_fused`` and ``_encode_t`` of
+``lqer_tpu/ops/pallas/cache_write.py``. The three CUDA kernels are in
+``csrc/cache_write.cu``; :func:`flush_plain`, :func:`write_rows_plain` and
+:func:`encode_write_plain` are their plain PyTorch versions. All write in
+place and bit-exact:
 
 - the flush, for every layer, slot, kv head and row,
   ``main[..., t] = ring[..., t % SW]`` for ``t`` in
@@ -14,7 +16,9 @@ are their plain PyTorch versions. All write in place and bit-exact:
   row at token ``positions[b]`` of layer ``layer_index``, on dim 3 (bf16 K/V
   rows of the fp cache, f32 rows rounded to nearest even) or dim 4 (int8
   MXINT code and exponent columns); a position outside ``[0, L)`` writes
-  nothing.
+  nothing;
+- the fused write, the fresh K/V rows MXINT8-encoded (:func:`encode_rows`)
+  and written as the row write writes the four columns.
 """
 
 from __future__ import annotations
@@ -32,6 +36,15 @@ def _encode_t(vals_t: torch.Tensor, group: int = 16):
     ``mx8_encode(zero_fill=1.0)`` on the untransposed values."""
     codes, exps = mx8_encode(vals_t.transpose(-1, -2), group, zero_fill=1.0)
     return codes.transpose(-1, -2), exps.transpose(-1, -2)
+
+
+def encode_rows(kh: torch.Tensor, vh: torch.Tensor, group: int = 16) -> tuple:
+    """Fresh (B, KVH, 1, d) K/V rows → the four MXINT8 cache columns
+    (codes (B, KVH, d, 1), exps (B, KVH, d/16, 1)) of ``_encode_t``."""
+    out = []
+    for new in (kh, vh):
+        out += _encode_t(new[:, :, 0, :].to(torch.float32)[..., None], group)
+    return tuple(out)
 
 
 def flush_plain(cache_arrays, stage_arrays, flushed, new_flushed) -> tuple:
@@ -158,3 +171,49 @@ def write_kv_rows_stacked(cache_arrays: tuple, new_rows: tuple,
 
 
 write_kv_rows_stacked.launches = 0
+
+
+def encode_write_plain(cache_arrays, kh, vh, layer_index: int,
+                       positions: torch.Tensor, group: int = 16) -> tuple:
+    return write_rows_plain(cache_arrays, encode_rows(kh, vh, group),
+                            layer_index, positions)
+
+
+def write_kv_tokens_fused(cache_arrays: tuple, kh: torch.Tensor,
+                          vh: torch.Tensor, layer_index: int,
+                          positions: torch.Tensor) -> tuple:
+    """MXINT8-encode the fresh rows kh, vh (B, KVH, 1, d) and write them into
+    column ``positions[b]`` of layer ``layer_index`` of the four
+    layer-stacked arrays (k codes, k exps, v codes, v exps) of shapes
+    ``(NL, B, KVH, d, L)`` and ``(NL, B, KVH, d/16, L)``, in place; returns
+    them. CPU tensors run :func:`encode_write_plain`; CUDA tensors launch
+    ``csrc/cache_write.cu`` (one launch)."""
+    kc = cache_arrays[0]
+    NL, B, KVH, d, L = kc.shape
+    shapes = [(NL, B, KVH, d, L), (NL, B, KVH, d // 16, L)] * 2
+    if (len(cache_arrays) != 4 or d % 16
+            or [tuple(a.shape) for a in cache_arrays] != shapes
+            or tuple(kh.shape) != (B, KVH, 1, d) or vh.shape != kh.shape
+            or not 0 <= layer_index < NL):
+        raise ValueError(f"the fused write takes four arrays {shapes}, rows "
+                         f"(B, KVH, 1, d) and a layer in [0, {NL}) (got "
+                         f"{[tuple(a.shape) for a in cache_arrays]}, rows "
+                         f"{tuple(kh.shape)}, layer {layer_index})")
+    if kc.device.type == "cpu":
+        return encode_write_plain(cache_arrays, kh, vh, layer_index, positions)
+    if not kc.is_cuda:
+        raise ValueError(f"unsupported device {kc.device}")
+    for a in cache_arrays:
+        if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
+            raise ValueError("cache arrays must be contiguous int8 CUDA "
+                             "tensors")
+    khf, vhf = (t.to(torch.float32).contiguous() for t in (kh, vh))
+    pos = positions.to(torch.int32).contiguous()
+    _build.launch("encode_write_tokens", khf.data_ptr(), vhf.data_ptr(),
+                  *(a.data_ptr() for a in cache_arrays), pos.data_ptr(),
+                  int(layer_index), B, KVH, d, L)
+    write_kv_tokens_fused.launches += 1
+    return tuple(cache_arrays)
+
+
+write_kv_tokens_fused.launches = 0

@@ -29,6 +29,14 @@ from .attention import attend_plain
 from .cache_write import _encode_t
 
 THREADS = 128  # the kernel's block size: the main length must be a multiple
+SMEM_LIMIT = 220 * 1024  # shared memory the decode kernels may ask for
+
+
+def smem_bytes(n_rep: int, max_len: int, head_dim: int, ring: int = 64
+               ) -> int:
+    """Shared memory of the kernel: queries and score rows (main and ring)
+    of the n_rep heads."""
+    return 4 * n_rep * (head_dim + max_len + ring)
 
 
 def _quantize_sublane_groups_signed(x: torch.Tensor, mb: int, group: int
@@ -133,7 +141,8 @@ def decode_attention_quantized_staged(
             q_width=q_width, p_width=p_width)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    if q_width is None or d not in (64, 128) or L % THREADS or H % KVH:
+    if (q_width is None or d not in (64, 128) or L % THREADS or H % KVH
+            or smem_bytes(H // KVH, L, d, SW) > SMEM_LIMIT):
         raise ValueError(f"unsupported staged decode shape d={d} L={L} "
                          f"H={H} KVH={KVH} q_width={q_width}")
     arrays = (k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,

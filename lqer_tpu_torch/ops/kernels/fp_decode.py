@@ -20,10 +20,9 @@ import torch
 
 from . import _build
 from .attention import attend_plain
-from .decode_attention import _quantize_sublane_groups_signed
+from .decode_attention import SMEM_LIMIT, _quantize_sublane_groups_signed
 
-SMEM_LIMIT = 220 * 1024  # shared memory the decode kernels may ask for
-K_TILE = 128             # tokens of K the kernel quantizes per pass
+K_TILE = 128            # tokens of K the kernel quantizes per pass
 
 
 def smem_bytes(n_rep: int, max_len: int, head_dim: int) -> int:

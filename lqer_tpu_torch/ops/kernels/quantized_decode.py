@@ -24,12 +24,13 @@ import torch
 
 from . import _build
 from .attention import attend_plain
-from .cache_write import _encode_t, write_rows_plain
+from .cache_write import encode_write_plain
 from .decode_attention import (
+    SMEM_LIMIT,
     _decode_cache_block,
     _quantize_sublane_groups_signed,
 )
-from .fp_decode import SMEM_LIMIT, _mb, decode_attention_widths
+from .fp_decode import _mb, decode_attention_widths
 
 
 def smem_bytes(n_rep: int, max_len: int, head_dim: int) -> int:
@@ -75,21 +76,12 @@ def quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps, positions,
     return attend_plain(s, v, p_width, group)
 
 
-def encode_rows(kh: torch.Tensor, vh: torch.Tensor, group: int = 16) -> tuple:
-    """Fresh (B, KVH, 1, d) K/V rows → the four MXINT8 cache columns
-    (codes (B, KVH, d, 1), exps (B, KVH, d/16, 1)) of ``_encode_t``."""
-    out = []
-    for new in (kh, vh):
-        out += _encode_t(new[:, :, 0, :].to(torch.float32)[..., None], group)
-    return tuple(out)
-
-
 def quantized_write_plain(q, k_codes, k_exps, v_codes, v_exps, kh, vh,
                           positions, layer_index: int, *, scaling: float,
                           group: int = 16, q_width: int | None = 8,
                           p_width: int | None = 8) -> torch.Tensor:
-    write_rows_plain((k_codes, k_exps, v_codes, v_exps),
-                     encode_rows(kh, vh, group), layer_index, positions)
+    encode_write_plain((k_codes, k_exps, v_codes, v_exps), kh, vh,
+                       layer_index, positions, group)
     return quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps,
                                   positions, layer_index, scaling=scaling,
                                   group=group, q_width=q_width,

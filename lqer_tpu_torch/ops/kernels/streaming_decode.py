@@ -1,0 +1,138 @@
+"""Streaming decode attention over the MXINT cache, past the one-pass
+length: the direct-write cache and the ring-staged one.
+
+Port of ``decode_attention_quantized_streaming`` (bodies ``_stats_kernel``
+and ``_out_kernel``, codes of width 8 or 4, layer-stacked with
+``layer_index``) and ``decode_attention_quantized_streaming_staged`` (bodies
+``_stats_kernel_staged`` and ``_out_kernel_staged``, width 8) of
+``lqer_tpu/ops/pallas/decode_attention.py``. Both run the CUDA kernels of
+``csrc/decode_attention_streaming.cu``.
+
+They compute the one-pass kernels' functions, so their plain versions are
+those kernels' own: :func:`~.quantized_decode.quantized_decode_plain` for
+the direct-write cache and :func:`~.decode_attention.staged_decode_plain`
+(with the ring write) for the staged one. The two differ from the one-pass
+kernels only in f32 summation order. The JAX package's
+``streaming_l_chunk`` is a Mosaic tiling choice; the CUDA kernels split L
+in chunks of :data:`CHUNK` tokens of their own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .decode_attention import staged_decode_plain
+from .fp_decode import _mb
+from .quantized_decode import _check_cache, quantized_decode_plain
+
+CHUNK = 512  # tokens per block of the CUDA kernels (csrc: CHUNK)
+
+
+def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
+            q_width, p_width) -> torch.Tensor:
+    """``main``: the layer's four (B, KVH, rows, L) arrays; ``ring``: the
+    four (B, KVH, rows, SW) rings, or None for the direct-write cache."""
+    B, H, _, d = q.shape
+    KVH, L = main[0].shape[1], main[0].shape[-1]
+    SW = 0 if ring is None else ring[0].shape[-1]
+    arrays = (*main, *(ring or ()))
+    if d not in (64, 128) or H % KVH or not 1 <= H // KVH <= 8:
+        raise ValueError(f"unsupported streaming decode shape d={d} H={H} "
+                         f"KVH={KVH}")
+    for a in arrays:
+        if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
+            raise ValueError("cache arrays must be contiguous int8 CUDA "
+                             "tensors")
+    nrep = H // KVH
+    nz = -(-L // CHUNK) + (ring is not None)
+    dev = q.device
+    qf = q.to(torch.float32).contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    new = [None if t is None else t.to(torch.float32).contiguous()
+           for t in (kh, vh)]
+    fl = None if flushed is None else flushed.to(torch.int32).contiguous()
+    scores = torch.empty(B, H, L + SW, dtype=torch.float32, device=dev)
+    st_m, st_l = (torch.empty(B, KVH, nz, nrep, dtype=torch.float32,
+                              device=dev) for _ in range(2))
+    part = torch.empty(B, KVH, nz, nrep, d, dtype=torch.float32, device=dev)
+    out = torch.empty(B, H, 1, d, dtype=torch.float32, device=dev)
+    ptrs = [_build.ptr(t) for t in (*main, *(ring or (None,) * 4))]
+    _build.launch("decode_attention_streaming", qf.data_ptr(), *ptrs,
+                  *(_build.ptr(t) for t in new), pos.data_ptr(),
+                  _build.ptr(fl), scores.data_ptr(), st_m.data_ptr(),
+                  st_l.data_ptr(), part.data_ptr(), out.data_ptr(), B, KVH,
+                  nrep, d, L, SW, width, float(scaling), _mb(q_width),
+                  _mb(p_width))
+    return out
+
+
+def decode_attention_quantized_streaming(
+        q, k_codes, k_exps, v_codes, v_exps, positions, layer_index: int, *,
+        scaling: float, group: int = 16, q_width: int | None = 8,
+        p_width: int | None = 8) -> torch.Tensor:
+    """One layer of decode attention over the MXINT8 or MXINT4 cache, split
+    along L for the card.
+
+    q (B, H, 1, d) raw queries (rope applied); codes (NL, B, KVH, d, L) or
+    (NL, B, KVH, d/2, L) and exps (NL, B, KVH, d/16, L) int8, read at
+    ``layer_index``; positions (B,). Returns (B, H, 1, d) f32. CPU tensors
+    run :func:`~.quantized_decode.quantized_decode_plain`; CUDA tensors
+    launch ``csrc/decode_attention_streaming.cu``."""
+    width = _check_cache(q, k_codes, k_exps, v_codes, v_exps, group)
+    arrays = (k_codes, k_exps, v_codes, v_exps)
+    if q.device.type == "cpu":
+        return quantized_decode_plain(q, *arrays, positions, layer_index,
+                                      scaling=scaling, group=group,
+                                      q_width=q_width, p_width=p_width)
+    if not q.is_cuda or not 0 <= layer_index < k_codes.shape[0]:
+        raise ValueError(f"unsupported device {q.device} or layer "
+                         f"{layer_index} of {k_codes.shape[0]}")
+    out = _launch(q, [a[layer_index] for a in arrays], None, None, None,
+                  positions, None, width, scaling, q_width, p_width)
+    decode_attention_quantized_streaming.launches += 1
+    return out
+
+
+def decode_attention_quantized_streaming_staged(
+        q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
+        vs_exps, kh, vh, positions, flushed, *, scaling: float,
+        group: int = 16, q_width: int | None = 8,
+        p_width: int | None = 8) -> torch.Tensor:
+    """One layer of staged decode attention, split along L for the card.
+
+    The arguments of :func:`~.decode_attention.decode_attention_quantized_
+    staged`: main cache codes (B, KVH, d, L) and exps (B, KVH, d/16, L)
+    int8; rings (B, KVH, d, 64) and (B, KVH, d/16, 64) int8, updated in
+    place at lane ``pos % 64``; kh, vh (B, KVH, 1, d) raw new rows;
+    positions, flushed (B,). Returns (B, H, 1, d) f32. CPU tensors run
+    :func:`~.decode_attention.staged_decode_plain`; CUDA tensors launch
+    ``csrc/decode_attention_streaming.cu``."""
+    B, H, S, d = q.shape
+    SW = ks_codes.shape[-1]
+    if k_codes.shape[2] == d // 2:
+        raise NotImplementedError(
+            "the staged MXINT4 cache is not ported (JAX: "
+            "decode_attention_quantized_streaming_staged at code width 4; "
+            "it comes with the mxint4-staged slice)")
+    if S != 1 or SW != 64 or k_codes.shape[2] != d or group != 16 \
+            or k_codes.shape[-1] % 16:
+        raise ValueError(f"staged streaming decode needs s=1, an MXINT8 "
+                         f"cache of L % 16 == 0 and a 64-lane ring (s={S}, "
+                         f"SW={SW}, codes {tuple(k_codes.shape)})")
+    main = (k_codes, k_exps, v_codes, v_exps)
+    ring = (ks_codes, ks_exps, vs_codes, vs_exps)
+    if q.device.type == "cpu":
+        return staged_decode_plain(q, *main, *ring, kh, vh, positions,
+                                   flushed, scaling=scaling, group=group,
+                                   q_width=q_width, p_width=p_width)
+    if not q.is_cuda:
+        raise ValueError(f"unsupported device {q.device}")
+    out = _launch(q, main, ring, kh, vh, positions, flushed, 8, scaling,
+                  q_width, p_width)
+    decode_attention_quantized_streaming_staged.launches += 1
+    return out
+
+
+decode_attention_quantized_streaming.launches = 0
+decode_attention_quantized_streaming_staged.launches = 0

@@ -25,6 +25,13 @@ update). At s = 1 the route follows the cache (``make_cache``):
   stores the bf16 rows, the fp-cache decode kernel attends, quantizing
   every operand at use.
 
+Past the one-pass length (:func:`streams`; at Llama-2-7B width about 23K
+tokens) the MXINT caches stream L as the JAX package does: the staged cache
+through the streaming staged kernel, ``mxint8`` through the fused MXINT8
+encode + write and the streaming kernel, ``mxint4`` through its row write
+and the streaming kernel at width 4. :func:`decode_route` holds each
+route, and the decode step runs the kernels it names.
+
 The W8 lm_head is kernel 1 again. At 512 rows and more (an admission of
 8 x 64 tokens, a 2048-token prompt) every packed linear, the MLP and the
 head take the large-M route instead: unpack each weight once, then one
@@ -51,11 +58,18 @@ from ..models.common import (
     rotary_tables,
     supports_fused_attention,
 )
+from ..ops.kernels import decode_attention as staged_decode
 from ..ops.kernels import fp_decode, quantized_decode
-from ..ops.kernels.cache_write import flush_stage_to_main, write_kv_rows_stacked
-from ..ops.kernels.decode_attention import decode_attention_quantized_staged
-from ..ops.kernels.fp_decode import (
+from ..ops.kernels.cache_write import (
+    flush_stage_to_main,
+    write_kv_rows_stacked,
+    write_kv_tokens_fused,
+)
+from ..ops.kernels.decode_attention import (
     SMEM_LIMIT,
+    decode_attention_quantized_staged,
+)
+from ..ops.kernels.fp_decode import (
     decode_attention_fp,
     decode_attention_widths,
     supports_decode_attention,
@@ -64,6 +78,10 @@ from ..ops.kernels.quantized_decode import (
     decode_attention_quantized,
     decode_attention_quantized_write,
     decode_attention_widths_quantized,
+)
+from ..ops.kernels.streaming_decode import (
+    decode_attention_quantized_streaming,
+    decode_attention_quantized_streaming_staged,
 )
 from ..ops.kernels.dequant_gemm import qlinear_w4_dense_largeM, qlinear_w4_fused
 from ..parallel.collectives import mx4_decode, mx4_encode, mx8_decode, mx8_encode
@@ -138,13 +156,42 @@ def _check_cache_regime(kind: str, max_len: int, head_dim: int) -> None:
             f"the bf16 cache at max_len={max_len} is past the fp kernel's "
             "one-pass length (serving/decode.py::_fp_cache_kernel_fits); the "
             "JAX package takes its eager path (_attend), which is not ported")
-    if kind in ("mxint8", "mxint4") and not _kvh_chunk_fits(max_len,
-                                                            head_dim):
-        raise NotImplementedError(
-            f"the {kind} cache at max_len={max_len} is past the one-pass "
-            "length (ops/pallas/decode_attention.py::_kvh_chunk_fits); the "
-            "JAX package streams L there (decode_attention_quantized_"
-            "streaming, write_kv_tokens_fused), which is not ported")
+
+
+def streams(kind: str, max_len: int, head_dim: int, n_rep: int) -> bool:
+    """Whether decode over an MXINT cache of this kind takes the two-pass
+    streaming kernels: past the JAX package's one-pass length
+    (``_kvh_chunk_fits``), where it streams L too, and wherever the port's
+    one-pass kernel cannot hold its n_rep score rows in shared memory (at
+    n_rep = 2, d = 64 past about 28K tokens). There the JAX package takes
+    its one-pass kernel (``decode_attention_quantized``, after its fused
+    write for MXINT8, or the one-pass staged kernel); the two compute one
+    function and differ only in f32 summation order."""
+    if kind == "mxint8-staged":
+        smem = staged_decode.smem_bytes(n_rep, max_len, head_dim)
+    elif kind in ("mxint8", "mxint4"):
+        smem = quantized_decode.smem_bytes(n_rep, max_len, head_dim)
+    else:
+        return False
+    return not _kvh_chunk_fits(max_len, head_dim) or smem > SMEM_LIMIT
+
+
+def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
+                 ) -> tuple[str, ...]:
+    """The kernels (``ops.kernels.KERNELS`` names) that a decode step
+    launches, in order, for each layer over a cache of this kind; the
+    staged cache's flush runs besides, once for all layers, when a ring
+    fills."""
+    stream = streams(kind, max_len, head_dim, n_rep)
+    return {
+        "bfloat16": ("row_write", "decode_attention_fp"),
+        "mxint8": (("encode_write_tokens", "decode_attention_streaming")
+                   if stream else ("decode_attention_write",)),
+        "mxint4": ("row_write", "decode_attention_streaming" if stream
+                   else "decode_attention_quantized"),
+        "mxint8-staged": ("decode_attention_streaming_staged",) if stream
+        else ("decode_attention",),
+    }[kind]
 
 
 def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
@@ -193,23 +240,20 @@ def check_servable(cache: dict, attn_cfgs, head_dim: int, n_rep: int
     """Raise ``NotImplementedError`` unless every admission and decode step
     over ``cache`` with these attention configs runs through a ported
     kernel: the JAX package's eager attention (``serving/decode.py::
-    _attend``) is not ported, nor are its streaming kernels."""
+    _attend``) is not ported, nor is a streaming fp-cache kernel."""
     kind = _cache_kind(cache)
     max_len = cache_max_len(cache)
     _check_cache_regime(kind, max_len, head_dim)
     quantized = is_quantized_cache(cache)
     width = cache_code_width(cache) if quantized else 8
-    if kind == "bfloat16":
-        smem = fp_decode.smem_bytes(n_rep, max_len, head_dim)
-    elif not is_staged_cache(cache):
-        smem = quantized_decode.smem_bytes(n_rep, max_len, head_dim)
-    else:
-        smem = 0
-    if smem > SMEM_LIMIT:
+    smem = fp_decode.smem_bytes(n_rep, max_len, head_dim)
+    if kind == "bfloat16" and smem > SMEM_LIMIT:
         raise NotImplementedError(
-            f"the decode kernel's scores at n_rep={n_rep}, max_len={max_len} "
-            f"need {smem} bytes of shared memory (at most "
-            f"{SMEM_LIMIT}); no streaming variant is ported")
+            f"the fp-cache decode kernel's scores at n_rep={n_rep}, "
+            f"max_len={max_len} need {smem} bytes of shared memory (at most "
+            f"{SMEM_LIMIT}); the JAX package serves this length with its "
+            "one-pass decode_attention (ops/pallas/decode_attention.py), "
+            "and no streaming fp-cache kernel is ported")
     # layers resolved from one config share its matmul dicts
     for attn_cfg in {(id(c.qk_cfg), id(c.pv_cfg)): c
                      for c in attn_cfgs}.values():
@@ -371,33 +415,47 @@ def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache):
         kv_values_pre_quantized=quantized)
 
 
-def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling):
-    """Decode attention (s = 1) with the fresh token written into layer
-    ``li`` of the direct-write cache: one fused launch for MXINT8, the row
-    write then the read-only kernel for MXINT4 and bf16."""
-    if is_quantized_cache(cache) and cache_code_width(cache) == 8:
-        return decode_attention_quantized_write(
-            qh, *(cache[k] for k in MAIN_KEYS), kh, vh, positions, li,
-            scaling=scaling, **decode_attention_widths_quantized(attn_cfg))
-    _cache_write_row(cache, li, kh, vh, positions)
-    if is_quantized_cache(cache):
-        return decode_attention_quantized(
-            qh, *(cache[k] for k in MAIN_KEYS), positions, li,
-            scaling=scaling, **decode_attention_widths_quantized(attn_cfg))
-    return decode_attention_fp(qh, cache["k"], cache["v"], positions, li,
-                               scaling=scaling,
-                               **decode_attention_widths(attn_cfg))
+def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
+                   route):
+    """Decode attention (s = 1) through the kernels of ``route``
+    (:func:`decode_route`), in order: the fresh token lands in layer ``li``
+    of the cache in place (a staged cache's rings), and the last kernel's
+    attention is returned."""
+    def main():
+        return tuple(cache[k] for k in MAIN_KEYS)
 
+    def staged():
+        return (*(cache[k][li] for k in MAIN_KEYS),
+                *(cache[k][li] for k in STAGE_KEYS))
 
-def _staged_write_attend(cache, qh, kh, vh, positions, li, attn_cfg,
-                         scaling):
-    """Decode attention through the staged kernel; the fresh rows land in
-    layer ``li``'s rings in place."""
-    return decode_attention_quantized_staged(
-        qh, *(cache[k][li] for k in MAIN_KEYS),
-        *(cache[k][li] for k in STAGE_KEYS), kh, vh, positions,
-        cache["flushed"], scaling=scaling,
-        **decode_attention_widths_quantized(attn_cfg))
+    def widths():
+        return decode_attention_widths_quantized(attn_cfg)
+
+    kernels = {
+        "row_write": lambda: _cache_write_row(cache, li, kh, vh, positions),
+        "encode_write_tokens": lambda: write_kv_tokens_fused(
+            main(), kh, vh, li, positions),
+        "decode_attention_write": lambda: decode_attention_quantized_write(
+            qh, *main(), kh, vh, positions, li, scaling=scaling, **widths()),
+        "decode_attention_quantized": lambda: decode_attention_quantized(
+            qh, *main(), positions, li, scaling=scaling, **widths()),
+        "decode_attention_streaming":
+            lambda: decode_attention_quantized_streaming(
+                qh, *main(), positions, li, scaling=scaling, **widths()),
+        "decode_attention": lambda: decode_attention_quantized_staged(
+            qh, *staged(), kh, vh, positions, cache["flushed"],
+            scaling=scaling, **widths()),
+        "decode_attention_streaming_staged":
+            lambda: decode_attention_quantized_streaming_staged(
+                qh, *staged(), kh, vh, positions, cache["flushed"],
+                scaling=scaling, **widths()),
+        "decode_attention_fp": lambda: decode_attention_fp(
+            qh, cache["k"], cache["v"], positions, li, scaling=scaling,
+            **decode_attention_widths(attn_cfg)),
+    }
+    for name in route:
+        attn = kernels[name]()
+    return attn
 
 
 def _staged_flush_maybe(cache, positions):
@@ -436,6 +494,7 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, n_rep)
     staged = is_staged_cache(cache)
     max_len = cache_max_len(cache)
+    route = decode_route(_cache_kind(cache), max_len, cfg.head_dim, n_rep)
     if s == 1 and staged:
         _staged_flush_maybe(cache, positions)
     embed = rest["model.embed_tokens.weight"]
@@ -473,12 +532,9 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
             attn = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling,
                                          n_rep, cache)
             _cache_write_full(cache, li, kh, vh, positions)
-        elif staged:
-            attn = _staged_write_attend(cache, qh, kh, vh, positions, li,
-                                        attn_cfg, scaling)
         else:
             attn = _decode_attend(cache, qh, kh, vh, positions, li,
-                                  attn_cfg, scaling)
+                                  attn_cfg, scaling, route)
         attn = serving_linear(merge_heads(attn),
                               "self_attn.o_proj", backend_stacked,
                               attn_cfg.o_proj, layer_index=li)

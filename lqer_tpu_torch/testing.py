@@ -124,8 +124,10 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     """Raise unless every element is within ``limit`` and at most the
     fraction ``max_flipped`` lies past the plain rtol/atol band; return
     ``{max_abs_err, flipped, of_limit}`` (``of_limit``: the largest
-    ``|diff| / limit``)."""
+    ``|diff| / limit``). A NaN on either side counts as an infinite
+    difference."""
     diff = (got.to(torch.float32) - want.to(torch.float32)).abs()
+    diff = torch.where(diff.isnan(), float("inf"), diff)
     flipped = float((diff > ATOL + RTOL * want.abs()).float().mean())
     out = {"max_abs_err": float(diff.max()), "flipped": flipped,
            "of_limit": float((diff / limit).max())}

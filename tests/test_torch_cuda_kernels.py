@@ -1,7 +1,9 @@
-"""The ten CUDA kernels of the port against their plain PyTorch versions
-on the card, at small shapes (the unpack kernel at the 7B shapes, prefill
-attention also at the 2048-token admission's, the decode kernels of the
-direct-write caches also at the 7B decode shape), and the large-M route.
+"""The thirteen CUDA kernels of the port against their plain PyTorch
+versions on the card, at small shapes (the unpack kernel at the 7B shapes,
+prefill attention also at the 2048-token admission's, the decode kernels of
+the direct-write caches also at the 7B decode shape, the long-context
+kernels up to L = 32768, the streaming kernels also against the one-pass
+ones), and the large-M route.
 Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
@@ -23,6 +25,7 @@ from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
 from lqer_tpu_torch.ops.kernels import fp_decode as kfp
 from lqer_tpu_torch.ops.kernels import mlp_fused as k5
 from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+from lqer_tpu_torch.ops.kernels import streaming_decode as ks
 from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
 from lqer_tpu_torch.ops.storage import MXFormat
 from lqer_tpu_torch.parallel.collectives import (
@@ -300,3 +303,98 @@ def test_row_write(gen, lane, pos):
     k4.write_rows_plain(tuple(theirs), tuple(news), 1, p)
     assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
     assert all(torch.equal(a[0], b[0]) for a, b in zip(mine, arrays))
+
+
+# the long-context kernels: (slots, kv heads, n_rep, d, L, positions), the
+# last at the 7B decode shape past the one-pass length
+STREAM_SHAPES = [
+    (3, 2, 2, 64, 1024, [511, 512, 1023]),   # a chunk's last and first token
+    (2, 1, 8, 128, 4096, [0, 4000]),
+    (4, 32, 1, 128, 32768, [64, 511, 512, 32767])]
+
+
+@pytest.mark.parametrize("width", [8, 4])
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos", STREAM_SHAPES)
+def test_streaming_decode_attention(gen, b, kvh, nrep, d, l, pos, width):
+    cache = _mx_cache(gen, width, b, kvh, d, l)
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    p = _positions(pos)
+    before = ks.decode_attention_quantized_streaming.launches
+    got = ks.decode_attention_quantized_streaming(q, *cache, p, 1,
+                                                  scaling=0.125)
+    assert ks.decode_attention_quantized_streaming.launches == before + 1
+    want = kq.quantized_decode_plain(q, *cache, p, 1, scaling=0.125)
+    s, vals = kq.quantized_scores(q, *cache, p, 1, scaling=0.125)
+    check_close(f"streaming decode attention width {width}", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+def _staged_inputs(gen, b, kvh, nrep, d, l, pos):
+    """A layer's main cache and rings, flushed = floor32(pos)."""
+    main = _mx_cache(gen, 8, b, kvh, d, l)
+    main = [a[1] for a in main]
+    ring = [a[1].contiguous() for a in _mx_cache(gen, 8, b, kvh, d, 64)]
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    p = _positions(pos)
+    return main, ring, q, kh, vh, p, (p // 32) * 32
+
+
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos", STREAM_SHAPES)
+def test_streaming_staged_decode_attention(gen, b, kvh, nrep, d, l, pos):
+    main, ring, q, kh, vh, p, fl = _staged_inputs(gen, b, kvh, nrep, d, l,
+                                                  pos)
+    mine, theirs = [t.clone() for t in ring], [t.clone() for t in ring]
+    got = ks.decode_attention_quantized_streaming_staged(
+        q, *main, *mine, kh, vh, p, fl, scaling=0.125)
+    want = k3.staged_decode_plain(q, *main, *theirs, kh, vh, p, fl,
+                                  scaling=0.125)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    s, vals = k3.staged_scores(q, *main, *theirs, p, fl, scaling=0.125)
+    check_close("streaming staged decode attention", got, want,
+                attention_limit(s[:, :, None, :], vals, want, p_width=8),
+                max_flipped=0.05)
+
+
+def test_streaming_against_one_pass(gen):
+    """At L = 24576, where n_rep = 1 fits both: row 8 against row 6 and
+    row 9 against row 7, the kernels on the same inputs."""
+    b, kvh, d, l, pos = 4, 32, 128, 24576, [64, 511, 512, 24575]
+    cache = _mx_cache(gen, 8, b, kvh, d, l)
+    q = torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+    p = _positions(pos)
+    got = ks.decode_attention_quantized_streaming(q, *cache, p, 1,
+                                                  scaling=0.125)
+    want = kq.decode_attention_quantized(q, *cache, p, 1, scaling=0.125)
+    s, vals = kq.quantized_scores(q, *cache, p, 1, scaling=0.125)
+    check_close("streaming vs one-pass", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+    main, ring, q, kh, vh, p, fl = _staged_inputs(gen, b, kvh, 1, d, l, pos)
+    mine, theirs = [t.clone() for t in ring], [t.clone() for t in ring]
+    got = ks.decode_attention_quantized_streaming_staged(
+        q, *main, *mine, kh, vh, p, fl, scaling=0.125)
+    want = k3.decode_attention_quantized_staged(q, *main, *theirs, kh, vh, p,
+                                                fl, scaling=0.125)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    s, vals = k3.staged_scores(q, *main, *theirs, p, fl, scaling=0.125)
+    check_close("streaming staged vs one-pass staged", got, want,
+                attention_limit(s[:, :, None, :], vals, want, p_width=8),
+                max_flipped=0.05)
+
+
+@pytest.mark.parametrize("b,kvh,d,l,pos", [
+    (3, 2, 64, 256, [0, 255, 256]),          # 256 lies past the cache
+    (8, 32, 128, 32768, [64, 511, 512, 4000, 16383, 16384, 30000, 32767])])
+def test_encode_write_tokens(gen, b, kvh, d, l, pos):
+    arrays = _mx_cache(gen, 8, b, kvh, d, l)
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    kh[0, 0, 0, :16] = 0.0                      # an all-zero group
+    p = _positions(pos)
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    k4.write_kv_tokens_fused(tuple(mine), kh, vh, 1, p)
+    k4.encode_write_plain(tuple(theirs), kh, vh, 1, p)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(mine, arrays))
+    assert not all(torch.equal(a, b) for a, b in zip(mine, arrays))
