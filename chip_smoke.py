@@ -6,7 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the nine sources of ``lqer_tpu_torch/csrc`` (one nvcc each, in
-   parallel), which hold the thirteen kernels;
+   parallel), which hold the fourteen kernels (the megakernel counted twice:
+   its gated and its relu variant);
 3. each kernel against its plain PyTorch version on the card at the 7B
    serving shapes, held to the limits of ``lqer_tpu_torch/testing.py``
    (rtol = atol = 2e-4 plus one 8-bit code step of each quantizer a
@@ -24,7 +25,11 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    slots, 32 kv heads, L = 32768 and positions 64..32767: streaming decode
    at widths 8 and 4, streaming staged decode (rings bit-exact), the fused
    MXINT8 encode + write (columns bit-exact), and at L = 24576 each
-   streaming kernel against its one-pass kernel on the same inputs;
+   streaming kernel against its one-pass kernel on the same inputs; then
+   OPT's modes at OPT-6.7B width: the megakernel's relu variant with
+   biases at 8 and 256 rows, kernel 1 with a bias on q|k|v and out_proj,
+   and the fp-cache, MXINT4, fused write + attend and staged decode kernels
+   with the query scaled before its quantizer (``scale_query``);
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
    default (each MLP whole, for the megakernel), teacher-forced through an
    8 x 64-token admission (512 rows: the large-M route) and 20 decode
@@ -53,6 +58,10 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    fed the same tokens as the kernels match the plain versions. Then the
    same model packed with ``fuse_mlp=False`` (gate|up and down through
    kernel 1), kernels vs plain versions on the card, the same limits;
+   then a 2-layer OPT at OPT-6.7B width (vocab 50272, dense head) the same
+   way: ``mxint8-staged`` (with its negative control, layer 1's fc2
+   correction left out) and ``bfloat16`` three ways, ``mxint8`` and
+   ``mxint4`` (KV4) kernels vs plain versions on the card;
 5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head, 8
    slots, max_len 2048) serving 8 greedy requests over each cache
    (``mxint8-staged`` 80 new tokens each, the others 40), a torch.profiler
@@ -63,7 +72,11 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    slots at max_len 32768: the same requests with 16 new tokens, and 10
    decode steps at positions 32000.. over a cache filled by tiling one
    encoded block of 2048 seeded rows (median step, tok/s, a profile of 5
-   steps beside the predicted cache-read floor);
+   steps beside the predicted cache-read floor); then, the Llama engine
+   freed, ``DecodeEngine`` at OPT-6.7B shape (32 layers, rank 32, dense
+   head, 8 slots, max_len 2048) serving the same mix over ``bfloat16`` (40
+   new tokens) and ``mxint8-staged`` (80), a profile of 5 decode steps
+   each, and one 2048-token admission with its profile;
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
    phase-3 numbers.
 
@@ -956,6 +969,223 @@ def phase_stream_kernels(torch, timer, rates, results):
     torch.cuda.empty_cache()
 
 
+def phase_opt_kernels(torch, timer, rates, results):
+    """Phase 3, OPT's modes at OPT-6.7B width: the megakernel's relu variant
+    with biases (fc1 and fc2 of one layer, K = 4096, I = 16384, N = 4096,
+    rank 32) at 8 and 256 rows; kernel 1 with a bias on q|k|v (N = 12288)
+    and out_proj at 8 rows; the decode kernels of OPT's caches with the
+    query scaled before its quantizer (``scale_query``) at 8 slots, 32 kv
+    heads, d = 128, L = 2048: fp cache, MXINT4 cache, staged MXINT8 cache
+    and the fused MXINT8 write + attend."""
+    import dataclasses
+
+    from lqer_tpu_torch.models.opt import MODEL_CONFIGS
+    from lqer_tpu_torch.ops.kernels import decode_attention as k3
+    from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+    from lqer_tpu_torch.ops.kernels import fp_decode as kfp
+    from lqer_tpu_torch.ops.kernels import mlp_fused as k5
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+    from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
+    from lqer_tpu_torch.ops.storage import dequantize_packed
+    from lqer_tpu_torch.parallel.collectives import mx4_encode, mx8_encode
+    from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.testing import (
+        attention_limit,
+        check_close,
+        dequant_gemm_limit,
+        mlp_limit,
+    )
+
+    bw, ops_rate = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+
+    def bound(nb, ops):
+        t_bytes, t_ops = nb / bw * 1e3, ops / ops_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def act(shape):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        return block_fp_quantizer(x, width=8, exponent_width=8,
+                                  block_size=[1, 16], skip_first_dim=True)
+
+    cfg = dataclasses.replace(MODEL_CONFIGS["facebook/opt-6.7b"](),
+                              num_hidden_layers=1)
+    backend, _, _ = build_random_model(cfg, rank=32, seed=SEED + 4)
+    p0 = "model.decoder.layers.0"
+
+    # ---- the relu/bias megakernel (row 3's un-gated variant)
+    prep, meta = backend["arrays"][f"{p0}.mlp_fused"], \
+        backend["meta"][f"{p0}.mlp_fused"]
+    fmt = meta["fmt"]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    K = prep["exps_g"].shape[0] * 16
+    I, N = prep["exps_g"].shape[1], prep["exps_d"].shape[1]
+    R = prep["a_d"].shape[1]
+    w1 = dequantize_packed(prep["codes_g"], prep["exps_g"], fmt).to(
+        torch.bfloat16)
+    w2 = dequantize_packed(prep["codes_d"], prep["exps_d"], fmt).to(
+        torch.bfloat16)
+    b1, b2 = (prep[k].to(torch.bfloat16) for k in ("bias_g", "bias_d"))
+    weights = nbytes(*(prep[k] for k in prep))
+    for M in (8, 256):
+        x = act((M, K)).to(torch.bfloat16)
+        y = k5.mlp_w4_fused_relu(x, prep, fmt, **kw)
+        ref = k5.mlp_w4_plain(x, prep, fmt, **kw)
+        c = check_close(f"relu megakernel M={M}", y, ref,
+                        mlp_limit(x, prep, ref, **kw), FLIPPED["mlp_fused"])
+        ms = timer(lambda: k5.mlp_w4_fused_relu(x, prep, fmt, **kw))
+        plain_ms = timer(lambda: k5.mlp_w4_plain(x, prep, fmt, **kw), 5)
+        lib_ms = timer(lambda: torch.matmul(
+            torch.relu(torch.matmul(x, w1) + b1), w2) + b2)
+        b_ms, b_by = bound(weights + nbytes(x) + M * N * 4,
+                           2 * M * (K * I + I * N)
+                           + 2 * M * R * (K + I + I + N))
+        print(f"kernel 5 mlp_fused relu/bias M={M} K={K} I={I} N={N} R={R}: "
+              f"max_abs_err={c['max_abs_err']:.3g} ({c['of_limit']:.3g} of "
+              f"its limit, {c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} library_ms="
+              f"{lib_ms:.4f} (torch.matmul fc1 + bias, relu, fc2 + bias, "
+              "dense bf16 weights)", flush=True)
+        if M == 8:
+            results["mlp_fused_relu"] = dict(
+                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+                shape=f"one OPT-6.7B layer's fc1 and fc2, M=8, I={I}")
+    del w1, w2
+
+    # ---- kernel 1 with a bias: q|k|v and out_proj, M = 8
+    for name, key in (("qkv", f"{p0}.self_attn.qkv_proj"),
+                      ("out_proj", f"{p0}.self_attn.out_proj")):
+        prep, meta = backend["arrays"][key], backend["meta"][key]
+        fmt = meta["fmt"]
+        K, N = prep["exps"].shape[0] * 16, prep["exps"].shape[1]
+        R = prep["a"].shape[1]
+        x = act((8, K)).to(torch.bfloat16)
+        kw = dict(quant_xa_width=meta["xa_width"],
+                  quant_out_width=meta["out_width"])
+        y = k1.qlinear_w4_fused(x, prep, fmt, **kw)
+        ref = k1.qlinear_w4_plain(x, prep, fmt, **kw)
+        c = check_close(f"kernel 1 {name} with bias", y, ref,
+                        dequant_gemm_limit(x, prep, ref, **kw),
+                        FLIPPED["dequant_gemm"])
+        w = dequantize_packed(prep["codes"], prep["exps"], fmt).to(
+            torch.bfloat16)
+        bias = prep["bias"].to(torch.bfloat16)
+        ms = timer(lambda: k1.qlinear_w4_fused(x, prep, fmt, **kw))
+        plain_ms = timer(lambda: k1.qlinear_w4_plain(x, prep, fmt, **kw), 5)
+        lib_ms = timer(lambda: torch.addmm(bias, x, w))
+        b_ms, _ = bound(nbytes(x, prep["codes"], prep["exps"], prep["a"],
+                               prep["b"], prep["bias"]) + 8 * N * 4,
+                        2 * 8 * N * K + 2 * 8 * R * (K + N))
+        print(f"kernel 1 dequant_gemm OPT {name} with bias M=8 K={K} N={N} "
+              f"R={R}: max_abs_err={c['max_abs_err']:.3g} "
+              f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+              f"2e-4) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} (torch.addmm, "
+              "dense bf16 weight and bias)", flush=True)
+        del w
+    del backend
+
+    # ---- decode kernels with scale_query: B = 8, 32 kv heads, L = 2048
+    NL, B, H, D, L, li, SW = 2, 8, 32, 128, 2048, 1, 64
+    pos = torch.tensor([64, 303, 560, 815, 1088, 1343, 1600, 1984],
+                       dtype=torch.int32, device="cuda")
+    tokens = int(((pos + 16) // 16 * 16).clamp(max=L).sum())
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda") * 3
+    kw = dict(scaling=D ** -0.5, scale_query=True)
+    out_bytes = B * H * D * 4
+
+    def report(what, c, ms, plain_ms, nb):
+        b_ms, _ = bound(nb + nbytes(q) + out_bytes, 2 * 2 * H * tokens * D)
+        print(f"{what} B={B} KVH={H} L={L}, scale_query: max_abs_err="
+              f"{c['max_abs_err']:.3g} ({c['of_limit']:.3g} of its limit, "
+              f"{c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={b_ms:.4f}", flush=True)
+
+    def encoded(width, n):
+        enc = mx8_encode if width == 8 else mx4_encode
+        out = []
+        for _ in range(2):
+            c_, e_ = enc(torch.randn(NL, B, H, n, D, generator=gen,
+                                     device="cuda"), 16, zero_fill=1.0)
+            out += [c_.transpose(-1, -2).contiguous(),
+                    e_.transpose(-1, -2).contiguous()]
+        return out
+
+    k, v = (torch.randn(NL, B, H, L, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    y = kfp.decode_attention_fp(q, k, v, pos, li, **kw)
+    ref = kfp.fp_decode_plain(q, k, v, pos, li, **kw)
+    sc, vals = kfp.fp_scores(q, k, v, pos, li, **kw)
+    c = check_close("fp decode, scale_query", y, ref,
+                    attention_limit(sc, vals, ref, p_width=8),
+                    FLIPPED["attention"])
+    report("fp decode attention", c,
+           timer(lambda: kfp.decode_attention_fp(q, k, v, pos, li, **kw)),
+           timer(lambda: kfp.fp_decode_plain(q, k, v, pos, li, **kw), 5),
+           tokens * H * D * 2 * 2)
+    del k, v, sc, vals
+    arrays = encoded(4, L)
+    y = kq.decode_attention_quantized(q, *arrays, pos, li, **kw)
+    ref = kq.quantized_decode_plain(q, *arrays, pos, li, **kw)
+    sc, vals = kq.quantized_scores(q, *arrays, pos, li, **kw)
+    c = check_close("quantized decode width 4, scale_query", y, ref,
+                    attention_limit(sc, vals, ref, p_width=8),
+                    FLIPPED["attention"])
+    report("quantized decode attention width 4", c,
+           timer(lambda: kq.decode_attention_quantized(q, *arrays, pos, li,
+                                                       **kw)),
+           timer(lambda: kq.quantized_decode_plain(q, *arrays, pos, li, **kw),
+                 5), tokens * H * (D // 2 + D // 16) * 2)
+    del arrays, sc, vals
+    arrays = encoded(8, L)
+    kh, vh = (torch.randn(B, H, 1, D, generator=gen, device="cuda")
+              for _ in range(2))
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    y = kq.decode_attention_quantized_write(q, *mine, kh, vh, pos, li, **kw)
+    ref = kq.quantized_write_plain(q, *theirs, kh, vh, pos, li, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        raise AssertionError("fused write + attend, scale_query: written "
+                             "cache bytes differ from the plain version")
+    sc, vals = kq.quantized_scores(q, *theirs, pos, li, **kw)
+    c = check_close("fused write + attend, scale_query", y, ref,
+                    attention_limit(sc, vals, ref, p_width=8),
+                    FLIPPED["attention"])
+    report("fused write + attend", c,
+           timer(lambda: kq.decode_attention_quantized_write(
+               q, *mine, kh, vh, pos, li, **kw)),
+           timer(lambda: kq.quantized_write_plain(q, *theirs, kh, vh, pos,
+                                                  li, **kw), 5),
+           tokens * H * (D + D // 16) * 2)
+    del mine, theirs, sc, vals
+    main = [a[li] for a in arrays]
+    rings = [a[li].contiguous() for a in encoded(8, SW)]
+    fl = (pos // 32) * 32
+    r_k, r_p = [t.clone() for t in rings], [t.clone() for t in rings]
+    y = k3.decode_attention_quantized_staged(q, *main, *r_k, kh, vh, pos, fl,
+                                             **kw)
+    ref = k3.staged_decode_plain(q, *main, *r_p, kh, vh, pos, fl, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(r_k, r_p)):
+        raise AssertionError("staged decode, scale_query: ring bytes differ "
+                             "from the plain version")
+    sc, vals = k3.staged_scores(q, *main, *r_p, pos, fl, **kw)
+    c = check_close("staged decode, scale_query", y, ref, attention_limit(
+        sc[:, :, None, :], vals, ref, p_width=8), FLIPPED["attention"])
+    report("staged decode attention", c,
+           timer(lambda: k3.decode_attention_quantized_staged(
+               q, *main, *r_k, kh, vh, pos, fl, **kw)),
+           timer(lambda: k3.staged_decode_plain(q, *main, *r_p, kh, vh, pos,
+                                                fl, **kw), 5),
+           tokens * H * (D + D // 16) * 2)
+    del arrays, main, rings, r_k, r_p, sc, vals
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
     """Route the served path's kernel calls to the plain versions, which
@@ -1340,6 +1570,142 @@ def phase_teacher_forced(torch):
     torch.cuda.empty_cache()
 
 
+def phase_teacher_forced_opt(torch):
+    """Phase 4 for OPT: a 2-layer OPT at OPT-6.7B width (vocab 50272, the
+    dense head), packed as the JAX package packs (q|k|v fused with its
+    biases, out_proj alone, fc1 and fc2 in the relu megakernel entry),
+    teacher-forced through an 8 x 64 admission (512 rows: the large-M
+    route) and 20 decode steps (the relu megakernel) per cache:
+    ``mxint8-staged`` (with the negative control) and ``bfloat16`` three
+    ways (kernels on the card, plain versions on the card and on the CPU),
+    ``mxint8`` and ``mxint4`` (the KV4 configuration) kernels against plain
+    versions on the card; the limits of the Llama runs."""
+    import dataclasses
+
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.models.opt import MODEL_CONFIGS
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.decode import decode_route
+    from lqer_tpu_torch.serving.random_model import (
+        build_random_model,
+        q_config_for,
+    )
+
+    cfg = dataclasses.replace(MODEL_CONFIGS["facebook/opt-6.7b"](),
+                              num_hidden_layers=2)
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 4)
+    kv4 = models.quantize_model(cfg, q_config_for(cfg, kv4=True),
+                                {"linear": {"rank": 32}})
+    cpu_backend = {"arrays": {k: {n: None if t is None else t.cpu()
+                                  for n, t in v.items()}
+                              for k, v in backend["arrays"].items()},
+                   "meta": dict(backend["meta"])}
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    key = "model.decoder.layers.1.mlp_fused"
+    broken = {"arrays": dict(backend["arrays"]), "meta": backend["meta"]}
+    broken["arrays"][key] = dict(
+        broken["arrays"][key],
+        b_d=torch.zeros_like(backend["arrays"][key]["b_d"]))
+    rng = np.random.default_rng(SEED + 1)
+    padded = rng.integers(0, cfg.vocab_size, (8, 64))
+    lengths = np.full(8, 63, dtype=np.int32)
+    steps = 20
+    decode_kernels = ("row_write", "decode_attention_fp",
+                      "decode_attention_quantized", "decode_attention_write",
+                      "decode_attention")
+    failed = []
+    for cache_dtype, layer_qcfgs in (("mxint8-staged", qcfgs),
+                                     ("bfloat16", qcfgs), ("mxint8", qcfgs),
+                                     ("mxint4", kv4)):
+        kw = dict(num_slots=8, max_len=256, cache_dtype=cache_dtype,
+                  lm_head_width=8)
+        engines = {name: DecodeEngine(params, cfg, layer_qcfgs,
+                                      pallas_backend=backend, device="cuda",
+                                      **kw)
+                   for name in ("kernels", "plain")}
+        pairs = [("kernels", "plain")]
+        if cache_dtype in ("mxint8-staged", "bfloat16"):
+            engines["cpu"] = DecodeEngine(cpu_params, cfg, layer_qcfgs,
+                                          pallas_backend=cpu_backend,
+                                          device="cpu", **kw)
+            pairs += [("kernels", "cpu"), ("plain", "cpu")]
+        if cache_dtype == "mxint8-staged":
+            engines["no correction"] = DecodeEngine(
+                params, cfg, layer_qcfgs, pallas_backend=broken,
+                device="cuda", **kw)
+            pairs.append(("kernels", "no correction"))
+        t0 = time.perf_counter()
+        logits, routes = teacher_force(torch, engines, padded, lengths, steps)
+        # the admission: 4 unpacks per layer (q|k|v, out_proj, fc1, fc2);
+        # each decode step: kernel 1 for q|k|v and out_proj and one relu
+        # megakernel per layer, the decode route's kernels; the head dense
+        route = decode_route(cache_dtype, 256, cfg.head_dim, 1)
+        got = {k: routes[k] for k in decode_kernels}
+        if (routes["unpack"] != 4 * 2 or routes["mlp_fused"] != 0
+                or routes["mlp_fused_relu"] != steps * 2
+                or routes["dequant_gemm"] != steps * 2 * 2
+                or got != {k: steps * 2 * (k in route)
+                           for k in decode_kernels}):
+            raise AssertionError(f"phase 4 OPT {cache_dtype} routes: "
+                                 f"{routes}")
+        what = f"2-layer OPT-6.7B-width path, {cache_dtype} cache"
+        print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+        failed += compare_runs(
+            engines, logits, pairs, what, t0,
+            cpu_steps=(CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
+                       else CACHE_CPU_STEPS))
+        del engines
+    if failed:
+        raise AssertionError(f"phase 4 OPT past its limits: {failed}")
+    del backend, params, cpu_backend, cpu_params, broken
+    torch.cuda.empty_cache()
+
+
+def phase_serve_opt(torch, rates, layers: int = 32):
+    """Phase 5 for OPT: the engine at OPT-6.7B shape (32 layers, rank 32,
+    dense head, 8 slots, max_len 2048) serving the request mix over the
+    ``bfloat16`` cache (40 new tokens) and the ``mxint8-staged`` one (80),
+    a profile of 5 decode steps each; then one 2048-token admission and
+    its profile. Returns the kernel launches."""
+    import dataclasses
+
+    from lqer_tpu_torch.models.opt import MODEL_CONFIGS
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import build_random_model
+
+    cfg = dataclasses.replace(MODEL_CONFIGS["facebook/opt-6.7b"](),
+                              num_hidden_layers=layers)
+    t0 = time.perf_counter()
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 5)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    counts = None
+    for cache_dtype, new_tokens in (("bfloat16", 40), ("mxint8-staged", 80)):
+        engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
+                              cache_dtype=cache_dtype,
+                              pallas_backend=backend, lm_head_width=8,
+                              device="cuda")
+        run = serve_requests(torch, engine, cfg, cache_dtype, new_tokens,
+                             pack_s)
+        counts = run if counts is None else {k: n + run[k]
+                                             for k, n in counts.items()}
+        tokens = np.zeros(engine.num_slots, dtype=np.int64)
+        profile_window(torch, lambda: engine.decode_logits(tokens), 5,
+                       f"OPT decode steps, {cache_dtype} cache")
+        if cache_dtype == "mxint8-staged":
+            reset_launch_counts()
+            long_prompt(torch, engine.prefill, cfg,
+                        np.random.default_rng(SEED + 7))
+            counts = {k: n + launch_counts()[k] for k, n in counts.items()}
+        del engine
+        torch.cuda.empty_cache()
+    del backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_serve(torch, rates, layers: int = 32):
     """Phase 5: the engine at Llama-2-7B shape over each cache, then over
     each MXINT cache at long context; returns the launch counts of the
@@ -1461,8 +1827,10 @@ def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s):
     flushes = (f"{launch_counts()['cache_write']} flushes, flushed={fl}, "
                if staged else "")
     slots = engine.num_slots
-    print(f"serve Llama-2-7B shape {cfg.num_hidden_layers} layers rank 32 W8 "
-          f"head {cache_dtype} {slots} slots max_len {engine.max_len}: "
+    model = ("OPT-6.7B shape, dense head" if cfg.arch == "opt"
+             else "Llama-2-7B shape, W8 head")
+    print(f"serve {model}, {cfg.num_hidden_layers} layers rank 32 "
+          f"{cache_dtype} {slots} slots max_len {engine.max_len}: "
           f"{finished} requests finished, {produced} tokens, median decode "
           f"step {statistics.median(step_ms):.2f} ms over {len(step_ms)} "
           f"steps, {slots * len(step_ms) / decode_s:.1f} tok/s ({slots} "
@@ -1638,10 +2006,16 @@ def main() -> int:
     results = phase_kernels(torch, timer, rates)
     phase_direct_kernels(torch, timer, rates, results)
     phase_stream_kernels(torch, timer, rates, results)
+    phase_opt_kernels(torch, timer, rates, results)
     print(f"phase 3 done at {time.perf_counter() - t0:.0f}s", flush=True)
     phase_teacher_forced(torch)
+    phase_teacher_forced_opt(torch)
     print(f"phase 4 done at {time.perf_counter() - t0:.0f}s", flush=True)
     counts = phase_serve(torch, rates)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_counts = phase_serve_opt(torch, rates)
+    counts = {k: n + opt_counts[k] for k, n in counts.items()}
     print(f"phase 5 done at {time.perf_counter() - t0:.0f}s", flush=True)
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:

@@ -6,7 +6,8 @@
   ``pack_lm_head``) backend, its arrays as numpy, into the port's packed
   layout: the tile-major K-split slabs are read back to codes and exponents
   and repacked as ``ops/storage.py`` words, bit for bit. MLP-megakernel
-  entries (``kind == "mlp"``, packed with ``fuse_mlp=True``) keep the JAX
+  entries (``kind == "mlp"``, packed with ``fuse_mlp=True``: Llama's gated
+  MLP, or OPT's relu MLP with its biases and no up half) keep the JAX
   package's zero padding of the intermediate dim.
 
 Neither imports JAX: the caller hands over numpy arrays and the JAX meta
@@ -48,19 +49,24 @@ def _bf16(arr):
     return None if arr is None else _tensor(arr).to(torch.bfloat16)
 
 
+def _bias(arr):
+    """A JAX bias (``(.., 1, N)`` f32) → ``(.., N)`` f32."""
+    return None if arr is None else \
+        _tensor(arr).to(torch.float32).squeeze(-2)
+
+
 def _mlp_from_jax(arrays: dict, m: dict, fmt: MXFormat) -> dict:
-    if not m["gated"] or any(arrays.get(k) is not None
-                             for k in ("bias_g", "bias_u", "bias_d")):
-        raise NotImplementedError("only the gated MLP without biases (Llama) "
-                                  "is ported")
     out = {}
     for half, tiles, tile_k in (("g", "tg", m["tile_k"]),
                                 ("u", "tu", m["tile_k"]),
                                 ("d", "td", m["tile_k2"])):
-        w = _words_from_jax(arrays[tiles], fmt, tile_k)
+        w = ({"codes": None, "exps": None} if arrays.get(tiles) is None
+             else _words_from_jax(arrays[tiles], fmt, tile_k))
         out[f"codes_{half}"], out[f"exps_{half}"] = w["codes"], w["exps"]
     for k in ("a_gu", "b_g", "b_u", "a_d", "b_d"):
         out[k] = _bf16(arrays.get(k))
+    for k in ("bias_g", "bias_u", "bias_d"):
+        out[k] = _bias(arrays.get(k))
     return out
 
 
@@ -68,9 +74,7 @@ def _entry_from_jax(arrays: dict, fmt: MXFormat, tile_k: int) -> dict:
     out = _words_from_jax(arrays["tiles"], fmt, tile_k)
     for k in ("a", "b"):
         out[k] = _bf16(arrays.get(k))
-    bias = arrays.get("bias")
-    out["bias"] = None if bias is None else \
-        _tensor(bias).to(torch.float32).squeeze(-2)  # (.., 1, N) -> (.., N)
+    out["bias"] = _bias(arrays.get("bias"))
     return out
 
 

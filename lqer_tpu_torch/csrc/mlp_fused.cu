@@ -1,16 +1,20 @@
 // Kernel 5: the whole-MLP megakernel, one cooperative launch per MLP.
 //
 // Replaces lqer_tpu/ops/pallas/mlp_fused.py::_mlp_kernel (entry
-// mlp_w4_fused), gated silu variant with LQER corrections, for fewer than
-// 512 rows. Computes
-//     y_g = X W_g^T + q_out(bf16(q_xa(X A_g)) B_g)      (likewise y_u)
+// mlp_w4_fused), both of its variants with LQER corrections, for fewer than
+// 512 rows. The gated silu variant (Llama) computes
+//     y_g = X W_g^T + q_out(bf16(q_xa(X A_g)) B_g) [+ b_g]   (likewise y_u)
 //     H   = bf16(q_act(silu(y_g) · y_u))
-//     Y   = H W_d^T + q_out(bf16(q_xa(H A_d)) B_d)
-// with MXINT4 weights (code · 2^(e − 3)) and the per-row block_fp
-// quantizers in groups of 16; y_g and y_u stay f32 until H is quantized.
+//     Y   = H W_d^T + q_out(bf16(q_xa(H A_d)) B_d) [+ b_d]
+// and the un-gated relu variant (OPT's fc1, fc2 with biases) has no up
+// half: H = bf16(q_act(relu(y_g))). Each bias (f32, on the b_quantizer's
+// grid) is added after its correction, as the TPU kernel adds it. MXINT4
+// weights (code · 2^(e − 3)) and the per-row block_fp quantizers in groups
+// of 16; y_g and y_u stay f32 until H is quantized.
 //
-// What bounds it on an H100: at decode (8 rows) it streams the three packed
-// weights (about 0.53 byte per weight, 79 MB at 7B width) at 3.35 TB/s.
+// What bounds it on an H100: at decode (8 rows) it streams the packed
+// weights (about 0.53 byte per weight: 79 MB for Llama-2-7B's three, 75 MB
+// for OPT-6.7B's two) at 3.35 TB/s.
 //
 // Design. The TPU kernel walks a sequential two-phase grid and carries the
 // (M, I) intermediate in VMEM. CUDA blocks run in no order, so this is a
@@ -18,17 +22,18 @@
 // larger than the co-resident blocks) whose phases are separated by grid
 // barriers (cooperative_groups::this_grid().sync(); CUDA 12 needs no -rdc
 // for it):
-//   A. X·[A_g|A_u] partials per (8-row tile, 256-wide K chunk), barrier;
-//      then per (row, rank column) the sum of the partials, q_xa per 16
-//      columns (half-warps), bf16, into the xa scratch; barrier.
-//   B. blocks walk (8-row tile, 32 columns of I): the gate and up W4 GEMM
-//      tiles of kernel 1 (w4_gemm.cuh), both corrections, silu·mul and the
-//      MXINT8 quantizer of H per 16 columns (a half-warp), all in the
-//      block; H goes to a global bf16 scratch (M x I: 180 KB at M = 8, it
-//      stays in L2); barrier.
+//   A. X·A_gu partials per (8-row tile, 256-wide K chunk), barrier; then
+//      per (row, rank column) the sum of the partials, q_xa per 16 columns
+//      (half-warps), bf16, into the xa scratch; barrier. A_gu is
+//      [A_g | A_u] (2R wide) gated, A_g (R wide) un-gated.
+//   B. blocks walk (8-row tile, 32 columns of I): the gate (and up) W4
+//      GEMM tiles of kernel 1 (w4_gemm.cuh), the corrections and biases,
+//      silu·mul or relu and the MXINT8 quantizer of H per 16 columns (a
+//      half-warp), all in the block; H goes to a global bf16 scratch
+//      (M x I: 262 KB at M = 8, I = 16384; it stays in L2); barrier.
 //   C. H·A_d like A, into the xa scratch; barriers.
-//   D. blocks walk (8-row tile, 32 columns of N): the down W4 GEMM tile and
-//      its correction epilogue, written as f32.
+//   D. blocks walk (8-row tile, 32 columns of N): the down W4 GEMM tile, its
+//      correction epilogue and bias, written as f32.
 // Reads of H, the partials and the quantized X·A go through L2 (__ldcg).
 #include <cooperative_groups.h>
 
@@ -47,16 +52,21 @@ struct MlpArgs {
   const int* codes_g; const int8_t* exps_g;   // (K/8, I), (K/16, I)
   const int* codes_u; const int8_t* exps_u;
   const int* codes_d; const int8_t* exps_d;   // (I/8, N), (I/16, N)
-  const __nv_bfloat16* a_gu;                  // (K, 2R)
+  const __nv_bfloat16* a_gu;                  // (K, WGU)
   const __nv_bfloat16* b_g;                   // (R, I)
   const __nv_bfloat16* b_u;                   // (R, I)
   const __nv_bfloat16* a_d;                   // (I, R)
   const __nv_bfloat16* b_d;                   // (R, N)
+  const float* bias_g;                        // (I) or null
+  const float* bias_u;                        // (I) or null
+  const float* bias_d;                        // (N) or null
   __nv_bfloat16* h;                           // (Mt * 8, I) scratch
   float* part;                                // X·A chunk partials scratch
-  float* xa;                                  // (Mt * 8, 3R) scratch
+  float* xa;                                  // (Mt * 8, XS) scratch
   float* out;                                 // (M, N)
   int M, K, I, N, R, act_mb, xa_mb, out_mb;
+  bool gated;                                 // the up half exists
+  int WGU, XS;   // X·A_gu width (2R gated, R un-gated); xa row: WGU + R
 };
 
 // X·A (rows of x times a (K, W)) of every row into xa[:, off:off + W],
@@ -83,7 +93,7 @@ __device__ void xa_phase(cg::grid_group& grid, const __nv_bfloat16* x,
       for (int s = 0; s < KS; ++s) v += __ldcg(src + (size_t)s * MT * W);
     }
     v = bf16_round(quantize_half_warp(v, p.xa_mb));
-    if (idx < total) p.xa[(size_t)row * 3 * p.R + off + col] = v;
+    if (idx < total) p.xa[(size_t)row * p.XS + off + col] = v;
   }
   grid.sync();
 }
@@ -93,7 +103,7 @@ __device__ __forceinline__ void load_xa(GemmSmem& sm, const MlpArgs& p,
                                         int m0, int off, int W) {
   for (int i = threadIdx.x; i < MT * W; i += NTHREADS) {
     const int m = i / W, c = i % W, row = m0 + m;
-    sm.xa[m][c] = row < p.M ? __ldcg(p.xa + (size_t)row * 3 * p.R + off + c) : 0.f;
+    sm.xa[m][c] = row < p.M ? __ldcg(p.xa + (size_t)row * p.XS + off + c) : 0.f;
   }
   __syncthreads();
 }
@@ -113,36 +123,42 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
   const int R = p.R;
   const int m = t / TN, col = t % TN;
 
-  if (R > 0) xa_phase<false>(grid, p.x, p.a_gu, p.K, 2 * R, 0, p, sm);
+  if (R > 0) xa_phase<false>(grid, p.x, p.a_gu, p.K, p.WGU, 0, p, sm);
 
-  // B: gate and up tiles, corrections, silu·mul, act quantizer -> H
+  // B: gate (and up) tiles, corrections, biases, activation, act quantizer
+  // -> H
   const int nI = p.I / TN;
   for (int item = blockIdx.x; item < Mt * nI; item += gridDim.x) {
     const int m0 = (item / nI) * MT, nb = (item % nI) * TN;
     float acc_g[MT][4], acc_u[MT][4];
     zero(acc_g);
-    zero(acc_u);
     w_accumulate<3, false>(p.x, p.codes_g, p.exps_g, p.M, p.I, p.K, m0,
                            nb + (t % CT) * 4, t / CT, acc_g);
-    w_accumulate<3, false>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
-                           nb + (t % CT) * 4, t / CT, acc_u);
-    float yg = slice_sum(acc_g, sm.gemm);
-    float yu = slice_sum(acc_u, sm.gemm);
+    float yg = slice_sum(acc_g, sm.gemm), yu = 0.f;
+    if (p.gated) {
+      zero(acc_u);
+      w_accumulate<3, false>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
+                             nb + (t % CT) * 4, t / CT, acc_u);
+      yu = slice_sum(acc_u, sm.gemm);
+    }
     const int n = nb + col, row = m0 + m;
     if (R > 0) {
-      load_xa(sm.gemm, p, m0, 0, 2 * R);
+      load_xa(sm.gemm, p, m0, 0, p.WGU);
       yg += correction(sm.gemm.xa[m], p.b_g, R, p.I, n, p.out_mb);
-      yu += correction(sm.gemm.xa[m] + R, p.b_u, R, p.I, n, p.out_mb);
+      if (p.gated)
+        yu += correction(sm.gemm.xa[m] + R, p.b_u, R, p.I, n, p.out_mb);
     }
-    const float hv = bf16_round(
-        quantize_half_warp(yg / (1.f + expf(-yg)) * yu, p.act_mb));
+    if (p.bias_g != nullptr) yg += __ldg(p.bias_g + n);
+    if (p.bias_u != nullptr) yu += __ldg(p.bias_u + n);
+    const float a = p.gated ? yg / (1.f + expf(-yg)) * yu : fmaxf(yg, 0.f);
+    const float hv = bf16_round(quantize_half_warp(a, p.act_mb));
     if (row < p.M) p.h[(size_t)row * p.I + n] = __float2bfloat16_rn(hv);
   }
   grid.sync();
 
-  if (R > 0) xa_phase<true>(grid, p.h, p.a_d, p.I, R, 2 * R, p, sm);
+  if (R > 0) xa_phase<true>(grid, p.h, p.a_d, p.I, R, p.WGU, p, sm);
 
-  // D: down tiles over H, correction epilogue -> Y
+  // D: down tiles over H, correction epilogue and bias -> Y
   const int nN = p.N / TN;
   for (int item = blockIdx.x; item < Mt * nN; item += gridDim.x) {
     const int m0 = (item / nN) * MT, nb = (item % nN) * TN;
@@ -153,9 +169,10 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
     float y = slice_sum(acc, sm.gemm);
     const int n = nb + col, row = m0 + m;
     if (R > 0) {
-      load_xa(sm.gemm, p, m0, 2 * R, R);
+      load_xa(sm.gemm, p, m0, p.WGU, R);
       y += correction(sm.gemm.xa[m], p.b_d, R, p.N, n, p.out_mb);
     }
+    if (p.bias_d != nullptr) y += __ldg(p.bias_d + n);
     if (row < p.M) p.out[(size_t)row * p.N + n] = y;
   }
 }
@@ -163,22 +180,29 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
 }  // namespace
 
 // x (M, K) bf16; codes/exps of gate, up (K/8, I), (K/16, I) and down
-// (I/8, N), (I/16, N); a_gu (K, 2R), b_g and b_u (R, I), a_d (I, R),
-// b_d (R, N) bf16 (null when R == 0); scratch h (ceil(M/8) * 8, I) bf16,
-// part (ceil(M/8), ceil(max(K, I)/256), 8, 2R) f32, xa (ceil(M/8) * 8, 3R)
-// f32; out (M, N) f32. R % 16 == 0 and 2R <= 128; K % 16, I % 32 and
-// N % 32 == 0. act_mb: mantissa bits of the H quantizer; xa_mb / out_mb
-// -1 for no partial-product quantizer.
+// (I/8, N), (I/16, N), up null for the un-gated relu variant; a_gu (K, WGU)
+// with WGU = 2R gated ([A_g | A_u]) or R, b_g and b_u (R, I), a_d (I, R),
+// b_d (R, N) bf16 (null when R == 0); biases bias_g, bias_u (I) and bias_d
+// (N) f32 or null; scratch h (ceil(M/8) * 8, I) bf16, part (ceil(M/8),
+// ceil(max(K, I)/256), 8, WGU) f32, xa (ceil(M/8) * 8, WGU + R) f32; out
+// (M, N) f32. R % 16 == 0 and WGU <= 128; K % 16, I % 32 and N % 32 == 0.
+// act_mb: mantissa bits of the H quantizer; xa_mb / out_mb -1 for no
+// partial-product quantizer.
 LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
                             const void* exps_g, const void* codes_u,
                             const void* exps_u, const void* codes_d,
                             const void* exps_d, const void* a_gu,
                             const void* b_g, const void* b_u, const void* a_d,
-                            const void* b_d, void* h, void* part, void* xa,
-                            void* out, int M, int K, int I, int N, int R,
-                            int act_mb, int xa_mb, int out_mb, void* stream) {
+                            const void* b_d, const void* bias_g,
+                            const void* bias_u, const void* bias_d, void* h,
+                            void* part, void* xa, void* out, int M, int K,
+                            int I, int N, int R, int act_mb, int xa_mb,
+                            int out_mb, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (M <= 0 || R % 16 || 2 * R > RMAX || K % 16 || I % TN || N % TN)
+  const bool gated = codes_u != nullptr;
+  const int wgu = gated ? 2 * R : R;
+  if (M <= 0 || R % 16 || wgu > RMAX || K % 16 || I % TN || N % TN
+      || (!gated && (b_u != nullptr || bias_u != nullptr)))
     return (int)cudaErrorInvalidValue;
   static int resident = 0;   // co-resident blocks on this card
   if (resident == 0) {
@@ -203,9 +227,11 @@ LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
             static_cast<const __nv_bfloat16*>(b_u),
             static_cast<const __nv_bfloat16*>(a_d),
             static_cast<const __nv_bfloat16*>(b_d),
+            static_cast<const float*>(bias_g), static_cast<const float*>(bias_u),
+            static_cast<const float*>(bias_d),
             static_cast<__nv_bfloat16*>(h), static_cast<float*>(part),
             static_cast<float*>(xa), static_cast<float*>(out),
-            M, K, I, N, R, act_mb, xa_mb, out_mb};
+            M, K, I, N, R, act_mb, xa_mb, out_mb, gated, wgu, wgu + R};
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(mlp_kernel), dim3(blocks), dim3(NTHREADS), args,

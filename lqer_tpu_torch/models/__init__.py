@@ -4,14 +4,18 @@
 from __future__ import annotations
 
 from . import llama as llama_mod
+from . import opt as opt_mod
 from .config_expand import (
     LLAMA_ATTN_PROJS,
     LLAMA_MLP_PROJS,
+    OPT_ATTN_PROJS,
+    OPT_MLP_PROJS,
     resolve_model_configs,
 )
 from .llama import LlamaConfig
+from .opt import OPTConfig
 
-ARCH_MODULES = {"llama": llama_mod}
+ARCH_MODULES = {"opt": opt_mod, "llama": llama_mod}
 
 
 def get_arch_module(cfg):
@@ -25,6 +29,9 @@ def get_arch_module(cfg):
 def quantizable_module_prefixes(cfg, layer_idx: int) -> list[tuple[str, str]]:
     """(module_prefix, proj_key) of the quantized linears of one layer."""
     p = get_arch_module(cfg).layer_prefix(layer_idx)
+    if cfg.arch == "opt":
+        pairs = [(f"{p}.self_attn.{proj}", proj) for proj in OPT_ATTN_PROJS]
+        return pairs + [(f"{p}.{proj}", proj) for proj in OPT_MLP_PROJS]
     pairs = [(f"{p}.self_attn.{proj}", proj) for proj in LLAMA_ATTN_PROJS]
     pairs += [(f"{p}.mlp.{proj}", proj) for proj in LLAMA_MLP_PROJS]
     return pairs
@@ -44,5 +51,6 @@ def quantize_model(cfg, q_config: dict | None, l_config: dict | None):
                                  cfg.arch)
 
 
-__all__ = ["LlamaConfig", "get_arch_module", "quantize_model",
+__all__ = ["LlamaConfig", "OPTConfig", "OPT_ATTN_PROJS", "OPT_MLP_PROJS",
+           "get_arch_module", "quantize_model",
            "quantizable_module_prefixes"]

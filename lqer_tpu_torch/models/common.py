@@ -1,6 +1,6 @@
 """Shared building blocks of the decoder models (port of the parts of
-``lqer_tpu/models/common.py`` the serving path uses): RMSNorm, rotary
-tables, GQA head repetition, head merging, the resolved attention config
+``lqer_tpu/models/common.py`` the serving path uses): LayerNorm, RMSNorm,
+rotary tables, GQA head repetition, head merging, the resolved attention config
 and the fused quantized prefill attention."""
 
 from __future__ import annotations
@@ -11,6 +11,47 @@ from typing import Callable
 import torch
 
 from ..ops.qlinear import QLinearConfig
+
+
+def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """OPT's LayerNorm as the JAX package computes it: normalised in f32,
+    rounded to ``x``'s dtype, then the affine in that dtype (or promoted
+    to the parameters' dtype). ``torch.nn.functional.layer_norm`` applies
+    the affine in f32 before the one rounding, another function in
+    bf16."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    if params.get("weight") is not None:
+        y = y * params["weight"]
+    if params.get("bias") is not None:
+        y = y + params["bias"]
+    return y
+
+
+def stack_layers(params: dict, num_layers: int, layer_prefix, rel_keys
+                 ) -> tuple[dict, dict]:
+    """Per-layer params → ``(stacked {rel.suffix: (L, ...)}, rest)`` for the
+    modules ``rel_keys`` of each ``layer_prefix(i)``; every layer must carry
+    the same key set. ``rest`` holds every other param."""
+    stacked: dict[str, torch.Tensor] = {}
+    consumed = set()
+    for rel in rel_keys:
+        for suffix in ("weight", "bias", "A", "B"):
+            if f"{layer_prefix(0)}.{rel}.{suffix}" not in params:
+                continue
+            per_layer = []
+            for i in range(num_layers):
+                n = f"{layer_prefix(i)}.{rel}.{suffix}"
+                if n not in params:
+                    raise KeyError(f"layer {i} missing {rel}.{suffix}")
+                per_layer.append(params[n])
+                consumed.add(n)
+            stacked[f"{rel}.{suffix}"] = torch.stack(per_layer)
+    rest = {k: v for k, v in params.items() if k not in consumed}
+    return stacked, rest
 
 
 def rms_norm(x: torch.Tensor, params: dict, eps: float = 1e-6
@@ -108,11 +149,14 @@ def supports_fused_attention(attn_cfg: AttnQConfig,
 
 
 def fused_quantized_attention(q, k, v, attn_cfg: AttnQConfig, scaling: float,
-                              *, kv_values_pre_quantized: bool = False):
+                              *, scale_query: bool = False,
+                              kv_values_pre_quantized: bool = False):
     """Causal attention through the prefill kernel: q (and K^T along tokens,
     V along d, unless ``kv_values_pre_quantized``) quantized to the
     activation format, P quantized in the kernel. (b, h, s, d) in and
-    out."""
+    out. ``scale_query`` (OPT) multiplies q by ``scaling`` in q's dtype
+    (the scalar rounded to it first, as JAX's weakly typed scalar is)
+    before its quantizer, and the kernel scales the scores by 1.0."""
     from ..ops.kernels.attention import quantized_attention
     from ..ops.quantizers import block_fp_quantizer
 
@@ -128,6 +172,10 @@ def fused_quantized_attention(q, k, v, attn_cfg: AttnQConfig, scaling: float,
     q3 = q.reshape(b * h, s, d)
     k3 = k.reshape(b * h, kv_len, d)
     v3 = v.reshape(b * h, kv_len, d)
+    kernel_scale = scaling
+    if scale_query:
+        q3 = q3 * torch.tensor(scaling, dtype=q3.dtype)
+        kernel_scale = 1.0
     q_q = aq(q3)
     if kv_values_pre_quantized:
         k_q, v_q = k3, v3
@@ -136,6 +184,6 @@ def fused_quantized_attention(q, k, v, attn_cfg: AttnQConfig, scaling: float,
         v_q = aq(v3)
     out = quantized_attention(
         q_q.to(torch.bfloat16).contiguous(), k_q.to(torch.bfloat16).contiguous(),
-        v_q.to(torch.bfloat16).contiguous(), scale=scaling,
+        v_q.to(torch.bfloat16).contiguous(), scale=kernel_scale,
         p_width=width, group=16, causal=True)
     return out.reshape(b, h, s, d).to(q.dtype)

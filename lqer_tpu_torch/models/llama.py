@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
+from .common import stack_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,22 +58,7 @@ LAYER_REL_KEYS = (
 
 
 def stack_layer_params(params: dict, cfg: LlamaConfig) -> tuple[dict, dict]:
-    """Per-layer params → ``(stacked {rel.suffix: (L, ...)}, rest)``; every
-    layer must carry the same key set. ``rest`` holds embeddings, the final
-    norm and the head."""
-    stacked: dict[str, torch.Tensor] = {}
-    consumed = set()
-    for rel in LAYER_REL_KEYS:
-        for suffix in ("weight", "bias", "A", "B"):
-            if f"{layer_prefix(0)}.{rel}.{suffix}" not in params:
-                continue
-            per_layer = []
-            for i in range(cfg.num_hidden_layers):
-                n = f"{layer_prefix(i)}.{rel}.{suffix}"
-                if n not in params:
-                    raise KeyError(f"layer {i} missing {rel}.{suffix}")
-                per_layer.append(params[n])
-                consumed.add(n)
-            stacked[f"{rel}.{suffix}"] = torch.stack(per_layer)
-    rest = {k: v for k, v in params.items() if k not in consumed}
-    return stacked, rest
+    """Per-layer params → ``(stacked {rel.suffix: (L, ...)}, rest)``;
+    ``rest`` holds embeddings, the final norm and the head."""
+    return stack_layers(params, cfg.num_hidden_layers, layer_prefix,
+                        LAYER_REL_KEYS)

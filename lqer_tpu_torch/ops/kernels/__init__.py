@@ -18,7 +18,7 @@ from .quantized_decode import (
     decode_attention_quantized_write,
 )
 from .dequant_gemm import qlinear_w4_fused, unpack_packed_to_bf16
-from .mlp_fused import mlp_w4_fused
+from .mlp_fused import mlp_w4_fused, mlp_w4_fused_relu
 from .streaming_decode import (
     decode_attention_quantized_streaming,
     decode_attention_quantized_streaming_staged,
@@ -39,6 +39,10 @@ KERNELS = {
                "lqer_tpu/ops/pallas/dequant_gemm.py:401"),
     "mlp_fused": (mlp_w4_fused, "lqer_tpu_torch/csrc/mlp_fused.cu",
                   "lqer_tpu/ops/pallas/mlp_fused.py:63"),
+    # the same TPU kernel's un-gated variant with biases (gated=False,
+    # has_bias=True: OPT's fc1 and fc2), counted apart
+    "mlp_fused_relu": (mlp_w4_fused_relu, "lqer_tpu_torch/csrc/mlp_fused.cu",
+                       "lqer_tpu/ops/pallas/mlp_fused.py:63"),
     "decode_attention_fp": (decode_attention_fp,
                             "lqer_tpu_torch/csrc/decode_attention_fp.cu",
                             "lqer_tpu/ops/pallas/decode_attention.py:67"),

@@ -43,7 +43,7 @@ ENTRIES = {
     "row_write": ("cache_write", "lqer_write_rows",
                   [P] * 8 + [I] * 16 + [P] + [I] * 4),
     "unpack": ("unpack", "lqer_unpack", [P] * 3 + [I] * 3),
-    "mlp_fused": ("mlp_fused", "lqer_mlp_fused", [P] * 16 + [I] * 8),
+    "mlp_fused": ("mlp_fused", "lqer_mlp_fused", [P] * 19 + [I] * 8),
     "decode_attention_quantized": (
         "decode_attention_quantized", "lqer_decode_attention_quantized",
         [P] * 9 + [I] * 6 + [F, I, I]),

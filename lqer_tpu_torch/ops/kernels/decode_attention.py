@@ -49,6 +49,15 @@ def _quantize_sublane_groups_signed(x: torch.Tensor, mb: int, group: int
     return mx_values(v, bmax, mb).reshape(*lead, n)
 
 
+def scaled_query(q: torch.Tensor, scaling: float, scale_query: bool):
+    """(f32 queries, score scale) of the decode kernels: with
+    ``scale_query`` (OPT) q times ``scaling`` in f32, before q's quantizer,
+    and the scores unscaled (times 1.0, exact); else q as it is and the
+    scores times ``scaling`` after the dot."""
+    qf = q.to(torch.float32)
+    return (qf * scaling, 1.0) if scale_query else (qf, scaling)
+
+
 def _decode_cache_block(codes: torch.Tensor, exps: torch.Tensor,
                         group: int = 16) -> torch.Tensor:
     """Token-axis-last MXINT codes + exps (…, d/g, N) → f32 values
@@ -71,7 +80,8 @@ def _write_ring(ring_codes, ring_exps, new_codes, new_exps, lane):
 
 def staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps,
                   vs_codes, vs_exps, positions, flushed, *, scaling: float,
-                  group: int = 16, q_width: int | None = 8):
+                  group: int = 16, q_width: int | None = 8,
+                  scale_query: bool = False):
     """Masked scores (B, H, L + 64) and values (B, H, L + 64, d) over the
     concatenated ``[main L | ring 64]`` axis, read after the ring write:
     main columns count below ``flushed``, ring lanes where the position
@@ -80,7 +90,8 @@ def staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps,
     KVH, L = k_codes.shape[1], k_codes.shape[-1]
     SW = ks_codes.shape[-1]
     n_rep = H // KVH
-    qs = q[:, :, 0, :].to(torch.float32)
+    qf, score_scale = scaled_query(q, scaling, scale_query)
+    qs = qf[:, :, 0, :]
     if q_width is not None:
         qs = _quantize_sublane_groups_signed(qs, q_width - 1, group)
     kv = []
@@ -89,7 +100,7 @@ def staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps,
         cat = torch.cat([_decode_cache_block(mc, me, group),
                          _decode_cache_block(rc, re, group)], dim=-1)
         kv.append(cat.repeat_interleave(n_rep, dim=1))     # (B, H, d, L + SW)
-    s = torch.matmul(qs[:, :, None, :], kv[0])[:, :, 0, :] * scaling
+    s = torch.matmul(qs[:, :, None, :], kv[0])[:, :, 0, :] * score_scale
     j = torch.arange(L + SW, device=q.device)
     t_lane = positions[:, None] - torch.remainder(
         positions[:, None] - (j[None, :] - L), SW)
@@ -102,8 +113,8 @@ def staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps,
 def staged_decode_plain(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
                         ks_exps, vs_codes, vs_exps, kh, vh, positions,
                         flushed, *, scaling: float, group: int = 16,
-                        q_width: int | None = 8,
-                        p_width: int | None = 8) -> torch.Tensor:
+                        q_width: int | None = 8, p_width: int | None = 8,
+                        scale_query: bool = False) -> torch.Tensor:
     lane = positions % ks_codes.shape[-1]
     for rc, re, new in ((ks_codes, ks_exps, kh), (vs_codes, vs_exps, vh)):
         codes, exps = _encode_t(new[:, :, 0, :].to(torch.float32)[..., None],
@@ -111,23 +122,25 @@ def staged_decode_plain(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
         _write_ring(rc, re, codes[..., 0], exps[..., 0], lane)
     s, v = staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
                          ks_exps, vs_codes, vs_exps, positions, flushed,
-                         scaling=scaling, group=group, q_width=q_width)
+                         scaling=scaling, group=group, q_width=q_width,
+                         scale_query=scale_query)
     return attend_plain(s[:, :, None, :], v, p_width, group)
 
 
 def decode_attention_quantized_staged(
         q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
         vs_exps, kh, vh, positions, flushed, *, scaling: float,
-        group: int = 16, q_width: int | None = 8,
-        p_width: int | None = 8) -> torch.Tensor:
+        group: int = 16, q_width: int | None = 8, p_width: int | None = 8,
+        scale_query: bool = False) -> torch.Tensor:
     """One layer of staged decode attention.
 
     q (B, H, 1, d) raw queries (rope applied); main cache codes
     (B, KVH, d, L) and exps (B, KVH, d/16, L) int8; rings (B, KVH, d, 64)
     and (B, KVH, d/16, 64) int8, updated in place at lane ``pos % 64``;
-    kh, vh (B, KVH, 1, d) raw new rows; positions, flushed (B,). Returns
-    (B, H, 1, d) f32. CPU tensors run :func:`staged_decode_plain`; CUDA
-    tensors launch ``csrc/decode_attention.cu``."""
+    kh, vh (B, KVH, 1, d) raw new rows; positions, flushed (B,);
+    ``scale_query`` as :func:`scaled_query`. Returns (B, H, 1, d) f32. CPU
+    tensors run :func:`staged_decode_plain`; CUDA tensors launch
+    ``csrc/decode_attention.cu``."""
     B, H, S, d = q.shape
     KVH, L = k_codes.shape[1], k_codes.shape[-1]
     SW = ks_codes.shape[-1]
@@ -138,7 +151,7 @@ def decode_attention_quantized_staged(
         return staged_decode_plain(
             q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
             vs_exps, kh, vh, positions, flushed, scaling=scaling, group=group,
-            q_width=q_width, p_width=p_width)
+            q_width=q_width, p_width=p_width, scale_query=scale_query)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
     if (q_width is None or d not in (64, 128) or L % THREADS or H % KVH
@@ -150,7 +163,8 @@ def decode_attention_quantized_staged(
     for a in arrays:
         if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
             raise ValueError("cache arrays must be contiguous int8 CUDA tensors")
-    qf = q.to(torch.float32).contiguous()
+    qf, scaling = scaled_query(q, scaling, scale_query)
+    qf = qf.contiguous()
     khf = kh.to(torch.float32).contiguous()
     vhf = vh.to(torch.float32).contiguous()
     pos = positions.to(torch.int32).contiguous()

@@ -9,8 +9,9 @@ plain PyTorch version.
 Every operand quantizes at use time: q per 16 along d, K^T per 16 TOKENS of
 each d column (a group's exponent depends on all 16 cached rows, those past
 the query's position included), p per 16 tokens (unsigned), V per token in
-16-wide d groups. Scores scale after the dot; columns past the position are
-masked. One layer per call, read in place from the layer-stacked cache
+16-wide d groups. Scores scale after the dot (or, with ``scale_query``,
+q before its quantizer: ``decode_attention.scaled_query``); columns past the
+position are masked. One layer per call, read in place from the layer-stacked cache
 ``(NL, B, KVH, L, d)`` at ``layer_index``.
 """
 
@@ -20,7 +21,11 @@ import torch
 
 from . import _build
 from .attention import attend_plain
-from .decode_attention import SMEM_LIMIT, _quantize_sublane_groups_signed
+from .decode_attention import (
+    SMEM_LIMIT,
+    _quantize_sublane_groups_signed,
+    scaled_query,
+)
 
 K_TILE = 128            # tokens of K the kernel quantizes per pass
 
@@ -75,14 +80,16 @@ def _mb(width: int | None) -> int:
 
 def fp_scores(q, k_cache, v_cache, positions, layer_index: int, *,
               scaling: float, group: int = 16, q_width: int | None = 8,
-              k_width: int | None = 8, v_width: int | None = 8):
+              k_width: int | None = 8, v_width: int | None = 8,
+              scale_query: bool = False):
     """Masked scores (B, H, 1, L) and quantized values (B, H, L, d) of one
     layer."""
     B, H, _, d = q.shape
     k = k_cache[layer_index].to(torch.float32)           # (B, KVH, L, d)
     v = v_cache[layer_index].to(torch.float32)
     n_rep = H // k.shape[1]
-    qs = q[:, :, 0, :].to(torch.float32)
+    qf, score_scale = scaled_query(q, scaling, scale_query)
+    qs = qf[:, :, 0, :]
     if q_width is not None:
         qs = _quantize_sublane_groups_signed(qs, q_width - 1, group)
     if k_width is not None:
@@ -91,7 +98,7 @@ def fp_scores(q, k_cache, v_cache, positions, layer_index: int, *,
     if v_width is not None:
         v = _quantize_sublane_groups_signed(v, v_width - 1, group)
     k, v = (t.repeat_interleave(n_rep, dim=1) for t in (k, v))
-    s = torch.matmul(qs[:, :, None, :], k.transpose(-1, -2)) * scaling
+    s = torch.matmul(qs[:, :, None, :], k.transpose(-1, -2)) * score_scale
     j = torch.arange(k.shape[2], device=q.device)
     ok = j[None, :] <= positions[:, None]
     return torch.where(ok[:, None, None, :], s, float("-inf")), v
@@ -100,23 +107,25 @@ def fp_scores(q, k_cache, v_cache, positions, layer_index: int, *,
 def fp_decode_plain(q, k_cache, v_cache, positions, layer_index: int, *,
                     scaling: float, group: int = 16,
                     q_width: int | None = 8, k_width: int | None = 8,
-                    p_width: int | None = 8,
-                    v_width: int | None = 8) -> torch.Tensor:
+                    p_width: int | None = 8, v_width: int | None = 8,
+                    scale_query: bool = False) -> torch.Tensor:
     s, v = fp_scores(q, k_cache, v_cache, positions, layer_index,
                      scaling=scaling, group=group, q_width=q_width,
-                     k_width=k_width, v_width=v_width)
+                     k_width=k_width, v_width=v_width,
+                     scale_query=scale_query)
     return attend_plain(s, v, p_width, group)
 
 
 def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
                         scaling: float, group: int = 16,
                         q_width: int | None = 8, k_width: int | None = 8,
-                        p_width: int | None = 8,
-                        v_width: int | None = 8) -> torch.Tensor:
+                        p_width: int | None = 8, v_width: int | None = 8,
+                        scale_query: bool = False) -> torch.Tensor:
     """One layer of decode attention over the fp cache.
 
     q (B, H, 1, d) raw queries (rope applied); k_cache, v_cache
-    (NL, B, KVH, L, d), read at ``layer_index``; positions (B,). Returns
+    (NL, B, KVH, L, d), read at ``layer_index``; positions (B,);
+    ``scale_query`` as ``decode_attention.scaled_query``. Returns
     (B, H, 1, d) f32. CPU tensors run :func:`fp_decode_plain`; CUDA tensors
     launch ``csrc/decode_attention_fp.cu``."""
     B, H, S, d = q.shape
@@ -125,7 +134,7 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
         raise ValueError(f"fp decode attention needs s=1, d={d} and L % 16 "
                          f"== 0 (s={S}, cache {tuple(k_cache.shape)})")
     kw = dict(scaling=scaling, group=group, q_width=q_width, k_width=k_width,
-              p_width=p_width, v_width=v_width)
+              p_width=p_width, v_width=v_width, scale_query=scale_query)
     if q.device.type == "cpu":
         return fp_decode_plain(q, k_cache, v_cache, positions, layer_index,
                                **kw)
@@ -140,7 +149,8 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
                 and a.shape == k_cache.shape):
             raise ValueError("k_cache, v_cache must be contiguous bf16 CUDA "
                              "tensors of one shape")
-    qf = q.to(torch.float32).contiguous()
+    qf, scaling = scaled_query(q, scaling, scale_query)
+    qf = qf.contiguous()
     pos = positions.to(torch.int32).contiguous()
     out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
     _build.launch("decode_attention_fp", qf.data_ptr(),

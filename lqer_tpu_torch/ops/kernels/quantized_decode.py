@@ -29,6 +29,7 @@ from .decode_attention import (
     SMEM_LIMIT,
     _decode_cache_block,
     _quantize_sublane_groups_signed,
+    scaled_query,
 )
 from .fp_decode import _mb, decode_attention_widths
 
@@ -48,7 +49,7 @@ def decode_attention_widths_quantized(attn_cfg) -> dict:
 
 def quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
                      layer_index: int, *, scaling: float, group: int = 16,
-                     q_width: int | None = 8):
+                     q_width: int | None = 8, scale_query: bool = False):
     """Masked scores (B, H, 1, L) and decoded values (B, H, L, d) of one
     layer."""
     B, H, _, d = q.shape
@@ -56,10 +57,11 @@ def quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
     v = _decode_cache_block(v_codes[layer_index], v_exps[layer_index], group)
     n_rep = H // k.shape[1]
     k, v = (t.repeat_interleave(n_rep, dim=1) for t in (k, v))  # (B, H, d, L)
-    qs = q[:, :, 0, :].to(torch.float32)
+    qf, score_scale = scaled_query(q, scaling, scale_query)
+    qs = qf[:, :, 0, :]
     if q_width is not None:
         qs = _quantize_sublane_groups_signed(qs, q_width - 1, group)
-    s = torch.matmul(qs[:, :, None, :], k) * scaling
+    s = torch.matmul(qs[:, :, None, :], k) * score_scale
     j = torch.arange(k.shape[-1], device=q.device)
     ok = j[None, :] <= positions[:, None]
     return (torch.where(ok[:, None, None, :], s, float("-inf")),
@@ -69,23 +71,25 @@ def quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
 def quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps, positions,
                            layer_index: int, *, scaling: float,
                            group: int = 16, q_width: int | None = 8,
-                           p_width: int | None = 8) -> torch.Tensor:
+                           p_width: int | None = 8,
+                           scale_query: bool = False) -> torch.Tensor:
     s, v = quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
                             layer_index, scaling=scaling, group=group,
-                            q_width=q_width)
+                            q_width=q_width, scale_query=scale_query)
     return attend_plain(s, v, p_width, group)
 
 
 def quantized_write_plain(q, k_codes, k_exps, v_codes, v_exps, kh, vh,
                           positions, layer_index: int, *, scaling: float,
                           group: int = 16, q_width: int | None = 8,
-                          p_width: int | None = 8) -> torch.Tensor:
+                          p_width: int | None = 8,
+                          scale_query: bool = False) -> torch.Tensor:
     encode_write_plain((k_codes, k_exps, v_codes, v_exps), kh, vh,
                        layer_index, positions, group)
     return quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps,
                                   positions, layer_index, scaling=scaling,
                                   group=group, q_width=q_width,
-                                  p_width=p_width)
+                                  p_width=p_width, scale_query=scale_query)
 
 
 def _check_cache(q, k_codes, k_exps, v_codes, v_exps, group) -> int:
@@ -119,10 +123,11 @@ def _check_cuda(q, arrays, layer_index):
 
 
 def _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
-            q_width, p_width) -> torch.Tensor:
+            q_width, p_width, scale_query) -> torch.Tensor:
     B, H, _, d = q.shape
     KVH, L = arrays[0].shape[2], arrays[0].shape[-1]
-    qf = q.to(torch.float32).contiguous()
+    qf, scaling = scaled_query(q, scaling, scale_query)
+    qf = qf.contiguous()
     pos = positions.to(torch.int32).contiguous()
     new = [None if t is None else t.to(torch.float32).contiguous()
            for t in (kh, vh)]
@@ -138,23 +143,26 @@ def _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
 def decode_attention_quantized(q, k_codes, k_exps, v_codes, v_exps,
                                positions, layer_index: int, *, scaling: float,
                                group: int = 16, q_width: int | None = 8,
-                               p_width: int | None = 8) -> torch.Tensor:
+                               p_width: int | None = 8,
+                               scale_query: bool = False) -> torch.Tensor:
     """One layer of decode attention over the MXINT8 or MXINT4 cache.
 
     q (B, H, 1, d) raw queries (rope applied); codes (NL, B, KVH, d, L) or
     (NL, B, KVH, d/2, L) and exps (NL, B, KVH, d/16, L) int8, read at
-    ``layer_index``; positions (B,). Returns (B, H, 1, d) f32. CPU tensors
+    ``layer_index``; positions (B,); ``scale_query`` as
+    ``decode_attention.scaled_query``. Returns (B, H, 1, d) f32. CPU tensors
     run :func:`quantized_decode_plain`; CUDA tensors launch
     ``csrc/decode_attention_quantized.cu``."""
     width = _check_cache(q, k_codes, k_exps, v_codes, v_exps, group)
     arrays = (k_codes, k_exps, v_codes, v_exps)
-    kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width)
+    kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width,
+              scale_query=scale_query)
     if q.device.type == "cpu":
         return quantized_decode_plain(q, *arrays, positions, layer_index,
                                       **kw)
     _check_cuda(q, arrays, layer_index)
     out = _launch(q, arrays, None, None, positions, layer_index, width,
-                  scaling, q_width, p_width)
+                  scaling, q_width, p_width, scale_query)
     decode_attention_quantized.launches += 1
     return out
 
@@ -163,7 +171,8 @@ def decode_attention_quantized_write(q, k_codes, k_exps, v_codes, v_exps, kh,
                                      vh, positions, layer_index: int, *,
                                      scaling: float, group: int = 16,
                                      q_width: int | None = 8,
-                                     p_width: int | None = 8
+                                     p_width: int | None = 8,
+                                     scale_query: bool = False
                                      ) -> torch.Tensor:
     """:func:`decode_attention_quantized` over the MXINT8 cache, with the
     fresh rows kh, vh (B, KVH, 1, d) encoded into column ``positions[b]``
@@ -175,13 +184,14 @@ def decode_attention_quantized_write(q, k_codes, k_exps, v_codes, v_exps, kh,
         raise ValueError(f"the fused write takes the MXINT8 cache and rows "
                          f"(B, KVH, 1, d) (width {width}, rows "
                          f"{tuple(kh.shape)})")
-    kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width)
+    kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width,
+              scale_query=scale_query)
     if q.device.type == "cpu":
         return quantized_write_plain(q, *arrays, kh, vh, positions,
                                      layer_index, **kw)
     _check_cuda(q, arrays, layer_index)
     out = _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
-                  q_width, p_width)
+                  q_width, p_width, scale_query)
     decode_attention_quantized_write.launches += 1
     return out
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import staged_decode_plain
+from .decode_attention import scaled_query, staged_decode_plain
 from .fp_decode import _mb
 from .quantized_decode import _check_cache, quantized_decode_plain
 
@@ -30,7 +30,7 @@ CHUNK = 512  # tokens per block of the CUDA kernels (csrc: CHUNK)
 
 
 def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
-            q_width, p_width) -> torch.Tensor:
+            q_width, p_width, scale_query) -> torch.Tensor:
     """``main``: the layer's four (B, KVH, rows, L) arrays; ``ring``: the
     four (B, KVH, rows, SW) rings, or None for the direct-write cache."""
     B, H, _, d = q.shape
@@ -47,7 +47,8 @@ def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
     nrep = H // KVH
     nz = -(-L // CHUNK) + (ring is not None)
     dev = q.device
-    qf = q.to(torch.float32).contiguous()
+    qf, scaling = scaled_query(q, scaling, scale_query)
+    qf = qf.contiguous()
     pos = positions.to(torch.int32).contiguous()
     new = [None if t is None else t.to(torch.float32).contiguous()
            for t in (kh, vh)]
@@ -70,26 +71,29 @@ def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
 def decode_attention_quantized_streaming(
         q, k_codes, k_exps, v_codes, v_exps, positions, layer_index: int, *,
         scaling: float, group: int = 16, q_width: int | None = 8,
-        p_width: int | None = 8) -> torch.Tensor:
+        p_width: int | None = 8, scale_query: bool = False) -> torch.Tensor:
     """One layer of decode attention over the MXINT8 or MXINT4 cache, split
     along L for the card.
 
     q (B, H, 1, d) raw queries (rope applied); codes (NL, B, KVH, d, L) or
     (NL, B, KVH, d/2, L) and exps (NL, B, KVH, d/16, L) int8, read at
-    ``layer_index``; positions (B,). Returns (B, H, 1, d) f32. CPU tensors
-    run :func:`~.quantized_decode.quantized_decode_plain`; CUDA tensors
+    ``layer_index``; positions (B,); ``scale_query`` as
+    :func:`~.decode_attention.scaled_query`. Returns (B, H, 1, d) f32. CPU
+    tensors run :func:`~.quantized_decode.quantized_decode_plain`; CUDA tensors
     launch ``csrc/decode_attention_streaming.cu``."""
     width = _check_cache(q, k_codes, k_exps, v_codes, v_exps, group)
     arrays = (k_codes, k_exps, v_codes, v_exps)
     if q.device.type == "cpu":
         return quantized_decode_plain(q, *arrays, positions, layer_index,
                                       scaling=scaling, group=group,
-                                      q_width=q_width, p_width=p_width)
+                                      q_width=q_width, p_width=p_width,
+                                      scale_query=scale_query)
     if not q.is_cuda or not 0 <= layer_index < k_codes.shape[0]:
         raise ValueError(f"unsupported device {q.device} or layer "
                          f"{layer_index} of {k_codes.shape[0]}")
     out = _launch(q, [a[layer_index] for a in arrays], None, None, None,
-                  positions, None, width, scaling, q_width, p_width)
+                  positions, None, width, scaling, q_width, p_width,
+                  scale_query)
     decode_attention_quantized_streaming.launches += 1
     return out
 
@@ -97,8 +101,8 @@ def decode_attention_quantized_streaming(
 def decode_attention_quantized_streaming_staged(
         q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
         vs_exps, kh, vh, positions, flushed, *, scaling: float,
-        group: int = 16, q_width: int | None = 8,
-        p_width: int | None = 8) -> torch.Tensor:
+        group: int = 16, q_width: int | None = 8, p_width: int | None = 8,
+        scale_query: bool = False) -> torch.Tensor:
     """One layer of staged decode attention, split along L for the card.
 
     The arguments of :func:`~.decode_attention.decode_attention_quantized_
@@ -125,11 +129,12 @@ def decode_attention_quantized_streaming_staged(
     if q.device.type == "cpu":
         return staged_decode_plain(q, *main, *ring, kh, vh, positions,
                                    flushed, scaling=scaling, group=group,
-                                   q_width=q_width, p_width=p_width)
+                                   q_width=q_width, p_width=p_width,
+                                   scale_query=scale_query)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
     out = _launch(q, main, ring, kh, vh, positions, flushed, 8, scaling,
-                  q_width, p_width)
+                  q_width, p_width, scale_query)
     decode_attention_quantized_streaming_staged.launches += 1
     return out
 

@@ -1,18 +1,22 @@
-"""Cache-aware Llama step (admission prefill and decode) through the
-kernels.
+"""Cache-aware Llama and OPT steps (admission prefill and decode) through
+the kernels.
 
-Port of the Llama serving path of ``lqer_tpu/serving/decode.py``:
-``llama_step_scan`` on the packed backend. The ``lax.scan`` over layers
-becomes a Python loop; each kernel takes per-layer views of the
-layer-stacked weights and cache (``stacked[li]`` is a zero-copy view), so no
-slice is copied. The cache is updated in place.
+Port of the serving path of ``lqer_tpu/serving/decode.py``:
+``llama_step_scan`` and ``opt_step_scan`` on the packed backend. The
+``lax.scan`` over layers becomes a Python loop; each kernel takes per-layer
+views of the layer-stacked weights and cache (``stacked[li]`` is a
+zero-copy view), so no slice is copied. The cache is updated in place.
 
-Per layer: RMSNorm → fused q|k|v (kernel 1) → rotary → attention → o
+Per Llama layer: RMSNorm → fused q|k|v (kernel 1) → rotary → attention → o
 (kernel 1) → RMSNorm → the whole MLP in one megakernel launch (with
 ``fuse_mlp=False`` packing: fused gate|up (kernel 1) → silu·up → down
-(kernel 1)). At admission, attention is the prefill kernel and the new rows
-are written into the cache in plain PyTorch (the JAX package's XLA
-update). At s = 1 the route follows the cache (``make_cache``):
+(kernel 1)). An OPT layer (:func:`opt_step_scan`) has learned positions
+instead of rotary, LayerNorm before (or, post-LN, after) each block, the
+query scaled before its quantizer (``scale_query``), biases on every
+linear and the relu variant of the megakernel. At admission, attention is
+the prefill kernel and the new rows are written into the cache in plain
+PyTorch (the JAX package's XLA update). At s = 1 the route follows the
+cache (``make_cache``):
 
 - ``mxint8-staged``: the staged decode kernel writes the fresh token into
   the ring and attends; a step first flushes the rings into the main cache
@@ -32,7 +36,8 @@ encode + write and the streaming kernel, ``mxint4`` through its row write
 and the streaming kernel at width 4. :func:`decode_route` holds each
 route, and the decode step runs the kernels it names.
 
-The W8 lm_head is kernel 1 again. At 512 rows and more (an admission of
+The W8 lm_head is kernel 1 again (OPT's 50272-row head stays a dense
+product, as in the JAX package). At 512 rows and more (an admission of
 8 x 64 tokens, a 2048-token prompt) every packed linear, the MLP and the
 head take the large-M route instead: unpack each weight once, then one
 dense product. Regimes for which the JAX package takes a path without a
@@ -44,14 +49,16 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.nn.functional import silu
+from torch.nn.functional import relu, silu
 
 from .. import models
 from ..models import llama as llama_mod
+from ..models import opt as opt_mod
 from ..models.common import (
     _std_a8,
     apply_rotary,
     fused_quantized_attention,
+    layer_norm,
     merge_heads,
     repeat_kv,
     rms_norm,
@@ -342,7 +349,8 @@ def _last_valid_h(h, valid_lengths, s, logits_last_only):
 def _lm_head_logits(h, lm_head, backend):
     """Packed W8 head through kernel 1, or the large-M route at 512 rows
     and more (activation enters as bf16, unquantized; padded vocab sliced
-    off), else the dense matmul."""
+    off), else the dense matmul (``lm_head.weight``, or the tied embedding:
+    OPT's head, whose vocab does not tile)."""
     if backend is not None and "lm_head" in backend["meta"]:
         meta = backend["meta"]["lm_head"]
         b, s, k = h.shape
@@ -395,11 +403,13 @@ def _cache_write_row(cache, li, kh, vh, positions):
                           li, positions)
 
 
-def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache):
+def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache,
+                          scale_query=False):
     """Admission attention (positions 0, fresh cache) through the prefill
     kernel. Over an MXINT cache K/V enter as their cache-write grid (the
     round trip through the cache's encode); over the fp cache as the f32
-    rows, quantized at use (K^T per 16 tokens, V per 16 along d)."""
+    rows, quantized at use (K^T per 16 tokens, V per 16 along d). OPT
+    (``scale_query``) scales q before its quantizer."""
     b, h, s, d = qh.shape
     if d % 16 or s % 16 or s < 16:
         raise ValueError(f"prefill chunk must be a multiple of 16 (s={s})")
@@ -412,15 +422,16 @@ def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache):
         vh = dec(*enc(vh, g, zero_fill=1.0), g, torch.bfloat16)
     return fused_quantized_attention(
         qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep), attn_cfg, scaling,
-        kv_values_pre_quantized=quantized)
+        scale_query=scale_query, kv_values_pre_quantized=quantized)
 
 
 def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
-                   route):
+                   route, scale_query=False):
     """Decode attention (s = 1) through the kernels of ``route``
     (:func:`decode_route`), in order: the fresh token lands in layer ``li``
     of the cache in place (a staged cache's rings), and the last kernel's
-    attention is returned."""
+    attention is returned. OPT (``scale_query``) scales q before its
+    quantizer."""
     def main():
         return tuple(cache[k] for k in MAIN_KEYS)
 
@@ -429,7 +440,8 @@ def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
                 *(cache[k][li] for k in STAGE_KEYS))
 
     def widths():
-        return decode_attention_widths_quantized(attn_cfg)
+        return dict(decode_attention_widths_quantized(attn_cfg),
+                    scale_query=scale_query)
 
     kernels = {
         "row_write": lambda: _cache_write_row(cache, li, kh, vh, positions),
@@ -451,7 +463,7 @@ def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
                 scaling=scaling, **widths()),
         "decode_attention_fp": lambda: decode_attention_fp(
             qh, cache["k"], cache["v"], positions, li, scaling=scaling,
-            **decode_attention_widths(attn_cfg)),
+            scale_query=scale_query, **decode_attention_widths(attn_cfg)),
     }
     for name in route:
         attn = kernels[name]()
@@ -471,6 +483,64 @@ def _staged_flush_maybe(cache, positions):
     return cache
 
 
+def _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions, s,
+                fresh_prefill):
+    """Checks and set-up shared by the steps: the per-layer configs, the
+    decode route, and the staged cache's flush before a decode step."""
+    if backend_stacked is None:
+        raise NotImplementedError("the port serves through the kernel "
+                                  "backend only (backend_stacked)")
+    if s > 1 and not fresh_prefill:
+        raise NotImplementedError("chunked prefill into a filled cache is "
+                                  "not ported")
+    qcfgs = (layer_qcfg if isinstance(layer_qcfg, list)
+             else [layer_qcfg] * cfg.num_hidden_layers)
+    n_rep = cfg.num_attention_heads // cfg.kv_heads
+    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, n_rep)
+    route = decode_route(_cache_kind(cache), cache_max_len(cache),
+                         cfg.head_dim, n_rep)
+    if s == 1 and is_staged_cache(cache):
+        _staged_flush_maybe(cache, positions)
+    return qcfgs, route, n_rep
+
+
+def _kv_valid(valid_lengths, s, device):
+    """(b, s) mask of each admitted row's real tokens, or None."""
+    if valid_lengths is None:
+        return None
+    return torch.arange(s, device=device)[None, :] < valid_lengths[:, None]
+
+
+def _attention(cache, qh, kh, vh, positions, li, attn_cfg, scaling, n_rep,
+               route, kv_valid, scale_query=False):
+    """One layer's attention: padding rows of K/V zeroed; an admission
+    through the prefill kernel, then its rows written into the cache; a
+    decode step through the kernels of ``route``."""
+    if kv_valid is not None:
+        kh = kh * kv_valid[:, None, :, None].to(kh.dtype)
+        vh = vh * kv_valid[:, None, :, None].to(vh.dtype)
+    if qh.shape[2] > 1:
+        attn = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep,
+                                     cache, scale_query)
+        _cache_write_full(cache, li, kh, vh, positions)
+        return attn
+    return _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg,
+                          scaling, route, scale_query)
+
+
+def _end_step(h, cache, positions, valid_lengths, logits_last_only,
+              lm_head, backend_stacked):
+    """The last valid rows' logits; after an admission, the staged cache's
+    stage boundary."""
+    s = h.shape[1]
+    h = _last_valid_h(h, valid_lengths, s, logits_last_only)
+    if s > 1 and is_staged_cache(cache):
+        new_pos = positions + (valid_lengths if valid_lengths is not None
+                               else s)
+        stage_boundary_sync(cache, new_pos)
+    return _lm_head_logits(h, lm_head, backend_stacked), cache
+
+
 def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                     stacked=None, rest=None, backend_stacked=None,
                     valid_lengths=None, fresh_prefill=False,
@@ -481,34 +551,20 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     ``layer_qcfg`` is one resolved layer config or the per-layer list."""
     if stacked is None or rest is None:
         stacked, rest = llama_mod.stack_layer_params(params, cfg)
-    if backend_stacked is None:
-        raise NotImplementedError("the port serves through the kernel "
-                                  "backend only (backend_stacked)")
     b, s = input_ids.shape
-    if s > 1 and not fresh_prefill:
-        raise NotImplementedError("chunked prefill into a filled cache is "
-                                  "not ported")
-    qcfgs = (layer_qcfg if isinstance(layer_qcfg, list)
-             else [layer_qcfg] * cfg.num_hidden_layers)
-    n_rep = cfg.num_attention_heads // cfg.kv_heads
-    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, n_rep)
-    staged = is_staged_cache(cache)
-    max_len = cache_max_len(cache)
-    route = decode_route(_cache_kind(cache), max_len, cfg.head_dim, n_rep)
-    if s == 1 and staged:
-        _staged_flush_maybe(cache, positions)
+    qcfgs, route, n_rep = _begin_step(cache, cfg, layer_qcfg,
+                                      backend_stacked, positions, s,
+                                      fresh_prefill)
     embed = rest["model.embed_tokens.weight"]
     h = embed[input_ids]
     h_dtype = h.dtype
     q_abs = (positions[:, None] + torch.arange(s, device=h.device)).to(
         torch.int64)
-    cos, sin = _rotary(cfg.head_dim, max(max_len, cfg.max_position_embeddings),
+    cos, sin = _rotary(cfg.head_dim,
+                       max(cache_max_len(cache), cfg.max_position_embeddings),
                        cfg.rope_theta, h.device)
     scaling = cfg.head_dim ** -0.5
-    kv_valid = None
-    if valid_lengths is not None:
-        kv_valid = (torch.arange(s, device=h.device)[None, :]
-                    < valid_lengths[:, None])
+    kv_valid = _kv_valid(valid_lengths, s, h.device)
 
     for li in range(cfg.num_hidden_layers):
         q = qcfgs[li]
@@ -525,16 +581,8 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         kh = _heads(ky, cfg.kv_heads)
         vh = _heads(vy, cfg.kv_heads)
         qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
-        if kv_valid is not None:
-            kh = kh * kv_valid[:, None, :, None].to(kh.dtype)
-            vh = vh * kv_valid[:, None, :, None].to(vh.dtype)
-        if s > 1:
-            attn = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling,
-                                         n_rep, cache)
-            _cache_write_full(cache, li, kh, vh, positions)
-        else:
-            attn = _decode_attend(cache, qh, kh, vh, positions, li,
-                                  attn_cfg, scaling, route)
+        attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
+                          scaling, n_rep, route, kv_valid)
         attn = serving_linear(merge_heads(attn),
                               "self_attn.o_proj", backend_stacked,
                               attn_cfg.o_proj, layer_index=li)
@@ -555,11 +603,82 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         h = (residual + y).to(h_dtype)
 
     h = rms_norm(h, {"weight": rest["model.norm.weight"]}, cfg.rms_norm_eps)
-    h = _last_valid_h(h, valid_lengths, s, logits_last_only)
-    if s > 1 and staged:
-        new_pos = positions + (valid_lengths if valid_lengths is not None
-                               else s)
-        stage_boundary_sync(cache, new_pos)
-    lm_head = rest.get("lm_head.weight", embed)
-    return _lm_head_logits(h, lm_head, backend_stacked), cache
+    return _end_step(h, cache, positions, valid_lengths, logits_last_only,
+                     rest.get("lm_head.weight", embed), backend_stacked)
 
+
+def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
+                  stacked=None, rest=None, backend_stacked=None,
+                  valid_lengths=None, fresh_prefill=False,
+                  logits_last_only=False):
+    """OPT analogue of :func:`llama_step_scan` (JAX
+    ``serving/decode.py::opt_step_scan``): learned positions
+    ``embed_positions[pos + 2]``, pre-LN or post-LN
+    (``do_layer_norm_before``), q|k|v and out_proj with biases, attention
+    with the query scaled before its quantizer, the relu MLP with biases,
+    ``project_in``/``project_out`` (OPT-350m) and the final LayerNorm from
+    ``rest``. The positions must stay inside the table: the engine refuses
+    ``max_len > cfg.max_position_embeddings``."""
+    if stacked is None or rest is None:
+        stacked, rest = opt_mod.stack_layer_params(params, cfg)
+    b, s = input_ids.shape
+    qcfgs, route, n_rep = _begin_step(cache, cfg, layer_qcfg,
+                                      backend_stacked, positions, s,
+                                      fresh_prefill)
+    embed = rest["model.decoder.embed_tokens.weight"]
+    h = embed[input_ids]
+    h_dtype = h.dtype
+    if rest.get("model.decoder.project_in.weight") is not None:
+        h = torch.matmul(h, rest["model.decoder.project_in.weight"].T)
+    q_abs = (positions[:, None] + torch.arange(s, device=h.device)).to(
+        torch.int64)
+    h = h + rest["model.decoder.embed_positions.weight"][q_abs + 2]
+    scaling = cfg.head_dim ** -0.5
+    kv_valid = _kv_valid(valid_lengths, s, h.device)
+
+    def norm(x, rel, li):
+        return layer_norm(x, {k: stacked[f"{rel}.{k}"][li]
+                              for k in ("weight", "bias")
+                              if f"{rel}.{k}" in stacked})
+
+    pre = cfg.do_layer_norm_before
+    for li in range(cfg.num_hidden_layers):
+        q = qcfgs[li]
+        attn_cfg = q["attn"]
+        residual = h
+        hn = norm(h, "self_attn_layer_norm", li) if pre else h
+        qy, ky, vy = _lin_group(
+            hn, "self_attn.qkv_proj",
+            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj),
+            backend_stacked, li)
+        qh, kh, vh = (_heads(y, cfg.num_attention_heads)
+                      for y in (qy, ky, vy))
+        attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
+                          scaling, n_rep, route, kv_valid, scale_query=True)
+        attn = serving_linear(merge_heads(attn), "self_attn.out_proj",
+                              backend_stacked, attn_cfg.o_proj,
+                              layer_index=li)
+        h = residual + attn
+        if not pre:
+            h = norm(h, "self_attn_layer_norm", li)
+        residual = h
+        hn = norm(h, "final_layer_norm", li) if pre else h
+        y = _mlp_fused_or_none(hn, q["fc1"], backend_stacked, li)
+        if y is None:
+            y = relu(serving_linear(hn, "fc1", backend_stacked, q["fc1"],
+                                    layer_index=li))
+            y = serving_linear(y, "fc2", backend_stacked, q["fc2"],
+                               layer_index=li)
+        h = residual + y
+        if not pre:
+            h = norm(h, "final_layer_norm", li)
+        h = h.to(h_dtype)
+
+    if rest.get("model.decoder.final_layer_norm.weight") is not None:
+        h = layer_norm(h, opt_mod._mod(rest,
+                                       "model.decoder.final_layer_norm"))
+    if rest.get("model.decoder.project_out.weight") is not None:
+        h = torch.matmul(h, rest["model.decoder.project_out.weight"].T)
+    return _end_step(h, cache, positions, valid_lengths, logits_last_only,
+                     rest.get("lm_head.weight", embed), backend_stacked)

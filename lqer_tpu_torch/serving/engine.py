@@ -17,7 +17,13 @@ import torch
 
 from .. import models
 from ..device import resolve_device
-from .decode import check_servable, llama_step_scan, make_cache, stack_backend
+from .decode import (
+    check_servable,
+    llama_step_scan,
+    make_cache,
+    opt_step_scan,
+    stack_backend,
+)
 from .kernel_backend import pack_lm_head
 
 
@@ -56,7 +62,12 @@ class DecodeEngine:
     (the bf16 cache by default, as in the JAX package). ``device`` defaults
     to the card and raises when there is none; params and backend move to
     it. A cache and configuration that would take a path without a ported
-    kernel raise ``NotImplementedError`` here."""
+    kernel raise ``NotImplementedError`` here. The step follows
+    ``cfg.arch``: ``decode.llama_step_scan`` or ``decode.opt_step_scan``.
+    An OPT engine whose ``max_len`` exceeds ``max_position_embeddings``
+    raises ``ValueError`` before any work: its learned positions would
+    index past the table, which faults on the card. (The JAX engine takes
+    such rows with ``jnp.take``, which fills them silently.)"""
 
     def __init__(self, params: dict, cfg, layer_qcfgs, num_slots: int = 4,
                  max_len: int = 512, cache_dtype="bfloat16",
@@ -66,6 +77,11 @@ class DecodeEngine:
         if pallas_backend is None:
             raise NotImplementedError("the port serves through the kernel "
                                       "backend only (pallas_backend)")
+        if cfg.arch == "opt" and max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_len {max_len} exceeds OPT's max_position_embeddings "
+                f"{cfg.max_position_embeddings}: positions past it have no "
+                "row in embed_positions")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.num_slots = num_slots
@@ -86,13 +102,14 @@ class DecodeEngine:
         self._stacked, self._rest = arch.stack_layer_params(params, cfg)
         self._backend = stack_backend(backend, cfg, consume=consume_backend)
         self._qcfgs = list(layer_qcfgs)
+        self._step_fn = opt_step_scan if cfg.arch == "opt" else llama_step_scan
 
     # ------------------------------------------------------------------
     def _step(self, ids, cache, positions, **kw):
-        return llama_step_scan({}, ids, cache, positions, self.cfg,
-                               self._qcfgs, stacked=self._stacked,
-                               rest=self._rest, backend_stacked=self._backend,
-                               **kw)
+        return self._step_fn({}, ids, cache, positions, self.cfg,
+                             self._qcfgs, stacked=self._stacked,
+                             rest=self._rest, backend_stacked=self._backend,
+                             **kw)
 
     def _sample(self, logits: torch.Tensor, temps: list[float]) -> torch.Tensor:
         """(n, vocab) logits → (n,) tokens: greedy where temp <= 0, else a

@@ -1,7 +1,8 @@
 """Kernel serving backend: every quantized linear runs through the
 dequant-GEMM kernel (``ops/kernels/dequant_gemm.py``) on packed MXINT4
 weights, the lm_head optionally on packed MXINT8 weights, and each layer's
-whole MLP through the megakernel (``ops/kernels/mlp_fused.py``). At 512
+whole MLP through the megakernel (``ops/kernels/mlp_fused.py``: Llama's
+gated silu MLP, or OPT's relu MLP with biases). At 512
 rows and more the linears and the MLP take the large-M route instead:
 unpack each weight once (kernel 6), then one dense product.
 
@@ -9,10 +10,11 @@ Port of ``lqer_tpu/serving/pallas_backend.py``: the same eligibility checks
 decide which linears are packed (an ineligible one is not packed; the port
 has no emulated fallback yet, so serving such a model raises), the MLP is
 packed whole (``{layer}.mlp_fused``, ``fuse_mlp=True``, the default) where
-:func:`_mlp_fusable` allows, the same fuse groups (q|k|v, and gate|up when
-the MLP is not packed whole) share one launch, and ``pad_to_tile`` pads the
-vocab to 32768 and the intermediate dim (11008 to 11264) as the JAX package
-does.
+:func:`_mlp_fusable` allows, the same fuse groups (q|k|v, and for Llama gate|up
+when the MLP is not packed whole) share one launch, and ``pad_to_tile``
+pads the vocab to 32768 and the intermediate dim (11008 to 11264) as the
+JAX package does. A bias passes through its linear's ``b_quantizer`` at
+pack time.
 """
 
 from __future__ import annotations
@@ -43,9 +45,12 @@ TILE_K = 2048
 # dequantize-once + dense-product route, as in the JAX package.
 _LARGEM_THRESHOLD = 512
 
-_FUSE_GROUPS_LLAMA = (
+_FUSE_GROUPS_OPT = (
     ("self_attn.qkv_proj",
      ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")),
+)
+_FUSE_GROUPS_LLAMA = (
+    *_FUSE_GROUPS_OPT,
     ("mlp.gateup_proj", ("mlp.gate_proj", "mlp.up_proj")),
 )
 
@@ -53,14 +58,17 @@ _INELIGIBLE = "ineligible"
 
 
 def fuse_groups_for(cfg):
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"architecture {cfg.arch!r} is not ported")
-    return _FUSE_GROUPS_LLAMA
+    """Projections sharing one input, packed as one launch: q|k|v, and
+    Llama's gate|up (OPT's fc1 and fc2 have different inputs)."""
+    return _FUSE_GROUPS_OPT if cfg.arch == "opt" else _FUSE_GROUPS_LLAMA
 
 
-# (gate, up, down) of the megakernel (``mlp_members_for`` of the JAX
-# package, Llama only)
-_MLP_MEMBERS = ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+def mlp_members_for(cfg):
+    """(gate, up, down) rel-prefixes of the megakernel's linears; up is None
+    for the un-gated (OPT relu) variant."""
+    if cfg.arch == "opt":
+        return ("fc1", None, "fc2")
+    return ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
 
 
 def _is_mx4_weight(w_cfg: dict | None) -> bool:
@@ -136,25 +144,25 @@ def _member_widths(layer_prefix, members, params, layer_qcfg, tile_k):
     return widths.pop() if len(widths) == 1 else None
 
 
-def _mlp_fusable(layer_prefix, params, layer_qcfg, tile_k):
+def _mlp_fusable(layer_prefix, cfg, params, layer_qcfg, tile_k):
     """(xa_width, out_width, act_width) when the layer's whole MLP can run
-    through the megakernel, else None: the three linears fuse
-    (:func:`_fusable`) and pack alike, down's activation quantizer is one
-    the kernel reproduces on H (``act_width``), the dims tile, and no linear
-    has a bias (the bias variant belongs to OPT and is not ported)."""
-    if not _fusable(layer_prefix, _MLP_MEMBERS, params, layer_qcfg):
+    through the megakernel, else None: its linears (gate, up, down; or
+    fc1, fc2) fuse (:func:`_fusable`) and pack alike, down's activation
+    quantizer is one the kernel reproduces on H (``act_width``), and the
+    dims tile. Biases may be present."""
+    gate, up, down = mlp_members_for(cfg)
+    members = [m for m in (gate, up, down) if m is not None]
+    if not _fusable(layer_prefix, members, params, layer_qcfg):
         return None
-    if any(params.get(f"{layer_prefix}.{m}.bias") is not None
-           for m in _MLP_MEMBERS):
-        return None
-    widths = _member_widths(layer_prefix, _MLP_MEMBERS, params, layer_qcfg,
+    widths = _member_widths(layer_prefix, members, params, layer_qcfg,
                             tile_k)
     if widths is None:
         return None
-    w_gate = params[f"{layer_prefix}.{_MLP_MEMBERS[0]}.weight"]
-    w_down = params[f"{layer_prefix}.{_MLP_MEMBERS[2]}.weight"]
+    w_gate = params[f"{layer_prefix}.{gate}.weight"]
+    w_down = params[f"{layer_prefix}.{down}.weight"]
     act_width = _partial_quant_width(
-        models._proj_qcfg(layer_qcfg, "down_proj").x_cfg, w_down.shape[1])
+        models._proj_qcfg(layer_qcfg, down.rsplit(".", 1)[-1]).x_cfg,
+        w_down.shape[1])
     if act_width is None or act_width is _INELIGIBLE:
         return None
     if (_pick_tile_k(w_down.shape[1], tile_k) == 0 or w_down.shape[0] % 128
@@ -163,23 +171,36 @@ def _mlp_fusable(layer_prefix, params, layer_qcfg, tile_k):
     return (*widths, act_width)
 
 
-def _pack_mlp(layer_prefix, params, arrays, meta, xa_width, out_width,
-              act_width) -> set:
+def _pack_mlp(layer_prefix, cfg, params, layer_qcfg, arrays, meta, xa_width,
+              out_width, act_width) -> set:
     """Pack a layer's whole MLP under ``{layer}.mlp_fused``, the
-    intermediate dim zero-padded by :func:`pad_to_tile`; returns the packed
-    members' prefixes."""
-    gate, up, down = (f"{layer_prefix}.{m}" for m in _MLP_MEMBERS)
+    intermediate dim zero-padded by :func:`pad_to_tile` and each bias on
+    its linear's ``b_quantizer`` grid; returns the packed members'
+    prefixes."""
+    rels = mlp_members_for(cfg)
+    gate, up, down = (None if m is None else f"{layer_prefix}.{m}"
+                      for m in rels)
+
+    def get(prefix, suffix):
+        return None if prefix is None else params.get(f"{prefix}.{suffix}")
+
+    def qbias(prefix, rel):
+        b = get(prefix, "bias")
+        return None if b is None else models._proj_qcfg(
+            layer_qcfg, rel.rsplit(".", 1)[-1]).b_quantizer(b)
+
     key = f"{layer_prefix}.mlp_fused"
     arrays[key] = prepare_mlp_weights(
-        params[gate + ".weight"], params[up + ".weight"],
-        params[down + ".weight"], a_gate=params.get(gate + ".A"),
-        b_gate=params.get(gate + ".B"), a_up=params.get(up + ".A"),
-        b_up=params.get(up + ".B"), a_down=params.get(down + ".A"),
-        b_down=params.get(down + ".B"),
-        pad_i=pad_to_tile(params[gate + ".weight"].shape[0])[0])
+        get(gate, "weight"), get(up, "weight"), get(down, "weight"),
+        a_gate=get(gate, "A"), b_gate=get(gate, "B"), a_up=get(up, "A"),
+        b_up=get(up, "B"), a_down=get(down, "A"), b_down=get(down, "B"),
+        bias_gate=qbias(gate, rels[0]),
+        bias_up=qbias(up, rels[1]),
+        bias_down=qbias(down, rels[2]),
+        pad_i=pad_to_tile(get(gate, "weight").shape[0])[0])
     meta[key] = {"kind": "mlp", "fmt": MXINT4, "act_width": act_width,
                  "xa_width": xa_width, "out_width": out_width}
-    return {gate, up, down}
+    return {p for p in (gate, up, down) if p is not None}
 
 
 def pad_to_tile(n: int, cap: int = 1024, max_overhead: float = 0.06):
@@ -273,7 +294,9 @@ def prepare_serving_params(params: dict, cfg, layer_qcfgs,
     :func:`_mlp_fusable` allows. A fusable group (q|k|v, gate|up: identical
     activation-side quantizers, see :func:`_fusable`) packs as one entry
     (``{layer}.self_attn.qkv_proj``, ``{layer}.mlp.gateup_proj``); other
-    members pack one by one."""
+    members pack one by one. Llama and OPT (whose ``mlp_fused`` entry is
+    the relu variant: no up half, biases ``bias_g``, ``bias_d``) pack
+    alike."""
     arrays: dict = {}
     meta: dict = {}
     skipped: list[str] = []
@@ -290,9 +313,10 @@ def prepare_serving_params(params: dict, cfg, layer_qcfgs,
         fused_members: set[str] = set()
         lp = arch.layer_prefix(i)
         if fuse_mlp:
-            widths = _mlp_fusable(lp, params, layer_qcfgs[i], tile_k)
+            widths = _mlp_fusable(lp, cfg, params, layer_qcfgs[i], tile_k)
             if widths is not None:
-                fused_members |= _pack_mlp(lp, params, arrays, meta, *widths)
+                fused_members |= _pack_mlp(lp, cfg, params, layer_qcfgs[i],
+                                           arrays, meta, *widths)
         for fused_rel, member_rels in fuse_groups_for(cfg):
             if any(f"{lp}.{m}" in fused_members for m in member_rels):
                 continue
@@ -332,16 +356,17 @@ def pack_lm_head(backend: dict, params: dict, width: int = 8,
     """A new backend with the lm_head packed for the W8 dequant-GEMM under
     ``"lm_head"`` (the caller's dicts are not mutated). The weight comes
     from ``params[embed_key]``, else ``lm_head.weight``, else the tied
-    ``model.embed_tokens.weight``; the vocab is zero-padded to a large tile
-    and sliced back in ``decode._lm_head_logits``."""
+    ``model.embed_tokens.weight`` (Llama) or
+    ``model.decoder.embed_tokens.weight`` (OPT); the vocab is zero-padded to
+    a large tile and sliced back in ``decode._lm_head_logits``. A head
+    whose vocab is not a multiple of 128 (OPT's 50272) stays dense, as in
+    the JAX package: the backend comes back without ``lm_head``."""
     if embed_key is None:
-        for cand in ("lm_head.weight", "model.embed_tokens.weight"):
-            if cand in params:
-                embed_key = cand
-                break
-        else:
-            raise KeyError("pack_lm_head: params hold neither 'lm_head.weight' "
-                           "nor 'model.embed_tokens.weight'")
+        cands = ("lm_head.weight", "model.embed_tokens.weight",
+                 "model.decoder.embed_tokens.weight")
+        embed_key = next((c for c in cands if c in params), None)
+        if embed_key is None:
+            raise KeyError(f"pack_lm_head: params hold none of {cands}")
     w = params[embed_key]
     V, K = w.shape
     out = {"arrays": dict(backend["arrays"]), "meta": dict(backend["meta"])}
@@ -368,7 +393,7 @@ def layer_prep(prep: dict, layer_index: int | None) -> dict:
 
 def serving_mlp(x: torch.Tensor, key: str, backend: dict, qc_first, *,
                 layer_index: int | None = None) -> torch.Tensor:
-    """A layer's whole MLP: quantize the activations with the gate's
+    """A layer's whole MLP: quantize the activations with the gate's (fc1's)
     quantizer, then one megakernel launch (fewer than 512 rows) or the
     large-M route. ``x (b, s, hidden)`` → ``(b, s, hidden)`` in x's
     dtype."""

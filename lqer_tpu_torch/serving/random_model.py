@@ -1,14 +1,19 @@
-"""Seeded random Llama weights at full width, packed layer by layer on the
-device (port of ``experiments/bench_e2e_llama7b.py::build_7b_backend_and_params``).
+"""Seeded random Llama and OPT weights at full width, packed layer by layer
+on the device (port of
+``experiments/bench_e2e_llama7b.py::build_7b_backend_and_params``).
 
 Each layer's fp32 weights (and bf16-exact rank-``rank`` A/B factors) are
 drawn on the device from a ``torch.Generator`` seeded with
 ``seed * 1000 + layer``, packed into the kernel backend (by default as the
 JAX package packs: each MLP whole, for the megakernel; ``fuse_mlp=False``
-packs gate|up and down for kernel 1) and freed, so only
+packs Llama's gate|up and down for kernel 1) and freed, so only
 one layer's fp32 weights exist at a time. The returned params keep the
-embedding, the norms and nothing else: every linear is served from the
-backend, and the head is the tied embedding (``pack_lm_head``).
+embeddings, the norms and nothing else: every linear is served from the
+backend, and the head is the tied embedding (``pack_lm_head``; OPT's
+stays dense). An OPT layer's linears carry biases of scale 0.02 (the JAX
+package's ``init_params`` zeroes them, which would leave every bias path
+untested), its LayerNorms weight 1 and bias 0, and its embeddings are
+bf16 (a bf16 residual stream, as a half-precision checkpoint gives).
 """
 
 from __future__ import annotations
@@ -49,8 +54,22 @@ KV4_Q_CONFIG = {
 }
 
 
+def q_config_for(cfg, kv4: bool = False) -> dict:
+    """:data:`Q_CONFIG` (or :data:`KV4_Q_CONFIG`) under the architecture's
+    keys: OPT names its attention matmuls ``bmm``."""
+    q = KV4_Q_CONFIG if kv4 else Q_CONFIG
+    if cfg.arch == "opt":
+        return {"linear": q["linear"], "bmm": q["matmul"]}
+    return q
+
+
 def layer_shapes(cfg) -> dict:
-    h, inter = cfg.hidden_size, cfg.intermediate_size
+    h = cfg.hidden_size
+    if cfg.arch == "opt":
+        return {"self_attn.q_proj": (h, h), "self_attn.k_proj": (h, h),
+                "self_attn.v_proj": (h, h), "self_attn.out_proj": (h, h),
+                "fc1": (cfg.ffn_dim, h), "fc2": (h, cfg.ffn_dim)}
+    inter = cfg.intermediate_size
     kv = cfg.kv_heads * cfg.head_dim
     return {"self_attn.q_proj": (h, h), "self_attn.k_proj": (kv, h),
             "self_attn.v_proj": (kv, h), "self_attn.o_proj": (h, h),
@@ -58,32 +77,72 @@ def layer_shapes(cfg) -> dict:
             "mlp.down_proj": (h, inter)}
 
 
+def _non_layer_params(cfg, gen, dev) -> dict:
+    """Embeddings and final norm (the Llama embedding in f32, OPT's
+    embeddings and norm in bf16)."""
+    h = cfg.hidden_size
+    if cfg.arch != "opt":
+        return {"model.embed_tokens.weight": torch.randn(
+                    cfg.vocab_size, h, generator=gen, device=dev) * 0.02,
+                "model.norm.weight": torch.ones(h, device=dev)}
+    bf = torch.bfloat16
+    out = {"model.decoder.embed_tokens.weight": (torch.randn(
+               cfg.vocab_size, cfg.embed_dim, generator=gen, device=dev)
+               * 0.02).to(bf),
+           "model.decoder.embed_positions.weight": (torch.randn(
+               cfg.max_position_embeddings + 2, h, generator=gen,
+               device=dev) * 0.02).to(bf)}
+    if cfg.embed_dim != h:
+        out["model.decoder.project_in.weight"] = (torch.randn(
+            h, cfg.embed_dim, generator=gen, device=dev) * 0.02).to(bf)
+        out["model.decoder.project_out.weight"] = (torch.randn(
+            cfg.embed_dim, h, generator=gen, device=dev) * 0.02).to(bf)
+    if cfg.do_layer_norm_before:
+        out["model.decoder.final_layer_norm.weight"] = torch.ones(
+            h, dtype=bf, device=dev)
+        out["model.decoder.final_layer_norm.bias"] = torch.zeros(
+            h, dtype=bf, device=dev)
+    return out
+
+
+def _layer_norms(cfg, prefix, dev) -> dict:
+    h = cfg.hidden_size
+    if cfg.arch != "opt":
+        return {f"{prefix}.{n}.weight": torch.ones(h, device=dev)
+                for n in ("input_layernorm", "post_attention_layernorm")}
+    out = {}
+    for n in ("self_attn_layer_norm", "final_layer_norm"):
+        out[f"{prefix}.{n}.weight"] = torch.ones(h, dtype=torch.bfloat16,
+                                                 device=dev)
+        out[f"{prefix}.{n}.bias"] = torch.zeros(h, dtype=torch.bfloat16,
+                                                device=dev)
+    return out
+
+
 def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda",
                        fuse_mlp: bool = True):
-    """``(backend, params, layer_qcfgs)`` for ``cfg`` with random weights;
-    ``rank=0`` leaves out the low-rank correction."""
+    """``(backend, params, layer_qcfgs)`` for ``cfg`` (Llama or OPT) with
+    random weights; ``rank=0`` leaves out the low-rank correction."""
     dev = resolve_device(device)
-    h = cfg.hidden_size
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = {
-        "model.embed_tokens.weight": torch.randn(
-            cfg.vocab_size, h, generator=gen, device=dev) * 0.02,
-        "model.norm.weight": torch.ones(h, device=dev),
-    }
-    qcfgs = models.quantize_model(cfg, Q_CONFIG, {"linear": {"rank": rank}})
+    params = _non_layer_params(cfg, gen, dev)
+    qcfgs = models.quantize_model(cfg, q_config_for(cfg),
+                                  {"linear": {"rank": rank}})
     one_layer = dataclasses.replace(cfg, num_hidden_layers=1)
     p0 = models.get_arch_module(cfg).layer_prefix(0)
     arrays, meta = {}, {}
     for i in range(cfg.num_hidden_layers):
         p = models.get_arch_module(cfg).layer_prefix(i)
-        params[f"{p}.input_layernorm.weight"] = torch.ones(h, device=dev)
-        params[f"{p}.post_attention_layernorm.weight"] = torch.ones(h, device=dev)
+        params.update(_layer_norms(cfg, p, dev))
         gen.manual_seed(seed * 1000 + i)
         layer = {}
         for rel, (o, ic) in sorted(layer_shapes(cfg).items()):
             layer[f"{p0}.{rel}.weight"] = torch.randn(
                 o, ic, generator=gen, device=dev) * 0.01
+            if cfg.arch == "opt":
+                layer[f"{p0}.{rel}.bias"] = torch.randn(
+                    o, generator=gen, device=dev) * 0.02
             if rank > 0:
                 for name, shape in (("A", (ic, rank)), ("B", (rank, o))):
                     layer[f"{p0}.{rel}.{name}"] = (torch.randn(

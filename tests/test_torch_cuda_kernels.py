@@ -1,10 +1,11 @@
-"""The thirteen CUDA kernels of the port against their plain PyTorch
-versions on the card, at small shapes (the unpack kernel at the 7B shapes,
-prefill attention also at the 2048-token admission's, the decode kernels of
-the direct-write caches also at the 7B decode shape, the long-context
-kernels up to L = 32768, the streaming kernels also against the one-pass
-ones), and the large-M route.
-Needs an
+"""The fourteen CUDA kernels of the port against their plain PyTorch
+versions on the card (the megakernel in its gated and its relu variant),
+at small shapes (the unpack kernel at the 7B shapes, prefill attention
+also at the 2048-token admission's, the decode kernels of the direct-write
+caches also at the 7B decode shape, the long-context kernels up to
+L = 32768, the streaming kernels also against the one-pass ones), and the
+large-M route; OPT's biased linears and query-scaled decode kernels, and
+a tiny OPT served through the kernels against the CPU. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -14,10 +15,12 @@ quantizer whose rounding that order can flip. Ring, flush, row-write,
 written-column and unpacked weight bytes are bit-exact.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from lqer_tpu_torch.models import LlamaConfig
+from lqer_tpu_torch import models as tmodels
+from lqer_tpu_torch.models import LlamaConfig, OPTConfig
 from lqer_tpu_torch.ops.kernels import attention as k2
 from lqer_tpu_torch.ops.kernels import cache_write as k4
 from lqer_tpu_torch.ops.kernels import decode_attention as k3
@@ -33,12 +36,17 @@ from lqer_tpu_torch.parallel.collectives import (
     mx8_decode,
     mx8_encode,
 )
+from lqer_tpu_torch.serving import DecodeEngine
 from lqer_tpu_torch.serving.kernel_backend import pack_lm_head
-from lqer_tpu_torch.serving.random_model import build_random_model
+from lqer_tpu_torch.serving.random_model import (
+    build_random_model,
+    q_config_for,
+)
 from lqer_tpu_torch.testing import (
     attention_limit,
     check_close,
     dequant_gemm_limit,
+    logits_steps,
     mlp_limit,
 )
 
@@ -398,3 +406,136 @@ def test_encode_write_tokens(gen, b, kvh, d, l, pos):
     assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
     assert all(torch.equal(a[0], b[0]) for a, b in zip(mine, arrays))
     assert not all(torch.equal(a, b) for a, b in zip(mine, arrays))
+
+
+# ---- OPT's modes: the relu megakernel with biases, kernel 1 with a bias,
+# the decode kernels with the query scaled before its quantizer, and a tiny
+# OPT served through the kernels
+def _opt_backend(rank=32, layers=1, seed=4):
+    cfg = OPTConfig.tiny(vocab_size=200, hidden=256, layers=layers, heads=2,
+                         ffn=512)
+    return cfg, *build_random_model(cfg, rank=rank, seed=seed)
+
+
+@pytest.mark.parametrize("rank", [0, 32])
+@pytest.mark.parametrize("m", [1, 8, 200, 511])
+def test_mlp_fused_relu(gen, m, rank):
+    _, backend, _, _ = _opt_backend(rank=rank)
+    key = "model.decoder.layers.0.mlp_fused"
+    meta, prep = backend["meta"][key], backend["arrays"][key]
+    assert prep["codes_u"] is None and prep["bias_d"] is not None
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    x = _act((m, 256), gen)
+    before = (k5.mlp_w4_fused.launches, k5.mlp_w4_fused_relu.launches)
+    got = k5.mlp_w4_fused(x, prep, meta["fmt"], **kw)
+    assert (k5.mlp_w4_fused.launches,
+            k5.mlp_w4_fused_relu.launches) == (before[0], before[1] + 1)
+    want = k5.mlp_w4_plain(x, prep, meta["fmt"], **kw)
+    check_close("relu megakernel", got, want, mlp_limit(x, prep, want, **kw),
+                max_flipped=0.05)
+
+
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_dequant_gemm_with_bias(gen, m):
+    """OPT's q|k|v (fused, with its biases) and out_proj."""
+    _, backend, _, _ = _opt_backend()
+    for key in ("model.decoder.layers.0.self_attn.qkv_proj",
+                "model.decoder.layers.0.self_attn.out_proj"):
+        prep, meta = backend["arrays"][key], backend["meta"][key]
+        assert prep["bias"] is not None
+        x = _act((m, 256), gen)
+        kw = dict(quant_xa_width=meta["xa_width"],
+                  quant_out_width=meta["out_width"])
+        got = k1.qlinear_w4_fused(x, prep, meta["fmt"], **kw)
+        want = k1.qlinear_w4_plain(x, prep, meta["fmt"], **kw)
+        check_close(key, got, want, dequant_gemm_limit(x, prep, want, **kw),
+                    max_flipped=0.01)
+
+
+@pytest.mark.parametrize("kind", ["fp", "quantized8", "quantized4", "write",
+                                  "staged", "streaming", "streaming_staged"])
+def test_decode_scale_query(gen, kind):
+    """Every decode kernel with ``scale_query=True`` at d = 128 (a scaling
+    of 0.0884, no power of two), n_rep = 1 as OPT's, against its plain
+    version."""
+    b, kvh, d, l = 3, 4, 128, 1024
+    pos = _positions([31, 600, 1023])
+    q = torch.randn(b, kvh, 1, d, generator=gen, device="cuda") * 3
+    kw = dict(scaling=d ** -0.5, scale_query=True)
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    if kind == "fp":
+        k, v = (torch.randn(2, b, kvh, l, d, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        got = kfp.decode_attention_fp(q, k, v, pos, 1, **kw)
+        want = kfp.fp_decode_plain(q, k, v, pos, 1, **kw)
+        s, vals = kfp.fp_scores(q, k, v, pos, 1, **kw)
+    elif kind in ("staged", "streaming_staged"):
+        main = [a[1] for a in _mx_cache(gen, 8, b, kvh, d, l)]
+        ring = [a[1].contiguous() for a in _mx_cache(gen, 8, b, kvh, d, 64)]
+        fl = (pos // 32) * 32
+        mine, theirs = [t.clone() for t in ring], [t.clone() for t in ring]
+        fn = (k3.decode_attention_quantized_staged if kind == "staged"
+              else ks.decode_attention_quantized_streaming_staged)
+        got = fn(q, *main, *mine, kh, vh, pos, fl, **kw)
+        want = k3.staged_decode_plain(q, *main, *theirs, kh, vh, pos, fl,
+                                      **kw)
+        assert all(torch.equal(a, c) for a, c in zip(mine, theirs))
+        s, vals = k3.staged_scores(q, *main, *theirs, pos, fl, **kw)
+        s = s[:, :, None, :]
+    else:
+        cache = _mx_cache(gen, 4 if kind == "quantized4" else 8, b, kvh, d,
+                          l)
+        if kind == "write":
+            mine, theirs = [a.clone() for a in cache], [a.clone()
+                                                        for a in cache]
+            got = kq.decode_attention_quantized_write(q, *mine, kh, vh, pos,
+                                                      1, **kw)
+            want = kq.quantized_write_plain(q, *theirs, kh, vh, pos, 1, **kw)
+            assert all(torch.equal(a, c) for a, c in zip(mine, theirs))
+            cache = theirs
+        else:
+            fn = (ks.decode_attention_quantized_streaming
+                  if kind == "streaming" else kq.decode_attention_quantized)
+            got = fn(q, *cache, pos, 1, **kw)
+            want = kq.quantized_decode_plain(q, *cache, pos, 1, **kw)
+        s, vals = kq.quantized_scores(q, *cache, pos, 1, **kw)
+    check_close(f"{kind} decode attention, scale_query", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "mxint8",
+                                         "mxint8-staged", "mxint4"])
+def test_opt_engine_on_card(gen, cache_dtype):
+    """A 2-layer tiny OPT served through the kernels against the same engine
+    through the plain versions on the CPU, teacher-forced with the card's
+    greedy tokens: an admission of 63-token prompts and 20 decode steps,
+    logits within 4 code steps at most and 0.4 RMS (chip_smoke.py's
+    limits); the relu megakernel launched once per layer at the admission
+    (256 rows, below the large-M route's 512) and at each step."""
+    cfg, backend, params, qcfgs = _opt_backend(layers=2)
+    if cache_dtype == "mxint4":
+        qcfgs = tmodels.quantize_model(cfg, q_config_for(cfg, kv4=True),
+                                       {"linear": {"rank": 32}})
+    kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
+              pallas_backend=backend, lm_head_width=8)
+    card = DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)
+    cpu = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    ids = torch.randint(0, 200, (4, 64), generator=gen,
+                        device="cuda").cpu().numpy()
+    lengths = torch.full((4,), 63, dtype=torch.int32).numpy()
+    before = k5.mlp_w4_fused_relu.launches
+    logits = [(card.prefill(ids, np.arange(4), lengths),
+               cpu.prefill(ids, np.arange(4), lengths))]
+    card.lengths[:] = cpu.lengths[:] = lengths
+    for _ in range(20):
+        tokens = torch.argmax(logits[-1][0], -1).cpu().numpy()
+        logits.append((card.decode_logits(tokens), cpu.decode_logits(tokens)))
+        card.lengths += 1
+        cpu.lengths += 1
+    assert k5.mlp_w4_fused_relu.launches == before + 21 * 2
+    for got, want in logits:
+        worst, rms = logits_steps(got.float().cpu(), want.float())
+        assert worst <= 4.0 and rms <= 0.4, (worst, rms)
