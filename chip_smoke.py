@@ -29,7 +29,14 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    OPT's modes at OPT-6.7B width: the megakernel's relu variant with
    biases at 8 and 256 rows, kernel 1 with a bias on q|k|v and out_proj,
    and the fp-cache, MXINT4, fused write + attend and staged decode kernels
-   with the query scaled before its quantizer (``scale_query``);
+   with the query scaled before its quantizer (``scale_query``); then
+   Mistral-7B-v0.1's shapes at rank 128: kernel 1 on q|k|v (fused rank 384)
+   and o and the megakernel at 8 and 256 rows, the unpack kernel, the row
+   write and the fused encode + write at 8 kv heads, and the decode kernels
+   with the sliding window (4096) at 8 slots of 32 heads over 8 kv heads:
+   rows 5, 6 (widths 8 and 4) and 10 at L = 8192, row 8 at L = 32768, each
+   also timed without the window, against ``scaled_dot_product_attention``
+   with the window mask;
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
    default (each MLP whole, for the megakernel), teacher-forced through an
    8 x 64-token admission (512 rows: the large-M route) and 20 decode
@@ -61,7 +68,18 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    then a 2-layer OPT at OPT-6.7B width (vocab 50272, dense head) the same
    way: ``mxint8-staged`` (with its negative control, layer 1's fc2
    correction left out) and ``bfloat16`` three ways, ``mxint8`` and
-   ``mxint4`` (KV4) kernels vs plain versions on the card;
+   ``mxint4`` (KV4) kernels vs plain versions on the card; a 2-layer
+   OPT-350m (post-LN, ``project_in``/``project_out``, d = 64) on
+   ``bfloat16`` three ways with its control, under its own tighter RMS
+   limit (LOGIT_RMS_STEPS_OPT350M); then a 2-layer Mistral at
+   rank 128, max_len 8192, per cache (``bfloat16``, ``mxint8``, ``mxint4``):
+   an eager windowed admission and 4 steps three ways, then the context
+   built to positions 4500..7777 and 8 steps past the window, kernels vs
+   plain versions on the card (on ``bfloat16`` the runs without the window
+   and without layer 1's down correction must fail the limits), then the
+   kernels, the plain versions on the card and the plain versions on the
+   CPU (4 slots each), the last two from a copy of the kernels' cache,
+   held to one another;
 5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head, 8
    slots, max_len 2048) serving 8 greedy requests over each cache
    (``mxint8-staged`` 80 new tokens each, the others 40), a torch.profiler
@@ -76,9 +94,17 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    freed, ``DecodeEngine`` at OPT-6.7B shape (32 layers, rank 32, dense
    head, 8 slots, max_len 2048) serving the same mix over ``bfloat16`` (40
    new tokens) and ``mxint8-staged`` (80), a profile of 5 decode steps
-   each, and one 2048-token admission with its profile;
+   each, and one 2048-token admission with its profile; then Mistral-7B
+   (32 layers, rank 128, W8 head) at 8 slots, max_len 8192, over
+   ``bfloat16``, ``mxint8-staged`` (falling back to ``mxint8``) and
+   ``mxint4``: the mix with 40 new tokens, 10 steps at positions 6000..
+   with a profile, on
+   ``bfloat16`` one eager 2048-token admission; and ``mxint8`` at 4 slots,
+   max_len 32768, 10 steps near 32000; then OPT-350m (24 layers) serving
+   the mix over ``bfloat16`` with a profile;
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
-   phase-3 numbers.
+   phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
+   Mistral's phase-5 launches).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; so does a machine without a CUDA device, or
@@ -122,10 +148,20 @@ CACHE_CPU_STEPS = 14
 # on the H100 it moved values by at most one step (PERF.md), the limit is
 # twice that.
 CACHE_CPU_STEPS_MXINT4 = 2
-# Decode steps of the CPU side of the long-context runs (one slot): the
-# plain versions decode the whole max_len 24576 cache of each layer per
-# call, a few seconds per step.
+# Decode steps of the CPU side of the long-context runs (one slot at
+# Llama's max_len 24576, Mistral's 4 at 8192): the plain versions decode
+# the whole cache of each layer per call, a few seconds per step.
 LONG_CPU_STEPS = 4
+# OPT-350m (d = 64, post-LN, 512-wide head input) moves less for a missing
+# correction than a 7B-width model: on the H100 its flips moved the logits
+# by at most 0.0519 steps RMS and leaving out layer 1's fc2 correction by
+# 0.154 to 0.194 at every step, under LOGIT_RMS_STEPS; leaving out every
+# correction of both layers moved them 0.366 to 0.471 (PERF.md,
+# tools/cpu_witness.py). Its runs are held to an RMS limit between the two.
+LOGIT_RMS_STEPS_OPT350M = 0.1
+# Runs that must fail the logits limits against the kernels: one linear's
+# correction left out, and (Mistral) the sliding window left out
+NEGATIVE_CONTROLS = ("no correction", "no window")
 # Fraction of a kernel's outputs allowed past the plain rtol/atol band: a
 # flipped P or H rounding moves a whole output row, a flipped correction
 # code one element (``testing.check_close``).
@@ -1186,6 +1222,348 @@ def phase_opt_kernels(torch, timer, rates, results):
     torch.cuda.empty_cache()
 
 
+def phase_mistral_kernels(torch, timer, rates, results):
+    """Phase 3, Mistral-7B-v0.1's shapes at the templates' rank 128: kernel
+    1 on q|k|v (N = 6144, fused rank 384) and o (rank 128) and the gated
+    megakernel (I = 14336, rank 128) at 8 and 256 rows; the unpack kernel
+    over one layer's weights; the row write and the fused MXINT8 encode +
+    write at 8 slots of 8 kv heads; then the decode kernels with the
+    sliding window (4096) at 8 slots, 32 heads over 8 kv heads, d = 128:
+    rows 5, 6 (widths 8 and 4) and 10 at L = 8192 and positions 6000..6030
+    (the window's first key not 16-aligned), row 8 (width 8) at L = 32768
+    and positions 32000..32030, each against its plain version, and timed
+    beside the same launch without the window. The bound of a windowed
+    row is the window's bytes; the library yardstick is
+    ``scaled_dot_product_attention`` with the explicit window mask on the
+    unquantized bf16 values. Adds a ``mistral`` entry to each kernel's
+    results."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.ops.kernels import cache_write as kcw
+    from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+    from lqer_tpu_torch.ops.kernels import fp_decode as kfp
+    from lqer_tpu_torch.ops.kernels import mlp_fused as k5
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+    from lqer_tpu_torch.ops.kernels import streaming_decode as ks
+    from lqer_tpu_torch.ops.kernels.decode_attention import key_mask
+    from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
+    from lqer_tpu_torch.ops.storage import dequantize_packed
+    from lqer_tpu_torch.parallel.collectives import mx4_encode, mx8_encode
+    from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.testing import (
+        attention_limit,
+        check_close,
+        dequant_gemm_limit,
+        mlp_limit,
+    )
+
+    bw, ops_rate = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 23)
+
+    def bound(nb, ops):
+        t_bytes, t_ops = nb / bw * 1e3, ops / ops_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def act(shape):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        return block_fp_quantizer(x, width=8, exponent_width=8,
+                                  block_size=[1, 16], skip_first_dim=True)
+
+    def keep(key, c, ms, plain_ms, b_ms, b_by, lib_ms, shape, **extra):
+        results[key]["mistral"] = dict(
+            max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, shape=shape, **extra)
+
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(), num_hidden_layers=1)
+    backend, _, _ = build_random_model(cfg, rank=128, seed=SEED + 21)
+    p0 = "model.layers.0"
+
+    # ---- kernel 1 at rank 128: q|k|v (fused rank 384) and o
+    for name, key in (("qkv", f"{p0}.self_attn.qkv_proj"),
+                      ("o", f"{p0}.self_attn.o_proj")):
+        prep, meta = backend["arrays"][key], backend["meta"][key]
+        fmt = meta["fmt"]
+        K, N = prep["exps"].shape[0] * 16, prep["exps"].shape[1]
+        R = prep["a"].shape[1]
+        kw = dict(quant_xa_width=meta["xa_width"],
+                  quant_out_width=meta["out_width"])
+        w = dequantize_packed(prep["codes"], prep["exps"], fmt).to(
+            torch.bfloat16)
+        for M in (8, 256):
+            x = act((M, K)).to(torch.bfloat16)
+            y = k1.qlinear_w4_fused(x, prep, fmt, **kw)
+            ref = k1.qlinear_w4_plain(x, prep, fmt, **kw)
+            c = check_close(f"Mistral kernel 1 {name} M={M}", y, ref,
+                            dequant_gemm_limit(x, prep, ref, **kw),
+                            FLIPPED["dequant_gemm"])
+            ms = timer(lambda: k1.qlinear_w4_fused(x, prep, fmt, **kw))
+            plain_ms = timer(lambda: k1.qlinear_w4_plain(x, prep, fmt, **kw),
+                             5)
+            lib_ms = timer(lambda: torch.matmul(x, w))
+            b_ms, b_by = bound(nbytes(x, prep["codes"], prep["exps"],
+                                      prep["a"], prep["b"]) + M * N * 4,
+                               2 * M * N * K + 2 * M * R * (K + N))
+            print(f"Mistral kernel 1 dequant_gemm {name} M={M} K={K} N={N} "
+                  f"R={R}: max_abs_err={c['max_abs_err']:.3g} "
+                  f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} "
+                  f"past 2e-4) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+                  "(torch.matmul, dense bf16 weight)", flush=True)
+            if name == "qkv" and M == 8:
+                keep("dequant_gemm", c, ms, plain_ms, b_ms, b_by, lib_ms,
+                     f"Mistral q|k|v, M=8, K={K}, N={N}, fused R={R}")
+        del w
+
+    # ---- the gated megakernel at rank 128, M = 8 and 256
+    key = f"{p0}.mlp_fused"
+    prep, meta = backend["arrays"][key], backend["meta"][key]
+    fmt = meta["fmt"]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    K = prep["exps_g"].shape[0] * 16
+    I, N = prep["exps_g"].shape[1], prep["exps_d"].shape[1]
+    R = prep["a_d"].shape[1]
+    w_gu = torch.cat([dequantize_packed(prep[f"codes_{h}"], prep[f"exps_{h}"],
+                                        fmt) for h in ("g", "u")],
+                     1).to(torch.bfloat16)
+    w_d = dequantize_packed(prep["codes_d"], prep["exps_d"], fmt).to(
+        torch.bfloat16)
+    weights = nbytes(*(prep[k] for k in prep))
+    for M in (8, 256):
+        x = act((M, K)).to(torch.bfloat16)
+        y = k5.mlp_w4_fused(x, prep, fmt, **kw)
+        ref = k5.mlp_w4_plain(x, prep, fmt, **kw)
+        c = check_close(f"Mistral kernel 5 M={M}", y, ref,
+                        mlp_limit(x, prep, ref, **kw), FLIPPED["mlp_fused"])
+        ms = timer(lambda: k5.mlp_w4_fused(x, prep, fmt, **kw))
+        plain_ms = timer(lambda: k5.mlp_w4_plain(x, prep, fmt, **kw), 5)
+        h = torch.zeros(M, I, dtype=torch.bfloat16, device="cuda")
+        lib_ms = (timer(lambda: torch.matmul(x, w_gu))
+                  + timer(lambda: torch.matmul(h, w_d)))
+        b_ms, b_by = bound(weights + nbytes(x) + M * N * 4,
+                           2 * M * (2 * K * I + I * N)
+                           + 2 * M * R * (2 * K + 2 * I + I + N))
+        print(f"Mistral kernel 5 mlp_fused M={M} K={K} I={I} N={N} R={R}: "
+              f"max_abs_err={c['max_abs_err']:.3g} ({c['of_limit']:.3g} of "
+              f"its limit, {c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} library_ms="
+              f"{lib_ms:.4f} (torch.matmul gate|up + down, dense bf16 "
+              "weights)", flush=True)
+        if M == 8:
+            keep("mlp_fused", c, ms, plain_ms, b_ms, b_by, lib_ms,
+                 f"one Mistral layer's MLP, M=8, I={I}, R={R}")
+    del w_gu, w_d, h
+
+    # ---- the unpack kernel over one layer's five weights
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for key, halves in ((f"{p0}.self_attn.qkv_proj", ("",)),
+                        (f"{p0}.self_attn.o_proj", ("",)),
+                        (f"{p0}.mlp_fused", ("_g", "_u", "_d"))):
+        entry, fmt = backend["arrays"][key], backend["meta"][key]["fmt"]
+        for half in halves:
+            codes, exps = entry["codes" + half], entry["exps" + half]
+            w = k1.unpack_packed_to_bf16(codes, exps, fmt)
+            if not torch.equal(w, k1.unpack_plain(codes, exps, fmt)):
+                raise AssertionError(f"Mistral unpack: {key}{half} differs")
+            tot["ms"] += timer(lambda: k1.unpack_packed_to_bf16(codes, exps,
+                                                                fmt))
+            tot["plain_ms"] += timer(lambda: k1.unpack_plain(codes, exps,
+                                                             fmt), 5)
+            tot["bound_ms"] += bound(nbytes(codes, exps, w), 0)[0]
+    del w, backend
+    print(f"Mistral kernel 6 unpack, one layer's five weights: bit-exact "
+          f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+          f"bound_ms={tot['bound_ms']:.4f} library_ms=null", flush=True)
+    results["unpack"]["mistral"] = dict(
+        max_abs_err=0.0, of_limit=0.0, bound_by="bytes", library_ms=None,
+        shape="sum over one Mistral layer's q|k|v, o, gate, up and down",
+        **tot)
+
+    # ---- decode with the window: B = 8, 32 heads, 8 kv heads
+    B, H, KVH, D, li, WIN = 8, 32, 8, 128, 1, cfg.sliding_window
+    scale = D ** -0.5
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda")
+    out_bytes = B * H * D * 4
+
+    def window_tokens(pos, win):
+        """Keys a slot reads: whole 16-token groups from the one holding
+        the window's first key (0 without a window) to the one holding
+        pos."""
+        lo = (pos - win + 1).clamp(min=0) // 16 * 16 if win else 0
+        return int(((pos + 16) // 16 * 16 - lo).sum())
+
+    def sdpa_ms(k_bf16, v_bf16, pos, L):
+        qb, kb, vb = (t.to(torch.bfloat16).contiguous()
+                      for t in (q, k_bf16, v_bf16))
+        m = key_mask(L, pos, WIN)[:, None, None, :]
+        return timer(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=m, enable_gqa=True))
+
+    def report(key, what, run, plain, scores, L, pos, per_token, lib_ms,
+               extra_bytes=0):
+        y, ref = run(WIN), plain()
+        s, vals = scores()
+        c = check_close(what, y, ref, attention_limit(s, vals, ref,
+                                                      p_width=8),
+                        FLIPPED["attention"])
+        del s, vals
+        ms, ms_all = timer(lambda: run(WIN)), timer(lambda: run(None))
+        plain_ms = timer(plain, 3)
+        tokens = window_tokens(pos, WIN)
+        b_ms, b_by = bound(tokens * KVH * per_token + nbytes(q) + out_bytes
+                           + extra_bytes, 2 * 2 * H * tokens * D)
+        all_ms = bound(window_tokens(pos, 0) * KVH * per_token + nbytes(q)
+                       + out_bytes + extra_bytes, 0)[0]
+        print(f"{what} B={B} H={H} KVH={KVH} L={L} window={WIN} "
+              f"pos={pos.tolist()}: max_abs_err={c['max_abs_err']:.3g} "
+              f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+              f"2e-4) kernel_ms={ms:.4f} (without the window {ms_all:.4f}, "
+              f"bound {all_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms="
+              f"{b_ms:.4f} (the window's bytes) library_ms={lib_ms:.4f} "
+              "(scaled_dot_product_attention, window mask, unquantized "
+              "bf16)", flush=True)
+        if key:
+            keep(key, c, ms, plain_ms, b_ms, b_by, lib_ms,
+                 f"one layer, B=8, 32 heads over 8 kv heads, L={L}, window "
+                 f"{WIN}, pos {pos.min().item()}..{pos.max().item()}",
+                 unwindowed_ms=ms_all)
+
+    L = 8192
+    pos = torch.tensor([6000, 6001, 6003, 6007, 6010, 6013, 6021, 6030],
+                       dtype=torch.int32, device="cuda")
+    k, v = (torch.randn(2, B, KVH, L, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    report("decode_attention_fp", "Mistral fp decode attention",
+           lambda w: kfp.decode_attention_fp(q, k, v, pos, li, scaling=scale,
+                                             window=w),
+           lambda: kfp.fp_decode_plain(q, k, v, pos, li, scaling=scale,
+                                       window=WIN),
+           lambda: kfp.fp_scores(q, k, v, pos, li, scaling=scale, window=WIN),
+           L, pos, D * 2 * 2, sdpa_ms(k[li], v[li], pos, L))
+    del k, v
+
+    def encoded(width, n):
+        enc = mx8_encode if width == 8 else mx4_encode
+        out = []
+        for _ in range(2):
+            c_, e_ = enc(torch.randn(B, KVH, n, D, generator=gen,
+                                     device="cuda"), 16, zero_fill=1.0)
+            for t in (c_, e_):
+                full = torch.zeros(2, *t.transpose(-1, -2).shape,
+                                   dtype=torch.int8, device="cuda")
+                full[li] = t.transpose(-1, -2)
+                out.append(full)
+        return out
+
+    def sdpa_of(arrays, pos, L):
+        kb, vb = (kq._decode_cache_block(arrays[i][li], arrays[i + 1][li])
+                  .transpose(-1, -2) for i in (0, 2))
+        ms = sdpa_ms(kb, vb, pos, L)
+        del kb, vb
+        return ms
+
+    kw = dict(scaling=scale, window=WIN)
+    for width in (8, 4):
+        arrays = encoded(width, L)
+        report("decode_attention_quantized" if width == 4 else None,
+               f"Mistral quantized decode attention width {width}",
+               lambda w: kq.decode_attention_quantized(
+                   q, *arrays, pos, li, scaling=scale, window=w),
+               lambda: kq.quantized_decode_plain(q, *arrays, pos, li, **kw),
+               lambda: kq.quantized_scores(q, *arrays, pos, li, **kw),
+               L, pos, (arrays[0].shape[-2] + D // 16) * 2,
+               sdpa_of(arrays, pos, L))
+        if width == 4:
+            del arrays
+            continue
+        kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+                  for _ in range(2))
+        mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+        kq.decode_attention_quantized_write(q, *mine, kh, vh, pos, li, **kw)
+        kq.quantized_write_plain(q, *theirs, kh, vh, pos, li, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+            raise AssertionError("Mistral fused write + attend: written "
+                                 "cache bytes differ from the plain version")
+        report("decode_attention_write", "Mistral fused write + attend",
+               lambda w: kq.decode_attention_quantized_write(
+                   q, *mine, kh, vh, pos, li, scaling=scale, window=w),
+               lambda: kq.quantized_write_plain(q, *theirs, kh, vh, pos, li,
+                                                **kw),
+               lambda: kq.quantized_scores(q, *theirs, pos, li, **kw),
+               L, pos, (D + D // 16) * 2, sdpa_of(arrays, pos, L),
+               nbytes(kh, vh) + 2 * B * KVH * (D + D // 16))
+        del arrays, mine, theirs
+
+    # ---- row 8 at L = 32768, near position 32000
+    L = 32768
+    pos = pos + 26000
+    arrays = encoded(8, L)
+    report("decode_attention_streaming",
+           "Mistral streaming decode attention width 8",
+           lambda w: ks.decode_attention_quantized_streaming(
+               q, *arrays, pos, li, scaling=scale, window=w),
+           lambda: kq.quantized_decode_plain(q, *arrays, pos, li, **kw),
+           lambda: kq.quantized_scores(q, *arrays, pos, li, **kw),
+           L, pos, (D + D // 16) * 2, sdpa_of(arrays, pos, L))
+    del arrays
+
+    # ---- row 13 (L = 32768) and row 11 (bf16 rows, L = 8192) at 8 kv heads
+    arrays = encoded(8, L)
+    kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+              for _ in range(2))
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    kcw.write_kv_tokens_fused(tuple(mine), kh, vh, li, pos)
+    kcw.encode_write_plain(tuple(theirs), kh, vh, li, pos)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        raise AssertionError("Mistral fused encode + write differs")
+    ms = timer(lambda: kcw.write_kv_tokens_fused(tuple(mine), kh, vh, li,
+                                                 pos))
+    plain_ms = timer(lambda: kcw.encode_write_plain(tuple(theirs), kh, vh,
+                                                    li, pos), 5)
+    b_ms, b_by = bound(nbytes(kh, vh) + 2 * B * KVH * (D + D // 16), 0)
+    print(f"Mistral fused encode + write B={B} KVH={KVH} L={L}: bit-exact "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f}",
+          flush=True)
+    results["encode_write_tokens"]["mistral"] = dict(
+        max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="the K and V rows of 8 slots, 8 kv heads, d=128, L=32768")
+    del arrays, mine, theirs
+    L = 8192
+    arrays = [torch.randn(2, B, KVH, L, D, generator=gen,
+                          device="cuda").to(torch.bfloat16) for _ in range(2)]
+    news = [torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+            for _ in range(2)]
+    pos = pos - 26000
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    kcw.write_kv_rows_stacked(tuple(mine), tuple(news), li, pos)
+    kcw.write_rows_plain(tuple(theirs), tuple(news), li, pos)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        raise AssertionError("Mistral row write differs")
+    ms = timer(lambda: kcw.write_kv_rows_stacked(tuple(mine), tuple(news),
+                                                li, pos))
+    plain_ms = timer(lambda: kcw.write_rows_plain(tuple(theirs), tuple(news),
+                                                  li, pos), 5)
+    b_ms, b_by = bound(sum(n.numel() * 6 for n in news), 0)
+    print(f"Mistral row write, the bf16 K and V rows of {B} slots, {KVH} kv "
+          f"heads: bit-exact kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.4f}", flush=True)
+    results["row_write"]["mistral"] = dict(
+        max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="the bf16 K and V rows of 8 slots, 8 kv heads, d=128")
+    del arrays, mine, theirs
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
     """Route the served path's kernel calls to the plain versions, which
@@ -1300,39 +1678,48 @@ def teacher_force(torch, engines, padded, lengths, steps):
     return logits, routes
 
 
-def continue_from_card(torch, card, cpu, last, steps):
-    """``steps`` more decode steps of the card engine and of the CPU one
-    (fewer slots: the first), both fed the card's greedy tokens from its
-    ``last`` logits, the CPU engine starting from a copy of the card's
+def continue_from_card(torch, card, others, last, steps):
+    """``steps`` more decode steps of the card engine and of each engine of
+    ``others`` (name: engine, run as :func:`run_context` says; an engine of
+    fewer slots takes the first), all fed the card's greedy tokens from its
+    ``last`` logits, each other engine starting from a copy of the card's
     cache and lengths: decode positions past the streaming kernels' first
     512-token chunk, without the drift the card's and the CPU's libraries
-    build up over a long admission. Returns each engine's logits per
-    step."""
-    n = cpu.num_slots
-    for key, t in card.cache.items():
-        cpu.cache[key].copy_(t[:, :n] if t.ndim == 5 else t[:n])
-    cpu.lengths[:] = card.lengths[:n]
-    logits = {"kernels": [], "cpu": []}
+    build up over a long admission. The card runs its steps first, then
+    each other engine all of its steps in one context (the CPU decodes
+    each packed weight once). Returns each engine's logits per step."""
+    for engine in others.values():
+        n = engine.num_slots
+        for key, t in card.cache.items():
+            engine.cache[key].copy_(t[:, :n] if t.ndim == 5 else t[:n])
+        engine.lengths[:] = card.lengths[:n]
+    logits, seq = {"kernels": []}, []
     for _ in range(steps):
-        tokens = torch.argmax(last, -1).cpu().numpy()
-        last = card.decode_logits(tokens)
+        seq.append(torch.argmax(last, -1).cpu().numpy())
+        last = card.decode_logits(seq[-1])
         card.lengths += 1
         logits["kernels"].append(last.float().cpu())
-        with run_context("cpu"):
-            logits["cpu"].append(cpu.decode_logits(tokens[:n]).float())
-        cpu.lengths += 1
+    for name, engine in others.items():
+        logits[name] = []
+        with run_context(name):
+            for tokens in seq:
+                logits[name].append(engine.decode_logits(
+                    tokens[:engine.num_slots]).float().cpu())
+                engine.lengths += 1
     return logits
 
 
 def compare_runs(engines, logits, pairs, what: str, t0: float,
                  cpu_steps: float = None, flushed_steps: float = 1,
-                 admitted: bool = True, flush: bool = True) -> list:
+                 admitted: bool = True, flush: bool = True,
+                 rms_limit: float = LOGIT_RMS_STEPS) -> list:
     """Logits and cache of each pair of runs against the phase-4 limits
-    (the cache over the tokens every slot holds: below ``flushed`` of a
-    staged cache, which with ``flush`` must have crossed one); prints one
-    line per pair and returns what failed. ``flushed_steps`` holds a
-    staged cache against another card run; ``admitted``: the logits start
-    with an admission's."""
+    (the logits RMS against ``rms_limit``; the cache over the tokens every
+    slot holds: below ``flushed`` of a staged cache, which with ``flush``
+    must have crossed one); prints one line per pair, with each slot's
+    largest RMS, and returns what failed. ``flushed_steps`` holds a staged
+    cache against another card run; ``admitted``: the logits start with an
+    admission's."""
     from lqer_tpu_torch.testing import cache_agreement, logits_steps
 
     cpu_steps = CACHE_CPU_STEPS if cpu_steps is None else cpu_steps
@@ -1354,6 +1741,9 @@ def compare_runs(engines, logits, pairs, what: str, t0: float,
         worst = max(m for m, _ in seen)
         rms = max(r for _, r in seen)
         least = min(r for _, r in seen)
+        per_slot = [max(logits_steps(a[s:s + 1], b[s:s + 1])[1]
+                        for a, b in zip(logits[one], logits[other]))
+                    for s in range(n)] if n > 1 else []
         mine, theirs = held(engines[one])[:n], held(engines[other])[:n]
         if staged and "flushed" in engines[other].cache and theirs != mine:
             failed.append(f"{what}, {one} vs {other}: flushed {mine} vs "
@@ -1372,20 +1762,22 @@ def compare_runs(engines, logits, pairs, what: str, t0: float,
                   if v.ndim == 5}
         steps0 = cache_agreement(first0, other0, ranges)[1]
         print(f"teacher-forced {what}, {one} vs {other} "
-              f"({'CPU' if other == 'cpu' else 'card'}): "
+              f"({'CPU' if other.startswith('cpu') else 'card'}): "
               f"{'admission + ' if admitted else ''}"
               f"{len(seen) - admitted} decode steps, logits |diff| in code steps "
               f"max {worst:.3g} (limit {LOGIT_MAX_STEPS}), RMS {least:.3g} "
-              f"to {rms:.3g} (limit {LOGIT_RMS_STEPS}); cache over tokens "
+              f"to {rms:.3g} (limit {rms_limit}"
+              f"{'; each slot to ' if per_slot else ''}"
+              f"{', '.join(f'{r:.3g}' for r in per_slot)}); cache over tokens "
               f"{ranges} ({'below flushed' if staged else 'held'}): bytes "
               f"equal {frac:.6f}, largest value diff {cache_steps:.3g} code "
               f"step(s) ({steps0:.3g} in layer 0), "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
-        if other == "no correction":
-            if least <= LOGIT_RMS_STEPS:
-                failed.append("the RMS limit passed a missing correction")
+        if other in NEGATIVE_CONTROLS:
+            if least <= rms_limit:
+                failed.append(f"the RMS limit passed a run {other}")
             continue
-        if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
+        if worst > LOGIT_MAX_STEPS or rms > rms_limit:
             failed.append(f"{what}, {one} vs {other}: logits")
         later = flushed_steps if staged else cpu_steps
         if other != "cpu" and (frac < 0.999 or steps0 > 1
@@ -1531,7 +1923,7 @@ def phase_teacher_forced(torch):
         if long:
             card = engines["kernels"]
             engines = {"kernels": card, "cpu": cpu}
-            logits = continue_from_card(torch, card, cpu,
+            logits = continue_from_card(torch, card, {"cpu": cpu},
                                         logits["kernels"][-1], LONG_CPU_STEPS)
             failed += compare_runs(
                 engines, logits, [("kernels", "cpu")],
@@ -1570,16 +1962,212 @@ def phase_teacher_forced(torch):
     torch.cuda.empty_cache()
 
 
-def phase_teacher_forced_opt(torch):
-    """Phase 4 for OPT: a 2-layer OPT at OPT-6.7B width (vocab 50272, the
-    dense head), packed as the JAX package packs (q|k|v fused with its
-    biases, out_proj alone, fc1 and fc2 in the relu megakernel entry),
-    teacher-forced through an 8 x 64 admission (512 rows: the large-M
-    route) and 20 decode steps (the relu megakernel) per cache:
-    ``mxint8-staged`` (with the negative control) and ``bfloat16`` three
-    ways (kernels on the card, plain versions on the card and on the CPU),
+def fill_context(torch, engines, positions, seed) -> None:
+    """Each engine's cache ``[0, positions[b])`` in every layer and slot
+    from one block of 2048 seeded random rows tiled along the token axis
+    (bf16 rows, or their MXINT encode as the cache's write grid), the same
+    in every engine; ``lengths`` set to ``positions``. The context is built,
+    not prefilled."""
+    from lqer_tpu_torch.parallel.collectives import mx4_encode, mx8_encode
+    from lqer_tpu_torch.serving.kv_cache import MAIN_KEYS, cache_code_width
+
+    first = next(iter(engines.values())).cache
+    quantized = "k_codes" in first
+    _, B, KVH, *_ = first["k_codes" if quantized else "k"].shape
+    D = first["k_exps"].shape[3] * 16 if quantized else first["k"].shape[4]
+    dev = first["k_codes" if quantized else "k"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = [torch.randn(B, KVH, 2048, D, generator=gen, device=dev)
+            for _ in range(2)]
+    if quantized:
+        enc = mx4_encode if cache_code_width(first) == 4 else mx8_encode
+        block = {}
+        for side, r in zip("kv", rows):
+            c, e = enc(r, 16, zero_fill=1.0)
+            block[f"{side}_codes"] = c.transpose(-1, -2)
+            block[f"{side}_exps"] = e.transpose(-1, -2)
+        keys, axis = MAIN_KEYS, 4
+    else:
+        block = {"k": rows[0].to(torch.bfloat16),
+                 "v": rows[1].to(torch.bfloat16)}
+        keys, axis = ("k", "v"), 3
+    for engine in engines.values():
+        n_slots = engine.num_slots
+        for key in keys:
+            arr, blk = engine.cache[key], block[key]
+            for b in range(n_slots):
+                for t0 in range(0, int(positions[b]), 2048):
+                    n = min(2048, int(positions[b]) - t0)
+                    dst = arr[:, b].narrow(axis - 1, t0, n)
+                    dst.copy_(blk[b].narrow(axis - 2, 0, n)[None].expand_as(
+                        dst))
+        engine.lengths[:] = positions[:n_slots]
+
+
+def teacher_decode(torch, engines, tokens, steps):
+    """``steps`` decode steps of each engine at its ``lengths``, all fed the
+    greedy tokens of the first ("kernels"), starting from ``tokens``;
+    returns each engine's logits per step and the kernels' launches."""
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    logits = {name: [] for name in engines}
+    seq = [tokens]
+    for name, engine in engines.items():
+        reset_launch_counts()
+        with run_context(name):
+            for i in range(steps):
+                lg = engine.decode_logits(seq[i][:engine.num_slots])
+                engine.lengths += 1
+                logits[name].append(lg.float().cpu())
+                if name == "kernels":
+                    seq.append(torch.argmax(lg, -1).cpu().numpy())
+        if name == "kernels":
+            routes = launch_counts()
+    return logits, routes
+
+
+def phase_teacher_forced_mistral(torch):
+    """Phase 4 for Mistral: a 2-layer model at Mistral-7B-v0.1 width (32
+    heads over 8 kv heads, I = 14336, window 4096) at the templates' rank
+    128, packed as the JAX package packs by default, per cache at max_len
+    8192 (``bfloat16``, ``mxint8``, ``mxint4`` with the KV4 configuration):
+    an eager windowed admission of 4 prompts of 63 tokens and 4 decode
+    steps, then the context of every slot built to positions 4500..7777
+    from one seeded block (not prefilled) and 8 decode steps there, past
+    the window, all teacher-forced with the kernels' greedy tokens:
+    kernels against the plain versions on the card; then LONG_CPU_STEPS
+    steps of the kernels, of the plain versions on the card and of the
+    plain versions on the CPU, the last two from a copy of the kernels'
+    cache, all three held to one another (the plain versions on the card
+    are the second witness of a departure from the CPU: one flipped f32
+    rounding in layer 0's attention moves one slot's logits up to 0.42
+    RMS there, theirs as the kernels', PERF.md). The CPU engine takes the
+    card's 4 slots, as every other comparison of phase 4 does. On the bf16
+    cache two negative controls must fail the logits limit at every step
+    past the window: the same model without its window, and without layer
+    1's down correction."""
+    import dataclasses
+
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.decode import decode_route
+    from lqer_tpu_torch.serving.random_model import (
+        build_random_model,
+        q_config_for,
+    )
+
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(), num_hidden_layers=2)
+    backend, params, qcfgs = build_random_model(cfg, rank=128, seed=SEED + 22)
+    kv4 = models.quantize_model(cfg, q_config_for(cfg, kv4=True),
+                                {"linear": {"rank": 128}})
+    params["model.embed_tokens.weight"] = \
+        params["model.embed_tokens.weight"].to(torch.bfloat16)
+    cpu_backend = {"arrays": {k: {n: None if t is None else t.cpu()
+                                  for n, t in v.items()}
+                              for k, v in backend["arrays"].items()},
+                   "meta": dict(backend["meta"])}
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    broken = {"arrays": dict(backend["arrays"]), "meta": backend["meta"]}
+    key = "model.layers.1.mlp_fused"
+    broken["arrays"][key] = dict(
+        broken["arrays"][key],
+        b_d=torch.zeros_like(backend["arrays"][key]["b_d"]))
+    rng = np.random.default_rng(SEED + 2)
+    padded = rng.integers(0, cfg.vocab_size, (4, 64))
+    lengths = np.full(4, 63, dtype=np.int32)
+    positions = np.array([4500, 5003, 6001, 7777], dtype=np.int32)
+    max_len, steps, long_steps = 8192, 4, 8
+    decode_kernels = ("row_write", "decode_attention_fp",
+                      "decode_attention_quantized", "decode_attention_write",
+                      "decode_attention_streaming", "encode_write_tokens")
+    failed = []
+    for cache_dtype, layer_qcfgs in (("bfloat16", qcfgs), ("mxint8", qcfgs),
+                                     ("mxint4", kv4)):
+        kw = dict(num_slots=4, max_len=max_len, cache_dtype=cache_dtype,
+                  lm_head_width=8)
+        engines = {name: DecodeEngine(params, cfg, layer_qcfgs,
+                                      pallas_backend=backend, device="cuda",
+                                      **kw)
+                   for name in ("kernels", "plain")}
+        pairs = [("kernels", "plain")]
+        if cache_dtype == "bfloat16":
+            engines["no window"] = DecodeEngine(
+                params, dataclasses.replace(cfg, sliding_window=None),
+                layer_qcfgs, pallas_backend=backend, device="cuda", **kw)
+            engines["no correction"] = DecodeEngine(
+                params, cfg, layer_qcfgs, pallas_backend=broken,
+                device="cuda", **kw)
+        cpu = DecodeEngine(cpu_params, cfg, layer_qcfgs,
+                           pallas_backend=cpu_backend, device="cpu", **kw)
+        what = f"2-layer Mistral-7B-width path (rank 128), {cache_dtype} cache"
+        t0 = time.perf_counter()
+        short = {k: e for k, e in engines.items() if k in ("kernels", "plain")}
+        short["cpu"] = cpu
+        logits, routes = teacher_force(torch, short, padded, lengths, steps)
+        # the 256-row admission and each step: one megakernel per layer
+        route = decode_route(cache_dtype, max_len, cfg.head_dim, 4)
+        got = {k: routes[k] for k in decode_kernels}
+        if (routes["mlp_fused"] != (steps + 1) * 2 or routes["attention"]
+                or got != {k: steps * 2 * (k in route)
+                           for k in decode_kernels}):
+            raise AssertionError(f"phase 4 Mistral {cache_dtype} routes: "
+                                 f"{routes}")
+        print(f"teacher-forced {what}, eager windowed admission: kernel "
+              f"launches {routes}", flush=True)
+        cpu_limit = (CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
+                     else CACHE_CPU_STEPS)
+        failed += compare_runs(short, logits, (
+            ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu")),
+            f"{what}, admission", t0, cpu_steps=cpu_limit)
+        # past the window: the context built, then decode steps
+        fill_context(torch, engines, positions, SEED + 29)
+        start = torch.argmax(logits["kernels"][-1], -1).numpy()
+        logits, routes = teacher_decode(torch, engines, start, long_steps)
+        got = {k: routes[k] for k in decode_kernels}
+        if got != {k: long_steps * 2 * (k in route) for k in decode_kernels}:
+            raise AssertionError(f"phase 4 Mistral {cache_dtype} routes past "
+                                 f"the window: {routes}")
+        pairs += [(name, other) for name, other in
+                  (("kernels", "no window"), ("kernels", "no correction"))
+                  if other in engines]
+        failed += compare_runs(
+            engines, logits, pairs,
+            f"{what}, positions {positions.tolist()}..+{long_steps - 1}",
+            t0, cpu_steps=cpu_limit, admitted=False)
+        card, plain = engines["kernels"], engines["plain"]
+        logits = continue_from_card(torch, card, {"plain": plain, "cpu": cpu},
+                                    logits["kernels"][-1], LONG_CPU_STEPS)
+        failed += compare_runs(
+            {"kernels": card, "plain": plain, "cpu": cpu}, logits,
+            (("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu")),
+            f"{what}, from the kernels' cache at positions "
+            f"{(cpu.lengths - LONG_CPU_STEPS).tolist()}..+"
+            f"{LONG_CPU_STEPS - 1}", t0, cpu_steps=cpu_limit, admitted=False)
+        del engines, short, cpu, card, plain
+    if failed:
+        raise AssertionError(f"phase 4 Mistral past its limits: {failed}")
+    del backend, params, cpu_backend, cpu_params, broken
+    torch.cuda.empty_cache()
+
+
+def phase_teacher_forced_opt(torch, name="facebook/opt-6.7b",
+                             caches=("mxint8-staged", "bfloat16", "mxint8",
+                                     "mxint4"),
+                             rms_limit=LOGIT_RMS_STEPS):
+    """Phase 4 for OPT: a 2-layer OPT at the width of ``name`` (vocab 50272,
+    the dense head; OPT-6.7B, or OPT-350m with post-LN, ``project_in`` and
+    ``project_out`` and d = 64), packed as the JAX package packs (q|k|v
+    fused with its biases, out_proj alone, fc1 and fc2 in the relu
+    megakernel entry), teacher-forced through an 8 x 64 admission (512
+    rows: the large-M route) and 20 decode steps (the relu megakernel) per
+    cache of ``caches``: the first with the negative control (layer 1's fc2
+    correction left out), ``mxint8-staged`` and ``bfloat16`` three ways
+    (kernels on the card, plain versions on the card and on the CPU),
     ``mxint8`` and ``mxint4`` (the KV4 configuration) kernels against plain
-    versions on the card; the limits of the Llama runs."""
+    versions on the card; the limits of the Llama runs, the logits RMS
+    held to ``rms_limit``."""
     import dataclasses
 
     from lqer_tpu_torch import models
@@ -1591,8 +2179,7 @@ def phase_teacher_forced_opt(torch):
         q_config_for,
     )
 
-    cfg = dataclasses.replace(MODEL_CONFIGS["facebook/opt-6.7b"](),
-                              num_hidden_layers=2)
+    cfg = dataclasses.replace(MODEL_CONFIGS[name](), num_hidden_layers=2)
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 4)
     kv4 = models.quantize_model(cfg, q_config_for(cfg, kv4=True),
                                 {"linear": {"rank": 32}})
@@ -1614,9 +2201,8 @@ def phase_teacher_forced_opt(torch):
                       "decode_attention_quantized", "decode_attention_write",
                       "decode_attention")
     failed = []
-    for cache_dtype, layer_qcfgs in (("mxint8-staged", qcfgs),
-                                     ("bfloat16", qcfgs), ("mxint8", qcfgs),
-                                     ("mxint4", kv4)):
+    for cache_dtype in caches:
+        layer_qcfgs = kv4 if cache_dtype == "mxint4" else qcfgs
         kw = dict(num_slots=8, max_len=256, cache_dtype=cache_dtype,
                   lm_head_width=8)
         engines = {name: DecodeEngine(params, cfg, layer_qcfgs,
@@ -1629,7 +2215,7 @@ def phase_teacher_forced_opt(torch):
                                           pallas_backend=cpu_backend,
                                           device="cpu", **kw)
             pairs += [("kernels", "cpu"), ("plain", "cpu")]
-        if cache_dtype == "mxint8-staged":
+        if cache_dtype == caches[0]:
             engines["no correction"] = DecodeEngine(
                 params, cfg, layer_qcfgs, pallas_backend=broken,
                 device="cuda", **kw)
@@ -1648,12 +2234,12 @@ def phase_teacher_forced_opt(torch):
                            for k in decode_kernels}):
             raise AssertionError(f"phase 4 OPT {cache_dtype} routes: "
                                  f"{routes}")
-        what = f"2-layer OPT-6.7B-width path, {cache_dtype} cache"
+        what = f"2-layer {name.split('/')[1]}-width path, {cache_dtype} cache"
         print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
         failed += compare_runs(
             engines, logits, pairs, what, t0,
             cpu_steps=(CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
-                       else CACHE_CPU_STEPS))
+                       else CACHE_CPU_STEPS), rms_limit=rms_limit)
         del engines
     if failed:
         raise AssertionError(f"phase 4 OPT past its limits: {failed}")
@@ -1661,12 +2247,14 @@ def phase_teacher_forced_opt(torch):
     torch.cuda.empty_cache()
 
 
-def phase_serve_opt(torch, rates, layers: int = 32):
-    """Phase 5 for OPT: the engine at OPT-6.7B shape (32 layers, rank 32,
-    dense head, 8 slots, max_len 2048) serving the request mix over the
-    ``bfloat16`` cache (40 new tokens) and the ``mxint8-staged`` one (80),
-    a profile of 5 decode steps each; then one 2048-token admission and
-    its profile. Returns the kernel launches."""
+def phase_serve_opt(torch, rates, name="facebook/opt-6.7b",
+                    caches=(("bfloat16", 40), ("mxint8-staged", 80))):
+    """Phase 5 for OPT: the engine at the shape of ``name`` (all its layers,
+    rank 32, dense head, 8 slots, max_len 2048) serving the request mix
+    over each cache of ``caches`` with its new tokens (OPT-6.7B: the
+    ``bfloat16`` cache 40, the ``mxint8-staged`` one 80), a profile of 5
+    decode steps each; then, on the staged cache, one 2048-token admission
+    and its profile. Returns the kernel launches."""
     import dataclasses
 
     from lqer_tpu_torch.models.opt import MODEL_CONFIGS
@@ -1674,25 +2262,24 @@ def phase_serve_opt(torch, rates, layers: int = 32):
     from lqer_tpu_torch.serving import DecodeEngine
     from lqer_tpu_torch.serving.random_model import build_random_model
 
-    cfg = dataclasses.replace(MODEL_CONFIGS["facebook/opt-6.7b"](),
-                              num_hidden_layers=layers)
+    cfg = MODEL_CONFIGS[name]()
     t0 = time.perf_counter()
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 5)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     counts = None
-    for cache_dtype, new_tokens in (("bfloat16", 40), ("mxint8-staged", 80)):
+    for cache_dtype, new_tokens in caches:
         engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
                               cache_dtype=cache_dtype,
                               pallas_backend=backend, lm_head_width=8,
                               device="cuda")
         run = serve_requests(torch, engine, cfg, cache_dtype, new_tokens,
-                             pack_s)
+                             pack_s, f"{name} shape, dense head", 32)
         counts = run if counts is None else {k: n + run[k]
                                              for k, n in counts.items()}
         tokens = np.zeros(engine.num_slots, dtype=np.int64)
         profile_window(torch, lambda: engine.decode_logits(tokens), 5,
-                       f"OPT decode steps, {cache_dtype} cache")
+                       f"{name} decode steps, {cache_dtype} cache")
         if cache_dtype == "mxint8-staged":
             reset_launch_counts()
             long_prompt(torch, engine.prefill, cfg,
@@ -1780,7 +2367,71 @@ def phase_serve(torch, rates, layers: int = 32):
     return counts
 
 
-def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s):
+def phase_serve_mistral(torch, rates):
+    """Phase 5 for Mistral: the engine at Mistral-7B-v0.1 shape (32 layers,
+    rank 128, W8 head, window 4096), 8 slots at max_len 8192 over the
+    ``bfloat16`` cache, ``mxint8-staged``, which falls back to the
+    direct-write ``mxint8`` under the window, and ``mxint4`` (the KV4
+    configuration): the request mix (40 new tokens), then 10 decode steps
+    at positions 6000.. past the window with a 5-step profile; on the bf16
+    cache one 2048-token eager windowed admission. Then ``mxint8`` at
+    max_len 32768, 4 slots: 10 steps near position 32000 (row 13 + row 8
+    with the window) beside the window's cache-read floor. Returns the
+    kernel launches."""
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import (
+        build_random_model,
+        q_config_for,
+    )
+
+    cfg = LlamaConfig.mistral_7b()
+    t0 = time.perf_counter()
+    backend, params, qcfgs = build_random_model(cfg, rank=128, seed=SEED + 25)
+    kv4 = models.quantize_model(cfg, q_config_for(cfg, kv4=True),
+                                {"linear": {"rank": 128}})
+    params["model.embed_tokens.weight"] = \
+        params["model.embed_tokens.weight"].to(torch.bfloat16)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    model = "Mistral-7B-v0.1 shape, W8 head, window 4096"
+    counts = None
+    for cache_dtype, slots, max_len, position in (
+            ("bfloat16", 8, 8192, 6000), ("mxint8-staged", 8, 8192, 6000),
+            ("mxint4", 8, 8192, 6000), ("mxint8", 4, 32768, 32000)):
+        layer_qcfgs = kv4 if cache_dtype == "mxint4" else qcfgs
+        engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=slots,
+                              max_len=max_len, cache_dtype=cache_dtype,
+                              pallas_backend=backend, lm_head_width=8,
+                              device="cuda")
+        if "flushed" in engine.cache:
+            raise AssertionError("mxint8-staged under a window must fall "
+                                 "back to the direct-write cache")
+        run = {}
+        if max_len == 8192:
+            run = serve_requests(torch, engine, cfg, cache_dtype, 40, pack_s,
+                                 model, 128)
+        reset_launch_counts()
+        long_context_steps(torch, engine, cfg, cache_dtype, rates,
+                           position=position)
+        if cache_dtype == "bfloat16":
+            long_prompt(torch, engine.prefill, cfg,
+                        np.random.default_rng(SEED + 7))
+        counts = {k: n + run.get(k, 0) + (counts or {}).get(k, 0)
+                  for k, n in launch_counts().items()}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s,
+                   model="Llama-2-7B shape, W8 head", rank=32):
     """8 greedy requests of 20..64 prompt tokens through ``engine``; prints
     the step and admission times and returns the kernel launches. With 64
     new tokens or more every staged slot must have flushed."""
@@ -1827,9 +2478,7 @@ def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s):
     flushes = (f"{launch_counts()['cache_write']} flushes, flushed={fl}, "
                if staged else "")
     slots = engine.num_slots
-    model = ("OPT-6.7B shape, dense head" if cfg.arch == "opt"
-             else "Llama-2-7B shape, W8 head")
-    print(f"serve {model}, {cfg.num_hidden_layers} layers rank 32 "
+    print(f"serve {model}, {cfg.num_hidden_layers} layers rank {rank} "
           f"{cache_dtype} {slots} slots max_len {engine.max_len}: "
           f"{finished} requests finished, {produced} tokens, median decode "
           f"step {statistics.median(step_ms):.2f} ms over {len(step_ms)} "
@@ -1842,34 +2491,21 @@ def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s):
 
 def long_context_steps(torch, engine, cfg, cache_dtype, rates,
                        position: int = 32000, steps: int = 10) -> None:
-    """Decode steps of every slot at ``position`` onwards: the cache's
-    ``[0, position)`` in every layer and slot holds one MXINT-encoded block
-    of 2048 seeded random rows tiled along the token axis (a staged cache
-    with ``flushed = position``). Prints the median step (host clock around
-    a synchronised step), tok/s, the predicted cache-read floor beside the
-    profiled device time, and checks the logits."""
-    from lqer_tpu_torch.parallel.collectives import mx4_encode, mx8_encode
-    from lqer_tpu_torch.serving.kv_cache import MAIN_KEYS, cache_code_width
+    """Decode steps of every slot at ``position`` onwards over a context
+    built by :func:`fill_context` (a staged cache with ``flushed =
+    position``). Prints the median step (host clock around a synchronised
+    step), tok/s, the predicted cache-read floor (under a sliding window,
+    the window's keys) beside the profiled device time, and checks the
+    logits."""
+    from lqer_tpu_torch.serving.kv_cache import cache_code_width
 
     cache = engine.cache
-    NL, B, KVH, _, _ = cache["k_codes"].shape
+    quantized = "k_codes" in cache
+    NL, B, KVH = cache["k_codes" if quantized else "k"].shape[:3]
     D = cfg.head_dim
-    dev = cache["k_codes"].device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 17)
-    enc = mx4_encode if cache_code_width(cache) == 4 else mx8_encode
-    block = []
-    for _ in range(2):
-        c, e = enc(torch.randn(B, KVH, 2048, D, generator=gen, device=dev),
-                   16, zero_fill=1.0)
-        block += [c.transpose(-1, -2), e.transpose(-1, -2)]
-    for key, blk in zip(MAIN_KEYS, block):
-        for t0 in range(0, position, 2048):
-            n = min(2048, position - t0)
-            cache[key][..., t0:t0 + n].copy_(blk[..., :n])
+    fill_context(torch, {"engine": engine}, np.full(B, position), SEED + 17)
     if "flushed" in cache:
         cache["flushed"].fill_(position)
-    engine.lengths[:] = position
     tokens = np.zeros(B, dtype=np.int64)
     step_ms = []
     for _ in range(steps):
@@ -1884,14 +2520,18 @@ def long_context_steps(torch, engine, cfg, cache_dtype, rates,
         raise AssertionError(f"long-context steps {cache_dtype}: logits "
                              f"{tuple(logits.shape)}, finite "
                              f"{bool(torch.isfinite(logits).all())}")
-    per_token = KVH * (cache["k_codes"].shape[3] + D // 16) * 2
-    floor_ms = NL * B * per_token * (position + steps) / rates[0] * 1e3
+    per_token = KVH * 2 * (D * 2 if not quantized else
+                           D * cache_code_width(cache) // 8 + D // 16)
+    window = getattr(cfg, "sliding_window", None)
+    held = min(position, window) if window else position
+    floor_ms = NL * B * per_token * (held + steps) / rates[0] * 1e3
     med = statistics.median(step_ms)
     print(f"long-context decode, {cache_dtype} cache, {NL} layers, {B} slots "
           f"at positions {position}..{position + steps - 1} (max_len "
-          f"{engine.max_len}): median step {med:.2f} ms over {steps} steps, "
+          f"{engine.max_len}{f', window {window}' if window else ''}): "
+          f"median step {med:.2f} ms over {steps} steps, "
           f"{B / med * 1e3:.1f} tok/s; predicted cache-read floor "
-          f"{floor_ms:.2f} ms per step ({NL * B * per_token * position / 1e9:.2f}"
+          f"{floor_ms:.2f} ms per step ({NL * B * per_token * held / 1e9:.2f}"
           f" GB / {rates[0] / 1e12:.2f} TB/s)", flush=True)
     busy = profile_window(torch, lambda: engine.decode_logits(tokens), 5,
                           f"long-context decode steps, {cache_dtype} cache")
@@ -2007,17 +2647,30 @@ def main() -> int:
     phase_direct_kernels(torch, timer, rates, results)
     phase_stream_kernels(torch, timer, rates, results)
     phase_opt_kernels(torch, timer, rates, results)
+    phase_mistral_kernels(torch, timer, rates, results)
     print(f"phase 3 done at {time.perf_counter() - t0:.0f}s", flush=True)
     phase_teacher_forced(torch)
     phase_teacher_forced_opt(torch)
+    phase_teacher_forced_opt(torch, "facebook/opt-350m", ("bfloat16",),
+                             rms_limit=LOGIT_RMS_STEPS_OPT350M)
+    phase_teacher_forced_mistral(torch)
     print(f"phase 4 done at {time.perf_counter() - t0:.0f}s", flush=True)
-    counts = phase_serve(torch, rates)
-    gc.collect()
-    torch.cuda.empty_cache()
-    opt_counts = phase_serve_opt(torch, rates)
-    counts = {k: n + opt_counts[k] for k, n in counts.items()}
+    counts = {k: 0 for k in KERNELS}
+    for serve in (phase_serve, phase_serve_opt, phase_serve_mistral,
+                  lambda *a: phase_serve_opt(*a, name="facebook/opt-350m",
+                                             caches=(("bfloat16", 40),))):
+        run = serve(torch, rates)
+        mistral = serve is phase_serve_mistral
+        for k, n in run.items():
+            counts[k] += n
+            if mistral and "mistral" in results[k]:
+                results[k]["mistral"]["launches"] = n
+        gc.collect()
+        torch.cuda.empty_cache()
     print(f"phase 5 done at {time.perf_counter() - t0:.0f}s", flush=True)
     missing = [k for k, n in counts.items() if n <= 0]
+    missing += [f"{k} (Mistral)" for k, r in results.items()
+                if r.get("mistral", {}).get("launches", 1) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     kernels = []
@@ -2029,7 +2682,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"],
+            **({"mistral": r["mistral"]} if "mistral" in r else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,17 @@
 //      kernel quantizes whole groups, the one holding pos included, reading
 //      its rows past pos as they are;
 //   3. scores q · K^T times scaling (scale after the dot), columns past pos
-//      masked; one exact f32 softmax; p quantized per 16 tokens (p_mb);
+//      masked, and under a sliding window (window > 0; -1 for none) the
+//      columns at or below pos - window too; one exact f32 softmax; p
+//      quantized per 16 tokens (p_mb);
 //   4. V quantized per token in 16-wide d groups (v_mb); out = Σ p · v.
 // A negative mantissa width leaves that operand unquantized.
 //
 // What bounds it on an H100: the bf16 cache stream, 2 x 2 x d bytes per
-// token and kv head (K and V) over the ceil16(pos + 1) tokens read.
+// token and kv head (K and V) over the tokens read: the 16-token groups from
+// the one holding the window's first key (decode_common.cuh's window_start;
+// column 0 without a window) to the one holding pos. A K quantizer group is
+// 16 whole tokens, so its exponent never depends on a skipped group.
 //
 // Design: the cache is token-major (L, d) bf16, so coalesced reads run
 // along d. K goes through shared memory in tiles of 128 tokens (eight
@@ -55,7 +60,8 @@ __global__ void __launch_bounds__(NT)
 fp_decode_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
                  const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
                  float* __restrict__ out, int KVH, int nrep, int L,
-                 float scaling, int q_mb, int k_mb, int p_mb, int v_mb) {
+                 float scaling, int q_mb, int k_mb, int p_mb, int v_mb,
+                 int window) {
   constexpr int TS = D + 1;  // padded tile row
   extern __shared__ float smem[];
   const int b = blockIdx.x, kv = blockIdx.y, t = threadIdx.x;
@@ -65,12 +71,13 @@ fp_decode_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
   float* tile = sc + nrep * L;   // TT x TS
   const int pos = pos_p[b];
   const int ntok = max(0, min((pos + 16) / 16 * 16, L));
+  const int j0 = min(window_start(pos, window), ntok);
   const size_t bk = (size_t)b * KVH + kv;
   const uint16_t* kb = k + bk * L * D;
   const uint16_t* vb = v + bk * L * D;
 
   quantize_queries<D>(q + ((size_t)b * H + kv * nrep) * D, qs, nrep, q_mb);
-  for (int t0 = 0; t0 < ntok; t0 += TT) {
+  for (int t0 = j0; t0 < ntok; t0 += TT) {
     const int nt = min(TT, ntok - t0);  // a multiple of 16
     __syncthreads();  // the queries are in; the previous tile is consumed
     load_tile<D>(kb + (size_t)t0 * D, tile, nt);
@@ -102,11 +109,12 @@ fp_decode_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
       const int j = t0 + tok;
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
-        if (h < nrep) sc[h * L + j] = j <= pos ? s[h] * scaling : -INFINITY;
+        if (h < nrep)
+          sc[h * L + j] = in_window(j, pos, window) ? s[h] * scaling : -INFINITY;
     }
   }
   __syncthreads();
-  softmax_quantize_p(sc, L, ntok, 0, 0, nrep, p_mb);
+  softmax_quantize_p(sc, L, 0, j0, ntok - j0, nrep, p_mb);
 
   // P·V: V goes through the same tile, its 16-wide d groups of each token
   // quantized in place (a thread per (token, group)); a thread per d
@@ -114,7 +122,7 @@ fp_decode_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
   float acc[NREP_MAX];
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-  for (int t0 = 0; t0 < ntok; t0 += TT) {
+  for (int t0 = j0; t0 < ntok; t0 += TT) {
     const int nt = min(TT, ntok - t0);
     __syncthreads();  // the p rows are in; the previous tile is consumed
     load_tile<D>(vb + (size_t)t0 * D, tile, nt);
@@ -148,9 +156,11 @@ fp_decode_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            void* out, int B, int KVH, int nrep, int L, float scaling,
-           int q_mb, int k_mb, int p_mb, int v_mb, cudaStream_t st) {
+           int q_mb, int k_mb, int p_mb, int v_mb, int window,
+           cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)nrep * (D + L) + TT * (D + 1));
-  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || smem > 220 * 1024)
+  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || smem > 220 * 1024 ||
+      window == 0 || window < -1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fp_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -159,26 +169,28 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
   fp_decode_kernel<D><<<dim3(B, KVH), NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const int*>(pos),
-      static_cast<float*>(out), KVH, nrep, L, scaling, q_mb, k_mb, p_mb, v_mb);
+      static_cast<float*>(out), KVH, nrep, L, scaling, q_mb, k_mb, p_mb, v_mb,
+      window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One layer: q (B, H, D) f32; k, v (B, KVH, L, D) bf16, the layer's slice
-// of the layer-stacked cache; positions (B) int32; out (B, H, D) f32.
+// of the layer-stacked cache; positions (B) int32; out (B, H, D) f32;
+// window the sliding window in tokens, -1 for none.
 LQER_API int lqer_decode_attention_fp(const void* q, const void* k,
                                       const void* v, const void* pos,
                                       void* out, int B, int KVH, int nrep,
                                       int D, int L, float scaling, int q_mb,
                                       int k_mb, int p_mb, int v_mb,
-                                      void* stream) {
+                                      int window, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D == 128)
     return launch<128>(q, k, v, pos, out, B, KVH, nrep, L, scaling, q_mb,
-                       k_mb, p_mb, v_mb, st);
+                       k_mb, p_mb, v_mb, window, st);
   if (D == 64)
     return launch<64>(q, k, v, pos, out, B, KVH, nrep, L, scaling, q_mb, k_mb,
-                      p_mb, v_mb, st);
+                      p_mb, v_mb, window, st);
   return (int)cudaErrorInvalidValue;
 }

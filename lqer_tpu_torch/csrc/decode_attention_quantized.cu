@@ -13,15 +13,18 @@
 //   1. q quantized per 16 along d (block_fp, width q_mb + 1);
 //   2. scores over columns [0, pos] of the cache as stored: the cache's
 //      MXINT values are the operands (quantize once at write), times
-//      scaling, columns past pos masked;
+//      scaling, columns past pos masked, and under a sliding window
+//      (window > 0; -1 for none) the columns at or below pos - window too;
 //   3. one exact f32 softmax; p quantized per 16 tokens;
 //   4. out = Σ p · v.
 //
 // What bounds it on an H100: the cache stream, (code bytes + d/16 exponent
 // bytes) x 2 per token and kv head over [0, pos] (136 x 2 bytes at d = 128
 // and width 8, 72 x 2 at width 4), plus the column written. Only whole
-// 16-token groups up to the one holding pos are read: the TPU block read all
-// L because VMEM residency made that free.
+// 16-token groups up to the one holding pos are read, and under a window
+// only from the one holding its first key on (decode_common.cuh's
+// window_start): the TPU block read all L because VMEM residency made that
+// free.
 //
 // Design: one block per (slot, kv head) owns that column of the cache, so
 // the in-place write has no race, and one __syncthreads orders it before the
@@ -46,7 +49,7 @@ quantized_decode_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
                         const float* __restrict__ vh,
                         const int* __restrict__ pos_p, float* __restrict__ out,
                         int KVH, int nrep, int L, float scaling, int q_mb,
-                        int p_mb) {
+                        int p_mb, int window) {
   constexpr int GD = D / 16;
   constexpr int CR = CW == 8 ? D : D / 2;  // code rows
   extern __shared__ float smem[];
@@ -56,6 +59,7 @@ quantized_decode_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
   float* sc = qs + nrep * D;   // nrep x L
   const int pos = pos_p[b];
   const int ntok = max(0, min((pos + 16) / 16 * 16, L));
+  const int j0 = min(window_start(pos, window), ntok);
   const size_t bk = (size_t)b * KVH + kv;
   const Cache c{kc + bk * CR * L, ke + bk * GD * L, vc + bk * CR * L,
                 ve + bk * GD * L, L};
@@ -73,7 +77,7 @@ quantized_decode_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
   }
   __syncthreads();
 
-  for (int j = 4 * t; j < ntok; j += 4 * NT) {
+  for (int j = j0 + 4 * t; j < ntok; j += 4 * NT) {
     float s4[4][NREP_MAX];
     score_4_columns<D, CW>(c, j, qs, nrep, s4);
 #pragma unroll
@@ -81,16 +85,17 @@ quantized_decode_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
         if (h < nrep)
-          sc[h * L + j + u] = j + u <= pos ? s4[u][h] * scaling : -INFINITY;
+          sc[h * L + j + u] =
+              in_window(j + u, pos, window) ? s4[u][h] * scaling : -INFINITY;
   }
   __syncthreads();
-  softmax_quantize_p(sc, L, ntok, 0, 0, nrep, p_mb);
+  softmax_quantize_p(sc, L, 0, j0, ntok - j0, nrep, p_mb);
 
   for (int dd = t; dd < D; dd += NT) {
     float acc[NREP_MAX];
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-    pv_row<D, CW>(c, dd, ntok, sc, L, nrep, acc);
+    pv_row<D, CW>(shifted(c, j0), dd, ntok - j0, sc + j0, L, nrep, acc);
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep) out[((size_t)b * H + kv * nrep + h) * D + dd] = acc[h];
@@ -101,9 +106,10 @@ template <int D, int CW, bool WRITE>
 int launch(const void* q, void* kc, void* ke, void* vc, void* ve,
            const void* kh, const void* vh, const void* pos, void* out, int B,
            int KVH, int nrep, int L, float scaling, int q_mb, int p_mb,
-           cudaStream_t st) {
+           int window, cudaStream_t st) {
   const size_t smem = sizeof(float) * (size_t)nrep * (D + L);
-  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || smem > 220 * 1024)
+  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || smem > 220 * 1024 ||
+      window == 0 || window < -1)
     return (int)cudaErrorInvalidValue;
   auto* kernel = quantized_decode_kernel<D, CW, WRITE>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -114,7 +120,7 @@ int launch(const void* q, void* kc, void* ke, void* vc, void* ve,
       static_cast<int8_t*>(ke), static_cast<int8_t*>(vc),
       static_cast<int8_t*>(ve), static_cast<const float*>(kh),
       static_cast<const float*>(vh), static_cast<const int*>(pos),
-      static_cast<float*>(out), KVH, nrep, L, scaling, q_mb, p_mb);
+      static_cast<float*>(out), KVH, nrep, L, scaling, q_mb, p_mb, window);
   return (int)cudaGetLastError();
 }
 
@@ -122,9 +128,10 @@ template <int D>
 int dispatch(const void* q, void* kc, void* ke, void* vc, void* ve,
              const void* kh, const void* vh, const void* pos, void* out,
              int B, int KVH, int nrep, int L, int code_width, float scaling,
-             int q_mb, int p_mb, cudaStream_t st) {
-#define LQER_QDEC_ARGS \
-  q, kc, ke, vc, ve, kh, vh, pos, out, B, KVH, nrep, L, scaling, q_mb, p_mb, st
+             int q_mb, int p_mb, int window, cudaStream_t st) {
+#define LQER_QDEC_ARGS                                                        \
+  q, kc, ke, vc, ve, kh, vh, pos, out, B, KVH, nrep, L, scaling, q_mb, p_mb, \
+      window, st
   if (code_width == 8 && kh != nullptr)
     return launch<D, 8, true>(LQER_QDEC_ARGS);
   if (code_width == 8) return launch<D, 8, false>(LQER_QDEC_ARGS);
@@ -141,18 +148,19 @@ int dispatch(const void* q, void* kc, void* ke, void* vc, void* ve,
 // int8, the layer's slice of the layer-stacked cache; positions (B) int32;
 // out (B, H, D) f32. With kh and vh ((B, KVH, D) f32, width 8 only) the
 // fresh rows are encoded into column positions[b] in place first; pass
-// null pointers for the read-only kernel.
+// null pointers for the read-only kernel. window: the sliding window in
+// tokens, -1 for none.
 LQER_API int lqer_decode_attention_quantized(
     const void* q, void* kc, void* ke, void* vc, void* ve, const void* kh,
     const void* vh, const void* pos, void* out, int B, int KVH, int nrep,
     int D, int L, int code_width, float scaling, int q_mb, int p_mb,
-    void* stream) {
+    int window, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D == 128)
     return dispatch<128>(q, kc, ke, vc, ve, kh, vh, pos, out, B, KVH, nrep, L,
-                         code_width, scaling, q_mb, p_mb, st);
+                         code_width, scaling, q_mb, p_mb, window, st);
   if (D == 64)
     return dispatch<64>(q, kc, ke, vc, ve, kh, vh, pos, out, B, KVH, nrep, L,
-                        code_width, scaling, q_mb, p_mb, st);
+                        code_width, scaling, q_mb, p_mb, window, st);
   return (int)cudaErrorInvalidValue;
 }

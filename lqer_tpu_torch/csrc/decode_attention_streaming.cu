@@ -14,6 +14,12 @@
 // on exp(s - m) / denom with the final m and denom, so no one-pass online
 // rescaling reproduces it.
 //
+// Under a sliding window (window > 0; -1 for none; the direct-write cache
+// only, as in JAX) the columns at or below pos - window are masked too, and
+// the kernel reads from the 16-token group holding the window's first key
+// (decode_common.cuh's window_start): chunks wholly below it are skipped in
+// every pass, and the first chunk read starts at that group.
+//
 // What bounds it on an H100: the cache stream, (code bytes + d/16 exponent
 // bytes) x 2 per token and kv head over the columns a slot holds (136 x 2
 // bytes at d = 128 and width 8, 72 x 2 at width 4): at 4 slots x 32 kv heads
@@ -81,12 +87,15 @@ __device__ __forceinline__ Slab slab(int8_t* kc, int8_t* ke, int8_t* vc,
   return s;
 }
 
-// The chunk of block z: its cache columns, from column c0 of c; n columns
-// (a multiple of 16); off, its first column in a score row of LS. False
-// where the chunk lies wholly past the columns the slot holds.
+// The chunk of block z: its cache columns from c; n columns (a multiple of
+// 16); off, its first column in a score row of LS; j0, the first column of
+// it the kernel reads (a multiple of 16: above 0 only in the chunk holding
+// the window's first column, first). False where the chunk lies wholly past
+// the columns the slot holds, or wholly below first.
 __device__ __forceinline__ bool chunk_of(const Slab& s, int z, int NZ,
-                                         int nmain, int L, Cache& c, int& n,
-                                         int& off) {
+                                         int nmain, int first, int L, Cache& c,
+                                         int& n, int& off, int& j0) {
+  j0 = 0;
   if (s.ring.kc != nullptr && z == NZ - 1) {
     c = s.ring;
     n = s.ring.stride;
@@ -96,8 +105,9 @@ __device__ __forceinline__ bool chunk_of(const Slab& s, int z, int NZ,
   off = z * CHUNK;
   if (off >= nmain) return false;
   n = min(CHUNK, nmain - off);
-  c = Cache{s.main.kc + off, s.main.ke + off, s.main.vc + off,
-            s.main.ve + off, s.main.stride};
+  if (off + n <= first) return false;
+  j0 = max(0, first - off);
+  c = shifted(s.main, off);
   return true;
 }
 
@@ -111,7 +121,7 @@ stream_scores_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
                      const int* __restrict__ pos_p, const int* fl_p,
                      float* __restrict__ scores, float* __restrict__ st_m,
                      float* __restrict__ st_l, int KVH, int nrep, int L,
-                     int SW, float scaling, int q_mb) {
+                     int SW, float scaling, int q_mb, int window) {
   constexpr int GD = D / 16;
   extern __shared__ float smem[];
   __shared__ float m_s[NREP_MAX];
@@ -124,8 +134,9 @@ stream_scores_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
   const int pos = pos_p[b];
   const int nmain = main_columns(pos_p, fl_p, b, L);
   Cache c;
-  int n, off;
-  if (!chunk_of(s, z, NZ, nmain, L, c, n, off)) return;
+  int n, off, j0;
+  if (!chunk_of(s, z, NZ, nmain, window_start(pos, window), L, c, n, off, j0))
+    return;
   const bool ring = off == L;
   float* qs = smem;            // nrep x D
   float* sc = qs + nrep * D;   // nrep x CHUNK
@@ -145,16 +156,18 @@ stream_scores_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) acc[h] = -INFINITY;
   float* srow = scores + ((size_t)b * H + kv * nrep) * LS + off;
-  for (int j = 4 * t; j < n; j += 4 * NT) {
+  for (int j = j0 + 4 * t; j < n; j += 4 * NT) {
     float s4[4][NREP_MAX];
     score_4_columns<D, CW>(c, j, qs, nrep, s4);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int col = j + u;
       // a ring lane counts where the token it holds is at least flushed;
-      // a main column past pos (direct) is masked; the staged main is not
-      const bool ok = ring ? pos - ((pos - col) % SW + SW) % SW >= nmain
-                           : (fl_p != nullptr || off + col <= pos);
+      // a main column past pos or outside the window (direct) is masked;
+      // the staged main is not
+      const bool ok =
+          ring ? pos - ((pos - col) % SW + SW) % SW >= nmain
+               : (fl_p != nullptr || in_window(off + col, pos, window));
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
         if (h < nrep) {
@@ -168,7 +181,7 @@ stream_scores_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
   block_reduce<true>(acc, nrep, m_s);
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-  for (int j = t; j < n; j += NT)
+  for (int j = j0 + t; j < n; j += NT)
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep && m_s[h] != -INFINITY)
@@ -181,7 +194,7 @@ stream_scores_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
 }
 
 // The chunks a slot holds, in the order every pass combines them: the main
-// chunks, then the ring.
+// chunks from the first read (i from first / CHUNK), then the ring.
 __device__ __forceinline__ int chunk_index(int i, int ncm, int NZ) {
   return i < ncm ? i : NZ - 1;
 }
@@ -195,7 +208,7 @@ stream_pv_kernel(int8_t* kc, int8_t* ke, int8_t* vc, int8_t* ve, int8_t* ksc,
                  const float* __restrict__ scores,
                  const float* __restrict__ st_m,
                  const float* __restrict__ st_l, float* __restrict__ part,
-                 int KVH, int nrep, int L, int SW, int p_mb) {
+                 int KVH, int nrep, int L, int SW, int p_mb, int window) {
   extern __shared__ float smem[];
   __shared__ float m_s[NREP_MAX];
   __shared__ float d_s[NREP_MAX];
@@ -206,20 +219,22 @@ stream_pv_kernel(int8_t* kc, int8_t* ke, int8_t* vc, int8_t* ve, int8_t* ksc,
   const size_t bk = (size_t)b * KVH + kv;
   const Slab s = slab<D, CW>(kc, ke, vc, ve, ksc, kse, vsc, vse, bk, L, SW);
   const int nmain = main_columns(pos_p, fl_p, b, L);
+  const int first = window_start(pos_p[b], window);
   Cache c;
-  int n, off;
-  if (!chunk_of(s, z, NZ, nmain, L, c, n, off)) return;
+  int n, off, j0;
+  if (!chunk_of(s, z, NZ, nmain, first, L, c, n, off, j0)) return;
   float* sc = smem;            // nrep x CHUNK
 
   if (t < nrep) {  // the final stats, chunk by chunk in order
     const int ncm = (nmain + CHUNK - 1) / CHUNK, nz = ncm + (staged ? 1 : 0);
+    const int c0 = first / CHUNK;
     const float* sm = st_m + bk * NZ * nrep + t;
     const float* sl = st_l + bk * NZ * nrep + t;
     float m = -INFINITY;
-    for (int i = 0; i < nz; ++i)
+    for (int i = c0; i < nz; ++i)
       m = fmaxf(m, sm[(size_t)chunk_index(i, ncm, NZ) * nrep]);
     float den = 0.f;
-    for (int i = 0; i < nz; ++i) {
+    for (int i = c0; i < nz; ++i) {
       const size_t zi = (size_t)chunk_index(i, ncm, NZ) * nrep;
       if (sm[zi] != -INFINITY) den += sl[zi] * expf(sm[zi] - m);
     }
@@ -228,18 +243,18 @@ stream_pv_kernel(int8_t* kc, int8_t* ke, int8_t* vc, int8_t* ve, int8_t* ksc,
   }
   __syncthreads();
   const float* srow = scores + ((size_t)b * H + kv * nrep) * LS + off;
-  for (int j = t; j < n; j += NT)
+  for (int j = j0 + t; j < n; j += NT)
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep) sc[h * CHUNK + j] = expf(srow[(size_t)h * LS + j] - m_s[h]);
   __syncthreads();
-  normalize_quantize_p(sc, CHUNK, n, 0, 0, nrep, d_s, p_mb);
+  normalize_quantize_p(sc, CHUNK, 0, j0, n - j0, nrep, d_s, p_mb);
 
   for (int dd = t; dd < D; dd += NT) {
     float acc[NREP_MAX];
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-    pv_row<D, CW>(c, dd, n, sc, CHUNK, nrep, acc);
+    pv_row<D, CW>(shifted(c, j0), dd, n - j0, sc + j0, CHUNK, nrep, acc);
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
       if (h < nrep) part[((bk * NZ + z) * nrep + h) * D + dd] = acc[h];
@@ -251,14 +266,15 @@ __global__ void __launch_bounds__(NT)
 stream_sum_kernel(const float* __restrict__ part,
                   const int* __restrict__ pos_p, const int* fl_p,
                   float* __restrict__ out, int KVH, int nrep, int D, int L,
-                  int NZ) {
+                  int NZ, int window) {
   const int b = blockIdx.x, kv = blockIdx.y, H = KVH * nrep;
   const size_t bk = (size_t)b * KVH + kv;
   const int ncm = (main_columns(pos_p, fl_p, b, L) + CHUNK - 1) / CHUNK;
   const int nz = ncm + (fl_p != nullptr ? 1 : 0);
+  const int c0 = window_start(pos_p[b], window) / CHUNK;
   for (int idx = threadIdx.x; idx < nrep * D; idx += NT) {
     float acc = 0.f;
-    for (int i = 0; i < nz; ++i)
+    for (int i = c0; i < nz; ++i)
       acc += part[(bk * NZ + chunk_index(i, ncm, NZ)) * nrep * D + idx];
     out[((size_t)b * H + kv * nrep) * D + idx] = acc;
   }
@@ -269,9 +285,11 @@ int launch(const void* q, void* kc, void* ke, void* vc, void* ve, void* ksc,
            void* kse, void* vsc, void* vse, const void* kh, const void* vh,
            const void* pos, const void* fl, void* scores, void* st_m,
            void* st_l, void* part, void* out, int B, int KVH, int nrep, int L,
-           int SW, float scaling, int q_mb, int p_mb, cudaStream_t st) {
+           int SW, float scaling, int q_mb, int p_mb, int window,
+           cudaStream_t st) {
   const bool staged = ksc != nullptr;
-  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 ||
+  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || window == 0 ||
+      window < -1 || (staged && window != -1) ||
       (staged && (CW != 8 || SW % 16 != 0 || SW > CHUNK || fl == nullptr ||
                   kh == nullptr || vh == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -286,7 +304,7 @@ int launch(const void* q, void* kc, void* ke, void* vc, void* ve, void* ksc,
       static_cast<const float*>(vh), static_cast<const int*>(pos),
       static_cast<const int*>(fl), static_cast<float*>(scores),
       static_cast<float*>(st_m), static_cast<float*>(st_l), KVH, nrep, L, SW,
-      scaling, q_mb);
+      scaling, q_mb, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stream_pv_kernel<D, CW><<<grid, NT, smem2, st>>>(
@@ -294,13 +312,13 @@ int launch(const void* q, void* kc, void* ke, void* vc, void* ve, void* ksc,
       static_cast<const int*>(pos), static_cast<const int*>(fl),
       static_cast<const float*>(scores), static_cast<const float*>(st_m),
       static_cast<const float*>(st_l), static_cast<float*>(part), KVH, nrep,
-      L, SW, p_mb);
+      L, SW, p_mb, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stream_sum_kernel<<<dim3(B, KVH), NT, 0, st>>>(
       static_cast<const float*>(part), static_cast<const int*>(pos),
       static_cast<const int*>(fl), static_cast<float*>(out), KVH, nrep, D, L,
-      NZ);
+      NZ, window);
   return (int)cudaGetLastError();
 }
 
@@ -310,10 +328,10 @@ int dispatch(int code_width, const void* q, void* kc, void* ke, void* vc,
              const void* kh, const void* vh, const void* pos, const void* fl,
              void* scores, void* st_m, void* st_l, void* part, void* out,
              int B, int KVH, int nrep, int L, int SW, float scaling, int q_mb,
-             int p_mb, cudaStream_t st) {
+             int p_mb, int window, cudaStream_t st) {
 #define LQER_STREAM_ARGS                                                    \
   q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, scores, st_m, st_l, \
-      part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, st
+      part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, window, st
   if (code_width == 8) return launch<D, 8>(LQER_STREAM_ARGS);
   if (code_width == 4) return launch<D, 4>(LQER_STREAM_ARGS);
 #undef LQER_STREAM_ARGS
@@ -330,17 +348,20 @@ int dispatch(int code_width, const void* q, void* kc, void* ke, void* vc,
 // kh, vh (B, KVH, D) f32 and flushed (B) int32; null ring, row and flushed
 // pointers for the direct-write cache. Scratch: scores (B, H, L [+ SW]),
 // st_m and st_l (B, KVH, NZ, nrep), part (B, KVH, NZ, nrep, D) f32, with
-// NZ = ceil(L / 512) (+1 with a ring).
+// NZ = ceil(L / 512) (+1 with a ring). window: the sliding window in
+// tokens, -1 for none (the staged cache takes none).
 LQER_API int lqer_decode_attention_streaming(
     const void* q, void* kc, void* ke, void* vc, void* ve, void* ksc,
     void* kse, void* vsc, void* vse, const void* kh, const void* vh,
     const void* pos, const void* fl, void* scores, void* st_m, void* st_l,
     void* part, void* out, int B, int KVH, int nrep, int D, int L, int SW,
-    int code_width, float scaling, int q_mb, int p_mb, void* stream) {
+    int code_width, float scaling, int q_mb, int p_mb, int window,
+    void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
 #define LQER_STREAM_ARGS                                                    \
   code_width, q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, scores, \
-      st_m, st_l, part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, st
+      st_m, st_l, part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, window, \
+      st
   if (D == 128) return dispatch<128>(LQER_STREAM_ARGS);
   if (D == 64) return dispatch<64>(LQER_STREAM_ARGS);
 #undef LQER_STREAM_ARGS

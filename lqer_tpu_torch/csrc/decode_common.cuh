@@ -8,7 +8,9 @@
 //     per 16-byte load);
 //   - the block-wide max and sum of the n_rep rows, the exact f32 softmax
 //     over the score rows in shared memory and the quantization of p per
-//     16 tokens.
+//     16 tokens;
+//   - the causal and sliding-window mask, and the first column a kernel
+//     reads under a window.
 // The MXINT4 layout is d-split: packed row i holds value i in its low
 // nibble and value i + d/2 in its high nibble, both sign-extended; a code of
 // width w decodes as code * 2^(e - (w - 1)).
@@ -29,6 +31,28 @@ struct Cache {
   const int8_t* ve;
   int stride;        // L for a main cache, SW for a ring
 };
+
+// The mask of every decode kernel: the key at column j counts for the query
+// at pos where j <= pos and, under a sliding window (window > 0; -1 for
+// none), pos - window < j.
+__device__ __forceinline__ bool in_window(int j, int pos, int window) {
+  return j <= pos && (window < 0 || j > pos - window);
+}
+
+// The first column a kernel reads for the query at pos: the start of the
+// 16-token group that holds the window's first key, 0 without a window.
+// The groups below hold masked keys only (p = 0 there), so skipping them
+// changes nothing; the masked keys inside this group keep p = 0 in its P
+// quantizer group, as the TPU kernel's do.
+__device__ __forceinline__ int window_start(int pos, int window) {
+  return window < 0 ? 0 : max(0, pos - window + 1) / 16 * 16;
+}
+
+// The same cache from column off on (off % 16 == 0 keeps the vector loads
+// aligned).
+__device__ __forceinline__ Cache shifted(const Cache& c, int off) {
+  return Cache{c.kc + off, c.ke + off, c.vc + off, c.ve + off, c.stride};
+}
 
 __device__ __forceinline__ int low_nibble(int byte) {
   return (int)((unsigned)byte << 28) >> 28;

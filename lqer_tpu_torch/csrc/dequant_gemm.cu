@@ -22,12 +22,17 @@
 //    w4_gemm.cuh, shared with the MLP megakernel (mlp_fused.cu).
 //  * X·A cannot use the TPU kernel's "n == 0 sweep" (blocks run in no
 //    order), so it runs as a FIRST SMALL PHASE (xa_partial_kernel): each
-//    block stages one 256-wide K chunk of X (8 rows) and of A in shared
-//    memory with 16-byte loads, and each thread sums whole (row, rank)
-//    outputs over the chunk. The GEMM block then adds the chunk partials,
-//    quantizes X·A per row, multiplies by its 32 columns of B, quantizes
-//    the correction per 16 columns with a half-warp shuffle, and adds the
-//    bias.
+//    block stages one 256-wide K chunk of X (8 rows) and one 128-column
+//    rank chunk of A in shared memory with 16-byte loads, and each thread
+//    sums whole (row, rank) outputs over the K chunk. The GEMM block then,
+//    rank chunk by rank chunk, adds the partials, quantizes X·A per 16
+//    columns (a chunk holds whole groups: R % 16 == 0 wherever R > 128)
+//    and adds its product with B to the correction of its 32 columns; then
+//    it quantizes the correction per 16 columns with a half-warp shuffle
+//    and adds the bias. The rank is any multiple of 16 (the fused q|k|v
+//    rank is 3R: 384 at the reference's rank 128), or any width up to 128
+//    (one whole-row quantizer group). Chunking keeps the rank-order f32
+//    sum of one pass over R.
 #include "w4_gemm.cuh"
 
 namespace {
@@ -52,7 +57,7 @@ xa_partial_kernel(const __nv_bfloat16* __restrict__ x,
                   float* __restrict__ part, int M, int K, int R) {
   __shared__ XaSmem sm;
   xa_partial_tile<false>(x, a, part, M, K, R, blockIdx.x, blockIdx.y,
-                         gridDim.y, sm);
+                         gridDim.y, blockIdx.z, sm);
 }
 
 template <int MB>
@@ -79,23 +84,28 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ words,
   const int m = t / TN, col = t % TN;
   const int row = m0 + m, n = nb + col;
   if (R > 0) {
-    for (int idx = t; idx < MT * R; idx += NTHREADS) {
-      const int mm = idx / R, r = idx % R;
-      float v = 0.f;
-#pragma unroll 4
-      for (int s = 0; s < KS; ++s)
-        v += __ldg(xa_part + (((size_t)blockIdx.y * KS + s) * MT + mm) * R + r);
-      sm.xa[mm][r] = v;
-    }
-    __syncthreads();
     const int gsz = (R % 16 == 0) ? 16 : R;
-    const int ng = R / gsz;
-    for (int idx = t; idx < MT * ng; idx += NTHREADS) {
-      const int mm = idx / ng, g0 = (idx % ng) * gsz;
-      quantize_xa_group(&sm.xa[mm][g0], gsz, xa_mb);
+    float corr = 0.f;
+    for (int r0 = 0; r0 < R; r0 += RMAX) {
+      const int rn = min(RMAX, R - r0), ng = rn / gsz;
+      __syncthreads();   // the previous chunk's X·A is consumed
+      for (int idx = t; idx < MT * rn; idx += NTHREADS) {
+        const int mm = idx / rn, r = r0 + idx % rn;
+        float v = 0.f;
+#pragma unroll 4
+        for (int s = 0; s < KS; ++s)
+          v += __ldg(xa_part + (((size_t)blockIdx.y * KS + s) * MT + mm) * R + r);
+        sm.xa[mm][idx % rn] = v;
+      }
+      __syncthreads();
+      for (int idx = t; idx < MT * ng; idx += NTHREADS) {
+        const int mm = idx / ng, g0 = (idx % ng) * gsz;
+        quantize_xa_group(&sm.xa[mm][g0], gsz, xa_mb);
+      }
+      __syncthreads();
+      corr = correction_chunk(corr, sm.xa[m], bmat, r0, rn, N, n);
     }
-    __syncthreads();
-    y += correction(sm.xa[m], bmat, R, N, n, out_mb);
+    y += quantize_half_warp(corr, out_mb);
   }
   if (bias != nullptr) y += bias[n];
   if (row < M) out[(size_t)row * N + n] = y;
@@ -105,8 +115,8 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ words,
 
 // x (M, K) bf16; words (K/per, N) int32; exps (K/16, N) int8; a (K, R) bf16;
 // b (R, N) bf16; bias (N) f32 or null; out (M, N) f32; xa_part scratch
-// (ceil(M/8), ceil(K/256), 8, R) f32. mb 3 (W4) or 7 (W8); xa_mb / out_mb
-// -1 for no partial-product quantizer.
+// (ceil(M/8), ceil(K/256), 8, R) f32. R is a multiple of 16, or at most 128.
+// mb 3 (W4) or 7 (W8); xa_mb / out_mb -1 for no partial-product quantizer.
 LQER_API int lqer_dequant_gemm(const void* x, const void* words,
                                const void* exps, const void* a, const void* b,
                                const void* bias, void* out, void* xa_part,
@@ -115,9 +125,9 @@ LQER_API int lqer_dequant_gemm(const void* x, const void* words,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int Mt = (M + MT - 1) / MT;
   const int KS = (K + XA_KC - 1) / XA_KC;
-  if (R > RMAX) return (int)cudaErrorInvalidValue;
+  if (R < 0 || (R > RMAX && R % 16 != 0)) return (int)cudaErrorInvalidValue;
   if (R > 0)
-    xa_partial_kernel<<<dim3(Mt, KS), NTHREADS, 0, st>>>(
+    xa_partial_kernel<<<dim3(Mt, KS, rank_chunks(R)), NTHREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a),
         static_cast<float*>(xa_part), M, K, R);
   const dim3 grid(N / TN, Mt);

@@ -22,10 +22,14 @@
 // larger than the co-resident blocks) whose phases are separated by grid
 // barriers (cooperative_groups::this_grid().sync(); CUDA 12 needs no -rdc
 // for it):
-//   A. X·A_gu partials per (8-row tile, 256-wide K chunk), barrier; then
-//      per (row, rank column) the sum of the partials, q_xa per 16 columns
-//      (half-warps), bf16, into the xa scratch; barrier. A_gu is
-//      [A_g | A_u] (2R wide) gated, A_g (R wide) un-gated.
+//   A. X·A_gu partials per (8-row tile, 256-wide K chunk, 128-column rank
+//      chunk), barrier; then per (row, rank column) the sum of the
+//      partials, q_xa per 16 columns (half-warps), bf16, into the xa
+//      scratch; barrier. A_gu is [A_g | A_u] (2R wide) gated, A_g (R wide)
+//      un-gated. R is any multiple of 16: the scratch is global and sized
+//      from R at launch, and each correction walks its R columns of the xa
+//      scratch in chunks of the 128-column shared-memory tile, summing in
+//      rank order, then quantizes the sum per 16 columns.
 //   B. blocks walk (8-row tile, 32 columns of I): the gate (and up) W4
 //      GEMM tiles of kernel 1 (w4_gemm.cuh), the corrections and biases,
 //      silu·mul or relu and the MXINT8 quantizer of H per 16 columns (a
@@ -77,9 +81,10 @@ __device__ void xa_phase(cg::grid_group& grid, const __nv_bfloat16* x,
                          const MlpArgs& p, Smem& sm) {
   const int Mt = (p.M + MT - 1) / MT;
   const int KS = (K + XA_KC - 1) / XA_KC;
-  for (int item = blockIdx.x; item < Mt * KS; item += gridDim.x)
-    xa_partial_tile<COH>(x, a, p.part, p.M, K, W, item / KS, item % KS, KS,
-                         sm.chunk);
+  const int RC = rank_chunks(W);
+  for (int item = blockIdx.x; item < Mt * KS * RC; item += gridDim.x)
+    xa_partial_tile<COH>(x, a, p.part, p.M, K, W, item / (KS * RC),
+                         item / RC % KS, KS, item % RC, sm.chunk);
   grid.sync();
   // W % 16 == 0, so a 16-column group of a row is one half-warp
   const int total = p.M * W;
@@ -98,14 +103,28 @@ __device__ void xa_phase(cg::grid_group& grid, const __nv_bfloat16* x,
   grid.sync();
 }
 
-// Quantized X·A columns [off, off + W) of rows m0..m0+7 into shared memory.
-__device__ __forceinline__ void load_xa(GemmSmem& sm, const MlpArgs& p,
-                                        int m0, int off, int W) {
-  for (int i = threadIdx.x; i < MT * W; i += NTHREADS) {
-    const int m = i / W, c = i % W, row = m0 + m;
-    sm.xa[m][c] = row < p.M ? __ldcg(p.xa + (size_t)row * p.XS + off + c) : 0.f;
+// q_out of the correction of column n for row m0 + threadIdx.x / TN: the
+// quantized X·A columns [off, off + R) of rows m0..m0+7, staged in shared
+// memory 128 rank columns at a time, times B (R, N). Every thread of the
+// block calls it.
+__device__ __forceinline__ float correction(GemmSmem& sm, const MlpArgs& p,
+                                            int m0, int off,
+                                            const __nv_bfloat16* bmat, int N,
+                                            int n) {
+  const int m = threadIdx.x / TN;
+  float corr = 0.f;
+  for (int r0 = 0; r0 < p.R; r0 += RMAX) {
+    const int rn = min(RMAX, p.R - r0);
+    __syncthreads();   // the previous chunk (or the slice sums) is consumed
+    for (int i = threadIdx.x; i < MT * rn; i += NTHREADS) {
+      const int mm = i / rn, c = i % rn, row = m0 + mm;
+      sm.xa[mm][c] = row < p.M
+          ? __ldcg(p.xa + (size_t)row * p.XS + off + r0 + c) : 0.f;
+    }
+    __syncthreads();
+    corr = correction_chunk(corr, sm.xa[m], bmat, r0, rn, N, n);
   }
-  __syncthreads();
+  return quantize_half_warp(corr, p.out_mb);
 }
 
 __device__ __forceinline__ void zero(float (&acc)[MT][4]) {
@@ -143,10 +162,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
     }
     const int n = nb + col, row = m0 + m;
     if (R > 0) {
-      load_xa(sm.gemm, p, m0, 0, p.WGU);
-      yg += correction(sm.gemm.xa[m], p.b_g, R, p.I, n, p.out_mb);
-      if (p.gated)
-        yu += correction(sm.gemm.xa[m] + R, p.b_u, R, p.I, n, p.out_mb);
+      yg += correction(sm.gemm, p, m0, 0, p.b_g, p.I, n);
+      if (p.gated) yu += correction(sm.gemm, p, m0, R, p.b_u, p.I, n);
     }
     if (p.bias_g != nullptr) yg += __ldg(p.bias_g + n);
     if (p.bias_u != nullptr) yu += __ldg(p.bias_u + n);
@@ -168,10 +185,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
                           nb + (t % CT) * 4, t / CT, acc);
     float y = slice_sum(acc, sm.gemm);
     const int n = nb + col, row = m0 + m;
-    if (R > 0) {
-      load_xa(sm.gemm, p, m0, p.WGU, R);
-      y += correction(sm.gemm.xa[m], p.b_d, R, p.N, n, p.out_mb);
-    }
+    if (R > 0) y += correction(sm.gemm, p, m0, p.WGU, p.b_d, p.N, n);
     if (p.bias_d != nullptr) y += __ldg(p.bias_d + n);
     if (row < p.M) p.out[(size_t)row * p.N + n] = y;
   }
@@ -185,7 +199,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
 // b_d (R, N) bf16 (null when R == 0); biases bias_g, bias_u (I) and bias_d
 // (N) f32 or null; scratch h (ceil(M/8) * 8, I) bf16, part (ceil(M/8),
 // ceil(max(K, I)/256), 8, WGU) f32, xa (ceil(M/8) * 8, WGU + R) f32; out
-// (M, N) f32. R % 16 == 0 and WGU <= 128; K % 16, I % 32 and N % 32 == 0.
+// (M, N) f32. R % 16 == 0 (any such rank); K % 16, I % 32 and N % 32 == 0.
 // act_mb: mantissa bits of the H quantizer; xa_mb / out_mb -1 for no
 // partial-product quantizer.
 LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
@@ -201,7 +215,7 @@ LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bool gated = codes_u != nullptr;
   const int wgu = gated ? 2 * R : R;
-  if (M <= 0 || R % 16 || wgu > RMAX || K % 16 || I % TN || N % TN
+  if (M <= 0 || R < 0 || R % 16 || K % 16 || I % TN || N % TN
       || (!gated && (b_u != nullptr || bias_u != nullptr)))
     return (int)cudaErrorInvalidValue;
   static int resident = 0;   // co-resident blocks on this card

@@ -1,6 +1,9 @@
 // Device code shared by kernel 1 (dequant_gemm.cu) and the MLP megakernel
 // (mlp_fused.cu): the MXINT4/MXINT8 weight-streaming GEMM tile, the X·A
-// partial of one K chunk, and the rank-k correction epilogue.
+// partial of one K chunk, and the rank-k correction epilogue. The rank R
+// (the fused rank of a q|k|v launch, or X·[A_g|A_u]) is a runtime width:
+// X·A and the epilogue walk it in chunks of RMAX columns, the width of the
+// shared-memory tile, so RMAX is a tile width, not a limit.
 //
 // A block of NTHREADS = 256 threads owns an 8-row by 32-column output tile.
 // Layout (lqer_tpu_torch/ops/storage.py): int32 words (K/per, N), one word =
@@ -26,7 +29,7 @@ constexpr int CT = 8;        // column threads, 4 columns each
 constexpr int KSL = 32;      // K slices per block
 constexpr int NTHREADS = CT * KSL;
 constexpr int XA_KC = 256;   // K chunk of the X·A phase
-constexpr int RMAX = 128;    // widest X·A row (fused rank)
+constexpr int RMAX = 128;    // rank columns per X·A / epilogue chunk
 
 // Shared memory of one block: the X·A phase and the GEMM epilogue use it in
 // turn.
@@ -49,20 +52,26 @@ __device__ __forceinline__ T ld(const T* p) {
   else return __ldg(p);
 }
 
+// Rank chunks of a width-R X·A row.
+__host__ __device__ __forceinline__ int rank_chunks(int R) {
+  return (R + RMAX - 1) / RMAX;
+}
+
 // X·A over one K chunk: part[((mt * KS + s) * MT + m) * R + r] for the rows
-// of 8-row tile mt and rank r < R (R <= RMAX), summed over
-// k in [s * XA_KC, (s + 1) * XA_KC). x (M, K) bf16, a (K, R) bf16. Each
-// thread sums whole (row, rank) outputs over the chunk staged in shared
-// memory.
+// of 8-row tile mt and the rank columns r of chunk rc, [rc * RMAX,
+// rc * RMAX + RMAX) ∩ [0, R), summed over k in [s * XA_KC, (s + 1) * XA_KC).
+// x (M, K) bf16, a (K, R) bf16. Each thread sums whole (row, rank) outputs
+// over the chunk staged in shared memory, in k order.
 template <bool COH>
 __device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
                                 const __nv_bfloat16* __restrict__ a,
                                 float* part, int M, int K, int R, int mt,
-                                int s, int KS, XaSmem& sm) {
+                                int s, int KS, int rc, XaSmem& sm) {
   constexpr int HALF = XA_KC / 2;
   constexpr int OUT = MT * RMAX / NTHREADS;   // outputs per thread
   const int t = threadIdx.x;
   const int k0 = s * XA_KC, kn = min(XA_KC, K - k0);
+  const int r0 = rc * RMAX, rn = min(RMAX, R - r0);
   __syncthreads();   // the block's previous use of shared memory is done
   const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
   for (int i = t; i < MT * XA_KC; i += NTHREADS) {
@@ -75,27 +84,31 @@ __device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
 #pragma unroll
   for (int o = 0; o < OUT; ++o) acc[o] = 0.f;
   for (int h = 0; h < kn; h += HALF) {
-    // rows [k0 + h, k0 + h + HALF) of A are one contiguous span
-    const int n = min(HALF, kn - h) * R;
-    const __nv_bfloat16* src = a + (size_t)(k0 + h) * R;
+    // rows [k0 + h, k0 + h + kh) of A, columns [r0, r0 + rn), into a
+    // (kh, rn) tile: 16-byte loads where R % 8 == 0 (then rn % 8 == 0 and
+    // every row segment is 16-byte aligned)
+    const int kh = min(HALF, kn - h);
+    const __nv_bfloat16* src = a + (size_t)(k0 + h) * R + r0;
     __syncthreads();
     if (R % 8 == 0) {
-      for (int i = t; i < n / 8; i += NTHREADS)
-        reinterpret_cast<uint4*>(sm.as)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      const int vr = rn / 8;   // 16-byte vectors per row segment
+      for (int i = t; i < kh * vr; i += NTHREADS)
+        reinterpret_cast<uint4*>(sm.as)[i] = __ldg(
+            reinterpret_cast<const uint4*>(src + (size_t)(i / vr) * R) + i % vr);
     } else {
-      for (int i = t; i < n; i += NTHREADS) sm.as[i] = src[i];
+      for (int i = t; i < kh * rn; i += NTHREADS)
+        sm.as[i] = src[(size_t)(i / rn) * R + i % rn];
     }
     __syncthreads();
-    const int kh = n / R;
 #pragma unroll
     for (int o = 0; o < OUT; ++o) {
       const int idx = o * NTHREADS + t;
-      if (idx < MT * R) {
-        const int m = idx / R, r = idx % R;
+      if (idx < MT * rn) {
+        const int m = idx / rn, r = idx % rn;
         float v = acc[o];
 #pragma unroll 8
         for (int kk = 0; kk < kh; ++kk)
-          v = fmaf(sm.xs[m][h + kk], __bfloat162float(sm.as[kk * R + r]), v);
+          v = fmaf(sm.xs[m][h + kk], __bfloat162float(sm.as[kk * rn + r]), v);
         acc[o] = v;
       }
     }
@@ -103,7 +116,8 @@ __device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
 #pragma unroll
   for (int o = 0; o < OUT; ++o) {
     const int idx = o * NTHREADS + t;
-    if (idx < MT * R) part[((size_t)mt * KS + s) * MT * R + idx] = acc[o];
+    if (idx < MT * rn)
+      part[(((size_t)mt * KS + s) * MT + idx / rn) * R + r0 + idx % rn] = acc[o];
   }
 }
 
@@ -192,15 +206,16 @@ __device__ __forceinline__ float quantize_half_warp(float v, int mb) {
   return mx_value(v, group_exponent(bmax), mb);
 }
 
-// q_out(xa_row · B[:, n]) for the quantized, bf16-rounded X·A row xa
-// (R values) and B (R, N) bf16; the 16-column groups are half-warps.
-__device__ __forceinline__ float correction(const float* xa,
-                                            const __nv_bfloat16* __restrict__ bmat,
-                                            int R, int N, int n, int out_mb) {
-  float corr = 0.f;
-  for (int r = 0; r < R; ++r)
-    corr = fmaf(xa[r], __bfloat162float(bmat[(size_t)r * N + n]), corr);
-  return quantize_half_warp(corr, out_mb);
+// corr + xa_chunk · B[r0 : r0 + rn, n] for rn values of the quantized,
+// bf16-rounded X·A row (rank columns r0..r0+rn-1) and B (R, N) bf16: one
+// rank chunk of the correction, summed in rank order. The caller quantizes
+// the whole sum per 16 columns (quantize_half_warp) after the last chunk.
+__device__ __forceinline__ float correction_chunk(float corr, const float* xa,
+                                const __nv_bfloat16* __restrict__ bmat,
+                                int r0, int rn, int N, int n) {
+  for (int r = 0; r < rn; ++r)
+    corr = fmaf(xa[r], __bfloat162float(bmat[(size_t)(r0 + r) * N + n]), corr);
+  return corr;
 }
 
 }  // namespace lqer

@@ -3,6 +3,9 @@
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 from . import llama as llama_mod
 from . import opt as opt_mod
 from .config_expand import (
@@ -15,7 +18,53 @@ from .config_expand import (
 from .llama import LlamaConfig
 from .opt import OPTConfig
 
-ARCH_MODULES = {"opt": opt_mod, "llama": llama_mod}
+ARCH_MODULES = {"opt": opt_mod, "llama": llama_mod, "mistral": llama_mod}
+
+
+def _llama(**kw) -> Callable:
+    return lambda: LlamaConfig(**kw)
+
+
+_LLAMA_13B = _llama(hidden_size=5120, intermediate_size=13824,
+                    num_hidden_layers=40, num_attention_heads=40)
+
+# model name -> config factory: the JAX package's registry
+# (``lqer_tpu/models/__init__.py``), OPT's kept in ``opt.MODEL_CONFIGS``
+MODEL_CONFIGS: dict[str, Callable] = {
+    **opt_mod.MODEL_CONFIGS,
+    "huggyllama/llama-7b": LlamaConfig.llama_7b,
+    "huggyllama/llama-13b": _LLAMA_13B,
+    "huggyllama/llama-30b": _llama(
+        hidden_size=6656, intermediate_size=17920, num_hidden_layers=60,
+        num_attention_heads=52),
+    "huggyllama/llama-65b": _llama(
+        hidden_size=8192, intermediate_size=22016, num_hidden_layers=80,
+        num_attention_heads=64),
+    "TinyLlama/TinyLlama-1.1B-Chat-v1.0": _llama(
+        hidden_size=2048, intermediate_size=5632, num_hidden_layers=22,
+        num_attention_heads=32, num_key_value_heads=4,
+        max_position_embeddings=2048, rms_norm_eps=1e-5),
+    "meta-llama/Llama-2-7b-hf": LlamaConfig.llama_7b,
+    "meta-llama/Llama-2-13b-hf": _LLAMA_13B,
+    "meta-llama/Llama-2-70b-hf": _llama(
+        hidden_size=8192, intermediate_size=28672, num_hidden_layers=80,
+        num_attention_heads=64, num_key_value_heads=8,
+        max_position_embeddings=4096, rms_norm_eps=1e-5),
+    "lmsys/vicuna-7b-v1.5": LlamaConfig.llama_7b,
+    "lmsys/vicuna-13b-v1.5": _LLAMA_13B,
+    "mistralai/Mistral-7B-v0.1": LlamaConfig.mistral_7b,
+    # the reference's Mistral template serves the OpenOrca fine-tune: the
+    # same architecture, two more tokens
+    "Open-Orca/Mistral-7B-OpenOrca": lambda: dataclasses.replace(
+        LlamaConfig.mistral_7b(), vocab_size=32002),
+}
+
+
+def get_model_config(model_name: str):
+    if model_name in MODEL_CONFIGS:
+        return MODEL_CONFIGS[model_name]()
+    raise ValueError(
+        f"Unknown model {model_name!r}. Known: {sorted(MODEL_CONFIGS)}")
 
 
 def get_arch_module(cfg):
@@ -51,6 +100,7 @@ def quantize_model(cfg, q_config: dict | None, l_config: dict | None):
                                  cfg.arch)
 
 
-__all__ = ["LlamaConfig", "OPTConfig", "OPT_ATTN_PROJS", "OPT_MLP_PROJS",
-           "get_arch_module", "quantize_model",
+__all__ = ["LlamaConfig", "MODEL_CONFIGS", "OPTConfig", "OPT_ATTN_PROJS",
+           "OPT_MLP_PROJS", "get_arch_module", "get_model_config",
+           "quantize_model",
            "quantizable_module_prefixes"]

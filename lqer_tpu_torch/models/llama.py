@@ -1,6 +1,7 @@
-"""Llama-family configuration and parameter stacking (port of the parts
-of ``lqer_tpu/models/llama.py`` the serving path uses). Params are a flat
-``{hf_name: tensor}`` dict (``model.layers.N.self_attn.q_proj.weight``...)."""
+"""Llama-family configuration (Llama and Mistral) and parameter stacking
+(port of the parts of ``lqer_tpu/models/llama.py`` the serving path uses).
+Params are a flat ``{hf_name: tensor}`` dict
+(``model.layers.N.self_attn.q_proj.weight``...)."""
 
 from __future__ import annotations
 
@@ -44,6 +45,16 @@ class LlamaConfig:
     @staticmethod
     def llama_7b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def mistral_7b() -> "LlamaConfig":
+        """Mistral-7B-v0.1: GQA (8 kv heads), a sliding window as long as
+        its positions."""
+        return LlamaConfig(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32,
+            num_key_value_heads=8, max_position_embeddings=4096,
+            rms_norm_eps=1e-5, sliding_window=4096, arch="mistral")
 
 
 def layer_prefix(i: int) -> str:

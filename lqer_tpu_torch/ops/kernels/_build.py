@@ -46,12 +46,12 @@ ENTRIES = {
     "mlp_fused": ("mlp_fused", "lqer_mlp_fused", [P] * 19 + [I] * 8),
     "decode_attention_quantized": (
         "decode_attention_quantized", "lqer_decode_attention_quantized",
-        [P] * 9 + [I] * 6 + [F, I, I]),
+        [P] * 9 + [I] * 6 + [F, I, I, I]),
     "decode_attention_fp": ("decode_attention_fp", "lqer_decode_attention_fp",
-                            [P] * 5 + [I] * 5 + [F] + [I] * 4),
+                            [P] * 5 + [I] * 5 + [F] + [I] * 5),
     "decode_attention_streaming": (
         "decode_attention_streaming", "lqer_decode_attention_streaming",
-        [P] * 18 + [I] * 7 + [F, I, I]),
+        [P] * 18 + [I] * 7 + [F, I, I, I]),
     "encode_write_tokens": ("cache_write", "lqer_encode_write_tokens",
                             [P] * 7 + [I] * 5),
 }

@@ -58,6 +58,29 @@ def scaled_query(q: torch.Tensor, scaling: float, scale_query: bool):
     return (qf * scaling, 1.0) if scale_query else (qf, scaling)
 
 
+def key_mask(length: int, positions: torch.Tensor, window: int | None
+             ) -> torch.Tensor:
+    """(..., length) keys each query at ``positions`` (B,) or (B, S) sees:
+    ``j <= pos`` and, under a sliding window (Mistral), ``j > pos -
+    window``: the TPU kernels' ``kv_idx`` mask."""
+    j = torch.arange(length, device=positions.device)
+    pos = positions.to(torch.int64)[..., None]
+    ok = j <= pos
+    if window is not None:
+        ok = ok & (j > pos - window)
+    return ok
+
+
+def window_arg(window: int | None) -> int:
+    """The kernels' window argument: the window in tokens, -1 for none."""
+    if window is None:
+        return -1
+    if int(window) < 1:
+        raise ValueError(f"a sliding window holds at least one key "
+                         f"(window={window})")
+    return int(window)
+
+
 def _decode_cache_block(codes: torch.Tensor, exps: torch.Tensor,
                         group: int = 16) -> torch.Tensor:
     """Token-axis-last MXINT codes + exps (…, d/g, N) → f32 values

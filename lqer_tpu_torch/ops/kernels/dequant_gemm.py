@@ -33,7 +33,14 @@ from ..storage import MXINT4, MXFormat, dequantize_packed, pack_weight, quantize
 from . import _build
 
 XA_KC = 256       # K chunk of the kernel's X·A phase (its scratch rows)
-MAX_RANK = 128    # largest (fused) rank the kernel's shared memory holds
+RANK_TILE = 128   # rank columns per chunk of the kernel's X·A and epilogue
+
+
+def rank_supported(r: int) -> bool:
+    """The ranks the kernel takes: any multiple of 16 (chunks of
+    :data:`RANK_TILE` hold whole q_xa groups), or any width up to
+    :data:`RANK_TILE` (one whole-row group)."""
+    return r >= 0 and (r % 16 == 0 or r <= RANK_TILE)
 
 
 def _quantize_rows_mx(x: torch.Tensor, mb: int, group: int = 16
@@ -188,7 +195,7 @@ def qlinear_w4_fused(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
     N = prep["codes"].shape[-1]
     a, b, bias = prep.get("a"), prep.get("b"), prep.get("bias")
     R = 0 if a is None else a.shape[-1]
-    if K % 16 or N % 32 or R > MAX_RANK or fmt.width not in (4, 8):
+    if K % 16 or N % 32 or not rank_supported(R) or fmt.width not in (4, 8):
         raise ValueError(f"unsupported dequant-GEMM shape K={K} N={N} R={R} "
                          f"width={fmt.width}")
     _check_cuda("codes", prep["codes"], torch.int32, (K // per, N))

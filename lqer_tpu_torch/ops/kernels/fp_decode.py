@@ -11,7 +11,9 @@ each d column (a group's exponent depends on all 16 cached rows, those past
 the query's position included), p per 16 tokens (unsigned), V per token in
 16-wide d groups. Scores scale after the dot (or, with ``scale_query``,
 q before its quantizer: ``decode_attention.scaled_query``); columns past the
-position are masked. One layer per call, read in place from the layer-stacked cache
+position are masked, and under a sliding window (``window``, Mistral) the
+columns at or below ``pos - window`` too (``decode_attention.key_mask``).
+One layer per call, read in place from the layer-stacked cache
 ``(NL, B, KVH, L, d)`` at ``layer_index``.
 """
 
@@ -24,7 +26,9 @@ from .attention import attend_plain
 from .decode_attention import (
     SMEM_LIMIT,
     _quantize_sublane_groups_signed,
+    key_mask,
     scaled_query,
+    window_arg,
 )
 
 K_TILE = 128            # tokens of K the kernel quantizes per pass
@@ -81,7 +85,7 @@ def _mb(width: int | None) -> int:
 def fp_scores(q, k_cache, v_cache, positions, layer_index: int, *,
               scaling: float, group: int = 16, q_width: int | None = 8,
               k_width: int | None = 8, v_width: int | None = 8,
-              scale_query: bool = False):
+              scale_query: bool = False, window: int | None = None):
     """Masked scores (B, H, 1, L) and quantized values (B, H, L, d) of one
     layer."""
     B, H, _, d = q.shape
@@ -99,8 +103,7 @@ def fp_scores(q, k_cache, v_cache, positions, layer_index: int, *,
         v = _quantize_sublane_groups_signed(v, v_width - 1, group)
     k, v = (t.repeat_interleave(n_rep, dim=1) for t in (k, v))
     s = torch.matmul(qs[:, :, None, :], k.transpose(-1, -2)) * score_scale
-    j = torch.arange(k.shape[2], device=q.device)
-    ok = j[None, :] <= positions[:, None]
+    ok = key_mask(k.shape[2], positions, window)
     return torch.where(ok[:, None, None, :], s, float("-inf")), v
 
 
@@ -108,11 +111,12 @@ def fp_decode_plain(q, k_cache, v_cache, positions, layer_index: int, *,
                     scaling: float, group: int = 16,
                     q_width: int | None = 8, k_width: int | None = 8,
                     p_width: int | None = 8, v_width: int | None = 8,
-                    scale_query: bool = False) -> torch.Tensor:
+                    scale_query: bool = False,
+                    window: int | None = None) -> torch.Tensor:
     s, v = fp_scores(q, k_cache, v_cache, positions, layer_index,
                      scaling=scaling, group=group, q_width=q_width,
                      k_width=k_width, v_width=v_width,
-                     scale_query=scale_query)
+                     scale_query=scale_query, window=window)
     return attend_plain(s, v, p_width, group)
 
 
@@ -120,12 +124,14 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
                         scaling: float, group: int = 16,
                         q_width: int | None = 8, k_width: int | None = 8,
                         p_width: int | None = 8, v_width: int | None = 8,
-                        scale_query: bool = False) -> torch.Tensor:
+                        scale_query: bool = False,
+                        window: int | None = None) -> torch.Tensor:
     """One layer of decode attention over the fp cache.
 
     q (B, H, 1, d) raw queries (rope applied); k_cache, v_cache
     (NL, B, KVH, L, d), read at ``layer_index``; positions (B,);
-    ``scale_query`` as ``decode_attention.scaled_query``. Returns
+    ``scale_query`` as ``decode_attention.scaled_query``; ``window`` the
+    sliding window in tokens (None: none). Returns
     (B, H, 1, d) f32. CPU tensors run :func:`fp_decode_plain`; CUDA tensors
     launch ``csrc/decode_attention_fp.cu``."""
     B, H, S, d = q.shape
@@ -133,8 +139,10 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
     if S != 1 or dc != d or group != 16 or L % group:
         raise ValueError(f"fp decode attention needs s=1, d={d} and L % 16 "
                          f"== 0 (s={S}, cache {tuple(k_cache.shape)})")
+    win = window_arg(window)
     kw = dict(scaling=scaling, group=group, q_width=q_width, k_width=k_width,
-              p_width=p_width, v_width=v_width, scale_query=scale_query)
+              p_width=p_width, v_width=v_width, scale_query=scale_query,
+              window=window)
     if q.device.type == "cpu":
         return fp_decode_plain(q, k_cache, v_cache, positions, layer_index,
                                **kw)
@@ -157,7 +165,7 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
                   k_cache[layer_index].data_ptr(),
                   v_cache[layer_index].data_ptr(), pos.data_ptr(),
                   out.data_ptr(), B, KVH, H // KVH, d, L, float(scaling),
-                  _mb(q_width), _mb(k_width), _mb(p_width), _mb(v_width))
+                  _mb(q_width), _mb(k_width), _mb(p_width), _mb(v_width), win)
     decode_attention_fp.launches += 1
     return out
 

@@ -166,7 +166,7 @@ def _launch(x_q: torch.Tensor, prep: dict, fmt: MXFormat, act_width,
     R = 0 if prep.get("a_gu") is None else prep["b_g"].shape[0]
     wgu = 2 * R if gated else R
     if (M < 1 or K % 16 or I % 32 or N % 32
-            or R not in (0, 32) or fmt.width != 4):
+            or R % 16 or fmt.width != 4):
         raise ValueError(f"unsupported megakernel shape M={M} K={K} I={I} "
                          f"N={N} R={R} width={fmt.width}")
     if act_width is None or act_width > 9:

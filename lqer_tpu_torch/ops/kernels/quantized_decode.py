@@ -11,8 +11,10 @@ width 8 or 4) and ``decode_attention_quantized_write`` (body
 
 Quantize once at write: the cache's MXINT values are the QK^T and P·V
 operands; only q (per 16 along d) and p (per 16 tokens) quantize at use
-time. One layer per call, read in place from the layer-stacked cache at
-``layer_index``. The write variant MXINT8-encodes the fresh K/V rows into
+time. Under a sliding window (``window``, Mistral) the columns at or below
+``pos - window`` are masked beside those past ``pos``
+(``decode_attention.key_mask``). One layer per call, read in place from the
+layer-stacked cache at ``layer_index``. The write variant MXINT8-encodes the fresh K/V rows into
 column ``positions[b]`` of that layer in place (where the JAX kernel
 aliases the cache to its outputs), then attends over ``[0, pos]`` with the
 fresh column: bitwise the write followed by the read-only kernel.
@@ -29,7 +31,9 @@ from .decode_attention import (
     SMEM_LIMIT,
     _decode_cache_block,
     _quantize_sublane_groups_signed,
+    key_mask,
     scaled_query,
+    window_arg,
 )
 from .fp_decode import _mb, decode_attention_widths
 
@@ -49,7 +53,8 @@ def decode_attention_widths_quantized(attn_cfg) -> dict:
 
 def quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
                      layer_index: int, *, scaling: float, group: int = 16,
-                     q_width: int | None = 8, scale_query: bool = False):
+                     q_width: int | None = 8, scale_query: bool = False,
+                     window: int | None = None):
     """Masked scores (B, H, 1, L) and decoded values (B, H, L, d) of one
     layer."""
     B, H, _, d = q.shape
@@ -62,8 +67,7 @@ def quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
     if q_width is not None:
         qs = _quantize_sublane_groups_signed(qs, q_width - 1, group)
     s = torch.matmul(qs[:, :, None, :], k) * score_scale
-    j = torch.arange(k.shape[-1], device=q.device)
-    ok = j[None, :] <= positions[:, None]
+    ok = key_mask(k.shape[-1], positions, window)
     return (torch.where(ok[:, None, None, :], s, float("-inf")),
             v.transpose(-1, -2))
 
@@ -72,10 +76,12 @@ def quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps, positions,
                            layer_index: int, *, scaling: float,
                            group: int = 16, q_width: int | None = 8,
                            p_width: int | None = 8,
-                           scale_query: bool = False) -> torch.Tensor:
+                           scale_query: bool = False,
+                           window: int | None = None) -> torch.Tensor:
     s, v = quantized_scores(q, k_codes, k_exps, v_codes, v_exps, positions,
                             layer_index, scaling=scaling, group=group,
-                            q_width=q_width, scale_query=scale_query)
+                            q_width=q_width, scale_query=scale_query,
+                            window=window)
     return attend_plain(s, v, p_width, group)
 
 
@@ -83,13 +89,15 @@ def quantized_write_plain(q, k_codes, k_exps, v_codes, v_exps, kh, vh,
                           positions, layer_index: int, *, scaling: float,
                           group: int = 16, q_width: int | None = 8,
                           p_width: int | None = 8,
-                          scale_query: bool = False) -> torch.Tensor:
+                          scale_query: bool = False,
+                          window: int | None = None) -> torch.Tensor:
     encode_write_plain((k_codes, k_exps, v_codes, v_exps), kh, vh,
                        layer_index, positions, group)
     return quantized_decode_plain(q, k_codes, k_exps, v_codes, v_exps,
                                   positions, layer_index, scaling=scaling,
                                   group=group, q_width=q_width,
-                                  p_width=p_width, scale_query=scale_query)
+                                  p_width=p_width, scale_query=scale_query,
+                                  window=window)
 
 
 def _check_cache(q, k_codes, k_exps, v_codes, v_exps, group) -> int:
@@ -123,7 +131,7 @@ def _check_cuda(q, arrays, layer_index):
 
 
 def _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
-            q_width, p_width, scale_query) -> torch.Tensor:
+            q_width, p_width, scale_query, window) -> torch.Tensor:
     B, H, _, d = q.shape
     KVH, L = arrays[0].shape[2], arrays[0].shape[-1]
     qf, scaling = scaled_query(q, scaling, scale_query)
@@ -136,7 +144,8 @@ def _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
                   *(a[layer_index].data_ptr() for a in arrays),
                   *(_build.ptr(t) for t in new), pos.data_ptr(),
                   out.data_ptr(), B, KVH, H // KVH, d, L, width,
-                  float(scaling), _mb(q_width), _mb(p_width))
+                  float(scaling), _mb(q_width), _mb(p_width),
+                  window_arg(window))
     return out
 
 
@@ -144,25 +153,28 @@ def decode_attention_quantized(q, k_codes, k_exps, v_codes, v_exps,
                                positions, layer_index: int, *, scaling: float,
                                group: int = 16, q_width: int | None = 8,
                                p_width: int | None = 8,
-                               scale_query: bool = False) -> torch.Tensor:
+                               scale_query: bool = False,
+                               window: int | None = None) -> torch.Tensor:
     """One layer of decode attention over the MXINT8 or MXINT4 cache.
 
     q (B, H, 1, d) raw queries (rope applied); codes (NL, B, KVH, d, L) or
     (NL, B, KVH, d/2, L) and exps (NL, B, KVH, d/16, L) int8, read at
     ``layer_index``; positions (B,); ``scale_query`` as
-    ``decode_attention.scaled_query``. Returns (B, H, 1, d) f32. CPU tensors
+    ``decode_attention.scaled_query``; ``window`` the sliding window in
+    tokens (None: none). Returns (B, H, 1, d) f32. CPU tensors
     run :func:`quantized_decode_plain`; CUDA tensors launch
     ``csrc/decode_attention_quantized.cu``."""
     width = _check_cache(q, k_codes, k_exps, v_codes, v_exps, group)
     arrays = (k_codes, k_exps, v_codes, v_exps)
+    window_arg(window)
     kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width,
-              scale_query=scale_query)
+              scale_query=scale_query, window=window)
     if q.device.type == "cpu":
         return quantized_decode_plain(q, *arrays, positions, layer_index,
                                       **kw)
     _check_cuda(q, arrays, layer_index)
     out = _launch(q, arrays, None, None, positions, layer_index, width,
-                  scaling, q_width, p_width, scale_query)
+                  scaling, q_width, p_width, scale_query, window)
     decode_attention_quantized.launches += 1
     return out
 
@@ -172,7 +184,8 @@ def decode_attention_quantized_write(q, k_codes, k_exps, v_codes, v_exps, kh,
                                      scaling: float, group: int = 16,
                                      q_width: int | None = 8,
                                      p_width: int | None = 8,
-                                     scale_query: bool = False
+                                     scale_query: bool = False,
+                                     window: int | None = None
                                      ) -> torch.Tensor:
     """:func:`decode_attention_quantized` over the MXINT8 cache, with the
     fresh rows kh, vh (B, KVH, 1, d) encoded into column ``positions[b]``
@@ -184,14 +197,15 @@ def decode_attention_quantized_write(q, k_codes, k_exps, v_codes, v_exps, kh,
         raise ValueError(f"the fused write takes the MXINT8 cache and rows "
                          f"(B, KVH, 1, d) (width {width}, rows "
                          f"{tuple(kh.shape)})")
+    window_arg(window)
     kw = dict(scaling=scaling, group=group, q_width=q_width, p_width=p_width,
-              scale_query=scale_query)
+              scale_query=scale_query, window=window)
     if q.device.type == "cpu":
         return quantized_write_plain(q, *arrays, kh, vh, positions,
                                      layer_index, **kw)
     _check_cuda(q, arrays, layer_index)
     out = _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
-                  q_width, p_width, scale_query)
+                  q_width, p_width, scale_query, window)
     decode_attention_quantized_write.launches += 1
     return out
 

@@ -6,7 +6,9 @@ and ``_out_kernel``, codes of width 8 or 4, layer-stacked with
 ``layer_index``) and ``decode_attention_quantized_streaming_staged`` (bodies
 ``_stats_kernel_staged`` and ``_out_kernel_staged``, width 8) of
 ``lqer_tpu/ops/pallas/decode_attention.py``. Both run the CUDA kernels of
-``csrc/decode_attention_streaming.cu``.
+``csrc/decode_attention_streaming.cu``. The direct-write entry takes a
+sliding window (``window``, Mistral) as the one-pass kernels do; the staged
+one takes none, as in the JAX package.
 
 They compute the one-pass kernels' functions, so their plain versions are
 those kernels' own: :func:`~.quantized_decode.quantized_decode_plain` for
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import scaled_query, staged_decode_plain
+from .decode_attention import scaled_query, staged_decode_plain, window_arg
 from .fp_decode import _mb
 from .quantized_decode import _check_cache, quantized_decode_plain
 
@@ -30,7 +32,7 @@ CHUNK = 512  # tokens per block of the CUDA kernels (csrc: CHUNK)
 
 
 def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
-            q_width, p_width, scale_query) -> torch.Tensor:
+            q_width, p_width, scale_query, window=None) -> torch.Tensor:
     """``main``: the layer's four (B, KVH, rows, L) arrays; ``ring``: the
     four (B, KVH, rows, SW) rings, or None for the direct-write cache."""
     B, H, _, d = q.shape
@@ -64,36 +66,39 @@ def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
                   _build.ptr(fl), scores.data_ptr(), st_m.data_ptr(),
                   st_l.data_ptr(), part.data_ptr(), out.data_ptr(), B, KVH,
                   nrep, d, L, SW, width, float(scaling), _mb(q_width),
-                  _mb(p_width))
+                  _mb(p_width), window_arg(window))
     return out
 
 
 def decode_attention_quantized_streaming(
         q, k_codes, k_exps, v_codes, v_exps, positions, layer_index: int, *,
         scaling: float, group: int = 16, q_width: int | None = 8,
-        p_width: int | None = 8, scale_query: bool = False) -> torch.Tensor:
+        p_width: int | None = 8, scale_query: bool = False,
+        window: int | None = None) -> torch.Tensor:
     """One layer of decode attention over the MXINT8 or MXINT4 cache, split
     along L for the card.
 
     q (B, H, 1, d) raw queries (rope applied); codes (NL, B, KVH, d, L) or
     (NL, B, KVH, d/2, L) and exps (NL, B, KVH, d/16, L) int8, read at
     ``layer_index``; positions (B,); ``scale_query`` as
-    :func:`~.decode_attention.scaled_query`. Returns (B, H, 1, d) f32. CPU
+    :func:`~.decode_attention.scaled_query`; ``window`` the sliding window
+    in tokens (None: none). Returns (B, H, 1, d) f32. CPU
     tensors run :func:`~.quantized_decode.quantized_decode_plain`; CUDA tensors
     launch ``csrc/decode_attention_streaming.cu``."""
     width = _check_cache(q, k_codes, k_exps, v_codes, v_exps, group)
     arrays = (k_codes, k_exps, v_codes, v_exps)
+    window_arg(window)
     if q.device.type == "cpu":
         return quantized_decode_plain(q, *arrays, positions, layer_index,
                                       scaling=scaling, group=group,
                                       q_width=q_width, p_width=p_width,
-                                      scale_query=scale_query)
+                                      scale_query=scale_query, window=window)
     if not q.is_cuda or not 0 <= layer_index < k_codes.shape[0]:
         raise ValueError(f"unsupported device {q.device} or layer "
                          f"{layer_index} of {k_codes.shape[0]}")
     out = _launch(q, [a[layer_index] for a in arrays], None, None, None,
                   positions, None, width, scaling, q_width, p_width,
-                  scale_query)
+                  scale_query, window)
     decode_attention_quantized_streaming.launches += 1
     return out
 

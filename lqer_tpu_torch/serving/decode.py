@@ -15,8 +15,13 @@ instead of rotary, LayerNorm before (or, post-LN, after) each block, the
 query scaled before its quantizer (``scale_query``), biases on every
 linear and the relu variant of the megakernel. At admission, attention is
 the prefill kernel and the new rows are written into the cache in plain
-PyTorch (the JAX package's XLA update). At s = 1 the route follows the
-cache (``make_cache``):
+PyTorch (the JAX package's XLA update). Under a sliding window (Mistral,
+``cfg.sliding_window``) an admission writes the cache first, then attends
+over the layer's decoded cache with the eager :func:`_attend` and the
+additive :func:`_cache_mask`, as the JAX package does (its prefill kernel
+takes no window); this plain PyTorch attention has no TPU kernel behind it.
+At s = 1 the route follows the cache (``make_cache``), each decode kernel
+taking the window:
 
 - ``mxint8-staged``: the staged decode kernel writes the fresh token into
   the ring and attends; a step first flushes the rings into the main cache
@@ -47,6 +52,7 @@ ported kernel raise ``NotImplementedError`` before any work.
 from __future__ import annotations
 
 import functools
+import logging
 
 import torch
 from torch.nn.functional import relu, silu
@@ -75,6 +81,7 @@ from ..ops.kernels.cache_write import (
 from ..ops.kernels.decode_attention import (
     SMEM_LIMIT,
     decode_attention_quantized_staged,
+    key_mask,
 )
 from ..ops.kernels.fp_decode import (
     decode_attention_fp,
@@ -91,6 +98,7 @@ from ..ops.kernels.streaming_decode import (
     decode_attention_quantized_streaming_staged,
 )
 from ..ops.kernels.dequant_gemm import qlinear_w4_dense_largeM, qlinear_w4_fused
+from ..ops.qlinear import resolve_qmatmul
 from ..parallel.collectives import mx4_decode, mx4_encode, mx8_decode, mx8_encode
 from .kernel_backend import (
     _LARGEM_THRESHOLD,
@@ -114,6 +122,9 @@ from .kv_cache import (
 FLUSH_RESIDUE = 48  # flush once a ring holds 48 tokens: < 64 lanes always
 CACHE_DTYPES = ("bfloat16", "float32", "mxint8", "mxint8-staged", "mxint4",
                 "mxint4-staged")
+CARD_HEAD_DIMS = (64, 128)  # the head dims the card's attention kernels take
+
+logger = logging.getLogger(__name__)
 
 # one (cos, sin) table pair per (head_dim, length, theta, device)
 _rotary = functools.lru_cache(maxsize=8)(rotary_tables)
@@ -204,18 +215,26 @@ def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
 def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                device="cuda") -> dict:
     """The JAX package's ``make_cache``: ``"bfloat16"`` (the default;
-    ``torch.bfloat16`` too), ``"mxint8"``, ``"mxint8-staged"`` (the
-    direct-write ``"mxint8"`` where ``max_len % 128 != 0``, as in JAX) and
-    ``"mxint4"``. ``"float32"``, a staged ``"mxint4-staged"``, sliding
-    windows and lengths the kernels do not serve raise
+    ``torch.bfloat16`` too), ``"mxint8"``, ``"mxint8-staged"`` and
+    ``"mxint4"``. As in JAX, a staged name under a sliding window (or where
+    ``max_len % 128 != 0``) gives the direct-write cache of its width, and
+    the MXINT4 caches need ``head_dim % 32 == 0``. ``"float32"``, a staged
+    MXINT4 cache and lengths the kernels do not serve raise
     ``NotImplementedError``."""
     name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}.get(dtype,
                                                                       dtype)
     if name not in CACHE_DTYPES:
         raise ValueError(f"unknown cache dtype {dtype!r} ({CACHE_DTYPES})")
-    if getattr(cfg, "sliding_window", None) is not None:
-        raise NotImplementedError("sliding-window attention is not ported")
-    staged = name.endswith("-staged") and max_len % 128 == 0
+    window = getattr(cfg, "sliding_window", None)
+    if name.startswith("mxint4") and cfg.head_dim % 32:
+        raise ValueError(f"the MXINT4 cache needs head_dim % 32 == 0 "
+                         f"(head_dim {cfg.head_dim})")
+    staged = name.endswith("-staged") and window is None \
+        and max_len % 128 == 0
+    if name.endswith("-staged") and not staged:
+        logger.info("%s ineligible (window=%s, max_len=%d): using the "
+                    "direct-write %s cache", name, window, max_len,
+                    name.removesuffix("-staged"))
     if name == "mxint4-staged" and staged:
         raise NotImplementedError(
             "the staged MXINT4 cache is not ported (JAX: "
@@ -231,6 +250,32 @@ def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                                    device=device)
 
 
+def _cache_mask(q_abs: torch.Tensor, max_len: int, dtype,
+                window: int | None = None) -> torch.Tensor:
+    """(b, 1, s, max_len) additive mask of the eager attention: 0 where the
+    query at absolute position p sees cache slot j (the decode kernels'
+    ``key_mask``), else ``finfo(dtype).min`` in the stream
+    dtype, as the JAX package builds it (its softmax and P quantizer then
+    see the same values)."""
+    ok = key_mask(max_len, q_abs, window)
+    zero = torch.zeros((), dtype=dtype, device=q_abs.device)
+    low = torch.full((), torch.finfo(dtype).min, dtype=dtype,
+                     device=q_abs.device)
+    return torch.where(ok, zero, low)[:, None, :, :]
+
+
+def _cache_layer_views(cache: dict, li: int):
+    """Decoded ``(k_l, v_l)`` bf16 (B, KVH, L, d) of layer ``li`` for the
+    eager attention: the fp cache's own rows, or an MXINT cache's decode."""
+    if not is_quantized_cache(cache):
+        return cache["k"][li], cache["v"][li]
+    group = cache_group(cache)
+    dec = mx4_decode if cache_code_width(cache) == 4 else mx8_decode
+    return tuple(dec(cache[f"{side}_codes"][li].transpose(-1, -2),
+                     cache[f"{side}_exps"][li].transpose(-1, -2), group,
+                     torch.bfloat16) for side in ("k", "v"))
+
+
 def _kv_config_is_cache_format(attn_cfg, width: int) -> bool:
     """The K/V-side operand quantizers coincide with the MXINT cache's
     write grid (only then does the cache format stand in for them)."""
@@ -242,15 +287,81 @@ def _kv_config_is_cache_format(attn_cfg, width: int) -> bool:
     return all(_std_a8(c) and c.get("width") == width for c in (kx, vx))
 
 
-def check_servable(cache: dict, attn_cfgs, head_dim: int, n_rep: int
-                   ) -> None:
+def _kv_skip_matmuls(attn_cfg):
+    """The matmuls over an MXINT cache whose format is the K/V operands'
+    (quantize once at write): the K/V-side quantizer passes through, q and
+    p quantize as configured."""
+    def strip(cfg):
+        return None if cfg is None else {**cfg,
+                                         "w_quantizer": {"name": "passthrough"}}
+
+    return (resolve_qmatmul(strip(attn_cfg.qk_cfg)),
+            resolve_qmatmul(strip(attn_cfg.pv_cfg)))
+
+
+def _attend(qh, k_l, v_l, mask, attn_cfg, scaling, n_rep, scale_query=False,
+            kv_pre_quantized=False, cache_width=8):
+    """Eager cache attention (the JAX package's ``serving/decode.py::
+    _attend``), in plain PyTorch: quantized matmuls on (b·h, ...) operands,
+    so quantizer groups never span heads; K^T quantizes in groups of 16
+    tokens over the whole ``max_len``, whose invalid slots are zero; with
+    ``kv_pre_quantized`` (an MXINT cache whose format is the configured
+    K/V one) the K/V-side quantizers pass through. Scores scale in q's
+    dtype (the scalar rounded to it first, as JAX's weakly typed one), the
+    additive ``mask`` is added, the softmax runs in f32 and the
+    probabilities return to q's dtype. (b, h, s, d) in and out."""
+    if kv_pre_quantized and _kv_config_is_cache_format(attn_cfg,
+                                                       cache_width):
+        qk_matmul, pv_matmul = _kv_skip_matmuls(attn_cfg)
+    else:
+        qk_matmul, pv_matmul = attn_cfg.qk_matmul, attn_cfg.pv_matmul
+    k_full = repeat_kv(k_l, n_rep)
+    v_full = repeat_kv(v_l, n_rep)
+    b, h, s, d = qh.shape
+    kv_len = k_full.shape[2]
+    q3 = qh.reshape(b * h, s, d)
+    k3 = k_full.reshape(b * h, kv_len, d)
+    v3 = v_full.reshape(b * h, kv_len, d)
+    if scale_query:
+        q3 = q3 * torch.tensor(scaling, dtype=q3.dtype)
+        scores = qk_matmul(q3, k3.transpose(-1, -2))
+    else:
+        scores = qk_matmul(q3, k3.transpose(-1, -2))
+        scores = scores * torch.tensor(scaling, dtype=scores.dtype)
+    scores = scores.reshape(b, h, s, kv_len) + mask
+    scores = scores.clamp_min(torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(qh.dtype)
+    out = pv_matmul(probs.reshape(b * h, s, kv_len), v3)
+    return out.reshape(b, h, s, d)
+
+
+def check_card_shapes(head_dim: int, device_type: str) -> None:
+    """On the card (``device_type == "cuda"``), raise
+    ``NotImplementedError`` for a head dim its attention kernels do not
+    take (they are built for :data:`CARD_HEAD_DIMS`), before any work. The
+    JAX kernels take any multiple of 16, and so do the plain versions that
+    serve CPU tensors. (The MXINT4 caches' ``head_dim % 32`` is
+    ``make_cache``'s, on every device.)"""
+    if device_type == "cuda" and head_dim not in CARD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"head_dim {head_dim}: the card's attention kernels take "
+            f"{CARD_HEAD_DIMS} (csrc/decode_common.cuh, csrc/attention.cu); "
+            "a head dim template over the multiples of 16 is not built yet")
+
+
+def check_servable(cache: dict, attn_cfgs, head_dim: int, n_rep: int,
+                   window: int | None = None) -> None:
     """Raise ``NotImplementedError`` unless every admission and decode step
     over ``cache`` with these attention configs runs through a ported
-    kernel: the JAX package's eager attention (``serving/decode.py::
-    _attend``) is not ported, nor is a streaming fp-cache kernel."""
+    path: a decode kernel at every step, and an admission through the
+    prefill kernel, or under a sliding window the eager :func:`_attend`
+    (as in the JAX package, whose prefill kernel takes no window). A cache
+    on the card also needs a head dim its kernels take
+    (:func:`check_card_shapes`)."""
     kind = _cache_kind(cache)
     max_len = cache_max_len(cache)
     _check_cache_regime(kind, max_len, head_dim)
+    check_card_shapes(head_dim, next(iter(cache.values())).device.type)
     quantized = is_quantized_cache(cache)
     width = cache_code_width(cache) if quantized else 8
     smem = fp_decode.smem_bytes(n_rep, max_len, head_dim)
@@ -269,15 +380,18 @@ def check_servable(cache: dict, attn_cfgs, head_dim: int, n_rep: int
                 f"decode attention of this configuration over the {kind} "
                 "cache takes the JAX package's eager path (serving/decode.py"
                 "::_attend; the kernels need the MXINT attention formats "
-                f"with K/V at the cache's width {width}), which is not "
-                "ported")
-        if not supports_fused_attention(attn_cfg, kv_pre_quantized=quantized) \
+                f"with K/V at the cache's width {width}), which the port "
+                "does not take at decode")
+        if window is None and (
+                not supports_fused_attention(attn_cfg,
+                                             kv_pre_quantized=quantized)
                 or (quantized and not _kv_config_is_cache_format(attn_cfg,
-                                                                 width)):
+                                                                 width))):
             raise NotImplementedError(
                 f"admission attention of this configuration over the {kind} "
                 "cache takes the JAX package's eager path (serving/decode.py"
-                "::_fresh_prefill_attend returns None), which is not ported")
+                "::_fresh_prefill_attend returns None), which the port takes "
+                "only under a sliding window")
 
 
 def stack_backend(backend: dict, cfg, consume: bool = False) -> dict:
@@ -426,12 +540,13 @@ def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache,
 
 
 def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
-                   route, scale_query=False):
+                   route, scale_query=False, window=None):
     """Decode attention (s = 1) through the kernels of ``route``
     (:func:`decode_route`), in order: the fresh token lands in layer ``li``
     of the cache in place (a staged cache's rings), and the last kernel's
     attention is returned. OPT (``scale_query``) scales q before its
-    quantizer."""
+    quantizer; ``window`` is the sliding window (a staged cache has none:
+    ``make_cache`` falls back to the direct-write one)."""
     def main():
         return tuple(cache[k] for k in MAIN_KEYS)
 
@@ -439,21 +554,24 @@ def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
         return (*(cache[k][li] for k in MAIN_KEYS),
                 *(cache[k][li] for k in STAGE_KEYS))
 
-    def widths():
+    def widths(**window):
         return dict(decode_attention_widths_quantized(attn_cfg),
-                    scale_query=scale_query)
+                    scale_query=scale_query, **window)
 
     kernels = {
         "row_write": lambda: _cache_write_row(cache, li, kh, vh, positions),
         "encode_write_tokens": lambda: write_kv_tokens_fused(
             main(), kh, vh, li, positions),
         "decode_attention_write": lambda: decode_attention_quantized_write(
-            qh, *main(), kh, vh, positions, li, scaling=scaling, **widths()),
+            qh, *main(), kh, vh, positions, li, scaling=scaling,
+            **widths(window=window)),
         "decode_attention_quantized": lambda: decode_attention_quantized(
-            qh, *main(), positions, li, scaling=scaling, **widths()),
+            qh, *main(), positions, li, scaling=scaling,
+            **widths(window=window)),
         "decode_attention_streaming":
             lambda: decode_attention_quantized_streaming(
-                qh, *main(), positions, li, scaling=scaling, **widths()),
+                qh, *main(), positions, li, scaling=scaling,
+                **widths(window=window)),
         "decode_attention": lambda: decode_attention_quantized_staged(
             qh, *staged(), kh, vh, positions, cache["flushed"],
             scaling=scaling, **widths()),
@@ -463,7 +581,8 @@ def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
                 scaling=scaling, **widths()),
         "decode_attention_fp": lambda: decode_attention_fp(
             qh, cache["k"], cache["v"], positions, li, scaling=scaling,
-            scale_query=scale_query, **decode_attention_widths(attn_cfg)),
+            scale_query=scale_query, window=window,
+            **decode_attention_widths(attn_cfg)),
     }
     for name in route:
         attn = kernels[name]()
@@ -484,7 +603,7 @@ def _staged_flush_maybe(cache, positions):
 
 
 def _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions, s,
-                fresh_prefill):
+                fresh_prefill, window=None):
     """Checks and set-up shared by the steps: the per-layer configs, the
     decode route, and the staged cache's flush before a decode step."""
     if backend_stacked is None:
@@ -496,7 +615,8 @@ def _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions, s,
     qcfgs = (layer_qcfg if isinstance(layer_qcfg, list)
              else [layer_qcfg] * cfg.num_hidden_layers)
     n_rep = cfg.num_attention_heads // cfg.kv_heads
-    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, n_rep)
+    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, n_rep,
+                   window)
     route = decode_route(_cache_kind(cache), cache_max_len(cache),
                          cfg.head_dim, n_rep)
     if s == 1 and is_staged_cache(cache):
@@ -512,20 +632,30 @@ def _kv_valid(valid_lengths, s, device):
 
 
 def _attention(cache, qh, kh, vh, positions, li, attn_cfg, scaling, n_rep,
-               route, kv_valid, scale_query=False):
+               route, kv_valid, scale_query=False, window=None, mask=None):
     """One layer's attention: padding rows of K/V zeroed; an admission
-    through the prefill kernel, then its rows written into the cache; a
-    decode step through the kernels of ``route``."""
+    through the prefill kernel, then its rows written into the cache (under
+    a sliding ``window``: the rows written first, then the eager
+    :func:`_attend` over the layer's decoded cache with the additive
+    ``mask``); a decode step through the kernels of ``route``."""
     if kv_valid is not None:
         kh = kh * kv_valid[:, None, :, None].to(kh.dtype)
         vh = vh * kv_valid[:, None, :, None].to(vh.dtype)
+    if qh.shape[2] > 1 and window is not None:
+        _cache_write_full(cache, li, kh, vh, positions)
+        quantized = is_quantized_cache(cache)
+        return _attend(qh, *_cache_layer_views(cache, li), mask, attn_cfg,
+                       scaling, n_rep, scale_query,
+                       kv_pre_quantized=quantized,
+                       cache_width=cache_code_width(cache) if quantized
+                       else 8)
     if qh.shape[2] > 1:
         attn = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep,
                                      cache, scale_query)
         _cache_write_full(cache, li, kh, vh, positions)
         return attn
     return _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg,
-                          scaling, route, scale_query)
+                          scaling, route, scale_query, window)
 
 
 def _end_step(h, cache, positions, valid_lengths, logits_last_only,
@@ -548,13 +678,18 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     """One model step over ``input_ids (b, s)`` at ``positions (b,)``:
     ``s > 1`` is an admission prefill (``fresh_prefill``: positions 0 on a
     zeroed cache), ``s == 1`` a decode step. Returns ``(logits, cache)``.
-    ``layer_qcfg`` is one resolved layer config or the per-layer list."""
+    ``layer_qcfg`` is one resolved layer config or the per-layer list.
+    Mistral (``cfg.sliding_window``) attends within its window: eagerly at
+    admission, through the decode kernels' window argument at s = 1. The
+    rotary table spans ``max(max_len, max_position_embeddings)``, so a
+    cache longer than the model's positions serves, as in JAX."""
     if stacked is None or rest is None:
         stacked, rest = llama_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
+    window = getattr(cfg, "sliding_window", None)
     qcfgs, route, n_rep = _begin_step(cache, cfg, layer_qcfg,
                                       backend_stacked, positions, s,
-                                      fresh_prefill)
+                                      fresh_prefill, window)
     embed = rest["model.embed_tokens.weight"]
     h = embed[input_ids]
     h_dtype = h.dtype
@@ -565,6 +700,8 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                        cfg.rope_theta, h.device)
     scaling = cfg.head_dim ** -0.5
     kv_valid = _kv_valid(valid_lengths, s, h.device)
+    mask = (_cache_mask(q_abs, cache_max_len(cache), h.dtype, window)
+            if s > 1 and window is not None else None)
 
     for li in range(cfg.num_hidden_layers):
         q = qcfgs[li]
@@ -582,7 +719,8 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         vh = _heads(vy, cfg.kv_heads)
         qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
         attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
-                          scaling, n_rep, route, kv_valid)
+                          scaling, n_rep, route, kv_valid, window=window,
+                          mask=mask)
         attn = serving_linear(merge_heads(attn),
                               "self_attn.o_proj", backend_stacked,
                               attn_cfg.o_proj, layer_index=li)

@@ -62,8 +62,11 @@ class DecodeEngine:
     (the bf16 cache by default, as in the JAX package). ``device`` defaults
     to the card and raises when there is none; params and backend move to
     it. A cache and configuration that would take a path without a ported
-    kernel raise ``NotImplementedError`` here. The step follows
-    ``cfg.arch``: ``decode.llama_step_scan`` or ``decode.opt_step_scan``.
+    kernel raise ``NotImplementedError`` here, as does a head dim the
+    card's kernels do not take when ``device`` is the card. The step
+    follows ``cfg.arch``: ``decode.opt_step_scan`` for OPT,
+    ``decode.llama_step_scan`` for Llama and Mistral (its sliding window
+    included).
     An OPT engine whose ``max_len`` exceeds ``max_position_embeddings``
     raises ``ValueError`` before any work: its learned positions would
     index past the table, which faults on the card. (The JAX engine takes
@@ -93,7 +96,8 @@ class DecodeEngine:
         self.cache = make_cache(cfg, num_slots, max_len, cache_dtype,
                                 device=self.device)
         check_servable(self.cache, [q["attn"] for q in layer_qcfgs],
-                       cfg.head_dim, cfg.num_attention_heads // cfg.kv_heads)
+                       cfg.head_dim, cfg.num_attention_heads // cfg.kv_heads,
+                       getattr(cfg, "sliding_window", None))
         self.lengths = np.zeros(num_slots, dtype=np.int32)  # tokens in cache
         self.slot_req: list[Request | None] = [None] * num_slots
         self.generator = torch.Generator(device=self.device)
@@ -165,6 +169,23 @@ class DecodeEngine:
                 v.index_copy_(0 if v.ndim == 1 else 1, idx, batch_cache[k])
         return logits[:, 0, :]
 
+    def _check_truncation(self, req: Request) -> None:
+        """A prompt of ``max_len`` tokens or more keeps its last
+        ``max_len - max_new_tokens - 1`` (the JAX engine's rule), which
+        needs ``max_new_tokens < max_len - 1``. The JAX engine slices
+        anyway: at ``max_len - 1`` the whole prompt stays and numpy fails to
+        pad it, past that a suffix of another length stays. The port
+        refuses such a request before any work."""
+        if len(req.prompt_ids) >= self.max_len \
+                and req.max_new_tokens >= self.max_len - 1:
+            raise ValueError(
+                f"a prompt of {len(req.prompt_ids)} tokens must be cut to "
+                f"max_len - max_new_tokens - 1 = "
+                f"{self.max_len - req.max_new_tokens - 1} tokens "
+                f"(max_len {self.max_len}, max_new_tokens "
+                f"{req.max_new_tokens}): lower max_new_tokens below "
+                f"{self.max_len - 1}")
+
     def _admit_batch(self, pairs: list[tuple[Request, int]]) -> list[int]:
         prepped = []
         for req, slot in pairs:
@@ -193,6 +214,8 @@ class DecodeEngine:
     def run(self, requests: list[Request]) -> list[Request]:
         """Serve every request to completion; returns them with
         ``output_ids`` filled."""
+        for req in requests:
+            self._check_truncation(req)
         queue = list(requests)
         pending = np.zeros(self.num_slots, dtype=np.int64)
         active = np.zeros(self.num_slots, dtype=bool)

@@ -1,5 +1,5 @@
-"""Seeded random Llama and OPT weights at full width, packed layer by layer
-on the device (port of
+"""Seeded random Llama, Mistral and OPT weights at any registry width and
+correction rank, packed layer by layer on the device (port of
 ``experiments/bench_e2e_llama7b.py::build_7b_backend_and_params``).
 
 Each layer's fp32 weights (and bf16-exact rank-``rank`` A/B factors) are
@@ -121,8 +121,10 @@ def _layer_norms(cfg, prefix, dev) -> dict:
 
 def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda",
                        fuse_mlp: bool = True):
-    """``(backend, params, layer_qcfgs)`` for ``cfg`` (Llama or OPT) with
-    random weights; ``rank=0`` leaves out the low-rank correction."""
+    """``(backend, params, layer_qcfgs)`` for ``cfg`` (Llama, Mistral: GQA
+    k/v widths from ``cfg.kv_heads``, or OPT) with random weights at
+    correction rank ``rank`` (the reference's templates use 128);
+    ``rank=0`` leaves out the low-rank correction."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

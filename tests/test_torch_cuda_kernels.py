@@ -68,13 +68,16 @@ def _act(shape, gen):
                               skip_first_dim=True).to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("rank", [32, 128])
 @pytest.mark.parametrize("m", [1, 8, 40])
-def test_dequant_gemm(gen, m):
+def test_dequant_gemm(gen, m, rank):
     """Every linear kernel 1 serves: q|k|v, o, gate|up and down (packed with
-    ``fuse_mlp=False``) and the W8 head."""
+    ``fuse_mlp=False``) and the W8 head; at rank 128 q|k|v's fused rank is
+    384 and gate|up's 256, three and two chunks of the kernel's rank
+    tile."""
     cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
                            inter=512)
-    backend, params, _ = build_random_model(cfg, rank=32, seed=1,
+    backend, params, _ = build_random_model(cfg, rank=rank, seed=1,
                                             fuse_mlp=False)
     backend = pack_lm_head(backend, params, width=8)
     assert "model.layers.0.mlp.gateup_proj" in backend["meta"]
@@ -89,7 +92,7 @@ def test_dequant_gemm(gen, m):
                     max_flipped=0.01)
 
 
-@pytest.mark.parametrize("rank", [0, 32])
+@pytest.mark.parametrize("rank", [0, 32, 128])
 @pytest.mark.parametrize("m", [1, 8, 200, 511])
 def test_mlp_fused(gen, m, rank):
     cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
@@ -536,6 +539,107 @@ def test_opt_engine_on_card(gen, cache_dtype):
         card.lengths += 1
         cpu.lengths += 1
     assert k5.mlp_w4_fused_relu.launches == before + 21 * 2
+    for got, want in logits:
+        worst, rms = logits_steps(got.float().cpu(), want.float())
+        assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+
+
+# the sliding window (Mistral): (slots, kv heads, n_rep, d, L, positions,
+# window); windows not a multiple of 16, positions below, at and past the
+# window, and the Mistral-7B shape (8 kv heads of 4 queries, window 4096)
+WINDOW_SHAPES = [
+    (3, 2, 4, 128, 256, [15, 39, 255], 40),
+    (3, 2, 2, 64, 512, [40, 41, 500], 40),
+    (2, 8, 4, 128, 8192, [4095, 6003], 4096)]
+
+
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos,window", WINDOW_SHAPES)
+def test_windowed_decode_attention(gen, b, kvh, nrep, d, l, pos, window):
+    """Rows 5, 6 (widths 8 and 4) and 10 with a window against their plain
+    versions."""
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    p = _positions(pos)
+    kw = dict(scaling=d ** -0.5, window=window)
+    k, v = (torch.randn(2, b, kvh, l, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    got = kfp.decode_attention_fp(q, k, v, p, 1, **kw)
+    want = kfp.fp_decode_plain(q, k, v, p, 1, **kw)
+    s, vals = kfp.fp_scores(q, k, v, p, 1, **kw)
+    check_close("windowed fp decode attention", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+    unwindowed = kfp.fp_decode_plain(q, k, v, p, 1, scaling=d ** -0.5)
+    assert not torch.allclose(want, unwindowed)   # the window cuts keys
+    for width in (8, 4):
+        cache = _mx_cache(gen, width, b, kvh, d, l)
+        got = kq.decode_attention_quantized(q, *cache, p, 1, **kw)
+        want = kq.quantized_decode_plain(q, *cache, p, 1, **kw)
+        s, vals = kq.quantized_scores(q, *cache, p, 1, **kw)
+        check_close(f"windowed quantized decode width {width}", got, want,
+                    attention_limit(s, vals, want, p_width=8),
+                    max_flipped=0.05)
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    cache = _mx_cache(gen, 8, b, kvh, d, l)
+    mine, theirs = [a.clone() for a in cache], [a.clone() for a in cache]
+    got = kq.decode_attention_quantized_write(q, *mine, kh, vh, p, 1, **kw)
+    want = kq.quantized_write_plain(q, *theirs, kh, vh, p, 1, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    s, vals = kq.quantized_scores(q, *theirs, p, 1, **kw)
+    check_close("windowed fused write + attend", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("width", [8, 4])
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos,window", [
+    (3, 2, 4, 64, 2048, [40, 1500, 2047], 600),    # chunks below the window
+    (3, 1, 2, 128, 1024, [511, 512, 1000], 40),
+    (2, 8, 4, 128, 32768, [32000, 20001], 4096)])
+def test_windowed_streaming_decode_attention(gen, b, kvh, nrep, d, l, pos,
+                                             window, width):
+    """Row 8 with a window: whole chunks below it are skipped in every
+    pass."""
+    cache = _mx_cache(gen, width, b, kvh, d, l)
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    p = _positions(pos)
+    kw = dict(scaling=d ** -0.5, window=window)
+    got = ks.decode_attention_quantized_streaming(q, *cache, p, 1, **kw)
+    want = kq.quantized_decode_plain(q, *cache, p, 1, **kw)
+    s, vals = kq.quantized_scores(q, *cache, p, 1, **kw)
+    check_close(f"windowed streaming decode width {width}", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "mxint8", "mxint4"])
+def test_mistral_engine_on_card(gen, cache_dtype):
+    """A 2-layer tiny windowed GQA model (window 40, 4 queries per kv head,
+    rank 128) served through the kernels against the same engine through
+    the plain versions on the CPU, teacher-forced with the card's greedy
+    tokens: an eager admission of 63-token prompts, then 30 decode steps
+    past the window, logits within chip_smoke.py's limits."""
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=512, layers=2, heads=4,
+                           kv_heads=1, inter=512, max_pos=128,
+                           sliding_window=40, arch="mistral")
+    backend, params, qcfgs = build_random_model(cfg, rank=128, seed=6,
+                                                device="cpu")
+    if cache_dtype == "mxint4":
+        qcfgs = tmodels.quantize_model(cfg, q_config_for(cfg, kv4=True),
+                                       {"linear": {"rank": 128}})
+    params["model.embed_tokens.weight"] *= 40
+    kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
+              pallas_backend=backend, lm_head_width=8)
+    card = DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)
+    cpu = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    ids = torch.randint(0, 256, (4, 64), generator=gen,
+                        device="cuda").cpu().numpy()
+    lengths = np.full(4, 63, dtype=np.int32)
+    logits = [(card.prefill(ids, np.arange(4), lengths),
+               cpu.prefill(ids, np.arange(4), lengths))]
+    card.lengths[:] = cpu.lengths[:] = lengths
+    for _ in range(30):
+        tokens = torch.argmax(logits[-1][0], -1).cpu().numpy()
+        logits.append((card.decode_logits(tokens), cpu.decode_logits(tokens)))
+        card.lengths += 1
+        cpu.lengths += 1
     for got, want in logits:
         worst, rms = logits_steps(got.float().cpu(), want.float())
         assert worst <= 4.0 and rms <= 0.4, (worst, rms)

@@ -194,8 +194,9 @@ def test_config_expansion_and_stacking_match_jax():
     assert tmodels.get_arch_module(cfg) is tllama
     assert tmodels.get_arch_module(dataclasses.replace(cfg, arch="opt")) \
         is tmodels.opt_mod
-    with pytest.raises(NotImplementedError):   # Mistral is not ported yet
-        tmodels.get_arch_module(dataclasses.replace(cfg, arch="mistral"))
+    # Mistral is served by the Llama module, as in the JAX package
+    assert tmodels.get_arch_module(dataclasses.replace(cfg, arch="mistral")) \
+        is tllama
 
 
 def _port_engine(num_slots, device="cpu", cache_dtype="mxint8-staged", **kw):
