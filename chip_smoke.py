@@ -6,8 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the nine sources of ``lqer_tpu_torch/csrc`` (one nvcc each, in
-   parallel), which hold the fourteen kernels (the megakernel counted twice:
-   its gated and its relu variant);
+   parallel), which hold the fifteen kernel entries (the megakernel
+   counted twice: its gated and its relu variant);
 3. each kernel against its plain PyTorch version on the card at the 7B
    serving shapes, held to the limits of ``lqer_tpu_torch/testing.py``
    (rtol = atol = 2e-4 plus one 8-bit code step of each quantizer a
@@ -36,12 +36,23 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    with the sliding window (4096) at 8 slots of 32 heads over 8 kv heads:
    rows 5, 6 (widths 8 and 4) and 10 at L = 8192, row 8 at L = 32768, each
    also timed without the window, against ``scaled_dot_product_attention``
-   with the window mask;
+   with the window mask; then the staged MXINT4 cache's rows 7 (L = 2048)
+   and 9 (L = 32768) at code width 4 (rings bit-exact), kernel 1 (q|k|v,
+   o) and the gated megakernel with the in-kernel activation quantizer
+   (``quant_x_width = 8``, raw f32 X: the serving path's route below 512
+   rows) at M = 8 at Llama's rank 32 and Mistral's 128, each equal to the
+   launch fed the separate quantizer's values and timed beside quantizer +
+   kernel, and the row write of every
+   layer (32 layers x 8 slots x 32 kv heads, L = 2048; MXINT8 and MXINT4
+   columns and bf16 rows) bit-exact with its plain version and with 32
+   single-layer launches, beside ``index_put_``;
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
    default (each MLP whole, for the megakernel), teacher-forced through an
    8 x 64-token admission (512 rows: the large-M route) and 20 decode
    steps (the megakernel), per cache: ``mxint8-staged`` (crossing a flush),
-   ``bfloat16``, ``mxint8`` at max_len 256 and 272, and ``mxint4`` (the KV4
+   ``mxint4-staged`` (the KV4 configuration, with its control and against
+   a direct-write ``mxint4`` engine fed the same tokens), ``bfloat16``,
+   ``mxint8`` at max_len 256 and 272, and ``mxint4`` (the KV4
    configuration), each three ways: through the kernels on the card,
    through the plain versions on the card, and through the plain versions
    on the CPU, each packed weight decoded once (the 272 run on the card
@@ -82,29 +93,34 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    held to one another;
 5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head, 8
    slots, max_len 2048) serving 8 greedy requests over each cache
-   (``mxint8-staged`` 80 new tokens each, the others 40), a torch.profiler
-   window of 5 decode steps per cache (device busy vs wall time, each
-   kernel's time per launch), and on the staged cache a profile of one
-   8 x 64-token admission, then one 2048-token admission (one slot, fresh
-   cache, last logits only) and its profile; then, per MXINT cache, 4
-   slots at max_len 32768: the same requests with 16 new tokens, and 10
-   decode steps at positions 32000.. over a cache filled by tiling one
-   encoded block of 2048 seeded rows (median step, tok/s, a profile of 5
-   steps beside the predicted cache-read floor); then, the Llama engine
-   freed, ``DecodeEngine`` at OPT-6.7B shape (32 layers, rank 32, dense
-   head, 8 slots, max_len 2048) serving the same mix over ``bfloat16`` (40
-   new tokens) and ``mxint8-staged`` (80), a profile of 5 decode steps
-   each, and one 2048-token admission with its profile; then Mistral-7B
-   (32 layers, rank 128, W8 head) at 8 slots, max_len 8192, over
-   ``bfloat16``, ``mxint8-staged`` (falling back to ``mxint8``) and
-   ``mxint4``: the mix with 40 new tokens, 10 steps at positions 6000..
-   with a profile, on
+   (``mxint8-staged`` and ``mxint4-staged`` 80 new tokens each, the others
+   40; ``mxint4-staged`` must launch rows 7 and 9 at code width 4), a
+   torch.profiler window of 5 decode steps per cache (device busy vs wall
+   time, each kernel's time per launch), and on the staged cache a
+   profile of one 8 x 64-token admission, then one 2048-token admission
+   (one slot, fresh cache, last logits only) and its profile; then, per
+   MXINT cache (the staged MXINT4 one too), 4 slots at max_len 32768: the
+   same requests with 16 new tokens, and 10 decode steps at positions
+   32000.. over a cache filled by tiling one encoded block of 2048 seeded
+   rows (median step, tok/s, a profile of 5 steps beside the predicted
+   cache-read floor); then ``tools/bench_streaming_staged.py``'s chains
+   at its defaults (row 9; row 12 + row 8), once each, and its marginal ms
+   per layer-step; then, the Llama engine freed, ``DecodeEngine`` at
+   OPT-6.7B shape (32 layers, rank 32, dense head, 8 slots, max_len 2048)
+   serving the same mix over ``bfloat16`` (40 new tokens) and
+   ``mxint8-staged`` (80), a profile of 5 decode steps each, and one
+   2048-token admission with its profile; then Mistral-7B (32 layers,
+   rank 128, W8 head) at 8 slots, max_len 8192, over ``bfloat16``,
+   ``mxint8-staged`` (falling back to ``mxint8``) and ``mxint4``: the mix
+   with 40 new tokens, 10 steps at positions 6000.. with a profile, on
    ``bfloat16`` one eager 2048-token admission; and ``mxint8`` at 4 slots,
    max_len 32768, 10 steps near 32000; then OPT-350m (24 layers) serving
    the mix over ``bfloat16`` with a profile;
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
    phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
-   Mistral's phase-5 launches).
+   Mistral's phase-5 launches; rows 7 and 9 at code width 4 as their
+   ``width4``, with its phase-5 launches; kernel 1 and the megakernel with
+   the in-kernel activation quantizer as their ``quant_x``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; so does a machine without a CUDA device, or
@@ -1564,6 +1580,330 @@ def phase_mistral_kernels(torch, timer, rates, results):
     torch.cuda.empty_cache()
 
 
+def phase_slice7_kernels(torch, timer, rates, results):
+    """Phase 3, the kernels of the staged MXINT4 cache, the in-kernel
+    activation quantizer and the all-layer row write: row 7 at code width 4
+    (8 slots, 32 kv heads, d = 128, L = 2048) and row 9 at width 4
+    (L = 32768), rings bit-exact; kernel 1 (q|k|v and o) and the gated
+    megakernel with ``quant_x_width = 8`` on raw f32 X at M = 8, at Llama's
+    rank 32 and at Mistral's rank 128 (q|k|v's fused rank 384), each equal
+    to the launch fed the separate quantizer's values and timed beside
+    quantizer + kernel; row 12 over 32 layers x 8 slots x 32 kv heads at
+    L = 2048 for the MXINT8 and MXINT4 columns and the bf16 rows,
+    bit-exact with its plain version and with 32 launches of row 11, timed
+    beside ``index_put_``. Width-4 and rank-128 numbers ride on their
+    entries as ``width4`` and ``rank128``."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.ops.kernels import cache_write as kcw
+    from lqer_tpu_torch.ops.kernels import decode_attention as k3
+    from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
+    from lqer_tpu_torch.ops.kernels import mlp_fused as k5
+    from lqer_tpu_torch.ops.kernels import streaming_decode as ks
+    from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
+    from lqer_tpu_torch.ops.storage import dequantize_packed
+    from lqer_tpu_torch.parallel.collectives import mx4_encode
+    from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.testing import (
+        attention_limit,
+        check_close,
+        dequant_gemm_limit,
+        mlp_limit,
+    )
+
+    bw, ops_rate = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+
+    def bound(nb, ops):
+        t_bytes, t_ops = nb / bw * 1e3, ops / ops_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def entry(c, ms, plain_ms, b_ms, b_by, lib_ms, shape, **extra):
+        return dict(max_abs_err=c["max_abs_err"], of_limit=c["of_limit"],
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, shape=shape, **extra)
+
+    def line(what, c, ms, plain_ms, b_ms, lib_ms, lib_what, extra=""):
+        print(f"{what}: max_abs_err={c['max_abs_err']:.3g} "
+              f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+              f"2e-4){extra} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} library_ms="
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} ({lib_what})",
+              flush=True)
+
+    # ---- rows 7 and 9 at code width 4: the staged MXINT4 cache
+    B, H, KVH, D, SW = 8, 32, 32, 128, 64
+    scale = D ** -0.5
+
+    def w4_block(n):
+        c_, e_ = mx4_encode(torch.randn(B, KVH, n, D, generator=gen,
+                                        device="cuda"), 16, zero_fill=1.0)
+        return [c_.transpose(-1, -2).contiguous(),
+                e_.transpose(-1, -2).contiguous()]
+
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda")
+    kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+              for _ in range(2))
+    per_token = KVH * (D // 2 + D // 16) * 2         # K and V codes + exps
+    for key, L, fn, what in (
+            ("decode_attention", 2048, k3.decode_attention_quantized_staged,
+             "kernel 3 decode_attention width 4"),
+            ("decode_attention_streaming_staged", 32768,
+             ks.decode_attention_quantized_streaming_staged,
+             "streaming staged decode attention width 4")):
+        main = w4_block(L) + w4_block(L)
+        ring = w4_block(SW) + w4_block(SW)
+        if L == 2048:
+            fl = torch.tensor([1984, 1952, 1920, 1024, 1536, 1984, 64, 1888],
+                              dtype=torch.int32, device="cuda")
+            pos = fl + torch.tensor([0, 1, 15, 47, 16, 33, 31, 40],
+                                    dtype=torch.int32, device="cuda")
+        else:   # flushed > 0 everywhere (the JAX kernel's NaN at 0)
+            pos = torch.tensor([64, 511, 512, 4095, 12288, 20001, 28671,
+                                32767], dtype=torch.int32, device="cuda")
+            fl = (pos // 32) * 32
+        r_k, r_p = [t.clone() for t in ring], [t.clone() for t in ring]
+        y = fn(q, *main, *r_k, kh, vh, pos, fl, scaling=scale)
+        ref = k3.staged_decode_plain(q, *main, *r_p, kh, vh, pos, fl,
+                                     scaling=scale)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(r_k, r_p)):
+            raise AssertionError(f"{what}: ring bytes differ from the plain "
+                                 "version")
+        sc, vals = k3.staged_scores(q, *main, *r_p, pos, fl, scaling=scale)
+        c = check_close(what, y, ref, attention_limit(
+            sc[:, :, None, :], vals, ref, p_width=8), FLIPPED["attention"])
+        del sc, vals, ref
+        ms = timer(lambda: fn(q, *main, *r_k, kh, vh, pos, fl, scaling=scale))
+        plain_ms = timer(lambda: k3.staged_decode_plain(
+            q, *main, *r_p, kh, vh, pos, fl, scaling=scale), 3)
+        held = int(fl.sum()) + int((pos - fl + 1).sum())
+        b_ms, b_by = bound(held * per_token + nbytes(q, kh, vh)
+                           + B * H * D * 4 + B * KVH * (D // 2 + D // 16) * 2,
+                           2 * 2 * H * held * D)
+        line(f"{what} B={B} KVH={KVH} L={L} flushed={fl.tolist()}", c, ms,
+             plain_ms, b_ms, None, "no library call computes it",
+             ", rings bit-exact")
+        results[key]["width4"] = entry(
+            c, ms, plain_ms, b_ms, b_by, None,
+            f"one layer of an MXINT4 staged cache, B=8, 32 kv heads, L={L}")
+        del main, ring, r_k, r_p
+    torch.cuda.empty_cache()
+
+    # ---- kernel 1 and the megakernel with the in-kernel X quantizer, M = 8
+    def raw(shape):   # unquantized f32, the scale of phase 3's inputs
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def quantizer(x):
+        return block_fp_quantizer(x, width=8, exponent_width=8,
+                                  block_size=[1, 16],
+                                  skip_first_dim=True).to(torch.bfloat16)
+
+    for model, rank in (("Llama", 32), ("Mistral", 128)):
+        cfg = (LlamaConfig.llama_7b() if model == "Llama"
+               else LlamaConfig.mistral_7b())
+        cfg = dataclasses.replace(cfg, num_hidden_layers=1)
+        backend, _, _ = build_random_model(cfg, rank=rank, seed=SEED + 33)
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   ext_ms=0.0, err=0.0, of_limit=0.0)
+        for name in ("qkv", "o"):
+            key = ("model.layers.0.self_attn.qkv_proj" if name == "qkv"
+                   else "model.layers.0.self_attn.o_proj")
+            prep, meta = backend["arrays"][key], backend["meta"][key]
+            fmt = meta["fmt"]
+            K, N = prep["exps"].shape[0] * 16, prep["exps"].shape[1]
+            R = prep["a"].shape[1]
+            kw = dict(quant_xa_width=meta["xa_width"],
+                      quant_out_width=meta["out_width"])
+            x = raw((8, K))
+            y = k1.qlinear_w4_fused(x, prep, fmt, quant_x_width=8, **kw)
+            xq = k1.quantize_x_plain(x, 8)
+            ext = k1.qlinear_w4_fused(quantizer(x), prep, fmt, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ext):
+                raise AssertionError(f"{model} kernel 1 {name} with "
+                                     "quant_x_width differs from the launch "
+                                     "fed the separate quantizer")
+            ref = k1.qlinear_w4_plain(x, prep, fmt, quant_x_width=8, **kw)
+            c = check_close(f"{model} kernel 1 {name} quant_x_width=8", y,
+                            ref, dequant_gemm_limit(xq, prep, ref, **kw),
+                            FLIPPED["dequant_gemm"])
+            w = dequantize_packed(prep["codes"], prep["exps"], fmt).to(
+                torch.bfloat16)
+            ms = timer(lambda: k1.qlinear_w4_fused(x, prep, fmt,
+                                                   quant_x_width=8, **kw))
+            ext_ms = timer(lambda: k1.qlinear_w4_fused(quantizer(x), prep,
+                                                       fmt, **kw))
+            plain_ms = timer(lambda: k1.qlinear_w4_plain(
+                x, prep, fmt, quant_x_width=8, **kw), 5)
+            xb = xq.to(torch.bfloat16)
+            lib_ms = timer(lambda: torch.matmul(xb, w))
+            b_ms, b_by = bound(nbytes(x, prep["codes"], prep["exps"],
+                                      prep["a"], prep["b"]) + 8 * N * 4,
+                               2 * 8 * N * K + 2 * 8 * R * (K + N))
+            line(f"{model} kernel 1 dequant_gemm quant_x {name} M=8 K={K} N={N} "
+                 f"R={R}", c, ms, plain_ms, b_ms, lib_ms, "torch.matmul, "
+                 "dense bf16 weight", f", equal to the launch after the "
+                 f"separate quantizer (quantizer + kernel {ext_ms:.4f} ms)")
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", b_ms), ("library_ms", lib_ms),
+                         ("ext_ms", ext_ms)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], c["max_abs_err"])
+            tot["of_limit"] = max(tot["of_limit"], c["of_limit"])
+            del w
+        k1_entry = dict(
+            max_abs_err=tot["err"], of_limit=tot["of_limit"], ms=tot["ms"],
+            plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by="bytes", library_ms=tot["library_ms"],
+            external_quantizer_ms=tot["ext_ms"],
+            shape=f"sum over {model} q|k|v and o at M=8, rank {rank}")
+
+        key = "model.layers.0.mlp_fused"
+        prep, meta = backend["arrays"][key], backend["meta"][key]
+        fmt = meta["fmt"]
+        kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+                  quant_out_width=meta["out_width"])
+        K = prep["exps_g"].shape[0] * 16
+        I, N = prep["exps_g"].shape[1], prep["exps_d"].shape[1]
+        x = raw((8, K))
+        y = k5.mlp_w4_fused(x, prep, fmt, quant_x_width=8, **kw)
+        xq = k1.quantize_x_plain(x, 8)
+        ext = k5.mlp_w4_fused(quantizer(x), prep, fmt, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ext):
+            raise AssertionError(f"{model} megakernel with quant_x_width "
+                                 "differs from the launch fed the separate "
+                                 "quantizer")
+        ref = k5.mlp_w4_plain(x, prep, fmt, quant_x_width=8, **kw)
+        c = check_close(f"{model} megakernel quant_x_width=8", y, ref,
+                        mlp_limit(xq, prep, ref, **kw), FLIPPED["mlp_fused"])
+        ms = timer(lambda: k5.mlp_w4_fused(x, prep, fmt, quant_x_width=8,
+                                           **kw))
+        ext_ms = timer(lambda: k5.mlp_w4_fused(quantizer(x), prep, fmt, **kw))
+        plain_ms = timer(lambda: k5.mlp_w4_plain(x, prep, fmt,
+                                                 quant_x_width=8, **kw), 5)
+        w_gu = torch.cat([dequantize_packed(prep[f"codes_{h}"],
+                                            prep[f"exps_{h}"], fmt)
+                          for h in ("g", "u")], 1).to(torch.bfloat16)
+        w_d = dequantize_packed(prep["codes_d"], prep["exps_d"], fmt).to(
+            torch.bfloat16)
+        xb = xq.to(torch.bfloat16)
+        h = torch.zeros(8, I, dtype=torch.bfloat16, device="cuda")
+        lib_ms = (timer(lambda: torch.matmul(xb, w_gu))
+                  + timer(lambda: torch.matmul(h, w_d)))
+        b_ms, b_by = bound(nbytes(*(prep[k] for k in prep)) + nbytes(x)
+                           + 8 * N * 4, 2 * 8 * (2 * K * I + I * N)
+                           + 2 * 8 * rank * (2 * K + 2 * I + I + N))
+        line(f"{model} kernel 5 mlp_fused quant_x M=8 K={K} I={I} N={N} "
+             f"R={rank}", c, ms, plain_ms, b_ms, lib_ms, "torch.matmul "
+             "gate|up + down, dense bf16 weights", f", equal to the launch "
+             f"after the separate quantizer (quantizer + kernel "
+             f"{ext_ms:.4f} ms)")
+        k5_entry = entry(c, ms, plain_ms, b_ms, b_by, lib_ms,
+                         f"one {model} layer's MLP, M=8, I={I}, rank {rank}",
+                         external_quantizer_ms=ext_ms)
+        if model == "Llama":
+            results["dequant_gemm"]["quant_x"] = k1_entry
+            results["mlp_fused"]["quant_x"] = k5_entry
+        else:
+            results["dequant_gemm"]["quant_x"]["rank128"] = k1_entry
+            results["mlp_fused"]["quant_x"]["rank128"] = k5_entry
+        del backend, prep, w_gu, w_d, h
+        torch.cuda.empty_cache()
+
+    # ---- row 12: every layer's token in one launch
+    NL, L = 32, 2048
+    pos = torch.tensor([0, 17, 255, 1024, 1500, 2000, 2046, 2047],
+                       dtype=torch.int32, device="cuda")
+    bi = torch.arange(B, device="cuda")[None, :, None, None]
+    li_ = torch.arange(NL, device="cuda")[:, None, None, None]
+    kvi = torch.arange(KVH, device="cuda")[None, None, :, None]
+    p64 = pos.long()[None, :, None, None]
+    for kind in ("mxint8 columns", "mxint4 columns", "bf16 rows"):
+        if kind == "bf16 rows":
+            arrays = [torch.zeros(NL, B, KVH, L, D, dtype=torch.bfloat16,
+                                  device="cuda") for _ in range(2)]
+            news = [torch.randn(NL, B, KVH, 1, D, generator=gen,
+                                device="cuda") for _ in range(2)]
+        else:
+            rows = [D if kind == "mxint8 columns" else D // 2, D // 16] * 2
+            arrays = [torch.zeros(NL, B, KVH, r, L, dtype=torch.int8,
+                                  device="cuda") for r in rows]
+            news = [torch.randint(-127, 128, (NL, B, KVH, r, 1),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int8) for r in rows]
+        mine = [a.clone() for a in arrays]
+        kcw.write_kv_rows_all_layers(tuple(mine), tuple(news), pos)
+        theirs = [a.clone() for a in arrays]
+        kcw.write_rows_all_layers_plain(tuple(theirs), tuple(news), pos)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+            raise AssertionError(f"row write of every layer, {kind}: bytes "
+                                 "differ from the plain version")
+        del theirs
+        per = [a.clone() for a in arrays]
+        for li in range(NL):
+            kcw.write_kv_rows_stacked(tuple(per), tuple(n[li] for n in news),
+                                      li, pos)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(mine, per)):
+            raise AssertionError(f"row write of every layer, {kind}: bytes "
+                                 "differ from 32 single-layer launches")
+        del per
+
+        def row11():
+            for li in range(NL):
+                kcw.write_kv_rows_stacked(tuple(mine),
+                                          tuple(n[li] for n in news), li, pos)
+
+        def index_put():
+            for arr, new in zip(mine, news):
+                if new.shape[4] == 1 and arr.shape[4] > 1:   # columns
+                    r = torch.arange(arr.shape[3], device="cuda")[
+                        None, None, None, :]
+                    arr.index_put_((li_, bi, kvi, r, p64),
+                                   new[..., 0].to(arr.dtype))
+                else:
+                    c_ = torch.arange(arr.shape[4], device="cuda")[
+                        None, None, None, :]
+                    arr.index_put_((li_, bi, kvi, p64, c_),
+                                   new[:, :, :, 0, :].to(arr.dtype))
+
+        ms = timer(lambda: kcw.write_kv_rows_all_layers(tuple(mine),
+                                                        tuple(news), pos))
+        row11_ms = timer(row11)
+        plain_ms = timer(lambda: kcw.write_rows_all_layers_plain(
+            tuple(mine), tuple(news), pos), 3)
+        lib_ms = timer(index_put)
+        written = sum(n.numel() * a.element_size()
+                      for a, n in zip(mine, news))
+        b_ms, b_by = bound(nbytes(*news) + written, 0)
+        print(f"row write of every layer ({kind}) NL={NL} B={B} KVH={KVH} "
+              f"L={L}: bit-exact with its plain version and with {NL} "
+              f"row-write launches kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+              f"(index_put_ of every layer's rows); {NL} row-write launches "
+              f"{row11_ms:.4f} ms", flush=True)
+        if kind == "mxint8 columns":
+            results["row_write_all"] = dict(
+                max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                row_write_x32_ms=row11_ms,
+                shape="the MXINT8 K/V columns of 32 layers, 8 slots, 32 kv "
+                      "heads, d=128, L=2048")
+        else:
+            results["row_write_all"][kind.split()[0]] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms,
+                row_write_x32_ms=row11_ms)
+        del arrays, mine, news
+        torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
     """Route the served path's kernel calls to the plain versions, which
@@ -1850,6 +2190,37 @@ def phase_teacher_forced(torch):
     failed = compare_runs(engines, logits, (
         ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu"),
         ("kernels", "no correction")), what, t0)
+    del engines
+
+    # the staged MXINT4 cache (KV4 configuration), three ways, with the
+    # control without layer 1's down correction; once flushed, its
+    # decode-written tokens as a direct-write MXINT4 cache's
+    staged4 = dict(staged, cache_dtype="mxint4-staged")
+    engines = {
+        name: DecodeEngine(params, cfg, kv4, pallas_backend=backend,
+                           device="cuda", **staged4)
+        for name in ("kernels", "plain")}
+    engines["cpu"] = DecodeEngine(cpu_params, cfg, kv4,
+                                  pallas_backend=cpu_backend, device="cpu",
+                                  **staged4)
+    engines["no correction"] = DecodeEngine(params, cfg, kv4,
+                                            pallas_backend=broken,
+                                            device="cuda", **staged4)
+    engines["mxint4"] = DecodeEngine(params, cfg, kv4, pallas_backend=backend,
+                                     device="cuda",
+                                     **dict(staged, cache_dtype="mxint4"))
+    t0 = time.perf_counter()
+    logits, routes = teacher_force(torch, engines, padded, lengths, steps)
+    if (routes["decode_attention"] != steps * 2
+            or routes["mlp_fused"] != steps * 2 or routes["unpack"] != 10
+            or routes["decode_attention_quantized"] != 0):
+        raise AssertionError(f"phase 4 mxint4-staged routes: {routes}")
+    what = "2-layer 7B-width path, mxint4-staged cache"
+    print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+    failed += compare_runs(engines, logits, (
+        ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu"),
+        ("kernels", "no correction"), ("kernels", "mxint4")), what, t0,
+        cpu_steps=CACHE_CPU_STEPS_MXINT4)
     del engines, broken
 
     # the direct-write caches, then the long-context ones at max_len 24576
@@ -2317,24 +2688,29 @@ def phase_serve(torch, rates, layers: int = 32):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     counts = None
-    # the staged cache serves 80 new tokens per request (every slot
-    # flushes), then profiles an admission and runs the long prompt; the
-    # direct-write caches serve 40
+    # the staged caches serve 80 new tokens per request (every slot
+    # flushes); mxint8-staged then profiles an admission and runs the long
+    # prompt; the direct-write caches serve 40
     for cache_dtype, layer_qcfgs, new_tokens in (
             ("mxint8-staged", qcfgs, 80), ("bfloat16", qcfgs, 40),
-            ("mxint8", qcfgs, 40), ("mxint4", kv4, 40)):
+            ("mxint8", qcfgs, 40), ("mxint4", kv4, 40),
+            ("mxint4-staged", kv4, 80)):
         engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=8,
                               max_len=2048, cache_dtype=cache_dtype,
                               pallas_backend=backend, lm_head_width=8,
                               device="cuda")
         run = serve_requests(torch, engine, cfg, cache_dtype, new_tokens,
-                             pack_s)
-        counts = run if counts is None else {k: n + run[k]
-                                             for k, n in counts.items()}
-        rng = np.random.default_rng(SEED + 7)
+                             pack_s, "Llama-2-7B shape, W8 head")
         tokens = np.zeros(engine.num_slots, dtype=np.int64)
         profile_window(torch, lambda: engine.decode_logits(tokens), 5,
                        f"decode steps, {cache_dtype} cache")
+        if (cache_dtype == "mxint4-staged"
+                and run["decode_attention.width4"] <= 0):
+            raise AssertionError(f"serve {cache_dtype}: row 7 not launched "
+                                 f"at code width 4: {run}")
+        counts = run if counts is None else {k: n + run[k]
+                                             for k, n in counts.items()}
+        rng = np.random.default_rng(SEED + 7)
         if cache_dtype == "mxint8-staged":
             ids = rng.integers(0, cfg.vocab_size, (8, 64))
             profile_window(torch, lambda: engine.prefill(
@@ -2351,7 +2727,8 @@ def phase_serve(torch, rates, layers: int = 32):
     # each): the request mix with 16 new tokens, then decode steps at
     # positions near 32000
     for cache_dtype, layer_qcfgs in (("mxint8-staged", qcfgs),
-                                     ("mxint8", qcfgs), ("mxint4", kv4)):
+                                     ("mxint8", qcfgs), ("mxint4", kv4),
+                                     ("mxint4-staged", kv4)):
         engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=4,
                               max_len=32768, cache_dtype=cache_dtype,
                               pallas_backend=backend, lm_head_width=8,
@@ -2359,11 +2736,53 @@ def phase_serve(torch, rates, layers: int = 32):
         run = serve_requests(torch, engine, cfg, cache_dtype, 16, pack_s)
         reset_launch_counts()
         long_context_steps(torch, engine, cfg, cache_dtype, rates)
-        counts = {k: n + run[k] + launch_counts()[k]
-                  for k, n in counts.items()}
+        steps = launch_counts()
+        if (cache_dtype == "mxint4-staged"
+                and steps["decode_attention_streaming_staged.width4"] <= 0):
+            raise AssertionError(f"{cache_dtype} at long context: row 9 not "
+                                 f"launched at code width 4: {steps}")
+        counts = {k: n + run[k] + steps[k] for k, n in counts.items()}
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bench_streaming(torch, rates):
+    """Phase 5, the all-layer row write's path: ``tools/bench_streaming_
+    staged.py`` at its defaults (8 slots, 32 kv heads, d = 128, L = 32768),
+    its chain of 4 decode steps once per case (``staged``: row 9;
+    ``twopass``: row 12, then row 8), outputs checked finite, then its
+    marginal ms per layer-step (chains of 4 and 12, best of 1). Returns
+    the launches of the two chains."""
+    import importlib.util
+
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    path = Path(__file__).resolve().parent / "tools" / "bench_streaming_staged.py"
+    spec = importlib.util.spec_from_file_location("bench_streaming_staged",
+                                                  path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    B, KVH, D, L = 8, 32, 128, 32768
+    state = bench.make_state(B, KVH, D, L, 12)
+    reset_launch_counts()
+    sums = {case: bench.chain(case, 4, state) for case in bench.CASES}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not all(bool(torch.isfinite(v)) for v in sums.values()):
+        raise AssertionError(f"bench_streaming_staged chains: {sums}")
+    gb = 2 * B * KVH * L * (D + D // 16) * 1e-9
+    for case in bench.CASES:
+        marg = bench.measure(case, [4, 12], 1, state)
+        print(f"tools/bench_streaming_staged.py {case} L={L}: "
+              f"{marg * 1e3:.4f} ms/layer-step (CUDA events; the one-pass "
+              f"stream {gb:.2f} GB, {gb * 1e9 / rates[0] * 1e3:.4f} ms at "
+              f"{rates[0] / 1e12:.2f} TB/s)", flush=True)
+    print(f"tools/bench_streaming_staged.py chains of 4 steps per case: "
+          f"kernel launches {counts}", flush=True)
+    del state
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2626,7 +3045,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from lqer_tpu_torch.ops.kernels import KERNELS
+    from lqer_tpu_torch.ops.kernels import KERNELS, launch_counts
     from lqer_tpu_torch.ops.kernels._build import ENTRIES, SOURCES, build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2648,6 +3067,7 @@ def main() -> int:
     phase_stream_kernels(torch, timer, rates, results)
     phase_opt_kernels(torch, timer, rates, results)
     phase_mistral_kernels(torch, timer, rates, results)
+    phase_slice7_kernels(torch, timer, rates, results)
     print(f"phase 3 done at {time.perf_counter() - t0:.0f}s", flush=True)
     phase_teacher_forced(torch)
     phase_teacher_forced_opt(torch)
@@ -2655,24 +3075,29 @@ def main() -> int:
                              rms_limit=LOGIT_RMS_STEPS_OPT350M)
     phase_teacher_forced_mistral(torch)
     print(f"phase 4 done at {time.perf_counter() - t0:.0f}s", flush=True)
-    counts = {k: 0 for k in KERNELS}
-    for serve in (phase_serve, phase_serve_opt, phase_serve_mistral,
-                  lambda *a: phase_serve_opt(*a, name="facebook/opt-350m",
-                                             caches=(("bfloat16", 40),))):
+    counts = dict.fromkeys(launch_counts(), 0)
+    for what, serve in (
+            ("Llama", phase_serve), ("bench", phase_bench_streaming),
+            ("OPT-6.7B", phase_serve_opt), ("Mistral", phase_serve_mistral),
+            ("OPT-350m", lambda *a: phase_serve_opt(
+                *a, name="facebook/opt-350m", caches=(("bfloat16", 40),)))):
         run = serve(torch, rates)
-        mistral = serve is phase_serve_mistral
         for k, n in run.items():
             counts[k] += n
-            if mistral and "mistral" in results[k]:
+            if what == "Mistral" and "mistral" in results.get(k, {}):
                 results[k]["mistral"]["launches"] = n
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"phase 5 {what} done at {time.perf_counter() - t0:.0f}s",
+              flush=True)
     print(f"phase 5 done at {time.perf_counter() - t0:.0f}s", flush=True)
     missing = [k for k, n in counts.items() if n <= 0]
     missing += [f"{k} (Mistral)" for k, r in results.items()
                 if r.get("mistral", {}).get("launches", 1) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    for k in ("decode_attention", "decode_attention_streaming_staged"):
+        results[k]["width4"]["launches"] = counts[f"{k}.width4"]
     kernels = []
     for k, (_, source, replaces) in KERNELS.items():
         r = results[k]
@@ -2683,7 +3108,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **({"mistral": r["mistral"]} if "mistral" in r else {})})
+            **{x: r[x] for x in ("mistral", "width4", "quant_x") if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 // Streaming decode attention over the MXINT cache, one query token per slot,
 // for contexts whose score rows the one-pass kernels do not hold in shared
 // memory: the direct-write cache (codes of width 8 or 4) and, with STAGED,
-// the ring-staged MXINT8 cache with the fresh token's ring write.
+// the ring-staged cache (width 8 or 4) with the fresh token's ring write.
 //
 // Replaces lqer_tpu/ops/pallas/decode_attention.py::_stats_kernel and
 // ::_out_kernel (entry decode_attention_quantized_streaming) and, with
 // STAGED, ::_stats_kernel_staged and ::_out_kernel_staged (entry
-// decode_attention_quantized_streaming_staged, width 8). The function is the
+// decode_attention_quantized_streaming_staged, widths 8 and 4). The function
+// is the
 // one-pass kernels' (decode_attention_quantized.cu, decode_attention.cu):
 // scores over the columns a slot holds, one exact f32 softmax, P quantized
 // per 16 tokens with the FINAL max and denominator, then P·V. That
@@ -47,7 +48,8 @@
 // No float atomics: a run repeats itself to the bit. With STAGED the ring is
 // one more chunk after the main chunks [0, flushed): its block of pass 1
 // first encodes the fresh K/V rows into lane pos % SW (decode_common.cuh's
-// encode_group, row 7's encode), synchronises and scores the lanes whose
+// encode_kv_column, row 7's encode at either width), synchronises and
+// scores the lanes whose
 // token pos - ((pos - j) mod SW) is at least flushed; pass 2 reads the ring
 // after the kernel boundary, so the write is visible to it.
 #include "decode_common.cuh"
@@ -82,7 +84,7 @@ __device__ __forceinline__ Slab slab(int8_t* kc, int8_t* ke, int8_t* vc,
           ve + bk * GD * L, L},
          {nullptr, nullptr, nullptr, nullptr, SW}};
   if (ksc != nullptr)
-    s.ring = Cache{ksc + bk * D * SW, kse + bk * GD * SW, vsc + bk * D * SW,
+    s.ring = Cache{ksc + bk * CR * SW, kse + bk * GD * SW, vsc + bk * CR * SW,
                    vse + bk * GD * SW, SW};
   return s;
 }
@@ -123,6 +125,7 @@ stream_scores_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
                      float* __restrict__ st_l, int KVH, int nrep, int L,
                      int SW, float scaling, int q_mb, int window) {
   constexpr int GD = D / 16;
+  constexpr int CR = CW == 8 ? D : D / 2;  // code rows
   extern __shared__ float smem[];
   __shared__ float m_s[NREP_MAX];
   __shared__ float l_s[NREP_MAX];
@@ -143,13 +146,9 @@ stream_scores_kernel(const float* __restrict__ q, int8_t* kc, int8_t* ke,
 
   quantize_queries<D>(q + ((size_t)b * H + kv * nrep) * D, qs, nrep, q_mb);
   if (ring)  // the fresh K/V rows into lane pos % SW, in place
-    for (int idx = t; idx < 2 * GD; idx += NT) {
-      const int g = idx % GD;
-      const bool is_v = idx >= GD;
-      encode_group((is_v ? vh : kh) + bk * D + g * 16,
-                   (is_v ? vsc : ksc) + bk * D * SW,
-                   (is_v ? vse : kse) + bk * GD * SW, SW, pos % SW, g);
-    }
+    encode_kv_column<D, CW>(kh + bk * D, vh + bk * D, ksc + bk * CR * SW,
+                            kse + bk * GD * SW, vsc + bk * CR * SW,
+                            vse + bk * GD * SW, SW, pos % SW);
   __syncthreads();
 
   float acc[NREP_MAX];
@@ -290,7 +289,7 @@ int launch(const void* q, void* kc, void* ke, void* vc, void* ve, void* ksc,
   const bool staged = ksc != nullptr;
   if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || window == 0 ||
       window < -1 || (staged && window != -1) ||
-      (staged && (CW != 8 || SW % 16 != 0 || SW > CHUNK || fl == nullptr ||
+      (staged && (SW % 16 != 0 || SW > CHUNK || fl == nullptr ||
                   kh == nullptr || vh == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int NZ = (L + CHUNK - 1) / CHUNK + (staged ? 1 : 0);
@@ -343,8 +342,9 @@ int dispatch(int code_width, const void* q, void* kc, void* ke, void* vc,
 // One layer: q (B, H, D) f32; codes (B, KVH, D, L) (width 8) or
 // (B, KVH, D/2, L) (width 4, d-split nibbles) and exps (B, KVH, D/16, L)
 // int8, the layer's slice of the layer-stacked cache; positions (B) int32;
-// out (B, H, D) f32. Staged (width 8): ring codes (B, KVH, D, SW) and exps
-// (B, KVH, D/16, SW) int8, updated in place at lane pos % SW, the fresh rows
+// out (B, H, D) f32. Staged: ring codes (B, KVH, D, SW) (width 8) or
+// (B, KVH, D/2, SW) (width 4) and exps (B, KVH, D/16, SW) int8, updated in
+// place at lane pos % SW, the fresh rows
 // kh, vh (B, KVH, D) f32 and flushed (B) int32; null ring, row and flushed
 // pointers for the direct-write cache. Scratch: scores (B, H, L [+ SW]),
 // st_m and st_l (B, KVH, NZ, nrep), part (B, KVH, NZ, nrep, D) f32, with

@@ -2,7 +2,7 @@
 // per slot; one block of NT threads per (slot, kv head), its n_rep GQA query
 // heads sharing each K/V value read):
 //   - the queries quantized per 16 along d into shared memory;
-//   - the MXINT encode of a fresh K/V row into one cache column;
+//   - the MXINT8 or MXINT4 encode of a fresh K/V row into one cache column;
 //   - scores of 4 consecutive tokens of a token-axis-last MXINT8 or MXINT4
 //     cache (one char4 load per code row) and P·V along one d row (16 tokens
 //     per 16-byte load);
@@ -100,6 +100,59 @@ __device__ __forceinline__ void encode_group(const float* src, int8_t* codes,
     codes[(size_t)(g * 16 + j) * stride + col] =
         (int8_t)(int)__fmul_rn(sign_eps(src[j]), mx_mant(src[j], e, 7));
   exps[(size_t)g * stride + col] = (int8_t)e;
+}
+
+// MXINT4 encode (cache_write._encode_t with mb = 3 and the d-split nibble
+// pack) of the groups g and g + D/32 of the D values row[0..D-1] into
+// column col: packed rows g*16 .. g*16+15 take value i in the low nibble
+// and value i + D/2 in the high one, codes clamp to ±7, an all-zero group
+// takes exponent 0; exps rows g and g + D/32.
+template <int D>
+__device__ __forceinline__ void encode_group_packed(const float* row,
+                                                    int8_t* codes,
+                                                    int8_t* exps, int stride,
+                                                    int col, int g) {
+  const float* lo = row + g * 16;
+  const float* hi = row + D / 2 + g * 16;
+  float bl = 0.f, bh = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    bl = fmaxf(bl, fabsf(lo[j]));
+    bh = fmaxf(bh, fabsf(hi[j]));
+  }
+  const int el = group_exponent(bl), eh = group_exponent(bh);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int cl = (int)__fmul_rn(sign_eps(lo[j]), mx_mant(lo[j], el, 3));
+    const int ch = (int)__fmul_rn(sign_eps(hi[j]), mx_mant(hi[j], eh, 3));
+    codes[(size_t)(g * 16 + j) * stride + col] =
+        (int8_t)(((ch & 0xF) << 4) | (cl & 0xF));
+  }
+  exps[(size_t)g * stride + col] = (int8_t)el;
+  exps[(size_t)(g + D / 32) * stride + col] = (int8_t)eh;
+}
+
+// The fresh K and V rows kh, vh (D values each) of one (slot, kv head)
+// encoded at code width CW (encode_group, or encode_group_packed at 4) into
+// column col of its codes (D or D/2 rows) and exps (D/16 rows) of token
+// stride `stride`, thread-strided over the block.
+template <int D, int CW>
+__device__ __forceinline__ void encode_kv_column(const float* kh,
+                                                 const float* vh, int8_t* kc,
+                                                 int8_t* ke, int8_t* vc,
+                                                 int8_t* ve, int stride,
+                                                 int col) {
+  constexpr int NG = CW == 8 ? D / 16 : D / 32;  // encodes per row
+  for (int idx = threadIdx.x; idx < 2 * NG; idx += NT) {
+    const int g = idx % NG;
+    const bool is_v = idx >= NG;
+    if constexpr (CW == 8)
+      encode_group((is_v ? vh : kh) + g * 16, is_v ? vc : kc, is_v ? ve : ke,
+                   stride, col, g);
+    else
+      encode_group_packed<D>(is_v ? vh : kh, is_v ? vc : kc, is_v ? ve : ke,
+                             stride, col, g);
+  }
 }
 
 // Scores (unscaled) of the 4 consecutive columns col..col+3 (col % 4 == 0):

@@ -22,9 +22,16 @@
 // larger than the co-resident blocks) whose phases are separated by grid
 // barriers (cooperative_groups::this_grid().sync(); CUDA 12 needs no -rdc
 // for it):
+//   0. with the in-kernel activation quantizer (the TPU kernel's
+//      quant_x_mb; X arrives raw f32): the blocks walk X's 16-groups along
+//      K, quantize each (w4_gemm.cuh's quantize_x_group, the separate
+//      quantizer's values) into the bf16 X scratch that phases A and B
+//      read through L2; barrier. Only this first input is raw: H is
+//      quantized in the kernel by act_mb already;
 //   A. X·A_gu partials per (8-row tile, 256-wide K chunk, 128-column rank
-//      chunk), barrier; then per (row, rank column) the sum of the
-//      partials, q_xa per 16 columns (half-warps), bf16, into the xa
+//      chunk), in f64, barrier; then per (row, rank column) the sum of the
+//      partials rounded to f32 once, q_xa per 16 columns (half-warps),
+//      bf16, into the xa
 //      scratch; barrier. A_gu is [A_g | A_u] (2R wide) gated, A_g (R wide)
 //      un-gated. R is any multiple of 16: the scratch is global and sized
 //      from R at launch, and each correction walks its R columns of the xa
@@ -53,6 +60,8 @@ using namespace lqer;
 
 struct MlpArgs {
   const __nv_bfloat16* x;                     // (M, K)
+  const float* x_raw;                         // (M, K) raw, or null
+  __nv_bfloat16* xq;                          // x, filled by phase 0
   const int* codes_g; const int8_t* exps_g;   // (K/8, I), (K/16, I)
   const int* codes_u; const int8_t* exps_u;
   const int* codes_d; const int8_t* exps_d;   // (I/8, N), (I/16, N)
@@ -65,10 +74,10 @@ struct MlpArgs {
   const float* bias_u;                        // (I) or null
   const float* bias_d;                        // (N) or null
   __nv_bfloat16* h;                           // (Mt * 8, I) scratch
-  float* part;                                // X·A chunk partials scratch
+  xa_sum_t* part;                             // X·A chunk partials scratch
   float* xa;                                  // (Mt * 8, XS) scratch
   float* out;                                 // (M, N)
-  int M, K, I, N, R, act_mb, xa_mb, out_mb;
+  int M, K, I, N, R, act_mb, xa_mb, out_mb, x_mb;
   bool gated;                                 // the up half exists
   int WGU, XS;   // X·A_gu width (2R gated, R un-gated); xa row: WGU + R
 };
@@ -92,12 +101,13 @@ __device__ void xa_phase(cg::grid_group& grid, const __nv_bfloat16* x,
        base += gridDim.x * NTHREADS) {
     const int idx = base + threadIdx.x;
     const int row = idx / W, col = idx % W;
-    float v = 0.f;
+    xa_sum_t v64 = 0;
     if (idx < total) {
-      const float* src = p.part + ((size_t)(row / MT) * KS * MT + row % MT) * W + col;
-      for (int s = 0; s < KS; ++s) v += __ldcg(src + (size_t)s * MT * W);
+      const xa_sum_t* src = p.part + ((size_t)(row / MT) * KS * MT + row % MT) * W + col;
+      for (int s = 0; s < KS; ++s) v64 += __ldcg(src + (size_t)s * MT * W);
     }
-    v = bf16_round(quantize_half_warp(v, p.xa_mb));
+    // rounded to f32 once (w4_gemm.cuh's xa_chunk_product)
+    const float v = bf16_round(quantize_half_warp((float)v64, p.xa_mb));
     if (idx < total) p.xa[(size_t)row * p.XS + off + col] = v;
   }
   grid.sync();
@@ -127,11 +137,23 @@ __device__ __forceinline__ float correction(GemmSmem& sm, const MlpArgs& p,
   return quantize_half_warp(corr, p.out_mb);
 }
 
-__device__ __forceinline__ void zero(float (&acc)[MT][4]) {
+// The W4 GEMM tile of rows m0.. and columns nb.. of x (M, K) times a packed
+// (K/8, N) weight, its K slices summed (thread t: row t / TN, column
+// t % TN).
+template <bool COH>
+__device__ __forceinline__ float gemm_tile(const __nv_bfloat16* x,
+                                           const int* codes,
+                                           const int8_t* exps, int M, int N,
+                                           int K, int m0, int nb,
+                                           GemmSmem& sm) {
+  float acc[MT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+  w_accumulate<3, COH>(x, codes, exps, M, N, K, m0,
+                       nb + (threadIdx.x % CT) * 4, threadIdx.x / CT, acc);
+  return slice_sum(acc, sm);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
@@ -142,24 +164,43 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
   const int R = p.R;
   const int m = t / TN, col = t % TN;
 
-  if (R > 0) xa_phase<false>(grid, p.x, p.a_gu, p.K, p.WGU, 0, p, sm);
+  // 0: raw X quantized per 16 along K into the bf16 scratch
+  const bool qx = p.x_raw != nullptr;
+  if (qx) {
+    const int total = p.M * (p.K / 16);   // rows are whole groups
+    for (int gi = blockIdx.x * NTHREADS + t; gi < total;
+         gi += gridDim.x * NTHREADS) {
+      float v[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) v[j] = __ldg(p.x_raw + (size_t)gi * 16 + j);
+      quantize_x_group(v, p.x_mb);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        p.xq[(size_t)gi * 16 + j] = __float2bfloat16_rn(v[j]);
+    }
+    grid.sync();
+  }
+  // X written in this launch is read through L2
+  if (R > 0) {
+    if (qx) xa_phase<true>(grid, p.x, p.a_gu, p.K, p.WGU, 0, p, sm);
+    else xa_phase<false>(grid, p.x, p.a_gu, p.K, p.WGU, 0, p, sm);
+  }
 
   // B: gate (and up) tiles, corrections, biases, activation, act quantizer
   // -> H
   const int nI = p.I / TN;
   for (int item = blockIdx.x; item < Mt * nI; item += gridDim.x) {
     const int m0 = (item / nI) * MT, nb = (item % nI) * TN;
-    float acc_g[MT][4], acc_u[MT][4];
-    zero(acc_g);
-    w_accumulate<3, false>(p.x, p.codes_g, p.exps_g, p.M, p.I, p.K, m0,
-                           nb + (t % CT) * 4, t / CT, acc_g);
-    float yg = slice_sum(acc_g, sm.gemm), yu = 0.f;
-    if (p.gated) {
-      zero(acc_u);
-      w_accumulate<3, false>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
-                             nb + (t % CT) * 4, t / CT, acc_u);
-      yu = slice_sum(acc_u, sm.gemm);
-    }
+    float yg = qx ? gemm_tile<true>(p.x, p.codes_g, p.exps_g, p.M, p.I, p.K,
+                                    m0, nb, sm.gemm)
+                  : gemm_tile<false>(p.x, p.codes_g, p.exps_g, p.M, p.I, p.K,
+                                     m0, nb, sm.gemm);
+    float yu = 0.f;
+    if (p.gated)
+      yu = qx ? gemm_tile<true>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
+                                nb, sm.gemm)
+              : gemm_tile<false>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
+                                 nb, sm.gemm);
     const int n = nb + col, row = m0 + m;
     if (R > 0) {
       yg += correction(sm.gemm, p, m0, 0, p.b_g, p.I, n);
@@ -179,11 +220,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
   const int nN = p.N / TN;
   for (int item = blockIdx.x; item < Mt * nN; item += gridDim.x) {
     const int m0 = (item / nN) * MT, nb = (item % nN) * TN;
-    float acc[MT][4];
-    zero(acc);
-    w_accumulate<3, true>(p.h, p.codes_d, p.exps_d, p.M, p.N, p.I, m0,
-                          nb + (t % CT) * 4, t / CT, acc);
-    float y = slice_sum(acc, sm.gemm);
+    float y = gemm_tile<true>(p.h, p.codes_d, p.exps_d, p.M, p.N, p.I, m0, nb,
+                              sm.gemm);
     const int n = nb + col, row = m0 + m;
     if (R > 0) y += correction(sm.gemm, p, m0, p.WGU, p.b_d, p.N, n);
     if (p.bias_d != nullptr) y += __ldg(p.bias_d + n);
@@ -193,16 +231,18 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
 
 }  // namespace
 
-// x (M, K) bf16; codes/exps of gate, up (K/8, I), (K/16, I) and down
+// x (M, K) bf16 (with x_mb >= 0 a scratch the kernel fills from x_raw
+// (M, K) f32, quantized at x_mb mantissa bits; x_raw null otherwise);
+// codes/exps of gate, up (K/8, I), (K/16, I) and down
 // (I/8, N), (I/16, N), up null for the un-gated relu variant; a_gu (K, WGU)
 // with WGU = 2R gated ([A_g | A_u]) or R, b_g and b_u (R, I), a_d (I, R),
 // b_d (R, N) bf16 (null when R == 0); biases bias_g, bias_u (I) and bias_d
 // (N) f32 or null; scratch h (ceil(M/8) * 8, I) bf16, part (ceil(M/8),
-// ceil(max(K, I)/256), 8, WGU) f32, xa (ceil(M/8) * 8, WGU + R) f32; out
+// ceil(max(K, I)/256), 8, WGU) f64, xa (ceil(M/8) * 8, WGU + R) f32; out
 // (M, N) f32. R % 16 == 0 (any such rank); K % 16, I % 32 and N % 32 == 0.
 // act_mb: mantissa bits of the H quantizer; xa_mb / out_mb -1 for no
 // partial-product quantizer.
-LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
+LQER_API int lqer_mlp_fused(void* x, const void* x_raw, const void* codes_g,
                             const void* exps_g, const void* codes_u,
                             const void* exps_u, const void* codes_d,
                             const void* exps_d, const void* a_gu,
@@ -211,12 +251,13 @@ LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
                             const void* bias_u, const void* bias_d, void* h,
                             void* part, void* xa, void* out, int M, int K,
                             int I, int N, int R, int act_mb, int xa_mb,
-                            int out_mb, void* stream) {
+                            int out_mb, int x_mb, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bool gated = codes_u != nullptr;
   const int wgu = gated ? 2 * R : R;
   if (M <= 0 || R < 0 || R % 16 || K % 16 || I % TN || N % TN
-      || (!gated && (b_u != nullptr || bias_u != nullptr)))
+      || (!gated && (b_u != nullptr || bias_u != nullptr))
+      || (x_mb >= 0 && (x_raw == nullptr || x_mb > 8)))
     return (int)cudaErrorInvalidValue;
   static int resident = 0;   // co-resident blocks on this card
   if (resident == 0) {
@@ -233,6 +274,8 @@ LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
   const int Mt = (M + MT - 1) / MT;
   const int blocks = std::min(resident, Mt * std::max(I, N) / TN);
   MlpArgs p{static_cast<const __nv_bfloat16*>(x),
+            x_mb >= 0 ? static_cast<const float*>(x_raw) : nullptr,
+            static_cast<__nv_bfloat16*>(x),
             static_cast<const int*>(codes_g), static_cast<const int8_t*>(exps_g),
             static_cast<const int*>(codes_u), static_cast<const int8_t*>(exps_u),
             static_cast<const int*>(codes_d), static_cast<const int8_t*>(exps_d),
@@ -243,9 +286,10 @@ LQER_API int lqer_mlp_fused(const void* x, const void* codes_g,
             static_cast<const __nv_bfloat16*>(b_d),
             static_cast<const float*>(bias_g), static_cast<const float*>(bias_u),
             static_cast<const float*>(bias_d),
-            static_cast<__nv_bfloat16*>(h), static_cast<float*>(part),
+            static_cast<__nv_bfloat16*>(h), static_cast<xa_sum_t*>(part),
             static_cast<float*>(xa), static_cast<float*>(out),
-            M, K, I, N, R, act_mb, xa_mb, out_mb, gated, wgu, wgu + R};
+            M, K, I, N, R, act_mb, xa_mb, out_mb, x_mb, gated, wgu,
+            wgu + R};
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(mlp_kernel), dim3(blocks), dim3(NTHREADS), args,

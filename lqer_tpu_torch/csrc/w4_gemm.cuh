@@ -1,6 +1,7 @@
 // Device code shared by kernel 1 (dequant_gemm.cu) and the MLP megakernel
 // (mlp_fused.cu): the MXINT4/MXINT8 weight-streaming GEMM tile, the X·A
-// partial of one K chunk, and the rank-k correction epilogue. The rank R
+// partial of one K chunk, the in-kernel activation quantizer of one 16-group,
+// and the rank-k correction epilogue. The rank R
 // (the fused rank of a q|k|v launch, or X·[A_g|A_u]) is a runtime width:
 // X·A and the epilogue walk it in chunks of RMAX columns, the width of the
 // shared-memory tile, so RMAX is a tile width, not a limit.
@@ -52,37 +53,62 @@ __device__ __forceinline__ T ld(const T* p) {
   else return __ldg(p);
 }
 
+// The X·A sums (see xa_chunk_product): the accumulator of one K chunk's
+// partial and the type of the partials' scratch and of their cross-chunk
+// sum, both f64. tools/bench_xa_precision.py builds f32 variants with -D
+// to time them and count the q_xa roundings they move.
+#ifndef LQER_XA_CHUNK_T
+#define LQER_XA_CHUNK_T double
+#endif
+#ifndef LQER_XA_SUM_T
+#define LQER_XA_SUM_T double
+#endif
+using xa_chunk_t = LQER_XA_CHUNK_T;
+using xa_sum_t = LQER_XA_SUM_T;
+
 // Rank chunks of a width-R X·A row.
 __host__ __device__ __forceinline__ int rank_chunks(int R) {
   return (R + RMAX - 1) / RMAX;
 }
 
-// X·A over one K chunk: part[((mt * KS + s) * MT + m) * R + r] for the rows
-// of 8-row tile mt and the rank columns r of chunk rc, [rc * RMAX,
-// rc * RMAX + RMAX) ∩ [0, R), summed over k in [s * XA_KC, (s + 1) * XA_KC).
-// x (M, K) bf16, a (K, R) bf16. Each thread sums whole (row, rank) outputs
-// over the chunk staged in shared memory, in k order.
+// Stage rows mt * MT.. of x (M, K) bf16 over K chunk s, [s * XA_KC,
+// (s + 1) * XA_KC), into sm.xs as f32 (zeros past M and K).
 template <bool COH>
-__device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
-                                const __nv_bfloat16* __restrict__ a,
-                                float* part, int M, int K, int R, int mt,
-                                int s, int KS, int rc, XaSmem& sm) {
-  constexpr int HALF = XA_KC / 2;
-  constexpr int OUT = MT * RMAX / NTHREADS;   // outputs per thread
-  const int t = threadIdx.x;
+__device__ __forceinline__ void stage_x_chunk(const __nv_bfloat16* x, int M,
+                                              int K, int mt, int s,
+                                              XaSmem& sm) {
   const int k0 = s * XA_KC, kn = min(XA_KC, K - k0);
-  const int r0 = rc * RMAX, rn = min(RMAX, R - r0);
   __syncthreads();   // the block's previous use of shared memory is done
   const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
-  for (int i = t; i < MT * XA_KC; i += NTHREADS) {
+  for (int i = threadIdx.x; i < MT * XA_KC; i += NTHREADS) {
     const int m = i / XA_KC, kk = i % XA_KC, row = mt * MT + m;
     sm.xs[m][kk] = (row < M && kk < kn)
         ? __uint_as_float((uint32_t)ld<COH>(xb + (size_t)row * K + k0 + kk) << 16)
         : 0.f;
   }
-  float acc[OUT];
+}
+
+// X·A over the K chunk s staged in sm.xs (rows of 8-row tile mt):
+// part[((mt * KS + s) * MT + m) * R + r] for the rank columns r of chunk
+// rc, [rc * RMAX, rc * RMAX + RMAX) ∩ [0, R), summed over k in
+// [s * XA_KC, (s + 1) * XA_KC); a (K, R) bf16. Each thread sums whole
+// (row, rank) outputs over the chunk, in k order, in f64: the products of
+// bf16-exact values are exact in f32, barring underflow, and are converted
+// to f64 once each (the conversion is the costly step); the chunk
+// partials, summed in f64 too and rounded to f32 once, give the X·A value
+// q_xa sees whatever the order (an f32 sum can land an ulp off, on a q_xa
+// rounding tie, and move a whole output row).
+__device__ __forceinline__ void xa_chunk_product(
+    const __nv_bfloat16* __restrict__ a, xa_sum_t* part, int K, int R, int mt,
+    int s, int KS, int rc, XaSmem& sm) {
+  constexpr int HALF = XA_KC / 2;
+  constexpr int OUT = MT * RMAX / NTHREADS;   // outputs per thread
+  const int t = threadIdx.x;
+  const int k0 = s * XA_KC, kn = min(XA_KC, K - k0);
+  const int r0 = rc * RMAX, rn = min(RMAX, R - r0);
+  xa_chunk_t acc[OUT];
 #pragma unroll
-  for (int o = 0; o < OUT; ++o) acc[o] = 0.f;
+  for (int o = 0; o < OUT; ++o) acc[o] = 0;
   for (int h = 0; h < kn; h += HALF) {
     // rows [k0 + h, k0 + h + kh) of A, columns [r0, r0 + rn), into a
     // (kh, rn) tile: 16-byte loads where R % 8 == 0 (then rn % 8 == 0 and
@@ -105,10 +131,11 @@ __device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
       const int idx = o * NTHREADS + t;
       if (idx < MT * rn) {
         const int m = idx / rn, r = idx % rn;
-        float v = acc[o];
+        xa_chunk_t v = acc[o];
 #pragma unroll 8
         for (int kk = 0; kk < kh; ++kk)
-          v = fmaf(sm.xs[m][h + kk], __bfloat162float(sm.as[kk * rn + r]), v);
+          v += (xa_chunk_t)(sm.xs[m][h + kk] *
+                            __bfloat162float(sm.as[kk * rn + r]));
         acc[o] = v;
       }
     }
@@ -119,6 +146,31 @@ __device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
     if (idx < MT * rn)
       part[(((size_t)mt * KS + s) * MT + idx / rn) * R + r0 + idx % rn] = acc[o];
   }
+}
+
+// X·A over one K chunk of x (M, K) bf16: stage_x_chunk, then
+// xa_chunk_product.
+template <bool COH>
+__device__ __forceinline__ void xa_partial_tile(const __nv_bfloat16* x,
+                                const __nv_bfloat16* __restrict__ a,
+                                xa_sum_t* part, int M, int K, int R, int mt,
+                                int s, int KS, int rc, XaSmem& sm) {
+  stage_x_chunk<COH>(x, M, K, mt, s, sm);
+  xa_chunk_product(a, part, K, R, mt, s, KS, rc, sm);
+}
+
+// The in-kernel activation quantizer: the 16 raw f32 values v[0..15] of one
+// group along K quantized per the group's absmax at x_mb mantissa bits and
+// rounded to bf16 (exact on the grid of widths <= 9; a passthrough value
+// |v| <= 1e-8 rounds as the separate quantizer's bf16 output does), in
+// place.
+__device__ __forceinline__ void quantize_x_group(float* v, int x_mb) {
+  float bmax = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) bmax = fmaxf(bmax, fabsf(v[j]));
+  const int e = group_exponent(bmax);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) v[j] = bf16_round(mx_value(v[j], e, x_mb));
 }
 
 // Accumulate rows m0..m0+7 of x (M, K) bf16 times the packed weight's

@@ -1,13 +1,15 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version. A wrapper launches its CUDA kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs the plain
-version and counts nothing."""
+version and counts nothing. The staged decode wrappers (rows 7 and 9) also
+count their launches at code width 4 in ``launches_width4``."""
 
 from __future__ import annotations
 
 from .attention import quantized_attention
 from .cache_write import (
     flush_stage_to_main,
+    write_kv_rows_all_layers,
     write_kv_rows_stacked,
     write_kv_tokens_fused,
 )
@@ -67,13 +69,25 @@ KERNELS = {
     "encode_write_tokens": (write_kv_tokens_fused,
                             "lqer_tpu_torch/csrc/cache_write.cu",
                             "lqer_tpu/ops/pallas/cache_write.py:248"),
+    "row_write_all": (write_kv_rows_all_layers,
+                      "lqer_tpu_torch/csrc/cache_write.cu",
+                      "lqer_tpu/ops/pallas/cache_write.py:211"),
 }
 
 
 def reset_launch_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "launches_width4"):
+            wrapper.launches_width4 = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: w.launches for name, (w, _, _) in KERNELS.items()}
+    """Each entry's launches, and ``"{name}.width4"`` for the entries that
+    count their code-width-4 launches apart."""
+    counts = {}
+    for name, (w, _, _) in KERNELS.items():
+        counts[name] = w.launches
+        if hasattr(w, "launches_width4"):
+            counts[f"{name}.width4"] = w.launches_width4
+    return counts

@@ -1,13 +1,14 @@
 """In-place KV-cache writes: the flush of the staging ring into the main
-cache, the one-row-per-slot decode write, the same with the MXINT8 encode in
-the launch, and the cache-row encode the decode kernels use.
+cache, the one-row-per-slot decode write into one layer or every layer, the
+same with the MXINT8 encode in the launch, and the cache-row encode (MXINT8
+or MXINT4) the decode kernels use.
 
 Port of ``flush_stage_to_main``, ``write_kv_rows_stacked``,
-``write_kv_tokens_fused`` and ``_encode_t`` of
-``lqer_tpu/ops/pallas/cache_write.py``. The three CUDA kernels are in
-``csrc/cache_write.cu``; :func:`flush_plain`, :func:`write_rows_plain` and
-:func:`encode_write_plain` are their plain PyTorch versions. All write in
-place and bit-exact:
+``write_kv_rows_all_layers``, ``write_kv_tokens_fused`` and ``_encode_t`` of
+``lqer_tpu/ops/pallas/cache_write.py``. The four CUDA kernels are in
+``csrc/cache_write.cu``; :func:`flush_plain`, :func:`write_rows_plain`,
+:func:`write_rows_all_layers_plain` and :func:`encode_write_plain` are their
+plain PyTorch versions. All write in place and bit-exact:
 
 - the flush, for every layer, slot, kv head and row,
   ``main[..., t] = ring[..., t % SW]`` for ``t`` in
@@ -17,6 +18,8 @@ place and bit-exact:
   rows of the fp cache, f32 rows rounded to nearest even) or dim 4 (int8
   MXINT code and exponent columns); a position outside ``[0, L)`` writes
   nothing;
+- the row write of every layer, the same for each layer of the arrays, the
+  new rows carrying a leading layer axis, in one launch;
 - the fused write, the fresh K/V rows MXINT8-encoded (:func:`encode_rows`)
   and written as the row write writes the four columns.
 """
@@ -25,16 +28,20 @@ from __future__ import annotations
 
 import torch
 
-from ...parallel.collectives import mx8_encode
+from ...parallel.collectives import mx4_encode, mx8_encode
 from . import _build
 
 
-def _encode_t(vals_t: torch.Tensor, group: int = 16):
-    """MXINT8 encode of TRANSPOSED values ``(…, d, N)``: groups of ``group``
-    along d, exact exponents, all-zero groups take exponent 0 (fill 1.0).
-    Returns (codes int8 (…, d, N), exps int8 (…, d/group, N)); the bytes of
-    ``mx8_encode(zero_fill=1.0)`` on the untransposed values."""
-    codes, exps = mx8_encode(vals_t.transpose(-1, -2), group, zero_fill=1.0)
+def _encode_t(vals_t: torch.Tensor, group: int = 16, width: int = 8):
+    """MXINT8 (``width`` 8) or MXINT4 (``width`` 4: codes clamped to ±7 and
+    nibble-packed d-split, value i low and value i + d/2 high) encode of
+    TRANSPOSED values ``(…, d, N)``: groups of ``group`` along d, exact
+    exponents, all-zero groups take exponent 0 (fill 1.0). Returns (codes
+    int8 (…, d, N) or (…, d/2, N), exps int8 (…, d/group, N)); the bytes of
+    ``mx8_encode`` / ``mx4_encode(zero_fill=1.0)`` on the untransposed
+    values, the JAX ``_encode_t(mb=7)`` / ``_encode_t(mb=3, pack=True)``."""
+    enc = {8: mx8_encode, 4: mx4_encode}[width]
+    codes, exps = enc(vals_t.transpose(-1, -2), group, zero_fill=1.0)
     return codes.transpose(-1, -2), exps.transpose(-1, -2)
 
 
@@ -127,13 +134,23 @@ def write_kv_rows_stacked(cache_arrays: tuple, new_rows: tuple,
         return write_rows_plain(cache_arrays, new_rows, layer_index, positions)
     if not a0.is_cuda:
         raise ValueError(f"unsupported device {a0.device}")
+    if not 0 <= layer_index < a0.shape[0]:
+        raise ValueError(f"layer {layer_index} of {a0.shape[0]}")
+    cols = _row_columns(cache_arrays, new_rows)
+    _launch_rows("row_write", cols, new_rows, positions, int(layer_index))
+    write_kv_rows_stacked.launches += 1
+    return tuple(cache_arrays)
+
+
+def _row_columns(cache_arrays: tuple, new_rows: tuple) -> dict:
+    """Check up to four CUDA arrays ``(NL, B, KVH, ·, ·)`` against one
+    layer's new rows; returns the row-write kernel's per-array arguments
+    (``kind`` 1: f32 or bf16 rows stored into a bf16 array; 0: int8)."""
+    a0 = cache_arrays[0]
     NL, B, KVH = a0.shape[:3]
-    if not 1 <= len(cache_arrays) == len(new_rows) <= 4 \
-            or not 0 <= layer_index < NL:
-        raise ValueError(f"need 1 to 4 arrays and rows and a layer in "
-                         f"[0, {NL}) (layer {layer_index})")
-    cols = {"dst": [], "src": [], "lane": [], "rows": [], "cols": [],
-            "kind": []}
+    if not 1 <= len(cache_arrays) == len(new_rows) <= 4:
+        raise ValueError("need 1 to 4 arrays and as many rows")
+    cols = {"dst": [], "lane": [], "rows": [], "cols": [], "kind": []}
     for arr, new in zip(cache_arrays, new_rows):
         lane = _token_axis_last(arr, new)
         want = ((B, KVH, arr.shape[3], 1) if lane
@@ -146,31 +163,76 @@ def write_kv_rows_stacked(cache_arrays: tuple, new_rows: tuple,
                              f"{tuple(arr.shape)} and {tuple(new.shape)})")
         if arr.dtype == torch.bfloat16 and new.dtype in (torch.float32,
                                                          torch.bfloat16):
-            kind, src = 1, new.to(torch.float32).contiguous()
+            kind = 1
         elif arr.dtype == new.dtype == torch.int8:
-            kind, src = 0, new.contiguous()
+            kind = 0
         else:
             raise ValueError(f"row write stores f32/bf16 into bf16 or int8 "
                              f"into int8 (got {new.dtype} into {arr.dtype})")
-        for key, val in (("dst", arr), ("src", src), ("lane", int(lane)),
+        for key, val in (("dst", arr), ("lane", int(lane)),
                          ("rows", arr.shape[3]), ("cols", arr.shape[4]),
                          ("kind", kind)):
             cols[key].append(val)
-    n = len(cache_arrays)
+    return cols
+
+
+def _launch_rows(entry: str, cols: dict, new_rows, positions: torch.Tensor,
+                 layer_arg: int) -> None:
+    """One launch of a row-write entry: ``row_write`` (``layer_arg`` the
+    layer) or ``row_write_all`` (``layer_arg`` the layer count); the kernel
+    reads rows for a bf16 array as f32."""
+    n = len(cols["dst"])
+    srcs = [(r.to(torch.float32) if k == 1 else r).contiguous()
+            for r, k in zip(new_rows, cols["kind"])]
     pad = 4 - n
+    B, KVH = cols["dst"][0].shape[1:3]
     pos = positions.to(torch.int32).contiguous()
-    _build.launch("row_write",
+    _build.launch(entry,
                   *(a.data_ptr() for a in cols["dst"]), *[None] * pad,
-                  *(s.data_ptr() for s in cols["src"]), *[None] * pad,
+                  *(s.data_ptr() for s in srcs), *[None] * pad,
                   *(cols[k][i] if i < n else 0 for k in ("lane", "rows",
                                                           "cols", "kind")
                     for i in range(4)),
-                  pos.data_ptr(), n, int(layer_index), B, KVH)
-    write_kv_rows_stacked.launches += 1
-    return tuple(cache_arrays)
+                  pos.data_ptr(), n, layer_arg, B, KVH)
 
 
 write_kv_rows_stacked.launches = 0
+
+
+def write_rows_all_layers_plain(cache_arrays, new_rows,
+                                positions: torch.Tensor) -> tuple:
+    """:func:`write_rows_plain` of each layer's new rows."""
+    for li in range(new_rows[0].shape[0]):
+        write_rows_plain(cache_arrays, tuple(r[li] for r in new_rows), li,
+                         positions)
+    return tuple(cache_arrays)
+
+
+def write_kv_rows_all_layers(cache_arrays: tuple, new_rows: tuple,
+                             positions: torch.Tensor) -> tuple:
+    """:func:`write_kv_rows_stacked` for every layer at once: ``new_rows``
+    carry a leading layer axis, ``(NL, B, KVH, 1, C)`` rows or ``(NL, B,
+    KVH, R, 1)`` columns (the orientation rule of each layer's rows), and
+    layer ``l`` of each array takes layer ``l`` of its rows at
+    ``positions[b]``, in place; returns the arrays. CPU tensors run
+    :func:`write_rows_all_layers_plain`; CUDA tensors launch
+    ``csrc/cache_write.cu`` once."""
+    a0 = cache_arrays[0]
+    NL = a0.shape[0]
+    if any(r.ndim != 5 or r.shape[0] != NL for r in new_rows):
+        raise ValueError(f"rows of every layer need a leading axis of {NL} "
+                         f"(got {[tuple(r.shape) for r in new_rows]})")
+    if a0.device.type == "cpu":
+        return write_rows_all_layers_plain(cache_arrays, new_rows, positions)
+    if not a0.is_cuda:
+        raise ValueError(f"unsupported device {a0.device}")
+    cols = _row_columns(cache_arrays, tuple(r[0] for r in new_rows))
+    _launch_rows("row_write_all", cols, new_rows, positions, NL)
+    write_kv_rows_all_layers.launches += 1
+    return tuple(cache_arrays)
+
+
+write_kv_rows_all_layers.launches = 0
 
 
 def encode_write_plain(cache_arrays, kh, vh, layer_index: int,

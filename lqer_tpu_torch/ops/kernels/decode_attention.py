@@ -1,17 +1,20 @@
-"""Kernel 3: staged decode attention over the MXINT8 KV cache.
+"""Kernel 3: staged decode attention over the MXINT8 or MXINT4 KV cache.
 
 Port of the staged entry of ``lqer_tpu/ops/pallas/decode_attention.py``
 (``decode_attention_quantized_staged``, body ``_kernel_quantized_staged``,
 with ``_decode_cache_block`` and ``_quantize_sublane_groups_signed``). The
-CUDA kernel is ``csrc/decode_attention.cu``; :func:`staged_decode_plain` is
-its plain PyTorch version.
+code width is the cache's, read off the code rows as the JAX kernel reads
+it: ``d`` rows for MXINT8, ``d/2`` nibble-packed rows for MXINT4 (the
+``mxint4-staged`` cache). The CUDA kernel is ``csrc/decode_attention.cu``;
+:func:`staged_decode_plain` is its plain PyTorch version.
 
 One layer per call, on per-layer views of the layer-stacked cache
 (``cache[key][li]`` is a zero-copy view). The fresh token's K/V rows are
 encoded into ring lane ``pos % 64`` IN PLACE, where the JAX kernel aliases
 the ring arrays to its outputs. Scores run over main ``[0, flushed)`` and
 the ring's ``[flushed, pos]`` with one exact f32 softmax; P is quantized
-per 16 along the concatenated ``[main L | ring 64]`` axis, then P·V.
+per 16 along the concatenated ``[main L | ring 64]`` axis, then P·V. The
+fresh rows are encoded at the cache's width (``cache_write._encode_t``).
 """
 
 from __future__ import annotations
@@ -93,8 +96,22 @@ def _decode_cache_block(codes: torch.Tensor, exps: torch.Tensor,
                group).transpose(-1, -2)
 
 
+def code_width_of(codes: torch.Tensor, head_dim: int) -> int:
+    """The code width of a token-axis-last MXINT cache: 8 where the codes
+    hold ``head_dim`` rows, 4 where they hold ``head_dim // 2`` packed
+    ones; anything else raises."""
+    rows = codes.shape[-2]
+    if rows == head_dim:
+        return 8
+    if 2 * rows == head_dim and head_dim % 32 == 0:
+        return 4
+    raise ValueError(f"codes of {rows} rows for head_dim {head_dim} are "
+                     "neither MXINT8 nor MXINT4")
+
+
 def _write_ring(ring_codes, ring_exps, new_codes, new_exps, lane):
-    """Store (B, KVH, rows) columns at ring lane ``lane[b]``, in place."""
+    """Store (B, KVH, rows) columns (MXINT8 rows or packed MXINT4 ones) at
+    ring lane ``lane[b]``, in place."""
     for arr, new in ((ring_codes, new_codes), (ring_exps, new_exps)):
         idx = lane.to(torch.int64)[:, None, None, None].expand(
             *arr.shape[:3], 1)
@@ -139,9 +156,10 @@ def staged_decode_plain(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
                         q_width: int | None = 8, p_width: int | None = 8,
                         scale_query: bool = False) -> torch.Tensor:
     lane = positions % ks_codes.shape[-1]
+    width = code_width_of(ks_codes, q.shape[-1])
     for rc, re, new in ((ks_codes, ks_exps, kh), (vs_codes, vs_exps, vh)):
         codes, exps = _encode_t(new[:, :, 0, :].to(torch.float32)[..., None],
-                                group)
+                                group, width)
         _write_ring(rc, re, codes[..., 0], exps[..., 0], lane)
     s, v = staged_scores(q, k_codes, k_exps, v_codes, v_exps, ks_codes,
                          ks_exps, vs_codes, vs_exps, positions, flushed,
@@ -158,8 +176,10 @@ def decode_attention_quantized_staged(
     """One layer of staged decode attention.
 
     q (B, H, 1, d) raw queries (rope applied); main cache codes
-    (B, KVH, d, L) and exps (B, KVH, d/16, L) int8; rings (B, KVH, d, 64)
-    and (B, KVH, d/16, 64) int8, updated in place at lane ``pos % 64``;
+    (B, KVH, d, L) (MXINT8) or (B, KVH, d/2, L) (MXINT4, nibble-packed
+    d-split) and exps (B, KVH, d/16, L) int8; rings of the same rows
+    (B, KVH, ·, 64) and (B, KVH, d/16, 64) int8, updated in place at lane
+    ``pos % 64``;
     kh, vh (B, KVH, 1, d) raw new rows; positions, flushed (B,);
     ``scale_query`` as :func:`scaled_query`. Returns (B, H, 1, d) f32. CPU
     tensors run :func:`staged_decode_plain`; CUDA tensors launch
@@ -167,9 +187,12 @@ def decode_attention_quantized_staged(
     B, H, S, d = q.shape
     KVH, L = k_codes.shape[1], k_codes.shape[-1]
     SW = ks_codes.shape[-1]
-    if S != 1 or SW != 64 or k_codes.shape[2] != d or group != 16:
-        raise ValueError(f"staged decode needs s=1, an MXINT8 cache and a "
-                         f"64-lane ring (s={S}, SW={SW}, rows={k_codes.shape[2]})")
+    if S != 1 or SW != 64 or group != 16 \
+            or ks_codes.shape[2] != k_codes.shape[2]:
+        raise ValueError(f"staged decode needs s=1, an MXINT cache and a "
+                         f"64-lane ring of its rows (s={S}, SW={SW}, rows="
+                         f"{k_codes.shape[2]}, ring rows {ks_codes.shape[2]})")
+    width = code_width_of(k_codes, d)
     if q.device.type == "cpu":
         return staged_decode_plain(
             q, k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
@@ -196,10 +219,13 @@ def decode_attention_quantized_staged(
     _build.launch("decode_attention", qf.data_ptr(),
                   *(a.data_ptr() for a in arrays), khf.data_ptr(),
                   vhf.data_ptr(), pos.data_ptr(), fl.data_ptr(),
-                  out.data_ptr(), B, KVH, H // KVH, d, L, SW, float(scaling),
+                  out.data_ptr(), B, KVH, H // KVH, d, L, SW, width,
+                  float(scaling),
                   q_width - 1, -1 if p_width is None else p_width - 1)
     decode_attention_quantized_staged.launches += 1
+    decode_attention_quantized_staged.launches_width4 += width == 4
     return out
 
 
 decode_attention_quantized_staged.launches = 0
+decode_attention_quantized_staged.launches_width4 = 0

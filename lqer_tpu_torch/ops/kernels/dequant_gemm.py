@@ -11,10 +11,16 @@ version and the counterpart of ``qlinear_w4_fused_emulation``:
 (:func:`_quantize_rows_mx`; one whole-row group when the width is not a
 multiple of 16). Every product is exact in f32; the kernel and the plain
 version sum in different orders (allclose, see ``lqer_tpu_torch/testing.py``
-for the limit).
+for the limit). X·A alone is summed in f64 on both sides and rounded to
+f32 once (:func:`lqer_correction`): its q_xa quantizer then sees the same
+value whatever the order, where an f32 sum of 4096 terms can land one ulp
+off, on a rounding tie, and move a whole output row a q_out step.
 
 :func:`qlinear_w4_fused` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors.
+plain version for CPU tensors. With ``quant_x_width`` it takes the raw
+activation and quantizes it in the kernel (the TPU kernel's
+``quant_x_mb``; the plain version takes ``quant_x_width`` too:
+``_quantize_rows_mx``, then the product).
 
 The large-M route (:func:`qlinear_w4_dense_largeM`, 512 rows and more)
 dequantizes the packed weight once to a dense bf16 ``(K, N)`` with
@@ -60,8 +66,12 @@ def lqer_correction(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                     quant_xa_width: int | None = 8,
                     quant_out_width: int | None = 8) -> torch.Tensor:
     """``q_out(bf16(q_xa(x · a)) · b)`` in f32: the rank-k epilogue of
-    kernel 1 for ``x (M, K)``, ``a (K, R)``, ``b (R, N)``."""
-    xa = torch.matmul(x.to(torch.float32), a.to(torch.float32))
+    kernel 1 for ``x (M, K)``, ``a (K, R)``, ``b (R, N)``. ``x · a`` (exact
+    products of bf16-exact values) is summed in f64 and rounded to f32 once,
+    as the kernels sum it: the f32 value q_xa sees does not depend on the
+    summation order."""
+    xa = torch.matmul(x.to(torch.float64), a.to(torch.float64)).to(
+        torch.float32)
     if quant_xa_width is not None:
         xa = _quantize_rows_mx(xa, quant_xa_width - 1)
     corr = torch.matmul(xa.to(torch.bfloat16).to(torch.float32),
@@ -86,9 +96,14 @@ def prepare_w4_weights(w: torch.Tensor, a=None, b=None, bias=None,
 
 def qlinear_w4_plain(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
                      quant_xa_width: int | None = 8,
-                     quant_out_width: int | None = 8) -> torch.Tensor:
+                     quant_out_width: int | None = 8,
+                     quant_x_width: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel; ``x_q (M, K)`` holds
-    bf16-exact values. Returns (M, N) f32."""
+    bf16-exact values, or with ``quant_x_width`` the raw activation, first
+    quantized as the kernel quantizes it (:func:`quantize_x_plain`).
+    Returns (M, N) f32."""
+    if quant_x_width is not None:
+        x_q = quantize_x_plain(x_q, quant_x_width)
     w = dequantize_packed(prep["codes"], prep["exps"], fmt)
     xf = x_q.to(torch.bfloat16).to(torch.float32)
     y = torch.matmul(xf, w)
@@ -178,19 +193,30 @@ def _check_cuda(name: str, t: torch.Tensor | None, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def qlinear_w4_fused(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
-                     quant_xa_width: int | None = 8,
-                     quant_out_width: int | None = 8) -> torch.Tensor:
-    """``x_q (M, K)`` (bf16-exact activation values) through the packed
-    weights of ``prep`` (one layer's operands; stacked preps pass
-    ``prep[...][li]`` views). Returns (M, N) f32. CPU tensors run
-    :func:`qlinear_w4_plain`; CUDA tensors launch ``csrc/dequant_gemm.cu``."""
-    if x_q.device.type == "cpu":
-        return qlinear_w4_plain(x_q, prep, fmt, quant_xa_width=quant_xa_width,
-                                quant_out_width=quant_out_width)
-    if not x_q.is_cuda:
-        raise ValueError(f"unsupported device {x_q.device}")
-    M, K = x_q.shape
+def check_quant_x(x: torch.Tensor, quant_x_width: int) -> None:
+    """Raise unless the in-kernel activation quantizer takes ``x (M, K)``
+    at this width: whole 16-groups along K, a grid exact in bf16 (widths 2
+    to 9), as the serving backend's eligibility test asks."""
+    if x.ndim != 2 or x.shape[1] % 16 or not 2 <= quant_x_width <= 9:
+        raise ValueError(f"the in-kernel activation quantizer takes (M, K) "
+                         f"with K % 16 == 0 at widths 2..9 (x "
+                         f"{tuple(x.shape)}, width {quant_x_width})")
+
+
+def quantize_x_plain(x: torch.Tensor, quant_x_width: int) -> torch.Tensor:
+    """The in-kernel activation quantizer's function: ``x`` as f32,
+    quantized per (row, 16 along K) at ``quant_x_width - 1`` mantissa
+    bits."""
+    return _quantize_rows_mx(x.to(torch.float32), quant_x_width - 1)
+
+
+def _launch(x: torch.Tensor, prep: dict, fmt: MXFormat, quant_xa_width,
+            quant_out_width, quant_x_width=None) -> torch.Tensor:
+    """Check the operands and launch ``csrc/dequant_gemm.cu`` (one or two
+    kernels); with ``quant_x_width`` ``x`` is the raw activation."""
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    M, K = x.shape
     per = fmt.codes_per_word
     N = prep["codes"].shape[-1]
     a, b, bias = prep.get("a"), prep.get("b"), prep.get("bias")
@@ -203,19 +229,46 @@ def qlinear_w4_fused(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
     _check_cuda("a", a, torch.bfloat16, (K, R))
     _check_cuda("b", b, torch.bfloat16, (R, N))
     _check_cuda("bias", bias, torch.float32, (N,))
-    x = x_q.to(torch.bfloat16).contiguous()
+    x_raw = None
+    if quant_x_width is None:
+        x = x.to(torch.bfloat16).contiguous()
+    else:
+        x_raw = x.to(torch.float32).contiguous()
+        x = torch.empty(M, K, dtype=torch.bfloat16, device=x.device)
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     part = None
     if R:
         part = torch.empty(-(-M // 8), -(-K // XA_KC), 8, R,
-                           dtype=torch.float32, device=x.device)
+                           dtype=torch.float64, device=x.device)
     _build.launch(
-        "dequant_gemm", x.data_ptr(), prep["codes"].data_ptr(),
-        prep["exps"].data_ptr(), _build.ptr(a), _build.ptr(b),
-        _build.ptr(bias), out.data_ptr(), _build.ptr(part), M, N, K, R,
-        fmt.mantissa_bits,
+        "dequant_gemm", x.data_ptr(), _build.ptr(x_raw),
+        prep["codes"].data_ptr(), prep["exps"].data_ptr(), _build.ptr(a),
+        _build.ptr(b), _build.ptr(bias), out.data_ptr(), _build.ptr(part), M,
+        N, K, R, fmt.mantissa_bits,
         -1 if quant_xa_width is None else quant_xa_width - 1,
-        -1 if quant_out_width is None else quant_out_width - 1)
+        -1 if quant_out_width is None else quant_out_width - 1,
+        -1 if quant_x_width is None else quant_x_width - 1)
+    return out
+
+
+def qlinear_w4_fused(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
+                     quant_xa_width: int | None = 8,
+                     quant_out_width: int | None = 8,
+                     quant_x_width: int | None = None) -> torch.Tensor:
+    """``x_q (M, K)`` (bf16-exact activation values) through the packed
+    weights of ``prep`` (one layer's operands; stacked preps pass
+    ``prep[...][li]`` views). Returns (M, N) f32. With ``quant_x_width``,
+    ``x_q`` is the raw activation (f32 or bf16), quantized in the kernel
+    per 16 along K at that width (:func:`check_quant_x` raises for a shape
+    or width it does not take). CPU tensors run :func:`qlinear_w4_plain`;
+    CUDA tensors launch ``csrc/dequant_gemm.cu``."""
+    kw = dict(quant_xa_width=quant_xa_width, quant_out_width=quant_out_width,
+              quant_x_width=quant_x_width)
+    if quant_x_width is not None:
+        check_quant_x(x_q, quant_x_width)
+    if x_q.device.type == "cpu":
+        return qlinear_w4_plain(x_q, prep, fmt, **kw)
+    out = _launch(x_q, prep, fmt, **kw)
     qlinear_w4_fused.launches += 1
     return out
 

@@ -19,7 +19,11 @@ already on its ``b_quantizer``'s grid) comes after its correction.
 :func:`mlp_w4_fused` (the gated variant) and :func:`mlp_w4_fused_relu`
 (the relu variant; :func:`mlp_w4_fused` hands an un-gated prep to it)
 launch the kernel for CUDA tensors and run the plain version for CPU
-tensors; each counts its own launches. The serving backend sends them
+tensors; each counts its own launches. With ``quant_x_width`` the first
+input arrives raw and the kernel quantizes it (the TPU kernel's
+``quant_x_mb``; :func:`mlp_w4_plain` takes ``quant_x_width`` too). The
+serving
+backend sends them
 fewer than ``kernel_backend._LARGEM_THRESHOLD`` (512) rows.
 :func:`mlp_w4_dense_largeM` is the 512-rows-and-more route: two or three
 unpacks and as many dense products (``dequant_gemm.unpack_packed_to_bf16``,
@@ -143,9 +147,14 @@ def hidden_plain(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
 def mlp_w4_plain(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
                  act_width: int | None = 8,
                  quant_xa_width: int | None = 8,
-                 quant_out_width: int | None = 8) -> torch.Tensor:
+                 quant_out_width: int | None = 8,
+                 quant_x_width: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the megakernel (either variant); ``x_q
-    (M, K)`` holds bf16-exact values. Returns (M, N) f32."""
+    (M, K)`` holds bf16-exact values, or with ``quant_x_width`` the raw
+    activation, first quantized as the kernel quantizes it
+    (``dequant_gemm.quantize_x_plain``). Returns (M, N) f32."""
+    if quant_x_width is not None:
+        x_q = k1.quantize_x_plain(x_q, quant_x_width)
     h = hidden_plain(x_q, prep, fmt, act_width=act_width,
                      quant_xa_width=quant_xa_width,
                      quant_out_width=quant_out_width)
@@ -155,8 +164,10 @@ def mlp_w4_plain(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
 
 
 def _launch(x_q: torch.Tensor, prep: dict, fmt: MXFormat, act_width,
-            quant_xa_width, quant_out_width) -> torch.Tensor:
-    """Check the operands and launch ``csrc/mlp_fused.cu`` once."""
+            quant_xa_width, quant_out_width, quant_x_width=None
+            ) -> torch.Tensor:
+    """Check the operands and launch ``csrc/mlp_fused.cu`` once; with
+    ``quant_x_width`` ``x_q`` is the raw activation."""
     if not x_q.is_cuda:
         raise ValueError(f"unsupported device {x_q.device}")
     M, K = x_q.shape
@@ -190,7 +201,12 @@ def _launch(x_q: torch.Tensor, prep: dict, fmt: MXFormat, act_width,
         k1._check_cuda(name, prep.get(name), torch.float32, (n,))
     if not gated and prep.get("bias_u") is not None:
         raise ValueError("bias_u without an up half")
-    x = x_q.to(torch.bfloat16).contiguous()
+    x_raw = None
+    if quant_x_width is None:
+        x = x_q.to(torch.bfloat16).contiguous()
+    else:
+        x_raw = x_q.to(torch.float32).contiguous()
+        x = torch.empty(M, K, dtype=torch.bfloat16, device=x_q.device)
     dev = x.device
     mt = -(-M // 8)
     out = torch.empty(M, N, dtype=torch.float32, device=dev)
@@ -198,11 +214,11 @@ def _launch(x_q: torch.Tensor, prep: dict, fmt: MXFormat, act_width,
     # X·A partials of each 8-row tile and 256-wide K chunk, then the
     # quantized X·A of every row: gate(|up) (wgu wide), then down (R wide)
     part = torch.empty(mt, -(-max(K, I) // k1.XA_KC), 8, max(wgu, 1),
-                       dtype=torch.float32, device=dev)
+                       dtype=torch.float64, device=dev)
     xa = torch.empty(mt * 8, max(wgu + R, 1), dtype=torch.float32,
                      device=dev)
     _build.launch(
-        "mlp_fused", x.data_ptr(),
+        "mlp_fused", x.data_ptr(), _build.ptr(x_raw),
         *(_build.ptr(prep.get(k)) for k in (
             "codes_g", "exps_g", "codes_u", "exps_u", "codes_d", "exps_d",
             "a_gu", "b_g", "b_u", "a_d", "b_d", "bias_g", "bias_u",
@@ -210,44 +226,57 @@ def _launch(x_q: torch.Tensor, prep: dict, fmt: MXFormat, act_width,
         h.data_ptr(), part.data_ptr(), xa.data_ptr(), out.data_ptr(), M, K,
         I, N, R, act_width - 1,
         -1 if quant_xa_width is None else quant_xa_width - 1,
-        -1 if quant_out_width is None else quant_out_width - 1)
+        -1 if quant_out_width is None else quant_out_width - 1,
+        -1 if quant_x_width is None else quant_x_width - 1)
     return out
+
+
+def _run(x_q, prep, fmt, kw) -> torch.Tensor:
+    """The plain version for CPU tensors, else one launch of the kernel
+    (which its caller counts)."""
+    if kw["quant_x_width"] is not None:
+        k1.check_quant_x(x_q, kw["quant_x_width"])
+    if x_q.device.type == "cpu":
+        return mlp_w4_plain(x_q, prep, fmt, **kw)
+    return _launch(x_q, prep, fmt, **kw)
 
 
 def mlp_w4_fused(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
                  act_width: int | None = 8,
                  quant_xa_width: int | None = 8,
-                 quant_out_width: int | None = 8) -> torch.Tensor:
+                 quant_out_width: int | None = 8,
+                 quant_x_width: int | None = None) -> torch.Tensor:
     """``x_q (M, K)`` (bf16-exact activation values) through one
     layer's packed MLP ``prep`` (stacked preps pass ``prep[...][li]``
-    views). Returns (M, N) f32. CPU tensors run :func:`mlp_w4_plain`; CUDA
-    tensors launch ``csrc/mlp_fused.cu`` once. An un-gated (relu) prep goes
-    to :func:`mlp_w4_fused_relu`."""
+    views). Returns (M, N) f32. With ``quant_x_width``, ``x_q`` is the raw
+    activation, quantized in the kernel (``dequant_gemm.check_quant_x``
+    raises for a shape or width it does not take). CPU tensors run
+    :func:`mlp_w4_plain`; CUDA tensors launch ``csrc/mlp_fused.cu`` once.
+    An un-gated (relu) prep goes to :func:`mlp_w4_fused_relu`."""
     kw = dict(act_width=act_width, quant_xa_width=quant_xa_width,
-              quant_out_width=quant_out_width)
+              quant_out_width=quant_out_width, quant_x_width=quant_x_width)
     if prep.get("codes_u") is None:
         return mlp_w4_fused_relu(x_q, prep, fmt, **kw)
-    if x_q.device.type == "cpu":
-        return mlp_w4_plain(x_q, prep, fmt, **kw)
-    out = _launch(x_q, prep, fmt, **kw)
-    mlp_w4_fused.launches += 1
+    out = _run(x_q, prep, fmt, kw)
+    if x_q.is_cuda:
+        mlp_w4_fused.launches += 1
     return out
 
 
 def mlp_w4_fused_relu(x_q: torch.Tensor, prep: dict, fmt: MXFormat, *,
                       act_width: int | None = 8,
                       quant_xa_width: int | None = 8,
-                      quant_out_width: int | None = 8) -> torch.Tensor:
+                      quant_out_width: int | None = 8,
+                      quant_x_width: int | None = None) -> torch.Tensor:
     """:func:`mlp_w4_fused` for the un-gated relu variant with biases (an
     OPT layer's fc1 and fc2), counted apart."""
     kw = dict(act_width=act_width, quant_xa_width=quant_xa_width,
-              quant_out_width=quant_out_width)
+              quant_out_width=quant_out_width, quant_x_width=quant_x_width)
     if prep.get("codes_u") is not None:
         raise ValueError("a gated MLP prep: use mlp_w4_fused")
-    if x_q.device.type == "cpu":
-        return mlp_w4_plain(x_q, prep, fmt, **kw)
-    out = _launch(x_q, prep, fmt, **kw)
-    mlp_w4_fused_relu.launches += 1
+    out = _run(x_q, prep, fmt, kw)
+    if x_q.is_cuda:
+        mlp_w4_fused_relu.launches += 1
     return out
 
 

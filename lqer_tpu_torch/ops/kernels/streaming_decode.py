@@ -4,7 +4,7 @@ length: the direct-write cache and the ring-staged one.
 Port of ``decode_attention_quantized_streaming`` (bodies ``_stats_kernel``
 and ``_out_kernel``, codes of width 8 or 4, layer-stacked with
 ``layer_index``) and ``decode_attention_quantized_streaming_staged`` (bodies
-``_stats_kernel_staged`` and ``_out_kernel_staged``, width 8) of
+``_stats_kernel_staged`` and ``_out_kernel_staged``, widths 8 and 4) of
 ``lqer_tpu/ops/pallas/decode_attention.py``. Both run the CUDA kernels of
 ``csrc/decode_attention_streaming.cu``. The direct-write entry takes a
 sliding window (``window``, Mistral) as the one-pass kernels do; the staged
@@ -24,7 +24,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import scaled_query, staged_decode_plain, window_arg
+from .decode_attention import (
+    code_width_of,
+    scaled_query,
+    staged_decode_plain,
+    window_arg,
+)
 from .fp_decode import _mb
 from .quantized_decode import _check_cache, quantized_decode_plain
 
@@ -111,24 +116,23 @@ def decode_attention_quantized_streaming_staged(
     """One layer of staged decode attention, split along L for the card.
 
     The arguments of :func:`~.decode_attention.decode_attention_quantized_
-    staged`: main cache codes (B, KVH, d, L) and exps (B, KVH, d/16, L)
-    int8; rings (B, KVH, d, 64) and (B, KVH, d/16, 64) int8, updated in
-    place at lane ``pos % 64``; kh, vh (B, KVH, 1, d) raw new rows;
+    staged`: main cache codes (B, KVH, d, L) (MXINT8) or (B, KVH, d/2, L)
+    (MXINT4) and exps (B, KVH, d/16, L) int8; rings of the same rows
+    (B, KVH, ·, 64) and (B, KVH, d/16, 64) int8, updated in place at lane
+    ``pos % 64``; kh, vh (B, KVH, 1, d) raw new rows;
     positions, flushed (B,). Returns (B, H, 1, d) f32. CPU tensors run
     :func:`~.decode_attention.staged_decode_plain`; CUDA tensors launch
     ``csrc/decode_attention_streaming.cu``."""
     B, H, S, d = q.shape
     SW = ks_codes.shape[-1]
-    if k_codes.shape[2] == d // 2:
-        raise NotImplementedError(
-            "the staged MXINT4 cache is not ported (JAX: "
-            "decode_attention_quantized_streaming_staged at code width 4; "
-            "it comes with the mxint4-staged slice)")
-    if S != 1 or SW != 64 or k_codes.shape[2] != d or group != 16 \
-            or k_codes.shape[-1] % 16:
-        raise ValueError(f"staged streaming decode needs s=1, an MXINT8 "
-                         f"cache of L % 16 == 0 and a 64-lane ring (s={S}, "
-                         f"SW={SW}, codes {tuple(k_codes.shape)})")
+    if S != 1 or SW != 64 or group != 16 or k_codes.shape[-1] % 16 \
+            or ks_codes.shape[2] != k_codes.shape[2]:
+        raise ValueError(f"staged streaming decode needs s=1, an MXINT "
+                         f"cache of L % 16 == 0 and a 64-lane ring of its "
+                         f"rows (s={S}, SW={SW}, codes "
+                         f"{tuple(k_codes.shape)}, ring "
+                         f"{tuple(ks_codes.shape)})")
+    width = code_width_of(k_codes, d)
     main = (k_codes, k_exps, v_codes, v_exps)
     ring = (ks_codes, ks_exps, vs_codes, vs_exps)
     if q.device.type == "cpu":
@@ -138,11 +142,13 @@ def decode_attention_quantized_streaming_staged(
                                    scale_query=scale_query)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch(q, main, ring, kh, vh, positions, flushed, 8, scaling,
+    out = _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
                   q_width, p_width, scale_query)
     decode_attention_quantized_streaming_staged.launches += 1
+    decode_attention_quantized_streaming_staged.launches_width4 += width == 4
     return out
 
 
 decode_attention_quantized_streaming.launches = 0
 decode_attention_quantized_streaming_staged.launches = 0
+decode_attention_quantized_streaming_staged.launches_width4 = 0

@@ -23,9 +23,10 @@ takes no window); this plain PyTorch attention has no TPU kernel behind it.
 At s = 1 the route follows the cache (``make_cache``), each decode kernel
 taking the window:
 
-- ``mxint8-staged``: the staged decode kernel writes the fresh token into
-  the ring and attends; a step first flushes the rings into the main cache
-  once any slot's ring residue reaches 48;
+- ``mxint8-staged`` and ``mxint4-staged``: the staged decode kernel
+  writes the fresh token into the ring at the cache's code width and
+  attends; a step first flushes the rings into the main cache once any
+  slot's ring residue reaches 48;
 - ``mxint8``: one launch encodes the fresh token into column ``pos`` and
   attends (``decode_attention_quantized_write``);
 - ``mxint4``: the fresh rows MXINT4-encoded, the row-write kernel stores
@@ -35,8 +36,8 @@ taking the window:
   every operand at use.
 
 Past the one-pass length (:func:`streams`; at Llama-2-7B width about 23K
-tokens) the MXINT caches stream L as the JAX package does: the staged cache
-through the streaming staged kernel, ``mxint8`` through the fused MXINT8
+tokens) the MXINT caches stream L as the JAX package does: the staged
+caches through the streaming staged kernel, ``mxint8`` through the fused MXINT8
 encode + write and the streaming kernel, ``mxint4`` through its row write
 and the streaming kernel at width 4. :func:`decode_route` holds each
 route, and the decode step runs the kernels it names.
@@ -122,6 +123,7 @@ from .kv_cache import (
 FLUSH_RESIDUE = 48  # flush once a ring holds 48 tokens: < 64 lanes always
 CACHE_DTYPES = ("bfloat16", "float32", "mxint8", "mxint8-staged", "mxint4",
                 "mxint4-staged")
+STAGED_KINDS = ("mxint8-staged", "mxint4-staged")
 CARD_HEAD_DIMS = (64, 128)  # the head dims the card's attention kernels take
 
 logger = logging.getLogger(__name__)
@@ -146,7 +148,7 @@ def _kvh_chunk_fits(max_len: int, head_dim: int, group: int = 16) -> bool:
 
 def _cache_kind(cache: dict) -> str:
     if is_staged_cache(cache):
-        return "mxint8-staged"
+        return f"mxint{cache_code_width(cache)}-staged"
     if is_quantized_cache(cache):
         return f"mxint{cache_code_width(cache)}"
     return {torch.bfloat16: "bfloat16", torch.float32: "float32"}.get(
@@ -161,7 +163,7 @@ def _check_cache_regime(kind: str, max_len: int, head_dim: int) -> None:
             "the float32 cache is not ported (JAX: init_kv_cache with "
             "dtype=float32, served by the eager path serving/decode.py::"
             "_attend)")
-    if kind not in ("bfloat16", "mxint8", "mxint8-staged", "mxint4"):
+    if kind not in ("bfloat16", "mxint8", "mxint4", *STAGED_KINDS):
         raise NotImplementedError(f"cache {kind!r} is not ported")
     if max_len < 128 or max_len % 16 or head_dim % 16:
         raise NotImplementedError(
@@ -185,7 +187,7 @@ def streams(kind: str, max_len: int, head_dim: int, n_rep: int) -> bool:
     its one-pass kernel (``decode_attention_quantized``, after its fused
     write for MXINT8, or the one-pass staged kernel); the two compute one
     function and differ only in f32 summation order."""
-    if kind == "mxint8-staged":
+    if kind in STAGED_KINDS:
         smem = staged_decode.smem_bytes(n_rep, max_len, head_dim)
     elif kind in ("mxint8", "mxint4"):
         smem = quantized_decode.smem_bytes(n_rep, max_len, head_dim)
@@ -201,25 +203,26 @@ def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
     staged cache's flush runs besides, once for all layers, when a ring
     fills."""
     stream = streams(kind, max_len, head_dim, n_rep)
+    if kind in STAGED_KINDS:   # either width, read off the cache's rows
+        return (("decode_attention_streaming_staged",) if stream
+                else ("decode_attention",))
     return {
         "bfloat16": ("row_write", "decode_attention_fp"),
         "mxint8": (("encode_write_tokens", "decode_attention_streaming")
                    if stream else ("decode_attention_write",)),
         "mxint4": ("row_write", "decode_attention_streaming" if stream
                    else "decode_attention_quantized"),
-        "mxint8-staged": ("decode_attention_streaming_staged",) if stream
-        else ("decode_attention",),
     }[kind]
 
 
 def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                device="cuda") -> dict:
     """The JAX package's ``make_cache``: ``"bfloat16"`` (the default;
-    ``torch.bfloat16`` too), ``"mxint8"``, ``"mxint8-staged"`` and
-    ``"mxint4"``. As in JAX, a staged name under a sliding window (or where
-    ``max_len % 128 != 0``) gives the direct-write cache of its width, and
-    the MXINT4 caches need ``head_dim % 32 == 0``. ``"float32"``, a staged
-    MXINT4 cache and lengths the kernels do not serve raise
+    ``torch.bfloat16`` too), ``"mxint8"``, ``"mxint8-staged"``,
+    ``"mxint4"`` and ``"mxint4-staged"``. As in JAX, a staged name under a
+    sliding window (or where ``max_len % 128 != 0``) gives the direct-write
+    cache of its width, and the MXINT4 caches need ``head_dim % 32 == 0``.
+    ``"float32"`` and lengths the kernels do not serve raise
     ``NotImplementedError``."""
     name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}.get(dtype,
                                                                       dtype)
@@ -235,19 +238,15 @@ def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
         logger.info("%s ineligible (window=%s, max_len=%d): using the "
                     "direct-write %s cache", name, window, max_len,
                     name.removesuffix("-staged"))
-    if name == "mxint4-staged" and staged:
-        raise NotImplementedError(
-            "the staged MXINT4 cache is not ported (JAX: "
-            "decode_attention_quantized_staged at code width 4)")
     kind = name.removesuffix("-staged") if not staged else name
     _check_cache_regime(kind, max_len, cfg.head_dim)
     shape = (cfg.num_hidden_layers, batch, cfg.kv_heads, cfg.head_dim,
              max_len)
     if kind == "bfloat16":
         return init_kv_cache(*shape, dtype=torch.bfloat16, device=device)
-    return init_quantized_kv_cache(*shape, staged=staged,
-                                   code_width=4 if kind == "mxint4" else 8,
-                                   device=device)
+    return init_quantized_kv_cache(
+        *shape, staged=staged,
+        code_width=4 if kind.startswith("mxint4") else 8, device=device)
 
 
 def _cache_mask(q_abs: torch.Tensor, max_len: int, dtype,

@@ -15,6 +15,14 @@ when the MLP is not packed whole) share one launch, and ``pad_to_tile``
 pads the vocab to 32768 and the intermediate dim (11008 to 11264) as the
 JAX package does. A bias passes through its linear's ``b_quantizer`` at
 pack time.
+
+A linear or MLP below 512 rows whose activation quantizer is the
+canonical MXINT8 format (:func:`_is_mx8_act`, width <= 9, K % 16 == 0: the
+JAX package's test for its opt-in ``LQER_INKERNEL_XQ`` route) hands its raw
+activation to the kernel, which quantizes it itself (kernel 1's and the
+megakernel's ``quant_x_width``): the same values as the separate
+quantizer, without its ops. Other formats, and 512 rows and more, keep the
+separate quantizer; the lm_head keeps its unquantized bf16 input.
 """
 
 from __future__ import annotations
@@ -81,6 +89,30 @@ def _is_mx4_weight(w_cfg: dict | None) -> bool:
         and list(w_cfg.get("block_size", ())) == [1, 16]
         and not w_cfg.get("skip_first_dim", False)
     )
+
+
+def _is_mx8_act(x_cfg: dict | None) -> bool:
+    """The activation format the kernels' in-kernel quantizer implements:
+    block_fp, [1, 16] groups along the features, 8-bit exponent, no bias
+    override."""
+    return bool(
+        x_cfg
+        and x_cfg.get("name") == "block_fp"
+        and list(x_cfg.get("block_size", ())) == [1, 16]
+        and x_cfg.get("skip_first_dim", False)
+        and x_cfg.get("exponent_width") == 8
+        and x_cfg.get("exponent_bias") is None
+    )
+
+
+def inkernel_x_width(x_cfg: dict | None, k: int) -> int | None:
+    """The width the kernel quantizes the raw activation at, where the
+    in-kernel quantizer takes this activation format and K (the JAX
+    package's eligibility test); else None."""
+    if (_is_mx8_act(x_cfg) and x_cfg.get("width", 99) <= 9
+            and k % 16 == 0):
+        return int(x_cfg["width"])
+    return None
 
 
 def _partial_quant_width(cfg: dict | None, last_dim: int):
@@ -395,25 +427,33 @@ def serving_mlp(x: torch.Tensor, key: str, backend: dict, qc_first, *,
                 layer_index: int | None = None) -> torch.Tensor:
     """A layer's whole MLP: quantize the activations with the gate's (fc1's)
     quantizer, then one megakernel launch (fewer than 512 rows) or the
-    large-M route. ``x (b, s, hidden)`` → ``(b, s, hidden)`` in x's
-    dtype."""
+    large-M route; below 512 rows, where :func:`inkernel_x_width` allows,
+    the megakernel quantizes the raw activations itself. ``x (b, s,
+    hidden)`` → ``(b, s, hidden)`` in x's dtype."""
     prep = layer_prep(backend["arrays"][key], layer_index)
     meta = backend["meta"][key]
     b, s, k = x.shape
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    qxw = inkernel_x_width(qc_first.x_cfg, k)
+    if b * s < _LARGEM_THRESHOLD and qxw is not None:
+        y = mlp_w4_fused(x.reshape(b * s, k), prep, meta["fmt"],
+                         quant_x_width=qxw, **kw)
+        return y.reshape(b, s, -1).to(x.dtype)
     x_q = qc_first.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
     route = (mlp_w4_dense_largeM if b * s >= _LARGEM_THRESHOLD
              else mlp_w4_fused)
-    y = route(x_q, prep, meta["fmt"], act_width=meta["act_width"],
-              quant_xa_width=meta["xa_width"],
-              quant_out_width=meta["out_width"])
+    y = route(x_q, prep, meta["fmt"], **kw)
     return y.reshape(b, s, -1).to(x.dtype)
 
 
 def serving_linear(x: torch.Tensor, prefix: str, backend: dict, qc, *,
                    layer_index: int | None = None) -> torch.Tensor:
     """Quantize the activations (exact-in-bf16 MXINT8 values), then run the
-    dequant-GEMM kernel (fewer than 512 rows) or the large-M route.
-    ``x (b, s, in)`` → ``(b, s, out)`` in x's dtype."""
+    dequant-GEMM kernel (fewer than 512 rows) or the large-M route; below
+    512 rows, where :func:`inkernel_x_width` allows, the kernel quantizes
+    the raw activations itself. ``x (b, s, in)`` → ``(b, s,
+    out)`` in x's dtype."""
     if prefix not in backend["meta"]:
         raise NotImplementedError(
             f"{prefix} is not packed for the kernel (ineligible quantizer "
@@ -421,11 +461,17 @@ def serving_linear(x: torch.Tensor, prefix: str, backend: dict, qc, *,
     prep = layer_prep(backend["arrays"][prefix], layer_index)
     meta = backend["meta"][prefix]
     b, s, k = x.shape
+    kw = dict(quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    qxw = inkernel_x_width(qc.x_cfg, k)
+    if b * s < _LARGEM_THRESHOLD and qxw is not None:
+        y = qlinear_w4_fused(x.reshape(b * s, k), prep, meta["fmt"],
+                             quant_x_width=qxw, **kw)
+        return y.reshape(b, s, -1).to(x.dtype)
     x_q = qc.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
     route = (qlinear_w4_dense_largeM if b * s >= _LARGEM_THRESHOLD
              else qlinear_w4_fused)
-    y = route(x_q, prep, meta["fmt"], quant_xa_width=meta["xa_width"],
-              quant_out_width=meta["out_width"])
+    y = route(x_q, prep, meta["fmt"], **kw)
     return y.reshape(b, s, -1).to(x.dtype)
 
 

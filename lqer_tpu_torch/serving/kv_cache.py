@@ -10,10 +10,11 @@ Three layouts, each layer-stacked with a leading layer axis:
   ``i`` holds value ``i`` low and ``i + d/2`` high), exps
   ``(NL, B, KVH, d/16, L)``; decode tokens are written straight into
   column ``pos``;
-- with ``staged``, the MXINT8 cache adds a 64-lane staging ring of the same
-  row shapes that takes each decode token at lane ``pos % 64``; per slot,
-  ``flushed`` (32-aligned) splits positions between the main cache
-  ``[0, flushed)`` and the ring ``[flushed, pos]``.
+- with ``staged``, the MXINT8 or MXINT4 cache adds a 64-lane staging ring
+  of the same row shapes that takes each decode token at lane ``pos % 64``;
+  per slot, ``flushed`` (32-aligned) splits positions between the main
+  cache ``[0, flushed)`` and the ring ``[flushed, pos]``. The flush and
+  :func:`stage_boundary_sync` copy whole code rows, packed or not.
 
 On the card the token-axis-last layout reads consecutive tokens across a
 warp in both phases of the decode kernels (``csrc/decode_common.cuh``).
@@ -44,8 +45,8 @@ def init_quantized_kv_cache(num_layers: int, batch: int, kv_heads: int,
                             stage_width: int = STAGE_WIDTH,
                             code_width: int = 8, device="cuda") -> dict:
     """Zeroed MXINT8 (``code_width=8``) or MXINT4 (``code_width=4``) cache;
-    with ``staged`` the 64-lane rings and ``flushed`` too (MXINT8 only: the
-    staged MXINT4 kernel is not ported)."""
+    with ``staged`` the 64-lane rings of the same rows and ``flushed``
+    too."""
     if code_width not in (4, 8):
         raise ValueError(f"code_width must be 4 or 8 (got {code_width})")
     if head_dim % (group if code_width == 8 else 2 * group):
@@ -62,10 +63,6 @@ def init_quantized_kv_cache(num_layers: int, batch: int, kv_heads: int,
                                           device=device)
     if not staged:
         return out
-    if code_width != 8:
-        raise NotImplementedError(
-            "the staged MXINT4 cache is not ported (JAX: "
-            "decode_attention_quantized_staged at code width 4)")
     if stage_width != STAGE_WIDTH:
         raise ValueError(
             f"stage_width must be {STAGE_WIDTH}: the decode step flushes when "

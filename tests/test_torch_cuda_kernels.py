@@ -1,11 +1,16 @@
-"""The fourteen CUDA kernels of the port against their plain PyTorch
-versions on the card (the megakernel in its gated and its relu variant),
+"""The CUDA kernels of the port against their plain PyTorch versions on
+the card (the megakernel in its gated and its relu variant; kernel 1 and
+the megakernel also with the in-kernel activation quantizer, equal to the
+launch fed the separate quantizer's values; the staged decode kernels at
+code widths 8 and 4; the row write of one layer and of every layer),
 at small shapes (the unpack kernel at the 7B shapes, prefill attention
 also at the 2048-token admission's, the decode kernels of the direct-write
 caches also at the 7B decode shape, the long-context kernels up to
 L = 32768, the streaming kernels also against the one-pass ones), and the
 large-M route; OPT's biased linears and query-scaled decode kernels, and
-a tiny OPT served through the kernels against the CPU. Needs an
+a tiny OPT served through the kernels against the CPU, a tiny Llama on
+``mxint4-staged`` against the CPU and on the in-kernel activation
+quantizer route against the default route. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -642,4 +647,214 @@ def test_mistral_engine_on_card(gen, cache_dtype):
         cpu.lengths += 1
     for got, want in logits:
         worst, rms = logits_steps(got.float().cpu(), want.float())
+        assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+
+
+def test_staged_decode_attention_width4(gen):
+    """Row 7 over the staged MXINT4 cache (``mxint4-staged``): the fresh
+    rows MXINT4-encoded and nibble-packed into the ring in the launch."""
+    b, kvh, nrep, d, l = 3, 2, 2, 64, 256
+    main = [a[1] for a in _mx_cache(gen, 4, b, kvh, d, l)]
+    ring = [a[1].contiguous() for a in _mx_cache(gen, 4, b, kvh, d, 64)]
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    kh[0, 0, 0, :16] = 0.0                      # an all-zero group
+    pos = _positions([70, 37, 200])
+    fl = _positions([64, 32, 160])
+    mine, theirs = [t.clone() for t in ring], [t.clone() for t in ring]
+    before = k3.decode_attention_quantized_staged.launches
+    got = k3.decode_attention_quantized_staged(q, *main, *mine, kh, vh, pos,
+                                               fl, scaling=0.125)
+    assert k3.decode_attention_quantized_staged.launches == before + 1
+    want = k3.staged_decode_plain(q, *main, *theirs, kh, vh, pos, fl,
+                                  scaling=0.125)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    s, vals = k3.staged_scores(q, *main, *theirs, pos, fl, scaling=0.125)
+    check_close("staged decode attention width 4", got, want,
+                attention_limit(s[:, :, None, :], vals, want, p_width=8),
+                max_flipped=0.05)
+
+
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos", STREAM_SHAPES)
+def test_streaming_staged_decode_attention_width4(gen, b, kvh, nrep, d, l,
+                                                  pos):
+    main = [a[1] for a in _mx_cache(gen, 4, b, kvh, d, l)]
+    ring = [a[1].contiguous() for a in _mx_cache(gen, 4, b, kvh, d, 64)]
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    p = _positions(pos)
+    fl = (p // 32) * 32
+    mine, theirs = [t.clone() for t in ring], [t.clone() for t in ring]
+    got = ks.decode_attention_quantized_streaming_staged(
+        q, *main, *mine, kh, vh, p, fl, scaling=0.125)
+    want = k3.staged_decode_plain(q, *main, *theirs, kh, vh, p, fl,
+                                  scaling=0.125)
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    s, vals = k3.staged_scores(q, *main, *theirs, p, fl, scaling=0.125)
+    check_close("streaming staged decode attention width 4", got, want,
+                attention_limit(s[:, :, None, :], vals, want, p_width=8),
+                max_flipped=0.05)
+
+
+@pytest.mark.parametrize("kind", ["mxint8 columns", "mxint4 columns",
+                                  "bf16 rows"])
+def test_row_write_all_layers(gen, kind):
+    """Row 12: every layer's row in one launch, bit-exact with its plain
+    version and with row 11 launched once per layer; a position past the
+    cache (256) writes nothing."""
+    nl, b, kvh, d, l = 3, 4, 2, 64, 256
+    if kind == "bf16 rows":
+        arrays = [torch.randn(nl, b, kvh, l, d, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        news = [torch.randn(nl, b, kvh, 1, d, generator=gen, device="cuda")
+                for _ in range(2)]
+    else:
+        rows = [d if kind == "mxint8 columns" else d // 2, d // 16] * 2
+        arrays = [torch.randint(-127, 128, (nl, b, kvh, r, l), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for r in rows]
+        news = [torch.randint(-127, 128, (nl, b, kvh, r, 1), generator=gen,
+                              device="cuda", dtype=torch.int8) for r in rows]
+    p = _positions([0, 17, 255, 256])
+    mine, plain, per = ([a.clone() for a in arrays] for _ in range(3))
+    before = k4.write_kv_rows_all_layers.launches
+    k4.write_kv_rows_all_layers(tuple(mine), tuple(news), p)
+    assert k4.write_kv_rows_all_layers.launches == before + 1
+    k4.write_rows_all_layers_plain(tuple(plain), tuple(news), p)
+    for li in range(nl):
+        k4.write_kv_rows_stacked(tuple(per), tuple(n[li] for n in news), li,
+                                 p)
+    assert all(torch.equal(a, b) for a, b in zip(mine, plain))
+    assert all(torch.equal(a, b) for a, b in zip(mine, per))
+    assert not all(torch.equal(a, b) for a, b in zip(mine, arrays))
+
+
+@pytest.mark.parametrize("rank", [0, 32, 128])
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_dequant_gemm_xq(gen, m, rank):
+    """Kernel 1 with the in-kernel activation quantizer on raw f32 X: within
+    the limits of its plain version, and equal to the kernel fed the
+    separate quantizer's values (one quantized X for the GEMM and the rank
+    epilogue); rank 128 makes q|k|v's fused rank 384, three rank chunks."""
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
+                           inter=512)
+    backend, _, _ = build_random_model(cfg, rank=rank, seed=7)
+    for key in ("model.layers.0.self_attn.qkv_proj",
+                "model.layers.0.self_attn.o_proj"):
+        prep, meta = backend["arrays"][key], backend["meta"][key]
+        kw = dict(quant_xa_width=meta["xa_width"],
+                  quant_out_width=meta["out_width"])
+        x = torch.randn(m, 256, generator=gen, device="cuda") * 3
+        x[0, 16:32] = 0.0
+        before = k1.qlinear_w4_fused.launches
+        got = k1.qlinear_w4_fused(x, prep, meta["fmt"], quant_x_width=8, **kw)
+        assert k1.qlinear_w4_fused.launches == before + 1
+        xq = k1.quantize_x_plain(x, 8)
+        ext = k1.qlinear_w4_fused(xq.to(torch.bfloat16), prep, meta["fmt"],
+                                  **kw)
+        assert torch.equal(got, ext), key
+        want = k1.qlinear_w4_plain(x, prep, meta["fmt"], quant_x_width=8,
+                                   **kw)
+        check_close(key, got, want, dequant_gemm_limit(xq, prep, want, **kw),
+                    max_flipped=0.01)
+
+
+@pytest.mark.parametrize("arch,rank", [("llama", 0), ("llama", 32),
+                                       ("llama", 128), ("opt", 32)])
+@pytest.mark.parametrize("m", [1, 8, 200])
+def test_mlp_fused_xq(gen, m, arch, rank):
+    """The megakernel, gated and relu, with the in-kernel activation
+    quantizer on raw f32 X: within the limits of its plain version and
+    equal to the launch fed the separate quantizer's values."""
+    if arch == "opt":
+        _, backend, _, _ = _opt_backend(rank=rank)
+        key = "model.decoder.layers.0.mlp_fused"
+    else:
+        cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
+                               inter=512)
+        backend, _, _ = build_random_model(cfg, rank=rank, seed=8)
+        key = "model.layers.0.mlp_fused"
+    meta, prep = backend["meta"][key], backend["arrays"][key]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    x = torch.randn(m, 256, generator=gen, device="cuda") * 3
+    counter = k5.mlp_w4_fused_relu if arch == "opt" else k5.mlp_w4_fused
+    before = counter.launches
+    got = k5.mlp_w4_fused(x, prep, meta["fmt"], quant_x_width=8, **kw)
+    assert counter.launches == before + 1
+    xq = k1.quantize_x_plain(x, 8)
+    ext = k5.mlp_w4_fused(xq.to(torch.bfloat16), prep, meta["fmt"], **kw)
+    assert torch.equal(got, ext)
+    want = k5.mlp_w4_plain(x, prep, meta["fmt"], quant_x_width=8, **kw)
+    check_close(f"{arch} megakernel with quant_x_width", got, want,
+                mlp_limit(xq, prep, want, **kw), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("route", ["mxint4-staged", "in-kernel x"])
+def test_llama_engine_new_routes_on_card(gen, monkeypatch, route):
+    """A 2-layer tiny Llama on the card: over ``mxint4-staged`` (crossing a
+    flush) against the same engine on the CPU within chip_smoke.py's
+    limits, rows 7 and 9 launched at code width 4; through the in-kernel
+    activation quantizer (the route below 512 rows) against the separate
+    quantizer on the card, logits equal."""
+    from lqer_tpu_torch.serving import kernel_backend
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, max_pos=128)
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=9,
+                                                device="cpu")
+    params["model.embed_tokens.weight"] *= 40
+    cache_dtype = "mxint8-staged"
+    if route == "mxint4-staged":
+        cache_dtype = route
+        qcfgs = tmodels.quantize_model(cfg, q_config_for(cfg, kv4=True),
+                                       {"linear": {"rank": 32}})
+    kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
+              pallas_backend=backend, lm_head_width=8)
+    engines = {"card": DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)}
+    if route == "mxint4-staged":
+        engines["other"] = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    else:
+        engines["other"] = DecodeEngine(params, cfg, qcfgs, device="cuda",
+                                        **kw)
+    ids = torch.randint(0, 256, (4, 64), generator=gen,
+                        device="cuda").cpu().numpy()
+    lengths = np.full(4, 63, dtype=np.int32)
+    logits = {name: [] for name in engines}
+    tokens = []
+    for name, engine in engines.items():
+        if name == "other" and route == "in-kernel x":
+            monkeypatch.setattr(kernel_backend, "inkernel_x_width",
+                                lambda *a: None)
+        widths = []
+        real = kernel_backend.qlinear_w4_fused
+        monkeypatch.setattr(
+            kernel_backend, "qlinear_w4_fused",
+            lambda x, *a, **kw: widths.append(kw.get("quant_x_width"))
+            or real(x, *a, **kw))
+        before = k3.decode_attention_quantized_staged.launches_width4
+        lg = engine.prefill(ids, np.arange(4), lengths)
+        engine.lengths[:] = lengths
+        logits[name].append(lg)
+        for i in range(40):
+            if name == "card":
+                tokens.append(torch.argmax(lg, -1).cpu().numpy())
+            lg = engine.decode_logits(tokens[i])
+            engine.lengths += 1
+            logits[name].append(lg)
+        monkeypatch.setattr(kernel_backend, "qlinear_w4_fused", real)
+        if route == "in-kernel x":
+            assert widths == [8 if name == "card" else None] * 41 * 2 * 2
+        elif name == "card":
+            assert (k3.decode_attention_quantized_staged.launches_width4
+                    == before + 40 * 2)
+    if route == "mxint4-staged":
+        assert int(engines["card"].cache["flushed"].min()) >= 64
+    for got, want in zip(logits["card"], logits["other"]):
+        if route == "in-kernel x":
+            assert torch.equal(got, want)
+        worst, rms = logits_steps(got.float().cpu(), want.float().cpu())
         assert worst <= 4.0 and rms <= 0.4, (worst, rms)

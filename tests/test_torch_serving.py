@@ -260,8 +260,6 @@ def test_card_requests_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("cache_dtype,max_len,q_config,path", [
     ("float32", MAX_LEN, Q_CONFIG, "float32"),
-    ("mxint4-staged", MAX_LEN, Q_CONFIG, "staged MXINT4"),
-    ("mxint4-staged", 47104, Q_CONFIG, "staged MXINT4"),  # past one pass
     ("bfloat16", 24592, Q_CONFIG, "_fp_cache_kernel_fits"),
     # d = 64, n_rep = 2: the fp kernel's score rows need 230400 bytes
     ("bfloat16", 24576, Q_CONFIG, "one-pass decode_attention"),

@@ -159,18 +159,6 @@ def test_streaming_staged_at_flushed_zero_matches_one_pass():
                 max_flipped=1 / 12)
 
 
-def test_streaming_staged_refuses_mxint4():
-    rng = np.random.default_rng(0)
-    main = [_t(a)[0] for a in (_encoded(rng, (1, B, KVH, L, D), 4) * 2)]
-    ring = [_t(a)[0] for a in (_encoded(rng, (1, B, KVH, SW, D), 4) * 2)]
-    rows = torch.zeros(B, KVH, 1, D)
-    with pytest.raises(NotImplementedError, match="mxint4-staged"):
-        streaming_decode.decode_attention_quantized_streaming_staged(
-            torch.zeros(B, H, 1, D), *main, *ring, rows, rows,
-            torch.zeros(B, dtype=torch.int32),
-            torch.zeros(B, dtype=torch.int32), scaling=SCALING)
-
-
 @pytest.mark.parametrize("li", [0, 1])
 def test_fused_encode_write_matches_jax(li):
     """Bit-exact with ``write_kv_tokens_fused``, on the corner rows of the
