@@ -36,7 +36,9 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    with the sliding window (4096) at 8 slots of 32 heads over 8 kv heads:
    rows 5, 6 (widths 8 and 4) and 10 at L = 8192, row 8 at L = 32768, each
    also timed without the window, against ``scaled_dot_product_attention``
-   with the window mask; then the staged MXINT4 cache's rows 7 (L = 2048)
+   with the window mask (row 5 also without the window against SDPA with
+   the causal mask, and at L = 12288 near position 12000, the bf16 cache's
+   longest length); then the staged MXINT4 cache's rows 7 (L = 2048)
    and 9 (L = 32768) at code width 4 (rings bit-exact), kernel 1 (q|k|v,
    o) and the gated megakernel with the in-kernel activation quantizer
    (``quant_x_width = 8``, raw f32 X: the serving path's route below 512
@@ -113,14 +115,18 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    rank 128, W8 head) at 8 slots, max_len 8192, over ``bfloat16``,
    ``mxint8-staged`` (falling back to ``mxint8``) and ``mxint4``: the mix
    with 40 new tokens, 10 steps at positions 6000.. with a profile, on
-   ``bfloat16`` one eager 2048-token admission; and ``mxint8`` at 4 slots,
+   ``bfloat16`` one eager 2048-token admission; ``bfloat16`` at max_len
+   12288 (8 slots, 10 steps at 12000..); and ``mxint8`` at 4 slots,
    max_len 32768, 10 steps near 32000; then OPT-350m (24 layers) serving
    the mix over ``bfloat16`` with a profile;
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
    phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
    Mistral's phase-5 launches; rows 7 and 9 at code width 4 as their
    ``width4``, with its phase-5 launches; kernel 1 and the megakernel with
-   the in-kernel activation quantizer as their ``quant_x``).
+   the in-kernel activation quantizer as their ``quant_x``; row 4 at one
+   2048-token prompt as its ``admission_2048``, row 5 with OPT's
+   ``scale_query`` and at Mistral's max_len 12288 as its
+   ``opt_scale_query`` and ``mistral_12288``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; so does a machine without a CUDA device, or
@@ -483,13 +489,17 @@ def phase_kernels(torch, timer, rates):
     q4, k4_, v4 = (t.reshape(1, BH, S, D) for t in (q, k, v))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(q4, k4_, v4,
                                                           is_causal=True))
-    b_ms, _ = bound(nbytes(q, k, v) + BH * S * D * 4,
-                    2 * 2 * BH * (S * (S + 1) // 2) * D)
+    b_ms, b_by = bound(nbytes(q, k, v) + BH * S * D * 4,
+                       2 * 2 * BH * (S * (S + 1) // 2) * D)
     print(f"kernel 2 attention BH={BH} S=L={S} d={D}: max_abs_err="
           f"{c['max_abs_err']:.3g} ({c['of_limit']:.3g} of its limit, "
           f"{c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
-          "(causal scaled_dot_product_attention)", flush=True)
+          f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+          f"{lib_ms:.4f} (causal scaled_dot_product_attention)", flush=True)
+    results["attention"]["admission_2048"] = dict(
+        max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape="1 prompt x 2048 tokens, 32 heads, d=128")
     del q, k, v, y, ref, q4, k4_, v4
 
     # ---- kernel 3: B = 8, 32 kv heads, L = 2048, one layer
@@ -1031,6 +1041,8 @@ def phase_opt_kernels(torch, timer, rates, results):
     and the fused MXINT8 write + attend."""
     import dataclasses
 
+    import torch.nn.functional as F
+
     from lqer_tpu_torch.models.opt import MODEL_CONFIGS
     from lqer_tpu_torch.ops.kernels import decode_attention as k3
     from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
@@ -1150,12 +1162,18 @@ def phase_opt_kernels(torch, timer, rates, results):
     kw = dict(scaling=D ** -0.5, scale_query=True)
     out_bytes = B * H * D * 4
 
-    def report(what, c, ms, plain_ms, nb):
-        b_ms, _ = bound(nb + nbytes(q) + out_bytes, 2 * 2 * H * tokens * D)
+    def report(what, c, ms, plain_ms, nb, lib_ms=None):
+        b_ms, b_by = bound(nb + nbytes(q) + out_bytes,
+                           2 * 2 * H * tokens * D)
+        lib = ("" if lib_ms is None else f" library_ms={lib_ms:.4f} "
+               "(scaled_dot_product_attention on the unquantized bf16 values)")
         print(f"{what} B={B} KVH={H} L={L}, scale_query: max_abs_err="
               f"{c['max_abs_err']:.3g} ({c['of_limit']:.3g} of its limit, "
               f"{c['flipped']:.4%} past 2e-4) kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f} bound_ms={b_ms:.4f}", flush=True)
+              f"{plain_ms:.4f} bound_ms={b_ms:.4f}{lib}", flush=True)
+        return dict(max_abs_err=c["max_abs_err"], of_limit=c["of_limit"],
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
 
     def encoded(width, n):
         enc = mx8_encode if width == 8 else mx4_encode
@@ -1175,11 +1193,18 @@ def phase_opt_kernels(torch, timer, rates, results):
     c = check_close("fp decode, scale_query", y, ref,
                     attention_limit(sc, vals, ref, p_width=8),
                     FLIPPED["attention"])
-    report("fp decode attention", c,
-           timer(lambda: kfp.decode_attention_fp(q, k, v, pos, li, **kw)),
-           timer(lambda: kfp.fp_decode_plain(q, k, v, pos, li, **kw), 5),
-           tokens * H * D * 2 * 2)
-    del k, v, sc, vals
+    keep = torch.arange(L, device="cuda")[None, :] <= pos[:, None].long()
+    qb, kb, vb = (t.to(torch.bfloat16).contiguous() for t in (q, k[li], v[li]))
+    results["decode_attention_fp"]["opt_scale_query"] = dict(
+        report("fp decode attention", c,
+               timer(lambda: kfp.decode_attention_fp(q, k, v, pos, li, **kw)),
+               timer(lambda: kfp.fp_decode_plain(q, k, v, pos, li, **kw), 5),
+               tokens * H * D * 2 * 2,
+               timer(lambda: F.scaled_dot_product_attention(
+                   qb, kb, vb, attn_mask=keep[:, None, None, :]))),
+        shape="one layer, B=8, 32 kv heads, L=2048, pos 64..1984, "
+        "scale_query (OPT)")
+    del k, v, sc, vals, qb, kb, vb
     arrays = encoded(4, L)
     y = kq.decode_attention_quantized(q, *arrays, pos, li, **kw)
     ref = kq.quantized_decode_plain(q, *arrays, pos, li, **kw)
@@ -1413,15 +1438,15 @@ def phase_mistral_kernels(torch, timer, rates, results):
         lo = (pos - win + 1).clamp(min=0) // 16 * 16 if win else 0
         return int(((pos + 16) // 16 * 16 - lo).sum())
 
-    def sdpa_ms(k_bf16, v_bf16, pos, L):
+    def sdpa_ms(k_bf16, v_bf16, pos, L, win=WIN):
         qb, kb, vb = (t.to(torch.bfloat16).contiguous()
                       for t in (q, k_bf16, v_bf16))
-        m = key_mask(L, pos, WIN)[:, None, None, :]
+        m = key_mask(L, pos, win)[:, None, None, :]
         return timer(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, attn_mask=m, enable_gqa=True))
 
     def report(key, what, run, plain, scores, L, pos, per_token, lib_ms,
-               extra_bytes=0):
+               extra_bytes=0, lib_all_ms=None):
         y, ref = run(WIN), plain()
         s, vals = scores()
         c = check_close(what, y, ref, attention_limit(s, vals, ref,
@@ -1435,19 +1460,27 @@ def phase_mistral_kernels(torch, timer, rates, results):
                            + extra_bytes, 2 * 2 * H * tokens * D)
         all_ms = bound(window_tokens(pos, 0) * KVH * per_token + nbytes(q)
                        + out_bytes + extra_bytes, 0)[0]
+        lib_all = ("" if lib_all_ms is None
+                   else f", SDPA {lib_all_ms:.4f} with the causal mask")
         print(f"{what} B={B} H={H} KVH={KVH} L={L} window={WIN} "
               f"pos={pos.tolist()}: max_abs_err={c['max_abs_err']:.3g} "
               f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
               f"2e-4) kernel_ms={ms:.4f} (without the window {ms_all:.4f}, "
-              f"bound {all_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms="
+              f"bound {all_ms:.4f}{lib_all}) plain_ms={plain_ms:.4f} bound_ms="
               f"{b_ms:.4f} (the window's bytes) library_ms={lib_ms:.4f} "
               "(scaled_dot_product_attention, window mask, unquantized "
               "bf16)", flush=True)
+        shape = (f"one layer, B=8, 32 heads over 8 kv heads, L={L}, window "
+                 f"{WIN}, pos {pos.min().item()}..{pos.max().item()}")
         if key:
-            keep(key, c, ms, plain_ms, b_ms, b_by, lib_ms,
-                 f"one layer, B=8, 32 heads over 8 kv heads, L={L}, window "
-                 f"{WIN}, pos {pos.min().item()}..{pos.max().item()}",
-                 unwindowed_ms=ms_all)
+            keep(key, c, ms, plain_ms, b_ms, b_by, lib_ms, shape,
+                 unwindowed_ms=ms_all, unwindowed_bound_ms=all_ms,
+                 unwindowed_library_ms=lib_all_ms)
+        return dict(max_abs_err=c["max_abs_err"], of_limit=c["of_limit"],
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, shape=shape, unwindowed_ms=ms_all,
+                    unwindowed_bound_ms=all_ms,
+                    unwindowed_library_ms=lib_all_ms)
 
     L = 8192
     pos = torch.tensor([6000, 6001, 6003, 6007, 6010, 6013, 6021, 6030],
@@ -1460,7 +1493,22 @@ def phase_mistral_kernels(torch, timer, rates, results):
            lambda: kfp.fp_decode_plain(q, k, v, pos, li, scaling=scale,
                                        window=WIN),
            lambda: kfp.fp_scores(q, k, v, pos, li, scaling=scale, window=WIN),
-           L, pos, D * 2 * 2, sdpa_ms(k[li], v[li], pos, L))
+           L, pos, D * 2 * 2, sdpa_ms(k[li], v[li], pos, L),
+           lib_all_ms=sdpa_ms(k[li], v[li], pos, L, None))
+    del k, v
+    # row 5 at the bf16 cache's longest length, 12288, near position 12000
+    pos12 = pos + 6000
+    k, v = (torch.randn(2, B, KVH, 12288, D, generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    results["decode_attention_fp"]["mistral_12288"] = report(
+        None, "Mistral fp decode attention at max_len 12288",
+        lambda w: kfp.decode_attention_fp(q, k, v, pos12, li, scaling=scale,
+                                          window=w),
+        lambda: kfp.fp_decode_plain(q, k, v, pos12, li, scaling=scale,
+                                    window=WIN),
+        lambda: kfp.fp_scores(q, k, v, pos12, li, scaling=scale, window=WIN),
+        12288, pos12, D * 2 * 2, sdpa_ms(k[li], v[li], pos12, 12288),
+        lib_all_ms=sdpa_ms(k[li], v[li], pos12, 12288, None))
     del k, v
 
     def encoded(width, n):
@@ -2793,7 +2841,9 @@ def phase_serve_mistral(torch, rates):
     direct-write ``mxint8`` under the window, and ``mxint4`` (the KV4
     configuration): the request mix (40 new tokens), then 10 decode steps
     at positions 6000.. past the window with a 5-step profile; on the bf16
-    cache one 2048-token eager windowed admission. Then ``mxint8`` at
+    cache one 2048-token eager windowed admission. Then the bf16 cache at
+    its longest length, max_len 12288 (the JAX fp-cache kernel's limit;
+    12.9 GB of cache): 10 steps at positions 12000.. Then ``mxint8`` at
     max_len 32768, 4 slots: 10 steps near position 32000 (row 13 + row 8
     with the window) beside the window's cache-read floor. Returns the
     kernel launches."""
@@ -2818,8 +2868,9 @@ def phase_serve_mistral(torch, rates):
     model = "Mistral-7B-v0.1 shape, W8 head, window 4096"
     counts = None
     for cache_dtype, slots, max_len, position in (
-            ("bfloat16", 8, 8192, 6000), ("mxint8-staged", 8, 8192, 6000),
-            ("mxint4", 8, 8192, 6000), ("mxint8", 4, 32768, 32000)):
+            ("bfloat16", 8, 8192, 6000), ("bfloat16", 8, 12288, 12000),
+            ("mxint8-staged", 8, 8192, 6000), ("mxint4", 8, 8192, 6000),
+            ("mxint8", 4, 32768, 32000)):
         layer_qcfgs = kv4 if cache_dtype == "mxint4" else qcfgs
         engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=slots,
                               max_len=max_len, cache_dtype=cache_dtype,
@@ -2835,7 +2886,7 @@ def phase_serve_mistral(torch, rates):
         reset_launch_counts()
         long_context_steps(torch, engine, cfg, cache_dtype, rates,
                            position=position)
-        if cache_dtype == "bfloat16":
+        if cache_dtype == "bfloat16" and max_len == 8192:
             long_prompt(torch, engine.prefill, cfg,
                         np.random.default_rng(SEED + 7))
         counts = {k: n + run.get(k, 0) + (counts or {}).get(k, 0)
@@ -3108,7 +3159,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{x: r[x] for x in ("mistral", "width4", "quant_x") if x in r}})
+            **{x: r[x] for x in ("mistral", "width4", "quant_x",
+                                 "admission_2048", "opt_scale_query",
+                                 "mistral_12288") if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

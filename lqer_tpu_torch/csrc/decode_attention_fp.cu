@@ -11,166 +11,505 @@
 //   3. scores q · K^T times scaling (scale after the dot), columns past pos
 //      masked, and under a sliding window (window > 0; -1 for none) the
 //      columns at or below pos - window too; one exact f32 softmax; p
-//      quantized per 16 tokens (p_mb);
+//      quantized per 16 tokens (p_mb) with the final max and denominator;
 //   4. V quantized per token in 16-wide d groups (v_mb); out = Σ p · v.
 // A negative mantissa width leaves that operand unquantized.
 //
 // What bounds it on an H100: the bf16 cache stream, 2 x 2 x d bytes per
 // token and kv head (K and V) over the tokens read: the 16-token groups from
 // the one holding the window's first key (decode_common.cuh's window_start;
-// column 0 without a window) to the one holding pos. A K quantizer group is
-// 16 whole tokens, so its exponent never depends on a skipped group.
+// column 0 without a window) to the one holding pos (at 8 slots x 32 kv
+// heads x about 1000 tokens, 0.038 ms at 3.35 TB/s). The K and V quantizers
+// take about ten instructions a value, so the stream and the quantizers
+// must overlap, and the context must spread over every SM.
 //
-// Design: the cache is token-major (L, d) bf16, so coalesced reads run
-// along d. K goes through shared memory in tiles of 128 tokens (eight
-// quantization groups): the block loads the tile (8-byte loads, a warp
-// reading one 256-byte row), takes each group's column maxima there (a
-// thread per d column) and quantizes in place; then a thread per token walks
-// d for its score (the tile's rows are padded to D + 1 floats, so a warp's
-// 32 tokens fall on 32 banks). V goes through the same tile: each token's
-// 16-wide d groups quantized in place, then a thread per d column walks the
-// tile's tokens. The softmax and the p quantizer are decode_common.cuh's,
-// shared with the MXINT decode kernels.
+// Design: the context splits into chunks of CH = 256 tokens, a block per
+// (slot, kv head, chunk), its n_rep query heads sharing each K/V value it
+// reads; blocks whose chunk lies wholly outside [window start, the group
+// holding pos] exit at once. Each warp owns 32 tokens of the chunk: it
+// copies their rows into shared memory with 16-byte cp.async as two commit
+// groups of 16 tokens (one quantizer group each) and quantizes the first
+// group while the second is in flight, with no barrier between warps (rows
+// padded by 16 bytes, so 8 consecutive rows fall on distinct banks). Two
+// launches (the scheme of decode_attention_streaming.cu, its third pass
+// folded into the second), with nothing in shared memory that grows with
+// L:
+//   1. K: a lane per pair of d columns holds a group's 16 rows in
+//      registers, so the group max is a loop over registers; then a thread
+//      per token takes its n_rep scores (16-byte loads of its row), writes
+//      them to a global f32 scratch (B x H x L: 4 bytes per token and query
+//      head against K's 2d, so it stays in L2), and the block writes the
+//      chunk's max m_c and l_c = Σ exp(s - m_c) per head;
+//   2. V: while its rows land, a warp per head combines the chunk stats of
+//      its (slot, kv head), lanes over the chunks (m = max m_c, den = Σ l_c
+//      exp(m_c - m); a chunk of max -inf adds 0, a zero den becomes 1);
+//      a thread per token forms its p = exp(s - m) / den, quantized per 16
+//      tokens (16 lanes, xor shuffles); V is quantized per token and 16-wide
+//      d group as it lands; then each warp accumulates the partial P·V of
+//      its tokens, lanes along d and each token's p shuffled from its lane,
+//      and the eight warps' partials are summed in shared memory in order;
+//      the last block of a (slot, kv head) to finish (an atomic counter,
+//      zeroed in pass 1) sums its partials in chunk order.
+// No float atomics: a run repeats itself to the bit. K and V are staged in
+// bf16: the raw cache values, and values quantized with at most 8 mantissa
+// bits (width <= 9), are exact in bf16.
 #include "decode_common.cuh"
 
 namespace {
 
 using namespace decode;
 
-constexpr int TT = 128;  // K and V tile: tokens (eight 16-token groups)
+// 16-byte asynchronous copies to shared memory (cp.async; .cg bypasses
+// L1): a thread's copies are committed as groups and waited for, all but
+// the newest N, before a barrier makes the rows visible to other threads.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
 
-// tile[row * (D + 1) + c] = the bf16 rows src[0 .. nt) as f32, 8-byte loads
-// (a warp reads 256 consecutive bytes of a row).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr int FT = 256;      // threads per block
+constexpr int FW = FT / 32;  // warps per block
+constexpr int CH = FT;       // tokens per chunk: one per thread, 32 per warp
+
+// The chunk of block z for the query at pos: tokens [c0 + j0, c0 + n) of
+// the slot's context (j0 and n multiples of 16). False where the chunk lies
+// wholly past the group holding pos or wholly below the window's first
+// group.
+struct Chunk {
+  int pos, ntok, first, c0, j0, n;
+};
+
+__device__ __forceinline__ bool chunk_of(const int* pos_p, int b, int z,
+                                         int L, int window, Chunk& c) {
+  c.pos = pos_p[b];
+  c.ntok = max(0, min((c.pos + 16) / 16 * 16, L));
+  c.first = min(window_start(c.pos, window), c.ntok);
+  c.c0 = z * CH;
+  if (c.c0 >= c.ntok || c.c0 + CH <= c.first) return false;
+  c.j0 = max(0, c.first - c.c0);
+  c.n = min(CH, c.ntok - c.c0);
+  return true;
+}
+
+// Whether the 16-row group at chunk row r lies in [j0, n).
+__device__ __forceinline__ bool group_in(const Chunk& c, int r) {
+  return r >= c.j0 && r < c.n;
+}
+
+// The warp's copy of the 16 rows from chunk row r (a group in range) of
+// the (L, D) bf16 rows src into the padded tile (row stride D + 8): 16-byte
+// cp.async, lane-strided.
 template <int D>
-__device__ __forceinline__ void load_tile(const uint16_t* src, float* tile,
-                                          int nt) {
-  for (int i = threadIdx.x; i < nt * (D / 4); i += NT) {
-    const int row = i / (D / 4), c4 = i % (D / 4) * 4;
-    const uint2 w = *reinterpret_cast<const uint2*>(src + (size_t)row * D + c4);
-    float* dst = tile + row * (D + 1) + c4;
-    dst[0] = bf16_lo(w.x);
-    dst[1] = bf16_hi(w.x);
-    dst[2] = bf16_lo(w.y);
-    dst[3] = bf16_hi(w.y);
+__device__ __forceinline__ void copy_group(const uint16_t* src,
+                                           uint16_t* tile, int r) {
+  constexpr int P = D / 8;
+  for (int i = threadIdx.x % 32; i < 16 * P; i += 32) {
+    const int row = r + i / P, col = i % P * 8;
+    cp_async16(tile + row * (D + 8) + col, src + (size_t)row * D + col);
   }
 }
 
+// Each warp's two groups, rows 32w.. and 32w + 16.., as two commit groups
+// (empty where the group is out of range).
 template <int D>
-__global__ void __launch_bounds__(NT)
-fp_decode_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
-                 float* __restrict__ out, int KVH, int nrep, int L,
-                 float scaling, int q_mb, int k_mb, int p_mb, int v_mb,
-                 int window) {
-  constexpr int TS = D + 1;  // padded tile row
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, kv = blockIdx.y, t = threadIdx.x;
-  const int H = KVH * nrep;
-  float* qs = smem;              // nrep x D
-  float* sc = qs + nrep * D;     // nrep x L
-  float* tile = sc + nrep * L;   // TT x TS
-  const int pos = pos_p[b];
-  const int ntok = max(0, min((pos + 16) / 16 * 16, L));
-  const int j0 = min(window_start(pos, window), ntok);
-  const size_t bk = (size_t)b * KVH + kv;
-  const uint16_t* kb = k + bk * L * D;
-  const uint16_t* vb = v + bk * L * D;
+__device__ __forceinline__ void copy_warp_rows(const uint16_t* src,
+                                               uint16_t* tile,
+                                               const Chunk& c) {
+  const int r = threadIdx.x / 32 * 32;
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    if (group_in(c, r + 16 * g)) copy_group<D>(src, tile, r + 16 * g);
+    cp_async_commit();
+  }
+}
 
-  quantize_queries<D>(q + ((size_t)b * H + kv * nrep) * D, qs, nrep, q_mb);
-  for (int t0 = j0; t0 < ntok; t0 += TT) {
-    const int nt = min(TT, ntok - t0);  // a multiple of 16
-    __syncthreads();  // the queries are in; the previous tile is consumed
-    load_tile<D>(kb + (size_t)t0 * D, tile, nt);
-    __syncthreads();
-    if (k_mb >= 0) {
-      for (int i = t; i < nt / 16 * D; i += NT) {
-        float* col = tile + (i / D) * 16 * TS + i % D;
-        float bmax = 0.f;
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  // exact: both values are bf16 values
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xFFFF0000u);
+}
+
+// max(m, |x|) of two bf16 pairs, lane by lane (exact)
+__device__ __forceinline__ uint32_t bf16_pair_absmax(uint32_t m, uint32_t x) {
+  __nv_bfloat162 r = __hmax2(*reinterpret_cast<__nv_bfloat162*>(&m),
+                             __habs2(*reinterpret_cast<__nv_bfloat162*>(&x)));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// K^T quantizer of the 16-row group at row r: a lane per pair of d columns
+// holds the group's 16 words in registers.
+template <int D>
+__device__ __forceinline__ void quantize_k(uint16_t* tile, int r, int k_mb) {
+  constexpr int RW = (D + 8) / 2;  // words per padded row
+  uint32_t* words = reinterpret_cast<uint32_t*>(tile) + r * RW;
+  for (int wd = threadIdx.x % 32; wd < D / 2; wd += 32) {
+    uint32_t* col = words + wd;
+    uint32_t x[16];
+    uint32_t m2 = 0;  // the two columns' |max|, as bf16 pairs
 #pragma unroll
-        for (int j = 0; j < 16; ++j) bmax = fmaxf(bmax, fabsf(col[j * TS]));
-        const int e = group_exponent(bmax);
-#pragma unroll
-        for (int j = 0; j < 16; ++j) col[j * TS] = mx_value(col[j * TS], e, k_mb);
-      }
-      __syncthreads();
+    for (int j = 0; j < 16; ++j) {
+      x[j] = col[j * RW];
+      m2 = bf16_pair_absmax(m2, x[j]);
     }
-    for (int tok = t; tok < nt; tok += NT) {
-      float s[NREP_MAX];
+    const int el = group_exponent(bf16_lo(m2));
+    const int eh = group_exponent(bf16_hi(m2));
+    const MxGroup gl = mx_group(el, k_mb), gh = mx_group(eh, k_mb);
+    if (max(el, eh) <= MX_GROUP_EMAX) {
 #pragma unroll
-      for (int h = 0; h < NREP_MAX; ++h) s[h] = 0.f;
-      const float* krow = tile + tok * TS;
+      for (int j = 0; j < 16; ++j)
+        col[j * RW] = bf16_pair(mx_group_value(bf16_lo(x[j]), gl),
+                                mx_group_value(bf16_hi(x[j]), gh));
+    } else {
+      for (int j = 0; j < 16; ++j)
+        col[j * RW] = bf16_pair(mx_value(bf16_lo(x[j]), el, k_mb),
+                                mx_value(bf16_hi(x[j]), eh, k_mb));
+    }
+  }
+}
+
+// V quantizer of the 16 rows from row r: a lane per (token, 16-wide d
+// group).
+template <int D>
+__device__ __forceinline__ void quantize_v(uint16_t* tile, int r, int v_mb) {
+  constexpr int G = D / 16;
+  for (int i = threadIdx.x % 32; i < 16 * G; i += 32) {
+    uint4* grp = reinterpret_cast<uint4*>(tile + (r + i / G) * (D + 8) +
+                                          i % G * 16);
+    uint4 w[2] = {grp[0], grp[1]};
+    uint32_t* x = reinterpret_cast<uint32_t*>(w);
+    uint32_t m2 = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m2 = bf16_pair_absmax(m2, x[j]);
+    const int e = group_exponent(fmaxf(bf16_lo(m2), bf16_hi(m2)));
+    const MxGroup g = mx_group(e, v_mb);
+    if (e <= MX_GROUP_EMAX) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        x[j] = bf16_pair(mx_group_value(bf16_lo(x[j]), g),
+                         mx_group_value(bf16_hi(x[j]), g));
+    } else {
+      for (int j = 0; j < 8; ++j)
+        x[j] = bf16_pair(mx_value(bf16_lo(x[j]), e, v_mb),
+                         mx_value(bf16_hi(x[j]), e, v_mb));
+    }
+    grp[0] = w[0];
+    grp[1] = w[1];
+  }
+}
+
+// Waits for the warp's two groups in turn and quantizes each as it lands
+// (K: per d column, V: per token; mb < 0 leaves them as they are).
+template <int D, bool IS_K>
+__device__ __forceinline__ void land_and_quantize(uint16_t* tile,
+                                                  const Chunk& c, int mb) {
+  const int r = threadIdx.x / 32 * 32;
+  cp_async_wait<1>();
+  __syncwarp();
+  if (mb >= 0 && group_in(c, r)) {
+    if (IS_K) quantize_k<D>(tile, r, mb);
+    else quantize_v<D>(tile, r, mb);
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+  if (mb >= 0 && group_in(c, r + 16)) {
+    if (IS_K) quantize_k<D>(tile, r + 16, mb);
+    else quantize_v<D>(tile, r + 16, mb);
+  }
+  __syncwarp();
+}
+
+// acc[h] (h < nrep) reduced over the block, the max (MAX) or the sum: each
+// warp through a xor butterfly, then the warps in order; out[h] (shared
+// memory) takes the result. Ends synchronised.
+template <bool MAX>
+__device__ __forceinline__ void chunk_reduce(float (&acc)[NREP_MAX], int nrep,
+                                             float* out) {
+  __shared__ float red[FW][NREP_MAX];
+  const int t = threadIdx.x, lane = t % 32, w = t / 32;
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h) {
+    acc[h] = MAX ? warp_max_xor(acc[h]) : warp_sum_xor(acc[h]);
+    if (lane == 0) red[w][h] = acc[h];
+  }
+  __syncthreads();
+  if (t < nrep) {
+    float r = red[0][t];
+    for (int i = 1; i < FW; ++i) r = MAX ? fmaxf(r, red[i][t]) : r + red[i][t];
+    out[t] = r;
+  }
+  __syncthreads();
+}
+
+// Pass 1. Grid (B, KVH, NZ), NZ = ceil(L / CH).
+template <int D>
+__global__ void __launch_bounds__(FT)
+fp_scores_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
+                 const int* __restrict__ pos_p, float* __restrict__ scores,
+                 float* __restrict__ st_m, float* __restrict__ st_l,
+                 int* __restrict__ count, float* __restrict__ out, int KVH,
+                 int nrep, int L, float scaling, int q_mb, int k_mb,
+                 int window) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float m_s[NREP_MAX];
+  __shared__ float l_s[NREP_MAX];
+  const int b = blockIdx.x, kv = blockIdx.y, z = blockIdx.z, NZ = gridDim.z;
+  const int t = threadIdx.x, H = KVH * nrep;
+  Chunk c;
+  if (!chunk_of(pos_p, b, z, L, window, c)) {
+    if (z == 0 && c.ntok == 0)  // no column (pos < 0): out = 0
+      for (int idx = t; idx < nrep * D; idx += FT)
+        out[((size_t)b * H + kv * nrep) * D + idx] = 0.f;
+    return;
+  }
+  if (z == c.first / CH && t == 0) count[(size_t)b * KVH + kv] = 0;
+
+  uint16_t* tile = reinterpret_cast<uint16_t*>(smem);           // CH x (D+8)
+  float* qs = reinterpret_cast<float*>(tile + CH * (D + 8));   // nrep x D
+  const size_t bk = (size_t)b * KVH + kv;
+
+  copy_warp_rows<D>(k + (bk * L + c.c0) * D, tile, c);
+  quantize_queries<D>(q + ((size_t)b * H + kv * nrep) * D, qs, nrep, q_mb);
+  __syncthreads();  // the queries are in
+  land_and_quantize<D, true>(tile, c, k_mb);
+
+  const bool in = t >= c.j0 && t < c.n;
+  float s[NREP_MAX];
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h) s[h] = 0.f;
+  if (in) {
+    const uint16_t* row = tile + t * (D + 8);
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float kval = krow[d];
-#pragma unroll
-        for (int h = 0; h < NREP_MAX; ++h)
-          if (h < nrep) s[h] = fmaf(qs[h * D + d], kval, s[h]);
-      }
-      const int j = t0 + tok;
+    for (int d8 = 0; d8 < D / 8; ++d8) {
+      const uint4 w = *reinterpret_cast<const uint4*>(row + d8 * 8);
+      const float kv8[8] = {bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y),
+                            bf16_hi(w.y), bf16_lo(w.z), bf16_hi(w.z),
+                            bf16_lo(w.w), bf16_hi(w.w)};
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
-        if (h < nrep)
-          sc[h * L + j] = in_window(j, pos, window) ? s[h] * scaling : -INFINITY;
+        if (h < nrep) {
+          const float4 qa = *reinterpret_cast<const float4*>(qs + h * D + d8 * 8);
+          const float4 qb = *reinterpret_cast<const float4*>(qs + h * D + d8 * 8 + 4);
+          s[h] = fmaf(qa.x, kv8[0], s[h]);
+          s[h] = fmaf(qa.y, kv8[1], s[h]);
+          s[h] = fmaf(qa.z, kv8[2], s[h]);
+          s[h] = fmaf(qa.w, kv8[3], s[h]);
+          s[h] = fmaf(qb.x, kv8[4], s[h]);
+          s[h] = fmaf(qb.y, kv8[5], s[h]);
+          s[h] = fmaf(qb.z, kv8[6], s[h]);
+          s[h] = fmaf(qb.w, kv8[7], s[h]);
+        }
+    }
+  }
+  const bool ok = in && in_window(c.c0 + t, c.pos, window);
+  float* srow = scores + ((size_t)b * H + kv * nrep) * L + c.c0 + t;
+  float acc[NREP_MAX];
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h) {
+    s[h] = ok ? s[h] * scaling : -INFINITY;
+    if (in && h < nrep) srow[(size_t)h * L] = s[h];
+    acc[h] = s[h];
+  }
+  chunk_reduce<true>(acc, nrep, m_s);
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h)
+    acc[h] = (h < nrep && s[h] != -INFINITY) ? expf(s[h] - m_s[h]) : 0.f;
+  chunk_reduce<false>(acc, nrep, l_s);
+  if (t < nrep) {
+    st_m[(bk * NZ + z) * nrep + t] = m_s[t];
+    st_l[(bk * NZ + z) * nrep + t] = l_s[t];
+  }
+}
+
+// Pass 2. Same grid as pass 1.
+template <int D>
+__global__ void __launch_bounds__(FT)
+fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
+             const float* __restrict__ scores,
+             const float* __restrict__ st_m, const float* __restrict__ st_l,
+             float* part, int* __restrict__ count, float* __restrict__ out,
+             int KVH, int nrep, int L, int p_mb, int v_mb, int window) {
+  constexpr int NWD = (D / 2 + 31) / 32;  // words of a row per lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float m_s[NREP_MAX];
+  __shared__ float d_s[NREP_MAX];
+  const int b = blockIdx.x, kv = blockIdx.y, z = blockIdx.z, NZ = gridDim.z;
+  const int t = threadIdx.x, lane = t % 32, w = t / 32, H = KVH * nrep;
+  Chunk c;
+  if (!chunk_of(pos_p, b, z, L, window, c)) return;
+  uint16_t* tile = reinterpret_cast<uint16_t*>(smem);  // CH x (D + 8)
+  const size_t bk = (size_t)b * KVH + kv;
+
+  copy_warp_rows<D>(v + (bk * L + c.c0) * D, tile, c);
+  const bool in = t >= c.j0 && t < c.n;
+  const float* srow = scores + ((size_t)b * H + kv * nrep) * L + c.c0 + t;
+  float p[NREP_MAX];
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h)
+    p[h] = (in && h < nrep) ? srow[(size_t)h * L] : -INFINITY;
+  // the final stats, a warp per head, its lanes over the chunks; each sum
+  // in the same order at every launch
+  const int z0 = c.first / CH, z1 = (c.ntok + CH - 1) / CH;
+  for (int h = w; h < nrep; h += FW) {
+    const float* sm = st_m + bk * NZ * nrep + h;
+    const float* sl = st_l + bk * NZ * nrep + h;
+    float m = -INFINITY;
+    for (int i = z0 + lane; i < z1; i += 32) m = fmaxf(m, sm[(size_t)i * nrep]);
+    m = warp_max_xor(m);
+    float den = 0.f;
+    for (int i = z0 + lane; i < z1; i += 32) {
+      const float mi = sm[(size_t)i * nrep];
+      if (mi != -INFINITY) den += sl[(size_t)i * nrep] * expf(mi - m);
+    }
+    den = warp_sum_xor(den);
+    if (lane == 0) {
+      m_s[h] = m;
+      d_s[h] = den == 0.f ? 1.f : den;
     }
   }
   __syncthreads();
-  softmax_quantize_p(sc, L, 0, j0, ntok - j0, nrep, p_mb);
-
-  // P·V: V goes through the same tile, its 16-wide d groups of each token
-  // quantized in place (a thread per (token, group)); a thread per d
-  // column then walks the tile's tokens (D <= NT)
-  float acc[NREP_MAX];
 #pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-  for (int t0 = j0; t0 < ntok; t0 += TT) {
-    const int nt = min(TT, ntok - t0);
-    __syncthreads();  // the p rows are in; the previous tile is consumed
-    load_tile<D>(vb + (size_t)t0 * D, tile, nt);
-    __syncthreads();
-    if (v_mb >= 0) {
-      for (int i = t; i < nt * (D / 16); i += NT) {
-        float* grp = tile + (i / (D / 16)) * TS + i % (D / 16) * 16;
-        float bmax = 0.f;
+  for (int h = 0; h < NREP_MAX; ++h) {
+    if (h >= nrep) break;
+    float x = p[h] == -INFINITY ? 0.f : expf(p[h] - m_s[h]) / d_s[h];
+    if (p_mb >= 0) {  // the 16-token group: 16 lanes
+      float gmax = x;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) bmax = fmaxf(bmax, fabsf(grp[j]));
-        const int e = group_exponent(bmax);
-#pragma unroll
-        for (int j = 0; j < 16; ++j) grp[j] = mx_value(grp[j], e, v_mb);
-      }
-      __syncthreads();
+      for (int off = 8; off > 0; off >>= 1)
+        gmax = fmaxf(gmax, __shfl_xor_sync(0xffffffffu, gmax, off));
+      x = mx_value(x, group_exponent(gmax), p_mb);
     }
-    if (t < D)
-      for (int tok = 0; tok < nt; ++tok) {
-        const float val = tile[tok * TS + t];
-#pragma unroll
-        for (int h = 0; h < NREP_MAX; ++h)
-          if (h < nrep) acc[h] = fmaf(sc[h * L + t0 + tok], val, acc[h]);
-      }
+    p[h] = x;
   }
-  if (t < D)
+  land_and_quantize<D, false>(tile, c, v_mb);
+
+  // partial P·V over the warp's tokens, lanes along d (a word of two
+  // columns each), each token's p from its lane
+  float acc[NREP_MAX][NWD][2];
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h)
+#pragma unroll
+    for (int i = 0; i < NWD; ++i) acc[h][i][0] = acc[h][i][1] = 0.f;
+  const int lo = max(w * 32, c.j0), hi = min(w * 32 + 32, c.n);
+  for (int tok = lo; tok < hi; ++tok) {
+    const uint32_t* row =
+        reinterpret_cast<const uint32_t*>(tile + tok * (D + 8));
+    float pv[NREP_MAX];
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) out[((size_t)b * H + kv * nrep + h) * D + t] = acc[h];
+      pv[h] = h < nrep ? __shfl_sync(0xffffffffu, p[h], tok % 32) : 0.f;
+#pragma unroll
+    for (int i = 0; i < NWD; ++i) {
+      const int wd = lane + 32 * i;
+      if (wd < D / 2) {
+        const uint32_t x = row[wd];
+        const float a = bf16_lo(x), bb = bf16_hi(x);
+#pragma unroll
+        for (int h = 0; h < NREP_MAX; ++h)
+          if (h < nrep) {
+            acc[h][i][0] = fmaf(pv[h], a, acc[h][i][0]);
+            acc[h][i][1] = fmaf(pv[h], bb, acc[h][i][1]);
+          }
+      }
+    }
+  }
+  __syncthreads();  // the tile is read: it now holds the warps' partials
+  float* red = reinterpret_cast<float*>(smem);  // FW x nrep x D
+#pragma unroll
+  for (int h = 0; h < NREP_MAX; ++h)
+    if (h < nrep)
+#pragma unroll
+      for (int i = 0; i < NWD; ++i) {
+        const int wd = lane + 32 * i;
+        if (wd < D / 2)
+          *reinterpret_cast<float2*>(red + ((size_t)w * nrep + h) * D + 2 * wd) =
+              make_float2(acc[h][i][0], acc[h][i][1]);
+      }
+  __syncthreads();
+  float* dst = part + (bk * NZ + z) * nrep * D;
+  for (int idx = t; idx < nrep * D; idx += FT) {
+    float r = red[idx];
+#pragma unroll
+    for (int i = 1; i < FW; ++i) r += red[(size_t)i * nrep * D + idx];
+    dst[idx] = r;
+  }
+
+  // the last block of the (slot, kv head) to finish sums the partials in
+  // chunk order (the counter: pass 1 zeroes it); the barrier, then one
+  // thread's fence and atomic, publish the block's partials (the grid
+  // barrier's pattern)
+  __shared__ bool last;
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    last = atomicAdd(count + bk, 1) == z1 - z0 - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  constexpr int PER = (NREP_MAX * D + FT - 1) / FT;  // outputs per thread
+  const float* pb = part + bk * NZ * nrep * D + t;
+  float r[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) r[u] = 0.f;
+#pragma unroll 4
+  for (int i = z0; i < z1; ++i)
+#pragma unroll
+    for (int u = 0; u < PER; ++u)
+      if (t + u * FT < nrep * D)
+        r[u] += __ldcg(pb + (size_t)i * nrep * D + u * FT);
+#pragma unroll
+  for (int u = 0; u < PER; ++u)
+    if (t + u * FT < nrep * D)
+      out[((size_t)b * H + kv * nrep) * D + t + u * FT] = r[u];
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* out, int B, int KVH, int nrep, int L, float scaling,
-           int q_mb, int k_mb, int p_mb, int v_mb, int window,
+           void* scratch, void* out, int B, int KVH, int nrep, int L,
+           float scaling, int q_mb, int k_mb, int p_mb, int v_mb, int window,
            cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)nrep * (D + L) + TT * (D + 1));
-  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || smem > 220 * 1024 ||
-      window == 0 || window < -1)
+  if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || window == 0 ||
+      window < -1 || k_mb > 8 || v_mb > 8)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fp_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fp_decode_kernel<D><<<dim3(B, KVH), NT, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const int*>(pos),
-      static_cast<float*>(out), KVH, nrep, L, scaling, q_mb, k_mb, p_mb, v_mb,
+  const int NZ = (L + CH - 1) / CH, H = KVH * nrep;
+  float* scores = static_cast<float*>(scratch);
+  float* st_m = scores + (size_t)B * H * L;
+  float* st_l = st_m + (size_t)B * KVH * NZ * nrep;
+  float* part = st_l + (size_t)B * KVH * NZ * nrep;
+  int* count = reinterpret_cast<int*>(part + (size_t)B * KVH * NZ * nrep * D);
+  const auto* pp = static_cast<const int*>(pos);
+  auto* o = static_cast<float*>(out);
+  const dim3 grid(B, KVH, NZ);
+  const size_t tile = sizeof(uint16_t) * CH * (D + 8);
+  const size_t smem1 = tile + sizeof(float) * nrep * D;
+  // the whole of the SM's 228 KB as shared memory: three blocks an SM
+  for (const void* f : {(const void*)fp_scores_kernel<D>,
+                        (const void*)fp_pv_kernel<D>}) {
+    cudaError_t e = cudaFuncSetAttribute(
+        f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fp_scores_kernel<D><<<grid, FT, smem1, st>>>(
+      static_cast<const float*>(q), static_cast<const uint16_t*>(k), pp,
+      scores, st_m, st_l, count, o, KVH, nrep, L, scaling, q_mb, k_mb,
       window);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fp_pv_kernel<D><<<grid, FT, tile, st>>>(
+      static_cast<const uint16_t*>(v), pp, scores, st_m, st_l, part, count,
+      o, KVH, nrep, L, p_mb, v_mb, window);
   return (int)cudaGetLastError();
 }
 
@@ -178,19 +517,29 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 
 // One layer: q (B, H, D) f32; k, v (B, KVH, L, D) bf16, the layer's slice
 // of the layer-stacked cache; positions (B) int32; out (B, H, D) f32;
-// window the sliding window in tokens, -1 for none.
+// window the sliding window in tokens, -1 for none. scratch: f32, the
+// scores (B, H, L), then the chunk stats m and l (B, KVH, NZ, nrep) each
+// and the partials (B, KVH, NZ, nrep, D), NZ = ceil(L / 256), then one
+// int32 counter per (slot, kv head). D is a
+// multiple of 16 from 64 to 128 (instantiated at 64, 80, 96 and 128);
+// k_mb and v_mb at most 8.
 LQER_API int lqer_decode_attention_fp(const void* q, const void* k,
                                       const void* v, const void* pos,
-                                      void* out, int B, int KVH, int nrep,
-                                      int D, int L, float scaling, int q_mb,
-                                      int k_mb, int p_mb, int v_mb,
-                                      int window, void* stream) {
+                                      void* scratch, void* out, int B,
+                                      int KVH, int nrep, int D, int L,
+                                      float scaling, int q_mb, int k_mb,
+                                      int p_mb, int v_mb, int window,
+                                      void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128>(q, k, v, pos, out, B, KVH, nrep, L, scaling, q_mb,
-                       k_mb, p_mb, v_mb, window, st);
-  if (D == 64)
-    return launch<64>(q, k, v, pos, out, B, KVH, nrep, L, scaling, q_mb, k_mb,
-                      p_mb, v_mb, window, st);
+#define LQER_FP_ARGS                                                       \
+  q, k, v, pos, scratch, out, B, KVH, nrep, L, scaling, q_mb, k_mb, p_mb, \
+      v_mb, window, st
+  switch (D) {
+    case 64: return launch<64>(LQER_FP_ARGS);
+    case 80: return launch<80>(LQER_FP_ARGS);
+    case 96: return launch<96>(LQER_FP_ARGS);
+    case 128: return launch<128>(LQER_FP_ARGS);
+  }
+#undef LQER_FP_ARGS
   return (int)cudaErrorInvalidValue;
 }

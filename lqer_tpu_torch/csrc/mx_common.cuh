@@ -51,6 +51,35 @@ __device__ __forceinline__ float mx_value(float v, int e, int mb) {
                    __fdiv_rn(mx_mant(v, e, mb), shift));
 }
 
+// mx_value with the group's rounding constants computed once (mx_group),
+// for a group exponent e <= MX_GROUP_EMAX and mb <= 20 (callers take
+// mx_value past them). mx_value rounds x = (|v| + 1e-9) / 2^e * 2^mb; for
+// |v| > 1e-8 and such e both scalings are exact, so x = a / s with
+// a = |v| + 1e-9 and the grid step s = 2^(e - mb). Adding and subtracting
+// big = 1.5 * 2^(e - mb + 23) rounds a to that grid, to nearest with ties
+// to even (a + big stays in big's binade, whose ulp is s, and big / s is
+// even): rint(x) * s. The clamp to (2^mb - 1) * s and the sign follow, and
+// |v| > 1e-8 has the sign of v + 1e-9: so mx_group_value equals
+// mx_value(v, e, mb) to the bit, a zero's sign included, in seven
+// branch-free instructions.
+constexpr int MX_GROUP_EMAX = 99;  // a * 2^-e stays a normal float
+
+struct MxGroup {
+  float big;  // 1.5 * 2^(e - mb + 23)
+  float top;  // (2^mb - 1) * 2^(e - mb)
+};
+
+__device__ __forceinline__ MxGroup mx_group(int e, int mb) {
+  return MxGroup{1.5f * exp2_int(e - mb + 23),
+                 (float)((1 << mb) - 1) * exp2_int(e - mb)};
+}
+
+__device__ __forceinline__ float mx_group_value(float v, const MxGroup& g) {
+  const float a = __fadd_rn(fabsf(v), 1e-9f);
+  const float q = fminf(__fsub_rn(__fadd_rn(a, g.big), g.big), g.top);
+  return fabsf(v) <= 1e-8f ? v : copysignf(q, v);
+}
+
 // Group exponent from a group absmax; all-zero groups use 1.0 (their
 // values pass through or encode to code 0 either way).
 __device__ __forceinline__ int group_exponent(float absmax) {

@@ -35,7 +35,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
     "dequant_gemm": ("dequant_gemm", "lqer_dequant_gemm", [P] * 9 + [I] * 8),
     "attention": ("attention", "lqer_prefill_attention",
-                  [P] * 4 + [I] * 4 + [F, I, I]),
+                  [P] * 5 + [I] * 4 + [F, I, I, I]),
     "decode_attention": ("decode_attention", "lqer_staged_decode_attention",
                          [P] * 14 + [I] * 7 + [F, I, I]),
     "cache_write": ("cache_write", "lqer_flush_stage",
@@ -50,7 +50,7 @@ ENTRIES = {
         "decode_attention_quantized", "lqer_decode_attention_quantized",
         [P] * 9 + [I] * 6 + [F, I, I, I]),
     "decode_attention_fp": ("decode_attention_fp", "lqer_decode_attention_fp",
-                            [P] * 5 + [I] * 5 + [F] + [I] * 5),
+                            [P] * 6 + [I] * 5 + [F] + [I] * 5),
     "decode_attention_streaming": (
         "decode_attention_streaming", "lqer_decode_attention_streaming",
         [P] * 18 + [I] * 7 + [F, I, I, I]),

@@ -14,6 +14,11 @@ import torch
 from ...parallel.collectives import fill_zero_groups, mx_values
 from . import _build
 
+# the head dims rows 4 and 5 (csrc/attention.cu, csrc/decode_attention_fp.cu)
+# are instantiated for
+HEAD_DIMS = (64, 80, 96, 128)
+SCRATCH_FLOATS = 64 * 2 ** 20  # the f32 scores of one call: 256 MB at most
+
 
 def _quantize_sublane_groups(p: torch.Tensor, mb: int, group: int
                              ) -> torch.Tensor:
@@ -74,7 +79,7 @@ def quantized_attention(q_q: torch.Tensor, k_q: torch.Tensor,
                                          causal=causal)
     if not q_q.is_cuda:
         raise ValueError(f"unsupported device {q_q.device}")
-    if group != 16 or D not in (64, 128):
+    if group != 16 or D not in HEAD_DIMS:
         raise ValueError(f"unsupported attention shape D={D} group={group}")
     for name, t, shape in (("q", q_q, (BH, S, D)), ("k", k_q, (BH, L, D)),
                            ("v", v_q, (BH, L, D))):
@@ -82,9 +87,12 @@ def quantized_attention(q_q: torch.Tensor, k_q: torch.Tensor,
             raise ValueError(f"{name}: need a CUDA tensor of shape {shape}")
     q, k, v = (t.to(torch.bfloat16).contiguous() for t in (q_q, k_q, v_q))
     out = torch.empty(BH, S, D, dtype=torch.float32, device=q.device)
+    heads = max(1, min(BH, SCRATCH_FLOATS // (S * L)))  # per pass of kernels
+    scores = torch.empty(heads * S * L, dtype=torch.float32, device=q.device)
     _build.launch("attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), BH, S, L, D, float(scale), int(causal),
-                  -1 if p_width is None else p_width - 1)
+                  out.data_ptr(), scores.data_ptr(), BH, S, L, D,
+                  float(scale), int(causal),
+                  -1 if p_width is None else p_width - 1, heads)
     quantized_attention.launches += 1
     return out
 

@@ -15,6 +15,12 @@ position are masked, and under a sliding window (``window``, Mistral) the
 columns at or below ``pos - window`` too (``decode_attention.key_mask``).
 One layer per call, read in place from the layer-stacked cache
 ``(NL, B, KVH, L, d)`` at ``layer_index``.
+
+The CUDA kernel splits the context over blocks of :data:`CHUNK` tokens
+(scores and chunk stats, then P·V with the final stats), so it takes every
+length the JAX package's one-pass kernel takes (``L % 16 == 0``; the
+serving regime is ``decode._check_cache_regime``'s) and any head dim of
+:data:`HEAD_DIMS`; its f32 scratch is :func:`scratch_floats` long.
 """
 
 from __future__ import annotations
@@ -22,22 +28,24 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import attend_plain
+from .attention import HEAD_DIMS, attend_plain
 from .decode_attention import (
-    SMEM_LIMIT,
     _quantize_sublane_groups_signed,
     key_mask,
     scaled_query,
     window_arg,
 )
 
-K_TILE = 128            # tokens of K the kernel quantizes per pass
+CHUNK = 256  # tokens per block of the CUDA kernel (csrc: CH)
 
 
-def smem_bytes(n_rep: int, max_len: int, head_dim: int) -> int:
-    """Shared memory of the kernel: queries and score rows of the n_rep
-    heads, and one K tile of padded rows."""
-    return 4 * (n_rep * (head_dim + max_len) + K_TILE * (head_dim + 1))
+def scratch_floats(B: int, H: int, KVH: int, L: int, d: int) -> int:
+    """f32 scratch of the CUDA kernel: the scores (B, H, L), the chunk
+    stats m and l (B, KVH, NZ, n_rep), the partial outputs
+    (B, KVH, NZ, n_rep, d), NZ = ceil(L / CHUNK), and an int32 counter per
+    (slot, kv head)."""
+    nz = -(-L // CHUNK)
+    return B * H * L + B * H * nz * (2 + d) + B * KVH
 
 
 def supports_decode_attention(attn_cfg, cache_width: int = 8) -> bool:
@@ -148,10 +156,14 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
                                **kw)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    if (d not in (64, 128) or H % KVH or not 0 <= layer_index < NL
-            or smem_bytes(H // KVH, L, d) > SMEM_LIMIT):
+    if (d not in HEAD_DIMS or H % KVH or not 1 <= H // KVH <= 8
+            or not 0 <= layer_index < NL):
         raise ValueError(f"unsupported fp decode shape d={d} H={H} KVH={KVH} "
                          f"L={L} layer {layer_index} of {NL}")
+    if any(w is not None and w > 9 for w in (k_width, v_width)):
+        raise ValueError(f"the kernel stages quantized K and V in bf16: "
+                         f"widths up to 9 (k_width={k_width}, "
+                         f"v_width={v_width})")
     for a in (k_cache, v_cache):
         if not (a.is_cuda and a.dtype == torch.bfloat16 and a.is_contiguous()
                 and a.shape == k_cache.shape):
@@ -161,10 +173,13 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
     qf = qf.contiguous()
     pos = positions.to(torch.int32).contiguous()
     out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_floats(B, H, KVH, L, d),
+                          dtype=torch.float32, device=q.device)
     _build.launch("decode_attention_fp", qf.data_ptr(),
                   k_cache[layer_index].data_ptr(),
                   v_cache[layer_index].data_ptr(), pos.data_ptr(),
-                  out.data_ptr(), B, KVH, H // KVH, d, L, float(scaling),
+                  scratch.data_ptr(), out.data_ptr(), B, KVH, H // KVH, d, L,
+                  float(scaling),
                   _mb(q_width), _mb(k_width), _mb(p_width), _mb(v_width), win)
     decode_attention_fp.launches += 1
     return out

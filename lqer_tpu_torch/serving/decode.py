@@ -73,7 +73,7 @@ from ..models.common import (
     supports_fused_attention,
 )
 from ..ops.kernels import decode_attention as staged_decode
-from ..ops.kernels import fp_decode, quantized_decode
+from ..ops.kernels import quantized_decode
 from ..ops.kernels.cache_write import (
     flush_stage_to_main,
     write_kv_rows_stacked,
@@ -348,7 +348,7 @@ def check_card_shapes(head_dim: int, device_type: str) -> None:
             "a head dim template over the multiples of 16 is not built yet")
 
 
-def check_servable(cache: dict, attn_cfgs, head_dim: int, n_rep: int,
+def check_servable(cache: dict, attn_cfgs, head_dim: int,
                    window: int | None = None) -> None:
     """Raise ``NotImplementedError`` unless every admission and decode step
     over ``cache`` with these attention configs runs through a ported
@@ -363,14 +363,6 @@ def check_servable(cache: dict, attn_cfgs, head_dim: int, n_rep: int,
     check_card_shapes(head_dim, next(iter(cache.values())).device.type)
     quantized = is_quantized_cache(cache)
     width = cache_code_width(cache) if quantized else 8
-    smem = fp_decode.smem_bytes(n_rep, max_len, head_dim)
-    if kind == "bfloat16" and smem > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"the fp-cache decode kernel's scores at n_rep={n_rep}, "
-            f"max_len={max_len} need {smem} bytes of shared memory (at most "
-            f"{SMEM_LIMIT}); the JAX package serves this length with its "
-            "one-pass decode_attention (ops/pallas/decode_attention.py), "
-            "and no streaming fp-cache kernel is ported")
     # layers resolved from one config share its matmul dicts
     for attn_cfg in {(id(c.qk_cfg), id(c.pv_cfg)): c
                      for c in attn_cfgs}.values():
@@ -614,8 +606,7 @@ def _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions, s,
     qcfgs = (layer_qcfg if isinstance(layer_qcfg, list)
              else [layer_qcfg] * cfg.num_hidden_layers)
     n_rep = cfg.num_attention_heads // cfg.kv_heads
-    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, n_rep,
-                   window)
+    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, window)
     route = decode_route(_cache_kind(cache), cache_max_len(cache),
                          cfg.head_dim, n_rep)
     if s == 1 and is_staged_cache(cache):

@@ -96,8 +96,7 @@ class DecodeEngine:
         self.cache = make_cache(cfg, num_slots, max_len, cache_dtype,
                                 device=self.device)
         check_servable(self.cache, [q["attn"] for q in layer_qcfgs],
-                       cfg.head_dim, cfg.num_attention_heads // cfg.kv_heads,
-                       getattr(cfg, "sliding_window", None))
+                       cfg.head_dim, getattr(cfg, "sliding_window", None))
         self.lengths = np.zeros(num_slots, dtype=np.int32)  # tokens in cache
         self.slot_req: list[Request | None] = [None] * num_slots
         self.generator = torch.Generator(device=self.device)

@@ -10,7 +10,12 @@ L = 32768, the streaming kernels also against the one-pass ones), and the
 large-M route; OPT's biased linears and query-scaled decode kernels, and
 a tiny OPT served through the kernels against the CPU, a tiny Llama on
 ``mxint4-staged`` against the CPU and on the in-kernel activation
-quantizer route against the default route. Needs an
+quantizer route against the default route; prefill attention at head
+dims 64, 80 and 128 (P unquantized and wider than bf16 too) and with
+whole P groups at or below 1e-8, and the fp-cache
+decode kernel over its chunks (positions at chunk edges, a window
+starting mid-chunk, n_rep 1 to 8, head dims 64 to 128, L = 12288; two
+launches equal to the bit). Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -159,8 +164,8 @@ def test_unpack_7b_shapes(gen, width, k, n):
 
 
 @pytest.mark.parametrize("bh,s,l,causal", [
-    (6, 48, 48, True),          # scores of 8 rows in shared memory
-    (1, 6400, 6400, True),      # rows too long for it: three passes over K
+    (6, 48, 48, True),          # one partial tile of query rows and keys
+    (1, 6400, 6400, True),      # a hundred key tiles
     (2, 16, 8192, False),
     (32, 2048, 2048, True)])    # the 2048-token admission: 32 heads
 def test_prefill_attention(gen, bh, s, l, causal):
@@ -172,6 +177,53 @@ def test_prefill_attention(gen, bh, s, l, causal):
     got = k2.quantized_attention(q, k, v, **kw)
     want = k2.quantized_attention_plain(q, k, v, **kw)
     check_close("prefill attention", got, want,
+                attention_limit(k2.prefill_scores(q, k, **kw), v, want,
+                                p_width=8), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("s,causal,p_width", [
+    (1, True, 8), (16, True, 8), (64, True, 8), (2048, True, 8),
+    (100, True, 8),             # not a multiple of the 64-row tile
+    (100, False, 8), (100, True, None), (100, True, 10)])
+def test_prefill_attention_head_dims(gen, d, s, causal, p_width):
+    """Kernel 2 at head dims it is built for, P unquantized (``None``) and
+    quantized wider than bf16 (10) too. The keys are S rounded up to 16:
+    past S under the causal mask, and a partial tile of keys; two launches
+    equal to the bit."""
+    q = _act((2, s, d), gen)
+    l = -(-s // 16) * 16
+    k, v = (mx8_decode(*mx8_encode(torch.randn(2, l, d, generator=gen,
+                                               device="cuda"), 16, 1.0),
+                       16, torch.bfloat16) for _ in range(2))
+    kw = dict(scale=d ** -0.5, causal=causal)
+    before = k2.quantized_attention.launches
+    got = k2.quantized_attention(q, k, v, p_width=p_width, **kw)
+    assert k2.quantized_attention.launches == before + 1
+    want = k2.quantized_attention_plain(q, k, v, p_width=p_width, **kw)
+    check_close(f"prefill attention d={d}", got, want,
+                attention_limit(k2.prefill_scores(q, k, **kw), v, want,
+                                p_width=p_width), max_flipped=0.05)
+    assert torch.equal(got, k2.quantized_attention(q, k, v, p_width=p_width,
+                                                   **kw))
+
+
+def test_prefill_attention_tiny_p(gen):
+    """Scores spread so wide that whole 16-key groups of p lie at or below
+    1e-8 (they pass the P quantizer unquantized)."""
+    bh, s, d = 2, 256, 128
+    q = _act((bh, s, d), gen) * 4
+    k, v = (mx8_decode(*mx8_encode(torch.randn(bh, s, d, generator=gen,
+                                               device="cuda"), 16, 1.0),
+                       16, torch.bfloat16) for _ in range(2))
+    q = q.to(torch.bfloat16)
+    kw = dict(scale=1.0, causal=True)
+    p = torch.softmax(k2.prefill_scores(q, k, **kw), -1)
+    groups = p.reshape(bh, s, s // 16, 16).amax(-1)
+    assert bool(((groups > 0) & (groups <= 1e-8)).any())
+    got = k2.quantized_attention(q, k, v, **kw)
+    want = k2.quantized_attention_plain(q, k, v, **kw)
+    check_close("prefill attention, tiny p", got, want,
                 attention_limit(k2.prefill_scores(q, k, **kw), v, want,
                                 p_width=8), max_flipped=0.05)
 
@@ -249,6 +301,39 @@ def test_fp_decode_attention(gen, b, kvh, nrep, d, l, pos, widths):
     s, vals = kfp.fp_scores(q, k, v, p, 1, **kw)
     check_close("fp decode attention", got, want,
                 attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+# row 5 over chunks of 256 tokens: (slots, kv heads, n_rep, d, L,
+# positions, window)
+FP_CHUNK_SHAPES = [
+    # pos 0, a chunk's last and first token, mid-group
+    (5, 2, 1, 128, 768, [0, 127, 128, 200, 255], None),
+    # window starts mid-chunk (at 501 and 101), chunks wholly below it
+    (3, 2, 4, 128, 1024, [300, 700, 1023], 200),
+    (2, 1, 8, 128, 768, [5, 767], None),
+    (2, 2, 4, 80, 512, [100, 511], 64),
+    (2, 2, 2, 64, 512, [31, 400], None),
+    (2, 2, 4, 96, 256, [17, 255], None),
+    (2, 2, 4, 128, 12288, [12000, 6000], None)]
+
+
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos,window", FP_CHUNK_SHAPES)
+def test_fp_decode_chunks(gen, b, kvh, nrep, d, l, pos, window):
+    """Row 5 split over L against its plain version, slots at different
+    lengths in one launch; two launches equal to the bit."""
+    k, v = (torch.randn(2, b, kvh, l, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kw = dict(scaling=d ** -0.5, window=window)
+    p = _positions(pos)
+    before = kfp.decode_attention_fp.launches
+    got = kfp.decode_attention_fp(q, k, v, p, 1, **kw)
+    assert kfp.decode_attention_fp.launches == before + 1
+    want = kfp.fp_decode_plain(q, k, v, p, 1, **kw)
+    s, vals = kfp.fp_scores(q, k, v, p, 1, **kw)
+    check_close("fp decode attention over chunks", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+    assert torch.equal(got, kfp.decode_attention_fp(q, k, v, p, 1, **kw))
 
 
 def _mx_cache(gen, width, b, kvh, d, l):

@@ -374,9 +374,9 @@ def test_card_refuses_head_dims_before_any_work():
         tdecode.make_cache(cfg, 1, 128, "mxint4", device="cpu")
     cache = tdecode.make_cache(cfg, 1, 128, "bfloat16", device="cpu")
     attn = tmodels.quantize_model(cfg, Q_CONFIG, None)[0]["attn"]
-    tdecode.check_servable(cache, [attn], 16, 1)
+    tdecode.check_servable(cache, [attn], 16)
     meta = {k: v.to("meta") for k, v in cache.items()}
-    tdecode.check_servable(meta, [attn], 16, 1)          # not the card
+    tdecode.check_servable(meta, [attn], 16)             # not the card
     with pytest.raises(AssertionError):
         jdecode.make_cache(JLlamaConfig.tiny(hidden=64, heads=4), 1, 128,
                            "mxint4")

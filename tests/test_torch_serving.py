@@ -261,8 +261,6 @@ def test_card_requests_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("cache_dtype,max_len,q_config,path", [
     ("float32", MAX_LEN, Q_CONFIG, "float32"),
     ("bfloat16", 24592, Q_CONFIG, "_fp_cache_kernel_fits"),
-    # d = 64, n_rep = 2: the fp kernel's score rows need 230400 bytes
-    ("bfloat16", 24576, Q_CONFIG, "one-pass decode_attention"),
     ("bfloat16", 64, Q_CONFIG, "_attend"),             # short: eager in JAX
     ("mxint4", MAX_LEN, Q_CONFIG, "_attend"),          # K/V width 8 over 4
     ("mxint8", MAX_LEN, None, "_attend"),              # fp attention config
@@ -270,10 +268,9 @@ def test_card_requests_raise_without_a_card(monkeypatch):
 def test_unported_options_raise(cache_dtype, max_len, q_config, path):
     """Regimes whose JAX path has no ported kernel raise before any work,
     naming that path: the cache through ``make_cache``, the configuration
-    and the fp kernel's shared memory through the engine."""
+    through the engine."""
     cfg = LlamaConfig.tiny(**TINY)
-    if q_config is Q_CONFIG and path not in ("_attend",
-                                             "one-pass decode_attention"):
+    if q_config is Q_CONFIG and path != "_attend":
         with pytest.raises(NotImplementedError, match=path):
             tdecode.make_cache(cfg, 2, max_len, cache_dtype, device="cpu")
         return

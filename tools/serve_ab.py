@@ -18,6 +18,12 @@ then times, on the host clock around synchronised calls:
 - one 2048-token admission into slot 0 (fresh cache, last logits only),
   after one untimed warm-up, twice.
 
+Then, the Llama engine freed, it builds Mistral-7B-v0.1 (32 layers, rank
+128, W8 head, window 4096) on the ``bfloat16`` cache, 8 slots, max_len
+8192, fills every slot's cache with seeded random rows up to position
+6000 and times 20 decode steps from there (the fp-cache decode kernel
+reads the window's 4096 keys a slot), after two untimed ones.
+
 Each process prints one JSON line; the card's name and power limit come
 first. Needs one CUDA device.
 """
@@ -83,10 +89,52 @@ def child(root: str) -> None:
                  np.full(1, 2048, dtype=np.int32))
     engine.prefill(*long_args)
     long = [timed(engine.prefill, *long_args) for _ in range(2)]
+    del engine
+    torch.cuda.empty_cache()
+    mistral = mistral_steps(torch, timed)
     print(json.dumps({"root": root, "admission_8x64_ms": admission,
                       "decode_step_ms_median": statistics.median(steps),
                       "decode_steps_ms": [round(t, 2) for t in steps],
-                      "admission_2048_ms": long}), flush=True)
+                      "admission_2048_ms": long,
+                      "mistral_bf16_step_ms_median":
+                          statistics.median(mistral),
+                      "mistral_bf16_steps_ms":
+                          [round(t, 2) for t in mistral]}), flush=True)
+
+
+def mistral_steps(torch, timed, position: int = 6000) -> list[float]:
+    """20 decode steps of Mistral-7B on the bf16 cache, 8 slots at
+    ``position`` onwards over a context of seeded random rows."""
+    import numpy as np
+
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import build_random_model
+
+    cfg = LlamaConfig.mistral_7b()
+    backend, params, qcfgs = build_random_model(cfg, rank=128, seed=4)
+    params["model.embed_tokens.weight"] = \
+        params["model.embed_tokens.weight"].to(torch.bfloat16)
+    engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=8192,
+                          cache_dtype="bfloat16", pallas_backend=backend,
+                          consume_backend=True, lm_head_width=8,
+                          device="cuda")
+    del backend
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    for key in ("k", "v"):
+        engine.cache[key][..., :position, :].normal_(generator=gen)
+    engine.lengths[:] = position
+    tokens = np.zeros(8, dtype=np.int64)
+    steps = []
+    for i in range(22):
+        ms = timed(engine.decode_logits, tokens)
+        engine.lengths += 1
+        if i >= 2:
+            steps.append(ms)
+    del engine
+    torch.cuda.empty_cache()
+    return steps
 
 
 def main() -> int:
