@@ -38,7 +38,11 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    also timed without the window, against ``scaled_dot_product_attention``
    with the window mask (row 5 also without the window against SDPA with
    the causal mask, and at L = 12288 near position 12000, the bf16 cache's
-   longest length); then the staged MXINT4 cache's rows 7 (L = 2048)
+   longest length); rows 6 and 10 print each launch's device time
+   (torch.profiler) beside their own; then facebook/opt-2.7b's decode
+   shape (8 slots, 32 heads of d = 80, L = 2048): rows 6 (width 8), 7,
+   8, 9 and 10 on one MXINT8 cache (rings and the written column
+   bit-exact); then the staged MXINT4 cache's rows 7 (L = 2048)
    and 9 (L = 32768) at code width 4 (rings bit-exact), kernel 1 (q|k|v,
    o) and the gated megakernel with the in-kernel activation quantizer
    (``quant_x_width = 8``, raw f32 X: the serving path's route below 512
@@ -118,7 +122,10 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    ``bfloat16`` one eager 2048-token admission; ``bfloat16`` at max_len
    12288 (8 slots, 10 steps at 12000..); and ``mxint8`` at 4 slots,
    max_len 32768, 10 steps near 32000; then OPT-350m (24 layers) serving
-   the mix over ``bfloat16`` with a profile;
+   the mix over ``bfloat16`` with a profile; then OPT-2.7b (32 layers of
+   32 heads of d = 80, rank 32, dense head, 8 slots, max_len 2048) over
+   ``bfloat16`` and ``mxint8`` (40 new tokens) and ``mxint8-staged`` (80,
+   then one 2048-token admission), a profile each;
 6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
    phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
    Mistral's phase-5 launches; rows 7 and 9 at code width 4 as their
@@ -126,7 +133,10 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    the in-kernel activation quantizer as their ``quant_x``; row 4 at one
    2048-token prompt as its ``admission_2048``, row 5 with OPT's
    ``scale_query`` and at Mistral's max_len 12288 as its
-   ``opt_scale_query`` and ``mistral_12288``).
+   ``opt_scale_query`` and ``mistral_12288``; rows 6, 7, 8, 9 and 10 at
+   d = 80 as their ``opt_2_7b``, with OPT-2.7b's phase-5 launches; row 6
+   at code width 8 as its ``width8``; rows 6 and 10 with each launch's
+   device time as ``launch_split_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; so does a machine without a CUDA device, or
@@ -231,6 +241,25 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def launch_split(torch, fn, n: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches
+    (torch.profiler), keyed by the kernel's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("::")[-1].split("(")[0]:
+            round(e.self_device_time_total / n / 1e3, 4)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def nbytes(*ts) -> int:
@@ -636,18 +665,22 @@ def phase_direct_kernels(torch, timer, rates, results):
             qb, kb, vb, attn_mask=mask))
 
     def report(key, what, c, ms, plain_ms, b_ms, b_by, lib_ms, shape,
-               extra=""):
+               extra="", split=None):
+        parts = "" if split is None else f" (per launch: {split})"
         print(f"{what}: max_abs_err={c['max_abs_err']:.3g} "
               f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
-              f"2e-4){extra} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+              f"2e-4){extra} kernel_ms={ms:.4f}{parts} plain_ms="
+              f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
               "(scaled_dot_product_attention on the unquantized bf16 "
               "values, the unquantized yardstick)", flush=True)
+        entry = dict(
+            max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, shape=shape,
+            **({} if split is None else {"launch_split_ms": split}))
         if key:
-            results[key] = dict(
-                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=shape)
+            results[key] = entry
+        return entry
 
     # ---- the fp-cache kernel over a bf16 cache with every row filled
     k, v = (torch.randn(NL, B, KVH, L, D, generator=gen, device="cuda").to(
@@ -697,21 +730,24 @@ def phase_direct_kernels(torch, timer, rates, results):
                                kq._decode_cache_block(arrays[2][li],
                                                       arrays[3][li]))))
         del sc, vals
-        ms = timer(lambda: kq.decode_attention_quantized(q, *arrays, pos, li,
-                                                         **kw))
+        run = lambda: kq.decode_attention_quantized(q, *arrays, pos, li, **kw)
+        ms = timer(run)
         plain_ms = timer(lambda: kq.quantized_decode_plain(
             q, *arrays, pos, li, **kw), 5)
         per_token = KVH * (arrays[0].shape[-2] + D // 16) * 2
         b_ms, b_by = bound(tokens * per_token + nbytes(q) + out_bytes,
                            2 * 2 * H * tokens * D)
-        report("decode_attention_quantized" if width == 4 else None,
-               f"quantized decode attention width {width} B={B} KVH={KVH} "
-               f"L={L}", c, ms, plain_ms, b_ms, b_by, lib_ms,
-               "one layer of an MXINT4 cache, B=8, 32 kv heads, L=2048, pos "
-               "64..1984 (width 8 printed beside it)")
+        entry = report(
+            "decode_attention_quantized" if width == 4 else None,
+            f"quantized decode attention width {width} B={B} KVH={KVH} "
+            f"L={L}", c, ms, plain_ms, b_ms, b_by, lib_ms,
+            f"one layer of an MXINT{width} cache, B=8, 32 kv heads, L=2048, "
+            "pos 64..1984", split=launch_split(torch, run))
         if width == 4:
+            results["decode_attention_quantized"]["width8"] = width8
             del arrays
             continue
+        width8 = entry
         kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
                   for _ in range(2))
         mine = [a.clone() for a in arrays]
@@ -728,8 +764,9 @@ def phase_direct_kernels(torch, timer, rates, results):
                         attention_limit(sc, vals, ref, p_width=8),
                         FLIPPED["attention"])
         del sc, vals
-        ms = timer(lambda: kq.decode_attention_quantized_write(
-            q, *mine, kh, vh, pos, li, **kw))
+        run = lambda: kq.decode_attention_quantized_write(
+            q, *mine, kh, vh, pos, li, **kw)
+        ms = timer(run)
         plain_ms = timer(lambda: kq.quantized_write_plain(
             q, *theirs, kh, vh, pos, li, **kw), 5)
         b_ms, b_by = bound(tokens * per_token + nbytes(q, kh, vh) + out_bytes
@@ -738,7 +775,8 @@ def phase_direct_kernels(torch, timer, rates, results):
         report("decode_attention_write", f"fused write + attend B={B} "
                f"KVH={KVH} L={L}", c, ms, plain_ms, b_ms, b_by, lib_ms,
                "one layer of an MXINT8 cache, B=8, 32 kv heads, L=2048, pos "
-               "64..1984", ", written column bit-exact")
+               "64..1984", ", written column bit-exact",
+               split=launch_split(torch, run))
         del arrays, mine, theirs
 
     # ---- the row write: bf16 rows (token axis on dim 3), then the four
@@ -1454,6 +1492,7 @@ def phase_mistral_kernels(torch, timer, rates, results):
                         FLIPPED["attention"])
         del s, vals
         ms, ms_all = timer(lambda: run(WIN)), timer(lambda: run(None))
+        split = launch_split(torch, lambda: run(WIN))
         plain_ms = timer(plain, 3)
         tokens = window_tokens(pos, WIN)
         b_ms, b_by = bound(tokens * KVH * per_token + nbytes(q) + out_bytes
@@ -1465,22 +1504,21 @@ def phase_mistral_kernels(torch, timer, rates, results):
         print(f"{what} B={B} H={H} KVH={KVH} L={L} window={WIN} "
               f"pos={pos.tolist()}: max_abs_err={c['max_abs_err']:.3g} "
               f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
-              f"2e-4) kernel_ms={ms:.4f} (without the window {ms_all:.4f}, "
-              f"bound {all_ms:.4f}{lib_all}) plain_ms={plain_ms:.4f} bound_ms="
+              f"2e-4) kernel_ms={ms:.4f} (per launch: {split}; without the "
+              f"window {ms_all:.4f}, bound {all_ms:.4f}{lib_all}) "
+              f"plain_ms={plain_ms:.4f} bound_ms="
               f"{b_ms:.4f} (the window's bytes) library_ms={lib_ms:.4f} "
               "(scaled_dot_product_attention, window mask, unquantized "
               "bf16)", flush=True)
         shape = (f"one layer, B=8, 32 heads over 8 kv heads, L={L}, window "
                  f"{WIN}, pos {pos.min().item()}..{pos.max().item()}")
+        extra = dict(unwindowed_ms=ms_all, unwindowed_bound_ms=all_ms,
+                     unwindowed_library_ms=lib_all_ms, launch_split_ms=split)
         if key:
-            keep(key, c, ms, plain_ms, b_ms, b_by, lib_ms, shape,
-                 unwindowed_ms=ms_all, unwindowed_bound_ms=all_ms,
-                 unwindowed_library_ms=lib_all_ms)
+            keep(key, c, ms, plain_ms, b_ms, b_by, lib_ms, shape, **extra)
         return dict(max_abs_err=c["max_abs_err"], of_limit=c["of_limit"],
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms, shape=shape, unwindowed_ms=ms_all,
-                    unwindowed_bound_ms=all_ms,
-                    unwindowed_library_ms=lib_all_ms)
+                    library_ms=lib_ms, shape=shape, **extra)
 
     L = 8192
     pos = torch.tensor([6000, 6001, 6003, 6007, 6010, 6013, 6021, 6030],
@@ -1534,7 +1572,8 @@ def phase_mistral_kernels(torch, timer, rates, results):
     kw = dict(scaling=scale, window=WIN)
     for width in (8, 4):
         arrays = encoded(width, L)
-        report("decode_attention_quantized" if width == 4 else None,
+        entry = report(
+               "decode_attention_quantized" if width == 4 else None,
                f"Mistral quantized decode attention width {width}",
                lambda w: kq.decode_attention_quantized(
                    q, *arrays, pos, li, scaling=scale, window=w),
@@ -1543,8 +1582,11 @@ def phase_mistral_kernels(torch, timer, rates, results):
                L, pos, (arrays[0].shape[-2] + D // 16) * 2,
                sdpa_of(arrays, pos, L))
         if width == 4:
+            results["decode_attention_quantized"]["mistral"]["width8"] = \
+                width8
             del arrays
             continue
+        width8 = entry
         kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
                   for _ in range(2))
         mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
@@ -1625,6 +1667,140 @@ def phase_mistral_kernels(torch, timer, rates, results):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="the bf16 K and V rows of 8 slots, 8 kv heads, d=128")
     del arrays, mine, theirs
+    torch.cuda.empty_cache()
+
+
+def phase_head_dim_kernels(torch, timer, rates, results):
+    """Phase 3 at facebook/opt-2.7b's decode shape (32 heads of d = 80, one
+    query per kv head): rows 6 (width 8; MXINT4 needs d % 32 == 0) and 10
+    at 8 slots, L = 2048, positions 64..1984, each with its per-launch
+    split, and rows 7 (flushed = positions rounded down to 32), 8 and 9 on
+    the same MXINT8 cache, against their plain versions; the library
+    yardstick is ``scaled_dot_product_attention`` on the unquantized bf16
+    values. Adds an ``opt_2_7b`` entry to each kernel's results."""
+    import torch.nn.functional as F
+
+    from lqer_tpu_torch.ops.kernels import decode_attention as k3
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+    from lqer_tpu_torch.ops.kernels import streaming_decode as ks
+    from lqer_tpu_torch.parallel.collectives import mx8_encode
+    from lqer_tpu_torch.testing import attention_limit, check_close
+
+    bw, ops_rate = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 29)
+    NL, B, H, KVH, D, L, SW, li = 2, 8, 32, 32, 80, 2048, 64, 1
+    scale = D ** -0.5
+    pos = torch.tensor([64, 303, 560, 815, 1088, 1343, 1600, 1984],
+                       dtype=torch.int32, device="cuda")
+    fl = (pos // 32) * 32
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda")
+    kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+              for _ in range(2))
+    per_token = KVH * (D + D // 16) * 2      # K and V codes + exponents
+    column = 2 * B * KVH * (D + D // 16)     # the fresh K/V column written
+
+    def encoded(n):
+        out = []
+        for _ in range(2):
+            c_, e_ = mx8_encode(torch.randn(NL, B, KVH, n, D, generator=gen,
+                                            device="cuda"), 16, zero_fill=1.0)
+            out += [c_.transpose(-1, -2).contiguous(),
+                    e_.transpose(-1, -2).contiguous()]
+        return out
+
+    arrays = encoded(L)
+    rings = [a[li].contiguous() for a in encoded(SW)]
+    main = [a[li] for a in arrays]
+    kb, vb = (kq._decode_cache_block(arrays[i][li], arrays[i + 1][li])
+              .transpose(-1, -2).to(torch.bfloat16).contiguous()
+              for i in (0, 2))
+    qb = q.to(torch.bfloat16)
+    mask = (torch.arange(L, device="cuda")[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                          attn_mask=mask))
+    del kb, vb
+    tokens = int(((pos + 16) // 16 * 16).sum())
+    staged_tokens = int((pos + 1).sum())     # main [0, flushed) + the ring
+    kw = dict(scaling=scale)
+
+    def bound(nb, ops):
+        t_bytes, t_ops = nb / bw * 1e3, ops / ops_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def held(key, what, run, plain, scores, nb, n_tok, extra=""):
+        y, ref = run(), plain()
+        s_, vals = scores()
+        c = check_close(f"d = 80 {what}", y, ref,
+                        attention_limit(s_, vals, ref, p_width=8),
+                        FLIPPED["attention"])
+        del s_, vals
+        ms = timer(run)
+        split = launch_split(torch, run)
+        plain_ms = timer(plain, 5)
+        b_ms, b_by = bound(nb + nbytes(q) + B * H * D * 4,
+                           2 * 2 * H * n_tok * D)
+        print(f"d = 80 {what} B={B} H={H} KVH={KVH} L={L} "
+              f"pos={pos.tolist()}: max_abs_err={c['max_abs_err']:.3g} "
+              f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+              f"2e-4){extra} kernel_ms={ms:.4f} (per launch: {split}) "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} library_ms="
+              f"{lib_ms:.4f} (scaled_dot_product_attention, unquantized "
+              "bf16)", flush=True)
+        results[key]["opt_2_7b"] = dict(
+            max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, launch_split_ms=split,
+            shape="one layer of an MXINT8 cache, B=8, 32 kv heads of d=80, "
+                  "L=2048, pos 64..1984")
+
+    held("decode_attention_quantized", "quantized decode attention width 8",
+         lambda: kq.decode_attention_quantized(q, *arrays, pos, li, **kw),
+         lambda: kq.quantized_decode_plain(q, *arrays, pos, li, **kw),
+         lambda: kq.quantized_scores(q, *arrays, pos, li, **kw),
+         tokens * per_token, tokens)
+    held("decode_attention_streaming", "streaming decode attention width 8",
+         lambda: ks.decode_attention_quantized_streaming(q, *arrays, pos, li,
+                                                         **kw),
+         lambda: kq.quantized_decode_plain(q, *arrays, pos, li, **kw),
+         lambda: kq.quantized_scores(q, *arrays, pos, li, **kw),
+         tokens * per_token, tokens)
+    for key, fn, what in (
+            ("decode_attention", k3.decode_attention_quantized_staged,
+             "staged decode attention"),
+            ("decode_attention_streaming_staged",
+             ks.decode_attention_quantized_streaming_staged,
+             "streaming staged decode attention")):
+        mine, theirs = [r.clone() for r in rings], [r.clone() for r in rings]
+        fn(q, *main, *mine, kh, vh, pos, fl, **kw)
+        k3.staged_decode_plain(q, *main, *theirs, kh, vh, pos, fl, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+            raise AssertionError(f"d = 80 {what}: ring bytes differ")
+        held(key, what,
+             lambda: fn(q, *main, *mine, kh, vh, pos, fl, **kw),
+             lambda: k3.staged_decode_plain(q, *main, *theirs, kh, vh, pos,
+                                            fl, **kw),
+             lambda: (lambda s_, v_: (s_[:, :, None, :], v_))(
+                 *k3.staged_scores(q, *main, *theirs, pos, fl, **kw)),
+             staged_tokens * per_token + nbytes(kh, vh) + column,
+             staged_tokens, ", rings bit-exact")
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    kq.decode_attention_quantized_write(q, *mine, kh, vh, pos, li, **kw)
+    kq.quantized_write_plain(q, *theirs, kh, vh, pos, li, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        raise AssertionError("d = 80 fused write + attend: written cache "
+                             "bytes differ from the plain version")
+    held("decode_attention_write", "fused write + attend",
+         lambda: kq.decode_attention_quantized_write(q, *mine, kh, vh, pos,
+                                                     li, **kw),
+         lambda: kq.quantized_write_plain(q, *theirs, kh, vh, pos, li, **kw),
+         lambda: kq.quantized_scores(q, *theirs, pos, li, **kw),
+         tokens * per_token + nbytes(kh, vh) + column, tokens,
+         ", written column bit-exact")
+    del arrays, rings, main, mine, theirs
     torch.cuda.empty_cache()
 
 
@@ -3118,6 +3294,7 @@ def main() -> int:
     phase_stream_kernels(torch, timer, rates, results)
     phase_opt_kernels(torch, timer, rates, results)
     phase_mistral_kernels(torch, timer, rates, results)
+    phase_head_dim_kernels(torch, timer, rates, results)
     phase_slice7_kernels(torch, timer, rates, results)
     print(f"phase 3 done at {time.perf_counter() - t0:.0f}s", flush=True)
     phase_teacher_forced(torch)
@@ -3131,12 +3308,24 @@ def main() -> int:
             ("Llama", phase_serve), ("bench", phase_bench_streaming),
             ("OPT-6.7B", phase_serve_opt), ("Mistral", phase_serve_mistral),
             ("OPT-350m", lambda *a: phase_serve_opt(
-                *a, name="facebook/opt-350m", caches=(("bfloat16", 40),)))):
+                *a, name="facebook/opt-350m", caches=(("bfloat16", 40),))),
+            ("OPT-2.7b", lambda *a: phase_serve_opt(
+                *a, name="facebook/opt-2.7b", caches=(
+                    ("bfloat16", 40), ("mxint8", 40),
+                    ("mxint8-staged", 80))))):
         run = serve(torch, rates)
+        extra = {"Mistral": "mistral", "OPT-2.7b": "opt_2_7b"}.get(what)
         for k, n in run.items():
             counts[k] += n
-            if what == "Mistral" and "mistral" in results.get(k, {}):
-                results[k]["mistral"]["launches"] = n
+            if extra in results.get(k, {}):
+                results[k][extra]["launches"] = n
+        if what == "OPT-2.7b":   # d = 80 through each cache's decode route
+            idle = [k for k in ("row_write", "decode_attention_fp",
+                                "decode_attention_write", "decode_attention",
+                                "cache_write", "mlp_fused_relu",
+                                "dequant_gemm") if run[k] <= 0]
+            if idle:
+                raise AssertionError(f"OPT-2.7b served without {idle}")
         gc.collect()
         torch.cuda.empty_cache()
         print(f"phase 5 {what} done at {time.perf_counter() - t0:.0f}s",
@@ -3159,7 +3348,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{x: r[x] for x in ("mistral", "width4", "quant_x",
+            **{x: r[x] for x in ("mistral", "width4", "width8", "opt_2_7b",
+                                 "launch_split_ms", "quant_x",
                                  "admission_2048", "opt_scale_query",
                                  "mistral_12288") if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)

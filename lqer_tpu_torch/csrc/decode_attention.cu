@@ -153,7 +153,8 @@ int dispatch(int code_width, const void* q, const void* kc, const void* ke,
   q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, out, B, KVH, nrep, L, \
       SW, scaling, q_mb, p_mb, st
   if (code_width == 8) return launch<D, 8>(LQER_DEC_ARGS);
-  if (code_width == 4) return launch<D, 4>(LQER_DEC_ARGS);
+  if constexpr (D % 32 == 0)
+    if (code_width == 4) return launch<D, 4>(LQER_DEC_ARGS);
 #undef LQER_DEC_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -164,7 +165,8 @@ int dispatch(int code_width, const void* q, const void* kc, const void* ke,
 // (B, KVH, D/16, L) int8, CR = D at code width 8, D/2 at width 4 (d-split
 // nibbles); ring codes (B, KVH, CR, SW) and exps (B, KVH, D/16, SW) int8,
 // updated in place at lane pos % SW; kh, vh (B, KVH, D) f32; positions,
-// flushed (B) int32; out (B, H, D) f32.
+// flushed (B) int32; out (B, H, D) f32. D is 64, 80, 96 or 128 (width 4:
+// D % 32 == 0).
 LQER_API int lqer_staged_decode_attention(
     const void* q, const void* kc, const void* ke, const void* vc,
     const void* ve, void* ksc, void* kse, void* vsc, void* vse, const void* kh,
@@ -175,8 +177,12 @@ LQER_API int lqer_staged_decode_attention(
 #define LQER_DEC_ARGS                                                          \
   code_width, q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, out, B,  \
       KVH, nrep, L, SW, scaling, q_mb, p_mb, st
-  if (D == 128) return dispatch<128>(LQER_DEC_ARGS);
-  if (D == 64) return dispatch<64>(LQER_DEC_ARGS);
+  switch (D) {
+    case 64: return dispatch<64>(LQER_DEC_ARGS);
+    case 80: return dispatch<80>(LQER_DEC_ARGS);
+    case 96: return dispatch<96>(LQER_DEC_ARGS);
+    case 128: return dispatch<128>(LQER_DEC_ARGS);
+  }
 #undef LQER_DEC_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -32,8 +32,8 @@
 // group while the second is in flight, with no barrier between warps (rows
 // padded by 16 bytes, so 8 consecutive rows fall on distinct banks). Two
 // launches (the scheme of decode_attention_streaming.cu, its third pass
-// folded into the second), with nothing in shared memory that grows with
-// L:
+// folded into the second; decode_split.cuh, shared with rows 6 and 10),
+// with nothing in shared memory that grows with L:
 //   1. K: a lane per pair of d columns holds a group's 16 rows in
 //      registers, so the group max is a loop over registers; then a thread
 //      per token takes its n_rep scores (16-byte loads of its row), writes
@@ -53,58 +53,11 @@
 // No float atomics: a run repeats itself to the bit. K and V are staged in
 // bf16: the raw cache values, and values quantized with at most 8 mantissa
 // bits (width <= 9), are exact in bf16.
-#include "decode_common.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
 using namespace decode;
-
-// 16-byte asynchronous copies to shared memory (cp.async; .cg bypasses
-// L1): a thread's copies are committed as groups and waited for, all but
-// the newest N, before a barrier makes the rows visible to other threads.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr int FT = 256;      // threads per block
-constexpr int FW = FT / 32;  // warps per block
-constexpr int CH = FT;       // tokens per chunk: one per thread, 32 per warp
-
-// The chunk of block z for the query at pos: tokens [c0 + j0, c0 + n) of
-// the slot's context (j0 and n multiples of 16). False where the chunk lies
-// wholly past the group holding pos or wholly below the window's first
-// group.
-struct Chunk {
-  int pos, ntok, first, c0, j0, n;
-};
-
-__device__ __forceinline__ bool chunk_of(const int* pos_p, int b, int z,
-                                         int L, int window, Chunk& c) {
-  c.pos = pos_p[b];
-  c.ntok = max(0, min((c.pos + 16) / 16 * 16, L));
-  c.first = min(window_start(c.pos, window), c.ntok);
-  c.c0 = z * CH;
-  if (c.c0 >= c.ntok || c.c0 + CH <= c.first) return false;
-  c.j0 = max(0, c.first - c.c0);
-  c.n = min(CH, c.ntok - c.c0);
-  return true;
-}
-
-// Whether the 16-row group at chunk row r lies in [j0, n).
-__device__ __forceinline__ bool group_in(const Chunk& c, int r) {
-  return r >= c.j0 && r < c.n;
-}
 
 // The warp's copy of the 16 rows from chunk row r (a group in range) of
 // the (L, D) bf16 rows src into the padded tile (row stride D + 8): 16-byte
@@ -227,28 +180,6 @@ __device__ __forceinline__ void land_and_quantize(uint16_t* tile,
   __syncwarp();
 }
 
-// acc[h] (h < nrep) reduced over the block, the max (MAX) or the sum: each
-// warp through a xor butterfly, then the warps in order; out[h] (shared
-// memory) takes the result. Ends synchronised.
-template <bool MAX>
-__device__ __forceinline__ void chunk_reduce(float (&acc)[NREP_MAX], int nrep,
-                                             float* out) {
-  __shared__ float red[FW][NREP_MAX];
-  const int t = threadIdx.x, lane = t % 32, w = t / 32;
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) {
-    acc[h] = MAX ? warp_max_xor(acc[h]) : warp_sum_xor(acc[h]);
-    if (lane == 0) red[w][h] = acc[h];
-  }
-  __syncthreads();
-  if (t < nrep) {
-    float r = red[0][t];
-    for (int i = 1; i < FW; ++i) r = MAX ? fmaxf(r, red[i][t]) : r + red[i][t];
-    out[t] = r;
-  }
-  __syncthreads();
-}
-
 // Pass 1. Grid (B, KVH, NZ), NZ = ceil(L / CH).
 template <int D>
 __global__ void __launch_bounds__(FT)
@@ -259,8 +190,6 @@ fp_scores_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
                  int nrep, int L, float scaling, int q_mb, int k_mb,
                  int window) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float m_s[NREP_MAX];
-  __shared__ float l_s[NREP_MAX];
   const int b = blockIdx.x, kv = blockIdx.y, z = blockIdx.z, NZ = gridDim.z;
   const int t = threadIdx.x, H = KVH * nrep;
   Chunk c;
@@ -310,23 +239,9 @@ fp_scores_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
     }
   }
   const bool ok = in && in_window(c.c0 + t, c.pos, window);
-  float* srow = scores + ((size_t)b * H + kv * nrep) * L + c.c0 + t;
-  float acc[NREP_MAX];
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) {
-    s[h] = ok ? s[h] * scaling : -INFINITY;
-    if (in && h < nrep) srow[(size_t)h * L] = s[h];
-    acc[h] = s[h];
-  }
-  chunk_reduce<true>(acc, nrep, m_s);
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h)
-    acc[h] = (h < nrep && s[h] != -INFINITY) ? expf(s[h] - m_s[h]) : 0.f;
-  chunk_reduce<false>(acc, nrep, l_s);
-  if (t < nrep) {
-    st_m[(bk * NZ + z) * nrep + t] = m_s[t];
-    st_l[(bk * NZ + z) * nrep + t] = l_s[t];
-  }
+  store_scores_and_stats(
+      s, in, ok, scaling, scores + ((size_t)b * H + kv * nrep) * L + c.c0 + t,
+      L, nrep, st_m, st_l, (bk * NZ + z) * nrep);
 }
 
 // Pass 2. Same grid as pass 1.
@@ -339,8 +254,6 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
              int KVH, int nrep, int L, int p_mb, int v_mb, int window) {
   constexpr int NWD = (D / 2 + 31) / 32;  // words of a row per lane
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float m_s[NREP_MAX];
-  __shared__ float d_s[NREP_MAX];
   const int b = blockIdx.x, kv = blockIdx.y, z = blockIdx.z, NZ = gridDim.z;
   const int t = threadIdx.x, lane = t % 32, w = t / 32, H = KVH * nrep;
   Chunk c;
@@ -349,46 +262,9 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
   const size_t bk = (size_t)b * KVH + kv;
 
   copy_warp_rows<D>(v + (bk * L + c.c0) * D, tile, c);
-  const bool in = t >= c.j0 && t < c.n;
-  const float* srow = scores + ((size_t)b * H + kv * nrep) * L + c.c0 + t;
   float p[NREP_MAX];
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h)
-    p[h] = (in && h < nrep) ? srow[(size_t)h * L] : -INFINITY;
-  // the final stats, a warp per head, its lanes over the chunks; each sum
-  // in the same order at every launch
-  const int z0 = c.first / CH, z1 = (c.ntok + CH - 1) / CH;
-  for (int h = w; h < nrep; h += FW) {
-    const float* sm = st_m + bk * NZ * nrep + h;
-    const float* sl = st_l + bk * NZ * nrep + h;
-    float m = -INFINITY;
-    for (int i = z0 + lane; i < z1; i += 32) m = fmaxf(m, sm[(size_t)i * nrep]);
-    m = warp_max_xor(m);
-    float den = 0.f;
-    for (int i = z0 + lane; i < z1; i += 32) {
-      const float mi = sm[(size_t)i * nrep];
-      if (mi != -INFINITY) den += sl[(size_t)i * nrep] * expf(mi - m);
-    }
-    den = warp_sum_xor(den);
-    if (lane == 0) {
-      m_s[h] = m;
-      d_s[h] = den == 0.f ? 1.f : den;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) {
-    if (h >= nrep) break;
-    float x = p[h] == -INFINITY ? 0.f : expf(p[h] - m_s[h]) / d_s[h];
-    if (p_mb >= 0) {  // the 16-token group: 16 lanes
-      float gmax = x;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        gmax = fmaxf(gmax, __shfl_xor_sync(0xffffffffu, gmax, off));
-      x = mx_value(x, group_exponent(gmax), p_mb);
-    }
-    p[h] = x;
-  }
+  chunk_p(c, scores + ((size_t)b * H + kv * nrep) * L + c.c0 + t, L, st_m,
+          st_l, bk * NZ * nrep, nrep, p_mb, p);
   land_and_quantize<D, false>(tile, c, v_mb);
 
   // partial P·V over the warp's tokens, lanes along d (a word of two
@@ -434,42 +310,8 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
               make_float2(acc[h][i][0], acc[h][i][1]);
       }
   __syncthreads();
-  float* dst = part + (bk * NZ + z) * nrep * D;
-  for (int idx = t; idx < nrep * D; idx += FT) {
-    float r = red[idx];
-#pragma unroll
-    for (int i = 1; i < FW; ++i) r += red[(size_t)i * nrep * D + idx];
-    dst[idx] = r;
-  }
-
-  // the last block of the (slot, kv head) to finish sums the partials in
-  // chunk order (the counter: pass 1 zeroes it); the barrier, then one
-  // thread's fence and atomic, publish the block's partials (the grid
-  // barrier's pattern)
-  __shared__ bool last;
-  __syncthreads();
-  if (t == 0) {
-    __threadfence();
-    last = atomicAdd(count + bk, 1) == z1 - z0 - 1;
-    __threadfence();
-  }
-  __syncthreads();
-  if (!last) return;
-  constexpr int PER = (NREP_MAX * D + FT - 1) / FT;  // outputs per thread
-  const float* pb = part + bk * NZ * nrep * D + t;
-  float r[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) r[u] = 0.f;
-#pragma unroll 4
-  for (int i = z0; i < z1; ++i)
-#pragma unroll
-    for (int u = 0; u < PER; ++u)
-      if (t + u * FT < nrep * D)
-        r[u] += __ldcg(pb + (size_t)i * nrep * D + u * FT);
-#pragma unroll
-  for (int u = 0; u < PER; ++u)
-    if (t + u * FT < nrep * D)
-      out[((size_t)b * H + kv * nrep) * D + t + u * FT] = r[u];
+  finish_chunk<D>(red, part, count, out + ((size_t)b * H + kv * nrep) * D, c,
+                  bk, z, NZ, nrep);
 }
 
 template <int D>
@@ -480,36 +322,27 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
   if (nrep < 1 || nrep > NREP_MAX || L % 16 != 0 || window == 0 ||
       window < -1 || k_mb > 8 || v_mb > 8)
     return (int)cudaErrorInvalidValue;
-  const int NZ = (L + CH - 1) / CH, H = KVH * nrep;
-  float* scores = static_cast<float*>(scratch);
-  float* st_m = scores + (size_t)B * H * L;
-  float* st_l = st_m + (size_t)B * KVH * NZ * nrep;
-  float* part = st_l + (size_t)B * KVH * NZ * nrep;
-  int* count = reinterpret_cast<int*>(part + (size_t)B * KVH * NZ * nrep * D);
+  const int NZ = (L + CH - 1) / CH;
+  const Scratch sc = carve(scratch, B, KVH, nrep, D, L, NZ);
   const auto* pp = static_cast<const int*>(pos);
   auto* o = static_cast<float*>(out);
   const dim3 grid(B, KVH, NZ);
   const size_t tile = sizeof(uint16_t) * CH * (D + 8);
   const size_t smem1 = tile + sizeof(float) * nrep * D;
-  // the whole of the SM's 228 KB as shared memory: three blocks an SM
-  for (const void* f : {(const void*)fp_scores_kernel<D>,
-                        (const void*)fp_pv_kernel<D>}) {
-    cudaError_t e = cudaFuncSetAttribute(
-        f, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // three blocks an SM
+  const void* fns[] = {(const void*)fp_scores_kernel<D>,
+                       (const void*)fp_pv_kernel<D>};
+  cudaError_t err = allow_smem(fns, 2, smem1);
+  if (err != cudaSuccess) return (int)err;
   fp_scores_kernel<D><<<grid, FT, smem1, st>>>(
       static_cast<const float*>(q), static_cast<const uint16_t*>(k), pp,
-      scores, st_m, st_l, count, o, KVH, nrep, L, scaling, q_mb, k_mb,
-      window);
-  cudaError_t err = cudaGetLastError();
+      sc.scores, sc.st_m, sc.st_l, sc.count, o, KVH, nrep, L, scaling, q_mb,
+      k_mb, window);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fp_pv_kernel<D><<<grid, FT, tile, st>>>(
-      static_cast<const uint16_t*>(v), pp, scores, st_m, st_l, part, count,
-      o, KVH, nrep, L, p_mb, v_mb, window);
+      static_cast<const uint16_t*>(v), pp, sc.scores, sc.st_m, sc.st_l,
+      sc.part, sc.count, o, KVH, nrep, L, p_mb, v_mb, window);
   return (int)cudaGetLastError();
 }
 

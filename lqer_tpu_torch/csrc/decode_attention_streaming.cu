@@ -332,7 +332,8 @@ int dispatch(int code_width, const void* q, void* kc, void* ke, void* vc,
   q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, scores, st_m, st_l, \
       part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, window, st
   if (code_width == 8) return launch<D, 8>(LQER_STREAM_ARGS);
-  if (code_width == 4) return launch<D, 4>(LQER_STREAM_ARGS);
+  if constexpr (D % 32 == 0)
+    if (code_width == 4) return launch<D, 4>(LQER_STREAM_ARGS);
 #undef LQER_STREAM_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -349,7 +350,8 @@ int dispatch(int code_width, const void* q, void* kc, void* ke, void* vc,
 // pointers for the direct-write cache. Scratch: scores (B, H, L [+ SW]),
 // st_m and st_l (B, KVH, NZ, nrep), part (B, KVH, NZ, nrep, D) f32, with
 // NZ = ceil(L / 512) (+1 with a ring). window: the sliding window in
-// tokens, -1 for none (the staged cache takes none).
+// tokens, -1 for none (the staged cache takes none). D is 64, 80, 96 or 128
+// (width 4: D % 32 == 0).
 LQER_API int lqer_decode_attention_streaming(
     const void* q, void* kc, void* ke, void* vc, void* ve, void* ksc,
     void* kse, void* vsc, void* vse, const void* kh, const void* vh,
@@ -362,8 +364,12 @@ LQER_API int lqer_decode_attention_streaming(
   code_width, q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, scores, \
       st_m, st_l, part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, window, \
       st
-  if (D == 128) return dispatch<128>(LQER_STREAM_ARGS);
-  if (D == 64) return dispatch<64>(LQER_STREAM_ARGS);
+  switch (D) {
+    case 64: return dispatch<64>(LQER_STREAM_ARGS);
+    case 80: return dispatch<80>(LQER_STREAM_ARGS);
+    case 96: return dispatch<96>(LQER_STREAM_ARGS);
+    case 128: return dispatch<128>(LQER_STREAM_ARGS);
+  }
 #undef LQER_STREAM_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -48,7 +48,7 @@ ENTRIES = {
     "mlp_fused": ("mlp_fused", "lqer_mlp_fused", [P] * 20 + [I] * 9),
     "decode_attention_quantized": (
         "decode_attention_quantized", "lqer_decode_attention_quantized",
-        [P] * 9 + [I] * 6 + [F, I, I, I]),
+        [P] * 10 + [I] * 6 + [F, I, I, I]),
     "decode_attention_fp": ("decode_attention_fp", "lqer_decode_attention_fp",
                             [P] * 6 + [I] * 5 + [F] + [I] * 5),
     "decode_attention_streaming": (

@@ -28,7 +28,7 @@ from ...parallel.collectives import (
     mx_values,
 )
 from . import _build
-from .attention import attend_plain
+from .attention import HEAD_DIMS, attend_plain
 from .cache_write import _encode_t
 
 THREADS = 128  # the kernel's block size: the main length must be a multiple
@@ -200,7 +200,8 @@ def decode_attention_quantized_staged(
             q_width=q_width, p_width=p_width, scale_query=scale_query)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    if (q_width is None or d not in (64, 128) or L % THREADS or H % KVH
+    if (q_width is None or d not in HEAD_DIMS or (width == 4 and d % 32)
+            or L % THREADS or H % KVH
             or smem_bytes(H // KVH, L, d, SW) > SMEM_LIMIT):
         raise ValueError(f"unsupported staged decode shape d={d} L={L} "
                          f"H={H} KVH={KVH} q_width={q_width}")

@@ -18,6 +18,12 @@ layer-stacked cache at ``layer_index``. The write variant MXINT8-encodes the fre
 column ``positions[b]`` of that layer in place (where the JAX kernel
 aliases the cache to its outputs), then attends over ``[0, pos]`` with the
 fresh column: bitwise the write followed by the read-only kernel.
+
+The CUDA kernels split the context over blocks of ``fp_decode.CHUNK``
+tokens (scores and chunk stats, then P·V with the final stats: row 5's
+scheme), so nothing limits the length but ``L % 16 == 0``; they take any
+head dim of :data:`HEAD_DIMS` (width 4: ``d % 32 == 0``, as the cache
+needs) and share row 5's scratch layout (``fp_decode.scratch_floats``).
 """
 
 from __future__ import annotations
@@ -25,23 +31,16 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import attend_plain
+from .attention import HEAD_DIMS, attend_plain
 from .cache_write import encode_write_plain
 from .decode_attention import (
-    SMEM_LIMIT,
     _decode_cache_block,
     _quantize_sublane_groups_signed,
     key_mask,
     scaled_query,
     window_arg,
 )
-from .fp_decode import _mb, decode_attention_widths
-
-
-def smem_bytes(n_rep: int, max_len: int, head_dim: int) -> int:
-    """Shared memory of the kernels: queries and score rows of the n_rep
-    heads."""
-    return 4 * n_rep * (head_dim + max_len)
+from .fp_decode import _mb, decode_attention_widths, scratch_floats
 
 
 def decode_attention_widths_quantized(attn_cfg) -> dict:
@@ -115,15 +114,15 @@ def _check_cache(q, k_codes, k_exps, v_codes, v_exps, group) -> int:
     return 8 if rows == d else 4
 
 
-def _check_cuda(q, arrays, layer_index):
+def _check_cuda(q, arrays, layer_index, width):
     B, H, _, d = q.shape
     NL, KVH, L = arrays[0].shape[0], arrays[0].shape[2], arrays[0].shape[-1]
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    if (d not in (64, 128) or H % KVH or not 0 <= layer_index < NL
-            or smem_bytes(H // KVH, L, d) > SMEM_LIMIT):
-        raise ValueError(f"unsupported decode shape d={d} H={H} KVH={KVH} "
-                         f"L={L} layer {layer_index} of {NL}")
+    if (d not in HEAD_DIMS or (width == 4 and d % 32) or H % KVH
+            or not 1 <= H // KVH <= 8 or not 0 <= layer_index < NL):
+        raise ValueError(f"unsupported decode shape d={d} width {width} "
+                         f"H={H} KVH={KVH} L={L} layer {layer_index} of {NL}")
     for a in arrays:
         if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
             raise ValueError("cache arrays must be contiguous int8 CUDA "
@@ -140,10 +139,13 @@ def _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
     new = [None if t is None else t.to(torch.float32).contiguous()
            for t in (kh, vh)]
     out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_floats(B, H, KVH, L, d),
+                          dtype=torch.float32, device=q.device)
     _build.launch("decode_attention_quantized", qf.data_ptr(),
                   *(a[layer_index].data_ptr() for a in arrays),
                   *(_build.ptr(t) for t in new), pos.data_ptr(),
-                  out.data_ptr(), B, KVH, H // KVH, d, L, width,
+                  scratch.data_ptr(), out.data_ptr(), B, KVH, H // KVH, d, L,
+                  width,
                   float(scaling), _mb(q_width), _mb(p_width),
                   window_arg(window))
     return out
@@ -172,7 +174,7 @@ def decode_attention_quantized(q, k_codes, k_exps, v_codes, v_exps,
     if q.device.type == "cpu":
         return quantized_decode_plain(q, *arrays, positions, layer_index,
                                       **kw)
-    _check_cuda(q, arrays, layer_index)
+    _check_cuda(q, arrays, layer_index, width)
     out = _launch(q, arrays, None, None, positions, layer_index, width,
                   scaling, q_width, p_width, scale_query, window)
     decode_attention_quantized.launches += 1
@@ -203,7 +205,7 @@ def decode_attention_quantized_write(q, k_codes, k_exps, v_codes, v_exps, kh,
     if q.device.type == "cpu":
         return quantized_write_plain(q, *arrays, kh, vh, positions,
                                      layer_index, **kw)
-    _check_cuda(q, arrays, layer_index)
+    _check_cuda(q, arrays, layer_index, width)
     out = _launch(q, arrays, kh, vh, positions, layer_index, width, scaling,
                   q_width, p_width, scale_query, window)
     decode_attention_quantized_write.launches += 1

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .attention import HEAD_DIMS
 from .decode_attention import (
     code_width_of,
     scaled_query,
@@ -44,9 +45,10 @@ def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
     KVH, L = main[0].shape[1], main[0].shape[-1]
     SW = 0 if ring is None else ring[0].shape[-1]
     arrays = (*main, *(ring or ()))
-    if d not in (64, 128) or H % KVH or not 1 <= H // KVH <= 8:
-        raise ValueError(f"unsupported streaming decode shape d={d} H={H} "
-                         f"KVH={KVH}")
+    if (d not in HEAD_DIMS or (width == 4 and d % 32) or H % KVH
+            or not 1 <= H // KVH <= 8):
+        raise ValueError(f"unsupported streaming decode shape d={d} width "
+                         f"{width} H={H} KVH={KVH}")
     for a in arrays:
         if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
             raise ValueError("cache arrays must be contiguous int8 CUDA "

@@ -73,7 +73,7 @@ from ..models.common import (
     supports_fused_attention,
 )
 from ..ops.kernels import decode_attention as staged_decode
-from ..ops.kernels import quantized_decode
+from ..ops.kernels.attention import HEAD_DIMS
 from ..ops.kernels.cache_write import (
     flush_stage_to_main,
     write_kv_rows_stacked,
@@ -124,7 +124,6 @@ FLUSH_RESIDUE = 48  # flush once a ring holds 48 tokens: < 64 lanes always
 CACHE_DTYPES = ("bfloat16", "float32", "mxint8", "mxint8-staged", "mxint4",
                 "mxint4-staged")
 STAGED_KINDS = ("mxint8-staged", "mxint4-staged")
-CARD_HEAD_DIMS = (64, 128)  # the head dims the card's attention kernels take
 
 logger = logging.getLogger(__name__)
 
@@ -179,21 +178,20 @@ def _check_cache_regime(kind: str, max_len: int, head_dim: int) -> None:
 
 
 def streams(kind: str, max_len: int, head_dim: int, n_rep: int) -> bool:
-    """Whether decode over an MXINT cache of this kind takes the two-pass
-    streaming kernels: past the JAX package's one-pass length
-    (``_kvh_chunk_fits``), where it streams L too, and wherever the port's
-    one-pass kernel cannot hold its n_rep score rows in shared memory (at
-    n_rep = 2, d = 64 past about 28K tokens). There the JAX package takes
-    its one-pass kernel (``decode_attention_quantized``, after its fused
-    write for MXINT8, or the one-pass staged kernel); the two compute one
-    function and differ only in f32 summation order."""
+    """Whether decode over an MXINT cache of this kind takes the streaming
+    kernels: past the JAX package's one-pass length (``_kvh_chunk_fits``),
+    where it streams L too. The direct-write caches' one-pass kernels (rows
+    6 and 10) split L over blocks, so their route is exactly JAX's; the
+    staged caches' one-pass kernel (row 7) holds its n_rep score rows in
+    shared memory, and where they do not fit (at n_rep = 2, d = 64 past
+    about 28K tokens) the staged caches stream while the JAX package takes
+    its one-pass staged kernel: the two compute one function and differ
+    only in f32 summation order."""
     if kind in STAGED_KINDS:
         smem = staged_decode.smem_bytes(n_rep, max_len, head_dim)
-    elif kind in ("mxint8", "mxint4"):
-        smem = quantized_decode.smem_bytes(n_rep, max_len, head_dim)
-    else:
-        return False
-    return not _kvh_chunk_fits(max_len, head_dim) or smem > SMEM_LIMIT
+        return not _kvh_chunk_fits(max_len, head_dim) or smem > SMEM_LIMIT
+    return kind in ("mxint8", "mxint4") and not _kvh_chunk_fits(max_len,
+                                                                head_dim)
 
 
 def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
@@ -337,15 +335,14 @@ def _attend(qh, k_l, v_l, mask, attn_cfg, scaling, n_rep, scale_query=False,
 def check_card_shapes(head_dim: int, device_type: str) -> None:
     """On the card (``device_type == "cuda"``), raise
     ``NotImplementedError`` for a head dim its attention kernels do not
-    take (they are built for :data:`CARD_HEAD_DIMS`), before any work. The
-    JAX kernels take any multiple of 16, and so do the plain versions that
-    serve CPU tensors. (The MXINT4 caches' ``head_dim % 32`` is
+    take (every one is built for ``attention.HEAD_DIMS``), before any work.
+    The JAX kernels take any multiple of 16, and so do the plain versions
+    that serve CPU tensors. (The MXINT4 caches' ``head_dim % 32`` is
     ``make_cache``'s, on every device.)"""
-    if device_type == "cuda" and head_dim not in CARD_HEAD_DIMS:
+    if device_type == "cuda" and head_dim not in HEAD_DIMS:
         raise NotImplementedError(
             f"head_dim {head_dim}: the card's attention kernels take "
-            f"{CARD_HEAD_DIMS} (csrc/decode_common.cuh, csrc/attention.cu); "
-            "a head dim template over the multiples of 16 is not built yet")
+            f"{HEAD_DIMS} (csrc/*.cu, instantiated per head dim)")
 
 
 def check_servable(cache: dict, attn_cfgs, head_dim: int,
@@ -386,35 +383,53 @@ def check_servable(cache: dict, attn_cfgs, head_dim: int,
 
 
 def stack_backend(backend: dict, cfg, consume: bool = False) -> dict:
-    """Prefix-keyed backend → rel-keyed layer-stacked arrays ``(L, ...)``
-    with layer 0's metadata (every layer must pack alike); non-layer
-    entries (the packed ``lm_head``) carry over. ``consume`` drops each
-    per-layer array from ``backend`` once stacked."""
+    """Prefix-keyed backend → rel-keyed layer-stacked arrays ``(n, ...)``,
+    one stack per run of consecutive layers that pack alike (the same
+    entries with the same metadata: a per-layer config override, the
+    reference's ``model_layer_{i}``, can pack a layer otherwise; the JAX
+    package's ``_scan_segments`` runs one scan per such run of configs).
+    Returns ``{"segments": [(start, end, {"arrays", "meta"})], "arrays",
+    "meta"}``, the last two holding the non-layer entries (the packed
+    ``lm_head``); :func:`layer_backend` finds a layer's segment.
+    ``consume`` drops each per-layer array from ``backend`` once
+    stacked."""
     arch = models.get_arch_module(cfg)
-    p0 = arch.layer_prefix(0) + "."
-    rels = [k[len(p0):] for k in backend["meta"] if k.startswith(p0)]
-    arrays, meta = {}, {}
-    for rel in rels:
-        prefixes = [f"{arch.layer_prefix(i)}.{rel}"
-                    for i in range(cfg.num_hidden_layers)]
-        for p in prefixes:
-            if backend["meta"][p] != backend["meta"][p0 + rel]:
-                raise ValueError(f"per-layer packing differs: {p} vs layer 0")
-        first = backend["arrays"][prefixes[0]]
-        arrays[rel] = {
-            k: (None if first[k] is None
-                else torch.stack([backend["arrays"][p][k] for p in prefixes]))
-            for k in first}
-        meta[rel] = backend["meta"][p0 + rel]
-        if consume:
-            for p in prefixes:
-                backend["arrays"].pop(p, None)
-    layer_root = p0.rsplit(".", 2)[0]
-    for k in backend["meta"]:
-        if not k.startswith(layer_root):
-            arrays[k] = backend["arrays"][k]
-            meta[k] = backend["meta"][k]
-    return {"arrays": arrays, "meta": meta}
+    n = cfg.num_hidden_layers
+    prefixes = [arch.layer_prefix(i) + "." for i in range(n)]
+    metas = [{k[len(p):]: v for k, v in backend["meta"].items()
+              if k.startswith(p)} for p in prefixes]
+    segments, start = [], 0
+    for end in range(1, n + 1):
+        if end < n and metas[end] == metas[start]:
+            continue
+        arrays = {}
+        for rel in metas[start]:
+            keys = [prefixes[i] + rel for i in range(start, end)]
+            first = backend["arrays"][keys[0]]
+            arrays[rel] = {
+                k: (None if first[k] is None
+                    else torch.stack([backend["arrays"][p][k] for p in keys]))
+                for k in first}
+            if consume:
+                for p in keys:
+                    backend["arrays"].pop(p, None)
+        segments.append((start, end, {"arrays": arrays,
+                                      "meta": metas[start]}))
+        start = end
+    layer_root = prefixes[0].rsplit(".", 2)[0]
+    rest = [k for k in backend["meta"] if not k.startswith(layer_root)]
+    return {"segments": segments,
+            "arrays": {k: backend["arrays"][k] for k in rest},
+            "meta": {k: backend["meta"][k] for k in rest}}
+
+
+def layer_backend(backend_stacked: dict, li: int) -> tuple[dict, int]:
+    """The stacked entries of the segment that holds layer ``li``
+    (:func:`stack_backend`) and ``li``'s index inside it."""
+    for start, end, seg in backend_stacked["segments"]:
+        if start <= li < end:
+            return seg, li - start
+    raise IndexError(f"layer {li} is in no segment of the backend")
 
 
 def _lin_group(x, fused_rel, member_rels, qcs, backend, li):
@@ -696,6 +711,7 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     for li in range(cfg.num_hidden_layers):
         q = qcfgs[li]
         attn_cfg = q["attn"]
+        lb, lj = layer_backend(backend_stacked, li)
         residual = h
         hn = rms_norm(h, {"weight": stacked["input_layernorm.weight"][li]},
                       cfg.rms_norm_eps)
@@ -703,7 +719,7 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
             hn, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
             (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj),
-            backend_stacked, li)
+            lb, lj)
         qh = _heads(qy, cfg.num_attention_heads)
         kh = _heads(ky, cfg.kv_heads)
         vh = _heads(vy, cfg.kv_heads)
@@ -712,22 +728,22 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                           scaling, n_rep, route, kv_valid, window=window,
                           mask=mask)
         attn = serving_linear(merge_heads(attn),
-                              "self_attn.o_proj", backend_stacked,
-                              attn_cfg.o_proj, layer_index=li)
+                              "self_attn.o_proj", lb,
+                              attn_cfg.o_proj, layer_index=lj)
         h = residual + attn
         residual = h
         hn = rms_norm(h, {"weight":
                           stacked["post_attention_layernorm.weight"][li]},
                       cfg.rms_norm_eps)
-        y = _mlp_fused_or_none(hn, q["gate_proj"], backend_stacked, li)
+        y = _mlp_fused_or_none(hn, q["gate_proj"], lb, lj)
         if y is None:
             gate, up = _lin_group(hn, "mlp.gateup_proj",
                                   ("mlp.gate_proj", "mlp.up_proj"),
                                   (q["gate_proj"], q["up_proj"]),
-                                  backend_stacked, li)
+                                  lb, lj)
             y = serving_linear(silu(gate) * up, "mlp.down_proj",
-                               backend_stacked, q["down_proj"],
-                               layer_index=li)
+                               lb, q["down_proj"],
+                               layer_index=lj)
         h = (residual + y).to(h_dtype)
 
     h = rms_norm(h, {"weight": rest["model.norm.weight"]}, cfg.rms_norm_eps)
@@ -773,31 +789,32 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     for li in range(cfg.num_hidden_layers):
         q = qcfgs[li]
         attn_cfg = q["attn"]
+        lb, lj = layer_backend(backend_stacked, li)
         residual = h
         hn = norm(h, "self_attn_layer_norm", li) if pre else h
         qy, ky, vy = _lin_group(
             hn, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
             (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj),
-            backend_stacked, li)
+            lb, lj)
         qh, kh, vh = (_heads(y, cfg.num_attention_heads)
                       for y in (qy, ky, vy))
         attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
                           scaling, n_rep, route, kv_valid, scale_query=True)
         attn = serving_linear(merge_heads(attn), "self_attn.out_proj",
-                              backend_stacked, attn_cfg.o_proj,
-                              layer_index=li)
+                              lb, attn_cfg.o_proj,
+                              layer_index=lj)
         h = residual + attn
         if not pre:
             h = norm(h, "self_attn_layer_norm", li)
         residual = h
         hn = norm(h, "final_layer_norm", li) if pre else h
-        y = _mlp_fused_or_none(hn, q["fc1"], backend_stacked, li)
+        y = _mlp_fused_or_none(hn, q["fc1"], lb, lj)
         if y is None:
-            y = relu(serving_linear(hn, "fc1", backend_stacked, q["fc1"],
-                                    layer_index=li))
-            y = serving_linear(y, "fc2", backend_stacked, q["fc2"],
-                               layer_index=li)
+            y = relu(serving_linear(hn, "fc1", lb, q["fc1"],
+                                    layer_index=lj))
+            y = serving_linear(y, "fc2", lb, q["fc2"],
+                               layer_index=lj)
         h = residual + y
         if not pre:
             h = norm(h, "final_layer_norm", li)

@@ -15,7 +15,10 @@ dims 64, 80 and 128 (P unquantized and wider than bf16 too) and with
 whole P groups at or below 1e-8, and the fp-cache
 decode kernel over its chunks (positions at chunk edges, a window
 starting mid-chunk, n_rep 1 to 8, head dims 64 to 128, L = 12288; two
-launches equal to the bit). Needs an
+launches equal to the bit), and rows 6 and 10 the same way (L up to
+22528, row 10's written bytes equal to the plain version's); rows 7, 8
+and 9 at head dims 80 and 96, and a tiny OPT of d = 80 served through the
+kernels against the CPU. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -379,6 +382,102 @@ def test_fused_write_attend(gen, b, kvh, nrep, d, l, pos):
                 attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
 
 
+# rows 6 and 10 over chunks of 256 tokens: (slots, kv heads, n_rep, d, L,
+# positions, window)
+Q_CHUNK_SHAPES = [
+    # pos 0, a chunk's last and first token, mid-group
+    (5, 2, 1, 128, 768, [0, 255, 256, 200, 767], None),
+    # window starts mid-chunk (at 501 and 101), chunks wholly below it
+    (3, 2, 4, 128, 1024, [300, 700, 1023], 200),
+    (2, 1, 8, 128, 768, [5, 767], None),
+    (2, 2, 4, 80, 512, [100, 511], 64),
+    (2, 2, 2, 64, 512, [31, 400], None),
+    (2, 2, 4, 96, 256, [17, 255], None),
+    # the one-pass length at d = 128
+    (2, 2, 1, 128, 22528, [22527, 11000], None)]
+
+
+@pytest.mark.parametrize("kind,b,kvh,nrep,d,l,pos,window", [
+    (kind, *shape) for kind in ("width 8", "width 4", "write")
+    for shape in Q_CHUNK_SHAPES
+    if kind != "width 4" or shape[3] % 32 == 0])   # MXINT4: d % 32 == 0
+def test_quantized_decode_chunks(gen, kind, b, kvh, nrep, d, l, pos,
+                                 window):
+    """Rows 6 (widths 8 and 4) and 10 split over L against their plain
+    versions, slots at different lengths in one launch: one launch count a
+    call, two calls equal to the bit, row 10's written cache bytes equal to
+    the plain version's."""
+    cache = _mx_cache(gen, 4 if kind == "width 4" else 8, b, kvh, d, l)
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    p = _positions(pos)
+    kw = dict(scaling=d ** -0.5, window=window)
+    if kind == "write":
+        kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+                  for _ in range(2))
+        kh[0, 0, 0, :16] = 0.0                  # an all-zero group
+        mine, again, theirs = ([a.clone() for a in cache] for _ in range(3))
+        wrapper = kq.decode_attention_quantized_write
+        before = wrapper.launches
+        got = wrapper(q, *mine, kh, vh, p, 1, **kw)
+        assert wrapper.launches == before + 1
+        want = kq.quantized_write_plain(q, *theirs, kh, vh, p, 1, **kw)
+        assert all(torch.equal(a, c) for a, c in zip(mine, theirs))
+        assert torch.equal(got, wrapper(q, *again, kh, vh, p, 1, **kw))
+        assert wrapper.launches == before + 2
+        cache = theirs
+    else:
+        wrapper = kq.decode_attention_quantized
+        before = wrapper.launches
+        got = wrapper(q, *cache, p, 1, **kw)
+        assert wrapper.launches == before + 1
+        want = kq.quantized_decode_plain(q, *cache, p, 1, **kw)
+        assert torch.equal(got, wrapper(q, *cache, p, 1, **kw))
+        assert wrapper.launches == before + 2
+    s, vals = kq.quantized_scores(q, *cache, p, 1, **kw)
+    check_close(f"quantized decode over chunks, {kind}", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+# rows 7, 8 and 9 at the head dims past 64 and 128: (code width, slots, kv
+# heads, n_rep, d, L, positions)
+HEAD_DIM_SHAPES = [
+    (8, 2, 2, 4, 80, 512, [100, 511]),
+    (8, 2, 2, 2, 96, 1024, [64, 1000]),
+    (4, 2, 2, 2, 96, 1024, [64, 1000])]
+
+
+@pytest.mark.parametrize("row", [7, 8, 9])
+@pytest.mark.parametrize("width,b,kvh,nrep,d,l,pos", HEAD_DIM_SHAPES)
+def test_decode_rows_head_dims(gen, row, width, b, kvh, nrep, d, l, pos):
+    """The staged (7), streaming (8) and streaming staged (9) decode rows
+    at d = 80 and 96 against their plain versions; rings bit-exact."""
+    main = [a[1] for a in _mx_cache(gen, width, b, kvh, d, l)]
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    p = _positions(pos)
+    kw = dict(scaling=d ** -0.5)
+    if row == 8:
+        cache = [a[None] for a in main]
+        got = ks.decode_attention_quantized_streaming(q, *cache, p, 0, **kw)
+        want = kq.quantized_decode_plain(q, *cache, p, 0, **kw)
+        s, vals = kq.quantized_scores(q, *cache, p, 0, **kw)
+    else:
+        ring = [a[1].contiguous()
+                for a in _mx_cache(gen, width, b, kvh, d, 64)]
+        kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+                  for _ in range(2))
+        fl = (p // 32) * 32
+        mine, theirs = [t.clone() for t in ring], [t.clone() for t in ring]
+        fn = (k3.decode_attention_quantized_staged if row == 7
+              else ks.decode_attention_quantized_streaming_staged)
+        got = fn(q, *main, *mine, kh, vh, p, fl, **kw)
+        want = k3.staged_decode_plain(q, *main, *theirs, kh, vh, p, fl, **kw)
+        assert all(torch.equal(a, c) for a, c in zip(mine, theirs))
+        s, vals = k3.staged_scores(q, *main, *theirs, p, fl, **kw)
+        s = s[:, :, None, :]
+    check_close(f"row {row} at d = {d}, width {width}", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
 @pytest.mark.parametrize("lane", [False, True])
 @pytest.mark.parametrize("pos", [[0, 17, 255], [255, 256, 3]])
 def test_row_write(gen, lane, pos):
@@ -629,6 +728,46 @@ def test_opt_engine_on_card(gen, cache_dtype):
         card.lengths += 1
         cpu.lengths += 1
     assert k5.mlp_w4_fused_relu.launches == before + 21 * 2
+    for got, want in logits:
+        worst, rms = logits_steps(got.float().cpu(), want.float())
+        assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "mxint8",
+                                         "mxint8-staged"])
+def test_opt_head_dim_80_engine_on_card(gen, cache_dtype):
+    """A 2-layer tiny OPT with 8 heads of d = 80 (facebook/opt-2.7b's head
+    dim) served through the kernels against the same engine through the
+    plain versions on the CPU, teacher-forced with the card's greedy
+    tokens: an admission of 63-token prompts and 20 decode steps, logits
+    within chip_smoke.py's limits, each step through the decode route's
+    kernels."""
+    cfg = OPTConfig.tiny(vocab_size=200, hidden=640, layers=2, heads=8,
+                         ffn=512)
+    assert cfg.head_dim == 80
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=7,
+                                                device="cpu")
+    kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
+              pallas_backend=backend, lm_head_width=8)
+    card = DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)
+    cpu = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    route = {"bfloat16": kfp.decode_attention_fp,
+             "mxint8": kq.decode_attention_quantized_write,
+             "mxint8-staged": k3.decode_attention_quantized_staged}[
+                 cache_dtype]
+    ids = torch.randint(0, 200, (4, 64), generator=gen,
+                        device="cuda").cpu().numpy()
+    lengths = np.full(4, 63, dtype=np.int32)
+    logits = [(card.prefill(ids, np.arange(4), lengths),
+               cpu.prefill(ids, np.arange(4), lengths))]
+    card.lengths[:] = cpu.lengths[:] = lengths
+    before = route.launches
+    for _ in range(20):
+        tokens = torch.argmax(logits[-1][0], -1).cpu().numpy()
+        logits.append((card.decode_logits(tokens), cpu.decode_logits(tokens)))
+        card.lengths += 1
+        cpu.lengths += 1
+    assert route.launches == before + 20 * 2
     for got, want in logits:
         worst, rms = logits_steps(got.float().cpu(), want.float())
         assert worst <= 4.0 and rms <= 0.4, (worst, rms)

@@ -359,13 +359,14 @@ def test_prompt_truncation():
 
 
 def test_card_refuses_head_dims_before_any_work():
-    """The card's attention kernels take d in {64, 128}: a card cache of
-    another head dim is refused by a pure shape check, while the CPU keeps
-    serving any multiple of 16 (the tiny d = 16 models); MXINT4 needs
-    d % 32 == 0 on every device, as in JAX."""
-    for d in (64, 128):
+    """The card's attention kernels take d in {64, 80, 96, 128}: a card
+    cache of another head dim (a multiple of 16 outside them, 16 or 48) is
+    refused by a pure shape check, while the CPU keeps serving any multiple
+    of 16 (the tiny d = 16 models); MXINT4 needs d % 32 == 0 on every
+    device, as in JAX."""
+    for d in (64, 80, 96, 128):
         tdecode.check_card_shapes(d, "cuda")
-    for d in (16, 80, 96):
+    for d in (16, 48):
         tdecode.check_card_shapes(d, "cpu")
         with pytest.raises(NotImplementedError, match="head_dim"):
             tdecode.check_card_shapes(d, "cuda")

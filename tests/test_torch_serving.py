@@ -235,10 +235,13 @@ def test_partial_admission_and_seeded_sampling():
 def test_stack_backend_and_head():
     engine = _port_engine(2, lm_head_width=8)
     b = engine._backend
-    assert b["arrays"]["self_attn.qkv_proj"]["codes"].shape[0] == 2
-    assert b["meta"]["self_attn.qkv_proj"]["splits"] == (256, 128, 128)
+    (start, end, layers), = b["segments"]          # every layer packs alike
+    assert (start, end) == (0, 2)
+    assert layers["arrays"]["self_attn.qkv_proj"]["codes"].shape[0] == 2
+    assert layers["meta"]["self_attn.qkv_proj"]["splits"] == (256, 128, 128)
     assert b["meta"]["lm_head"]["n_real"] == 128
-    assert "mlp.gateup_proj" in b["meta"] and "mlp.down_proj" in b["meta"]
+    assert "mlp.gateup_proj" in layers["meta"] \
+        and "mlp.down_proj" in layers["meta"]
     assert tbackend._LARGEM_THRESHOLD == 512
 
 

@@ -8,9 +8,12 @@ JAX ``DecodeEngine(scan_layers=True, lm_head_width=8)`` on the tiny model of
   kernel), ``mxint8-staged`` (the streaming staged kernel) and ``mxint4``
   with the KV4 configuration (the row write, then the streaming kernel at
   width 4).
-- At max_len 28672 the JAX package still takes its one-pass kernels, while
-  the port's one-pass score rows no longer fit in shared memory at
-  n_rep = 2: the port streams, and gives the same tokens.
+- At max_len 28672 both packages take their one-pass kernels: the fused
+  write + attend (``mxint8``) and the row write, then the quantized
+  decode kernel (``mxint4``). The port's one-pass kernels split L over
+  blocks, so no shared memory bounds their length, and the route of the
+  direct-write caches is the JAX package's at every length
+  (``test_direct_routes_follow_the_jax_package``).
 
 Greedy tokens must be equal. MXINT codes equal on >= 99.9% and within one
 code step, exponents equal (K/V come out of GEMMs and rotary tables whose
@@ -29,6 +32,7 @@ from lqer_tpu.ops.pallas.decode_attention import (
     _kvh_chunk_fits as j_kvh_chunk_fits,
 )
 from lqer_tpu_torch.ops.kernels import KERNELS
+from lqer_tpu_torch.ops.kernels.attention import HEAD_DIMS
 from lqer_tpu_torch.serving import Request
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving.random_model import KV4_Q_CONFIG, Q_CONFIG
@@ -70,10 +74,9 @@ def _record_routes(monkeypatch):
                               "decode_attention_streaming")),
     ("mxint8-staged", 47104, False, ("decode_attention_streaming_staged",)),
     ("mxint4", 47104, True, ("row_write", "decode_attention_streaming")),
-    # the port's own regime: JAX takes row 10 (mxint8) and row 6 (mxint4)
-    ("mxint8", 28672, False, ("encode_write_tokens",
-                              "decode_attention_streaming")),
-    ("mxint4", 28672, True, ("row_write", "decode_attention_streaming")),
+    # the one-pass rows 10 (mxint8) and 6 (mxint4), as in JAX
+    ("mxint8", 28672, False, ("decode_attention_write",)),
+    ("mxint4", 28672, True, ("row_write", "decode_attention_quantized")),
 ])
 def test_long_context_engine_matches_jax_engine(monkeypatch, cache_dtype,
                                                 max_len, kv4, route):
@@ -114,3 +117,25 @@ def test_long_context_engine_matches_jax_engine(monkeypatch, cache_dtype,
 def test_routes_at_7b_width_follow_the_jax_package(kind, max_len, route):
     assert j_kvh_chunk_fits(max_len, 128) == (max_len == 22528)
     assert tdecode.decode_route(kind, max_len, 128, 1) == route
+
+
+@pytest.mark.parametrize("kind,head_dim", [
+    (kind, d) for kind in ("mxint8", "mxint4") for d in HEAD_DIMS
+    if kind == "mxint8" or d % 32 == 0])    # MXINT4: head_dim % 32 == 0
+def test_direct_routes_follow_the_jax_package(kind, head_dim):
+    """The direct-write caches stream exactly where the JAX package does
+    (past ``_kvh_chunk_fits``), at every n_rep the kernels take, over
+    lengths around its one-pass limit and up to 64K tokens."""
+    lengths = {128, 2048, 65536}
+    for n in range(128, 65536 + 1, 16):
+        if j_kvh_chunk_fits(n, head_dim) != j_kvh_chunk_fits(n + 16,
+                                                              head_dim):
+            lengths |= {n - 16, n, n + 16, n + 32}
+    one_pass = (("decode_attention_write",) if kind == "mxint8"
+                else ("row_write", "decode_attention_quantized"))
+    for n_rep in range(1, 9):
+        for max_len in sorted(lengths):
+            route = tdecode.decode_route(kind, max_len, head_dim, n_rep)
+            assert (route == one_pass) == j_kvh_chunk_fits(max_len,
+                                                           head_dim), (
+                n_rep, max_len, route)
