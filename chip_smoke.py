@@ -136,7 +136,10 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    ``opt_scale_query`` and ``mistral_12288``; rows 6, 7, 8, 9 and 10 at
    d = 80 as their ``opt_2_7b``, with OPT-2.7b's phase-5 launches; row 6
    at code width 8 as its ``width8``; rows 6 and 10 with each launch's
-   device time as ``launch_split_ms``).
+   device time as ``launch_split_ms``; kernel 1 at Mistral's q|k|v and o
+   and the megakernel at M = 256 as ``qkv_m256``, ``o_m256`` and ``m256``;
+   row 7's yardstick, SDPA on the unquantized bf16 values, as its
+   ``library_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; so does a machine without a CUDA device, or
@@ -405,11 +408,14 @@ def phase_kernels(torch, timer, rates):
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} library_ms="
               f"{lib_ms:.4f} (torch.matmul gate|up + down, dense bf16 "
               "weights)", flush=True)
+        entry = dict(max_abs_err=c["max_abs_err"], of_limit=c["of_limit"],
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms,
+                     shape=f"one layer's MLP, M={M}, I={I}")
         if M == 8:
-            results["mlp_fused"] = dict(
-                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=f"one layer's MLP, M=8, I={I}")
+            results["mlp_fused"] = entry
+        else:
+            results["mlp_fused"]["m256"] = entry
     del w_gu, w_d, h
 
     # ---- kernel 6: unpack the five packed weights of one layer
@@ -576,14 +582,26 @@ def phase_kernels(torch, timer, rates):
                        + nbytes(qd, kh, vh) + B * 32 * D * 4
                        + 2 * B * KVH * (D + D // 16),
                        2 * 2 * 32 * (flushed_tokens + ring_valid) * D)
+    # the yardstick of the decode rows: SDPA on unquantized bf16 K, V of
+    # the same shape over the keys each slot holds
+    kb, vb = (torch.randn(B, KVH, L, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    qb = qd.to(torch.bfloat16)
+    held = (torch.arange(L, device="cuda")[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=held))
+    del kb, vb
     print(f"kernel 3 decode_attention B={B} KVH={KVH} L={L} "
           f"flushed={fl.tolist()} pos={pos.tolist()}: max_abs_err={err:.3g} "
           f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
           f"2e-4), rings bit-exact kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.4f} library_ms=null", flush=True)
+          f"bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+          "(scaled_dot_product_attention on unquantized bf16 K, V, keys <= "
+          "pos)", flush=True)
     results["decode_attention"] = dict(
         max_abs_err=err, of_limit=c["of_limit"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=lib_ms,
         shape="one layer, B=8, 32 kv heads, L=2048, flushed 64..1984")
     del kc, ke, vc, ve, rings, r_k, r_p
 
@@ -1150,12 +1168,14 @@ def phase_opt_kernels(torch, timer, rates, results):
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} library_ms="
               f"{lib_ms:.4f} (torch.matmul fc1 + bias, relu, fc2 + bias, "
               "dense bf16 weights)", flush=True)
+        entry = dict(max_abs_err=c["max_abs_err"], of_limit=c["of_limit"],
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms,
+                     shape=f"one OPT-6.7B layer's fc1 and fc2, M={M}, I={I}")
         if M == 8:
-            results["mlp_fused_relu"] = dict(
-                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms,
-                shape=f"one OPT-6.7B layer's fc1 and fc2, M=8, I={I}")
+            results["mlp_fused_relu"] = entry
+        else:
+            results["mlp_fused_relu"]["m256"] = entry
     del w1, w2
 
     # ---- kernel 1 with a bias: q|k|v and out_proj, M = 8
@@ -1396,6 +1416,12 @@ def phase_mistral_kernels(torch, timer, rates, results):
             if name == "qkv" and M == 8:
                 keep("dequant_gemm", c, ms, plain_ms, b_ms, b_by, lib_ms,
                      f"Mistral q|k|v, M=8, K={K}, N={N}, fused R={R}")
+            elif M == 256:
+                results["dequant_gemm"]["mistral"][f"{name}_m256"] = dict(
+                    max_abs_err=c["max_abs_err"], of_limit=c["of_limit"],
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms,
+                    shape=f"Mistral {name}, M=256, K={K}, N={N}, R={R}")
         del w
 
     # ---- the gated megakernel at rank 128, M = 8 and 256
@@ -1436,6 +1462,12 @@ def phase_mistral_kernels(torch, timer, rates, results):
         if M == 8:
             keep("mlp_fused", c, ms, plain_ms, b_ms, b_by, lib_ms,
                  f"one Mistral layer's MLP, M=8, I={I}, R={R}")
+        else:
+            results["mlp_fused"]["mistral"]["m256"] = dict(
+                max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+                shape=f"one Mistral layer's MLP, M=256, I={I}, R={R}")
     del w_gu, w_d, h
 
     # ---- the unpack kernel over one layer's five weights

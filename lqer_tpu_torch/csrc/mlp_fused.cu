@@ -14,38 +14,41 @@
 //
 // What bounds it on an H100: at decode (8 rows) it streams the packed
 // weights (about 0.53 byte per weight: 79 MB for Llama-2-7B's three, 75 MB
-// for OPT-6.7B's two) at 3.35 TB/s.
+// for OPT-6.7B's two) at 3.35 TB/s; at M in the hundreds, the products.
 //
 // Design. The TPU kernel walks a sequential two-phase grid and carries the
 // (M, I) intermediate in VMEM. CUDA blocks run in no order, so this is a
 // persistent cooperative launch (cudaLaunchCooperativeKernel, a grid no
-// larger than the co-resident blocks) whose phases are separated by grid
-// barriers (cooperative_groups::this_grid().sync(); CUDA 12 needs no -rdc
-// for it):
+// larger than the co-resident blocks at its dynamic shared memory; CUDA 12
+// needs no -rdc for the grid barrier):
 //   0. with the in-kernel activation quantizer (the TPU kernel's
 //      quant_x_mb; X arrives raw f32): the blocks walk X's 16-groups along
 //      K, quantize each (w4_gemm.cuh's quantize_x_group, the separate
 //      quantizer's values) into the bf16 X scratch that phases A and B
-//      read through L2; barrier. Only this first input is raw: H is
+//      read through L2; grid barrier. Only this first input is raw: H is
 //      quantized in the kernel by act_mb already;
-//   A. X·A_gu partials per (8-row tile, 256-wide K chunk, 128-column rank
-//      chunk), in f64, barrier; then per (row, rank column) the sum of the
-//      partials rounded to f32 once, q_xa per 16 columns (half-warps),
-//      bf16, into the xa
-//      scratch; barrier. A_gu is [A_g | A_u] (2R wide) gated, A_g (R wide)
-//      un-gated. R is any multiple of 16: the scratch is global and sized
-//      from R at launch, and each correction walks its R columns of the xa
-//      scratch in chunks of the 128-column shared-memory tile, summing in
-//      rank order, then quantizes the sum per 16 columns.
-//   B. blocks walk (8-row tile, 32 columns of I): the gate (and up) W4
-//      GEMM tiles of kernel 1 (w4_gemm.cuh), the corrections and biases,
-//      silu·mul or relu and the MXINT8 quantizer of H per 16 columns (a
-//      half-warp), all in the block; H goes to a global bf16 scratch
-//      (M x I: 262 KB at M = 8, I = 16384; it stays in L2); barrier.
-//   C. H·A_d like A, into the xa scratch; barriers.
-//   D. blocks walk (8-row tile, 32 columns of N): the down W4 GEMM tile, its
-//      correction epilogue and bias, written as f32.
-// Reads of H, the partials and the quantized X·A go through L2 (__ldcg).
+//   A + B, one walk of items, the X·A ones first (a block takes its items
+//      in order, so every X·A item is done before any block waits on
+//      one): A's items are X·A_gu partials per (8-row tile, K range,
+//      64-column rank chunk) in f64 (w4_gemm.cuh's xa_tile), the last range
+//      of a chunk (a ticket) summing them in range order, rounding to f32
+//      once, quantizing per 16 columns (q_xa) and rounding to bf16 into
+//      the xa scratch, then raising a count; B's items are (row tile,
+//      column tile of I, K split, half): the tensor-core tile of w4_gemm.cuh
+//      over the gate (or up) weight and the split's K range; the last block
+//      of a column tile (a ticket over its splits and halves) sums the
+//      partials in split order, waits for the count of finished X·A
+//      chunks, adds the corrections (rank order) and biases, applies
+//      silu·mul or relu and the MXINT8 quantizer of H per 16 columns, and
+//      writes H (a global bf16 scratch, M x I: it stays in L2). A_gu is
+//      [A_g | A_u] (2R wide) gated, A_g (R wide) un-gated; R is any
+//      multiple of 16. Grid barrier: H is whole;
+//   C + D likewise: H·A_d's items, then (row tile, column tile of N, K
+//      split) items of the down weight over H, the last split of a tile
+//      adding its correction once H·A_d is finished, and the bias, as f32.
+// ops/kernels/mlp_fused.py::plan sizes the splits and ranges from the card's
+// SM count. Reads of what this launch wrote (X, H, the partials, the
+// quantized X·A) go through L2 (__ldcg or cp.async.cg).
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -53,6 +56,31 @@
 #include "w4_gemm.cuh"
 
 namespace cg = cooperative_groups;
+
+// -D LQER_PHASE_CLOCK (tools/bench_w4_parts.py): %globaltimer (ns) of the
+// phase boundaries of the last launch in lqer_phase_clock: [0] block 0's
+// start, [1] after phase 0, [4] after A and B, [7] the last block's end
+// (atomicMax). A slot a launch does not reach keeps 0 (slots 2, 3, 5, 6,
+// the X·A phases' own barriers in kernels that had them, are not used).
+#ifdef LQER_PHASE_CLOCK
+__device__ unsigned long long lqer_phase_clock[8];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#define LQER_CLOCK(i)                                                  \
+  do {                                                                 \
+    if (blockIdx.x == 0 && threadIdx.x == 0) lqer_phase_clock[i] = global_ns(); \
+  } while (0)
+#define LQER_CLOCK_END()                                               \
+  do {                                                                 \
+    if (threadIdx.x == 0) atomicMax(&lqer_phase_clock[7], global_ns()); \
+  } while (0)
+#else
+#define LQER_CLOCK(i) do {} while (0)
+#define LQER_CLOCK_END() do {} while (0)
+#endif
 
 namespace {
 
@@ -76,93 +104,130 @@ struct MlpArgs {
   __nv_bfloat16* h;                           // (Mt * 8, I) scratch
   xa_sum_t* part;                             // X·A chunk partials scratch
   float* xa;                                  // (Mt * 8, XS) scratch
+  float* gpart;                               // split-K partials scratch
+  int* counters;                              // tickets of B's, D's tiles
   float* out;                                 // (M, N)
   int M, K, I, N, R, act_mb, xa_mb, out_mb, x_mb;
   bool gated;                                 // the up half exists
   int WGU, XS;   // X·A_gu width (2R gated, R un-gated); xa row: WGU + R
+  int splits_b, gps_b, splits_d, gps_d;       // K splits of B and D
+  int kc_a, kc_c;                             // K chunks of A's, C's X·A
 };
 
-// X·A (rows of x times a (K, W)) of every row into xa[:, off:off + W],
-// quantized per 16 columns and rounded to bf16. Ends at a grid barrier.
+// Item `item` of an X·A phase (rows of x times a (K, W), into xa[:, off:off
+// + W]): its K range's partial; the last range of a chunk (a ticket at
+// chunk) finishes the chunk (w4_gemm.cuh's xa_finish16) and raises ready.
 template <bool COH>
-__device__ void xa_phase(cg::grid_group& grid, const __nv_bfloat16* x,
-                         const __nv_bfloat16* a, int K, int W, int off,
-                         const MlpArgs& p, Smem& sm) {
-  const int Mt = (p.M + MT - 1) / MT;
-  const int KS = (K + XA_KC - 1) / XA_KC;
-  const int RC = rank_chunks(W);
-  for (int item = blockIdx.x; item < Mt * KS * RC; item += gridDim.x)
-    xa_partial_tile<COH>(x, a, p.part, p.M, K, W, item / (KS * RC),
-                         item / RC % KS, KS, item % RC, sm.chunk);
-  grid.sync();
-  // W % 16 == 0, so a 16-column group of a row is one half-warp
-  const int total = p.M * W;
-  for (int base = blockIdx.x * NTHREADS; base < total;
-       base += gridDim.x * NTHREADS) {
-    const int idx = base + threadIdx.x;
-    const int row = idx / W, col = idx % W;
-    xa_sum_t v64 = 0;
-    if (idx < total) {
-      const xa_sum_t* src = p.part + ((size_t)(row / MT) * KS * MT + row % MT) * W + col;
-      for (int s = 0; s < KS; ++s) v64 += __ldcg(src + (size_t)s * MT * W);
-    }
-    // rounded to f32 once (w4_gemm.cuh's xa_chunk_product)
-    const float v = bf16_round(quantize_half_warp((float)v64, p.xa_mb));
-    if (idx < total) p.xa[(size_t)row * p.XS + off + col] = v;
+__device__ void xa_item(int item, const XaInput& in, const __nv_bfloat16* a,
+                        int K, int W, int off, int KC, const MlpArgs& p,
+                        int* chunk, int* ready, XaSmem& sm) {
+  const int KS = (K + KC - 1) / KC, RC = (W + XA_RC - 1) / XA_RC;
+  const int mt = item / (KS * RC), s = item / RC % KS, rc = item % RC;
+  xa_tile<COH>(in, a, p.part, p.M, K, W, mt, s, KS, s * KC,
+               min(K, s * KC + KC), rc * XA_RC, sm);
+  if (!last_of_tile(chunk + mt * RC + rc, KS)) return;
+  xa_finish16(p.part, p.xa, p.XS, off, W, mt, KS, rc * XA_RC,
+              min(XA_RC, W - rc * XA_RC), p.xa_mb);
+  signal_count(ready);
+}
+
+// Phase B's epilogue of one column tile: y holds the gate's sum (or the
+// gate's partials are at gpart when `summed` is false), the up half's
+// partials follow the gate's S slots; the corrections wait for the X·A
+// chunks (ready reaching chunks). Writes H rows < M.
+template <class C>
+__device__ void gate_up_epilogue(Acc<C>& y, bool summed, const MlpArgs& p,
+                                 size_t stride, int m0, int n0, int* ready,
+                                 int chunks, char* smem) {
+  const int S = p.splits_b;
+  if (!summed) sum_partials<C>(y, p.gpart, stride, S, p.I, m0, n0);
+  if (p.R > 0) {
+    wait_count(ready, chunks);   // X·A_gu is finished
+    add_correction<C, true>(y, p.xa, p.XS, 0, p.R, p.M, p.b_g, p.I, m0, n0,
+                            p.out_mb, smem);
   }
-  grid.sync();
-}
-
-// q_out of the correction of column n for row m0 + threadIdx.x / TN: the
-// quantized X·A columns [off, off + R) of rows m0..m0+7, staged in shared
-// memory 128 rank columns at a time, times B (R, N). Every thread of the
-// block calls it.
-__device__ __forceinline__ float correction(GemmSmem& sm, const MlpArgs& p,
-                                            int m0, int off,
-                                            const __nv_bfloat16* bmat, int N,
-                                            int n) {
-  const int m = threadIdx.x / TN;
-  float corr = 0.f;
-  for (int r0 = 0; r0 < p.R; r0 += RMAX) {
-    const int rn = min(RMAX, p.R - r0);
-    __syncthreads();   // the previous chunk (or the slice sums) is consumed
-    for (int i = threadIdx.x; i < MT * rn; i += NTHREADS) {
-      const int mm = i / rn, c = i % rn, row = m0 + mm;
-      sm.xa[mm][c] = row < p.M
-          ? __ldcg(p.xa + (size_t)row * p.XS + off + r0 + c) : 0.f;
-    }
-    __syncthreads();
-    corr = correction_chunk(corr, sm.xa[m], bmat, r0, rn, N, n);
+  add_bias<C>(y, p.bias_g, p.I, n0);
+  if (p.gated) {
+    Acc<C> u;
+    sum_partials<C>(u, p.gpart + S * stride, stride, S, p.I, m0, n0);
+    if (p.R > 0)
+      add_correction<C, true>(u, p.xa, p.XS, p.R, p.R, p.M, p.b_u, p.I, m0,
+                              n0, p.out_mb, smem);
+    add_bias<C>(u, p.bias_u, p.I, n0);
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float g = y[nt][t][j];
+          y[nt][t][j] = g / (1.f + expf(-g)) * u[nt][t][j];
+        }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[nt][t][j] = fmaxf(y[nt][t][j], 0.f);
   }
-  return quantize_half_warp(corr, p.out_mb);
+  const int n = n0 + frag_col4<C>();
+#pragma unroll
+  for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v[4];
+      frag_get<C>(y, nt, j, v);
+      quantize_quad(v, p.act_mb);
+      const int row = m0 + frag_row<C>(nt, j);
+      if (row < p.M && n < p.I) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+        uint2 w;
+        w.x = *reinterpret_cast<const uint32_t*>(&lo);
+        w.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(p.h + (size_t)row * p.I + n) = w;
+      }
+    }
 }
 
-// The W4 GEMM tile of rows m0.. and columns nb.. of x (M, K) times a packed
-// (K/8, N) weight, its K slices summed (thread t: row t / TN, column
-// t % TN).
-template <bool COH>
-__device__ __forceinline__ float gemm_tile(const __nv_bfloat16* x,
-                                           const int* codes,
-                                           const int8_t* exps, int M, int N,
-                                           int K, int m0, int nb,
-                                           GemmSmem& sm) {
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-  w_accumulate<3, COH>(x, codes, exps, M, N, K, m0,
-                       nb + (threadIdx.x % CT) * 4, threadIdx.x / CT, acc);
-  return slice_sum(acc, sm);
+// Phase D's epilogue of one tile: the correction once H·A_d is finished
+// (ready reaching chunks), the bias, the output rows < M.
+template <class C>
+__device__ void down_epilogue(Acc<C>& y, const MlpArgs& p,
+                                           int m0, int n0, int* ready,
+                                           int chunks, char* smem) {
+  if (p.R > 0) {
+    wait_count(ready, chunks);
+    add_correction<C, true>(y, p.xa, p.XS, p.WGU, p.R, p.M, p.b_d, p.N, m0,
+                            n0, p.out_mb, smem);
+  }
+  add_bias<C>(y, p.bias_d, p.N, n0);
+  store_out<C>(y, p.out, p.M, p.N, m0, n0);
 }
 
+template <class C>
 __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
-  __shared__ Smem sm;
+  extern __shared__ __align__(16) char smem[];
+  XaSmem& xsm = *reinterpret_cast<XaSmem*>(smem);
   cg::grid_group grid = cg::this_grid();
   const int t = threadIdx.x;
-  const int Mt = (p.M + MT - 1) / MT;
   const int R = p.R;
-  const int m = t / TN, col = t % TN;
+  const int mtiles = (p.M + C::MTILE - 1) / C::MTILE;
+  const int Mt = (p.M + 7) / 8;
+  const int nI = (p.I + C::TN - 1) / C::TN, nN = (p.N + C::TN - 1) / C::TN;
+  const int rc_a = (p.WGU + XA_RC - 1) / XA_RC, rc_c = (R + XA_RC - 1) / XA_RC;
+  // the counts of A's and C's finished chunks (at fixed places: a launch
+  // of another shape finds them where this one left them), then the
+  // tickets of B's tiles, D's tiles, A's chunks and C's chunks
+  int* ready_a = p.counters;
+  int* ready_c = ready_a + 1;
+  int* tick_b = ready_a + 2;
+  int* tick_d = tick_b + mtiles * nI;
+  int* chunk_a = tick_d + mtiles * nN;
+  int* chunk_c = chunk_a + Mt * rc_a;
+  LQER_CLOCK(0);
+  if (blockIdx.x == 0 && t == 0) *ready_c = 0;   // C's count rises past B
 
   // 0: raw X quantized per 16 along K into the bf16 scratch
   const bool qx = p.x_raw != nullptr;
@@ -179,54 +244,112 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
         p.xq[(size_t)gi * 16 + j] = __float2bfloat16_rn(v[j]);
     }
     grid.sync();
-  }
-  // X written in this launch is read through L2
-  if (R > 0) {
-    if (qx) xa_phase<true>(grid, p.x, p.a_gu, p.K, p.WGU, 0, p, sm);
-    else xa_phase<false>(grid, p.x, p.a_gu, p.K, p.WGU, 0, p, sm);
+    LQER_CLOCK(1);
   }
 
-  // B: gate (and up) tiles, corrections, biases, activation, act quantizer
-  // -> H
-  const int nI = p.I / TN;
-  for (int item = blockIdx.x; item < Mt * nI; item += gridDim.x) {
-    const int m0 = (item / nI) * MT, nb = (item % nI) * TN;
-    float yg = qx ? gemm_tile<true>(p.x, p.codes_g, p.exps_g, p.M, p.I, p.K,
-                                    m0, nb, sm.gemm)
-                  : gemm_tile<false>(p.x, p.codes_g, p.exps_g, p.M, p.I, p.K,
-                                     m0, nb, sm.gemm);
-    float yu = 0.f;
-    if (p.gated)
-      yu = qx ? gemm_tile<true>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
-                                nb, sm.gemm)
-              : gemm_tile<false>(p.x, p.codes_u, p.exps_u, p.M, p.I, p.K, m0,
-                                 nb, sm.gemm);
-    const int n = nb + col, row = m0 + m;
-    if (R > 0) {
-      yg += correction(sm.gemm, p, m0, 0, p.b_g, p.I, n);
-      if (p.gated) yu += correction(sm.gemm, p, m0, R, p.b_u, p.I, n);
+  // A + B: the X·A_gu items first, then (row tile, column tile of I, K
+  // split, half) items: the gate (and up) tiles; the last split of a
+  // column tile waits for X·A_gu, adds the corrections and biases,
+  // applies the activation and H's quantizer. A block takes its items in
+  // order, so every X·A item is done before any block waits for them.
+  const int KS_a = (p.K + p.kc_a - 1) / p.kc_a;
+  const int n_a = R > 0 ? Mt * KS_a * rc_a : 0;
+  const XaInput in_a{p.x, nullptr, nullptr, 0};
+  const int halves = p.gated ? 2 : 1;
+  const bool direct_b = !p.gated && p.splits_b == 1;
+  const size_t stride_b = (size_t)mtiles * C::MTILE * p.I;
+  for (int item = blockIdx.x; item < n_a + mtiles * nI * p.splits_b * halves;
+       item += gridDim.x) {
+    if (item < n_a) {
+      if (qx)   // X written in this launch is read through L2
+        xa_item<true>(item, in_a, p.a_gu, p.K, p.WGU, 0, p.kc_a, p, chunk_a,
+                      ready_a, xsm);
+      else
+        xa_item<false>(item, in_a, p.a_gu, p.K, p.WGU, 0, p.kc_a, p, chunk_a,
+                       ready_a, xsm);
+      continue;
     }
-    if (p.bias_g != nullptr) yg += __ldg(p.bias_g + n);
-    if (p.bias_u != nullptr) yu += __ldg(p.bias_u + n);
-    const float a = p.gated ? yg / (1.f + expf(-yg)) * yu : fmaxf(yg, 0.f);
-    const float hv = bf16_round(quantize_half_warp(a, p.act_mb));
-    if (row < p.M) p.h[(size_t)row * p.I + n] = __float2bfloat16_rn(hv);
+    const int ib = item - n_a;
+    const int half = ib % halves, s = ib / halves % p.splits_b;
+    const int tile = ib / (halves * p.splits_b);
+    const int m0 = tile / nI * C::MTILE, n0 = tile % nI * C::TN;
+    const int g0 = s * p.gps_b, g1 = min(p.K / 16, g0 + p.gps_b);
+    Acc<C> y;
+    w_mainloop<C, 3>(p.x, p.M, p.K, m0, half ? p.codes_u : p.codes_g,
+                     half ? p.exps_u : p.exps_g, p.I, n0, g0, g1, smem, y);
+    if (!direct_b) {
+      store_partial<C>(y, p.gpart + (half * p.splits_b + s) * stride_b, p.I,
+                       m0, n0);
+      if (!last_of_tile(tick_b + tile, p.splits_b * halves)) continue;
+    }
+    gate_up_epilogue<C>(y, direct_b, p, stride_b, m0, n0, ready_a,
+                        Mt * rc_a, smem);
   }
-  grid.sync();
+  grid.sync();   // H is whole
+  LQER_CLOCK(4);
+  if (blockIdx.x == 0 && t == 0) *ready_a = 0;   // its readers are done
 
-  if (R > 0) xa_phase<true>(grid, p.h, p.a_d, p.I, R, p.WGU, p, sm);
-
-  // D: down tiles over H, correction epilogue and bias -> Y
-  const int nN = p.N / TN;
-  for (int item = blockIdx.x; item < Mt * nN; item += gridDim.x) {
-    const int m0 = (item / nN) * MT, nb = (item % nN) * TN;
-    float y = gemm_tile<true>(p.h, p.codes_d, p.exps_d, p.M, p.N, p.I, m0, nb,
-                              sm.gemm);
-    const int n = nb + col, row = m0 + m;
-    if (R > 0) y += correction(sm.gemm, p, m0, p.WGU, p.b_d, p.N, n);
-    if (p.bias_d != nullptr) y += __ldg(p.bias_d + n);
-    if (row < p.M) p.out[(size_t)row * p.N + n] = y;
+  // C + D: the H·A_d items first, then (row tile, column tile of N, K
+  // split) items: the down tiles; the last split of a tile waits for H·A_d
+  // and adds its correction and bias
+  const int KS_c = (p.I + p.kc_c - 1) / p.kc_c;
+  const int n_c = R > 0 ? Mt * KS_c * rc_c : 0;
+  const XaInput in_c{p.h, nullptr, nullptr, 0};
+  const size_t stride_d = (size_t)mtiles * C::MTILE * p.N;
+  for (int item = blockIdx.x; item < n_c + mtiles * nN * p.splits_d;
+       item += gridDim.x) {
+    if (item < n_c) {
+      xa_item<true>(item, in_c, p.a_d, p.I, R, p.WGU, p.kc_c, p, chunk_c,
+                    ready_c, xsm);
+      continue;
+    }
+    const int id = item - n_c;
+    const int s = id % p.splits_d, tile = id / p.splits_d;
+    const int m0 = tile / nN * C::MTILE, n0 = tile % nN * C::TN;
+    const int g0 = s * p.gps_d, g1 = min(p.I / 16, g0 + p.gps_d);
+    Acc<C> y;
+    w_mainloop<C, 3>(p.h, p.M, p.I, m0, p.codes_d, p.exps_d, p.N, n0, g0, g1,
+                     smem, y);
+    if (p.splits_d > 1) {
+      store_partial<C>(y, p.gpart + s * stride_d, p.N, m0, n0);
+      if (!last_of_tile(tick_d + tile, p.splits_d)) continue;
+      sum_partials<C>(y, p.gpart, stride_d, p.splits_d, p.N, m0, n0);
+    }
+    down_epilogue<C>(y, p, m0, n0, ready_c, Mt * rc_c, smem);
   }
+  LQER_CLOCK_END();
+}
+
+template <class C>
+int launch_mlp(MlpArgs& p, cudaStream_t st) {
+  constexpr int SMEM = std::max<int>(
+      std::max<int>(Ring<C, 3>::BYTES, sizeof(XaSmem)),
+      CorrSmem<C>::BYTES);
+  static int resident = 0;   // co-resident blocks on this card
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        mlp_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_kernel<C>,
+                                                        NTHREADS, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    resident = per_sm * sms;
+  }
+  const int mtiles = (p.M + C::MTILE - 1) / C::MTILE;
+  const int items = mtiles * std::max(
+      ((p.I + C::TN - 1) / C::TN) * p.splits_b * (p.gated ? 2 : 1),
+      ((p.N + C::TN - 1) / C::TN) * p.splits_d);
+  const int blocks = std::min(resident, std::max(items, 1));
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(mlp_kernel<C>), dim3(blocks), dim3(NTHREADS),
+      args, SMEM, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -237,11 +360,17 @@ __global__ void __launch_bounds__(NTHREADS, 2) mlp_kernel(const MlpArgs p) {
 // (I/8, N), (I/16, N), up null for the un-gated relu variant; a_gu (K, WGU)
 // with WGU = 2R gated ([A_g | A_u]) or R, b_g and b_u (R, I), a_d (I, R),
 // b_d (R, N) bf16 (null when R == 0); biases bias_g, bias_u (I) and bias_d
-// (N) f32 or null; scratch h (ceil(M/8) * 8, I) bf16, part (ceil(M/8),
-// ceil(max(K, I)/256), 8, WGU) f64, xa (ceil(M/8) * 8, WGU + R) f32; out
-// (M, N) f32. R % 16 == 0 (any such rank); K % 16, I % 32 and N % 32 == 0.
-// act_mb: mantissa bits of the H quantizer; xa_mb / out_mb -1 for no
-// partial-product quantizer.
+// (N) f32 or null; out (M, N) f32. Scratch (sizes from
+// ops/kernels/mlp_fused.py::plan): h (ceil(M/8) * 8, I) bf16; part
+// (ceil(M/8), KS, 8, W) f64 for both X·A phases; xa (ceil(M/8) * 8, WGU +
+// R) f32; gpart, the split-K partials of B (halves x splits_b slots) and of
+// D (splits_d slots), each (row tiles * tile rows) x its width, f32;
+// counters (row tiles * (column tiles of I + of N)) int32, zero (the kernel
+// leaves them zero). B splits K's 16-groups into splits_b runs of gps_b, D
+// I's into splits_d runs of gps_d; kc_a, kc_c: the K ranges of the X·A
+// phases' blocks (multiples of 16). R % 16 == 0 (any such rank); K % 16,
+// I % 32 and N % 32 == 0. act_mb: mantissa bits of the H quantizer; xa_mb
+// / out_mb -1 for no partial-product quantizer.
 LQER_API int lqer_mlp_fused(void* x, const void* x_raw, const void* codes_g,
                             const void* exps_g, const void* codes_u,
                             const void* exps_u, const void* codes_d,
@@ -249,30 +378,24 @@ LQER_API int lqer_mlp_fused(void* x, const void* x_raw, const void* codes_g,
                             const void* b_g, const void* b_u, const void* a_d,
                             const void* b_d, const void* bias_g,
                             const void* bias_u, const void* bias_d, void* h,
-                            void* part, void* xa, void* out, int M, int K,
-                            int I, int N, int R, int act_mb, int xa_mb,
-                            int out_mb, int x_mb, void* stream) {
+                            void* part, void* xa, void* gpart, void* counters,
+                            void* out, int M, int K, int I, int N, int R,
+                            int act_mb, int xa_mb, int out_mb, int x_mb,
+                            int splits_b, int gps_b, int splits_d, int gps_d,
+                            int kc_a, int kc_c, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bool gated = codes_u != nullptr;
   const int wgu = gated ? 2 * R : R;
-  if (M <= 0 || R < 0 || R % 16 || K % 16 || I % TN || N % TN
+  auto bad_split = [](int s, int g, int groups) {
+    return s < 1 || g < 1 || (s - 1) * g >= groups || s * g < groups;
+  };
+  auto bad_chunk = [](int kc) { return kc < 16 || kc % 16; };
+  if (M <= 0 || R < 0 || R % 16 || K % 16 || I % 32 || N % 32
       || (!gated && (b_u != nullptr || bias_u != nullptr))
-      || (x_mb >= 0 && (x_raw == nullptr || x_mb > 8)))
+      || (x_mb >= 0 && (x_raw == nullptr || x_mb > 8))
+      || bad_split(splits_b, gps_b, K / 16) || bad_split(splits_d, gps_d, I / 16)
+      || bad_chunk(kc_a) || bad_chunk(kc_c) || counters == nullptr)
     return (int)cudaErrorInvalidValue;
-  static int resident = 0;   // co-resident blocks on this card
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_kernel,
-                                                        NTHREADS, 0);
-    if (e != cudaSuccess) return (int)e;
-    resident = per_sm * sms;
-  }
-  const int Mt = (M + MT - 1) / MT;
-  const int blocks = std::min(resident, Mt * std::max(I, N) / TN);
   MlpArgs p{static_cast<const __nv_bfloat16*>(x),
             x_mb >= 0 ? static_cast<const float*>(x_raw) : nullptr,
             static_cast<__nv_bfloat16*>(x),
@@ -287,13 +410,23 @@ LQER_API int lqer_mlp_fused(void* x, const void* x_raw, const void* codes_g,
             static_cast<const float*>(bias_g), static_cast<const float*>(bias_u),
             static_cast<const float*>(bias_d),
             static_cast<__nv_bfloat16*>(h), static_cast<xa_sum_t*>(part),
-            static_cast<float*>(xa), static_cast<float*>(out),
+            static_cast<float*>(xa), static_cast<float*>(gpart),
+            static_cast<int*>(counters), static_cast<float*>(out),
             M, K, I, N, R, act_mb, xa_mb, out_mb, x_mb, gated, wgu,
-            wgu + R};
-  void* args[] = {&p};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(mlp_kernel), dim3(blocks), dim3(NTHREADS), args,
-      0, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+            wgu + R, splits_b, gps_b, splits_d, gps_d, kc_a, kc_c};
+  return M <= TileDecode::MTILE ? launch_mlp<TileDecode>(p, st)
+                                : launch_mlp<TilePrefill>(p, st);
 }
+
+#ifdef LQER_PHASE_CLOCK
+// Copy the last launch's phase clocks to out (8 u64) and zero them.
+LQER_API int lqer_mlp_phase_clock(void* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, lqer_phase_clock, sizeof(unsigned long long) * 8);
+  const unsigned long long zero[8] = {};
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(lqer_phase_clock, zero, sizeof(zero));
+  return (int)e;
+}
+#endif

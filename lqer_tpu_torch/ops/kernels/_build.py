@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry -> (source, C function, argument types before the stream)
 ENTRIES = {
-    "dequant_gemm": ("dequant_gemm", "lqer_dequant_gemm", [P] * 9 + [I] * 8),
+    "dequant_gemm": ("dequant_gemm", "lqer_dequant_gemm",
+                     [P] * 12 + [I] * 11),
     "attention": ("attention", "lqer_prefill_attention",
                   [P] * 5 + [I] * 4 + [F, I, I, I]),
     "decode_attention": ("decode_attention", "lqer_staged_decode_attention",
@@ -45,7 +46,7 @@ ENTRIES = {
     "row_write_all": ("cache_write", "lqer_write_rows_all_layers",
                       [P] * 8 + [I] * 16 + [P] + [I] * 4),
     "unpack": ("unpack", "lqer_unpack", [P] * 3 + [I] * 3),
-    "mlp_fused": ("mlp_fused", "lqer_mlp_fused", [P] * 20 + [I] * 9),
+    "mlp_fused": ("mlp_fused", "lqer_mlp_fused", [P] * 22 + [I] * 15),
     "decode_attention_quantized": (
         "decode_attention_quantized", "lqer_decode_attention_quantized",
         [P] * 10 + [I] * 6 + [F, I, I, I]),

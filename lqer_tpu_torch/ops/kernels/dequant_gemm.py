@@ -38,15 +38,99 @@ from ...parallel.collectives import fill_zero_groups, mx_values
 from ..storage import MXINT4, MXFormat, dequantize_packed, pack_weight, quantize_mx
 from . import _build
 
-XA_KC = 256       # K chunk of the kernel's X·A phase (its scratch rows)
-RANK_TILE = 128   # rank columns per chunk of the kernel's X·A and epilogue
+# The launch plan of kernel 1 and the megakernel (csrc/w4_gemm.cuh)
+TILE_DECODE = (8, 256)     # (rows, columns) of a GEMM block at M <= 8
+TILE_PREFILL = (64, 128)   # above
+MIN_SPLIT_GROUPS = 8       # fewest 16-groups of K a split streams
+XA_RC = 64                 # rank columns per X·A block
 
 
 def rank_supported(r: int) -> bool:
-    """The ranks the kernel takes: any multiple of 16 (chunks of
-    :data:`RANK_TILE` hold whole q_xa groups), or any width up to
-    :data:`RANK_TILE` (one whole-row group)."""
-    return r >= 0 and (r % 16 == 0 or r <= RANK_TILE)
+    """The ranks the kernel takes: any (a multiple of 16 is quantized per
+    16 columns, any other width as one whole-row q_xa group, as the JAX
+    kernel does)."""
+    return r >= 0
+
+
+def gemm_plan(M: int, N: int, K: int, sms: int, halves: int = 1,
+              reserve: int = 0) -> dict:
+    """The GEMM launch of ``x (M, K)`` times an (K, N) packed weight on a
+    card of ``sms`` SMs: the tile (8 x 256 at M <= 8, else 64 x 128), and
+    K's 16-groups split so that the blocks fill two an SM without a
+    partial second wave (``halves`` weights of the same shape share the
+    blocks: the megakernel's gate and up; ``reserve`` blocks go to other
+    work of the same launch, where that leaves a block an SM), each split
+    at least :data:`MIN_SPLIT_GROUPS` groups, none empty."""
+    rows, cols = TILE_DECODE if M <= TILE_DECODE[0] else TILE_PREFILL
+    m_tiles, n_tiles = -(-M // rows), -(-N // cols)
+    groups = K // 16
+    tiles = m_tiles * n_tiles * halves
+    want = (2 * sms - reserve) // tiles   # one wave with the other work
+    if want * tiles < sms:   # unless that leaves SMs idle: short other
+        want = 2 * sms // tiles   # work may share them
+    splits = max(1, min(want, groups // MIN_SPLIT_GROUPS))
+    gps = -(-groups // splits)
+    return dict(rows=rows, cols=cols, m_tiles=m_tiles, n_tiles=n_tiles,
+                splits=-(-groups // gps), groups_per_split=gps)
+
+
+def xa_plan(M: int, K: int, W: int, sms: int, max_ranges: int = 16
+            ) -> dict:
+    """The X·A launch of ``x (M, K)`` times ``a (K, W)``: 8-row tiles,
+    rank chunks of :data:`XA_RC` columns, and K in ranges (multiples of 16)
+    that give about eight blocks an SM (short blocks whose loads wait: more
+    of them keep more in flight), at most ``max_ranges`` of them (the
+    partials a finishing sum reads per value)."""
+    row_tiles, rank_chunks = -(-M // 8), max(1, -(-W // XA_RC))
+    want = -(-8 * sms // (row_tiles * rank_chunks))
+    ranges = max(1, min(want, max_ranges, K // 16))
+    kr = (-(-K // ranges) + 15) // 16 * 16
+    return dict(row_tiles=row_tiles, rank_chunks=rank_chunks, k_range=kr,
+                k_ranges=-(-K // kr))
+
+
+def plan(M: int, N: int, K: int, R: int, sms: int) -> dict:
+    """Kernel 1's two launches (``gemm``, ``xa``: :func:`gemm_plan`,
+    :func:`xa_plan`) and the element counts of their scratch:
+    ``xa_part`` (f64 X·A chunk partials), ``xa_values`` (f32 quantized X·A
+    rows), ``gemm_part`` (f32 split-K partials, none for one split) and
+    ``counters`` (int32: the count of quantized X ranges and of the GEMM
+    blocks past it, then the tickets of the GEMM tiles and of the X·A
+    chunks)."""
+    g, xa = gemm_plan(M, N, K, sms), xa_plan(M, K, R, sms)
+    rows8 = xa["row_tiles"] * 8
+    return dict(
+        gemm=g, xa=xa,
+        xa_part=rows8 * xa["k_ranges"] * R,
+        xa_values=rows8 * R,
+        gemm_part=(0 if g["splits"] == 1
+                   else g["splits"] * g["m_tiles"] * g["rows"] * N),
+        counters=2 + g["m_tiles"] * g["n_tiles"]
+        + xa["row_tiles"] * xa["rank_chunks"])
+
+
+_SMS: dict = {}
+_COUNTERS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def counters(device: torch.device, n: int, owner: str = "dequant_gemm"
+             ) -> torch.Tensor:
+    """``n`` int32 ticket counters on ``device``, zero at the first launch.
+    Kernel 1 leaves its counters at zero; the megakernel resets its own
+    where its phases allow. So one buffer per device and kernel
+    (``owner``) serves every launch on its stream."""
+    buf = _COUNTERS.get((device, owner))
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device, owner] = torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=device)
+    return buf
 
 
 def _quantize_rows_mx(x: torch.Tensor, mb: int, group: int = 16
@@ -235,19 +319,28 @@ def _launch(x: torch.Tensor, prep: dict, fmt: MXFormat, quant_xa_width,
     else:
         x_raw = x.to(torch.float32).contiguous()
         x = torch.empty(M, K, dtype=torch.bfloat16, device=x.device)
-    out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    part = None
-    if R:
-        part = torch.empty(-(-M // 8), -(-K // XA_KC), 8, R,
-                           dtype=torch.float64, device=x.device)
+    dev = x.device
+    pl = plan(M, N, K, R, sm_count(dev))
+    out = torch.empty(M, N, dtype=torch.float32, device=dev)
+
+    def scratch(n, dtype):
+        return torch.empty(n, dtype=dtype, device=dev) if n else None
+
+    xa_part = scratch(pl["xa_part"], torch.float64)
+    xa = scratch(pl["xa_values"], torch.float32)
+    gpart = scratch(pl["gemm_part"], torch.float32)
     _build.launch(
         "dequant_gemm", x.data_ptr(), _build.ptr(x_raw),
         prep["codes"].data_ptr(), prep["exps"].data_ptr(), _build.ptr(a),
-        _build.ptr(b), _build.ptr(bias), out.data_ptr(), _build.ptr(part), M,
-        N, K, R, fmt.mantissa_bits,
+        _build.ptr(b), _build.ptr(bias), out.data_ptr(), _build.ptr(xa_part),
+        _build.ptr(xa), _build.ptr(gpart),
+        counters(dev, pl["counters"]).data_ptr(), M, N, K, R,
+        fmt.mantissa_bits,
         -1 if quant_xa_width is None else quant_xa_width - 1,
         -1 if quant_out_width is None else quant_out_width - 1,
-        -1 if quant_x_width is None else quant_x_width - 1)
+        -1 if quant_x_width is None else quant_x_width - 1,
+        pl["gemm"]["splits"], pl["gemm"]["groups_per_split"],
+        pl["xa"]["k_range"])
     return out
 
 

@@ -208,27 +208,72 @@ def _launch(x_q: torch.Tensor, prep: dict, fmt: MXFormat, act_width,
         x_raw = x_q.to(torch.float32).contiguous()
         x = torch.empty(M, K, dtype=torch.bfloat16, device=x_q.device)
     dev = x.device
-    mt = -(-M // 8)
+    pl = plan(M, K, I, N, R, gated, k1.sm_count(dev))
     out = torch.empty(M, N, dtype=torch.float32, device=dev)
-    h = torch.empty(mt * 8, I, dtype=torch.bfloat16, device=dev)
-    # X·A partials of each 8-row tile and 256-wide K chunk, then the
-    # quantized X·A of every row: gate(|up) (wgu wide), then down (R wide)
-    part = torch.empty(mt, -(-max(K, I) // k1.XA_KC), 8, max(wgu, 1),
-                       dtype=torch.float64, device=dev)
-    xa = torch.empty(mt * 8, max(wgu + R, 1), dtype=torch.float32,
+    h = torch.empty(pl["h"], dtype=torch.bfloat16, device=dev)
+    part = torch.empty(max(pl["xa_part"], 1), dtype=torch.float64,
+                       device=dev)
+    xa = torch.empty(max(pl["xa_values"], 1), dtype=torch.float32,
                      device=dev)
+    gpart = torch.empty(max(pl["gemm_part"], 1), dtype=torch.float32,
+                        device=dev)
     _build.launch(
         "mlp_fused", x.data_ptr(), _build.ptr(x_raw),
         *(_build.ptr(prep.get(k)) for k in (
             "codes_g", "exps_g", "codes_u", "exps_u", "codes_d", "exps_d",
             "a_gu", "b_g", "b_u", "a_d", "b_d", "bias_g", "bias_u",
             "bias_d")),
-        h.data_ptr(), part.data_ptr(), xa.data_ptr(), out.data_ptr(), M, K,
+        h.data_ptr(), part.data_ptr(), xa.data_ptr(), gpart.data_ptr(),
+        k1.counters(dev, pl["counters"], "mlp_fused").data_ptr(), out.data_ptr(), M, K,
         I, N, R, act_width - 1,
         -1 if quant_xa_width is None else quant_xa_width - 1,
         -1 if quant_out_width is None else quant_out_width - 1,
-        -1 if quant_x_width is None else quant_x_width - 1)
+        -1 if quant_x_width is None else quant_x_width - 1,
+        pl["gate_up"]["splits"], pl["gate_up"]["groups_per_split"],
+        pl["down"]["splits"], pl["down"]["groups_per_split"],
+        pl["xa_gate_up"]["k_range"], pl["xa_down"]["k_range"])
     return out
+
+
+def plan(M: int, K: int, I: int, N: int, R: int, gated: bool, sms: int
+         ) -> dict:
+    """The megakernel's phases on a card of ``sms`` SMs: the GEMMs of
+    phases B (``gate_up``: gate and up share the blocks) and D (``down``),
+    :func:`dequant_gemm.gemm_plan`, their K splits leaving room for the X·A
+    items that run beside them; the X·A of phases A and C
+    (``xa_gate_up``, ``xa_down``), :func:`dequant_gemm.xa_plan` (finished
+    across the grid, so up to 32 K ranges); and the element counts of the
+    scratch: ``h`` (bf16 H rows), ``xa_part`` (f64 X·A partials of either
+    phase), ``xa_values`` (f32 quantized X·A_gu | H·A_d rows),
+    ``gemm_part`` (f32 split-K partials of either GEMM phase: B's when
+    gated, whose halves meet in the last block of a tile, or split; D's
+    when split) and ``counters`` (int32: the counts of A's and C's
+    finished X·A chunks, then the tickets of B's tiles, D's tiles, A's and
+    C's chunks)."""
+    halves = 2 if gated else 1
+    wgu = halves * R
+    xa_gu = k1.xa_plan(M, K, wgu, sms, max_ranges=32)
+    xa_dn = k1.xa_plan(M, I, R, sms, max_ranges=32)
+
+    def items(xa):   # the X·A items that share a phase's blocks
+        return xa["row_tiles"] * xa["k_ranges"] * xa["rank_chunks"] if R else 0
+
+    gu = k1.gemm_plan(M, I, K, sms, halves=halves, reserve=items(xa_gu))
+    dn = k1.gemm_plan(M, N, I, sms, reserve=items(xa_dn))
+    rows8 = -(-M // 8) * 8
+    tile_rows = gu["m_tiles"] * gu["rows"]
+    part_b = (halves * gu["splits"] * tile_rows * I
+              if gated or gu["splits"] > 1 else 0)
+    part_d = dn["splits"] * tile_rows * N if dn["splits"] > 1 else 0
+    return dict(
+        gate_up=gu, down=dn, xa_gate_up=xa_gu, xa_down=xa_dn,
+        h=rows8 * I,
+        xa_part=rows8 * max(xa_gu["k_ranges"] * wgu, xa_dn["k_ranges"] * R),
+        xa_values=rows8 * (wgu + R),
+        gemm_part=max(part_b, part_d),
+        counters=gu["m_tiles"] * (gu["n_tiles"] + dn["n_tiles"])
+        + xa_gu["row_tiles"] * xa_gu["rank_chunks"]
+        + xa_dn["row_tiles"] * xa_dn["rank_chunks"] + 2)
 
 
 def _run(x_q, prep, fmt, kw) -> torch.Tensor:

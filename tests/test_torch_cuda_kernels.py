@@ -18,7 +18,10 @@ starting mid-chunk, n_rep 1 to 8, head dims 64 to 128, L = 12288; two
 launches equal to the bit), and rows 6 and 10 the same way (L up to
 22528, row 10's written bytes equal to the plain version's); rows 7, 8
 and 9 at head dims 80 and 96, and a tiny OPT of d = 80 served through the
-kernels against the CPU. Needs an
+kernels against the CPU; kernel 1 and the megakernel over every row count
+their tiles and K splits meet (1 to 511), W4 and W8, ranks 0 to 384 and
+136, with and without a bias, bf16 and raw X, a weight group at the
+exponent clamp, bit-repeatable at 7B widths. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -1082,3 +1085,119 @@ def test_llama_engine_new_routes_on_card(gen, monkeypatch, route):
             assert torch.equal(got, want)
         worst, rms = logits_steps(got.float().cpu(), want.float().cpu())
         assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+
+
+# ---- rows 1 and 3 on the tensor cores: tiles, K splits and tickets ------
+
+W4_ROWS = [1, 8, 9, 64, 65, 256, 511]
+
+
+def _w4_prep(gen, k, n, rank, bias, fmt, clamp=False):
+    """Kernel 1's operands from seeded values; ``clamp`` puts one weight
+    group of column 3 at the exponent clamp (-127)."""
+    from lqer_tpu_torch.ops.storage import MXINT4, MXINT8
+
+    fmt = {4: MXINT4, 8: MXINT8}[fmt]
+    w = torch.randn(n, k, generator=gen, device="cuda") * 0.05
+    if clamp:
+        w[3, 16:32] = torch.randn(16, generator=gen, device="cuda") * 1e-39
+    a = b = bb = None
+    if rank:
+        a = torch.randn(k, rank, generator=gen, device="cuda") * 0.1
+        b = torch.randn(rank, n, generator=gen, device="cuda") * 0.05
+    if bias:
+        bb = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+    prep = k1.prepare_w4_weights(w, a, b, bb, fmt=fmt)
+    if clamp:
+        assert int(prep["exps"][1, 3]) == -127
+    return prep, fmt
+
+
+@pytest.mark.parametrize("fmt", [4, 8])
+@pytest.mark.parametrize("m", W4_ROWS)
+def test_dequant_gemm_tiles(gen, m, fmt):
+    """Kernel 1 over every row count its tiles and K splits meet (one
+    8-row tile, the 64-row tiles, ragged ones), W4 and W8, K = 272 (17
+    groups: a ragged last stage) and N = 352 (a ragged column tile), with
+    one weight group at the exponent clamp: within the limits of its plain
+    version, twice bit-repeatable."""
+    prep, f = _w4_prep(gen, 272, 352, 32, True, fmt, clamp=True)
+    x = _act((m, 272), gen)
+    kw = dict(quant_xa_width=8, quant_out_width=8)
+    got = k1.qlinear_w4_fused(x, prep, f, **kw)
+    assert torch.equal(got, k1.qlinear_w4_fused(x, prep, f, **kw))
+    want = k1.qlinear_w4_plain(x, prep, f, **kw)
+    check_close(f"kernel 1 M={m} W{fmt}", got, want,
+                dequant_gemm_limit(x, prep, want, **kw), max_flipped=0.01)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("rank", [0, 32, 96, 128, 136, 384])
+@pytest.mark.parametrize("m", [1, 8, 65, 256])
+def test_dequant_gemm_ranks(gen, m, rank, bias):
+    """Kernel 1 at every rank shape: none, one rank chunk, several, a rank
+    that is not a multiple of 16 and wider than 128 (one whole-row q_xa
+    group over three rank chunks), with and without a bias; bf16 X and the
+    in-kernel X quantizer (equal to the launch fed its values)."""
+    prep, f = _w4_prep(gen, 512, 256, rank, bias, 4)
+    kw = dict(quant_xa_width=8, quant_out_width=8)
+    x = torch.randn(m, 512, generator=gen, device="cuda") * 3
+    got = k1.qlinear_w4_fused(x, prep, f, quant_x_width=8, **kw)
+    xq = k1.quantize_x_plain(x, 8)
+    assert torch.equal(got, k1.qlinear_w4_fused(xq.to(torch.bfloat16), prep,
+                                                f, **kw))
+    want = k1.qlinear_w4_plain(x, prep, f, quant_x_width=8, **kw)
+    check_close(f"kernel 1 M={m} R={rank}", got, want,
+                dequant_gemm_limit(xq, prep, want, **kw), max_flipped=0.01)
+
+
+@pytest.mark.parametrize("arch,rank", [("llama", 0), ("llama", 32),
+                                       ("llama", 96), ("llama", 128),
+                                       ("opt", 32)])
+@pytest.mark.parametrize("m", W4_ROWS)
+def test_mlp_fused_tiles(gen, m, arch, rank):
+    """The megakernel, gated and relu with biases, over every row count its
+    tiles meet, ranks 0 to 128: within the limits of its plain version,
+    bf16 X and the in-kernel X quantizer (equal to the launch fed its
+    values), twice bit-repeatable."""
+    if arch == "opt":
+        _, backend, _, _ = _opt_backend(rank=rank)
+        key = "model.decoder.layers.0.mlp_fused"
+    else:
+        cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=1, heads=2,
+                               inter=512)
+        backend, _, _ = build_random_model(cfg, rank=rank, seed=12)
+        key = "model.layers.0.mlp_fused"
+    meta, prep = backend["meta"][key], backend["arrays"][key]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    x = torch.randn(m, 256, generator=gen, device="cuda") * 3
+    xq = k1.quantize_x_plain(x, 8).to(torch.bfloat16)
+    got = k5.mlp_w4_fused(xq, prep, meta["fmt"], **kw)
+    assert torch.equal(got, k5.mlp_w4_fused(xq, prep, meta["fmt"], **kw))
+    assert torch.equal(got, k5.mlp_w4_fused(x, prep, meta["fmt"],
+                                            quant_x_width=8, **kw))
+    want = k5.mlp_w4_plain(xq, prep, meta["fmt"], **kw)
+    check_close(f"{arch} megakernel M={m} R={rank}", got, want,
+                mlp_limit(xq, prep, want, **kw), max_flipped=0.05)
+
+
+def test_w4_split_k_repeatable_at_7b(gen):
+    """Kernel 1 at Mistral's q|k|v shape (K = 4096, N = 6144, fused rank
+    384) at M = 8, where the K split is widest, and the megakernel at
+    Llama-2-7B's MLP (I = 11264): ten launches each bit-equal."""
+    prep, f = _w4_prep(gen, 4096, 6144, 384, False, 4)
+    x = _act((8, 4096), gen)
+    first = k1.qlinear_w4_fused(x, prep, f)
+    for _ in range(9):
+        assert torch.equal(first, k1.qlinear_w4_fused(x, prep, f))
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=4096, layers=1, heads=32,
+                           inter=11008)
+    backend, _, _ = build_random_model(cfg, rank=32, seed=13)
+    key = "model.layers.0.mlp_fused"
+    meta, prep = backend["meta"][key], backend["arrays"][key]
+    kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
+              quant_out_width=meta["out_width"])
+    first = k5.mlp_w4_fused(x, prep, meta["fmt"], **kw)
+    for _ in range(9):
+        assert torch.equal(first, k5.mlp_w4_fused(x, prep, meta["fmt"], **kw))

@@ -4,15 +4,14 @@ in one call on the card:
 
     python3 tools/bench_xa_precision.py [--rows 4096] [--reps 15]
 
-The two kernels sum X·A per 256-wide K chunk and then across the chunks
-(``csrc/w4_gemm.cuh::xa_chunk_product``), and the q_xa quantizer rounds
-the f32 value. Three builds of ``csrc/dequant_gemm.cu`` and
+The two kernels sum X·A per K range of a block and then across the
+ranges (``csrc/w4_gemm.cuh::xa_tile``, ``xa_value``), and the q_xa
+quantizer rounds the f32 value. Three builds of ``csrc/dequant_gemm.cu`` and
 ``csrc/mlp_fused.cu`` (``-D LQER_XA_CHUNK_T`` / ``LQER_XA_SUM_T``):
 
-  f64      -- each chunk's partial and the cross-chunk sum in f64, rounded
+  f64      -- each range's partial and the cross-range sum in f64, rounded
               to f32 once (the kernels as built for serving);
-  f32+f64  -- each chunk's partial in f32 (k order), the sum across chunks
-              in f64;
+  f32+f64  -- each range's partial in f32, the sum across ranges in f64;
   f32      -- both in f32 (the kernels before the f64 sum).
 
 1. Times, at M = 8 on raw f32 X (the serving path's in-kernel quantizer)

@@ -14,7 +14,9 @@ weights, rank 32, W8 head, ``mxint8-staged``, 8 slots, max_len 2048). It
 then times, on the host clock around synchronised calls:
 
 - three 8 x 64-token admissions (512 rows),
-- 40 decode steps of all 8 slots after the last admission,
+- 40 decode steps of all 8 slots after the last admission, then the
+  device busy time of 5 more (torch.profiler: the summed kernel time a
+  step),
 - one 2048-token admission into slot 0 (fresh cache, last logits only),
   after one untimed warm-up, twice.
 
@@ -22,7 +24,9 @@ Then, the Llama engine freed, it builds Mistral-7B-v0.1 (32 layers, rank
 128, W8 head, window 4096) on the ``bfloat16`` cache, 8 slots, max_len
 8192, fills every slot's cache with seeded random rows up to position
 6000 and times 20 decode steps from there (the fp-cache decode kernel
-reads the window's 4096 keys a slot), after two untimed ones.
+reads the window's 4096 keys a slot), after two untimed ones; then the
+same on the direct ``mxint8`` cache (the context built by the checkout's
+``chip_smoke.fill_context``), with the device busy time of 5 more steps.
 
 Each process prints one JSON line; the card's name and power limit come
 first. Needs one CUDA device.
@@ -84,6 +88,7 @@ def child(root: str) -> None:
     for _ in range(40):
         steps.append(timed(engine.decode_logits, tokens))
         engine.lengths += 1
+    llama_busy = device_busy_ms(torch, engine, tokens)
     long_ids = rng.integers(0, cfg.vocab_size, (1, 2048))
     long_args = (long_ids, np.zeros(1, dtype=np.int64),
                  np.full(1, 2048, dtype=np.int32))
@@ -91,20 +96,43 @@ def child(root: str) -> None:
     long = [timed(engine.prefill, *long_args) for _ in range(2)]
     del engine
     torch.cuda.empty_cache()
-    mistral = mistral_steps(torch, timed)
+    mistral, _ = mistral_steps(torch, timed)
+    mistral8, mistral8_busy = mistral_steps(torch, timed, "mxint8")
     print(json.dumps({"root": root, "admission_8x64_ms": admission,
                       "decode_step_ms_median": statistics.median(steps),
                       "decode_steps_ms": [round(t, 2) for t in steps],
+                      "decode_step_device_busy_ms": llama_busy,
                       "admission_2048_ms": long,
                       "mistral_bf16_step_ms_median":
                           statistics.median(mistral),
                       "mistral_bf16_steps_ms":
-                          [round(t, 2) for t in mistral]}), flush=True)
+                          [round(t, 2) for t in mistral],
+                      "mistral_mxint8_step_ms_median":
+                          statistics.median(mistral8),
+                      "mistral_mxint8_step_device_busy_ms": mistral8_busy}),
+          flush=True)
 
 
-def mistral_steps(torch, timed, position: int = 6000) -> list[float]:
-    """20 decode steps of Mistral-7B on the bf16 cache, 8 slots at
-    ``position`` onwards over a context of seeded random rows."""
+def device_busy_ms(torch, engine, tokens, steps: int = 5) -> float:
+    """The summed device time of the kernels of one decode step
+    (torch.profiler, mean over ``steps``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.decode_logits(tokens)
+            engine.lengths += 1
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+
+
+def mistral_steps(torch, timed, cache_dtype: str = "bfloat16",
+                  position: int = 6000) -> tuple[list[float], float | None]:
+    """20 decode steps of Mistral-7B on ``cache_dtype``, 8 slots at
+    ``position`` onwards over a context of seeded random rows, and (on a
+    quantized cache) the device busy ms of 5 more."""
     import numpy as np
 
     from lqer_tpu_torch.models import LlamaConfig
@@ -116,15 +144,20 @@ def mistral_steps(torch, timed, position: int = 6000) -> list[float]:
     params["model.embed_tokens.weight"] = \
         params["model.embed_tokens.weight"].to(torch.bfloat16)
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=8192,
-                          cache_dtype="bfloat16", pallas_backend=backend,
+                          cache_dtype=cache_dtype, pallas_backend=backend,
                           consume_backend=True, lm_head_width=8,
                           device="cuda")
     del backend
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(6)
-    for key in ("k", "v"):
-        engine.cache[key][..., :position, :].normal_(generator=gen)
-    engine.lengths[:] = position
+    if cache_dtype == "bfloat16":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(6)
+        for key in ("k", "v"):
+            engine.cache[key][..., :position, :].normal_(generator=gen)
+        engine.lengths[:] = position
+    else:
+        from chip_smoke import fill_context
+
+        fill_context(torch, {"card": engine}, np.full(8, position), seed=6)
     tokens = np.zeros(8, dtype=np.int64)
     steps = []
     for i in range(22):
@@ -132,9 +165,11 @@ def mistral_steps(torch, timed, position: int = 6000) -> list[float]:
         engine.lengths += 1
         if i >= 2:
             steps.append(ms)
+    busy = (None if cache_dtype == "bfloat16"
+            else device_busy_ms(torch, engine, tokens))
     del engine
     torch.cuda.empty_cache()
-    return steps
+    return steps, busy
 
 
 def main() -> int:
