@@ -23,7 +23,11 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    fp-cache, quantized at widths 8 and 4, the fused MXINT8 write + attend,
    and the row write in both orientations; the long-context kernels at 8
    slots, 32 kv heads, L = 32768 and positions 64..32767: streaming decode
-   at widths 8 and 4, streaming staged decode (rings bit-exact), the fused
+   at widths 8 and 4, streaming staged decode (rings bit-exact), the staged
+   decode kernel (row 7) at n_rep 2, d 64, 16 kv heads against its plain
+   version and against the streaming staged kernel on the same inputs
+   (rings bit-exact; row 7 held its score rows in shared memory and refused
+   this shape until it split L), the fused
    MXINT8 encode + write (columns bit-exact), and at L = 24576 each
    streaming kernel against its one-pass kernel on the same inputs; then
    OPT's modes at OPT-6.7B width: the megakernel's relu variant with
@@ -133,7 +137,8 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    the in-kernel activation quantizer as their ``quant_x``; row 4 at one
    2048-token prompt as its ``admission_2048``, row 5 with OPT's
    ``scale_query`` and at Mistral's max_len 12288 as its
-   ``opt_scale_query`` and ``mistral_12288``; rows 6, 7, 8, 9 and 10 at
+   ``opt_scale_query`` and ``mistral_12288``; row 7 at n_rep 2, d 64,
+   L = 32768 as its ``nrep2_d64_32768``; rows 6, 7, 8, 9 and 10 at
    d = 80 as their ``opt_2_7b``, with OPT-2.7b's phase-5 launches; row 6
    at code width 8 as its ``width8``; rows 6 and 10 with each launch's
    device time as ``launch_split_ms``; kernel 1 at Mistral's q|k|v and o
@@ -258,11 +263,30 @@ def launch_split(torch, fn, n: int = 5) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("::")[-1].split("(")[0]:
-            round(e.self_device_time_total / n / 1e3, 4)
+    return {kernel_name(e.key): round(e.self_device_time_total / n / 1e3, 4)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without its return type, namespaces and
+    argument list: ``void ns::k<8, 1>(ns::Args)`` gives ``k<8, 1>``."""
+    depth = 0
+    for i in range(len(key) - 1, -1, -1):
+        if key[i] == ")":
+            depth += 1
+        elif key[i] == "(":
+            depth -= 1
+            if depth == 0:
+                key = key[:i]
+                break
+    start, depth = 0, 0
+    for i, ch in enumerate(key):     # past the last "::" or space outside <>
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and (ch == " " or key[i:i + 2] == "::"):
+            start = i + (1 if ch == " " else 2)
+    return key[start:].strip() or key.strip()
 
 
 def nbytes(*ts) -> int:
@@ -1004,6 +1028,77 @@ def phase_stream_kernels(torch, timer, rates, results):
            "64..32736", f", rings bit-exact, K's second read would add "
            f"{held * per_token / bw * 1e3:.4f} ms to the bound")
     del main, rings, r_k, r_p
+
+    # ---- row 7 at n_rep 2, d 64, L = 32768, which its shared memory
+    # refused before it split L: against its plain version and against
+    # row 9 on the same inputs (rings bit-exact in both)
+    KV2, D2 = 16, 64
+
+    def encoded(n):
+        c_, e_ = mx8_encode(torch.randn(B, KV2, n, D2, generator=gen,
+                                        device="cuda"), 16, zero_fill=1.0)
+        return [c_.transpose(-1, -2).contiguous(),
+                e_.transpose(-1, -2).contiguous()]
+
+    main = encoded(L) + encoded(L)
+    rings = encoded(SW) + encoded(SW)
+    q2 = torch.randn(B, 2 * KV2, 1, D2, generator=gen, device="cuda")
+    kh, vh = (torch.randn(B, KV2, 1, D2, generator=gen, device="cuda")
+              for _ in range(2))
+    kw2 = dict(scaling=D2 ** -0.5)
+    r7, r9, r_p = ([t.clone() for t in rings] for _ in range(3))
+    y = k3.decode_attention_quantized_staged(q2, *main, *r7, kh, vh, pos, fl,
+                                             **kw2)
+    y9 = ks.decode_attention_quantized_streaming_staged(
+        q2, *main, *r9, kh, vh, pos, fl, **kw2)
+    ref = k3.staged_decode_plain(q2, *main, *r_p, kh, vh, pos, fl, **kw2)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) and torch.equal(c_, b)
+               for a, b, c_ in zip(r7, r_p, r9)):
+        raise AssertionError("row 7 / row 9 at n_rep 2, d 64: ring bytes "
+                             "differ from the plain version")
+    sc, vals = k3.staged_scores(q2, *main, *r_p, pos, fl, **kw2)
+    c = check_close("row 7 at n_rep 2, d 64, L 32768", y, ref,
+                    attention_limit(sc[:, :, None, :], vals, ref, p_width=8),
+                    FLIPPED["attention"])
+    c9 = check_close("row 7 vs row 9 at n_rep 2, d 64, L 32768", y, y9,
+                     attention_limit(sc[:, :, None, :], vals, y9, p_width=8),
+                     FLIPPED["attention"])
+    del sc, vals, ref
+    ms = timer(lambda: k3.decode_attention_quantized_staged(
+        q2, *main, *r7, kh, vh, pos, fl, **kw2))
+    ms9 = timer(lambda: ks.decode_attention_quantized_streaming_staged(
+        q2, *main, *r9, kh, vh, pos, fl, **kw2))
+    plain_ms = timer(lambda: k3.staged_decode_plain(
+        q2, *main, *r_p, kh, vh, pos, fl, **kw2), 3)
+    held = int(fl.sum()) + int((pos - fl + 1).sum())
+    per_token = KV2 * (D2 + D2 // 16)
+    b_ms, b_by = bound(2 * held * per_token + nbytes(q2, kh, vh)
+                       + q2.numel() * 4 + 2 * B * KV2 * (D2 + D2 // 16),
+                       2 * 2 * 2 * KV2 * held * D2)
+    k, v = (kq._decode_cache_block(main[i], main[i + 1]).transpose(-1, -2)
+            .to(torch.bfloat16).contiguous() for i in (0, 2))
+    qb = q2.to(torch.bfloat16)
+    keep = torch.arange(L, device="cuda")[None, :] <= pos[:, None].long()
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qb, k, v, attn_mask=keep[:, None, None, :], enable_gqa=True))
+    del k, v
+    print(f"row 7 staged decode attention n_rep 2 B={B} KVH={KV2} d={D2} "
+          f"L={L} flushed={fl.tolist()}: max_abs_err={c['max_abs_err']:.3g} "
+          f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+          f"2e-4), rings bit-exact kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(SDPA on the unquantized bf16 values); row 9 on the same "
+          f"inputs: {ms9:.4f} ms, bound {b_ms:.4f}, SDPA {lib_ms:.4f}, "
+          f"row 7 vs row 9 max_abs_err={c9['max_abs_err']:.3g} "
+          f"({c9['of_limit']:.3g} of its limit)", flush=True)
+    results["decode_attention"]["nrep2_d64_32768"] = dict(
+        max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        row9_ms=ms9, row7_vs_row9_max_abs_err=c9["max_abs_err"],
+        shape="one layer, B=8, 32 heads over 16 kv heads, d=64, L=32768, "
+              "flushed 64..32736")
+    del main, rings, r7, r9, r_p
 
     # ---- row 13: the fresh rows encoded into column pos of four arrays
     arrays = cache(8, L)
@@ -3383,7 +3478,8 @@ def main() -> int:
             **{x: r[x] for x in ("mistral", "width4", "width8", "opt_2_7b",
                                  "launch_split_ms", "quant_x",
                                  "admission_2048", "opt_scale_query",
-                                 "mistral_12288") if x in r}})
+                                 "mistral_12288", "nrep2_d64_32768")
+               if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -193,13 +193,13 @@ fp_scores_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
   const int b = blockIdx.x, kv = blockIdx.y, z = blockIdx.z, NZ = gridDim.z;
   const int t = threadIdx.x, H = KVH * nrep;
   Chunk c;
-  if (!chunk_of(pos_p, b, z, L, window, c)) {
+  if (!chunk_of(pos_p, nullptr, b, z, NZ, L, window, CH, c)) {
     if (z == 0 && c.ntok == 0)  // no column (pos < 0): out = 0
       for (int idx = t; idx < nrep * D; idx += FT)
         out[((size_t)b * H + kv * nrep) * D + idx] = 0.f;
     return;
   }
-  if (z == c.first / CH && t == 0) count[(size_t)b * KVH + kv] = 0;
+  if (z == c.z0 && t == 0) count[(size_t)b * KVH + kv] = 0;
 
   uint16_t* tile = reinterpret_cast<uint16_t*>(smem);           // CH x (D+8)
   float* qs = reinterpret_cast<float*>(tile + CH * (D + 8));   // nrep x D
@@ -257,7 +257,7 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
   const int b = blockIdx.x, kv = blockIdx.y, z = blockIdx.z, NZ = gridDim.z;
   const int t = threadIdx.x, lane = t % 32, w = t / 32, H = KVH * nrep;
   Chunk c;
-  if (!chunk_of(pos_p, b, z, L, window, c)) return;
+  if (!chunk_of(pos_p, nullptr, b, z, NZ, L, window, CH, c)) return;
   uint16_t* tile = reinterpret_cast<uint16_t*>(smem);  // CH x (D + 8)
   const size_t bk = (size_t)b * KVH + kv;
 
@@ -311,7 +311,7 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
       }
   __syncthreads();
   finish_chunk<D>(red, part, count, out + ((size_t)b * H + kv * nrep) * D, c,
-                  bk, z, NZ, nrep);
+                  bk, NZ, nrep);
 }
 
 template <int D>

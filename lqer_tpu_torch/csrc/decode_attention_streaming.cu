@@ -1,58 +1,60 @@
 // Streaming decode attention over the MXINT cache, one query token per slot,
-// for contexts whose score rows the one-pass kernels do not hold in shared
-// memory: the direct-write cache (codes of width 8 or 4) and, with STAGED,
-// the ring-staged cache (width 8 or 4) with the fresh token's ring write.
+// past the JAX package's one-pass length: the direct-write cache (codes of
+// width 8 or 4; row 8) and the ring-staged cache (width 8 or 4, with the
+// fresh token's ring write; row 9).
 //
 // Replaces lqer_tpu/ops/pallas/decode_attention.py::_stats_kernel and
-// ::_out_kernel (entry decode_attention_quantized_streaming) and, with
-// STAGED, ::_stats_kernel_staged and ::_out_kernel_staged (entry
-// decode_attention_quantized_streaming_staged, widths 8 and 4). The function
-// is the
-// one-pass kernels' (decode_attention_quantized.cu, decode_attention.cu):
-// scores over the columns a slot holds, one exact f32 softmax, P quantized
-// per 16 tokens with the FINAL max and denominator, then P·V. That
-// quantizer is what forces two passes: a 16-token group's exponent depends
-// on exp(s - m) / denom with the final m and denom, so no one-pass online
-// rescaling reproduces it.
-//
-// Under a sliding window (window > 0; -1 for none; the direct-write cache
-// only, as in JAX) the columns at or below pos - window are masked too, and
-// the kernel reads from the 16-token group holding the window's first key
-// (decode_common.cuh's window_start): chunks wholly below it are skipped in
-// every pass, and the first chunk read starts at that group.
+// ::_out_kernel (entry decode_attention_quantized_streaming: row 8) and
+// ::_stats_kernel_staged and ::_out_kernel_staged (entry
+// decode_attention_quantized_streaming_staged: row 9). The function is the
+// one-pass kernels' (rows 6 and 7): scores over the columns a slot holds,
+// one exact f32 softmax, P quantized per 16 tokens with the FINAL max and
+// denominator, then P·V. That quantizer is what forces two passes: a
+// 16-token group's exponent depends on exp(s - m) / denom with the final m
+// and denom, so no one-pass online rescaling reproduces it.
 //
 // What bounds it on an H100: the cache stream, (code bytes + d/16 exponent
 // bytes) x 2 per token and kv head over the columns a slot holds (136 x 2
-// bytes at d = 128 and width 8, 72 x 2 at width 4): at 4 slots x 32 kv heads
-// x 32K tokens, 1.1 GB per layer at width 8, 0.33 ms at 3.35 TB/s. The TPU
-// kernel streams every chunk of L, masked past pos, and reads K twice (2K +
-// V); here chunks wholly past pos (past flushed for the staged main cache)
-// contribute exactly zero in both passes and are not read, and K is read
-// once: pass 1 keeps the scores, 4 bytes per token and query head, against
-// K's 136 per kv head.
+// bytes at d = 128 and width 8, 72 x 2 at width 4): at 4 slots x 32 kv
+// heads x 32K tokens, 1.1 GB per layer at width 8, 0.33 ms at 3.35 TB/s.
+// The TPU kernel streams every chunk of L, masked past pos, and reads K
+// twice (2K + V); here chunks wholly past pos (past flushed for the staged
+// main cache) contribute exactly zero in both passes and are not read, and
+// K is read once: pass 1 keeps the scores, 4 bytes per token and query
+// head, against K's 136 per kv head.
 //
-// Design: on Hopper the reason to split L is parallelism, not memory. A
-// block per (slot, kv head) would walk 32K tokens serially on 128 of the 132
-// SMs' worth of blocks; here a block per (slot, kv head, CHUNK tokens), its
-// n_rep query heads sharing each K/V value read, in three launches:
+// Row 8's design: decode_mx_split.cuh in mode READ, row 6's kernels, with
+// a block walking cpb chunks of 256 tokens through two shared-memory tiles
+// (the next chunk's cp.async copy in flight while the current one is
+// scored or multiplied), in two launches, the second a programmatic
+// dependent launch whose last block of each (slot, kv head) sums the
+// partials in chunk order. Under a sliding window (window > 0; -1 for
+// none) the columns at or below pos - window are masked too, and spans
+// wholly below the group holding the window's first key are skipped in
+// both passes.
+//
+// Row 9's design (kept as first built, its direct-cache branches too, so
+// that its time stays where it was until its own redesign): a
+// block per (slot, kv head, CHUNK tokens), its n_rep query heads sharing
+// each K/V value read, in three launches:
 //   1. scores of the chunk (decode_common.cuh's score_4_columns, the query
-//      quantizer, scaling, masked past pos) into the scores scratch, and the
-//      chunk's max m_c and sum l_c = Σ exp(s - m_c) per head;
+//      quantizer, scaling) into the scores scratch, and the chunk's max m_c
+//      and sum l_c = Σ exp(s - m_c) per head;
 //   2. every block combines the chunk stats of its (slot, kv head) in chunk
 //      order (m = max m_c, denom = Σ l_c exp(m_c - m); a chunk of max -inf
 //      adds 0, not NaN, and a zero denominator becomes 1, the TPU kernel's
 //      guards), p = exp(s - m) / denom of its chunk, quantized per 16 tokens
-//      (CHUNK % 16 == 0, so the groups stay inside a chunk; the tail group
-//      past pos holds p = 0), and its partial P·V (pv_row);
+//      (CHUNK % 16 == 0, so the groups stay inside a chunk), and its
+//      partial P·V (pv_row);
 //   3. a block per (slot, kv head) sums the partials in chunk order.
-// No float atomics: a run repeats itself to the bit. With STAGED the ring is
-// one more chunk after the main chunks [0, flushed): its block of pass 1
-// first encodes the fresh K/V rows into lane pos % SW (decode_common.cuh's
+// No float atomics: a run repeats itself to the bit. The ring is one more
+// chunk after the main chunks [0, flushed): its block of pass 1 first
+// encodes the fresh K/V rows into lane pos % SW (decode_common.cuh's
 // encode_kv_column, row 7's encode at either width), synchronises and
-// scores the lanes whose
-// token pos - ((pos - j) mod SW) is at least flushed; pass 2 reads the ring
-// after the kernel boundary, so the write is visible to it.
-#include "decode_common.cuh"
+// scores the lanes whose token pos - ((pos - j) mod SW) is at least
+// flushed; pass 2 reads the ring after the kernel boundary, so the write is
+// visible to it.
+#include "decode_mx_split.cuh"
 
 namespace {
 
@@ -340,30 +342,50 @@ int dispatch(int code_width, const void* q, void* kc, void* ke, void* vc,
 
 }  // namespace
 
-// One layer: q (B, H, D) f32; codes (B, KVH, D, L) (width 8) or
+// Row 8, one layer: q (B, H, D) f32; codes (B, KVH, D, L) (width 8) or
 // (B, KVH, D/2, L) (width 4, d-split nibbles) and exps (B, KVH, D/16, L)
 // int8, the layer's slice of the layer-stacked cache; positions (B) int32;
-// out (B, H, D) f32. Staged: ring codes (B, KVH, D, SW) (width 8) or
-// (B, KVH, D/2, SW) (width 4) and exps (B, KVH, D/16, SW) int8, updated in
-// place at lane pos % SW, the fresh rows
-// kh, vh (B, KVH, D) f32 and flushed (B) int32; null ring, row and flushed
-// pointers for the direct-write cache. Scratch: scores (B, H, L [+ SW]),
-// st_m and st_l (B, KVH, NZ, nrep), part (B, KVH, NZ, nrep, D) f32, with
-// NZ = ceil(L / 512) (+1 with a ring). window: the sliding window in
-// tokens, -1 for none (the staged cache takes none). D is 64, 80, 96 or 128
-// (width 4: D % 32 == 0).
+// out (B, H, D) f32; window: the sliding window in tokens, -1 for none;
+// cpb: the chunks of 256 tokens a block walks; scratch: decode_split.cuh's
+// carve with scores (B, H, L) and NZ = ceil(ceil(L / 256) / cpb). D is 64,
+// 80, 96 or 128 (width 4: D % 32 == 0).
 LQER_API int lqer_decode_attention_streaming(
+    const void* q, void* kc, void* ke, void* vc, void* ve, const void* pos,
+    void* scratch, void* out, int B, int KVH, int nrep, int D, int L,
+    int code_width, int cpb, float scaling, int q_mb, int p_mb, int window,
+    void* stream) {
+  using namespace decode;
+  auto i8 = [](void* p) { return static_cast<int8_t*>(p); };
+  SplitArgs a = {};
+  a.q = static_cast<const float*>(q);
+  a.kc = i8(kc), a.ke = i8(ke), a.vc = i8(vc), a.ve = i8(ve);
+  a.pos = static_cast<const int*>(pos);
+  a.out = static_cast<float*>(out);
+  a.KVH = KVH, a.nrep = nrep, a.L = L, a.cpb = cpb;
+  a.scaling = scaling, a.q_mb = q_mb, a.p_mb = p_mb, a.window = window;
+  return split_attend<READ>(a, B, D, code_width, scratch,
+                            reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Row 9, one layer: q (B, H, D) f32; main codes (B, KVH, D, L) (width 8)
+// or (B, KVH, D/2, L) (width 4) and exps (B, KVH, D/16, L) int8; ring codes
+// (B, KVH, D, SW) (width 8) or (B, KVH, D/2, SW) (width 4) and exps
+// (B, KVH, D/16, SW) int8, updated in place at lane pos % SW; the fresh
+// rows kh, vh (B, KVH, D) f32; positions and flushed (B) int32. Scratch:
+// scores (B, H, L + SW), st_m and st_l (B, KVH, NZ, nrep), part (B, KVH,
+// NZ, nrep, D) f32, with NZ = ceil(L / 512) + 1. D is 64, 80, 96 or 128
+// (width 4: D % 32 == 0).
+LQER_API int lqer_decode_attention_streaming_staged(
     const void* q, void* kc, void* ke, void* vc, void* ve, void* ksc,
     void* kse, void* vsc, void* vse, const void* kh, const void* vh,
     const void* pos, const void* fl, void* scores, void* st_m, void* st_l,
     void* part, void* out, int B, int KVH, int nrep, int D, int L, int SW,
-    int code_width, float scaling, int q_mb, int p_mb, int window,
-    void* stream) {
+    int code_width, float scaling, int q_mb, int p_mb, void* stream) {
+  if (ksc == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
 #define LQER_STREAM_ARGS                                                    \
   code_width, q, kc, ke, vc, ve, ksc, kse, vsc, vse, kh, vh, pos, fl, scores, \
-      st_m, st_l, part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, window, \
-      st
+      st_m, st_l, part, out, B, KVH, nrep, L, SW, scaling, q_mb, p_mb, -1, st
   switch (D) {
     case 64: return dispatch<64>(LQER_STREAM_ARGS);
     case 80: return dispatch<80>(LQER_STREAM_ARGS);

@@ -6,9 +6,8 @@
 //   - scores of 4 consecutive tokens of a token-axis-last MXINT8 or MXINT4
 //     cache (one char4 load per code row) and P·V along one d row (16 tokens
 //     per 16-byte load);
-//   - the block-wide max and sum of the n_rep rows, the exact f32 softmax
-//     over the score rows in shared memory and the quantization of p per
-//     16 tokens;
+//   - the block-wide max and sum of the n_rep rows, and the quantization
+//     of p per 16 tokens;
 //   - the causal and sliding-window mask, and the first column a kernel
 //     reads under a window.
 // The MXINT4 layout is d-split: packed row i holds value i in its low
@@ -296,52 +295,6 @@ __device__ __forceinline__ void normalize_quantize_p(float* sc, int LS, int n0,
     }
   }
   __syncthreads();
-}
-
-// Over the score rows sc[h * LS + j] of the nrep heads, for j in [0, n0) and
-// [off1, off1 + n1) (n0, n1 multiples of 16; masked scores are -inf): the
-// row max, p = exp(s - max) and its sum (thread-strided over the first range
-// then the second, xor butterfly, then the warps), p normalized and, with
-// p_mb >= 0, quantized per 16 (unsigned block_fp). Ends synchronised.
-__device__ __forceinline__ void softmax_quantize_p(float* sc, int LS, int n0,
-                                                   int off1, int n1, int nrep,
-                                                   int p_mb) {
-  __shared__ float m_stat[NREP_MAX];
-  __shared__ float s_stat[NREP_MAX];
-  const int t = threadIdx.x;
-  float acc[NREP_MAX];
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) acc[h] = -INFINITY;
-  for (int j = t; j < n0; j += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) acc[h] = fmaxf(acc[h], sc[h * LS + j]);
-  for (int j = t; j < n1; j += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) acc[h] = fmaxf(acc[h], sc[h * LS + off1 + j]);
-  block_reduce<true>(acc, nrep, m_stat);
-
-#pragma unroll
-  for (int h = 0; h < NREP_MAX; ++h) acc[h] = 0.f;
-  for (int j = t; j < n0; j += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) {
-        const float p = expf(sc[h * LS + j] - m_stat[h]);
-        sc[h * LS + j] = p;
-        acc[h] += p;
-      }
-  for (int j = t; j < n1; j += NT)
-#pragma unroll
-    for (int h = 0; h < NREP_MAX; ++h)
-      if (h < nrep) {
-        const float p = expf(sc[h * LS + off1 + j] - m_stat[h]);
-        sc[h * LS + off1 + j] = p;
-        acc[h] += p;
-      }
-  block_reduce<false>(acc, nrep, s_stat);
-  normalize_quantize_p(sc, LS, n0, off1, n1, nrep, s_stat, p_mb);
 }
 
 }  // namespace decode

@@ -15,6 +15,11 @@ the ring arrays to its outputs. Scores run over main ``[0, flushed)`` and
 the ring's ``[flushed, pos]`` with one exact f32 softmax; P is quantized
 per 16 along the concatenated ``[main L | ring 64]`` axis, then P·V. The
 fresh rows are encoded at the cache's width (``cache_write._encode_t``).
+
+The CUDA kernel splits ``[0, flushed)`` over blocks of ``split_plan.CHUNK``
+tokens and gives the ring a block of its own, the last chunk of every
+combine (``split_plan.slot_chunks``), so nothing in shared memory grows
+with L: any ``L % 16 == 0`` is served.
 """
 
 from __future__ import annotations
@@ -30,16 +35,7 @@ from ...parallel.collectives import (
 from . import _build
 from .attention import HEAD_DIMS, attend_plain
 from .cache_write import _encode_t
-
-THREADS = 128  # the kernel's block size: the main length must be a multiple
-SMEM_LIMIT = 220 * 1024  # shared memory the decode kernels may ask for
-
-
-def smem_bytes(n_rep: int, max_len: int, head_dim: int, ring: int = 64
-               ) -> int:
-    """Shared memory of the kernel: queries and score rows (main and ring)
-    of the n_rep heads."""
-    return 4 * n_rep * (head_dim + max_len + ring)
+from .split_plan import RING, scratch_floats
 
 
 def _quantize_sublane_groups_signed(x: torch.Tensor, mb: int, group: int
@@ -187,7 +183,7 @@ def decode_attention_quantized_staged(
     B, H, S, d = q.shape
     KVH, L = k_codes.shape[1], k_codes.shape[-1]
     SW = ks_codes.shape[-1]
-    if S != 1 or SW != 64 or group != 16 \
+    if S != 1 or SW != RING or group != 16 \
             or ks_codes.shape[2] != k_codes.shape[2]:
         raise ValueError(f"staged decode needs s=1, an MXINT cache and a "
                          f"64-lane ring of its rows (s={S}, SW={SW}, rows="
@@ -201,8 +197,7 @@ def decode_attention_quantized_staged(
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
     if (q_width is None or d not in HEAD_DIMS or (width == 4 and d % 32)
-            or L % THREADS or H % KVH
-            or smem_bytes(H // KVH, L, d, SW) > SMEM_LIMIT):
+            or L % 16 or H % KVH or not 1 <= H // KVH <= 8):
         raise ValueError(f"unsupported staged decode shape d={d} L={L} "
                          f"H={H} KVH={KVH} q_width={q_width}")
     arrays = (k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
@@ -217,12 +212,14 @@ def decode_attention_quantized_staged(
     pos = positions.to(torch.int32).contiguous()
     fl = flushed.to(torch.int32).contiguous()
     out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_floats(B, H, KVH, L, d, staged=True),
+                          dtype=torch.float32, device=q.device)
     _build.launch("decode_attention", qf.data_ptr(),
                   *(a.data_ptr() for a in arrays), khf.data_ptr(),
                   vhf.data_ptr(), pos.data_ptr(), fl.data_ptr(),
-                  out.data_ptr(), B, KVH, H // KVH, d, L, SW, width,
-                  float(scaling),
-                  q_width - 1, -1 if p_width is None else p_width - 1)
+                  scratch.data_ptr(), out.data_ptr(), B, KVH, H // KVH, d, L,
+                  width, float(scaling), q_width - 1,
+                  -1 if p_width is None else p_width - 1)
     decode_attention_quantized_staged.launches += 1
     decode_attention_quantized_staged.launches_width4 += width == 4
     return out

@@ -16,11 +16,11 @@ columns at or below ``pos - window`` too (``decode_attention.key_mask``).
 One layer per call, read in place from the layer-stacked cache
 ``(NL, B, KVH, L, d)`` at ``layer_index``.
 
-The CUDA kernel splits the context over blocks of :data:`CHUNK` tokens
-(scores and chunk stats, then P·V with the final stats), so it takes every
-length the JAX package's one-pass kernel takes (``L % 16 == 0``; the
+The CUDA kernel splits the context over blocks of ``split_plan.CHUNK``
+tokens (scores and chunk stats, then P·V with the final stats), so it takes
+every length the JAX package's one-pass kernel takes (``L % 16 == 0``; the
 serving regime is ``decode._check_cache_regime``'s) and any head dim of
-:data:`HEAD_DIMS`; its f32 scratch is :func:`scratch_floats` long.
+:data:`HEAD_DIMS`; its f32 scratch is ``split_plan.scratch_floats`` long.
 """
 
 from __future__ import annotations
@@ -35,18 +35,7 @@ from .decode_attention import (
     scaled_query,
     window_arg,
 )
-
-CHUNK = 256  # tokens per block of the CUDA kernel (csrc: CH)
-
-
-def scratch_floats(B: int, H: int, KVH: int, L: int, d: int) -> int:
-    """f32 scratch of the CUDA kernel: the scores (B, H, L), the chunk
-    stats m and l (B, KVH, NZ, n_rep), the partial outputs
-    (B, KVH, NZ, n_rep, d), NZ = ceil(L / CHUNK), and an int32 counter per
-    (slot, kv head)."""
-    nz = -(-L // CHUNK)
-    return B * H * L + B * H * nz * (2 + d) + B * KVH
-
+from .split_plan import scratch_floats
 
 def supports_decode_attention(attn_cfg, cache_width: int = 8) -> bool:
     """The decode kernels' eligibility: both attention matmuls in the MXINT

@@ -19,11 +19,12 @@ column ``positions[b]`` of that layer in place (where the JAX kernel
 aliases the cache to its outputs), then attends over ``[0, pos]`` with the
 fresh column: bitwise the write followed by the read-only kernel.
 
-The CUDA kernels split the context over blocks of ``fp_decode.CHUNK``
+The CUDA kernels split the context over blocks of ``split_plan.CHUNK``
 tokens (scores and chunk stats, then P·V with the final stats: row 5's
 scheme), so nothing limits the length but ``L % 16 == 0``; they take any
 head dim of :data:`HEAD_DIMS` (width 4: ``d % 32 == 0``, as the cache
-needs) and share row 5's scratch layout (``fp_decode.scratch_floats``).
+needs) and share row 5's scratch layout (``split_plan.scratch_floats``),
+and their kernels with rows 7 and 8 (``csrc/decode_mx_split.cuh``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from .decode_attention import (
     scaled_query,
     window_arg,
 )
-from .fp_decode import _mb, decode_attention_widths, scratch_floats
+from .fp_decode import _mb, decode_attention_widths
+from .split_plan import scratch_floats
 
 
 def decode_attention_widths_quantized(attn_cfg) -> dict:

@@ -16,7 +16,11 @@ the direct-write cache and :func:`~.decode_attention.staged_decode_plain`
 (with the ring write) for the staged one. The two differ from the one-pass
 kernels only in f32 summation order. The JAX package's
 ``streaming_l_chunk`` is a Mosaic tiling choice; the CUDA kernels split L
-in chunks of :data:`CHUNK` tokens of their own.
+their own way: the direct-write kernel (row 8) is row 6's split over L
+(``csrc/decode_mx_split.cuh``), each block walking
+``split_plan.chunks_per_block`` chunks of ``split_plan.CHUNK`` tokens
+through two shared-memory tiles; the staged one (row 9) takes chunks of
+:data:`CHUNK` tokens in three launches.
 """
 
 from __future__ import annotations
@@ -33,18 +37,14 @@ from .decode_attention import (
 )
 from .fp_decode import _mb
 from .quantized_decode import _check_cache, quantized_decode_plain
+from .split_plan import chunks_per_block, scratch_floats
 
-CHUNK = 512  # tokens per block of the CUDA kernels (csrc: CHUNK)
+CHUNK = 512  # tokens per block of the staged kernel (csrc: CHUNK)
 
 
-def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
-            q_width, p_width, scale_query, window=None) -> torch.Tensor:
-    """``main``: the layer's four (B, KVH, rows, L) arrays; ``ring``: the
-    four (B, KVH, rows, SW) rings, or None for the direct-write cache."""
+def _check_launch(q, arrays, width):
     B, H, _, d = q.shape
-    KVH, L = main[0].shape[1], main[0].shape[-1]
-    SW = 0 if ring is None else ring[0].shape[-1]
-    arrays = (*main, *(ring or ()))
+    KVH = arrays[0].shape[1]
     if (d not in HEAD_DIMS or (width == 4 and d % 32) or H % KVH
             or not 1 <= H // KVH <= 8):
         raise ValueError(f"unsupported streaming decode shape d={d} width "
@@ -53,27 +53,58 @@ def _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
         if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
             raise ValueError("cache arrays must be contiguous int8 CUDA "
                              "tensors")
+
+
+def _launch_direct(q, main, positions, width, scaling, q_width, p_width,
+                   scale_query, window) -> torch.Tensor:
+    """Row 8 on the layer's four (B, KVH, rows, L) arrays, each block
+    walking :func:`~.split_plan.chunks_per_block` chunks."""
+    B, H, _, d = q.shape
+    KVH, L = main[0].shape[1], main[0].shape[-1]
+    _check_launch(q, main, width)
+    cpb = chunks_per_block(B, KVH, L, window)
+    qf, scaling = scaled_query(q, scaling, scale_query)
+    qf = qf.contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_floats(B, H, KVH, L, d, cpb=cpb),
+                          dtype=torch.float32, device=q.device)
+    _build.launch("decode_attention_streaming", qf.data_ptr(),
+                  *(a.data_ptr() for a in main), pos.data_ptr(),
+                  scratch.data_ptr(), out.data_ptr(), B, KVH, H // KVH, d, L,
+                  width, cpb, float(scaling), _mb(q_width), _mb(p_width),
+                  window_arg(window))
+    return out
+
+
+def _launch_staged(q, main, ring, kh, vh, positions, flushed, width, scaling,
+                   q_width, p_width, scale_query) -> torch.Tensor:
+    """Row 9 on the layer's four (B, KVH, rows, L) arrays and the four
+    (B, KVH, rows, SW) rings."""
+    B, H, _, d = q.shape
+    KVH, L = main[0].shape[1], main[0].shape[-1]
+    SW = ring[0].shape[-1]
+    _check_launch(q, (*main, *ring), width)
     nrep = H // KVH
-    nz = -(-L // CHUNK) + (ring is not None)
+    nz = -(-L // CHUNK) + 1
     dev = q.device
     qf, scaling = scaled_query(q, scaling, scale_query)
     qf = qf.contiguous()
     pos = positions.to(torch.int32).contiguous()
-    new = [None if t is None else t.to(torch.float32).contiguous()
-           for t in (kh, vh)]
-    fl = None if flushed is None else flushed.to(torch.int32).contiguous()
+    new = [t.to(torch.float32).contiguous() for t in (kh, vh)]
+    fl = flushed.to(torch.int32).contiguous()
     scores = torch.empty(B, H, L + SW, dtype=torch.float32, device=dev)
     st_m, st_l = (torch.empty(B, KVH, nz, nrep, dtype=torch.float32,
                               device=dev) for _ in range(2))
     part = torch.empty(B, KVH, nz, nrep, d, dtype=torch.float32, device=dev)
     out = torch.empty(B, H, 1, d, dtype=torch.float32, device=dev)
-    ptrs = [_build.ptr(t) for t in (*main, *(ring or (None,) * 4))]
-    _build.launch("decode_attention_streaming", qf.data_ptr(), *ptrs,
-                  *(_build.ptr(t) for t in new), pos.data_ptr(),
-                  _build.ptr(fl), scores.data_ptr(), st_m.data_ptr(),
+    _build.launch("decode_attention_streaming_staged", qf.data_ptr(),
+                  *(a.data_ptr() for a in (*main, *ring)),
+                  *(t.data_ptr() for t in new), pos.data_ptr(),
+                  fl.data_ptr(), scores.data_ptr(), st_m.data_ptr(),
                   st_l.data_ptr(), part.data_ptr(), out.data_ptr(), B, KVH,
                   nrep, d, L, SW, width, float(scaling), _mb(q_width),
-                  _mb(p_width), window_arg(window))
+                  _mb(p_width))
     return out
 
 
@@ -103,9 +134,9 @@ def decode_attention_quantized_streaming(
     if not q.is_cuda or not 0 <= layer_index < k_codes.shape[0]:
         raise ValueError(f"unsupported device {q.device} or layer "
                          f"{layer_index} of {k_codes.shape[0]}")
-    out = _launch(q, [a[layer_index] for a in arrays], None, None, None,
-                  positions, None, width, scaling, q_width, p_width,
-                  scale_query, window)
+    out = _launch_direct(q, [a[layer_index] for a in arrays], positions,
+                         width, scaling, q_width, p_width, scale_query,
+                         window)
     decode_attention_quantized_streaming.launches += 1
     return out
 
@@ -144,8 +175,8 @@ def decode_attention_quantized_streaming_staged(
                                    scale_query=scale_query)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch(q, main, ring, kh, vh, positions, flushed, width, scaling,
-                  q_width, p_width, scale_query)
+    out = _launch_staged(q, main, ring, kh, vh, positions, flushed, width,
+                         scaling, q_width, p_width, scale_query)
     decode_attention_quantized_streaming_staged.launches += 1
     decode_attention_quantized_streaming_staged.launches_width4 += width == 4
     return out

@@ -72,7 +72,6 @@ from ..models.common import (
     rotary_tables,
     supports_fused_attention,
 )
-from ..ops.kernels import decode_attention as staged_decode
 from ..ops.kernels.attention import HEAD_DIMS
 from ..ops.kernels.cache_write import (
     flush_stage_to_main,
@@ -80,7 +79,6 @@ from ..ops.kernels.cache_write import (
     write_kv_tokens_fused,
 )
 from ..ops.kernels.decode_attention import (
-    SMEM_LIMIT,
     decode_attention_quantized_staged,
     key_mask,
 )
@@ -177,21 +175,14 @@ def _check_cache_regime(kind: str, max_len: int, head_dim: int) -> None:
             "JAX package takes its eager path (_attend), which is not ported")
 
 
-def streams(kind: str, max_len: int, head_dim: int, n_rep: int) -> bool:
+def streams(kind: str, max_len: int, head_dim: int) -> bool:
     """Whether decode over an MXINT cache of this kind takes the streaming
     kernels: past the JAX package's one-pass length (``_kvh_chunk_fits``),
-    where it streams L too. The direct-write caches' one-pass kernels (rows
-    6 and 10) split L over blocks, so their route is exactly JAX's; the
-    staged caches' one-pass kernel (row 7) holds its n_rep score rows in
-    shared memory, and where they do not fit (at n_rep = 2, d = 64 past
-    about 28K tokens) the staged caches stream while the JAX package takes
-    its one-pass staged kernel: the two compute one function and differ
-    only in f32 summation order."""
-    if kind in STAGED_KINDS:
-        smem = staged_decode.smem_bytes(n_rep, max_len, head_dim)
-        return not _kvh_chunk_fits(max_len, head_dim) or smem > SMEM_LIMIT
-    return kind in ("mxint8", "mxint4") and not _kvh_chunk_fits(max_len,
-                                                                head_dim)
+    where it streams L too. The one-pass kernels (rows 6, 7 and 10) split L
+    over blocks, so nothing in shared memory bounds their length and every
+    MXINT cache takes exactly JAX's route."""
+    return kind in ("mxint8", "mxint4", *STAGED_KINDS) \
+        and not _kvh_chunk_fits(max_len, head_dim)
 
 
 def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
@@ -199,8 +190,9 @@ def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
     """The kernels (``ops.kernels.KERNELS`` names) that a decode step
     launches, in order, for each layer over a cache of this kind; the
     staged cache's flush runs besides, once for all layers, when a ring
-    fills."""
-    stream = streams(kind, max_len, head_dim, n_rep)
+    fills. The route is the same at every ``n_rep`` the kernels take, as
+    in the JAX package."""
+    stream = streams(kind, max_len, head_dim)
     if kind in STAGED_KINDS:   # either width, read off the cache's rows
         return (("decode_attention_streaming_staged",) if stream
                 else ("decode_attention",))

@@ -21,7 +21,13 @@ and 9 at head dims 80 and 96, and a tiny OPT of d = 80 served through the
 kernels against the CPU; kernel 1 and the megakernel over every row count
 their tiles and K splits meet (1 to 511), W4 and W8, ranks 0 to 384 and
 136, with and without a bias, bf16 and raw X, a weight group at the
-exponent clamp, bit-repeatable at 7B widths. Needs an
+exponent clamp, bit-repeatable at 7B widths; rows 7 and 8 split over L:
+row 7 with one slot at each flushed edge (0, a chunk's tail, a whole chunk,
+one group past it, the ring one short of L; wrapped rings) at both code
+widths, head dims 64 to 128, n_rep 1 to 8 and with ``scale_query``, and at
+n_rep 2, d 64, L = 32768 against row 9; row 8 at L = 32768 with skewed
+positions, windowed and not, at d = 80 and width 4; each twice, equal to
+the bit. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -1201,3 +1207,105 @@ def test_w4_split_k_repeatable_at_7b(gen):
     first = k5.mlp_w4_fused(x, prep, meta["fmt"], **kw)
     for _ in range(9):
         assert torch.equal(first, k5.mlp_w4_fused(x, prep, meta["fmt"], **kw))
+
+
+# ---- rows 7 and 8 split over L (csrc/decode_mx_split.cuh)
+# row 7: one slot at each flushed value of interest (no main chunk; a
+# chunk's tail; its last group; a whole chunk; one group past it; the ring
+# one short of L), every ring but the first wrapped (pos >= 64)
+SPLIT_FLUSHED = [0, 32, 224, 256, 288, 448]
+SPLIT_RESIDUE = [40, 47, 5, 0, 33, 47]
+
+
+def _staged_split_case(gen, width, d, nrep, l, fl, residue):
+    b, kvh = len(fl), 2
+    main = [a[1] for a in _mx_cache(gen, width, b, kvh, d, l)]
+    ring = [a[1].contiguous() for a in _mx_cache(gen, width, b, kvh, d, 64)]
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+              for _ in range(2))
+    kh[0, 0, 0, :16] = 0.0                      # an all-zero group
+    f = _positions(fl)
+    return main, ring, q, kh, vh, f + _positions(residue), f
+
+
+def _check_staged_split(name, main, ring, q, kh, vh, p, fl, **kw):
+    """Row 7 against its plain version (rings bit-exact), one launch count
+    a call, a second call on a fresh copy of the rings equal to the bit."""
+    mine, again, theirs = ([t.clone() for t in ring] for _ in range(3))
+    wrapper = k3.decode_attention_quantized_staged
+    before = wrapper.launches
+    got = wrapper(q, *main, *mine, kh, vh, p, fl, **kw)
+    assert wrapper.launches == before + 1
+    want = k3.staged_decode_plain(q, *main, *theirs, kh, vh, p, fl, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(mine, theirs))
+    assert torch.equal(got, wrapper(q, *main, *again, kh, vh, p, fl, **kw))
+    assert all(torch.equal(a, c) for a, c in zip(again, theirs))
+    s, vals = k3.staged_scores(q, *main, *theirs, p, fl, **kw)
+    check_close(name, got, want,
+                attention_limit(s[:, :, None, :], vals, want, p_width=8),
+                max_flipped=0.05)
+    return got
+
+
+@pytest.mark.parametrize("nrep", [1, 2, 4, 8])
+@pytest.mark.parametrize("width,d", [(8, 64), (8, 80), (8, 96), (8, 128),
+                                     (4, 64), (4, 96), (4, 128)])
+def test_staged_decode_split(gen, width, d, nrep):
+    """Row 7 over chunks of 256 tokens and the ring's block, L = 512."""
+    case = _staged_split_case(gen, width, d, nrep, 512, SPLIT_FLUSHED,
+                              SPLIT_RESIDUE)
+    _check_staged_split(f"row 7 width {width} d {d} n_rep {nrep}", *case,
+                        scaling=d ** -0.5)
+
+
+@pytest.mark.parametrize("width,d", [(8, 80), (8, 128), (4, 128)])
+def test_staged_decode_split_scale_query(gen, width, d):
+    """Row 7 with OPT's query scaling (``scale_query``), n_rep 1."""
+    case = _staged_split_case(gen, width, d, 1, 512, SPLIT_FLUSHED,
+                              SPLIT_RESIDUE)
+    case[2].mul_(3)
+    _check_staged_split(f"row 7 scale_query width {width} d {d}", *case,
+                        scaling=d ** -0.5, scale_query=True)
+
+
+@pytest.mark.parametrize("width", [8, 4])
+def test_staged_decode_split_long(gen, width):
+    """Row 7 at n_rep 2, d 64, L 32768, which its shared memory refused
+    before it split L, against its plain version and against row 9 on the
+    same inputs."""
+    fl = [0, 16352, 16384, 32704]
+    case = _staged_split_case(gen, width, 64, 2, 32768, fl, [40, 31, 47, 63])
+    got = _check_staged_split(f"row 7 at L 32768 width {width}", *case,
+                              scaling=0.125)
+    main, ring, q, kh, vh, p, f = case
+    ring = [t.clone() for t in ring]
+    row9 = ks.decode_attention_quantized_streaming_staged(
+        q, *main, *ring, kh, vh, p, f, scaling=0.125)
+    s, vals = k3.staged_scores(q, *main, *ring, p, f, scaling=0.125)
+    check_close("row 7 vs row 9", got, row9,
+                attention_limit(s[:, :, None, :], vals, row9, p_width=8),
+                max_flipped=0.05)
+
+
+@pytest.mark.parametrize("width,d,nrep,window", [
+    (8, 80, 1, None), (8, 80, 4, 4096), (4, 128, 2, None),
+    (4, 128, 4, 4096), (8, 128, 1, 600), (8, 64, 8, None)])
+def test_streaming_split_long(gen, width, d, nrep, window):
+    """Row 8 at L 32768 with skewed positions, each block walking several
+    chunks: against its plain version, one launch count a call, a second
+    call equal to the bit."""
+    b, kvh, l = 4, 4, 32768
+    cache = _mx_cache(gen, width, b, kvh, d, l)
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    p = _positions([64, 4095, 20001, 32767])
+    kw = dict(scaling=d ** -0.5, window=window)
+    wrapper = ks.decode_attention_quantized_streaming
+    before = wrapper.launches
+    got = wrapper(q, *cache, p, 1, **kw)
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, wrapper(q, *cache, p, 1, **kw))
+    want = kq.quantized_decode_plain(q, *cache, p, 1, **kw)
+    s, vals = kq.quantized_scores(q, *cache, p, 1, **kw)
+    check_close(f"row 8 width {width} d {d} window {window}", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of rows 4, 5, 6 and 10 goes, on one card.
+"""Where the time of the attention rows 4 to 10 goes, on one card.
 
-    python3 tools/bench_attention_parts.py [--rows 4 5 6 10]
+    python3 tools/bench_attention_parts.py [--rows 4 5 6 7 8 9 10]
+        [--cpb N ...]
 
 Row 5 (fp-cache decode attention, ``ops/kernels/fp_decode.py``) at
 ``chip_smoke.py``'s phase-3 shapes (Llama-2-7B: 8 slots x 32 kv heads,
@@ -17,7 +18,18 @@ queries and the output, over the card's memory rate) and
 window mask where there is a window). Row 4 (prefill attention,
 ``ops/kernels/attention.py``) at 8 prompts x 64 tokens and one prompt of
 2048 tokens, 32 heads, d = 128: the launch and each of its kernels' device
-time. Times are medians of CUDA events with L2 flushed before each launch
+time. Row 7 (staged decode, ``ops/kernels/decode_attention.py``) at the
+Llama shape (flushed = pos // 32 * 32, widths 8 and 4), OPT-2.7b's and at
+8 slots x 16 kv heads of 2 queries, d = 64, L = 32768 (positions up to
+32767); rows 8 and 9 (``ops/kernels/streaming_decode.py``) at the
+long-context shape (8 slots x 32 kv heads, L = 32768, positions 64..32767,
+widths 8 and 4), row 8 also at Mistral-7B's (8 kv heads of 4 queries, L =
+32768, positions 32000..32030) with and without the window, and at
+L = 2048, 16384 and 24576; row 8 beside row 6 and row 7 beside row 9 on
+the same inputs (where the one-pass and the streaming kernels cross). Rows 7, 8 and 9 print the
+launch, each kernel's device time, the bound and SDPA; ``--cpb`` times row
+8 with each block walking that many chunks instead of its own choice
+(``split_plan.chunks_per_block``). Times are medians of CUDA events with L2 flushed before each launch
 (``chip_smoke.Timer``); one JSON line per shape, the card's name and power
 limit first; a shape the checkout's kernels refuse prints its reason.
 Needs one CUDA device. Copied with ``chip_smoke.py`` into another checkout
@@ -124,6 +136,131 @@ def _rows_6_10(timer, launch_split, gen, rows):
             del cache, vals
 
 
+def _sdpa_ms(timer, q, cache, mask):
+    """SDPA on the unquantized bf16 values of a (B, KVH, rows, L) cache."""
+    import torch.nn.functional as F
+
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+
+    k, v = (kq._decode_cache_block(cache[i], cache[i + 1]).transpose(-1, -2)
+            .to(torch.bfloat16).contiguous() for i in (0, 2))
+    qb = q.to(torch.bfloat16)
+    ms = timer(lambda: F.scaled_dot_product_attention(
+        qb, k, v, attn_mask=mask[:, None, None, :], enable_gqa=True))
+    del k, v
+    return ms
+
+
+def _encoded(gen, width, B, KVH, D, L):
+    """K and V codes and exps (B, KVH, rows, L) of seeded values."""
+    from lqer_tpu_torch.parallel.collectives import mx4_encode, mx8_encode
+
+    enc = mx8_encode if width == 8 else mx4_encode
+    out = []
+    for _ in range(2):
+        c, e = enc(torch.randn(B, KVH, L, D, generator=gen, device="cuda"),
+                   16, zero_fill=1.0)
+        out += [c.transpose(-1, -2).contiguous(),
+                e.transpose(-1, -2).contiguous()]
+    return out
+
+
+LONG_POS = [64, 511, 512, 4095, 12288, 20001, 28671, 32767]
+POS_16K = [min(x, 16383) for x in LONG_POS]
+# (rows, shape, slots, kv heads, n_rep, d, L, positions, code widths) of
+# rows 7 and 9: the one-pass and the streaming staged kernel on the same
+# shapes at L = 2048, 16384 and 32768
+STAGED_SHAPES = (
+    ((7, 9), "Llama", 8, 32, 1, 128, 2048, DECODE_SHAPES[0][6], (8, 4)),
+    ((7,), "OPT-2.7b", 8, 32, 1, 80, 2048, DECODE_SHAPES[0][6], (8,)),
+    ((7, 9), "n_rep 2, d 64", 8, 16, 2, 64, 32768, LONG_POS, (8,)),
+    ((7, 9), "L 16384", 8, 32, 1, 128, 16384, POS_16K, (8,)),
+    ((7, 9), "long", 8, 32, 1, 128, 32768, LONG_POS, (8, 4)))
+
+
+def _staged(timer, launch_split, gen, rows, rate):
+    """Rows 7 and 9: the main cache below flushed = pos // 32 * 32 and the
+    ring's lanes from flushed to pos."""
+    from lqer_tpu_torch.ops.kernels import decode_attention as k3
+    from lqer_tpu_torch.ops.kernels import streaming_decode as ks
+
+    cases = [(row, *shape) for which, *shape in STAGED_SHAPES
+             for row in which if row in rows]
+    for row, what, B, KVH, nrep, D, L, pos, widths in cases:
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        fl = p // 32 * 32
+        q = torch.randn(B, KVH * nrep, 1, D, generator=gen, device="cuda")
+        kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+                  for _ in range(2))
+        held = int(fl.sum()) + int((p - fl + 1).sum())
+        mask = torch.arange(L, device="cuda")[None, :] <= p[:, None].long()
+        fn = (k3.decode_attention_quantized_staged if row == 7
+              else ks.decode_attention_quantized_streaming_staged)
+        for width in widths:
+            main = _encoded(gen, width, B, KVH, D, L)
+            ring = [t[..., :64].contiguous() for t in
+                    _encoded(gen, width, B, KVH, D, 64)]
+            run = lambda: fn(q, *main, *ring, kh, vh, p, fl,
+                             scaling=D ** -0.5)
+            per_token = KVH * (main[0].shape[-2] + D // 16) * 2
+            nb = held * per_token + 2 * q.numel() * 4 + 2 * kh.numel() * 4
+            line = {"row": row, "width": width, "shape": what}
+            try:
+                line.update(ms=timer(run), bound_ms=nb / rate * 1e3,
+                            sdpa_ms=_sdpa_ms(timer, q, main, mask),
+                            kernels_ms=launch_split(torch, run))
+            except ValueError as e:   # a shape this checkout refuses
+                line["refused"] = str(e)
+            print(json.dumps(line), flush=True)
+            del main, ring
+
+
+def _row8(timer, launch_split, gen, rate, cpbs):
+    """Row 8 at the long-context and Mistral shapes, and at L = 24576
+    beside row 6 on the same inputs."""
+    from lqer_tpu_torch.ops.kernels import quantized_decode as kq
+    from lqer_tpu_torch.ops.kernels import streaming_decode as ks
+    from lqer_tpu_torch.ops.kernels.decode_attention import key_mask
+
+    own = getattr(ks, "chunks_per_block", None)
+    mistral = [6000 + 26000 + i for i in (0, 1, 3, 7, 10, 13, 21, 30)]
+    cases = [("long", 8, 32, 1, 32768, LONG_POS, 8, None),
+             ("long", 8, 32, 1, 32768, LONG_POS, 4, None),
+             ("Mistral", 8, 8, 4, 32768, mistral, 8, 4096),
+             ("Mistral unwindowed", 8, 8, 4, 32768, mistral, 8, None),
+             ("L 24576", 8, 32, 1, 24576,
+              [min(x, 24575) for x in LONG_POS], 8, None),
+             ("L 16384", 8, 32, 1, 16384, POS_16K, 8, None),
+             ("L 2048", 8, 32, 1, 2048, DECODE_SHAPES[0][6], 8, None)]
+    for what, B, KVH, nrep, L, pos, width, win in cases:
+        D = 128
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        q = torch.randn(B, KVH * nrep, 1, D, generator=gen, device="cuda")
+        cache = [t[None] for t in _encoded(gen, width, B, KVH, D, L)]
+        lo = (p - win + 1).clamp(min=0) // 16 * 16 if win else 0
+        tokens = int(((p + 16) // 16 * 16 - lo).sum())
+        nb = tokens * KVH * (cache[0].shape[-2] + D // 16) * 2             + 2 * q.numel() * 4
+        kw = dict(scaling=D ** -0.5, window=win)
+        run = lambda: ks.decode_attention_quantized_streaming(
+            q, *cache, p, 0, **kw)
+        line = {"row": 8, "width": width, "shape": what, "ms": timer(run),
+                "bound_ms": nb / rate * 1e3,
+                "sdpa_ms": _sdpa_ms(timer, q, [t[0] for t in cache],
+                                    key_mask(L, p, win)),
+                "kernels_ms": launch_split(torch, run)}
+        if own is not None:
+            line["cpb"] = own(B, KVH, L, win)
+            for cpb in cpbs:
+                ks.chunks_per_block = lambda *a, _c=cpb: _c
+                line[f"cpb{cpb}_ms"] = timer(run)
+                line[f"cpb{cpb}_kernels_ms"] = launch_split(torch, run)
+            ks.chunks_per_block = own
+        line["row6_ms"] = timer(lambda: kq.decode_attention_quantized(
+            q, *cache, p, 0, **kw))
+        print(json.dumps(line), flush=True)
+        del cache
+
+
 def _row4(timer, launch_split, gen):
     from lqer_tpu_torch.ops.kernels import attention as k2
     from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
@@ -147,14 +284,19 @@ def _row4(timer, launch_split, gen):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, nargs="+", default=[4, 5, 6, 10],
-                    choices=[4, 5, 6, 10])
-    rows = set(ap.parse_args().rows)
+                    choices=[4, 5, 6, 7, 8, 9, 10])
+    ap.add_argument("--cpb", type=int, nargs="*", default=[],
+                    help="row 8 also with each block walking this many "
+                    "chunks")
+    args = ap.parse_args()
+    rows = set(args.rows)
     if not torch.cuda.is_available():
         print("bench_attention_parts: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import Timer, card_line, launch_split
+    from chip_smoke import Timer, card_line, launch_split, peak_rates
 
     print(f"card: {card_line()}", flush=True)
+    rate = peak_rates(torch.cuda.get_device_name(0))[0]
     timer = Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -162,6 +304,10 @@ def main() -> int:
         _row5(timer, launch_split, gen)
     if rows & {6, 10}:
         _rows_6_10(timer, launch_split, gen, rows)
+    if rows & {7, 9}:
+        _staged(timer, launch_split, gen, rows, rate)
+    if 8 in rows:
+        _row8(timer, launch_split, gen, rate, args.cpb)
     if 4 in rows:
         _row4(timer, launch_split, gen)
     return 0

@@ -27,6 +27,11 @@ Then, the Llama engine freed, it builds Mistral-7B-v0.1 (32 layers, rank
 reads the window's 4096 keys a slot), after two untimed ones; then the
 same on the direct ``mxint8`` cache (the context built by the checkout's
 ``chip_smoke.fill_context``), with the device busy time of 5 more steps.
+Last, Llama-2-7B again on the ``mxint8`` cache at 4 slots, max_len 32768
+(past the one-pass length: the fused encode + write and the streaming
+decode kernel, row 8), 10 decode steps from position 32000 over a context
+built the same way, after two untimed ones, and the device busy time of 5
+more.
 
 Each process prints one JSON line; the card's name and power limit come
 first. Needs one CUDA device.
@@ -98,6 +103,7 @@ def child(root: str) -> None:
     torch.cuda.empty_cache()
     mistral, _ = mistral_steps(torch, timed)
     mistral8, mistral8_busy = mistral_steps(torch, timed, "mxint8")
+    long8, long8_busy = llama_long_steps(torch, timed, cfg)
     print(json.dumps({"root": root, "admission_8x64_ms": admission,
                       "decode_step_ms_median": statistics.median(steps),
                       "decode_steps_ms": [round(t, 2) for t in steps],
@@ -109,7 +115,10 @@ def child(root: str) -> None:
                           [round(t, 2) for t in mistral],
                       "mistral_mxint8_step_ms_median":
                           statistics.median(mistral8),
-                      "mistral_mxint8_step_device_busy_ms": mistral8_busy}),
+                      "mistral_mxint8_step_device_busy_ms": mistral8_busy,
+                      "llama_mxint8_32k_step_ms_median":
+                          statistics.median(long8),
+                      "llama_mxint8_32k_step_device_busy_ms": long8_busy}),
           flush=True)
 
 
@@ -167,6 +176,39 @@ def mistral_steps(torch, timed, cache_dtype: str = "bfloat16",
             steps.append(ms)
     busy = (None if cache_dtype == "bfloat16"
             else device_busy_ms(torch, engine, tokens))
+    del engine
+    torch.cuda.empty_cache()
+    return steps, busy
+
+
+def llama_long_steps(torch, timed, cfg, position: int = 32000
+                     ) -> tuple[list[float], float]:
+    """10 decode steps of ``cfg`` on the ``mxint8`` cache, 4 slots at
+    max_len 32768, from ``position`` onwards over a context of seeded
+    random rows, and the device busy ms of 5 more."""
+    import numpy as np
+
+    from chip_smoke import fill_context
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import build_random_model
+
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=3)
+    params["model.embed_tokens.weight"] = \
+        params["model.embed_tokens.weight"].to(torch.bfloat16)
+    engine = DecodeEngine(params, cfg, qcfgs, num_slots=4, max_len=32768,
+                          cache_dtype="mxint8", pallas_backend=backend,
+                          consume_backend=True, lm_head_width=8,
+                          device="cuda")
+    del backend
+    fill_context(torch, {"card": engine}, np.full(4, position), seed=17)
+    tokens = np.zeros(4, dtype=np.int64)
+    steps = []
+    for i in range(12):
+        ms = timed(engine.decode_logits, tokens)
+        engine.lengths += 1
+        if i >= 2:
+            steps.append(ms)
+    busy = device_busy_ms(torch, engine, tokens)
     del engine
     torch.cuda.empty_cache()
     return steps, busy
