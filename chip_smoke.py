@@ -55,7 +55,9 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    kernel, and the row write of every
    layer (32 layers x 8 slots x 32 kv heads, L = 2048; MXINT8 and MXINT4
    columns and bf16 rows) bit-exact with its plain version and with 32
-   single-layer launches, beside ``index_put_``;
+   single-layer launches, beside ``index_put_``; rows 9, 11 and 12 also
+   print their earlier kernels' times (EARLIER_MS); last, an empty launch
+   under the same timer, the floor of the launch-bound cache writes;
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
    default (each MLP whole, for the megakernel), teacher-forced through an
    8 x 64-token admission (512 rows: the large-M route) and 20 decode
@@ -68,10 +70,12 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    on the CPU, each packed weight decoded once (the 272 run on the card
    only); then ``mxint8``, ``mxint8-staged`` and ``mxint4`` at max_len
    24576 (the streaming routes), kernels against plain versions on the
-   card over prompts of 500..600 tokens (decode positions across the
-   streaming kernels' 512-token chunk boundary), and against the CPU (one
-   slot, LONG_CPU_STEPS steps) from a copy of the card's cache at
-   positions 520.. and over the short prompts. Logits within
+   card over prompts of 500..600 tokens, and against the CPU (one slot,
+   LONG_CPU_STEPS steps) from a copy of the card's cache at positions
+   520.. and over the short prompts, then kernels against plain versions
+   on the card from a context built to SPAN_EDGE_POSITIONS (decode
+   positions and the staged slots' flushed on both sides of the
+   streaming kernels' 2048-token span edge). Logits within
    LOGIT_MAX_STEPS and LOGIT_RMS_STEPS 8-bit code steps at every step for
    each pair; the cache (below ``flushed`` for the staged one) of kernels
    vs plain on the card equal on >= 99.9% and within one code step (a
@@ -188,6 +192,12 @@ CACHE_CPU_STEPS = 14
 # on the H100 it moved values by at most one step (PERF.md), the limit is
 # twice that.
 CACHE_CPU_STEPS_MXINT4 = 2
+# Phase 4's long-context runs from a built context: the first slot inside
+# the streaming kernels' first 2048-token span, the others across its edge
+# (a staged slot's flushed, the 32-token block below it, at 1984..2080;
+# the flush at step 17 moves it to 2016..2112)
+SPAN_EDGE_POSITIONS = np.array([600, 2000, 2030, 2040, 2047, 2060, 2080,
+                                2111], dtype=np.int32)
 # Decode steps of the CPU side of the long-context runs (one slot at
 # Llama's max_len 24576, Mistral's 4 at 8192): the plain versions decode
 # the whole cache of each layer per call, a few seconds per step.
@@ -202,6 +212,14 @@ LOGIT_RMS_STEPS_OPT350M = 0.1
 # Runs that must fail the logits limits against the kernels: one linear's
 # correction left out, and (Mistral) the sliding window left out
 NEGATIVE_CONTROLS = ("no correction", "no window")
+# Phase-3 times (ms) of rows 9, 11 and 12 with their earlier kernels (row
+# 9: three launches over 512-token chunks; rows 11 and 12: a block per slot
+# and array), from PERF.md's kernel table (H100 80GB HBM3, 700 W), printed
+# beside this run's
+EARLIER_MS = {"row 9": 0.9473, "row 9 width 4": 0.9895, "row 9 d = 80": 0.1278,
+              "row 11": 0.0142, "row 11 MXINT4 columns": 0.0121,
+              "row 11 Mistral": 0.0083, "row 12 mxint8 columns": 0.1933,
+              "row 12 mxint4 columns": 0.1130, "row 12 bf16 rows": 0.0224}
 # Fraction of a kernel's outputs allowed past the plain rtol/atol band: a
 # flipped P or H rounding moves a whole output row, a flipped correction
 # code one element (``testing.check_close``).
@@ -870,9 +888,11 @@ def phase_direct_kernels(torch, timer, rates, results):
         b_ms, b_by = bound(moved, 0)
         what = ("the four MXINT4 columns" if lane
                 else "the bf16 K and V rows")
+        earlier = EARLIER_MS["row 11 MXINT4 columns" if lane else "row 11"]
         print(f"row write, {what} of {B} slots, 32 kv heads: bit-exact "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-              f"{b_ms:.4f} library_ms={lib_ms:.4f} (index_put_)", flush=True)
+              f"{b_ms:.4f} library_ms={lib_ms:.4f} (index_put_); the "
+              f"earlier kernel {earlier} ms", flush=True)
         if not lane:
             results["row_write"] = dict(
                 max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
@@ -1026,7 +1046,8 @@ def phase_stream_kernels(torch, timer, rates, results):
            "the unquantized bf16 values of the main cache, the unquantized "
            "yardstick", "one layer, B=8, 32 kv heads, L=32768, flushed "
            "64..32736", f", rings bit-exact, K's second read would add "
-           f"{held * per_token / bw * 1e3:.4f} ms to the bound")
+           f"{held * per_token / bw * 1e3:.4f} ms to the bound, the earlier "
+           f"kernel {EARLIER_MS['row 9']} ms,")
     del main, rings, r_k, r_p
 
     # ---- row 7 at n_rep 2, d 64, L = 32768, which its shared memory
@@ -1788,7 +1809,8 @@ def phase_mistral_kernels(torch, timer, rates, results):
     b_ms, b_by = bound(sum(n.numel() * 6 for n in news), 0)
     print(f"Mistral row write, the bf16 K and V rows of {B} slots, {KVH} kv "
           f"heads: bit-exact kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.4f}", flush=True)
+          f"bound_ms={b_ms:.4f}; the earlier kernel "
+          f"{EARLIER_MS['row 11 Mistral']} ms", flush=True)
     results["row_write"]["mistral"] = dict(
         max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1912,7 +1934,9 @@ def phase_head_dim_kernels(torch, timer, rates, results):
              lambda: (lambda s_, v_: (s_[:, :, None, :], v_))(
                  *k3.staged_scores(q, *main, *theirs, pos, fl, **kw)),
              staged_tokens * per_token + nbytes(kh, vh) + column,
-             staged_tokens, ", rings bit-exact")
+             staged_tokens, ", rings bit-exact" + (
+                 f", the earlier kernel {EARLIER_MS['row 9 d = 80']} ms,"
+                 if key == "decode_attention_streaming_staged" else ""))
     mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
     kq.decode_attention_quantized_write(q, *mine, kh, vh, pos, li, **kw)
     kq.quantized_write_plain(q, *theirs, kh, vh, pos, li, **kw)
@@ -2036,9 +2060,11 @@ def phase_slice7_kernels(torch, timer, rates, results):
         b_ms, b_by = bound(held * per_token + nbytes(q, kh, vh)
                            + B * H * D * 4 + B * KVH * (D // 2 + D // 16) * 2,
                            2 * 2 * H * held * D)
+        earlier = (f", the earlier kernel {EARLIER_MS['row 9 width 4']} ms,"
+                   if L == 32768 else "")
         line(f"{what} B={B} KVH={KVH} L={L} flushed={fl.tolist()}", c, ms,
              plain_ms, b_ms, None, "no library call computes it",
-             ", rings bit-exact")
+             f", rings bit-exact{earlier}")
         results[key]["width4"] = entry(
             c, ms, plain_ms, b_ms, b_by, None,
             f"one layer of an MXINT4 staged cache, B=8, 32 kv heads, L={L}")
@@ -2239,7 +2265,8 @@ def phase_slice7_kernels(torch, timer, rates, results):
               f"row-write launches kernel_ms={ms:.4f} plain_ms="
               f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
               f"(index_put_ of every layer's rows); {NL} row-write launches "
-              f"{row11_ms:.4f} ms", flush=True)
+              f"{row11_ms:.4f} ms; the earlier kernel "
+              f"{EARLIER_MS['row 12 ' + kind]} ms", flush=True)
         if kind == "mxint8 columns":
             results["row_write_all"] = dict(
                 max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
@@ -2374,9 +2401,9 @@ def continue_from_card(torch, card, others, last, steps):
     ``others`` (name: engine, run as :func:`run_context` says; an engine of
     fewer slots takes the first), all fed the card's greedy tokens from its
     ``last`` logits, each other engine starting from a copy of the card's
-    cache and lengths: decode positions past the streaming kernels' first
-    512-token chunk, without the drift the card's and the CPU's libraries
-    build up over a long admission. The card runs its steps first, then
+    cache and lengths: decode positions deep in a long context, without
+    the drift the card's and the CPU's libraries build up over a long
+    admission. The card runs its steps first, then
     each other engine all of its steps in one context (the CPU decodes
     each packed weight once). Returns each engine's logits per step."""
     for engine in others.values():
@@ -2579,13 +2606,19 @@ def phase_teacher_forced(torch):
     # each decode step launches, per layer, the kernels decode_route names
     # (and no other decode kernel). At long context the kernels meet the
     # plain versions on the card over long prompts (500..600 tokens, one
-    # 1024-token bucket), so the decode positions cross the streaming
-    # kernels' 512-token chunk boundary and some staged slots hold two main
-    # chunks. They meet the CPU (one slot) twice: from a copy of the card's
-    # cache after those steps (positions 520.., past the first chunk), and
-    # over the short prompts from the admission on. A CPU admission of a
-    # long prompt drifts from the card's by the libraries' flipped
-    # roundings, which cascade through every token of it (PERF.md).
+    # 1024-token bucket: prefill attention is bit-exact with its plain
+    # version up to 1024 keys, where torch takes its warp softmax). They
+    # meet the CPU (one slot) twice: from a copy of the card's cache after
+    # those steps (positions 520..), and over the short prompts from the
+    # admission on. A CPU admission of a long prompt drifts from the card's
+    # by the libraries' flipped roundings, which cascade through every
+    # token of it (PERF.md). Last, the streaming kernels' blocks span 2048
+    # tokens there (split_plan.chunks_per_block), so the card's context is
+    # built to SPAN_EDGE_POSITIONS (staged: flushed to the 32-token block)
+    # and the plain versions continue from a copy of it: every slot but the
+    # first holds columns on both sides of a span's edge, and the staged
+    # slots' flushed lies below, at and past it, before and after the
+    # flush at step 17.
     long_len = 24576
     long_lengths = np.array([500, 505, 510, 511, 512, 530, 560, 600],
                             dtype=np.int32)
@@ -2643,7 +2676,7 @@ def phase_teacher_forced(torch):
                                cpu_steps=cpu_limit,
                                flushed_steps=cpu_limit if long else 1)
         if long:
-            card = engines["kernels"]
+            card, plain = engines["kernels"], engines["plain"]
             engines = {"kernels": card, "cpu": cpu}
             logits = continue_from_card(torch, card, {"cpu": cpu},
                                         logits["kernels"][-1], LONG_CPU_STEPS)
@@ -2657,6 +2690,20 @@ def phase_teacher_forced(torch):
             failed += compare_runs(engines, logits, [("kernels", "cpu")],
                                    f"{what}, short prompts", t0,
                                    cpu_steps=cpu_limit, flush=False)
+            fill_context(torch, {"kernels": card}, SPAN_EDGE_POSITIONS,
+                         SEED + 19)
+            if "flushed" in card.cache:
+                card.cache["flushed"].copy_(torch.as_tensor(
+                    SPAN_EDGE_POSITIONS // 32 * 32, device="cuda"))
+            engines = {"kernels": card, "plain": plain}
+            logits = continue_from_card(torch, card, {"plain": plain},
+                                        logits["kernels"][-1], steps)
+            failed += compare_runs(
+                engines, logits, [("kernels", "plain")],
+                f"{what}, from a built context at positions "
+                f"{SPAN_EDGE_POSITIONS.tolist()}.. (span edge 2048)", t0,
+                cpu_steps=cpu_limit, flushed_steps=cpu_limit, admitted=False)
+            del plain
         del engines, cpu
     del cpu_backend, cpu_params
 
@@ -3423,6 +3470,13 @@ def main() -> int:
     phase_mistral_kernels(torch, timer, rates, results)
     phase_head_dim_kernels(torch, timer, rates, results)
     phase_slice7_kernels(torch, timer, rates, results)
+    floor = timer(lambda: torch.cuda._sleep(0))
+    print(f"empty launch (torch.cuda._sleep(0): one thread that returns at "
+          f"once) under phase 3's timer: {floor:.4f} ms, the floor of the "
+          f"launch-bound cache writes (rows 11 to 14)", flush=True)
+    for k in ("row_write", "row_write_all", "encode_write_tokens",
+              "cache_write"):
+        results[k]["launch_floor_ms"] = floor
     print(f"phase 3 done at {time.perf_counter() - t0:.0f}s", flush=True)
     phase_teacher_forced(torch)
     phase_teacher_forced_opt(torch)
@@ -3478,7 +3532,8 @@ def main() -> int:
             **{x: r[x] for x in ("mistral", "width4", "width8", "opt_2_7b",
                                  "launch_split_ms", "quant_x",
                                  "admission_2048", "opt_scale_query",
-                                 "mistral_12288", "nrep2_d64_32768")
+                                 "mistral_12288", "nrep2_d64_32768",
+                                 "launch_floor_ms")
                if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -36,11 +36,17 @@
 // What bounds it on an H100: the bytes, a read of the new rows and a write
 // of the stored values (the bf16 K and V rows of 8 slots at 32 kv heads,
 // d = 128: 256 KB of f32 read, 128 KB written): far below a launch's own
-// cost, so it is launch-bound.
+// cost, so it is launch- and latency-bound: what counts is that every load
+// is in flight at once.
 //
 // Design: the TPU kernel read-modify-wrote aligned (32-row or 128-lane)
-// windows because Mosaic cannot store one dynamic row; here a block per
-// (slot, array) stores just the row, one launch for all arrays of a call.
+// windows because Mosaic cannot store one dynamic row; here one launch for
+// all arrays of a call runs a flat grid of independent items, one a thread,
+// so no thread waits for more than one round trip to memory: 8 values of a
+// bf16 row (two float4 loads of the f32 row, one 16-byte store of packed
+// bf16) where the row and both pointers allow, else one value (each code
+// or exponent byte of a column from its own thread). A thread loads its
+// value before its slot's position, so the two loads overlap.
 //
 // The row write of every layer.
 //
@@ -56,7 +62,7 @@
 // a launch's own cost; one launch for all layers takes NL - 1 launches off
 // a decode step.
 //
-// Design: the same kernel, its grid grown by a layer axis (blockIdx.z).
+// Design: the same kernel, its grid grown by a layer axis (blockIdx.y).
 //
 // The fused MXINT8 encode + write.
 //
@@ -79,6 +85,8 @@
 // (a Mosaic store needs an aligned window); here a block per slot encodes
 // one 16-value group per thread (decode_common.cuh's encode_group, the
 // decode kernels' own) and stores the bytes of column pos only.
+#include <climits>
+
 #include "decode_common.cuh"
 
 namespace {
@@ -115,32 +123,63 @@ struct RowArrays {
   int rows[4];         // R
   int cols[4];         // C
   int kind[4];         // 0: int8 copy; 1: f32 -> bf16
+  int vec[4];          // values an item: 8 (a bf16 row's 16 bytes) or 1
+  int start[5];        // first item of each array; start[4]: all items
 };
 
-// Grid (B, arrays, layers): layer li0 + blockIdx.z takes the rows of layer
-// blockIdx.z of src (one layer of rows when gridDim.z == 1).
-__global__ void row_write_kernel(RowArrays a, const int* __restrict__ pos_p,
-                                 int li0, int B, int KVH) {
-  const int b = blockIdx.x, arr = blockIdx.y, z = blockIdx.z, li = li0 + z;
-  const int R = a.rows[arr], C = a.cols[arr];
+// The bits of two values rounded to bf16 (nearest even), x at the lower
+// address.
+__device__ __forceinline__ unsigned bf16x2(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Grid (items / 256, layers): layer li0 + blockIdx.y takes the rows of layer
+// blockIdx.y of src (one layer of rows when gridDim.y == 1). An item is
+// vec values of one (slot, kv head) of one array.
+__global__ void __launch_bounds__(256)
+row_write_kernel(RowArrays a, const int* __restrict__ pos_p, int li0, int B,
+                 int KVH) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.start[4]) return;
+  int arr = 0;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) arr += i >= a.start[k];
+  const int z = blockIdx.y, li = li0 + z;
+  const int R = a.rows[arr], C = a.cols[arr], vec = a.vec[arr];
   const bool lane = a.lane[arr] != 0;
-  const int pos = pos_p[b];
-  if (pos < 0 || pos >= (lane ? C : R)) return;
   const int n = lane ? R : C;  // values per (slot, kv head)
-  const size_t slab = (size_t)R * C;
-  const size_t base = ((size_t)li * B + b) * KVH * slab;
-  for (int i = threadIdx.x; i < KVH * n; i += blockDim.x) {
-    const int kv = i / n, k = i % n;
-    const size_t off = base + kv * slab +
-                       (lane ? (size_t)k * C + pos : (size_t)pos * C + k);
-    const size_t so = (((size_t)z * B + b) * KVH + kv) * n + k;
-    if (a.kind[arr] == 1)
-      static_cast<__nv_bfloat16*>(a.dst[arr])[off] =
-          __float2bfloat16_rn(static_cast<const float*>(a.src[arr])[so]);
-    else
-      static_cast<int8_t*>(a.dst[arr])[off] =
-          static_cast<const int8_t*>(a.src[arr])[so];
+  const int per = n / vec;     // items per (slot, kv head)
+  const int j = i - a.start[arr];
+  const int bk = j / per, k = (j % per) * vec;  // slot * KVH + kv head
+  const size_t so = ((size_t)z * B * KVH + bk) * n + k;
+  const size_t base = ((size_t)li * B * KVH + bk) * R * C;
+  if (vec == 8) {  // f32 -> bf16, 8 values of a row
+    const float4* src = reinterpret_cast<const float4*>(
+        static_cast<const float*>(a.src[arr]) + so);
+    const float4 lo = __ldg(src), hi = __ldg(src + 1);
+    const int pos = pos_p[bk / KVH];
+    if (pos < 0 || pos >= R) return;
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.dst[arr]) +
+                              base + (size_t)pos * C + k) =
+        make_uint4(bf16x2(lo.x, lo.y), bf16x2(lo.z, lo.w),
+                   bf16x2(hi.x, hi.y), bf16x2(hi.z, hi.w));
+    return;
   }
+  float f = 0.f;
+  int8_t c = 0;
+  if (a.kind[arr] == 1)
+    f = __ldg(static_cast<const float*>(a.src[arr]) + so);
+  else
+    c = __ldg(static_cast<const int8_t*>(a.src[arr]) + so);
+  const int pos = pos_p[bk / KVH];
+  if (pos < 0 || pos >= (lane ? C : R)) return;
+  const size_t off =
+      base + (lane ? (size_t)k * C + pos : (size_t)pos * C + k);
+  if (a.kind[arr] == 1)
+    static_cast<__nv_bfloat16*>(a.dst[arr])[off] = __float2bfloat16_rn(f);
+  else
+    static_cast<int8_t*>(a.dst[arr])[off] = c;
 }
 
 __global__ void encode_write_kernel(const float* __restrict__ kh,
@@ -201,11 +240,31 @@ int launch_rows(void* dst0, void* dst1, void* dst2, void* dst3,
                 int cols1, int cols2, int cols3, int kind0, int kind1,
                 int kind2, int kind3, const void* positions, int n, int li0,
                 int NL, int B, int KVH, void* stream) {
-  if (n < 1 || n > 4 || NL < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > 4 || NL < 1 || NL > 65535)
+    return (int)cudaErrorInvalidValue;
   RowArrays a{{dst0, dst1, dst2, dst3}, {src0, src1, src2, src3},
               {lane0, lane1, lane2, lane3}, {rows0, rows1, rows2, rows3},
               {cols0, cols1, cols2, cols3}, {kind0, kind1, kind2, kind3}};
-  row_write_kernel<<<dim3(B, n, NL), 256, 0,
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  long long items = 0;
+  for (int k = 0; k < 4; ++k) {
+    a.start[k] = (int)items;
+    if (k >= n) {
+      a.vec[k] = 1;
+      continue;
+    }
+    const bool row8 = a.kind[k] == 1 && !a.lane[k] && a.cols[k] % 8 == 0 &&
+                      aligned(a.dst[k]) && aligned(a.src[k]);
+    a.vec[k] = row8 ? 8 : 1;
+    items += (long long)B * KVH * (a.lane[k] ? a.rows[k] : a.cols[k]) /
+             a.vec[k];
+  }
+  if (items > INT_MAX) return (int)cudaErrorInvalidValue;
+  a.start[4] = (int)items;
+  if (items == 0) return (int)cudaSuccess;
+  row_write_kernel<<<dim3((unsigned)((items + 255) / 256), NL), 256, 0,
                      reinterpret_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int*>(positions), li0, B, KVH);
   return (int)cudaGetLastError();

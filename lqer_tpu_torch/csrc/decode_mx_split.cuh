@@ -1,6 +1,6 @@
 // Decode attention over an MXINT cache (codes of width 8 or 4, token axis
 // last), split over L: the kernels of rows 6 and 10
-// (decode_attention_quantized.cu), 7 (decode_attention.cu) and 8
+// (decode_attention_quantized.cu), 7 and 9 (decode_attention.cu) and 8
 // (decode_attention_streaming.cu), one design in three modes:
 //   READ   the direct-write cache as stored (rows 6 and 8);
 //   WRITE  the same, the fresh K/V rows first MXINT8-encoded into column
@@ -8,7 +8,7 @@
 //   STAGED the ring-staged cache: main columns [0, flushed), then the
 //          64-lane ring as one more chunk, the last, whose block first
 //          encodes the fresh rows at the cache's width into lane pos % 64
-//          in place (row 7).
+//          in place (rows 7 and 9).
 // Per (slot, kv head) of one layer, at position pos:
 //   1. q quantized per 16 along d (block_fp, width q_mb + 1);
 //   2. scores over the columns the slot holds, the cache's MXINT values as
@@ -34,10 +34,10 @@
 // exponent row (d/16) of a chunk's tokens copied to shared memory by
 // 16-byte cp.async (16 tokens of one row per copy), rows padded by 16
 // bytes; codes decode in registers as code * 2^(e - (w - 1)), exact in f32.
-// With cpb > 1 (row 8, long contexts) a block walks its chunks through two
-// tiles, the next chunk's copy in flight while the current one is scored
-// or multiplied, and the count of partials the last block sums falls by
-// cpb. The kernels are built per n_rep bound (1, 4 or 8): a head loop
+// With cpb > 1 (rows 8 and 9, long contexts) a block walks its chunks
+// through two tiles, the next chunk's copy in flight while the current one
+// is scored or multiplied, and the count of partials the last block sums
+// falls by cpb. The kernels are built per n_rep bound (1, 4 or 8): a head loop
 // guarded at run time still executes every instruction of its unrolled
 // body.
 //   1. A thread per token sums its n_rep scores over d (the byte of each

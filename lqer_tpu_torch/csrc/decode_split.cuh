@@ -1,7 +1,7 @@
 // The split-over-L scheme of the one-pass decode attention kernels (rows 5,
 // 6, 7 and 10: decode_attention_fp.cu, decode_mx_split.cuh) and of the
-// direct-cache streaming one (row 8): a block per (slot, kv head, span of
-// cpb chunks of CH tokens), its n_rep query heads sharing each K/V value it
+// streaming ones (rows 8 and 9): a block per (slot, kv head, span of cpb
+// chunks of CH tokens), its n_rep query heads sharing each K/V value it
 // reads, in two launches with nothing in shared memory that grows with L:
 //   1. the span's scores (masked past pos and below the window) into a
 //      global f32 scratch (B x H x L, or L + 64 with the staged cache's
@@ -12,8 +12,8 @@
 //      tokens with them (final_stats, token_p); the span's partial P·V, the
 //      warps' partials summed in order, and the last block of the (slot, kv
 //      head) summing the partials in chunk order (finish_chunk).
-// The staged cache (row 7) has its main columns [0, flushed) in such spans
-// and its 64-lane ring as one more chunk, the last in every order
+// The staged cache (rows 7 and 9) has its main columns [0, flushed) in such
+// spans and its 64-lane ring as one more chunk, the last in every order
 // (chunk_of). No float atomics: a run repeats itself to the bit. Blocks
 // whose span lies wholly outside [the window's first group, the group
 // holding pos] (or past flushed) exit at once.

@@ -64,7 +64,7 @@ KERNELS = {
         "lqer_tpu/ops/pallas/decode_attention.py:819"),
     "decode_attention_streaming_staged": (
         decode_attention_quantized_streaming_staged,
-        "lqer_tpu_torch/csrc/decode_attention_streaming.cu",
+        "lqer_tpu_torch/csrc/decode_attention.cu",
         "lqer_tpu/ops/pallas/decode_attention.py:1145"),
     "encode_write_tokens": (write_kv_tokens_fused,
                             "lqer_tpu_torch/csrc/cache_write.cu",

@@ -38,7 +38,7 @@ ENTRIES = {
     "attention": ("attention", "lqer_prefill_attention",
                   [P] * 5 + [I] * 4 + [F, I, I, I]),
     "decode_attention": ("decode_attention", "lqer_staged_decode_attention",
-                         [P] * 15 + [I] * 6 + [F, I, I]),
+                         [P] * 15 + [I] * 7 + [F, I, I]),
     "cache_write": ("cache_write", "lqer_flush_stage",
                     [P] * 8 + [I] * 4 + [P] * 2 + [I] * 5),
     "row_write": ("cache_write", "lqer_write_rows",
@@ -55,10 +55,6 @@ ENTRIES = {
     "decode_attention_streaming": (
         "decode_attention_streaming", "lqer_decode_attention_streaming",
         [P] * 8 + [I] * 7 + [F, I, I, I]),
-    "decode_attention_streaming_staged": (
-        "decode_attention_streaming",
-        "lqer_decode_attention_streaming_staged", [P] * 18 + [I] * 7
-        + [F, I, I]),
     "encode_write_tokens": ("cache_write", "lqer_encode_write_tokens",
                             [P] * 7 + [I] * 5),
 }

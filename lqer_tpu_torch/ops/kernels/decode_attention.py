@@ -19,7 +19,9 @@ fresh rows are encoded at the cache's width (``cache_write._encode_t``).
 The CUDA kernel splits ``[0, flushed)`` over blocks of ``split_plan.CHUNK``
 tokens and gives the ring a block of its own, the last chunk of every
 combine (``split_plan.slot_chunks``), so nothing in shared memory grows
-with L: any ``L % 16 == 0`` is served.
+with L: any ``L % 16 == 0`` is served. :func:`launch_staged` is that launch;
+the streaming staged kernel (row 9, ``streaming_decode``) is the same launch
+with blocks of several chunks.
 """
 
 from __future__ import annotations
@@ -196,13 +198,31 @@ def decode_attention_quantized_staged(
             q_width=q_width, p_width=p_width, scale_query=scale_query)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    if (q_width is None or d not in HEAD_DIMS or (width == 4 and d % 32)
-            or L % 16 or H % KVH or not 1 <= H // KVH <= 8):
+    out = launch_staged(
+        q, (k_codes, k_exps, v_codes, v_exps),
+        (ks_codes, ks_exps, vs_codes, vs_exps), kh, vh, positions, flushed,
+        scaling=scaling, q_width=q_width, p_width=p_width,
+        scale_query=scale_query)
+    decode_attention_quantized_staged.launches += 1
+    decode_attention_quantized_staged.launches_width4 += width == 4
+    return out
+
+
+def launch_staged(q, main, ring, kh, vh, positions, flushed, *,
+                  scaling: float, q_width: int | None, p_width: int | None,
+                  scale_query: bool, cpb: int = 1) -> torch.Tensor:
+    """One launch of ``csrc/decode_attention.cu`` on CUDA tensors: the main
+    cache's four (B, KVH, rows, L) arrays, the rings' four (B, KVH, rows,
+    64), each block of ``[0, flushed)`` walking ``cpb`` chunks of
+    ``split_plan.CHUNK`` tokens (row 7: 1; row 9: more)."""
+    B, H, _, d = q.shape
+    KVH, L = main[0].shape[1], main[0].shape[-1]
+    width = code_width_of(main[0], d)
+    if (d not in HEAD_DIMS or (width == 4 and d % 32) or L % 16 or H % KVH
+            or not 1 <= H // KVH <= 8 or cpb < 1):
         raise ValueError(f"unsupported staged decode shape d={d} L={L} "
-                         f"H={H} KVH={KVH} q_width={q_width}")
-    arrays = (k_codes, k_exps, v_codes, v_exps, ks_codes, ks_exps, vs_codes,
-              vs_exps)
-    for a in arrays:
+                         f"H={H} KVH={KVH} cpb={cpb}")
+    for a in (*main, *ring):
         if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
             raise ValueError("cache arrays must be contiguous int8 CUDA tensors")
     qf, scaling = scaled_query(q, scaling, scale_query)
@@ -212,16 +232,16 @@ def decode_attention_quantized_staged(
     pos = positions.to(torch.int32).contiguous()
     fl = flushed.to(torch.int32).contiguous()
     out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
-    scratch = torch.empty(scratch_floats(B, H, KVH, L, d, staged=True),
+    scratch = torch.empty(scratch_floats(B, H, KVH, L, d, cpb=cpb,
+                                         staged=True),
                           dtype=torch.float32, device=q.device)
     _build.launch("decode_attention", qf.data_ptr(),
-                  *(a.data_ptr() for a in arrays), khf.data_ptr(),
+                  *(a.data_ptr() for a in (*main, *ring)), khf.data_ptr(),
                   vhf.data_ptr(), pos.data_ptr(), fl.data_ptr(),
                   scratch.data_ptr(), out.data_ptr(), B, KVH, H // KVH, d, L,
-                  width, float(scaling), q_width - 1,
+                  width, cpb, float(scaling),
+                  -1 if q_width is None else q_width - 1,
                   -1 if p_width is None else p_width - 1)
-    decode_attention_quantized_staged.launches += 1
-    decode_attention_quantized_staged.launches_width4 += width == 4
     return out
 
 

@@ -1,16 +1,17 @@
-"""The host side of the decode kernels split over L (rows 5, 6, 7, 8 and 10):
+"""The host side of the decode kernels split over L (rows 5 to 10):
 their grid, the chunks each slot holds in combine order, the count the last
 block waits for, and the scratch.
 
 ``csrc/decode_split.cuh`` runs a block per (slot, kv head, span of ``cpb``
-chunks of :data:`CHUNK` tokens); the staged cache (row 7) has its main
-columns ``[0, flushed)`` in such spans and its :data:`RING`-lane ring as one
-more block, the last in every order. Pass 1 writes each span's scores and
-its stats ``(m_c, l_c)``; pass 2 merges the stats in chunk order, forms p
-with the final stats and a partial P·V per span, and the last block of the
-(slot, kv head) sums the partials in chunk order. :func:`slot_chunks` is the
-Python twin of ``chunk_of``: the CPU tests emulate the combine with it and
-hold the emulation against the JAX package.
+chunks of :data:`CHUNK` tokens); the staged cache (rows 7 and 9) has its
+main columns ``[0, flushed)`` in such spans and its :data:`RING`-lane ring
+as one more block, the last in every order. Pass 1 writes each span's
+scores and its stats ``(m_c, l_c)``; pass 2 merges the stats in chunk
+order, forms p with the final stats and a partial P·V per span, and the
+last block of the (slot, kv head) sums the partials in chunk order.
+:func:`slot_chunks` is the Python twin of ``chunk_of``: the CPU tests
+emulate the combine with it and hold the emulation against the JAX
+package.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import NamedTuple
 CHUNK = 256   # tokens per chunk (csrc: CH), one per thread of a block
 RING = 64     # lanes of the staged cache's ring (csrc: RING)
 SMS = 132     # streaming multiprocessors of an H100 SXM
-MAX_CPB = 8   # chunks a block walks at most (row 8)
+MAX_CPB = 8   # chunks a block walks at most (rows 8 and 9)
 
 
 class Chunk(NamedTuple):
@@ -92,7 +93,8 @@ def scratch_floats(B: int, H: int, KVH: int, L: int, d: int, *,
 
 def chunks_per_block(B: int, KVH: int, L: int, window: int | None = None
                      ) -> int:
-    """Row 8's span: the most chunks a block walks (a power of two up to
+    """The span of rows 8 and 9: the most chunks a block walks (a power of
+    two up to
     :data:`MAX_CPB`) that still leaves at least two blocks an SM where
     every slot holds the whole of L (or of the window). On the H100 the
     longer spans won where the route sends row 8 (``python3

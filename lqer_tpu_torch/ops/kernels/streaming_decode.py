@@ -5,8 +5,7 @@ Port of ``decode_attention_quantized_streaming`` (bodies ``_stats_kernel``
 and ``_out_kernel``, codes of width 8 or 4, layer-stacked with
 ``layer_index``) and ``decode_attention_quantized_streaming_staged`` (bodies
 ``_stats_kernel_staged`` and ``_out_kernel_staged``, widths 8 and 4) of
-``lqer_tpu/ops/pallas/decode_attention.py``. Both run the CUDA kernels of
-``csrc/decode_attention_streaming.cu``. The direct-write entry takes a
+``lqer_tpu/ops/pallas/decode_attention.py``. The direct-write entry takes a
 sliding window (``window``, Mistral) as the one-pass kernels do; the staged
 one takes none, as in the JAX package.
 
@@ -16,11 +15,13 @@ the direct-write cache and :func:`~.decode_attention.staged_decode_plain`
 (with the ring write) for the staged one. The two differ from the one-pass
 kernels only in f32 summation order. The JAX package's
 ``streaming_l_chunk`` is a Mosaic tiling choice; the CUDA kernels split L
-their own way: the direct-write kernel (row 8) is row 6's split over L
-(``csrc/decode_mx_split.cuh``), each block walking
+their own way, each the one-pass kernel's split over L
+(``csrc/decode_mx_split.cuh``) with each block walking
 ``split_plan.chunks_per_block`` chunks of ``split_plan.CHUNK`` tokens
-through two shared-memory tiles; the staged one (row 9) takes chunks of
-:data:`CHUNK` tokens in three launches.
+through two shared-memory tiles, in two launches: the direct-write kernel
+(row 8) is row 6's (``csrc/decode_attention_streaming.cu``), the staged one
+(row 9) row 7's (``csrc/decode_attention.cu``, the ring a block of its
+own).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from . import _build
 from .attention import HEAD_DIMS
 from .decode_attention import (
     code_width_of,
+    launch_staged,
     scaled_query,
     staged_decode_plain,
     window_arg,
@@ -38,8 +40,6 @@ from .decode_attention import (
 from .fp_decode import _mb
 from .quantized_decode import _check_cache, quantized_decode_plain
 from .split_plan import chunks_per_block, scratch_floats
-
-CHUNK = 512  # tokens per block of the staged kernel (csrc: CHUNK)
 
 
 def _check_launch(q, arrays, width):
@@ -74,37 +74,6 @@ def _launch_direct(q, main, positions, width, scaling, q_width, p_width,
                   scratch.data_ptr(), out.data_ptr(), B, KVH, H // KVH, d, L,
                   width, cpb, float(scaling), _mb(q_width), _mb(p_width),
                   window_arg(window))
-    return out
-
-
-def _launch_staged(q, main, ring, kh, vh, positions, flushed, width, scaling,
-                   q_width, p_width, scale_query) -> torch.Tensor:
-    """Row 9 on the layer's four (B, KVH, rows, L) arrays and the four
-    (B, KVH, rows, SW) rings."""
-    B, H, _, d = q.shape
-    KVH, L = main[0].shape[1], main[0].shape[-1]
-    SW = ring[0].shape[-1]
-    _check_launch(q, (*main, *ring), width)
-    nrep = H // KVH
-    nz = -(-L // CHUNK) + 1
-    dev = q.device
-    qf, scaling = scaled_query(q, scaling, scale_query)
-    qf = qf.contiguous()
-    pos = positions.to(torch.int32).contiguous()
-    new = [t.to(torch.float32).contiguous() for t in (kh, vh)]
-    fl = flushed.to(torch.int32).contiguous()
-    scores = torch.empty(B, H, L + SW, dtype=torch.float32, device=dev)
-    st_m, st_l = (torch.empty(B, KVH, nz, nrep, dtype=torch.float32,
-                              device=dev) for _ in range(2))
-    part = torch.empty(B, KVH, nz, nrep, d, dtype=torch.float32, device=dev)
-    out = torch.empty(B, H, 1, d, dtype=torch.float32, device=dev)
-    _build.launch("decode_attention_streaming_staged", qf.data_ptr(),
-                  *(a.data_ptr() for a in (*main, *ring)),
-                  *(t.data_ptr() for t in new), pos.data_ptr(),
-                  fl.data_ptr(), scores.data_ptr(), st_m.data_ptr(),
-                  st_l.data_ptr(), part.data_ptr(), out.data_ptr(), B, KVH,
-                  nrep, d, L, SW, width, float(scaling), _mb(q_width),
-                  _mb(p_width))
     return out
 
 
@@ -155,7 +124,8 @@ def decode_attention_quantized_streaming_staged(
     ``pos % 64``; kh, vh (B, KVH, 1, d) raw new rows;
     positions, flushed (B,). Returns (B, H, 1, d) f32. CPU tensors run
     :func:`~.decode_attention.staged_decode_plain`; CUDA tensors launch
-    ``csrc/decode_attention_streaming.cu``."""
+    ``csrc/decode_attention.cu`` with :func:`~.split_plan.chunks_per_block`
+    chunks a block."""
     B, H, S, d = q.shape
     SW = ks_codes.shape[-1]
     if S != 1 or SW != 64 or group != 16 or k_codes.shape[-1] % 16 \
@@ -175,8 +145,11 @@ def decode_attention_quantized_streaming_staged(
                                    scale_query=scale_query)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch_staged(q, main, ring, kh, vh, positions, flushed, width,
-                         scaling, q_width, p_width, scale_query)
+    out = launch_staged(q, main, ring, kh, vh, positions, flushed,
+                        scaling=scaling, q_width=q_width, p_width=p_width,
+                        scale_query=scale_query,
+                        cpb=chunks_per_block(B, k_codes.shape[1],
+                                             k_codes.shape[-1]))
     decode_attention_quantized_streaming_staged.launches += 1
     decode_attention_quantized_streaming_staged.launches_width4 += width == 4
     return out

@@ -26,8 +26,10 @@ row 7 with one slot at each flushed edge (0, a chunk's tail, a whole chunk,
 one group past it, the ring one short of L; wrapped rings) at both code
 widths, head dims 64 to 128, n_rep 1 to 8 and with ``scale_query``, and at
 n_rep 2, d 64, L = 32768 against row 9; row 8 at L = 32768 with skewed
-positions, windowed and not, at d = 80 and width 4; each twice, equal to
-the bit. Needs an
+positions, windowed and not, at d = 80 and width 4; row 9 on row 7's
+kernels with blocks of 1 to 8 chunks at each flushed edge of a span; each
+twice, equal to the bit; the row write at 8 and 32 kv heads and d = 80 and
+128. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -512,6 +514,41 @@ def test_row_write(gen, lane, pos):
     k4.write_rows_plain(tuple(theirs), tuple(news), 1, p)
     assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
     assert all(torch.equal(a[0], b[0]) for a, b in zip(mine, arrays))
+
+
+@pytest.mark.parametrize("kvh", [8, 32])
+@pytest.mark.parametrize("kind,d", [("bf16 rows", 80), ("bf16 rows", 128),
+                                    ("mxint8 columns", 80),
+                                    ("mxint4 columns", 128)])
+def test_row_write_shapes(gen, kind, d, kvh):
+    """Row 11 at the served kv head counts and head dims, bit-exact with
+    its plain version; positions -1 and L write nothing."""
+    nl, l = 2, 256
+    pos = [-1, 0, 17, 255, 256]
+    b = len(pos)
+    if kind == "bf16 rows":
+        arrays = [torch.randn(nl, b, kvh, l, d, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        news = [torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
+                for _ in range(2)]
+    else:
+        rows = [d if kind == "mxint8 columns" else d // 2, d // 16] * 2
+        arrays = [torch.randint(-127, 128, (nl, b, kvh, r, l), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for r in rows]
+        news = [torch.randint(-127, 128, (b, kvh, r, 1), generator=gen,
+                              device="cuda", dtype=torch.int8) for r in rows]
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    p = _positions(pos)
+    before = k4.write_kv_rows_stacked.launches
+    k4.write_kv_rows_stacked(tuple(mine), tuple(news), 1, p)
+    assert k4.write_kv_rows_stacked.launches == before + 1
+    k4.write_rows_plain(tuple(theirs), tuple(news), 1, p)
+    assert all(torch.equal(a, c) for a, c in zip(mine, theirs))
+    assert all(torch.equal(a[0], c[0]) for a, c in zip(mine, arrays))
+    for a, c in zip(mine, arrays):   # slots 0 and 4 (-1 and L) untouched
+        assert torch.equal(a[:, 0], c[:, 0]) and torch.equal(a[:, 4], c[:, 4])
 
 
 # the long-context kernels: (slots, kv heads, n_rep, d, L, positions), the
@@ -1229,11 +1266,12 @@ def _staged_split_case(gen, width, d, nrep, l, fl, residue):
     return main, ring, q, kh, vh, f + _positions(residue), f
 
 
-def _check_staged_split(name, main, ring, q, kh, vh, p, fl, **kw):
-    """Row 7 against its plain version (rings bit-exact), one launch count
-    a call, a second call on a fresh copy of the rings equal to the bit."""
+def _check_staged_split(name, main, ring, q, kh, vh, p, fl,
+                        wrapper=k3.decode_attention_quantized_staged, **kw):
+    """Row 7 (or ``wrapper``, row 9) against its plain version (rings
+    bit-exact), one launch count a call, a second call on a fresh copy of
+    the rings equal to the bit."""
     mine, again, theirs = ([t.clone() for t in ring] for _ in range(3))
-    wrapper = k3.decode_attention_quantized_staged
     before = wrapper.launches
     got = wrapper(q, *main, *mine, kh, vh, p, fl, **kw)
     assert wrapper.launches == before + 1
@@ -1286,6 +1324,26 @@ def test_staged_decode_split_long(gen, width):
     check_close("row 7 vs row 9", got, row9,
                 attention_limit(s[:, :, None, :], vals, row9, p_width=8),
                 max_flipped=0.05)
+
+
+@pytest.mark.parametrize("nrep", [1, 2])
+@pytest.mark.parametrize("width,d", [(8, 64), (8, 80), (8, 96), (8, 128),
+                                     (4, 64), (4, 128)])
+@pytest.mark.parametrize("cpb", [1, 2, 4, 8])
+def test_streaming_staged_split(gen, monkeypatch, cpb, width, d, nrep):
+    """Row 9 on row 7's kernels with blocks of cpb chunks (span S = 256
+    cpb), L = 8192: one slot at each flushed edge (none; a group short of a
+    span; a span's edge; a group past it; two spans and two groups; the
+    ring one short of L, full), every ring but the first wrapped."""
+    span = 256 * cpb
+    fl = [0, span - 16, span, span + 16, 2 * span + 32, 8192 - 64]
+    monkeypatch.setattr(ks, "chunks_per_block", lambda *a: cpb)
+    case = _staged_split_case(gen, width, d, nrep, 8192, fl,
+                              [40, 47, 5, 0, 33, 63])
+    _check_staged_split(
+        f"row 9 cpb {cpb} width {width} d {d} n_rep {nrep}", *case,
+        wrapper=ks.decode_attention_quantized_streaming_staged,
+        scaling=d ** -0.5)
 
 
 @pytest.mark.parametrize("width,d,nrep,window", [

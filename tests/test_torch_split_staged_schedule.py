@@ -1,4 +1,4 @@
-"""Rows 7 and 8 split over L: the host side of their launches
+"""Rows 7, 8 and 9 split over L: the host side of their launches
 (``ops/kernels/split_plan.py``: the grid, the chunks each slot holds in
 combine order, the ring as the last chunk, the count the last block waits
 for, the scratch), and the kernels' chunked combine emulated in torch on the
@@ -11,6 +11,13 @@ interpret mode:
   ``decode_attention_quantized_staged`` at L = 512, one slot at each of
   flushed 0, 32, 224, 256, 288 and L - 64, every ring but the first
   wrapped, code widths 8 and 4;
+- row 9 (staged, row 7's kernels with blocks of ``cpb`` chunks): the same
+  combine over spans of ``cpb`` chunks and the ring, against
+  ``decode_attention_quantized_streaming_staged`` at L = 1024 and cpb 1, 2
+  and 4, one slot at each of flushed 0 (there against the one-pass
+  ``decode_attention_quantized_staged``: the JAX streaming kernel returns
+  NaN, fault 9 of the reference), a span's edge, one group past it, and
+  L - 64 with a full ring, code widths 8 and 4;
 - row 8 (direct, blocks of ``cpb`` chunks): the same over the 16-token
   groups up to the one holding pos, from the window's first, against the
   one-pass ``decode_attention_quantized`` (the JAX streaming kernel returns
@@ -22,6 +29,8 @@ The emulation and JAX are held to ``testing.attention_limit``: rtol = atol
 |v| for a rounding of p that order can flip, at most 5% of the outputs past
 the rtol/atol band.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +51,9 @@ SCALING = D ** -0.5
 L_STAGED = 512
 FLUSHED = [0, 32, 224, 256, 288, L_STAGED - 64]
 RESIDUE = [40, 47, 5, 0, 33, 47]     # pos = flushed + residue
+L_STREAM = 1024
+FLUSHED_9 = [0, 256, 272, 512, 528, L_STREAM - 64]
+RESIDUE_9 = [40, 47, 5, 0, 33, 63]
 
 
 def _t(a):
@@ -110,6 +122,30 @@ def test_staged_chunks(flushed):
     assert sp.grid_z(L_STAGED, staged=True) == L_STAGED // sp.CHUNK + 1
 
 
+@pytest.mark.parametrize("edge", ["none", "group short", "span edge",
+                                  "group past", "two spans", "full ring"])
+@pytest.mark.parametrize("cpb", [1, 2, 4, 8])
+def test_staged_span_chunks(cpb, edge):
+    """Row 9's spans of cpb chunks over [0, flushed), then the ring: its
+    index ceil(flushed / span), inside the grid's stats, the counter
+    target one past it."""
+    L, span = 8192, cpb * sp.CHUNK
+    flushed = {"none": 0, "group short": span - 16, "span edge": span,
+               "group past": span + 16, "two spans": 2 * span + 32,
+               "full ring": L - 64}[edge]
+    chunks = sp.slot_chunks(flushed + 63, L, flushed=flushed, cpb=cpb)
+    mains = -(-flushed // span)
+    assert [c.zi for c in chunks] == list(range(mains + 1))
+    assert [(c.c0, c.j0) for c in chunks[:-1]] == [
+        (z * span, 0) for z in range(mains)]
+    assert sum(c.n for c in chunks[:-1]) == flushed
+    assert all(c.n == span for c in chunks[:-2])
+    assert chunks[-1] == sp.Chunk(mains, L, 0, sp.RING, True)
+    assert mains < sp.grid_z(L, cpb, staged=True)
+    assert sp.counter_target(flushed + 63, L, flushed=flushed, cpb=cpb) \
+        == mains + 1
+
+
 def test_counter_target_at_flushed_zero():
     """No main chunk: the ring's block is the first, the only and the last
     (it zeroes the counter and sums the one partial)."""
@@ -140,6 +176,7 @@ def test_direct_chunks(pos, window, cpb, want):
 
 @pytest.mark.parametrize("L,d,cpb,staged", [
     (512, 64, 1, True), (2048, 128, 1, True), (32768, 64, 1, True),
+    (32768, 128, 8, True), (24576, 128, 8, True), (2048, 80, 4, True),
     (2048, 128, 1, False), (32768, 128, 8, False), (32768, 80, 2, False)])
 def test_scratch_floats(L, d, cpb, staged):
     """Scores (B, H, L [+ 64]), the stats m, l and the partials per block
@@ -158,10 +195,12 @@ def test_scratch_floats(L, d, cpb, staged):
     (8, 8, 32768, 4096, 4),      # Mistral-7B under its window
     (4, 32, 32768, None, 8),
     (1, 1, 32768, None, 1),
-    (8, 32, 2048, None, 4)])
+    (8, 32, 2048, None, 4),
+    (8, 32, 24576, None, 8)])    # the staged caches at max_len 24576
 def test_chunks_per_block(B, KVH_, L, window, want):
-    """Row 8's span: the longest (up to 8 chunks) that keeps two blocks an
-    SM where every slot holds the whole of L or of the window."""
+    """The span of rows 8 and 9: the longest (up to 8 chunks) that keeps
+    two blocks an SM where every slot holds the whole of L or of the
+    window."""
     assert sp.chunks_per_block(B, KVH_, L, window) == want
 
 
@@ -197,6 +236,56 @@ def test_staged_combine_matches_jax(width):
     got = emulate(s, vals, chunks)
     want = _t(attn)
     check_close(f"row 7's combine, width {width}", got, want,
+                attention_limit(s[:, :, None, :], vals, want, p_width=8),
+                max_flipped=0.05)
+
+
+@functools.lru_cache(maxsize=None)
+def _streaming_staged_case(width):
+    """Row 9's inputs at L = 1024 and the JAX reference: the streaming
+    staged kernel (chunks of 256), and at flushed = 0 the one-pass one;
+    the scores and values of the plain version (rings checked equal to
+    JAX's)."""
+    rng = np.random.default_rng(23 + width)
+    B, li = len(FLUSHED_9), 0
+    main = (_encoded(rng, (NL, B, KVH, L_STREAM, D), width)
+            + _encoded(rng, (NL, B, KVH, L_STREAM, D), width))
+    ring = (_encoded(rng, (NL, B, KVH, 64, D), width)
+            + _encoded(rng, (NL, B, KVH, 64, D), width))
+    q = rng.standard_normal((B, H, 1, D)).astype(np.float32)
+    kh, vh = (rng.standard_normal((B, KVH, 1, D)).astype(np.float32)
+              for _ in range(2))
+    fl = np.array(FLUSHED_9, np.int32)
+    pos = fl + np.array(RESIDUE_9, np.int32)
+    jargs = (jnp.asarray(q), *(jnp.asarray(a) for a in main + ring),
+             jnp.asarray(kh), jnp.asarray(vh), jnp.asarray(pos),
+             jnp.asarray(fl), jnp.asarray([li], jnp.int32))
+    stream, *rings_j = jda.decode_attention_quantized_streaming_staged(
+        *jargs, scaling=SCALING, l_chunk=256, interpret=True)
+    one_pass, *_ = jda.decode_attention_quantized_staged(
+        *jargs, scaling=SCALING, interpret=True)
+    want = np.where((fl == 0)[:, None, None, None], np.asarray(one_pass),
+                    np.asarray(stream))
+    t_main = [_t(a[li]) for a in main]
+    t_ring = [_t(a[li]) for a in ring]
+    k3.staged_decode_plain(_t(q), *t_main, *t_ring, _t(kh), _t(vh), _t(pos),
+                           _t(fl), scaling=SCALING)   # the ring write
+    for got, theirs in zip(t_ring, rings_j):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(theirs)[li])
+    s, vals = k3.staged_scores(_t(q), *t_main, *t_ring, _t(pos), _t(fl),
+                               scaling=SCALING)
+    return s, vals, _t(want), pos, fl
+
+
+@pytest.mark.parametrize("cpb", [1, 2, 4])
+@pytest.mark.parametrize("width", [8, 4])
+def test_streaming_staged_combine_matches_jax(width, cpb):
+    """Row 9's combine over spans of cpb chunks and the ring."""
+    s, vals, want, pos, fl = _streaming_staged_case(width)
+    chunks = [sp.slot_chunks(int(p), L_STREAM, flushed=int(f), cpb=cpb)
+              for p, f in zip(pos, fl)]
+    got = emulate(s, vals, chunks)
+    check_close(f"row 9's combine, width {width}, cpb {cpb}", got, want,
                 attention_limit(s[:, :, None, :], vals, want, p_width=8),
                 max_flipped=0.05)
 

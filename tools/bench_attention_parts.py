@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the attention rows 4 to 10 goes, on one card.
+"""Where the time of the attention rows 4 to 10 and the decode row writes
+(rows 11 and 12) goes, on one card.
 
-    python3 tools/bench_attention_parts.py [--rows 4 5 6 7 8 9 10]
+    python3 tools/bench_attention_parts.py [--rows 4 5 6 7 8 9 10 11 12]
         [--cpb N ...]
 
 Row 5 (fp-cache decode attention, ``ops/kernels/fp_decode.py``) at
@@ -23,15 +24,23 @@ Llama shape (flushed = pos // 32 * 32, widths 8 and 4), OPT-2.7b's and at
 8 slots x 16 kv heads of 2 queries, d = 64, L = 32768 (positions up to
 32767); rows 8 and 9 (``ops/kernels/streaming_decode.py``) at the
 long-context shape (8 slots x 32 kv heads, L = 32768, positions 64..32767,
-widths 8 and 4), row 8 also at Mistral-7B's (8 kv heads of 4 queries, L =
-32768, positions 32000..32030) with and without the window, and at
-L = 2048, 16384 and 24576; row 8 beside row 6 and row 7 beside row 9 on
-the same inputs (where the one-pass and the streaming kernels cross). Rows 7, 8 and 9 print the
-launch, each kernel's device time, the bound and SDPA; ``--cpb`` times row
-8 with each block walking that many chunks instead of its own choice
-(``split_plan.chunks_per_block``). Times are medians of CUDA events with L2 flushed before each launch
-(``chip_smoke.Timer``); one JSON line per shape, the card's name and power
-limit first; a shape the checkout's kernels refuse prints its reason.
+widths 8 and 4), row 9 also at OPT-2.7b's, row 8 also at Mistral-7B's (8
+kv heads of 4 queries, L = 32768, positions 32000..32030) with and without
+the window, and at L = 2048, 16384 and 24576; row 8 beside row 6 and row
+7 beside row 9 on the same inputs (where the one-pass and the streaming
+kernels cross). Rows 7, 8 and 9 print the launch, each kernel's device
+time, the bound and SDPA; ``--cpb`` times rows 8 and 9 with each block
+walking that many chunks instead of its own choice
+(``split_plan.chunks_per_block``). Row 11 (``ops/kernels/cache_write.py``)
+at ``chip_smoke.py``'s phase-3 shapes (the bf16 K and V rows and the four
+MXINT4 columns of 8 slots x 32 kv heads, d = 128, L = 2048; Mistral's bf16
+rows at 8 kv heads, L = 8192) and row 12 (32 layers, L = 2048; MXINT8 and
+MXINT4 columns, bf16 rows), each beside its bound, and an empty launch
+(``torch.cuda._sleep(0)``: one thread that returns at once) under the
+same timer, the floor of every launch-bound row. Times are medians of
+CUDA events with L2 flushed before each launch (``chip_smoke.Timer``); one
+JSON line per shape, the card's name and power limit first; a shape the
+checkout's kernels refuse prints its reason.
 Needs one CUDA device. Copied with ``chip_smoke.py`` into another checkout
 (``git archive`` unpacked under ``build/``), it times that checkout's
 kernels: run both in one call to compare them.
@@ -172,15 +181,16 @@ POS_16K = [min(x, 16383) for x in LONG_POS]
 # shapes at L = 2048, 16384 and 32768
 STAGED_SHAPES = (
     ((7, 9), "Llama", 8, 32, 1, 128, 2048, DECODE_SHAPES[0][6], (8, 4)),
-    ((7,), "OPT-2.7b", 8, 32, 1, 80, 2048, DECODE_SHAPES[0][6], (8,)),
+    ((7, 9), "OPT-2.7b", 8, 32, 1, 80, 2048, DECODE_SHAPES[0][6], (8,)),
     ((7, 9), "n_rep 2, d 64", 8, 16, 2, 64, 32768, LONG_POS, (8,)),
     ((7, 9), "L 16384", 8, 32, 1, 128, 16384, POS_16K, (8,)),
     ((7, 9), "long", 8, 32, 1, 128, 32768, LONG_POS, (8, 4)))
 
 
-def _staged(timer, launch_split, gen, rows, rate):
+def _staged(timer, launch_split, gen, rows, rate, cpbs):
     """Rows 7 and 9: the main cache below flushed = pos // 32 * 32 and the
-    ring's lanes from flushed to pos."""
+    ring's lanes from flushed to pos; row 9 also at each span of
+    ``cpbs``."""
     from lqer_tpu_torch.ops.kernels import decode_attention as k3
     from lqer_tpu_torch.ops.kernels import streaming_decode as ks
 
@@ -209,10 +219,28 @@ def _staged(timer, launch_split, gen, rows, rate):
                 line.update(ms=timer(run), bound_ms=nb / rate * 1e3,
                             sdpa_ms=_sdpa_ms(timer, q, main, mask),
                             kernels_ms=launch_split(torch, run))
+                if row == 9:
+                    line.update(_spans(timer, launch_split, run, cpbs,
+                                       (B, KVH, L)))
             except ValueError as e:   # a shape this checkout refuses
                 line["refused"] = str(e)
             print(json.dumps(line), flush=True)
             del main, ring
+
+
+def _spans(timer, launch_split, run, cpbs, shape, window=None) -> dict:
+    """A streaming row's own span and its times with each block walking
+    each of ``cpbs`` chunks (``streaming_decode.chunks_per_block`` set)."""
+    from lqer_tpu_torch.ops.kernels import streaming_decode as ks
+
+    own = ks.chunks_per_block
+    out = {"cpb": own(*shape, window)}
+    for cpb in cpbs:
+        ks.chunks_per_block = lambda *a, _c=cpb: _c
+        out[f"cpb{cpb}_ms"] = timer(run)
+        out[f"cpb{cpb}_kernels_ms"] = launch_split(torch, run)
+    ks.chunks_per_block = own
+    return out
 
 
 def _row8(timer, launch_split, gen, rate, cpbs):
@@ -222,7 +250,6 @@ def _row8(timer, launch_split, gen, rate, cpbs):
     from lqer_tpu_torch.ops.kernels import streaming_decode as ks
     from lqer_tpu_torch.ops.kernels.decode_attention import key_mask
 
-    own = getattr(ks, "chunks_per_block", None)
     mistral = [6000 + 26000 + i for i in (0, 1, 3, 7, 10, 13, 21, 30)]
     cases = [("long", 8, 32, 1, 32768, LONG_POS, 8, None),
              ("long", 8, 32, 1, 32768, LONG_POS, 4, None),
@@ -248,17 +275,83 @@ def _row8(timer, launch_split, gen, rate, cpbs):
                 "sdpa_ms": _sdpa_ms(timer, q, [t[0] for t in cache],
                                     key_mask(L, p, win)),
                 "kernels_ms": launch_split(torch, run)}
-        if own is not None:
-            line["cpb"] = own(B, KVH, L, win)
-            for cpb in cpbs:
-                ks.chunks_per_block = lambda *a, _c=cpb: _c
-                line[f"cpb{cpb}_ms"] = timer(run)
-                line[f"cpb{cpb}_kernels_ms"] = launch_split(torch, run)
-            ks.chunks_per_block = own
+        line.update(_spans(timer, launch_split, run, cpbs, (B, KVH, L),
+                           win))
         line["row6_ms"] = timer(lambda: kq.decode_attention_quantized(
             q, *cache, p, 0, **kw))
         print(json.dumps(line), flush=True)
         del cache
+
+
+def _row_writes(timer, launch_split, gen, rate, rows):
+    """Rows 11 and 12 at ``chip_smoke.py``'s phase-3 shapes, bit-exact with
+    their plain versions, and an empty launch."""
+    from lqer_tpu_torch.ops.kernels import cache_write as kcw
+    from lqer_tpu_torch.parallel.collectives import mx4_encode
+
+    def cases():
+        pos = torch.tensor(DECODE_SHAPES[0][6], dtype=torch.int32,
+                           device="cuda")
+        for what, NL, B, KVH, L, p in (
+                ("Llama", 2, 8, 32, 2048, pos),
+                ("Mistral", 2, 8, 8, 8192, pos + 6000 - 64)):
+            for kind in (("bf16 rows", "mxint4 columns") if what == "Llama"
+                         else ("bf16 rows",)):
+                yield 11, what, kind, NL, B, KVH, L, p
+        pos = torch.tensor([0, 17, 255, 1024, 1500, 2000, 2046, 2047],
+                           dtype=torch.int32, device="cuda")
+        for kind in ("mxint8 columns", "mxint4 columns", "bf16 rows"):
+            yield 12, "Llama, 32 layers", kind, 32, 8, 32, 2048, pos
+
+    D = 128
+    for row, what, kind, NL, B, KVH, L, p in cases():
+        if row not in rows:
+            continue
+        lead = (NL,) if row == 12 else ()
+        if kind == "bf16 rows":
+            arrays = [torch.zeros(NL, B, KVH, L, D, dtype=torch.bfloat16,
+                                  device="cuda") for _ in range(2)]
+            news = [torch.randn(*lead, B, KVH, 1, D, generator=gen,
+                                device="cuda") for _ in range(2)]
+        else:
+            rws = [D if kind == "mxint8 columns" else D // 2, D // 16] * 2
+            arrays = [torch.zeros(NL, B, KVH, r, L, dtype=torch.int8,
+                                  device="cuda") for r in rws]
+            if kind == "mxint4 columns" and row == 11:
+                news = []
+                for _ in range(2):
+                    news += [t.transpose(-1, -2).contiguous()
+                             for t in mx4_encode(torch.randn(
+                                 B, KVH, 1, D, generator=gen, device="cuda"),
+                                 16, zero_fill=1.0)]
+            else:
+                news = [torch.randint(-127, 128, (*lead, B, KVH, r, 1),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int8) for r in rws]
+        mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+        if row == 11:
+            run = lambda: kcw.write_kv_rows_stacked(tuple(mine), tuple(news),
+                                                    1, p)
+            kcw.write_rows_plain(tuple(theirs), tuple(news), 1, p)
+        else:
+            run = lambda: kcw.write_kv_rows_all_layers(tuple(mine),
+                                                       tuple(news), p)
+            kcw.write_rows_all_layers_plain(tuple(theirs), tuple(news), p)
+        run()
+        exact = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+        moved = sum(n.numel() * (n.element_size() + a.element_size())
+                    for a, n in zip(arrays, news))
+        print(json.dumps({
+            "row": row, "shape": f"{what}, {kind}, B={B} KVH={KVH}",
+            "bit_exact": exact, "ms": timer(run),
+            "bound_ms": moved / rate * 1e3,
+            "kernels_ms": launch_split(torch, run)}), flush=True)
+        if not exact:
+            raise AssertionError(f"row {row} {what} {kind}: bytes differ")
+        del arrays, mine, theirs, news
+    empty = lambda: torch.cuda._sleep(0)
+    print(json.dumps({"row": "empty launch", "ms": timer(empty),
+                      "kernels_ms": launch_split(torch, empty)}), flush=True)
 
 
 def _row4(timer, launch_split, gen):
@@ -284,10 +377,10 @@ def _row4(timer, launch_split, gen):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, nargs="+", default=[4, 5, 6, 10],
-                    choices=[4, 5, 6, 7, 8, 9, 10])
+                    choices=range(4, 13))
     ap.add_argument("--cpb", type=int, nargs="*", default=[],
-                    help="row 8 also with each block walking this many "
-                    "chunks")
+                    help="rows 8 and 9 also with each block walking this "
+                    "many chunks")
     args = ap.parse_args()
     rows = set(args.rows)
     if not torch.cuda.is_available():
@@ -305,9 +398,11 @@ def main() -> int:
     if rows & {6, 10}:
         _rows_6_10(timer, launch_split, gen, rows)
     if rows & {7, 9}:
-        _staged(timer, launch_split, gen, rows, rate)
+        _staged(timer, launch_split, gen, rows, rate, args.cpb)
     if 8 in rows:
         _row8(timer, launch_split, gen, rate, args.cpb)
+    if rows & {11, 12}:
+        _row_writes(timer, launch_split, gen, rate, rows)
     if 4 in rows:
         _row4(timer, launch_split, gen)
     return 0

@@ -20,18 +20,24 @@ then times, on the host clock around synchronised calls:
 - one 2048-token admission into slot 0 (fresh cache, last logits only),
   after one untimed warm-up, twice.
 
-Then, the Llama engine freed, it builds Mistral-7B-v0.1 (32 layers, rank
+Then, from the same packing, the ``bfloat16`` cache (8 slots, max_len
+2048): 40 decode steps from position 64 and the device busy time of 5
+more, with the row write's (row 11) device time a step. Then Llama-2-7B
+on the ``mxint8``, ``mxint8-staged`` and ``mxint4-staged`` caches (the
+last with the KV4 configuration) at 4 slots, max_len 32768 (past the
+one-pass length: the fused encode + write and the streaming decode kernel
+row 8, or the streaming staged kernel row 9), 10 decode steps from
+position 32000 over a context built by the checkout's
+``chip_smoke.fill_context`` (a staged cache flushed to 32000), after two
+untimed ones, and the device busy time of 5 more.
+
+Then, the Llama engines freed, it builds Mistral-7B-v0.1 (32 layers, rank
 128, W8 head, window 4096) on the ``bfloat16`` cache, 8 slots, max_len
 8192, fills every slot's cache with seeded random rows up to position
 6000 and times 20 decode steps from there (the fp-cache decode kernel
 reads the window's 4096 keys a slot), after two untimed ones; then the
-same on the direct ``mxint8`` cache (the context built by the checkout's
+same on the direct ``mxint8`` cache (the context built by
 ``chip_smoke.fill_context``), with the device busy time of 5 more steps.
-Last, Llama-2-7B again on the ``mxint8`` cache at 4 slots, max_len 32768
-(past the one-pass length: the fused encode + write and the streaming
-decode kernel, row 8), 10 decode steps from position 32000 over a context
-built the same way, after two untimed ones, and the device busy time of 5
-more.
 
 Each process prints one JSON line; the card's name and power limit come
 first. Needs one CUDA device.
@@ -55,10 +61,14 @@ def child(root: str) -> None:
 
     sys.path.insert(0, str(Path(root).resolve()))
     import lqer_tpu_torch
+    from lqer_tpu_torch import models
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.ops.kernels._build import build_all
     from lqer_tpu_torch.serving import DecodeEngine
-    from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.serving.random_model import (
+        KV4_Q_CONFIG,
+        build_random_model,
+    )
 
     if not Path(lqer_tpu_torch.__file__).resolve().is_relative_to(
             Path(root).resolve()):
@@ -71,9 +81,8 @@ def child(root: str) -> None:
         params["model.embed_tokens.weight"].to(torch.bfloat16)
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
                           cache_dtype="mxint8-staged",
-                          pallas_backend=backend, consume_backend=True,
-                          lm_head_width=8, device="cuda")
-    del backend
+                          pallas_backend=backend, lm_head_width=8,
+                          device="cuda")
     rng = np.random.default_rng(5)
 
     def timed(fn, *a):
@@ -93,7 +102,7 @@ def child(root: str) -> None:
     for _ in range(40):
         steps.append(timed(engine.decode_logits, tokens))
         engine.lengths += 1
-    llama_busy = device_busy_ms(torch, engine, tokens)
+    llama_busy, _ = device_busy_ms(torch, engine, tokens)
     long_ids = rng.integers(0, cfg.vocab_size, (1, 2048))
     long_args = (long_ids, np.zeros(1, dtype=np.int64),
                  np.full(1, 2048, dtype=np.int32))
@@ -101,9 +110,33 @@ def child(root: str) -> None:
     long = [timed(engine.prefill, *long_args) for _ in range(2)]
     del engine
     torch.cuda.empty_cache()
+    out = {}
+    engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
+                          cache_dtype="bfloat16", pallas_backend=backend,
+                          lm_head_width=8, device="cuda")
+    engine.lengths[:] = 64
+    steps_bf16 = []
+    for _ in range(40):
+        steps_bf16.append(timed(engine.decode_logits, tokens))
+        engine.lengths += 1
+    busy, row11 = device_busy_ms(torch, engine, tokens, "row_write_kernel")
+    out.update(llama_bf16_step_ms_median=statistics.median(steps_bf16),
+               llama_bf16_step_device_busy_ms=busy,
+               llama_bf16_row_write_device_ms_per_step=row11)
+    del engine
+    torch.cuda.empty_cache()
+    kv4 = models.quantize_model(cfg, KV4_Q_CONFIG, {"linear": {"rank": 32}})
+    for cache_dtype, layer_qcfgs in (("mxint8", qcfgs),
+                                     ("mxint8-staged", qcfgs),
+                                     ("mxint4-staged", kv4)):
+        med, busy = llama_long_steps(torch, timed, cfg, params, layer_qcfgs,
+                                     backend, cache_dtype)
+        out[f"llama_{cache_dtype}_32k_step_ms_median"] = med
+        out[f"llama_{cache_dtype}_32k_step_device_busy_ms"] = busy
+    del backend, params
+    torch.cuda.empty_cache()
     mistral, _ = mistral_steps(torch, timed)
     mistral8, mistral8_busy = mistral_steps(torch, timed, "mxint8")
-    long8, long8_busy = llama_long_steps(torch, timed, cfg)
     print(json.dumps({"root": root, "admission_8x64_ms": admission,
                       "decode_step_ms_median": statistics.median(steps),
                       "decode_steps_ms": [round(t, 2) for t in steps],
@@ -116,15 +149,15 @@ def child(root: str) -> None:
                       "mistral_mxint8_step_ms_median":
                           statistics.median(mistral8),
                       "mistral_mxint8_step_device_busy_ms": mistral8_busy,
-                      "llama_mxint8_32k_step_ms_median":
-                          statistics.median(long8),
-                      "llama_mxint8_32k_step_device_busy_ms": long8_busy}),
+                      **out}),
           flush=True)
 
 
-def device_busy_ms(torch, engine, tokens, steps: int = 5) -> float:
-    """The summed device time of the kernels of one decode step
-    (torch.profiler, mean over ``steps``)."""
+def device_busy_ms(torch, engine, tokens, kernel: str = "",
+                   steps: int = 5) -> tuple[float, float | None]:
+    """The summed device time of the kernels of one decode step, and that
+    of the kernels whose name holds ``kernel`` (None without one):
+    torch.profiler, mean over ``steps``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,8 +166,12 @@ def device_busy_ms(torch, engine, tokens, steps: int = 5) -> float:
             engine.decode_logits(tokens)
             engine.lengths += 1
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    part = (sum(e.self_device_time_total for e in events if kernel in e.key)
+            / 1e3 / steps) if kernel else None
+    return busy, part
 
 
 def mistral_steps(torch, timed, cache_dtype: str = "bfloat16",
@@ -175,32 +212,30 @@ def mistral_steps(torch, timed, cache_dtype: str = "bfloat16",
         if i >= 2:
             steps.append(ms)
     busy = (None if cache_dtype == "bfloat16"
-            else device_busy_ms(torch, engine, tokens))
+            else device_busy_ms(torch, engine, tokens)[0])
     del engine
     torch.cuda.empty_cache()
     return steps, busy
 
 
-def llama_long_steps(torch, timed, cfg, position: int = 32000
-                     ) -> tuple[list[float], float]:
-    """10 decode steps of ``cfg`` on the ``mxint8`` cache, 4 slots at
-    max_len 32768, from ``position`` onwards over a context of seeded
-    random rows, and the device busy ms of 5 more."""
+def llama_long_steps(torch, timed, cfg, params, qcfgs, backend,
+                     cache_dtype: str, position: int = 32000
+                     ) -> tuple[float, float]:
+    """The median of 10 decode steps of ``cfg`` on ``cache_dtype``, 4
+    slots at max_len 32768, from ``position`` onwards over a context of
+    seeded random rows (a staged cache flushed to ``position``), and the
+    device busy ms of 5 more."""
     import numpy as np
 
     from chip_smoke import fill_context
     from lqer_tpu_torch.serving import DecodeEngine
-    from lqer_tpu_torch.serving.random_model import build_random_model
 
-    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=3)
-    params["model.embed_tokens.weight"] = \
-        params["model.embed_tokens.weight"].to(torch.bfloat16)
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=4, max_len=32768,
-                          cache_dtype="mxint8", pallas_backend=backend,
-                          consume_backend=True, lm_head_width=8,
-                          device="cuda")
-    del backend
+                          cache_dtype=cache_dtype, pallas_backend=backend,
+                          lm_head_width=8, device="cuda")
     fill_context(torch, {"card": engine}, np.full(4, position), seed=17)
+    if "flushed" in engine.cache:
+        engine.cache["flushed"].fill_(position)
     tokens = np.zeros(4, dtype=np.int64)
     steps = []
     for i in range(12):
@@ -208,10 +243,10 @@ def llama_long_steps(torch, timed, cfg, position: int = 32000
         engine.lengths += 1
         if i >= 2:
             steps.append(ms)
-    busy = device_busy_ms(torch, engine, tokens)
+    busy, _ = device_busy_ms(torch, engine, tokens)
     del engine
     torch.cuda.empty_cache()
-    return steps, busy
+    return statistics.median(steps), busy
 
 
 def main() -> int:
