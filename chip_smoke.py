@@ -212,14 +212,16 @@ LOGIT_RMS_STEPS_OPT350M = 0.1
 # Runs that must fail the logits limits against the kernels: one linear's
 # correction left out, and (Mistral) the sliding window left out
 NEGATIVE_CONTROLS = ("no correction", "no window")
-# Phase-3 times (ms) of rows 9, 11 and 12 with their earlier kernels (row
+# Phase-3 times (ms) of rows 9, 11 to 14 with their earlier kernels (row
 # 9: three launches over 512-token chunks; rows 11 and 12: a block per slot
-# and array), from PERF.md's kernel table (H100 80GB HBM3, 700 W), printed
-# beside this run's
+# and array; row 13: a block per slot, a thread per 16-value group; row
+# 14: a block per (layer x slot, array), a byte a step), from PERF.md
+# (H100 80GB HBM3, 700 W), printed beside this run's
 EARLIER_MS = {"row 9": 0.9473, "row 9 width 4": 0.9895, "row 9 d = 80": 0.1278,
               "row 11": 0.0142, "row 11 MXINT4 columns": 0.0121,
               "row 11 Mistral": 0.0083, "row 12 mxint8 columns": 0.1933,
-              "row 12 mxint4 columns": 0.1130, "row 12 bf16 rows": 0.0224}
+              "row 12 mxint4 columns": 0.1130, "row 12 bf16 rows": 0.0224,
+              "row 13": 0.0179, "row 13 Mistral": 0.0090, "row 14": 0.3619}
 # Fraction of a kernel's outputs allowed past the plain rtol/atol band: a
 # flipped P or H rounding moves a whole output row, a flipped correction
 # code one element (``testing.check_close``).
@@ -673,10 +675,11 @@ def phase_kernels(torch, timer, rates):
     b_ms, b_by = bound(2 * moved, 0)
     print(f"kernel 4 cache_write flush NL={NL} B={B} 32 tokens: bit-exact "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-          "library_ms=null", flush=True)
+          f"library_ms=null; the earlier kernel {EARLIER_MS['row 14']} ms",
+          flush=True)
     results["cache_write"] = dict(
         max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=None, earlier_ms=EARLIER_MS["row 14"],
         shape="one flush of 32 tokens, 32 layers, 8 slots, 32 kv heads")
     del mains, stages, m_plain
     torch.cuda.empty_cache()
@@ -1151,13 +1154,37 @@ def phase_stream_kernels(torch, timer, rates, results):
     b_ms, b_by = bound(nbytes(kh, vh) + 2 * B * KVH * (D + D // 16), 0)
     print(f"fused encode + write B={B} KVH={KVH} L={L}: bit-exact "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-          f"library_ms={lib_ms:.4f} (index_put_ of the pre-encoded columns)",
-          flush=True)
+          f"library_ms={lib_ms:.4f} (index_put_ of the pre-encoded columns); "
+          f"the earlier kernel {EARLIER_MS['row 13']} ms", flush=True)
     results["encode_write_tokens"] = dict(
         max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        earlier_ms=EARLIER_MS["row 13"],
         shape="the K and V rows of 8 slots, 32 kv heads, d=128, L=32768")
-    del arrays, mine, cols
+    # the long-context step's 4 slots (phase 5), one of them past the cache
+    p4 = torch.tensor([32000, 32767, 32768, 100], dtype=torch.int32,
+                      device="cuda")
+    mine4 = [a[:, :4].contiguous() for a in mine]
+    theirs4 = [a.clone() for a in mine4]
+    kh4, vh4 = kh[:4], vh[:4]
+    kcw.write_kv_tokens_fused(tuple(mine4), kh4, vh4, li, p4)
+    kcw.encode_write_plain(tuple(theirs4), kh4, vh4, li, p4)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(mine4, theirs4)):
+        raise AssertionError("fused encode + write at 4 slots: cache bytes "
+                             "differ from the plain version")
+    ms4 = timer(lambda: kcw.write_kv_tokens_fused(tuple(mine4), kh4, vh4, li,
+                                                  p4))
+    plain4 = timer(lambda: kcw.encode_write_plain(tuple(theirs4), kh4, vh4,
+                                                  li, p4), 5)
+    b4, _ = bound(nbytes(kh4, vh4) + 2 * 4 * KVH * (D + D // 16), 0)
+    print(f"fused encode + write B=4 KVH={KVH} L={L} (one slot past L): "
+          f"bit-exact kernel_ms={ms4:.4f} plain_ms={plain4:.4f} "
+          f"bound_ms={b4:.4f}", flush=True)
+    results["encode_write_tokens"]["slots4"] = dict(
+        max_abs_err=0.0, ms=ms4, plain_ms=plain4, bound_ms=b4,
+        shape="the K and V rows of 4 slots, 32 kv heads, d=128, L=32768")
+    del arrays, mine, cols, mine4, theirs4
 
     # ---- at L = 24576: each streaming kernel against its one-pass kernel
     L = 24576
@@ -1783,11 +1810,12 @@ def phase_mistral_kernels(torch, timer, rates, results):
                                                     li, pos), 5)
     b_ms, b_by = bound(nbytes(kh, vh) + 2 * B * KVH * (D + D // 16), 0)
     print(f"Mistral fused encode + write B={B} KVH={KVH} L={L}: bit-exact "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f}",
-          flush=True)
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f}; "
+          f"the earlier kernel {EARLIER_MS['row 13 Mistral']} ms", flush=True)
     results["encode_write_tokens"]["mistral"] = dict(
         max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        earlier_ms=EARLIER_MS["row 13 Mistral"],
         shape="the K and V rows of 8 slots, 8 kv heads, d=128, L=32768")
     del arrays, mine, theirs
     L = 8192
@@ -3533,7 +3561,7 @@ def main() -> int:
                                  "launch_split_ms", "quant_x",
                                  "admission_2048", "opt_scale_query",
                                  "mistral_12288", "nrep2_d64_32768",
-                                 "launch_floor_ms")
+                                 "launch_floor_ms", "earlier_ms", "slots4")
                if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

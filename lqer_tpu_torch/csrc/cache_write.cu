@@ -11,15 +11,33 @@
 //     main[..., t] = ring[..., t % SW]   for t in [flushed[b], new_flushed[b])
 // A bit-exact masked indexed copy; one launch covers all layers.
 //
-// What bounds it on an H100: bytes, a read and a write of at most 63
-// tokens x 136 bytes per (layer, slot, kv head, K/V); about 70 MB at the
-// 7B shape with 8 slots and 32 tokens each. It runs once per >= 17 decode
-// steps.
+// What bounds it on an H100: bytes, each staged byte read once from the
+// ring and written once into the main cache: at the 7B shape (32 layers x
+// 8 slots x 32 kv heads x 272 rows) a 32-token span of every slot reads
+// 71 MB and writes 71 MB, 142 MB against 3.35 TB/s, 0.0426 ms. Measured
+// (H100 80GB HBM3, 700 W) the copy costs about 70 ps per main row
+// whatever its bytes, 0.158 ms there and about as much for 64 tokens:
+// each row's span is its own 2 KB-strided piece of the token-axis-last
+// main cache (PyTorch's copy_ of the same bytes takes 0.215 ms). It runs
+// once per >= 17 decode steps.
 //
 // Design: the TPU kernel read-modify-wrote whole 128-lane main windows in
-// two aliased passes (Mosaic tiling and one alias per buffer); here a
-// block per (layer x slot, array) writes just the span, in place, with
-// consecutive threads on consecutive tokens of a row.
+// two aliased passes (Mosaic tiling and one alias per buffer). Here a flat
+// grid of 16-byte pieces: a thread copies one uint4 of each of RPT rows,
+// main offset t (a multiple of 16) from ring offset t % SW (contiguous
+// within the piece since SW % 16 == 0), consecutive threads on consecutive
+// pieces of a row and then the next row, so a 32-token span stores whole
+// 32-byte sectors. The RPT rows of a thread (ceil(rows / RPT) apart) keep
+// RPT loads in flight at once, which takes a flush of few slots 1.4x
+// faster at RPT 4 than at 1. A piece's row and array come from per-array
+// constants, with no division per byte, and by constant indices into the
+// argument struct (a runtime index gave the kernel a stack frame that
+// every thread filled: 2.2x slower). The host sizes the grid without a
+// sync from span <= SW: SW / 16 pieces a row, pieces past a slot's span
+// exit at once (a slot with span 0 costs only exits); a longer span walks
+// on by SW. A slot whose flushed or new_flushed is not a multiple of 16
+// (the serving path makes none: both are multiples of 32) is copied byte
+// by byte in the same pieces.
 //
 // The row write.
 //
@@ -76,15 +94,23 @@
 // mx8_encode(zero_fill=1.0) followed by the row write. A position outside
 // [0, L) writes nothing (checked on the device, no host sync).
 //
-// What bounds it on an H100: the bytes, 2 x 4 x d f32 read and 2 x (d +
-// d/16) int8 written per slot and kv head (at 8 slots x 32 kv heads, d =
-// 128: 256 KB read, 68 KB written): far below a launch's own cost, so it is
-// launch-bound.
+// What bounds it on an H100: the launch. Its bytes, 2 x 4 x d f32 read and
+// 2 x (d + d/16) int8 written per slot and kv head (at 8 slots x 32 kv
+// heads, d = 128: 256 KB read, 68 KB written), take 0.0001 ms at 3.35
+// TB/s, far below the 0.0050 ms an empty launch costs.
 //
 // Design: the TPU kernel read-modify-wrote the 128-lane window holding pos
-// (a Mosaic store needs an aligned window); here a block per slot encodes
-// one 16-value group per thread (decode_common.cuh's encode_group, the
-// decode kernels' own) and stores the bytes of column pos only.
+// (a Mosaic store needs an aligned window). Here a flat grid of one thread
+// per code byte (B x KVH x 2 x d threads), so every load is in flight at
+// once over the whole card: consecutive threads load consecutive values of
+// a row (coalesced; the rows may be strided views, as the fused q|k|v
+// output's V is), a 16-lane group's absmax comes from four
+// __shfl_xor_sync steps (a max is exact in any order), each thread stores
+// its code (decode_common.cuh's mx8_code, the decode kernels' own) and the
+// group's first lane the exponent byte. A thread loads its slot's position
+// beside its value, so the two loads overlap. Each byte lands in its own
+// 32-byte sector of the token-axis-last arrays: 2 x B x KVH x (d + d/16)
+// stores, all in flight at once.
 #include <climits>
 
 #include "decode_common.cuh"
@@ -92,28 +118,72 @@
 namespace {
 
 struct FlushArrays {
-  int8_t* main[4];         // (NL, B, KVH, rows, L)
-  const int8_t* ring[4];   // (NL, B, KVH, rows, SW)
-  int rows[4];
+  int8_t* main[4];        // (NL, B, KVH, rows, L)
+  const int8_t* ring[4];  // (NL, B, KVH, rows, SW)
+  int rows[4];            // KVH x rows: each array's rows of one (layer, slot)
+  int start[5];           // first row of each array; start[4]: all rows
 };
 
-__global__ void flush_kernel(FlushArrays a, const int* __restrict__ fl_p,
-                             const int* __restrict__ nf_p, int B, int KVH,
-                             int L, int SW) {
-  const int lb = blockIdx.x;  // layer * B + slot
-  const int arr = blockIdx.y;
+// v[k] for k in 0..3 by constant indices
+template <class T, int N>
+__device__ __forceinline__ T pick(const T (&v)[N], int k) {
+  return k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : v[3];
+}
+
+// Grid (ceil(rows / RPT) x pieces / 256, NL x B): thread i of (layer, slot)
+// blockIdx.y copies piece p = i % P of the RPT rows q + k ceil(rows / RPT),
+// q = i / P, P = ceil(SW / 16) pieces a row, its RPT loads in flight
+// together, and again every 16 P tokens while the span lasts. vec: L, SW
+// and every array allow 16-byte pieces.
+template <int RPT>
+__global__ void __launch_bounds__(256)
+flush_pieces_kernel(FlushArrays a, const int* __restrict__ fl_p,
+                    const int* __restrict__ nf_p, int B, int L, int SW,
+                    int vec) {
+  const int P = (SW + 15) / 16;
+  const int nrow = a.start[4], rq = (nrow + RPT - 1) / RPT;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lb = blockIdx.y;  // layer * B + slot
   const int b = lb % B;
-  const int f = fl_p[b];
-  const int span = nf_p[b] - f;
-  if (span <= 0) return;
-  const size_t nrow = (size_t)KVH * a.rows[arr];
-  int8_t* main = a.main[arr] + (size_t)lb * nrow * L;
-  const int8_t* ring = a.ring[arr] + (size_t)lb * nrow * SW;
-  for (size_t i = threadIdx.x; i < nrow * span; i += blockDim.x) {
-    const size_t row = i / span;
-    const int tok = f + (int)(i % span);
-    main[row * L + tok] = ring[row * SW + tok % SW];
+  const int lo = max(fl_p[b], 0), hi = min(nf_p[b], L);
+  const int q = i / P;
+  const int first = lo + (i - q * P) * 16;
+  if (q >= rq || first >= hi) return;
+  int8_t* main[RPT];
+  const int8_t* ring[RPT];
+  bool ok[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int row = q + k * rq;
+    ok[k] = row < nrow;
+    // the array by constant indices: a runtime index into the argument
+    // struct would copy it into every thread's local memory
+    const int arr = (row >= a.start[1]) + (row >= a.start[2]) +
+                    (row >= a.start[3]);
+    const size_t r =
+        (size_t)lb * pick(a.rows, arr) + (row - pick(a.start, arr));
+    main[k] = pick(a.main, arr) + r * L;
+    ring[k] = pick(a.ring, arr) + r * SW;
   }
+  if (vec && lo % 16 == 0 && hi % 16 == 0) {  // SW == 16 P
+    for (int t = first; t < hi; t += SW) {
+      uint4 v[RPT];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k)
+        if (ok[k])
+          v[k] = __ldg(reinterpret_cast<const uint4*>(ring[k] + t % SW));
+#pragma unroll
+      for (int k = 0; k < RPT; ++k)
+        if (ok[k]) *reinterpret_cast<uint4*>(main[k] + t) = v[k];
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    if (ok[k])
+      for (int t0 = first; t0 < hi; t0 += 16 * P)
+        for (int t = t0; t < min(t0 + 16, hi); ++t)
+          main[k][t] = ring[k][t % SW];
 }
 
 struct RowArrays {
@@ -182,52 +252,84 @@ row_write_kernel(RowArrays a, const int* __restrict__ pos_p, int li0, int B,
     static_cast<int8_t*>(a.dst[arr])[off] = c;
 }
 
-__global__ void encode_write_kernel(const float* __restrict__ kh,
-                                    const float* __restrict__ vh, int8_t* kc,
-                                    int8_t* ke, int8_t* vc, int8_t* ve,
-                                    const int* __restrict__ pos_p, int li,
-                                    int B, int KVH, int D, int L) {
-  const int b = blockIdx.x, GD = D / 16;
+// Grid (2 B KVH D / 256): thread i encodes value j = i % D of row i / D,
+// the K rows (slot, kv head) first, then the V rows; kh and vh rows of
+// slot b and kv head h start at b * sb + h * skv. 2 B KVH D is a multiple
+// of 32, so a warp runs whole or not at all, and a 16-value group is 16
+// aligned lanes of one warp.
+__global__ void __launch_bounds__(256)
+encode_columns_kernel(const float* __restrict__ kh,
+                      const float* __restrict__ vh, int k_sb, int k_skv,
+                      int v_sb, int v_skv, int8_t* kc, int8_t* ke,
+                      int8_t* vc, int8_t* ve, const int* __restrict__ pos_p,
+                      int li, int B, int KVH, int D, int L) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nr = B * KVH;  // rows of K, and of V
+  if (i >= 2 * nr * D) return;
+  const int r = i / D, j = i - r * D;
+  const bool is_v = r >= nr;
+  const int bk = is_v ? r - nr : r;  // slot * KVH + kv head
+  const int b = bk / KVH, h = bk - b * KVH;
+  const float v = __ldg(is_v ? vh + (size_t)b * v_sb + (size_t)h * v_skv + j
+                             : kh + (size_t)b * k_sb + (size_t)h * k_skv + j);
   const int pos = pos_p[b];
+  float m = fabsf(v);
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const int e = group_exponent(m);
   if (pos < 0 || pos >= L) return;
-  for (int idx = threadIdx.x; idx < 2 * KVH * GD; idx += blockDim.x) {
-    const int g = idx % GD, kv = idx / GD % KVH;
-    const bool is_v = idx >= KVH * GD;
-    const size_t bk = ((size_t)li * B + b) * KVH + kv;
-    decode::encode_group((is_v ? vh : kh) + ((size_t)b * KVH + kv) * D + g * 16,
-                         (is_v ? vc : kc) + bk * D * L,
-                         (is_v ? ve : ke) + bk * GD * L, L, pos, g);
-  }
+  const size_t col = (size_t)li * nr + bk;  // (layer, slot, kv head)
+  (is_v ? vc : kc)[(col * D + j) * L + pos] = decode::mx8_code(v, e);
+  if (j % 16 == 0)
+    (is_v ? ve : ke)[(col * (D / 16) + j / 16) * L + pos] = (int8_t)e;
 }
 
 }  // namespace
 
 // main_*: (NL, B, KVH, rows, L) int8, updated in place; ring_*: the
 // (NL, B, KVH, rows, SW) rings; rows_* is d for codes, d/16 for exponents;
-// flushed, new_flushed (B) int32.
+// flushed, new_flushed (B) int32; rpt (1, 2 or 4) rows a thread.
 LQER_API int lqer_flush_stage(void* main0, void* main1, void* main2,
                               void* main3, const void* ring0,
                               const void* ring1, const void* ring2,
                               const void* ring3, int rows0, int rows1,
                               int rows2, int rows3, const void* flushed,
                               const void* new_flushed, int NL, int B, int KVH,
-                              int L, int SW, void* stream) {
-  FlushArrays a;
-  a.main[0] = static_cast<int8_t*>(main0);
-  a.main[1] = static_cast<int8_t*>(main1);
-  a.main[2] = static_cast<int8_t*>(main2);
-  a.main[3] = static_cast<int8_t*>(main3);
-  a.ring[0] = static_cast<const int8_t*>(ring0);
-  a.ring[1] = static_cast<const int8_t*>(ring1);
-  a.ring[2] = static_cast<const int8_t*>(ring2);
-  a.ring[3] = static_cast<const int8_t*>(ring3);
-  a.rows[0] = rows0;
-  a.rows[1] = rows1;
-  a.rows[2] = rows2;
-  a.rows[3] = rows3;
-  flush_kernel<<<dim3(NL * B, 4), 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int*>(flushed), static_cast<const int*>(new_flushed),
-      B, KVH, L, SW);
+                              int L, int SW, int rpt, void* stream) {
+  if (NL < 1 || B < 1 || SW < 1 || (long long)NL * B > 65535 ||
+      (rpt != 1 && rpt != 2 && rpt != 4))
+    return (int)cudaErrorInvalidValue;
+  FlushArrays a{{static_cast<int8_t*>(main0), static_cast<int8_t*>(main1),
+                 static_cast<int8_t*>(main2), static_cast<int8_t*>(main3)},
+                {static_cast<const int8_t*>(ring0),
+                 static_cast<const int8_t*>(ring1),
+                 static_cast<const int8_t*>(ring2),
+                 static_cast<const int8_t*>(ring3)}};
+  const int rows[4] = {rows0, rows1, rows2, rows3};
+  bool vec = L % 16 == 0 && SW % 16 == 0;
+  long long total = 0;
+  for (int k = 0; k < 4; ++k) {
+    a.rows[k] = KVH * rows[k];
+    a.start[k] = (int)total;
+    total += a.rows[k];
+    vec = vec && reinterpret_cast<uintptr_t>(a.main[k]) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.ring[k]) % 16 == 0;
+  }
+  const long long threads = (total + rpt - 1) / rpt * ((SW + 15) / 16);
+  if (threads > INT_MAX - 255) return (int)cudaErrorInvalidValue;
+  a.start[4] = (int)total;
+  if (threads == 0) return (int)cudaSuccess;
+  const dim3 grid((unsigned)((threads + 255) / 256), NL * B);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int* fl = static_cast<const int*>(flushed);
+  const int* nf = static_cast<const int*>(new_flushed);
+  if (rpt == 1)
+    flush_pieces_kernel<1><<<grid, 256, 0, st>>>(a, fl, nf, B, L, SW, vec);
+  else if (rpt == 2)
+    flush_pieces_kernel<2><<<grid, 256, 0, st>>>(a, fl, nf, B, L, SW, vec);
+  else
+    flush_pieces_kernel<4><<<grid, 256, 0, st>>>(a, fl, nf, B, L, SW, vec);
   return (int)cudaGetLastError();
 }
 
@@ -301,17 +403,24 @@ LQER_API int lqer_write_rows_all_layers(LQER_ROW_PARAMS, int NL, int B,
 #undef LQER_ROW_PARAMS
 #undef LQER_ROW_ARGS
 
-// kh, vh: the fresh (B, KVH, D) f32 rows; kc, vc (NL, B, KVH, D, L) and ke,
-// ve (NL, B, KVH, D/16, L) int8, written in place at column positions[b] of
-// layer li; positions (B) int32.
+// kh, vh: the fresh (B, KVH, D) f32 rows, row (b, h) at b * sb + h * skv
+// (values contiguous); kc, vc (NL, B, KVH, D, L) and ke, ve (NL, B, KVH,
+// D/16, L) int8, written in place at column positions[b] of layer li;
+// positions (B) int32.
 LQER_API int lqer_encode_write_tokens(const void* kh, const void* vh, void* kc,
                                       void* ke, void* vc, void* ve,
-                                      const void* positions, int li, int B,
-                                      int KVH, int D, int L, void* stream) {
-  if (D % 16 != 0) return (int)cudaErrorInvalidValue;
-  encode_write_kernel<<<B, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(kh), static_cast<const float*>(vh),
-      static_cast<int8_t*>(kc), static_cast<int8_t*>(ke),
+                                      const void* positions, int k_sb,
+                                      int k_skv, int v_sb, int v_skv, int li,
+                                      int B, int KVH, int D, int L,
+                                      void* stream) {
+  const long long threads = 2LL * B * KVH * D;
+  if (D % 16 != 0 || threads > INT_MAX - 255)
+    return (int)cudaErrorInvalidValue;
+  if (threads == 0) return (int)cudaSuccess;
+  encode_columns_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
+                          reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(kh), static_cast<const float*>(vh), k_sb,
+      k_skv, v_sb, v_skv, static_cast<int8_t*>(kc), static_cast<int8_t*>(ke),
       static_cast<int8_t*>(vc), static_cast<int8_t*>(ve),
       static_cast<const int*>(positions), li, B, KVH, D, L);
   return (int)cudaGetLastError();

@@ -63,6 +63,13 @@ __device__ __forceinline__ void quantize_queries(const float* q, float* qs,
   }
 }
 
+// The MXINT8 code of v in a group of exponent e (cache_write._encode_t:
+// sign(v + 1e-9) * round((|v| + 1e-9) / 2^e * 128), the rounding clamped to
+// [0, 127]); every MXINT8 cache write stores this byte.
+__device__ __forceinline__ int8_t mx8_code(float v, int e) {
+  return (int8_t)(int)__fmul_rn(sign_eps(v), mx_mant(v, e, 7));
+}
+
 // MXINT8 encode of the 16 values src[0..15] (cache_write._encode_t: exact
 // exponent, an all-zero group takes exponent 0, codes clamp to ±127) into
 // rows g*16 .. g*16+15 of column col of the codes and row g of the exps.
@@ -75,8 +82,7 @@ __device__ __forceinline__ void encode_group(const float* src, int8_t* codes,
   const int e = group_exponent(bmax);
 #pragma unroll
   for (int j = 0; j < 16; ++j)
-    codes[(size_t)(g * 16 + j) * stride + col] =
-        (int8_t)(int)__fmul_rn(sign_eps(src[j]), mx_mant(src[j], e, 7));
+    codes[(size_t)(g * 16 + j) * stride + col] = mx8_code(src[j], e);
   exps[(size_t)g * stride + col] = (int8_t)e;
 }
 

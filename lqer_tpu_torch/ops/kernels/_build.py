@@ -40,7 +40,7 @@ ENTRIES = {
     "decode_attention": ("decode_attention", "lqer_staged_decode_attention",
                          [P] * 15 + [I] * 7 + [F, I, I]),
     "cache_write": ("cache_write", "lqer_flush_stage",
-                    [P] * 8 + [I] * 4 + [P] * 2 + [I] * 5),
+                    [P] * 8 + [I] * 4 + [P] * 2 + [I] * 6),
     "row_write": ("cache_write", "lqer_write_rows",
                   [P] * 8 + [I] * 16 + [P] + [I] * 4),
     "row_write_all": ("cache_write", "lqer_write_rows_all_layers",
@@ -56,7 +56,7 @@ ENTRIES = {
         "decode_attention_streaming", "lqer_decode_attention_streaming",
         [P] * 8 + [I] * 7 + [F, I, I, I]),
     "encode_write_tokens": ("cache_write", "lqer_encode_write_tokens",
-                            [P] * 7 + [I] * 5),
+                            [P] * 7 + [I] * 9),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

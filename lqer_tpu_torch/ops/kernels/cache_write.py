@@ -65,13 +65,22 @@ def flush_plain(cache_arrays, stage_arrays, flushed, new_flushed) -> tuple:
     return tuple(cache_arrays)
 
 
+# Rows of the flush kernel's thread (1, 2 or 4): each row's 16-byte piece
+# is a load in flight at once
+FLUSH_ROWS = 4
+
+
 def flush_stage_to_main(cache_arrays: tuple, stage_arrays: tuple,
                         flushed: torch.Tensor, new_flushed: torch.Tensor
                         ) -> tuple:
     """Migrate every layer's staged tokens ``[flushed, new_flushed)`` from
     the 4 rings ``(NL, B, KVH, rows, SW)`` into the 4 main arrays
-    ``(NL, B, KVH, rows, L)``, in place; returns the main arrays.
-    Precondition: ``new_flushed - flushed < SW`` per slot."""
+    ``(NL, B, KVH, rows, L)``, in place; returns the main arrays. CPU
+    tensors run :func:`flush_plain`; CUDA tensors launch
+    ``csrc/cache_write.cu`` once, its grid sized for spans of at most SW
+    tokens (longer spans walk on, slower), 16 bytes of each of
+    :data:`FLUSH_ROWS` rows a thread where ``flushed`` and
+    ``new_flushed`` are multiples of 16."""
     main0 = cache_arrays[0]
     if main0.device.type == "cpu":
         return flush_plain(cache_arrays, stage_arrays, flushed, new_flushed)
@@ -91,7 +100,7 @@ def flush_stage_to_main(cache_arrays: tuple, stage_arrays: tuple,
     _build.launch("cache_write", *(m.data_ptr() for m in cache_arrays),
                   *(s.data_ptr() for s in stage_arrays),
                   *(m.shape[3] for m in cache_arrays), fl.data_ptr(),
-                  nf.data_ptr(), NL, B, KVH, L, SW)
+                  nf.data_ptr(), NL, B, KVH, L, SW, FLUSH_ROWS)
     flush_stage_to_main.launches += 1
     return tuple(cache_arrays)
 
@@ -265,14 +274,21 @@ def write_kv_tokens_fused(cache_arrays: tuple, kh: torch.Tensor,
         return encode_write_plain(cache_arrays, kh, vh, layer_index, positions)
     if not kc.is_cuda:
         raise ValueError(f"unsupported device {kc.device}")
+    for a in (*cache_arrays, kh, vh, positions):
+        if not a.is_cuda:
+            raise ValueError("the fused write needs CUDA tensors")
     for a in cache_arrays:
-        if not (a.is_cuda and a.dtype == torch.int8 and a.is_contiguous()):
+        if not (a.dtype == torch.int8 and a.is_contiguous()):
             raise ValueError("cache arrays must be contiguous int8 CUDA "
                              "tensors")
-    khf, vhf = (t.to(torch.float32).contiguous() for t in (kh, vh))
+    # the kernel reads f32 rows at their own slot and head strides: the
+    # served V is a view of the fused q|k|v output, read in place
+    khf, vhf = (t if t.dtype == torch.float32 and t.stride(-1) == 1
+                else t.to(torch.float32).contiguous() for t in (kh, vh))
     pos = positions.to(torch.int32).contiguous()
     _build.launch("encode_write_tokens", khf.data_ptr(), vhf.data_ptr(),
                   *(a.data_ptr() for a in cache_arrays), pos.data_ptr(),
+                  khf.stride(0), khf.stride(1), vhf.stride(0), vhf.stride(1),
                   int(layer_index), B, KVH, d, L)
     write_kv_tokens_fused.launches += 1
     return tuple(cache_arrays)

@@ -29,7 +29,11 @@ n_rep 2, d 64, L = 32768 against row 9; row 8 at L = 32768 with skewed
 positions, windowed and not, at d = 80 and width 4; row 9 on row 7's
 kernels with blocks of 1 to 8 chunks at each flushed edge of a span; each
 twice, equal to the bit; the row write at 8 and 32 kv heads and d = 80 and
-128. Needs an
+128; the fused MXINT8 encode + write at 4 and 8 slots of 32 kv heads and
+at 8 kv heads, L = 32768, at d 64, 80 and 96, with positions past L, from
+strided views of a q|k|v output and from bf16 rows; the flush at the 7B
+shape (32 layers, 8 slots, 32 kv heads, L = 2048) with spans 0, 32 and 64
+and a slot off a multiple of 16. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -631,7 +635,15 @@ def test_streaming_against_one_pass(gen):
 
 @pytest.mark.parametrize("b,kvh,d,l,pos", [
     (3, 2, 64, 256, [0, 255, 256]),          # 256 lies past the cache
-    (8, 32, 128, 32768, [64, 511, 512, 4000, 16383, 16384, 30000, 32767])])
+    (8, 32, 128, 32768, [64, 511, 512, 4000, 16383, 16384, 30000, 32767]),
+    # the long-context step's 4 slots, one past the cache
+    (4, 32, 128, 32768, [32000, 32767, 32768, 0]),
+    # Mistral's 8 kv heads; the head dims 64, 80 and 96
+    (8, 8, 128, 32768, [32000, 32001, 32003, 32007, 32010, 32013, 32768,
+                        40000]),
+    (5, 8, 64, 2048, [0, 2047, 2048, 1000, 3000]),
+    (5, 32, 80, 2048, [0, 2047, 2048, 1000, 3000]),
+    (3, 4, 96, 1024, [1023, 1024, 17])])
 def test_encode_write_tokens(gen, b, kvh, d, l, pos):
     arrays = _mx_cache(gen, 8, b, kvh, d, l)
     kh, vh = (torch.randn(b, kvh, 1, d, generator=gen, device="cuda")
@@ -644,6 +656,45 @@ def test_encode_write_tokens(gen, b, kvh, d, l, pos):
     assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
     assert all(torch.equal(a[0], b[0]) for a, b in zip(mine, arrays))
     assert not all(torch.equal(a, b) for a, b in zip(mine, arrays))
+
+
+def test_encode_write_tokens_strided_rows(gen):
+    """Rows read in place from views of a fused q|k|v output (row 13 takes
+    each row's slot and head strides), and bf16 rows widened to f32."""
+    b, kvh, d, l = 4, 8, 128, 4096
+    arrays = _mx_cache(gen, 8, b, kvh, d, l)
+    qkv = torch.randn(b, 1, 3 * kvh * d, generator=gen, device="cuda")
+    kh, vh = (qkv[..., i * kvh * d:(i + 1) * kvh * d]
+              .reshape(b, 1, kvh, d).transpose(1, 2) for i in (1, 2))
+    assert kh.stride(-1) == 1 and not kh.is_contiguous()
+    p = _positions([5, 4095, 4096, 2000])
+    for rows in ((kh, vh), (kh.to(torch.bfloat16), vh.to(torch.bfloat16))):
+        mine, theirs = ([a.clone() for a in arrays],
+                        [a.clone() for a in arrays])
+        k4.write_kv_tokens_fused(tuple(mine), *rows, 1, p)
+        k4.encode_write_plain(tuple(theirs), *rows, 1, p)
+        assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+        assert not all(torch.equal(a, b) for a, b in zip(mine, arrays))
+
+
+def test_flush_7b_shape(gen):
+    """Row 14 at the 7B flush shape (32 layers, 8 slots, 32 kv heads,
+    L = 2048): spans 0, 32 and 64 (across the ring's wrap, across a
+    128-lane window, up to L) and one slot not on a multiple of 16."""
+    NL, B, KVH, D, L, SW = 32, 8, 32, 128, 2048, 64
+    rows = (D, D // 16, D, D // 16)
+    mains = [torch.randint(-127, 128, (NL, B, KVH, r, L), generator=gen,
+                           device="cuda", dtype=torch.int8) for r in rows]
+    rings = [torch.randint(-127, 128, (NL, B, KVH, r, SW), generator=gen,
+                           device="cuda", dtype=torch.int8) for r in rows]
+    fl = _positions([0, 32, 96, 1984, 1024, 500, 2016, 64])
+    nf = _positions([32, 96, 160, 2048, 1024, 530, 2048, 128])
+    plain = [m.clone() for m in mains]
+    k4.flush_stage_to_main(tuple(mains), tuple(rings), fl, nf)
+    k4.flush_plain(tuple(plain), tuple(rings), fl, nf)
+    assert all(torch.equal(a, b) for a, b in zip(mains, plain))
+    del plain
+    torch.cuda.empty_cache()
 
 
 # ---- OPT's modes: the relu megakernel with biases, kernel 1 with a bias,

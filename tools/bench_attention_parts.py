@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the attention rows 4 to 10 and the decode row writes
-(rows 11 and 12) goes, on one card.
+"""Where the time of the attention rows 4 to 10 and the cache writes
+(rows 11 to 14) goes, on one card.
 
-    python3 tools/bench_attention_parts.py [--rows 4 5 6 7 8 9 10 11 12]
-        [--cpb N ...]
+    python3 tools/bench_attention_parts.py
+        [--rows 4 5 6 7 8 9 10 11 12 13 14] [--cpb N ...]
 
 Row 5 (fp-cache decode attention, ``ops/kernels/fp_decode.py``) at
 ``chip_smoke.py``'s phase-3 shapes (Llama-2-7B: 8 slots x 32 kv heads,
@@ -37,7 +37,22 @@ MXINT4 columns of 8 slots x 32 kv heads, d = 128, L = 2048; Mistral's bf16
 rows at 8 kv heads, L = 8192) and row 12 (32 layers, L = 2048; MXINT8 and
 MXINT4 columns, bf16 rows), each beside its bound, and an empty launch
 (``torch.cuda._sleep(0)``: one thread that returns at once) under the
-same timer, the floor of every launch-bound row. Times are medians of
+same timer, the floor of every launch-bound row. Row 13 (the fused
+MXINT8 encode + column write) at 8 slots x 32 kv heads, d = 128,
+L = 32768 (and L = 2048: the same stores over a smaller cache), at the
+long-context step's 4 slots (also with K and V read as
+views of one q|k|v output, as the served step passes them) and at
+Mistral's 8 kv heads; row 14 (the staged-ring flush) at the 7B flush shape
+(32 layers x 8 slots x 32 kv heads, L = 2048) with every slot's span 32,
+every span 64, and one slot's 32; each bit-exact with its plain version,
+beside its bound (each input byte read once, each output byte written
+once, over the card's memory rate); ``--flush-rows`` times row 14 with
+each thread copying that many rows' pieces instead of its own choice
+(``cache_write.FLUSH_ROWS``), and beside it PyTorch's ``copy_`` of the
+same rows' first 32 bytes (one span for every slot: the strided pattern's
+yardstick, not the same function). Rows 13 and 14 are also timed with L2
+evicted by a read instead of the memset (``ms_l2_clean``), so that no
+dirty line is written back during the launch. Times are medians of
 CUDA events with L2 flushed before each launch (``chip_smoke.Timer``); one
 JSON line per shape, the card's name and power limit first; a shape the
 checkout's kernels refuse prints its reason.
@@ -354,6 +369,112 @@ def _row_writes(timer, launch_split, gen, rate, rows):
                       "kernels_ms": launch_split(torch, empty)}), flush=True)
 
 
+def _rows_13_14(timer, launch_split, gen, rate, rows, flush_rows):
+    """Rows 13 and 14, bit-exact with their plain versions; row 14 also
+    with each of ``flush_rows`` rows a thread."""
+    from lqer_tpu_torch.ops.kernels import cache_write as kcw
+
+    class ReadFlush:
+        """Evicts L2 by reading the timer's 256 MB, so the lines it leaves
+        are clean (the memset leaves them dirty, to be written back when
+        the timed launch stores)."""
+
+        def __init__(self, buf):
+            self.buf = buf
+
+        def zero_(self):
+            self.buf.sum()
+
+    def report(row, what, run, plain, arrays, moved):
+        mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+        run(mine)
+        plain(theirs)
+        exact = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+        del theirs
+        line = {"row": row, "shape": what, "bit_exact": exact,
+                "ms": timer(lambda: run(mine)),
+                "bound_ms": moved / rate * 1e3,
+                "kernels_ms": launch_split(torch, lambda: run(mine))}
+        buf, timer.flush = timer.flush, ReadFlush(timer.flush)
+        line["ms_l2_clean"] = timer(lambda: run(mine))
+        timer.flush = buf
+        print(json.dumps(line), flush=True)
+        if not exact:
+            raise AssertionError(f"row {row} {what}: bytes differ")
+
+    D = 128
+    mistral = [32000 + i for i in (0, 1, 3, 7, 10, 13, 21, 30)]
+    for what, B, KVH, L, pos, view in (
+            ("Llama, 8 slots", 8, 32, 32768, LONG_POS, False),
+            # the same stores over a cache 16 times smaller
+            ("Llama, 8 slots", 8, 32, 2048, DECODE_SHAPES[0][6], False),
+            ("Llama long-context step, 4 slots", 4, 32, 32768,
+             [32000, 32001, 32002, 32003], False),
+            ("Llama long-context step, 4 slots, K and V views of q|k|v", 4,
+             32, 32768, [32000, 32001, 32002, 32003], True),
+            ("Mistral, 8 kv heads", 8, 8, 32768, mistral, False)):
+        if 13 not in rows:
+            break
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        arrays = [torch.zeros(2, B, KVH, r, L, dtype=torch.int8,
+                              device="cuda") for r in (D, D // 16) * 2]
+        if view:
+            qkv = torch.randn(B, 1, 3 * KVH * D, generator=gen, device="cuda")
+            kh, vh = (qkv[..., i * KVH * D:(i + 1) * KVH * D]
+                      .reshape(B, 1, KVH, D).transpose(1, 2) for i in (1, 2))
+        else:
+            kh, vh = (torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+                      for _ in range(2))
+        report(13, f"{what}, B={B} KVH={KVH} L={L}",
+               lambda a: kcw.write_kv_tokens_fused(tuple(a), kh, vh, 1, p),
+               lambda a: kcw.encode_write_plain(tuple(a), kh, vh, 1, p),
+               arrays, 2 * kh.numel() * 4 + 2 * B * KVH * (D + D // 16))
+        del arrays
+    if 14 not in rows:
+        return
+    NL, B, KVH, L, SW = 32, 8, 32, 2048, 64
+    rws = (D, D // 16) * 2
+    mains = [torch.randint(-127, 128, (NL, B, KVH, r, L), generator=gen,
+                           device="cuda", dtype=torch.int8) for r in rws]
+    rings = [torch.randint(-127, 128, (NL, B, KVH, r, SW), generator=gen,
+                           device="cuda", dtype=torch.int8) for r in rws]
+    fl = torch.tensor([0, 32, 64, 96, 1024, 1984, 1984, 512],
+                      dtype=torch.int32, device="cuda")
+    for what, nf in (("every span 32", fl + 32),
+                     ("every span 64", (fl + 64).clamp(max=L)),
+                     ("one slot's span 32", fl + 32 * (torch.arange(
+                         B, device="cuda") == 2).to(torch.int32))):
+        moved = 2 * NL * KVH * sum(rws) * int((nf - fl).sum())
+        # the checkout's own rows a thread, then each of flush_rows
+        own = getattr(kcw, "FLUSH_ROWS", None)
+        for rpt in [None, *flush_rows] if own else [None]:
+            kcw.FLUSH_ROWS = rpt or own
+            report(14, f"{what}, NL={NL} B={B} KVH={KVH} L={L}"
+                   + (f", {rpt} rows a thread" if rpt else ""),
+                   lambda a: kcw.flush_stage_to_main(tuple(a), tuple(rings),
+                                                     fl, nf),
+                   lambda a: kcw.flush_plain(tuple(a), tuple(rings), fl, nf),
+                   mains, moved)
+            torch.cuda.empty_cache()
+        if own:
+            kcw.FLUSH_ROWS = own
+    # the same rows' strided bytes through PyTorch's copy: tokens 0..31 of
+    # every row of the four arrays from the rings' first 32 lanes (every
+    # span 32, but one span for all slots)
+    dst = [m.view(-1, L)[:, :32] for m in mains]
+    src = [r.view(-1, SW)[:, :32] for r in rings]
+
+    def strided():
+        for d, r in zip(dst, src):
+            d.copy_(r)
+
+    print(json.dumps({
+        "row": "14 yardstick", "shape": "torch copy_ of 32 bytes of each "
+        f"row, NL={NL} B={B} KVH={KVH} L={L}", "ms": timer(strided),
+        "bound_ms": 2 * sum(d.numel() for d in dst) / rate * 1e3,
+        "kernels_ms": launch_split(torch, strided)}), flush=True)
+
+
 def _row4(timer, launch_split, gen):
     from lqer_tpu_torch.ops.kernels import attention as k2
     from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
@@ -377,10 +498,13 @@ def _row4(timer, launch_split, gen):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, nargs="+", default=[4, 5, 6, 10],
-                    choices=range(4, 13))
+                    choices=range(4, 15))
     ap.add_argument("--cpb", type=int, nargs="*", default=[],
                     help="rows 8 and 9 also with each block walking this "
                     "many chunks")
+    ap.add_argument("--flush-rows", type=int, nargs="*", default=[],
+                    choices=(1, 2, 4), help="row 14 also with each of "
+                    "these rows a thread (cache_write.FLUSH_ROWS)")
     args = ap.parse_args()
     rows = set(args.rows)
     if not torch.cuda.is_available():
@@ -403,6 +527,8 @@ def main() -> int:
         _row8(timer, launch_split, gen, rate, args.cpb)
     if rows & {11, 12}:
         _row_writes(timer, launch_split, gen, rate, rows)
+    if rows & {13, 14}:
+        _rows_13_14(timer, launch_split, gen, rate, rows, args.flush_rows)
     if 4 in rows:
         _row4(timer, launch_split, gen)
     return 0

@@ -29,7 +29,9 @@ one-pass length: the fused encode + write and the streaming decode kernel
 row 8, or the streaming staged kernel row 9), 10 decode steps from
 position 32000 over a context built by the checkout's
 ``chip_smoke.fill_context`` (a staged cache flushed to 32000), after two
-untimed ones, and the device busy time of 5 more.
+untimed ones, and the device busy time of 5 more (on ``mxint8`` also the
+device time a step of the fused encode + write, row 13: the kernels whose
+name holds ``encode_``).
 
 Then, the Llama engines freed, it builds Mistral-7B-v0.1 (32 layers, rank
 128, W8 head, window 4096) on the ``bfloat16`` cache, 8 slots, max_len
@@ -129,10 +131,12 @@ def child(root: str) -> None:
     for cache_dtype, layer_qcfgs in (("mxint8", qcfgs),
                                      ("mxint8-staged", qcfgs),
                                      ("mxint4-staged", kv4)):
-        med, busy = llama_long_steps(torch, timed, cfg, params, layer_qcfgs,
-                                     backend, cache_dtype)
+        med, busy, row13 = llama_long_steps(torch, timed, cfg, params,
+                                            layer_qcfgs, backend, cache_dtype)
         out[f"llama_{cache_dtype}_32k_step_ms_median"] = med
         out[f"llama_{cache_dtype}_32k_step_device_busy_ms"] = busy
+        if cache_dtype == "mxint8":
+            out["llama_mxint8_32k_row13_device_ms_per_step"] = row13
     del backend, params
     torch.cuda.empty_cache()
     mistral, _ = mistral_steps(torch, timed)
@@ -220,11 +224,12 @@ def mistral_steps(torch, timed, cache_dtype: str = "bfloat16",
 
 def llama_long_steps(torch, timed, cfg, params, qcfgs, backend,
                      cache_dtype: str, position: int = 32000
-                     ) -> tuple[float, float]:
+                     ) -> tuple[float, float, float]:
     """The median of 10 decode steps of ``cfg`` on ``cache_dtype``, 4
     slots at max_len 32768, from ``position`` onwards over a context of
-    seeded random rows (a staged cache flushed to ``position``), and the
-    device busy ms of 5 more."""
+    seeded random rows (a staged cache flushed to ``position``), the
+    device busy ms of 5 more, and the part of it in kernels named
+    ``encode_`` (row 13)."""
     import numpy as np
 
     from chip_smoke import fill_context
@@ -243,10 +248,10 @@ def llama_long_steps(torch, timed, cfg, params, qcfgs, backend,
         engine.lengths += 1
         if i >= 2:
             steps.append(ms)
-    busy, _ = device_busy_ms(torch, engine, tokens)
+    busy, row13 = device_busy_ms(torch, engine, tokens, "encode_")
     del engine
     torch.cuda.empty_cache()
-    return statistics.median(steps), busy
+    return statistics.median(steps), busy, row13
 
 
 def main() -> int:
