@@ -55,7 +55,7 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    kernel, and the row write of every
    layer (32 layers x 8 slots x 32 kv heads, L = 2048; MXINT8 and MXINT4
    columns and bf16 rows) bit-exact with its plain version and with 32
-   single-layer launches, beside ``index_put_``; rows 9, 11 and 12 also
+   single-layer launches, beside ``index_put_``; rows 9 and 11 to 14 also
    print their earlier kernels' times (EARLIER_MS); last, an empty launch
    under the same timer, the floor of the launch-bound cache writes;
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
@@ -679,7 +679,7 @@ def phase_kernels(torch, timer, rates):
           flush=True)
     results["cache_write"] = dict(
         max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, earlier_ms=EARLIER_MS["row 14"],
+        bound_by=b_by, library_ms=None,
         shape="one flush of 32 tokens, 32 layers, 8 slots, 32 kv heads")
     del mains, stages, m_plain
     torch.cuda.empty_cache()
@@ -1159,7 +1159,6 @@ def phase_stream_kernels(torch, timer, rates, results):
     results["encode_write_tokens"] = dict(
         max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        earlier_ms=EARLIER_MS["row 13"],
         shape="the K and V rows of 8 slots, 32 kv heads, d=128, L=32768")
     # the long-context step's 4 slots (phase 5), one of them past the cache
     p4 = torch.tensor([32000, 32767, 32768, 100], dtype=torch.int32,
@@ -1815,7 +1814,6 @@ def phase_mistral_kernels(torch, timer, rates, results):
     results["encode_write_tokens"]["mistral"] = dict(
         max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        earlier_ms=EARLIER_MS["row 13 Mistral"],
         shape="the K and V rows of 8 slots, 8 kv heads, d=128, L=32768")
     del arrays, mine, theirs
     L = 8192
@@ -3561,7 +3559,7 @@ def main() -> int:
                                  "launch_split_ms", "quant_x",
                                  "admission_2048", "opt_scale_query",
                                  "mistral_12288", "nrep2_d64_32768",
-                                 "launch_floor_ms", "earlier_ms", "slots4")
+                                 "launch_floor_ms", "slots4")
                if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -27,9 +27,9 @@
 // main offset t (a multiple of 16) from ring offset t % SW (contiguous
 // within the piece since SW % 16 == 0), consecutive threads on consecutive
 // pieces of a row and then the next row, so a 32-token span stores whole
-// 32-byte sectors. The RPT rows of a thread (ceil(rows / RPT) apart) keep
-// RPT loads in flight at once, which takes a flush of few slots 1.4x
-// faster at RPT 4 than at 1. A piece's row and array come from per-array
+// 32-byte sectors. The RPT = 4 rows of a thread (ceil(rows / 4) apart)
+// keep 4 loads in flight at once, which takes a flush of few slots 1.4x
+// faster than one row a thread. A piece's row and array come from per-array
 // constants, with no division per byte, and by constant indices into the
 // argument struct (a runtime index gave the kernel a stack frame that
 // every thread filled: 2.2x slower). The host sizes the grid without a
@@ -135,7 +135,8 @@ __device__ __forceinline__ T pick(const T (&v)[N], int k) {
 // q = i / P, P = ceil(SW / 16) pieces a row, its RPT loads in flight
 // together, and again every 16 P tokens while the span lasts. vec: L, SW
 // and every array allow 16-byte pieces.
-template <int RPT>
+constexpr int RPT = 4;
+
 __global__ void __launch_bounds__(256)
 flush_pieces_kernel(FlushArrays a, const int* __restrict__ fl_p,
                     const int* __restrict__ nf_p, int B, int L, int SW,
@@ -289,16 +290,15 @@ encode_columns_kernel(const float* __restrict__ kh,
 
 // main_*: (NL, B, KVH, rows, L) int8, updated in place; ring_*: the
 // (NL, B, KVH, rows, SW) rings; rows_* is d for codes, d/16 for exponents;
-// flushed, new_flushed (B) int32; rpt (1, 2 or 4) rows a thread.
+// flushed, new_flushed (B) int32.
 LQER_API int lqer_flush_stage(void* main0, void* main1, void* main2,
                               void* main3, const void* ring0,
                               const void* ring1, const void* ring2,
                               const void* ring3, int rows0, int rows1,
                               int rows2, int rows3, const void* flushed,
                               const void* new_flushed, int NL, int B, int KVH,
-                              int L, int SW, int rpt, void* stream) {
-  if (NL < 1 || B < 1 || SW < 1 || (long long)NL * B > 65535 ||
-      (rpt != 1 && rpt != 2 && rpt != 4))
+                              int L, int SW, void* stream) {
+  if (NL < 1 || B < 1 || SW < 1 || (long long)NL * B > 65535)
     return (int)cudaErrorInvalidValue;
   FlushArrays a{{static_cast<int8_t*>(main0), static_cast<int8_t*>(main1),
                  static_cast<int8_t*>(main2), static_cast<int8_t*>(main3)},
@@ -316,7 +316,7 @@ LQER_API int lqer_flush_stage(void* main0, void* main1, void* main2,
     vec = vec && reinterpret_cast<uintptr_t>(a.main[k]) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(a.ring[k]) % 16 == 0;
   }
-  const long long threads = (total + rpt - 1) / rpt * ((SW + 15) / 16);
+  const long long threads = (total + RPT - 1) / RPT * ((SW + 15) / 16);
   if (threads > INT_MAX - 255) return (int)cudaErrorInvalidValue;
   a.start[4] = (int)total;
   if (threads == 0) return (int)cudaSuccess;
@@ -324,12 +324,7 @@ LQER_API int lqer_flush_stage(void* main0, void* main1, void* main2,
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(flushed);
   const int* nf = static_cast<const int*>(new_flushed);
-  if (rpt == 1)
-    flush_pieces_kernel<1><<<grid, 256, 0, st>>>(a, fl, nf, B, L, SW, vec);
-  else if (rpt == 2)
-    flush_pieces_kernel<2><<<grid, 256, 0, st>>>(a, fl, nf, B, L, SW, vec);
-  else
-    flush_pieces_kernel<4><<<grid, 256, 0, st>>>(a, fl, nf, B, L, SW, vec);
+  flush_pieces_kernel<<<grid, 256, 0, st>>>(a, fl, nf, B, L, SW, vec);
   return (int)cudaGetLastError();
 }
 

@@ -40,7 +40,7 @@ ENTRIES = {
     "decode_attention": ("decode_attention", "lqer_staged_decode_attention",
                          [P] * 15 + [I] * 7 + [F, I, I]),
     "cache_write": ("cache_write", "lqer_flush_stage",
-                    [P] * 8 + [I] * 4 + [P] * 2 + [I] * 6),
+                    [P] * 8 + [I] * 4 + [P] * 2 + [I] * 5),
     "row_write": ("cache_write", "lqer_write_rows",
                   [P] * 8 + [I] * 16 + [P] + [I] * 4),
     "row_write_all": ("cache_write", "lqer_write_rows_all_layers",

@@ -65,11 +65,6 @@ def flush_plain(cache_arrays, stage_arrays, flushed, new_flushed) -> tuple:
     return tuple(cache_arrays)
 
 
-# Rows of the flush kernel's thread (1, 2 or 4): each row's 16-byte piece
-# is a load in flight at once
-FLUSH_ROWS = 4
-
-
 def flush_stage_to_main(cache_arrays: tuple, stage_arrays: tuple,
                         flushed: torch.Tensor, new_flushed: torch.Tensor
                         ) -> tuple:
@@ -78,9 +73,8 @@ def flush_stage_to_main(cache_arrays: tuple, stage_arrays: tuple,
     ``(NL, B, KVH, rows, L)``, in place; returns the main arrays. CPU
     tensors run :func:`flush_plain`; CUDA tensors launch
     ``csrc/cache_write.cu`` once, its grid sized for spans of at most SW
-    tokens (longer spans walk on, slower), 16 bytes of each of
-    :data:`FLUSH_ROWS` rows a thread where ``flushed`` and
-    ``new_flushed`` are multiples of 16."""
+    tokens (longer spans walk on, slower), 16 bytes of each of 4 rows a
+    thread where ``flushed`` and ``new_flushed`` are multiples of 16."""
     main0 = cache_arrays[0]
     if main0.device.type == "cpu":
         return flush_plain(cache_arrays, stage_arrays, flushed, new_flushed)
@@ -100,7 +94,7 @@ def flush_stage_to_main(cache_arrays: tuple, stage_arrays: tuple,
     _build.launch("cache_write", *(m.data_ptr() for m in cache_arrays),
                   *(s.data_ptr() for s in stage_arrays),
                   *(m.shape[3] for m in cache_arrays), fl.data_ptr(),
-                  nf.data_ptr(), NL, B, KVH, L, SW, FLUSH_ROWS)
+                  nf.data_ptr(), NL, B, KVH, L, SW)
     flush_stage_to_main.launches += 1
     return tuple(cache_arrays)
 

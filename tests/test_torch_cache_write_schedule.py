@@ -12,12 +12,12 @@ port's plain versions, on seeded numpy inputs.
   an all-zero group and a group whose absmax is one ulp above a power of
   two.
 - Row 14 (``flush_pieces_kernel``): 16-byte pieces of each row, ceil(SW /
-  16) a row, each from ring offset ``t % SW``, a thread's piece in 1, 2 or
-  4 rows, ceil(rows / 4) (or / 2) apart, pieces past a slot's span
-  doing nothing, and a slot whose ``flushed`` or ``new_flushed`` is not a
-  multiple of 16 copied byte by byte in the same pieces; at spans 0, 32 and
-  64, across the ring's wrap and across a 128-lane window of the main
-  cache.
+  16) a row, each from ring offset ``t % SW``, a thread's piece in 4 rows
+  ceil(rows / 4) apart, pieces past a slot's span doing nothing, and a
+  slot whose ``flushed`` or ``new_flushed`` is not a multiple of 16 copied
+  byte by byte in the same pieces; at spans 0, 32 and 64, across the
+  ring's wrap and across a 128-lane window of the main cache, with a
+  (layer, slot)'s rows a multiple of 4 and not.
 """
 
 import jax.numpy as jnp
@@ -65,9 +65,13 @@ def emulate_encode_columns(arrays, kh, vh, li, positions):
     return arrays
 
 
-def emulate_flush_pieces(mains, rings, flushed, new_flushed, rpt):
+# rows of a flush thread, ``RPT`` in ``csrc/cache_write.cu``
+RPT = 4
+
+
+def emulate_flush_pieces(mains, rings, flushed, new_flushed):
     """Row 14's grid, in place: for each (layer, slot), thread (q, p) takes
-    piece p of the rows ``q + k rq`` (k < rpt, rq = ceil(rows / rpt); the
+    piece p of the rows ``q + k rq`` (k < RPT, rq = ceil(rows / RPT); the
     rows of a (layer, slot) run over the four arrays in order), the tokens
     ``lo + 16 p + 16 P j`` onwards of ``[lo, hi)``, one uint4 where the
     slot's bounds are multiples of 16 (and L and SW allow), else byte by
@@ -78,11 +82,11 @@ def emulate_flush_pieces(mains, rings, flushed, new_flushed, rpt):
     vec = L % 16 == 0 and SW % 16 == 0
     per = [m[0, 0].numel() // L for m in mains]     # KVH x rows
     start = np.cumsum([0] + per)
-    rq = -(-start[-1] // rpt)
+    rq = -(-start[-1] // RPT)
     for lb in range(NL * B):
         b = lb % B
         lo, hi = max(int(flushed[b]), 0), min(int(new_flushed[b]), L)
-        for k in range(rpt):
+        for k in range(RPT):
             rows = np.arange(rq) + k * rq            # thread q's k-th row
             for a, (main, ring) in enumerate(zip(mains, rings)):
                 sel = rows[(rows >= start[a]) & (rows < start[a + 1])]
@@ -156,12 +160,15 @@ FLUSH_CASES = {
 }
 
 
-@pytest.mark.parametrize("rpt", [1, 2, 4])
+# (kv heads, d): rows of a (layer, slot) 136 (a multiple of RPT), 102
+# and 102 (not: the last thread holds fewer rows, and a thread's rows
+# cross from one array into the next at other places)
+@pytest.mark.parametrize("kvh,d", [(2, 32), (1, 48), (3, 16)])
 @pytest.mark.parametrize("case", sorted(FLUSH_CASES))
-def test_flush_pieces_schedule_matches_jax(case, rpt):
+def test_flush_pieces_schedule_matches_jax(case, kvh, d):
     fl, nf = (np.array(x, np.int32) for x in FLUSH_CASES[case])
-    rng = np.random.default_rng(len(case))
-    NL, B, KVH, D, L, SW = 2, 4, 2, 32, 256, 64
+    rng = np.random.default_rng(len(case) * 100 + d)
+    NL, B, KVH, D, L, SW = 2, 4, kvh, d, 256, 64
     mains, rings = _cache(rng, NL, B, KVH, D, L), _cache(rng, NL, B, KVH, D,
                                                          SW)
     ref = jax_flush(tuple(jnp.asarray(a) for a in mains),
@@ -169,7 +176,7 @@ def test_flush_pieces_schedule_matches_jax(case, rpt):
                     jnp.asarray(nf), interpret=True)
     t = lambda a: torch.from_numpy(a.copy())
     ours = emulate_flush_pieces([t(a) for a in mains],
-                                [t(a) for a in rings], fl, nf, rpt)
+                                [t(a) for a in rings], fl, nf)
     plain = kcw.flush_plain(tuple(t(a) for a in mains),
                             tuple(t(a) for a in rings), t(fl), t(nf))
     for got, p, want, orig in zip(ours, plain, ref, mains):
@@ -180,15 +187,14 @@ def test_flush_pieces_schedule_matches_jax(case, rpt):
 
 
 def test_flush_pieces_cover_each_token_once():
-    """The threads of a (layer, slot), ceil(rows / rpt) x P of them, hold
+    """The threads of a (layer, slot), ceil(rows / RPT) x P of them, hold
     each row once; the pieces of one row (P = ceil(SW / 16), stepping by
     16 P) visit every token of a span once, for any span and ring width."""
     for nrow in (1, 3, 272, 8704):
-        for rpt in (1, 2, 4):
-            rq = -(-nrow // rpt)
-            held = [q + k * rq for q in range(rq) for k in range(rpt)
-                    if q + k * rq < nrow]
-            assert sorted(held) == list(range(nrow)), (nrow, rpt)
+        rq = -(-nrow // RPT)
+        held = [q + k * rq for q in range(rq) for k in range(RPT)
+                if q + k * rq < nrow]
+        assert sorted(held) == list(range(nrow)), nrow
     for SW in (16, 40, 64):
         P = (SW + 15) // 16
         for lo, hi in ((0, 0), (0, SW), (5, 5 + 3 * SW), (96, 160),

@@ -46,10 +46,8 @@ Mistral's 8 kv heads; row 14 (the staged-ring flush) at the 7B flush shape
 (32 layers x 8 slots x 32 kv heads, L = 2048) with every slot's span 32,
 every span 64, and one slot's 32; each bit-exact with its plain version,
 beside its bound (each input byte read once, each output byte written
-once, over the card's memory rate); ``--flush-rows`` times row 14 with
-each thread copying that many rows' pieces instead of its own choice
-(``cache_write.FLUSH_ROWS``), and beside it PyTorch's ``copy_`` of the
-same rows' first 32 bytes (one span for every slot: the strided pattern's
+once, over the card's memory rate); row 14 has beside it PyTorch's
+``copy_`` of the same rows' first 32 bytes (one span for every slot: the strided pattern's
 yardstick, not the same function). Rows 13 and 14 are also timed with L2
 evicted by a read instead of the memset (``ms_l2_clean``), so that no
 dirty line is written back during the launch. Times are medians of
@@ -369,9 +367,8 @@ def _row_writes(timer, launch_split, gen, rate, rows):
                       "kernels_ms": launch_split(torch, empty)}), flush=True)
 
 
-def _rows_13_14(timer, launch_split, gen, rate, rows, flush_rows):
-    """Rows 13 and 14, bit-exact with their plain versions; row 14 also
-    with each of ``flush_rows`` rows a thread."""
+def _rows_13_14(timer, launch_split, gen, rate, rows):
+    """Rows 13 and 14, bit-exact with their plain versions."""
     from lqer_tpu_torch.ops.kernels import cache_write as kcw
 
     class ReadFlush:
@@ -445,19 +442,12 @@ def _rows_13_14(timer, launch_split, gen, rate, rows, flush_rows):
                      ("one slot's span 32", fl + 32 * (torch.arange(
                          B, device="cuda") == 2).to(torch.int32))):
         moved = 2 * NL * KVH * sum(rws) * int((nf - fl).sum())
-        # the checkout's own rows a thread, then each of flush_rows
-        own = getattr(kcw, "FLUSH_ROWS", None)
-        for rpt in [None, *flush_rows] if own else [None]:
-            kcw.FLUSH_ROWS = rpt or own
-            report(14, f"{what}, NL={NL} B={B} KVH={KVH} L={L}"
-                   + (f", {rpt} rows a thread" if rpt else ""),
-                   lambda a: kcw.flush_stage_to_main(tuple(a), tuple(rings),
-                                                     fl, nf),
-                   lambda a: kcw.flush_plain(tuple(a), tuple(rings), fl, nf),
-                   mains, moved)
-            torch.cuda.empty_cache()
-        if own:
-            kcw.FLUSH_ROWS = own
+        report(14, f"{what}, NL={NL} B={B} KVH={KVH} L={L}",
+               lambda a: kcw.flush_stage_to_main(tuple(a), tuple(rings),
+                                                 fl, nf),
+               lambda a: kcw.flush_plain(tuple(a), tuple(rings), fl, nf),
+               mains, moved)
+        torch.cuda.empty_cache()
     # the same rows' strided bytes through PyTorch's copy: tokens 0..31 of
     # every row of the four arrays from the rings' first 32 lanes (every
     # span 32, but one span for all slots)
@@ -502,9 +492,6 @@ def main() -> int:
     ap.add_argument("--cpb", type=int, nargs="*", default=[],
                     help="rows 8 and 9 also with each block walking this "
                     "many chunks")
-    ap.add_argument("--flush-rows", type=int, nargs="*", default=[],
-                    choices=(1, 2, 4), help="row 14 also with each of "
-                    "these rows a thread (cache_write.FLUSH_ROWS)")
     args = ap.parse_args()
     rows = set(args.rows)
     if not torch.cuda.is_available():
@@ -528,7 +515,7 @@ def main() -> int:
     if rows & {11, 12}:
         _row_writes(timer, launch_split, gen, rate, rows)
     if rows & {13, 14}:
-        _rows_13_14(timer, launch_split, gen, rate, rows, args.flush_rows)
+        _rows_13_14(timer, launch_split, gen, rate, rows)
     if 4 in rows:
         _row4(timer, launch_split, gen)
     return 0
