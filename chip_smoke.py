@@ -104,7 +104,21 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    and without layer 1's down correction must fail the limits), then the
    kernels, the plain versions on the card and the plain versions on the
    CPU (4 slots each), the last two from a copy of the kernels' cache,
-   held to one another;
+   held to one another. The eager engine (``scan_layers=False``, the JAX
+   package's default) of the 2-layer Llama on ``mxint8-staged`` and
+   ``bfloat16`` at max_len 256 against the stacked engine on the card,
+   fed the same tokens: logits and caches equal bit for bit, its launches
+   per layer those of ``decode_route(eager=True)``; the emulated engine
+   (no backend, the same weights kept dense: ``build_random_dense_model``)
+   on ``bfloat16`` at max_len 64 and ``float32`` at 256 against itself on
+   the CPU and against the backend engine on the card (on ``float32`` with
+   ``LQER_DISABLE_ATTN_KERNEL``: the card's fp-cache kernels take bf16).
+   Every CPU side runs in a pool of spawned worker processes
+   (``CpuPool``: ``os.cpu_count() // workers`` threads each, at a lower
+   priority, tensors through files) beside the card's runs, compared once
+   the pool is joined, before phase 5; the CPU runs decode CPU_STEPS
+   steps; the models run as Mistral, Llama, OPT-6.7B, OPT-350m, each's
+   runs with the longest CPU sides first;
 5. ``DecodeEngine`` at Llama-2-7B shape (32 layers, rank 32, W8 head, 8
    slots, max_len 2048) serving 8 greedy requests over each cache
    (``mxint8-staged`` and ``mxint4-staged`` 80 new tokens each, the others
@@ -112,19 +126,27 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    torch.profiler window of 5 decode steps per cache (device busy vs wall
    time, each kernel's time per launch), and on the staged cache a
    profile of one 8 x 64-token admission, then one 2048-token admission
-   (one slot, fresh cache, last logits only) and its profile; then, per
-   MXINT cache (the staged MXINT4 one too), 4 slots at max_len 32768: the
+   (one slot, fresh cache, last logits only) and its profile; the same
+   mix (80 new tokens, ``mxint8-staged``, the f32 embedding) through the
+   stacked engine and then the eager engine, each with a profile of 5
+   decode steps, greedy tokens equal, the eager run launching rows 1, 2,
+   3, 4, 7 and 14; then, per MXINT cache (the staged MXINT4 one too), 4 slots at max_len 32768: the
    same requests with 16 new tokens, and 10 decode steps at positions
    32000.. over a cache filled by tiling one encoded block of 2048 seeded
    rows (median step, tok/s, a profile of 5 steps beside the predicted
-   cache-read floor); then ``tools/bench_streaming_staged.py``'s chains
+   cache-read floor); then the serving CLI (``python -m
+   lqer_tpu_torch.serving.cli`` on ``llama-tiny-pallas.toml --pallas
+   --max-len 64``) on the card and with ``--device cpu``, each a
+   subprocess, token lines equal; then
+   ``tools/bench_streaming_staged.py``'s chains
    at its defaults (row 9; row 12 + row 8), once each, and its marginal ms
    per layer-step; then, the Llama engine freed, ``DecodeEngine`` at
    OPT-6.7B shape (32 layers, rank 32, dense head, 8 slots, max_len 2048)
    serving the same mix over ``bfloat16`` (40 new tokens) and
    ``mxint8-staged`` (80), a profile of 5 decode steps each, and one
    2048-token admission with its profile; then Mistral-7B (32 layers,
-   rank 128, W8 head) at 8 slots, max_len 8192, over ``bfloat16``,
+   rank 128, W8 head; 16 of its 32 layers) at 8 slots, max_len 8192,
+   over ``bfloat16``,
    ``mxint8-staged`` (falling back to ``mxint8``) and ``mxint4``: the mix
    with 40 new tokens, 10 steps at positions 6000.. with a profile, on
    ``bfloat16`` one eager 2048-token admission; ``bfloat16`` at max_len
@@ -160,10 +182,12 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -198,6 +222,11 @@ CACHE_CPU_STEPS_MXINT4 = 2
 # the flush at step 17 moves it to 2016..2112)
 SPAN_EDGE_POSITIONS = np.array([600, 2000, 2030, 2040, 2047, 2060, 2080,
                                 2111], dtype=np.int32)
+# Decode steps of the CPU side of the short-context runs (the card's runs
+# take 20, and the CPU side is held to the card's state after as many):
+# with 20, phase 4 took 306.7 s on the H100 host's 8 cores against 249.1 s
+# with 10, beside the parent's 497.3 s (tools/phase4_time.py, PERF.md)
+CPU_STEPS = 10
 # Decode steps of the CPU side of the long-context runs (one slot at
 # Llama's max_len 24576, Mistral's 4 at 8192): the plain versions decode
 # the whole cache of each layer per call, a few seconds per step.
@@ -2396,14 +2425,188 @@ def run_context(name: str):
     return contextlib.nullcontext()
 
 
-def teacher_force(torch, engines, padded, lengths, steps):
+def snapshot(engine, n: int | None = None) -> types.SimpleNamespace:
+    """The first ``n`` slots of an engine's cache (on the CPU) and lengths,
+    for a comparison made later (the engine runs on meanwhile)."""
+    n = engine.num_slots if n is None else n
+    return types.SimpleNamespace(
+        num_slots=n, lengths=engine.lengths[:n].copy(),
+        cache={k: (v[:, :n] if v.ndim == 5 else v[:n]).cpu().clone()
+               for k, v in engine.cache.items()})
+
+
+def _cpu_worker_init(root: str, threads: int) -> None:
+    """A CPU worker: the repository importable, ``threads`` threads, and a
+    lower scheduling priority than the process that drives the card."""
+    import torch
+
+    sys.path.insert(0, root)
+    torch.set_num_threads(threads)
+    os.nice(10)
+
+
+_CPU_MODELS: dict = {}
+
+
+def cpu_job(job: dict) -> str:
+    """One CPU engine of phase 4, in a worker process: the model of
+    ``job["model"]`` (CPU params and backend, loaded once per worker) in a
+    ``DecodeEngine`` on the CPU, its packed weights each decoded once; an
+    admission of ``padded``/``lengths`` (or, with ``cache``, a copy of a
+    card engine's cache and lengths instead), then one decode step per
+    array of ``tokens``. Saves the logits, the cache and the lengths to a
+    file and returns its path: tensors travel through files, not shared
+    memory."""
+    import torch
+
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import q_config_for
+
+    t0 = time.perf_counter()
+    path = job["model"]
+    if path not in _CPU_MODELS:
+        _CPU_MODELS.clear()
+        _CPU_MODELS[path] = torch.load(path, mmap=True, weights_only=False)
+    params, backend = _CPU_MODELS[path]
+    cfg = job["cfg"]
+    qcfgs = models.quantize_model(cfg, q_config_for(cfg, kv4=job["kv4"]),
+                                  {"linear": {"rank": job["rank"]}})
+    engine = DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
+                          device="cpu", **job["engine"])
+    n = engine.num_slots
+    logits = []
+    with weights_decoded_once():
+        if job.get("cache") is not None:
+            for k, t in torch.load(job["cache"]).items():
+                engine.cache[k].copy_(t)
+            engine.lengths[:] = job["lengths"][:n]
+        else:
+            logits.append(engine.prefill(job["padded"][:n], np.arange(n),
+                                         job["lengths"][:n]).float())
+            engine.lengths[:] = job["lengths"][:n]
+        for tokens in job["tokens"]:
+            logits.append(engine.decode_logits(tokens[:n]).float())
+            engine.lengths += 1
+    out = job["out"]
+    torch.save({"logits": logits, "cache": engine.cache,
+                "lengths": engine.lengths.copy(),
+                "seconds": time.perf_counter() - t0}, out)
+    return out
+
+
+class CpuPool:
+    """Phase 4's CPU engines in a pool of spawned worker processes (a
+    forked child of a process that has initialised CUDA is unsafe), each
+    with ``os.cpu_count() // workers`` threads at a lower priority, so that
+    they run beside the card's runs instead of after them. Each model's CPU params and backend
+    go to a file once (:meth:`model`); each job (:func:`cpu_job`) gets CPU
+    data only and never touches the card. :meth:`defer` queues a
+    comparison of a job's result with card runs captured at the time
+    (:func:`snapshot`); :meth:`finish` joins the pool, then makes the
+    comparisons in order. A worker that dies or raises fails phase 4."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        import tempfile
+
+        self.cpus = os.cpu_count() or 1
+        self.workers = max(1, min(4, self.cpus // 2))
+        self.threads = max(1, self.cpus // self.workers)
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_cpu_"))
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            self.workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init,
+            initargs=(str(Path(__file__).resolve().parent), self.threads))
+        self.deferred = []
+        self.saving = {}
+        self.count = 0
+
+    def _path(self, what: str) -> str:
+        self.count += 1
+        return str(self.dir / f"{self.count}-{what}.pt")
+
+    def model(self, torch, cfg, params, backend, kv4=False, rank=32) -> dict:
+        """Save the model's CPU params and backend once, in a thread beside
+        the card's runs (:meth:`submit` waits for it); returns the job
+        fields that name it."""
+        import threading
+
+        cpu_backend = None if backend is None else {
+            "arrays": {k: {n: None if t is None else t.cpu()
+                           for n, t in v.items()}
+                       for k, v in backend["arrays"].items()},
+            "meta": dict(backend["meta"])}
+        path = self._path("model")
+        saving = threading.Thread(target=torch.save, args=(
+            ({k: v.cpu() for k, v in params.items()}, cpu_backend), path))
+        saving.start()
+        self.saving[path] = saving
+        return {"model": path, "cfg": cfg, "kv4": kv4, "rank": rank}
+
+    def submit(self, torch, model: dict, engine: dict, tokens, padded=None,
+               lengths=None, cache=None):
+        """An admission of ``padded``/``lengths`` and a decode step per
+        array of ``tokens``; or, from ``cache`` (a :func:`snapshot` of a
+        card engine), its decode steps. Returns the job's future."""
+        saving = self.saving.pop(model["model"], None)
+        if saving is not None:
+            saving.join()
+        job = {**model, "engine": engine, "tokens": list(tokens),
+               "padded": padded, "lengths": lengths, "out": self._path("out")}
+        if cache is not None:
+            job["cache"] = self._path("cache")
+            torch.save(cache.cache, job["cache"])
+            job["lengths"] = cache.lengths
+        return self.pool.submit(cpu_job, job)
+
+    def defer(self, future, compare) -> None:
+        """``compare(cpu)`` once the job is done; ``cpu`` carries the CPU
+        engine's ``logits``, ``cache``, ``lengths`` and ``num_slots``;
+        ``compare`` returns what failed."""
+        self.deferred.append((future, compare))
+
+    def finish(self, torch) -> list:
+        """Join the pool (a job that raised, or a worker that died, raises
+        here), then make the deferred comparisons; returns what failed."""
+        import shutil
+
+        for saving in self.saving.values():
+            saving.join()
+        try:
+            results = [f.result() for f, _ in self.deferred]
+        finally:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+        failed, seconds = [], []
+        for path, (_, compare) in zip(results, self.deferred):
+            out = torch.load(path, weights_only=False)
+            cpu = types.SimpleNamespace(
+                logits=out["logits"], cache=out["cache"],
+                lengths=out["lengths"],
+                num_slots=int(out["lengths"].shape[0]))
+            failed += compare(cpu)
+            seconds.append(out["seconds"])
+            os.remove(path)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        print(f"phase 4's CPU sides: {len(seconds)} engines in "
+              f"{self.workers} workers, {sum(seconds):.1f} worker-seconds "
+              f"(longest {max(seconds, default=0):.1f}s)", flush=True)
+        return failed
+
+
+def teacher_force(torch, engines, padded, lengths, steps, snap=None):
     """One admission and ``steps`` decode steps through each engine, all fed
-    the greedy tokens of the first ("kernels"); an engine of fewer slots
-    takes the first ones. Returns each engine's logits per step and the
-    kernel launches of the first."""
+    the greedy tokens of the first (the "kernels" one, or the emulated
+    one); an engine of fewer slots takes the first ones. Returns each
+    engine's logits per step, the kernel launches of the first and the
+    tokens fed (an array per step); with ``snap`` = (slots, step), also
+    each engine's :func:`snapshot` of that many slots after that many
+    steps (for a CPU run of fewer steps)."""
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    logits, tokens = {}, []
+    logits, tokens, snaps = {}, [], {}
+    first = next(iter(engines))
     for name, engine in engines.items():
         n = engine.num_slots
         reset_launch_counts()
@@ -2412,26 +2615,31 @@ def teacher_force(torch, engines, padded, lengths, steps):
             engine.lengths[:] = lengths[:n]
             logits[name] = [lg.float().cpu()]
             for i in range(steps):
-                if name == "kernels":
+                if name == first:
                     tokens.append(torch.argmax(lg, -1).cpu().numpy())
                 lg = engine.decode_logits(tokens[i][:n])
                 engine.lengths += 1
                 logits[name].append(lg.float().cpu())
-        if name == "kernels":
+                if snap is not None and i + 1 == snap[1]:
+                    snaps[name] = snapshot(engine, snap[0])
+        if name == first:
             routes = launch_counts()
-    return logits, routes
+    if snap is not None:
+        return logits, routes, tokens, snaps
+    return logits, routes, tokens
 
 
-def continue_from_card(torch, card, others, last, steps):
+def continue_on_card(torch, card, others, last, steps, start_slots=0):
     """``steps`` more decode steps of the card engine and of each engine of
-    ``others`` (name: engine, run as :func:`run_context` says; an engine of
-    fewer slots takes the first), all fed the card's greedy tokens from its
-    ``last`` logits, each other engine starting from a copy of the card's
-    cache and lengths: decode positions deep in a long context, without
-    the drift the card's and the CPU's libraries build up over a long
-    admission. The card runs its steps first, then
-    each other engine all of its steps in one context (the CPU decodes
-    each packed weight once). Returns each engine's logits per step."""
+    ``others`` on the card (name: engine, run as :func:`run_context`
+    says), all fed the card's greedy tokens from its ``last`` logits, each
+    other engine starting from a copy of the card's cache and lengths:
+    decode positions deep in a long context, without the drift the card's
+    and the CPU's libraries build up over a long admission. Returns each
+    engine's logits per step, the tokens fed, and the card's
+    :func:`snapshot` of ``start_slots`` slots before the steps (for a CPU
+    engine that continues from it too; None for 0)."""
+    start = snapshot(card, start_slots) if start_slots else None
     for engine in others.values():
         n = engine.num_slots
         for key, t in card.cache.items():
@@ -2450,20 +2658,22 @@ def continue_from_card(torch, card, others, last, steps):
                 logits[name].append(engine.decode_logits(
                     tokens[:engine.num_slots]).float().cpu())
                 engine.lengths += 1
-    return logits
+    return logits, seq, start
 
 
 def compare_runs(engines, logits, pairs, what: str, t0: float,
                  cpu_steps: float = None, flushed_steps: float = 1,
                  admitted: bool = True, flush: bool = True,
-                 rms_limit: float = LOGIT_RMS_STEPS) -> list:
+                 rms_limit: float = LOGIT_RMS_STEPS,
+                 logits_only=()) -> list:
     """Logits and cache of each pair of runs against the phase-4 limits
     (the logits RMS against ``rms_limit``; the cache over the tokens every
     slot holds: below ``flushed`` of a staged cache, which with ``flush``
     must have crossed one); prints one line per pair, with each slot's
     largest RMS, and returns what failed. ``flushed_steps`` holds a staged
     cache against another card run; ``admitted``: the logits start with an
-    admission's."""
+    admission's; the pairs of ``logits_only`` (caches of another kind) are
+    held on their logits alone. An engine may be a :func:`snapshot`."""
     from lqer_tpu_torch.testing import cache_agreement, logits_steps
 
     cpu_steps = CACHE_CPU_STEPS if cpu_steps is None else cpu_steps
@@ -2474,8 +2684,8 @@ def compare_runs(engines, logits, pairs, what: str, t0: float,
             return engine.cache["flushed"].tolist()
         return engine.lengths.tolist()
 
-    staged = "flushed" in engines["kernels"].cache
-    flushed = held(engines["kernels"])
+    staged = "flushed" in engines[pairs[0][0]].cache
+    flushed = held(engines[pairs[0][0]])
     failed = ([] if not staged or not flush or min(flushed) >= 64
               else [f"{what}: no flush crossed: {flushed}"])
     for one, other in pairs:
@@ -2488,34 +2698,39 @@ def compare_runs(engines, logits, pairs, what: str, t0: float,
         per_slot = [max(logits_steps(a[s:s + 1], b[s:s + 1])[1]
                         for a, b in zip(logits[one], logits[other]))
                     for s in range(n)] if n > 1 else []
-        mine, theirs = held(engines[one])[:n], held(engines[other])[:n]
-        if staged and "flushed" in engines[other].cache and theirs != mine:
-            failed.append(f"{what}, {one} vs {other}: flushed {mine} vs "
-                          f"{theirs}")
-        ranges = [min(a, b) for a, b in zip(mine, theirs)]
-        frac, cache_steps = cache_agreement(engines[one].cache,
-                                            engines[other].cache, ranges)
-        # layer 0's K/V come straight from the bit-exact GEMMs; a later
-        # layer's decode-written K/V carry a flipped p of the layers
-        # before, as the CPU comparison's do. A staged cache holds them in
-        # its ring, out of this comparison, until a flush moves them below
-        # ``flushed``: held there to ``flushed_steps``
-        first0 = {k: v[:1] for k, v in engines[one].cache.items()
-                  if v.ndim == 5}
-        other0 = {k: v[:1] for k, v in engines[other].cache.items()
-                  if v.ndim == 5}
-        steps0 = cache_agreement(first0, other0, ranges)[1]
+        cache_note, frac, cache_steps, steps0 = "", 1.0, 0.0, 0.0
+        if (one, other) not in logits_only:
+            mine, theirs = held(engines[one])[:n], held(engines[other])[:n]
+            if staged and "flushed" in engines[other].cache \
+                    and theirs != mine:
+                failed.append(f"{what}, {one} vs {other}: flushed {mine} vs "
+                              f"{theirs}")
+            ranges = [min(a, b) for a, b in zip(mine, theirs)]
+            frac, cache_steps = cache_agreement(engines[one].cache,
+                                                engines[other].cache, ranges)
+            # layer 0's K/V come straight from the bit-exact GEMMs; a later
+            # layer's decode-written K/V carry a flipped p of the layers
+            # before, as the CPU comparison's do. A staged cache holds them
+            # in its ring, out of this comparison, until a flush moves them
+            # below ``flushed``: held there to ``flushed_steps``
+            first0 = {k: v[:1] for k, v in engines[one].cache.items()
+                      if v.ndim == 5}
+            other0 = {k: v[:1] for k, v in engines[other].cache.items()
+                      if v.ndim == 5}
+            steps0 = cache_agreement(first0, other0, ranges)[1]
+            cache_note = (
+                f"; cache over tokens {ranges} "
+                f"({'below flushed' if staged else 'held'}): bytes equal "
+                f"{frac:.6f}, largest value diff {cache_steps:.3g} code "
+                f"step(s) ({steps0:.3g} in layer 0)")
         print(f"teacher-forced {what}, {one} vs {other} "
               f"({'CPU' if other.startswith('cpu') else 'card'}): "
               f"{'admission + ' if admitted else ''}"
-              f"{len(seen) - admitted} decode steps, logits |diff| in code steps "
-              f"max {worst:.3g} (limit {LOGIT_MAX_STEPS}), RMS {least:.3g} "
-              f"to {rms:.3g} (limit {rms_limit}"
+              f"{len(seen) - admitted} decode steps, logits |diff| in code "
+              f"steps max {worst:.3g} (limit {LOGIT_MAX_STEPS}), RMS "
+              f"{least:.3g} to {rms:.3g} (limit {rms_limit}"
               f"{'; each slot to ' if per_slot else ''}"
-              f"{', '.join(f'{r:.3g}' for r in per_slot)}); cache over tokens "
-              f"{ranges} ({'below flushed' if staged else 'held'}): bytes "
-              f"equal {frac:.6f}, largest value diff {cache_steps:.3g} code "
-              f"step(s) ({steps0:.3g} in layer 0), "
+              f"{', '.join(f'{r:.3g}' for r in per_slot)}){cache_note}, "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         if other in NEGATIVE_CONTROLS:
             if least <= rms_limit:
@@ -2523,20 +2738,47 @@ def compare_runs(engines, logits, pairs, what: str, t0: float,
             continue
         if worst > LOGIT_MAX_STEPS or rms > rms_limit:
             failed.append(f"{what}, {one} vs {other}: logits")
+        if (one, other) in logits_only:
+            continue
         later = flushed_steps if staged else cpu_steps
-        if other != "cpu" and (frac < 0.999 or steps0 > 1
-                               or cache_steps > later):
+        if not other.startswith("cpu") and (frac < 0.999 or steps0 > 1
+                                            or cache_steps > later):
             failed.append(f"{what}, {one} vs {other}: cache")
-        if other == "cpu" and cache_steps > cpu_steps:
+        if other.startswith("cpu") and cache_steps > cpu_steps:
             failed.append(f"{what}, {one} vs {other}: cache")
     return failed
 
 
-def phase_teacher_forced(torch):
+def defer_cpu(torch, pool, model, engine_kw, what, card, logits, tokens, *,
+              pairs=(("kernels", "cpu"), ("plain", "cpu")), padded=None,
+              lengths=None, start=None, **limits):
+    """Queue a CPU engine fed the card's ``tokens`` (an admission of
+    ``padded``/``lengths``, or from ``start``, a snapshot of the card's
+    cache) and its comparison with the card runs ``card`` (name: a
+    :func:`snapshot` taken after as many steps) over ``pairs``, on the
+    card runs' ``logits``, held to ``limits`` (:func:`compare_runs`)."""
+    future = pool.submit(torch, model, engine_kw, tokens, padded, lengths,
+                         start)
+    t0 = time.perf_counter()
+    steps = len(tokens) + (start is None)
+
+    def compare(cpu):
+        runs = {**card, "cpu": cpu}
+        lg = {name: logits[name][:steps] for name in card}
+        lg["cpu"] = cpu.logits
+        return compare_runs(runs, lg, pairs, what, t0, flush=False, **limits)
+
+    pool.defer(future, compare)
+
+
+def phase_teacher_forced(torch, pool):
     """Phase 4: kernels on the card vs plain versions on the card and on
-    the CPU, teacher-forced with the kernels' greedy tokens, for each cache;
-    the direct-write MXINT8 cache against the staged one; then the
-    ``fuse_mlp=False`` packing, kernels vs plain versions on the card."""
+    the CPU (through ``pool``), teacher-forced with the kernels' greedy
+    tokens, for each cache; the direct-write MXINT8 cache against the
+    staged one; the ``fuse_mlp=False`` packing, kernels vs plain versions
+    on the card; the eager engine against the stacked one on the card; the
+    emulated engine on the card against itself on the CPU and against the
+    kernel backend."""
     import dataclasses
 
     from lqer_tpu_torch import models
@@ -2551,14 +2793,10 @@ def phase_teacher_forced(torch):
     cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=2)
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 2)
     kv4 = models.quantize_model(cfg, KV4_Q_CONFIG, {"linear": {"rank": 32}})
-    params["model.embed_tokens.weight"] = \
-        params["model.embed_tokens.weight"].to(torch.bfloat16)
-    cpu_backend = {"arrays": {k: {n: None if t is None else t.cpu()
-                                  for n, t in v.items()}
-                              for k, v in backend["arrays"].items()},
-                   "meta": dict(backend["meta"])}
-    cpu_params = {k: v.cpu() for k, v in params.items()}
-    kw = dict(num_slots=8, lm_head_width=8)
+    embed32 = params["model.embed_tokens.weight"]
+    params["model.embed_tokens.weight"] = embed32.to(torch.bfloat16)
+    model = pool.model(torch, cfg, params, backend)
+    kw = dict(num_slots=8, lm_head_width=8, scan_layers=True)
     staged = dict(kw, max_len=256, cache_dtype="mxint8-staged")
     # the negative control: the kernels with one linear's correction left
     # out (of the layers' o, qkv and down, the one whose loss moved the
@@ -2568,67 +2806,26 @@ def phase_teacher_forced(torch):
     broken["arrays"][key] = dict(
         broken["arrays"][key],
         b_d=torch.zeros_like(backend["arrays"][key]["b_d"]))
-    engines = {
-        "kernels": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                                device="cuda", **staged),
-        "plain": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                              device="cuda", **staged),
-        "cpu": DecodeEngine(cpu_params, cfg, qcfgs, pallas_backend=cpu_backend,
-                            device="cpu", **staged),
-        "no correction": DecodeEngine(params, cfg, qcfgs,
-                                      pallas_backend=broken, device="cuda",
-                                      **staged)}
+    # the runs whose CPU sides take longest come first, so that the pool
+    # works on them beside the rest of the card's runs
     rng = np.random.default_rng(SEED)
     prompt_len = 63                      # 63 = 32 + 31: residue 31
     padded = rng.integers(0, cfg.vocab_size, (8, 64))
     lengths = np.full(8, prompt_len, dtype=np.int32)
     steps = 20
-    t0 = time.perf_counter()
-    logits, routes = teacher_force(torch, engines, padded, lengths, steps)
-    # the 512-row admission took the large-M route (5 unpacks per layer),
-    # every decode step the megakernel (one launch per layer)
-    if routes["unpack"] != 5 * 2 or routes["mlp_fused"] != steps * 2:
-        raise AssertionError(f"phase 4 routes: {routes}")
-    what = "2-layer 7B-width path"
-    print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
-    failed = compare_runs(engines, logits, (
-        ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu"),
-        ("kernels", "no correction")), what, t0)
-    del engines
+    long_len = 24576
+    long_lengths = np.array([500, 505, 510, 511, 512, 530, 560, 600],
+                            dtype=np.int32)
+    long_padded = rng.integers(0, cfg.vocab_size, (8, 1024))
+    decode_kernels = ("row_write", "decode_attention_fp",
+                      "decode_attention_quantized", "decode_attention_write",
+                      "decode_attention", "encode_write_tokens",
+                      "decode_attention_streaming",
+                      "decode_attention_streaming_staged")
+    failed = emulated_engines(torch, pool, cfg, backend, padded, steps)
 
-    # the staged MXINT4 cache (KV4 configuration), three ways, with the
-    # control without layer 1's down correction; once flushed, its
-    # decode-written tokens as a direct-write MXINT4 cache's
-    staged4 = dict(staged, cache_dtype="mxint4-staged")
-    engines = {
-        name: DecodeEngine(params, cfg, kv4, pallas_backend=backend,
-                           device="cuda", **staged4)
-        for name in ("kernels", "plain")}
-    engines["cpu"] = DecodeEngine(cpu_params, cfg, kv4,
-                                  pallas_backend=cpu_backend, device="cpu",
-                                  **staged4)
-    engines["no correction"] = DecodeEngine(params, cfg, kv4,
-                                            pallas_backend=broken,
-                                            device="cuda", **staged4)
-    engines["mxint4"] = DecodeEngine(params, cfg, kv4, pallas_backend=backend,
-                                     device="cuda",
-                                     **dict(staged, cache_dtype="mxint4"))
-    t0 = time.perf_counter()
-    logits, routes = teacher_force(torch, engines, padded, lengths, steps)
-    if (routes["decode_attention"] != steps * 2
-            or routes["mlp_fused"] != steps * 2 or routes["unpack"] != 10
-            or routes["decode_attention_quantized"] != 0):
-        raise AssertionError(f"phase 4 mxint4-staged routes: {routes}")
-    what = "2-layer 7B-width path, mxint4-staged cache"
-    print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
-    failed += compare_runs(engines, logits, (
-        ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu"),
-        ("kernels", "no correction"), ("kernels", "mxint4")), what, t0,
-        cpu_steps=CACHE_CPU_STEPS_MXINT4)
-    del engines, broken
-
-    # the direct-write caches, then the long-context ones at max_len 24576
-    # (the smallest multiple of 2048 past the one-pass length at d = 128):
+    # the long-context caches at max_len 24576 (the smallest multiple of
+    # 2048 past the one-pass length at d = 128), then the direct-write ones:
     # each decode step launches, per layer, the kernels decode_route names
     # (and no other decode kernel). At long context the kernels meet the
     # plain versions on the card over long prompts (500..600 tokens, one
@@ -2645,35 +2842,20 @@ def phase_teacher_forced(torch):
     # first holds columns on both sides of a span's edge, and the staged
     # slots' flushed lies below, at and past it, before and after the
     # flush at step 17.
-    long_len = 24576
-    long_lengths = np.array([500, 505, 510, 511, 512, 530, 560, 600],
-                            dtype=np.int32)
-    long_padded = rng.integers(0, cfg.vocab_size, (8, 1024))
-    decode_kernels = ("row_write", "decode_attention_fp",
-                      "decode_attention_quantized", "decode_attention_write",
-                      "decode_attention", "encode_write_tokens",
-                      "decode_attention_streaming",
-                      "decode_attention_streaming_staged")
     for cache_dtype, max_len, layer_qcfgs in (
-            ("bfloat16", 256, qcfgs), ("mxint8", 256, qcfgs),
-            ("mxint8", 272, qcfgs), ("mxint4", 256, kv4),
             ("mxint8", long_len, qcfgs), ("mxint8-staged", long_len, qcfgs),
-            ("mxint4", long_len, kv4)):
+            ("mxint4", long_len, kv4), ("bfloat16", 256, qcfgs),
+            ("mxint8", 256, qcfgs), ("mxint8", 272, qcfgs),
+            ("mxint4", 256, kv4)):
         long = max_len == long_len
         direct = dict(kw, max_len=max_len, cache_dtype=cache_dtype)
+        cpu_kw = dict(direct, num_slots=1 if long else 8)
+        cpu_model = {**model, "kv4": layer_qcfgs is kv4}
         engines = {name: DecodeEngine(params, cfg, layer_qcfgs,
                                       pallas_backend=backend, device="cuda",
                                       **direct)
                    for name in ("kernels", "plain")}
-        cpu = None
-        if max_len != 272:      # the 272 run checks the route on the card
-            cpu = DecodeEngine(cpu_params, cfg, layer_qcfgs,
-                               pallas_backend=cpu_backend, device="cpu",
-                               **dict(direct, num_slots=1 if long else 8))
         pairs = [("kernels", "plain")]
-        if not long and cpu is not None:
-            engines["cpu"] = cpu
-            pairs += [("kernels", "cpu"), ("plain", "cpu")]
         if cache_dtype == "mxint8" and max_len != 272:
             # the JAX package holds the direct-write and the staged MXINT8
             # caches to be one function: so are they here, on the card
@@ -2682,9 +2864,11 @@ def phase_teacher_forced(torch):
                 **dict(staged, max_len=max_len))
             pairs.append(("kernels", "staged"))
         t0 = time.perf_counter()
-        logits, routes = teacher_force(
+        cpu_here = max_len not in (272, long_len)   # 272: the route only
+        logits, routes, tokens, *snaps = teacher_force(
             torch, engines, long_padded if long else padded,
-            long_lengths if long else lengths, steps)
+            long_lengths if long else lengths, steps,
+            snap=(8, CPU_STEPS) if cpu_here else None)
         route = decode_route(cache_dtype, max_len, cfg.head_dim, 1)
         got = {k: routes[k] for k in decode_kernels}
         if got != {k: steps * 2 * (k in route) for k in decode_kernels} \
@@ -2701,47 +2885,110 @@ def phase_teacher_forced(torch):
         failed += compare_runs(engines, logits, pairs, what, t0,
                                cpu_steps=cpu_limit,
                                flushed_steps=cpu_limit if long else 1)
+        if cpu_here:
+            defer_cpu(torch, pool, cpu_model, cpu_kw, what,
+                      {k: snaps[0][k] for k in ("kernels", "plain")}, logits,
+                      tokens[:CPU_STEPS], padded=padded, lengths=lengths,
+                      cpu_steps=cpu_limit)
         if long:
             card, plain = engines["kernels"], engines["plain"]
-            engines = {"kernels": card, "cpu": cpu}
-            logits = continue_from_card(torch, card, {"cpu": cpu},
-                                        logits["kernels"][-1], LONG_CPU_STEPS)
-            failed += compare_runs(
-                engines, logits, [("kernels", "cpu")],
-                f"{what}, from the card's cache at positions "
-                f"{cpu.lengths[0] - LONG_CPU_STEPS}..{cpu.lengths[0] - 1}",
-                t0, cpu_steps=cpu_limit, admitted=False)
-            logits, _ = teacher_force(torch, engines, padded, lengths,
-                                      LONG_CPU_STEPS)
-            failed += compare_runs(engines, logits, [("kernels", "cpu")],
-                                   f"{what}, short prompts", t0,
-                                   cpu_steps=cpu_limit, flush=False)
+            logits, seq, start = continue_on_card(
+                torch, card, {}, logits["kernels"][-1], LONG_CPU_STEPS,
+                start_slots=1)
+            at = int(start.lengths[0])
+            defer_cpu(torch, pool, cpu_model, cpu_kw,
+                      f"{what}, from the card's cache at positions "
+                      f"{at}..{at + LONG_CPU_STEPS - 1}",
+                      {"kernels": snapshot(card, 1)}, logits, seq,
+                      pairs=(("kernels", "cpu"),), start=start,
+                      cpu_steps=cpu_limit, admitted=False)
+            logits, _, tokens, snaps = teacher_force(
+                torch, {"kernels": card}, padded, lengths, LONG_CPU_STEPS,
+                snap=(1, LONG_CPU_STEPS))
+            defer_cpu(torch, pool, cpu_model, cpu_kw,
+                      f"{what}, short prompts", snaps, logits, tokens,
+                      pairs=(("kernels", "cpu"),), padded=padded,
+                      lengths=lengths, cpu_steps=cpu_limit)
             fill_context(torch, {"kernels": card}, SPAN_EDGE_POSITIONS,
                          SEED + 19)
             if "flushed" in card.cache:
                 card.cache["flushed"].copy_(torch.as_tensor(
                     SPAN_EDGE_POSITIONS // 32 * 32, device="cuda"))
             engines = {"kernels": card, "plain": plain}
-            logits = continue_from_card(torch, card, {"plain": plain},
-                                        logits["kernels"][-1], steps)
+            logits, _, _ = continue_on_card(torch, card, {"plain": plain},
+                                            logits["kernels"][-1], steps)
             failed += compare_runs(
                 engines, logits, [("kernels", "plain")],
                 f"{what}, from a built context at positions "
                 f"{SPAN_EDGE_POSITIONS.tolist()}.. (span edge 2048)", t0,
                 cpu_steps=cpu_limit, flushed_steps=cpu_limit, admitted=False)
-            del plain
-        del engines, cpu
-    del cpu_backend, cpu_params
+            del plain, card
+        del engines
+
+    engines = {
+        "kernels": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
+                                device="cuda", **staged),
+        "plain": DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
+                              device="cuda", **staged),
+        "no correction": DecodeEngine(params, cfg, qcfgs,
+                                      pallas_backend=broken, device="cuda",
+                                      **staged)}
+    t0 = time.perf_counter()
+    logits, routes, tokens, snaps = teacher_force(
+        torch, engines, padded, lengths, steps, snap=(8, CPU_STEPS))
+    # the 512-row admission took the large-M route (5 unpacks per layer),
+    # every decode step the megakernel (one launch per layer)
+    if routes["unpack"] != 5 * 2 or routes["mlp_fused"] != steps * 2:
+        raise AssertionError(f"phase 4 routes: {routes}")
+    what = "2-layer 7B-width path"
+    print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+    failed += compare_runs(engines, logits, (
+        ("kernels", "plain"), ("kernels", "no correction")), what, t0)
+    defer_cpu(torch, pool, model, staged, what, snaps, logits,
+              tokens[:CPU_STEPS], padded=padded, lengths=lengths)
+    del engines
+
+    # the staged MXINT4 cache (KV4 configuration), three ways, with the
+    # control without layer 1's down correction; once flushed, its
+    # decode-written tokens as a direct-write MXINT4 cache's
+    staged4 = dict(staged, cache_dtype="mxint4-staged")
+    engines = {
+        name: DecodeEngine(params, cfg, kv4, pallas_backend=backend,
+                           device="cuda", **staged4)
+        for name in ("kernels", "plain")}
+    engines["no correction"] = DecodeEngine(params, cfg, kv4,
+                                            pallas_backend=broken,
+                                            device="cuda", **staged4)
+    engines["mxint4"] = DecodeEngine(params, cfg, kv4, pallas_backend=backend,
+                                     device="cuda",
+                                     **dict(staged, cache_dtype="mxint4"))
+    t0 = time.perf_counter()
+    logits, routes, tokens, snaps = teacher_force(
+        torch, engines, padded, lengths, steps, snap=(8, CPU_STEPS))
+    if (routes["decode_attention"] != steps * 2
+            or routes["mlp_fused"] != steps * 2 or routes["unpack"] != 10
+            or routes["decode_attention_quantized"] != 0):
+        raise AssertionError(f"phase 4 mxint4-staged routes: {routes}")
+    what = "2-layer 7B-width path, mxint4-staged cache"
+    print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+    failed += compare_runs(engines, logits, (
+        ("kernels", "plain"), ("kernels", "no correction"),
+        ("kernels", "mxint4")), what, t0, cpu_steps=CACHE_CPU_STEPS_MXINT4)
+    defer_cpu(torch, pool, {**model, "kv4": True}, staged4, what,
+              {k: snaps[k] for k in ("kernels", "plain")}, logits,
+              tokens[:CPU_STEPS], padded=padded, lengths=lengths,
+              cpu_steps=CACHE_CPU_STEPS_MXINT4)
+    del engines, broken
 
     # the fuse_mlp=False packing: gate|up and down through kernel 1 at
     # decode, through the large-M route at the 512-row admission
-    backend, _, _ = build_random_model(cfg, rank=32, seed=SEED + 2,
+    unfused, _, _ = build_random_model(cfg, rank=32, seed=SEED + 2,
                                        fuse_mlp=False)
-    engines = {name: DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
+    engines = {name: DecodeEngine(params, cfg, qcfgs, pallas_backend=unfused,
                                   device="cuda", **staged)
                for name in ("kernels", "plain")}
     t0 = time.perf_counter()
-    logits, routes = teacher_force(torch, engines, padded, lengths, steps)
+    logits, routes, _ = teacher_force(torch, engines, padded, lengths, steps)
     # 4 unpacks per layer at admission; per decode step kernel 1 for q|k|v,
     # o, gate|up and down of both layers and the head, plus the admission's
     # head (8 rows)
@@ -2751,10 +2998,122 @@ def phase_teacher_forced(torch):
     what = "2-layer 7B-width path, fuse_mlp=False"
     print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
     failed += compare_runs(engines, logits, (("kernels", "plain"),), what, t0)
+    del engines, unfused
+    params["model.embed_tokens.weight"] = embed32
+    failed += eager_against_stacked(torch, cfg, params, backend, qcfgs,
+                                    padded, lengths, steps)
+    del backend, params
+    torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"phase 4 past its limits: {failed}")
-    del engines, backend, params
+
+
+def eager_against_stacked(torch, cfg, params, backend, qcfgs, padded,
+                          lengths, steps) -> list:
+    """The eager engine (``scan_layers=False``, per-prefix backend entries)
+    and the stacked one on the same weights (the f32 embedding: the eager
+    step keeps the f32 stream its kernels return, as the JAX package's
+    does), teacher-forced with the eager engine's tokens on the
+    ``mxint8-staged`` and ``bfloat16`` caches at max_len 256: logits and
+    caches equal bit for bit at every step, and the eager engine's
+    launches per layer those of its route (``decode_route(eager=True)``:
+    no row write, the rows written in plain PyTorch)."""
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.decode import decode_route
+
+    decode_kernels = ("row_write", "decode_attention_fp",
+                      "decode_attention_quantized", "decode_attention_write",
+                      "decode_attention", "encode_write_tokens")
+    failed = []
+    for cache_dtype in ("mxint8-staged", "bfloat16"):
+        kw = dict(num_slots=8, max_len=256, cache_dtype=cache_dtype,
+                  lm_head_width=8, pallas_backend=backend, device="cuda")
+        engines = {"eager": DecodeEngine(params, cfg, qcfgs, **kw),
+                   "stacked": DecodeEngine(params, cfg, qcfgs,
+                                           scan_layers=True, **kw)}
+        logits, routes, _ = teacher_force(torch, engines, padded, lengths,
+                                          steps)
+        route = decode_route(cache_dtype, 256, cfg.head_dim, 1, eager=True)
+        want = {k: steps * 2 * (k in route) for k in decode_kernels}
+        got = {k: routes[k] for k in decode_kernels}
+        if (got != want or routes["mlp_fused"] != steps * 2
+                or routes["unpack"] != 5 * 2 or routes["attention"] != 2
+                or routes["dequant_gemm"] != steps * (2 * 2 + 1) + 1
+                or routes["cache_write"] != (cache_dtype != "bfloat16")):
+            raise AssertionError(f"phase 4 eager {cache_dtype} routes: "
+                                 f"{routes}")
+        steps_equal = sum(torch.equal(a, b) for a, b in
+                          zip(logits["eager"], logits["stacked"]))
+        cache_equal = all(torch.equal(engines["eager"].cache[k],
+                                      engines["stacked"].cache[k])
+                          for k in engines["eager"].cache)
+        print(f"eager engine against the stacked engine, 2-layer 7B-width "
+              f"path, {cache_dtype} cache, max_len 256 (card): logits equal "
+              f"at {steps_equal} of {len(logits['eager'])} steps "
+              f"(admission + {steps} decode steps), caches equal "
+              f"{cache_equal}; eager kernel launches {routes}", flush=True)
+        if steps_equal != len(logits["eager"]) or not cache_equal:
+            failed.append(f"eager vs stacked, {cache_dtype}")
+        del engines
+    return failed
+
+
+def emulated_engines(torch, pool, cfg, backend, padded, steps) -> list:
+    """The emulated engine (no backend: every linear through ``qlinear`` on
+    ``prepare_ptq``'s weights) of the same 2-layer model, its dense weights
+    drawn from the same seeds (``build_random_dense_model``; ``backend``
+    packs them: ``build_random_model``'s), on the
+    ``bfloat16`` cache at max_len 64 (prompts of 40 tokens) and the
+    ``float32`` cache at 256: against itself on the CPU (the pool) and
+    against the backend engine (kernels) on the card, within phase 4's
+    limits. Its admissions attend through the prefill kernel, as JAX's do.
+    The card's fp-cache kernels take bf16, so on the ``float32`` cache the
+    backend engine attends eagerly at decode
+    (``LQER_DISABLE_ATTN_KERNEL``, as the JAX package's switch does)."""
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.random_model import build_random_dense_model
+
+    dense, qcfgs = build_random_dense_model(cfg, rank=32, seed=SEED + 2)
+    prepared = models.prepare_ptq(dense, cfg, qcfgs)
+    del dense
+    model = pool.model(torch, cfg, prepared, None)
+    lengths = np.full(8, 40, dtype=np.int32)
+    failed = []
+    for cache_dtype, max_len in (("bfloat16", 64), ("float32", 256)):
+        kw = dict(num_slots=8, max_len=max_len, cache_dtype=cache_dtype)
+        eager_attention = cache_dtype == "float32"
+        if eager_attention:
+            os.environ["LQER_DISABLE_ATTN_KERNEL"] = "1"
+        try:
+            engines = {
+                "emulated": DecodeEngine(prepared, cfg, qcfgs, device="cuda",
+                                         **kw),
+                "kernels": DecodeEngine(prepared, cfg, qcfgs,
+                                        pallas_backend=backend,
+                                        device="cuda", **kw)}
+            t0 = time.perf_counter()
+            logits, routes, tokens, snaps = teacher_force(
+                torch, engines, padded, lengths, steps, snap=(8, CPU_STEPS))
+        finally:
+            os.environ.pop("LQER_DISABLE_ATTN_KERNEL", None)
+        if (routes["attention"] != 2 or routes["dequant_gemm"]
+                or routes["mlp_fused"] or routes["unpack"]):
+            raise AssertionError(f"phase 4 emulated {cache_dtype} routes: "
+                                 f"{routes}")
+        what = (f"2-layer 7B-width path, emulated linears, {cache_dtype} "
+                f"cache, max_len {max_len}")
+        print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
+        failed += compare_runs(engines, logits, (("emulated", "kernels"),),
+                               what, t0)
+        defer_cpu(torch, pool, model, kw, what,
+                  {"emulated": snaps["emulated"]}, logits,
+                  tokens[:CPU_STEPS], pairs=(("emulated", "cpu"),),
+                  padded=padded, lengths=lengths)
+        del engines
+    del prepared
     torch.cuda.empty_cache()
+    return failed
 
 
 def fill_context(torch, engines, positions, seed) -> None:
@@ -2822,7 +3181,7 @@ def teacher_decode(torch, engines, tokens, steps):
     return logits, routes
 
 
-def phase_teacher_forced_mistral(torch):
+def phase_teacher_forced_mistral(torch, pool):
     """Phase 4 for Mistral: a 2-layer model at Mistral-7B-v0.1 width (32
     heads over 8 kv heads, I = 14336, window 4096) at the templates' rank
     128, packed as the JAX package packs by default, per cache at max_len
@@ -2833,15 +3192,15 @@ def phase_teacher_forced_mistral(torch):
     the window, all teacher-forced with the kernels' greedy tokens:
     kernels against the plain versions on the card; then LONG_CPU_STEPS
     steps of the kernels, of the plain versions on the card and of the
-    plain versions on the CPU, the last two from a copy of the kernels'
-    cache, all three held to one another (the plain versions on the card
-    are the second witness of a departure from the CPU: one flipped f32
-    rounding in layer 0's attention moves one slot's logits up to 0.42
-    RMS there, theirs as the kernels', PERF.md). The CPU engine takes the
-    card's 4 slots, as every other comparison of phase 4 does. On the bf16
-    cache two negative controls must fail the logits limit at every step
-    past the window: the same model without its window, and without layer
-    1's down correction."""
+    plain versions on the CPU (the pool), the last two from a copy of the
+    kernels' cache, all three held to one another (the plain versions on
+    the card are the second witness of a departure from the CPU: one
+    flipped f32 rounding in layer 0's attention moves one slot's logits up
+    to 0.42 RMS there, theirs as the kernels', PERF.md). The CPU engine
+    takes the card's 4 slots, as every other comparison of phase 4 does.
+    On the bf16 cache two negative controls must fail the logits limit at
+    every step past the window: the same model without its window, and
+    without layer 1's down correction."""
     import dataclasses
 
     from lqer_tpu_torch import models
@@ -2859,11 +3218,7 @@ def phase_teacher_forced_mistral(torch):
                                 {"linear": {"rank": 128}})
     params["model.embed_tokens.weight"] = \
         params["model.embed_tokens.weight"].to(torch.bfloat16)
-    cpu_backend = {"arrays": {k: {n: None if t is None else t.cpu()
-                                  for n, t in v.items()}
-                              for k, v in backend["arrays"].items()},
-                   "meta": dict(backend["meta"])}
-    cpu_params = {k: v.cpu() for k, v in params.items()}
+    model = pool.model(torch, cfg, params, backend, rank=128)
     broken = {"arrays": dict(backend["arrays"]), "meta": backend["meta"]}
     key = "model.layers.1.mlp_fused"
     broken["arrays"][key] = dict(
@@ -2881,7 +3236,8 @@ def phase_teacher_forced_mistral(torch):
     for cache_dtype, layer_qcfgs in (("bfloat16", qcfgs), ("mxint8", qcfgs),
                                      ("mxint4", kv4)):
         kw = dict(num_slots=4, max_len=max_len, cache_dtype=cache_dtype,
-                  lm_head_width=8)
+                  lm_head_width=8, scan_layers=True)
+        cpu_model = {**model, "kv4": layer_qcfgs is kv4}
         engines = {name: DecodeEngine(params, cfg, layer_qcfgs,
                                       pallas_backend=backend, device="cuda",
                                       **kw)
@@ -2894,13 +3250,11 @@ def phase_teacher_forced_mistral(torch):
             engines["no correction"] = DecodeEngine(
                 params, cfg, layer_qcfgs, pallas_backend=broken,
                 device="cuda", **kw)
-        cpu = DecodeEngine(cpu_params, cfg, layer_qcfgs,
-                           pallas_backend=cpu_backend, device="cpu", **kw)
         what = f"2-layer Mistral-7B-width path (rank 128), {cache_dtype} cache"
         t0 = time.perf_counter()
         short = {k: e for k, e in engines.items() if k in ("kernels", "plain")}
-        short["cpu"] = cpu
-        logits, routes = teacher_force(torch, short, padded, lengths, steps)
+        logits, routes, tokens = teacher_force(torch, short, padded, lengths,
+                                               steps)
         # the 256-row admission and each step: one megakernel per layer
         route = decode_route(cache_dtype, max_len, cfg.head_dim, 4)
         got = {k: routes[k] for k in decode_kernels}
@@ -2913,9 +3267,11 @@ def phase_teacher_forced_mistral(torch):
               f"launches {routes}", flush=True)
         cpu_limit = (CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
                      else CACHE_CPU_STEPS)
-        failed += compare_runs(short, logits, (
-            ("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu")),
-            f"{what}, admission", t0, cpu_steps=cpu_limit)
+        failed += compare_runs(short, logits, (("kernels", "plain"),),
+                               f"{what}, admission", t0, cpu_steps=cpu_limit)
+        defer_cpu(torch, pool, cpu_model, kw, f"{what}, admission",
+                  {k: snapshot(e) for k, e in short.items()}, logits, tokens,
+                  padded=padded, lengths=lengths, cpu_steps=cpu_limit)
         # past the window: the context built, then decode steps
         fill_context(torch, engines, positions, SEED + 29)
         start = torch.argmax(logits["kernels"][-1], -1).numpy()
@@ -2932,22 +3288,26 @@ def phase_teacher_forced_mistral(torch):
             f"{what}, positions {positions.tolist()}..+{long_steps - 1}",
             t0, cpu_steps=cpu_limit, admitted=False)
         card, plain = engines["kernels"], engines["plain"]
-        logits = continue_from_card(torch, card, {"plain": plain, "cpu": cpu},
-                                    logits["kernels"][-1], LONG_CPU_STEPS)
-        failed += compare_runs(
-            {"kernels": card, "plain": plain, "cpu": cpu}, logits,
-            (("kernels", "plain"), ("kernels", "cpu"), ("plain", "cpu")),
-            f"{what}, from the kernels' cache at positions "
-            f"{(cpu.lengths - LONG_CPU_STEPS).tolist()}..+"
-            f"{LONG_CPU_STEPS - 1}", t0, cpu_steps=cpu_limit, admitted=False)
-        del engines, short, cpu, card, plain
+        logits, seq, start = continue_on_card(
+            torch, card, {"plain": plain}, logits["kernels"][-1],
+            LONG_CPU_STEPS, start_slots=4)
+        what = (f"{what}, from the kernels' cache at positions "
+                f"{start.lengths.tolist()}..+{LONG_CPU_STEPS - 1}")
+        failed += compare_runs({"kernels": card, "plain": plain}, logits,
+                               (("kernels", "plain"),), what, t0,
+                               cpu_steps=cpu_limit, admitted=False)
+        defer_cpu(torch, pool, cpu_model, kw, what,
+                  {"kernels": snapshot(card), "plain": snapshot(plain)},
+                  logits, seq, start=start, cpu_steps=cpu_limit,
+                  admitted=False)
+        del engines, short, card, plain
     if failed:
         raise AssertionError(f"phase 4 Mistral past its limits: {failed}")
-    del backend, params, cpu_backend, cpu_params, broken
+    del backend, params, broken
     torch.cuda.empty_cache()
 
 
-def phase_teacher_forced_opt(torch, name="facebook/opt-6.7b",
+def phase_teacher_forced_opt(torch, pool, name="facebook/opt-6.7b",
                              caches=("mxint8-staged", "bfloat16", "mxint8",
                                      "mxint4"),
                              rms_limit=LOGIT_RMS_STEPS):
@@ -2959,10 +3319,10 @@ def phase_teacher_forced_opt(torch, name="facebook/opt-6.7b",
     rows: the large-M route) and 20 decode steps (the relu megakernel) per
     cache of ``caches``: the first with the negative control (layer 1's fc2
     correction left out), ``mxint8-staged`` and ``bfloat16`` three ways
-    (kernels on the card, plain versions on the card and on the CPU),
-    ``mxint8`` and ``mxint4`` (the KV4 configuration) kernels against plain
-    versions on the card; the limits of the Llama runs, the logits RMS
-    held to ``rms_limit``."""
+    (kernels on the card, plain versions on the card and on the CPU, the
+    last through ``pool``), ``mxint8`` and ``mxint4`` (the KV4
+    configuration) kernels against plain versions on the card; the limits
+    of the Llama runs, the logits RMS held to ``rms_limit``."""
     import dataclasses
 
     from lqer_tpu_torch import models
@@ -2978,11 +3338,7 @@ def phase_teacher_forced_opt(torch, name="facebook/opt-6.7b",
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 4)
     kv4 = models.quantize_model(cfg, q_config_for(cfg, kv4=True),
                                 {"linear": {"rank": 32}})
-    cpu_backend = {"arrays": {k: {n: None if t is None else t.cpu()
-                                  for n, t in v.items()}
-                              for k, v in backend["arrays"].items()},
-                   "meta": dict(backend["meta"])}
-    cpu_params = {k: v.cpu() for k, v in params.items()}
+    model = pool.model(torch, cfg, params, backend)
     key = "model.decoder.layers.1.mlp_fused"
     broken = {"arrays": dict(backend["arrays"]), "meta": backend["meta"]}
     broken["arrays"][key] = dict(
@@ -2999,24 +3355,20 @@ def phase_teacher_forced_opt(torch, name="facebook/opt-6.7b",
     for cache_dtype in caches:
         layer_qcfgs = kv4 if cache_dtype == "mxint4" else qcfgs
         kw = dict(num_slots=8, max_len=256, cache_dtype=cache_dtype,
-                  lm_head_width=8)
+                  lm_head_width=8, scan_layers=True)
         engines = {name: DecodeEngine(params, cfg, layer_qcfgs,
                                       pallas_backend=backend, device="cuda",
                                       **kw)
                    for name in ("kernels", "plain")}
         pairs = [("kernels", "plain")]
-        if cache_dtype in ("mxint8-staged", "bfloat16"):
-            engines["cpu"] = DecodeEngine(cpu_params, cfg, layer_qcfgs,
-                                          pallas_backend=cpu_backend,
-                                          device="cpu", **kw)
-            pairs += [("kernels", "cpu"), ("plain", "cpu")]
         if cache_dtype == caches[0]:
             engines["no correction"] = DecodeEngine(
                 params, cfg, layer_qcfgs, pallas_backend=broken,
                 device="cuda", **kw)
             pairs.append(("kernels", "no correction"))
         t0 = time.perf_counter()
-        logits, routes = teacher_force(torch, engines, padded, lengths, steps)
+        logits, routes, tokens, snaps = teacher_force(
+            torch, engines, padded, lengths, steps, snap=(8, CPU_STEPS))
         # the admission: 4 unpacks per layer (q|k|v, out_proj, fc1, fc2);
         # each decode step: kernel 1 for q|k|v and out_proj and one relu
         # megakernel per layer, the decode route's kernels; the head dense
@@ -3031,14 +3383,19 @@ def phase_teacher_forced_opt(torch, name="facebook/opt-6.7b",
                                  f"{routes}")
         what = f"2-layer {name.split('/')[1]}-width path, {cache_dtype} cache"
         print(f"teacher-forced {what}: kernel launches {routes}", flush=True)
-        failed += compare_runs(
-            engines, logits, pairs, what, t0,
-            cpu_steps=(CACHE_CPU_STEPS_MXINT4 if cache_dtype == "mxint4"
-                       else CACHE_CPU_STEPS), rms_limit=rms_limit)
+        limits = dict(cpu_steps=(CACHE_CPU_STEPS_MXINT4
+                                 if cache_dtype == "mxint4"
+                                 else CACHE_CPU_STEPS), rms_limit=rms_limit)
+        failed += compare_runs(engines, logits, pairs, what, t0, **limits)
+        if cache_dtype in ("mxint8-staged", "bfloat16"):
+            defer_cpu(torch, pool, model, kw, what,
+                      {k: snaps[k] for k in ("kernels", "plain")}, logits,
+                      tokens[:CPU_STEPS], padded=padded, lengths=lengths,
+                      **limits)
         del engines
     if failed:
         raise AssertionError(f"phase 4 OPT past its limits: {failed}")
-    del backend, params, cpu_backend, cpu_params, broken
+    del backend, params, broken
     torch.cuda.empty_cache()
 
 
@@ -3067,7 +3424,7 @@ def phase_serve_opt(torch, rates, name="facebook/opt-6.7b",
         engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
                               cache_dtype=cache_dtype,
                               pallas_backend=backend, lm_head_width=8,
-                              device="cuda")
+                              scan_layers=True, device="cuda")
         run = serve_requests(torch, engine, cfg, cache_dtype, new_tokens,
                              pack_s, f"{name} shape, dense head", 32)
         counts = run if counts is None else {k: n + run[k]
@@ -3107,8 +3464,8 @@ def phase_serve(torch, rates, layers: int = 32):
     t0 = time.perf_counter()
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 3)
     kv4 = models.quantize_model(cfg, KV4_Q_CONFIG, {"linear": {"rank": 32}})
-    params["model.embed_tokens.weight"] = \
-        params["model.embed_tokens.weight"].to(torch.bfloat16)
+    embed32 = params["model.embed_tokens.weight"]
+    params["model.embed_tokens.weight"] = embed32.to(torch.bfloat16)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     counts = None
@@ -3122,7 +3479,7 @@ def phase_serve(torch, rates, layers: int = 32):
         engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=8,
                               max_len=2048, cache_dtype=cache_dtype,
                               pallas_backend=backend, lm_head_width=8,
-                              device="cuda")
+                              scan_layers=True, device="cuda")
         run = serve_requests(torch, engine, cfg, cache_dtype, new_tokens,
                              pack_s, "Llama-2-7B shape, W8 head")
         tokens = np.zeros(engine.num_slots, dtype=np.int64)
@@ -3146,6 +3503,8 @@ def phase_serve(torch, rates, layers: int = 32):
             counts = {k: n + launch_counts()[k] for k, n in counts.items()}
         del engine
         torch.cuda.empty_cache()
+    eager = serve_eager(torch, cfg, params, backend, qcfgs, embed32, pack_s)
+    counts = {k: n + eager[k] for k, n in counts.items()}
     # long context: 4 slots at max_len 32768, past the one-pass length, per
     # MXINT cache (36.5 GB at width 8, 19.3 GB at width 4, freed after
     # each): the request mix with 16 new tokens, then decode steps at
@@ -3156,7 +3515,7 @@ def phase_serve(torch, rates, layers: int = 32):
         engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=4,
                               max_len=32768, cache_dtype=cache_dtype,
                               pallas_backend=backend, lm_head_width=8,
-                              device="cuda")
+                              scan_layers=True, device="cuda")
         run = serve_requests(torch, engine, cfg, cache_dtype, 16, pack_s)
         reset_launch_counts()
         long_context_steps(torch, engine, cfg, cache_dtype, rates)
@@ -3170,6 +3529,92 @@ def phase_serve(torch, rates, layers: int = 32):
         gc.collect()
         torch.cuda.empty_cache()
     return counts
+
+
+def serve_eager(torch, cfg, params, backend, qcfgs, embed32, pack_s):
+    """Phase 5, the eager step: the request mix (80 new tokens) on the
+    ``mxint8-staged`` cache through the stacked engine, then through the
+    eager engine (``scan_layers=False``: per-prefix backend entries, the
+    JAX package's default), both with the f32 embedding (the eager stream
+    stays in the f32 its kernels return, as the JAX package's does, so the
+    two compute the same function); each with a profile of 5 decode steps.
+    Greedy tokens must be equal; the eager run must launch rows 1
+    (``dequant_gemm``), 2 (``unpack``: the 8 x 64-row admission takes the
+    large-M route), 3 (``mlp_fused``), 4 (``attention``), 7
+    (``decode_attention``) and 14 (``cache_write``). Returns the eager
+    run's launches."""
+    from lqer_tpu_torch.serving import DecodeEngine
+
+    params32 = dict(params)
+    params32["model.embed_tokens.weight"] = embed32
+    outputs, busy = {}, {}
+    for scan in (True, False):
+        name = "stacked" if scan else "eager"
+        outputs[name] = []
+        engine = DecodeEngine(params32, cfg, qcfgs, num_slots=8,
+                              max_len=2048, cache_dtype="mxint8-staged",
+                              pallas_backend=backend, lm_head_width=8,
+                              scan_layers=scan, device="cuda")
+        run = serve_requests(torch, engine, cfg, "mxint8-staged", 80, pack_s,
+                             f"Llama-2-7B shape, W8 head, f32 embedding, "
+                             f"{name} engine", outputs=outputs[name])
+        tokens = np.zeros(engine.num_slots, dtype=np.int64)
+        busy[name] = profile_window(
+            torch, lambda: engine.decode_logits(tokens), 5,
+            f"decode steps, mxint8-staged cache, {name} engine")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    idle = [k for k in ("dequant_gemm", "unpack", "mlp_fused", "attention",
+                        "decode_attention", "cache_write") if run[k] <= 0]
+    same = outputs["eager"] == outputs["stacked"]
+    print(f"eager engine against the stacked engine, 32 layers, "
+          f"mxint8-staged, the request mix: greedy tokens equal {same}; "
+          f"device busy per step (profile) eager {busy['eager']} ms, "
+          f"stacked {busy['stacked']} ms", flush=True)
+    if idle or not same:
+        raise AssertionError(f"phase 5 eager engine: tokens equal {same}, "
+                             f"rows not launched {idle}: {run}")
+    return run
+
+
+def phase_serve_cli(torch, rates):
+    """Phase 5, the serving CLI: ``python -m lqer_tpu_torch.serving.cli``
+    on ``experiments/configs/debug/llama-tiny-pallas.toml`` with
+    ``--pallas --max-len 64`` (kernel 1 and the megakernel, the prefill
+    kernel, the eager attention at decode), once on the card and once with
+    ``--device cpu``, each a subprocess (the two at once): one token line
+    per prompt, equal.
+    Returns no launches (they are the subprocesses')."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "lqer_tpu_torch.serving.cli",
+           "experiments/configs/debug/llama-tiny-pallas.toml", "--pallas",
+           "--max-len", "64", "--slots", "2", "--max-new-tokens", "8",
+           "--prompt", "1 2 3", "--prompt", "7 8 9 10 11"]
+    t = time.perf_counter()
+    procs = {device: subprocess.Popen(
+        cmd + ["--device", device], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for device in ("cuda", "cpu")}
+    lines = {}
+    try:
+        for device, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"serving CLI on {device}: exit "
+                                     f"{proc.returncode}\n{err[-4000:]}")
+            lines[device] = [ln for ln in out.splitlines()
+                             if ln.startswith("[") and "tokens:" in ln]
+            print(f"serving CLI (llama-tiny-pallas.toml --pallas --max-len "
+                  f"64) --device {device}: {lines[device]}, "
+                  f"{time.perf_counter() - t:.1f}s after both started",
+                  flush=True)
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    if lines["cuda"] != lines["cpu"] or len(lines["cuda"]) != 2:
+        raise AssertionError(f"serving CLI: card {lines['cuda']} against "
+                             f"CPU {lines['cpu']}")
+    return {}
 
 
 def phase_bench_streaming(torch, rates):
@@ -3210,9 +3655,11 @@ def phase_bench_streaming(torch, rates):
     return counts
 
 
-def phase_serve_mistral(torch, rates):
-    """Phase 5 for Mistral: the engine at Mistral-7B-v0.1 shape (32 layers,
-    rank 128, W8 head, window 4096), 8 slots at max_len 8192 over the
+def phase_serve_mistral(torch, rates, layers: int = 16):
+    """Phase 5 for Mistral: the engine at Mistral-7B-v0.1 width (``layers``
+    of its 32: the depth cut to keep the run inside its time, every kernel
+    and route as at 32), rank 128, W8 head, window 4096, 8 slots at max_len
+    8192 over the
     ``bfloat16`` cache, ``mxint8-staged``, which falls back to the
     direct-write ``mxint8`` under the window, and ``mxint4`` (the KV4
     configuration): the request mix (40 new tokens), then 10 decode steps
@@ -3223,6 +3670,8 @@ def phase_serve_mistral(torch, rates):
     max_len 32768, 4 slots: 10 steps near position 32000 (row 13 + row 8
     with the window) beside the window's cache-read floor. Returns the
     kernel launches."""
+    import dataclasses
+
     from lqer_tpu_torch import models
     from lqer_tpu_torch.models import LlamaConfig
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -3232,7 +3681,8 @@ def phase_serve_mistral(torch, rates):
         q_config_for,
     )
 
-    cfg = LlamaConfig.mistral_7b()
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(),
+                              num_hidden_layers=layers)
     t0 = time.perf_counter()
     backend, params, qcfgs = build_random_model(cfg, rank=128, seed=SEED + 25)
     kv4 = models.quantize_model(cfg, q_config_for(cfg, kv4=True),
@@ -3251,7 +3701,7 @@ def phase_serve_mistral(torch, rates):
         engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=slots,
                               max_len=max_len, cache_dtype=cache_dtype,
                               pallas_backend=backend, lm_head_width=8,
-                              device="cuda")
+                              scan_layers=True, device="cuda")
         if "flushed" in engine.cache:
             raise AssertionError("mxint8-staged under a window must fall "
                                  "back to the direct-write cache")
@@ -3277,10 +3727,11 @@ def phase_serve_mistral(torch, rates):
 
 
 def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s,
-                   model="Llama-2-7B shape, W8 head", rank=32):
+                   model="Llama-2-7B shape, W8 head", rank=32, outputs=None):
     """8 greedy requests of 20..64 prompt tokens through ``engine``; prints
-    the step and admission times and returns the kernel launches. With 64
-    new tokens or more every staged slot must have flushed."""
+    the step and admission times and returns the kernel launches (and
+    appends each request's tokens to ``outputs``). With 64 new tokens or
+    more every staged slot must have flushed."""
     from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from lqer_tpu_torch.serving import Request
 
@@ -3314,6 +3765,8 @@ def serve_requests(torch, engine, cfg, cache_dtype, new_tokens, pack_s,
     del engine.decode_logits, engine.prefill   # no cycle keeps the cache
     finished = sum(r.done for r in reqs)
     produced = sum(len(r.output_ids) for r in reqs)
+    if outputs is not None:
+        outputs += [r.output_ids for r in reqs]
     staged = "flushed" in engine.cache
     fl = engine.cache["flushed"].tolist() if staged else None
     if finished != len(reqs) or (staged and new_tokens >= 64
@@ -3504,15 +3957,37 @@ def main() -> int:
               "cache_write"):
         results[k]["launch_floor_ms"] = floor
     print(f"phase 3 done at {time.perf_counter() - t0:.0f}s", flush=True)
-    phase_teacher_forced(torch)
-    phase_teacher_forced_opt(torch)
-    phase_teacher_forced_opt(torch, "facebook/opt-350m", ("bfloat16",),
-                             rms_limit=LOGIT_RMS_STEPS_OPT350M)
-    phase_teacher_forced_mistral(torch)
-    print(f"phase 4 done at {time.perf_counter() - t0:.0f}s", flush=True)
+    t4 = time.perf_counter()
+    pool = CpuPool()
+    print(f"phase 4: os.cpu_count() {pool.cpus}; the CPU sides in "
+          f"{pool.workers} spawned workers of {pool.threads} threads each, "
+          f"{CPU_STEPS} decode steps a short-context CPU run", flush=True)
+    try:
+        # the models whose CPU sides take longest first: the pool works
+        # on them beside the later card runs
+        for what, run in (
+                ("Mistral", phase_teacher_forced_mistral),
+                ("Llama", phase_teacher_forced),
+                ("OPT-6.7B", phase_teacher_forced_opt),
+                ("OPT-350m", lambda *a: phase_teacher_forced_opt(
+                    *a, "facebook/opt-350m", ("bfloat16",),
+                    rms_limit=LOGIT_RMS_STEPS_OPT350M))):
+            run(torch, pool)
+            print(f"phase 4 {what} card runs done at "
+                  f"{time.perf_counter() - t0:.0f}s", flush=True)
+        card_s = time.perf_counter() - t4
+    finally:
+        failed = pool.finish(torch)
+    if failed:
+        raise AssertionError(f"phase 4 past its limits against the CPU: "
+                             f"{failed}")
+    print(f"phase 4 done at {time.perf_counter() - t0:.0f}s: "
+          f"{time.perf_counter() - t4:.1f}s wall ({card_s:.1f}s until the "
+          f"card's runs were done, then the CPU workers joined)", flush=True)
     counts = dict.fromkeys(launch_counts(), 0)
     for what, serve in (
-            ("Llama", phase_serve), ("bench", phase_bench_streaming),
+            ("Llama", phase_serve), ("CLI", phase_serve_cli),
+            ("bench", phase_bench_streaming),
             ("OPT-6.7B", phase_serve_opt), ("Mistral", phase_serve_mistral),
             ("OPT-350m", lambda *a: phase_serve_opt(
                 *a, name="facebook/opt-350m", caches=(("bfloat16", 40),))),

@@ -1,7 +1,9 @@
 """Weights carried across from the JAX package, through numpy.
 
 * :func:`params_from_jax` turns the JAX flat ``{hf_name: array}`` dict into
-  torch tensors.
+  torch tensors, value for value: the served params, or the dense
+  unprepared ones (``models.prepare_ptq`` of them then quantizes exactly
+  as the JAX package's does).
 * :func:`backend_from_jax` turns a JAX ``prepare_serving_params`` (plus
   ``pack_lm_head``) backend, its arrays as numpy, into the port's packed
   layout: the tile-major K-split slabs are read back to codes and exponents

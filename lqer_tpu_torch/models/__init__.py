@@ -1,10 +1,15 @@
-"""Model registry and quantizer resolution (port of the parts of
-``lqer_tpu/models/__init__.py`` the serving path uses)."""
+"""Model registry, quantizer resolution and the functional "model surgery"
+(port of the parts of ``lqer_tpu/models/__init__.py`` the serving path
+uses): a quantized model is (arch config, flat param dict, resolved
+per-layer quantizer configs); :func:`prepare_ptq` quantizes its weights
+once and :func:`load_low_rank_dict` fills its ``.A``/``.B`` factors."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+import torch
 
 from . import llama as llama_mod
 from . import opt as opt_mod
@@ -100,7 +105,45 @@ def quantize_model(cfg, q_config: dict | None, l_config: dict | None):
                                  cfg.arch)
 
 
+def prepare_ptq(params: dict, cfg, layer_qcfgs) -> dict:
+    """One-time PTQ weight and bias quantization of every quantized linear
+    whose config is ``is_ptq`` (the emulated linear then takes the weights
+    as prepared); a new dict, the input left as it is. ``layer_qcfgs``
+    None (the unquantized model) returns ``params``."""
+    if layer_qcfgs is None:
+        return params
+    params = dict(params)
+    for i in range(cfg.num_hidden_layers):
+        for prefix, proj in quantizable_module_prefixes(cfg, i):
+            qc = _proj_qcfg(layer_qcfgs[i], proj)
+            if not qc.is_ptq:
+                continue
+            wk, bk = prefix + ".weight", prefix + ".bias"
+            params[wk] = qc.w_quantizer(params[wk])
+            if params.get(bk) is not None:
+                params[bk] = qc.b_quantizer(params[bk])
+    return params
+
+
+def load_low_rank_dict(params: dict, low_rank_dict: dict, dtype=None) -> dict:
+    """Fill every ``.A``/``.B`` of ``low_rank_dict`` (numpy arrays or
+    tensors) into a new params dict, cast to ``dtype`` when given."""
+    params = dict(params)
+    for k, v in low_rank_dict.items():
+        t = torch.as_tensor(v)
+        params[k] = t if dtype is None else t.to(dtype)
+    return params
+
+
+def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
+                device="cpu") -> dict:
+    """Random-init params of ``cfg``'s architecture drawn from
+    ``generator`` (the JAX package's ``init_params`` draws from
+    ``jax.random``: the same shapes and scales, other values)."""
+    return get_arch_module(cfg).init_params(cfg, generator, dtype, device)
+
+
 __all__ = ["LlamaConfig", "MODEL_CONFIGS", "OPTConfig", "OPT_ATTN_PROJS",
            "OPT_MLP_PROJS", "get_arch_module", "get_model_config",
-           "quantize_model",
-           "quantizable_module_prefixes"]
+           "init_params", "load_low_rank_dict", "prepare_ptq",
+           "quantize_model", "quantizable_module_prefixes"]

@@ -31,6 +31,17 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5
     return y
 
 
+def randn_init(generator: torch.Generator, dtype, device, scale=0.02):
+    """``randn(shape)``: normal values at ``scale`` from ``generator``
+    (drawn in f32 on its device), in ``dtype`` on ``device``."""
+    def randn(shape):
+        x = torch.randn(shape, generator=generator,
+                        device=generator.device) * scale
+        return x.to(device=device, dtype=dtype)
+
+    return randn
+
+
 def stack_layers(params: dict, num_layers: int, layer_prefix, rel_keys
                  ) -> tuple[dict, dict]:
     """Per-layer params → ``(stacked {rel.suffix: (L, ...)}, rest)`` for the

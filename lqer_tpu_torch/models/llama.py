@@ -1,13 +1,15 @@
-"""Llama-family configuration (Llama and Mistral) and parameter stacking
-(port of the parts of ``lqer_tpu/models/llama.py`` the serving path uses).
-Params are a flat ``{hf_name: tensor}`` dict
+"""Llama-family configuration (Llama and Mistral), random init and
+parameter stacking (port of the parts of ``lqer_tpu/models/llama.py`` the
+serving path uses). Params are a flat ``{hf_name: tensor}`` dict
 (``model.layers.N.self_attn.q_proj.weight``...)."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from .common import stack_layers
+import torch
+
+from .common import randn_init, stack_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +61,37 @@ class LlamaConfig:
 
 def layer_prefix(i: int) -> str:
     return f"model.layers.{i}"
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                dtype=torch.float32, device="cpu") -> dict:
+    """Random-init params (offline tests, no checkpoint): weights normal
+    at scale 0.02 drawn from ``generator`` in the JAX package's order,
+    norms one; the head apart unless ``tie_word_embeddings``."""
+    randn = randn_init(generator, dtype, device)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    kv_dim = cfg.kv_heads * cfg.head_dim
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    params = {"model.embed_tokens.weight": randn((cfg.vocab_size, h)),
+              "model.norm.weight": ones(h)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head.weight"] = randn((cfg.vocab_size, h))
+    for i in range(cfg.num_hidden_layers):
+        p = layer_prefix(i)
+        for rel, shape in (("self_attn.q_proj", (h, h)),
+                           ("self_attn.k_proj", (kv_dim, h)),
+                           ("self_attn.v_proj", (kv_dim, h)),
+                           ("self_attn.o_proj", (h, h)),
+                           ("mlp.gate_proj", (inter, h)),
+                           ("mlp.up_proj", (inter, h)),
+                           ("mlp.down_proj", (h, inter))):
+            params[f"{p}.{rel}.weight"] = randn(shape)
+        params[f"{p}.input_layernorm.weight"] = ones(h)
+        params[f"{p}.post_attention_layernorm.weight"] = ones(h)
+    return params
 
 
 LAYER_REL_KEYS = (

@@ -1,5 +1,5 @@
-"""OPT configuration and parameter stacking (port of the parts of
-``lqer_tpu/models/opt.py`` the serving path uses). Params are a flat
+"""OPT configuration, random init and parameter stacking (port of the
+parts of ``lqer_tpu/models/opt.py`` the serving path uses). Params are a flat
 ``{hf_name: tensor}`` dict (``model.decoder.layers.N.self_attn.q_proj.weight``
 ...): learned positions with offset 2 (``embed_positions[pos + 2]``), the
 query scaled before QK^T, pre-LN (``do_layer_norm_before``) or post-LN, a
@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from .common import stack_layers
+import torch
+
+from .common import randn_init, stack_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +81,43 @@ MODEL_CONFIGS = {
 
 def layer_prefix(i: int) -> str:
     return f"model.decoder.layers.{i}"
+
+
+def init_params(cfg: OPTConfig, generator: torch.Generator,
+                dtype=torch.float32, device="cpu") -> dict:
+    """Random-init params (offline tests, no checkpoint): weights and
+    positions normal at scale 0.02 drawn from ``generator`` in the JAX
+    package's order, biases zero, LayerNorms weight one and bias zero;
+    ``project_in``/``project_out`` where ``embed_dim`` differs from the
+    hidden size; the head tied to the embedding."""
+    randn = randn_init(generator, dtype, device)
+    h, f, e = cfg.hidden_size, cfg.ffn_dim, cfg.embed_dim
+
+    def const(n, v):
+        return torch.full((n,), float(v), dtype=dtype, device=device)
+
+    params = {"model.decoder.embed_tokens.weight": randn((cfg.vocab_size, e)),
+              "model.decoder.embed_positions.weight": randn(
+                  (cfg.max_position_embeddings + 2, h))}
+    if e != h:
+        params["model.decoder.project_in.weight"] = randn((h, e))
+        params["model.decoder.project_out.weight"] = randn((e, h))
+    if cfg.do_layer_norm_before:
+        params["model.decoder.final_layer_norm.weight"] = const(h, 1)
+        params["model.decoder.final_layer_norm.bias"] = const(h, 0)
+    for i in range(cfg.num_hidden_layers):
+        p = layer_prefix(i)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            params[f"{p}.self_attn.{proj}.weight"] = randn((h, h))
+            params[f"{p}.self_attn.{proj}.bias"] = const(h, 0)
+        params[f"{p}.fc1.weight"] = randn((f, h))
+        params[f"{p}.fc1.bias"] = const(f, 0)
+        params[f"{p}.fc2.weight"] = randn((h, f))
+        params[f"{p}.fc2.bias"] = const(h, 0)
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            params[f"{p}.{ln}.weight"] = const(h, 1)
+            params[f"{p}.{ln}.bias"] = const(h, 0)
+    return params
 
 
 def _mod(params: dict, prefix: str) -> dict:

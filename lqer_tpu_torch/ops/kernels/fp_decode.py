@@ -65,8 +65,12 @@ def supports_decode_attention(attn_cfg, cache_width: int = 8) -> bool:
 
 
 def decode_attention_widths(attn_cfg) -> dict:
-    """Widths of the fp-cache kernel's four operand quantizers."""
+    """Widths of the fp-cache kernel's four operand quantizers; an fp
+    attention config (no matmul quantizers: the ``LQER_FP_ATTN_KERNEL``
+    route) gives all four None."""
     qk, pv = attn_cfg.qk_cfg, attn_cfg.pv_cfg
+    if qk is None and pv is None:
+        return dict.fromkeys(("q_width", "k_width", "p_width", "v_width"))
     return {
         "q_width": (qk.get("x_quantizer") or qk.get("default"))["width"],
         "k_width": (qk.get("w_quantizer") or qk.get("default"))["width"],

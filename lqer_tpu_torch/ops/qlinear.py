@@ -81,13 +81,21 @@ def qlinear(x: torch.Tensor, params: dict, cfg: QLinearConfig, *,
         if b is not None:
             b = cfg.b_quantizer(b)
     x_q = cfg.x_quantizer(x)
-    y = torch.matmul(x_q, w.T)
+    y = promoted_matmul(x_q, w.T)
     if b is not None:
         y = y + b
     if cfg.is_lqer and params.get("A") is not None:
-        xa = cfg.a_out_quantizer(torch.matmul(x_q, params["A"]))
-        y = y + cfg.b_out_quantizer(torch.matmul(xa, params["B"]))
+        xa = cfg.a_out_quantizer(promoted_matmul(x_q, params["A"]))
+        y = y + cfg.b_out_quantizer(promoted_matmul(xa, params["B"]))
     return y
+
+
+def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.matmul``'s dtype rule: both operands promoted to their common
+    dtype first (a bf16 activation against f32 weights is an f32
+    product)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
 
 
 def bf16_exact(cfg: dict | None) -> bool:
@@ -99,9 +107,10 @@ def bf16_exact(cfg: dict | None) -> bool:
 
 def resolve_qmatmul(q_config: dict | None) -> Callable:
     """Quantize both operands, then matmul. Bf16-exact grids run on f32
-    operands with f32 accumulation (the products are exact either way)."""
+    operands with f32 accumulation (the products are exact either way).
+    No config: the plain product of the promoted operands."""
     if not q_config:
-        return torch.matmul
+        return promoted_matmul
     x_cfg = q_config.get("x_quantizer") or q_config.get("default")
     y_cfg = q_config.get("w_quantizer") or q_config.get("default")
     xq, yq = make_quantizer(x_cfg), make_quantizer(y_cfg)

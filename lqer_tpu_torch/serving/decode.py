@@ -1,59 +1,58 @@
-"""Cache-aware Llama and OPT steps (admission prefill and decode) through
-the kernels.
+"""Cache-aware Llama and OPT steps (admission prefill and decode).
 
-Port of the serving path of ``lqer_tpu/serving/decode.py``:
-``llama_step_scan`` and ``opt_step_scan`` on the packed backend. The
-``lax.scan`` over layers becomes a Python loop; each kernel takes per-layer
-views of the layer-stacked weights and cache (``stacked[li]`` is a
-zero-copy view), so no slice is copied. The cache is updated in place.
+Port of ``lqer_tpu/serving/decode.py``: the eager step :func:`model_step`
+(``_llama_step`` / ``_opt_step``, a Python loop over per-prefix weights,
+the JAX engine's default) and the stacked step :func:`llama_step_scan` /
+:func:`opt_step_scan` (the ``lax.scan`` over layers becomes a Python loop;
+each kernel takes per-layer views of the layer-stacked weights and cache,
+``stacked[li]`` is a zero-copy view). The cache is updated in place.
 
-Per Llama layer: RMSNorm → fused q|k|v (kernel 1) → rotary → attention → o
-(kernel 1) → RMSNorm → the whole MLP in one megakernel launch (with
-``fuse_mlp=False`` packing: fused gate|up (kernel 1) → silu·up → down
-(kernel 1)). An OPT layer (:func:`opt_step_scan`) has learned positions
-instead of rotary, LayerNorm before (or, post-LN, after) each block, the
-query scaled before its quantizer (``scale_query``), biases on every
-linear and the relu variant of the megakernel. At admission, attention is
-the prefill kernel and the new rows are written into the cache in plain
-PyTorch (the JAX package's XLA update). Under a sliding window (Mistral,
-``cfg.sliding_window``) an admission writes the cache first, then attends
-over the layer's decoded cache with the eager :func:`_attend` and the
-additive :func:`_cache_mask`, as the JAX package does (its prefill kernel
-takes no window); this plain PyTorch attention has no TPU kernel behind it.
-At s = 1 the route follows the cache (``make_cache``), each decode kernel
-taking the window:
+Per Llama layer: RMSNorm → q|k|v → rotary → attention → o → RMSNorm → the
+MLP. A linear the backend packed runs through the kernels (kernel 1, the
+whole MLP in one megakernel launch, or at 512 rows and more the large-M
+route); any other linear, and every linear without a backend, runs the
+software emulation ``ops/qlinear.py::qlinear`` on the PTQ-prepared weights
+(``models.prepare_ptq``), as the JAX package decides per prefix
+(:func:`_lin`). An OPT layer has learned positions instead of rotary,
+LayerNorm before (or, post-LN, after) each block, the query scaled before
+its quantizer (``scale_query``), biases on every linear and the relu MLP.
+Without ``layer_qcfgs`` the model serves unquantized (``FP_LAYER_LLAMA`` /
+``FP_LAYER_OPT``).
 
-- ``mxint8-staged`` and ``mxint4-staged``: the staged decode kernel
-  writes the fresh token into the ring at the cache's code width and
-  attends; a step first flushes the rings into the main cache once any
-  slot's ring residue reaches 48;
-- ``mxint8``: one launch encodes the fresh token into column ``pos`` and
-  attends (``decode_attention_quantized_write``);
-- ``mxint4``: the fresh rows MXINT4-encoded, the row-write kernel stores
-  the four columns, the quantized decode kernel attends at width 4;
-- ``bfloat16`` (the default, as in the JAX package): the row-write kernel
-  stores the bf16 rows, the fp-cache decode kernel attends, quantizing
-  every operand at use.
+Attention follows the JAX package per layer and step:
 
-Past the one-pass length (:func:`streams`; at Llama-2-7B width about 23K
-tokens) the MXINT caches stream L as the JAX package does: the staged
-caches through the streaming staged kernel, ``mxint8`` through the fused MXINT8
-encode + write and the streaming kernel, ``mxint4`` through its row write
-and the streaming kernel at width 4. :func:`decode_route` holds each
-route, and the decode step runs the kernels it names.
+- an admission (``fresh_prefill``, positions 0 on a zeroed cache) whose
+  configuration the prefill kernel takes (:func:`_fresh_prefill_attend`)
+  attends through it, and its rows are written in plain PyTorch;
+- a decode step (s = 1) where :func:`_use_attn_kernel` allows (a backend,
+  the MXINT attention formats, max_len >= 128, 16-aligned dims, the bf16
+  cache within the fp kernel's one-pass length) runs the decode kernels:
+  on a staged cache the staged kernel writes the ring and attends (rows 7
+  and 9); otherwise the stacked step takes :func:`decode_route`'s kernels
+  (the row write, the fused MXINT8 write + attend, the fused encode +
+  write) and the eager step writes in plain PyTorch
+  (``kv_cache.write_layer_rows``) and attends through row 5, 6 or 8
+  (:func:`decode_route` with ``eager=True``);
+- everything else (a sliding-window or chunked prefill, the ``float32``
+  cache, short or unaligned caches, fp or mismatched attention configs, no
+  backend, ``LQER_DISABLE_ATTN_KERNEL``) writes the cache and attends
+  eagerly (:func:`_attend` with the additive :func:`_cache_mask`), a staged
+  cache through :func:`_staged_eager_update`. This plain PyTorch attention
+  has no TPU kernel behind it.
 
-The W8 lm_head is kernel 1 again (OPT's 50272-row head stays a dense
-product, as in the JAX package). At 512 rows and more (an admission of
-8 x 64 tokens, a 2048-token prompt) every packed linear, the MLP and the
-head take the large-M route instead: unpack each weight once, then one
-dense product. Regimes for which the JAX package takes a path without a
-ported kernel raise ``NotImplementedError`` before any work.
+A staged cache flushes its rings into the main cache (row 14) before a
+decode step once any slot's ring residue reaches 48, and takes its stage
+boundary after an admission. Past the one-pass length (:func:`streams`; at
+Llama-2-7B width about 23K tokens) the MXINT caches stream L as the JAX
+package does. The W8 lm_head is kernel 1 again (OPT's 50272-row head stays
+a dense product, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import os
 
 import torch
 from torch.nn.functional import relu, silu
@@ -72,6 +71,7 @@ from ..models.common import (
     rotary_tables,
     supports_fused_attention,
 )
+from ..models.fp_config import FP_LAYER_LLAMA, FP_LAYER_OPT
 from ..ops.kernels.attention import HEAD_DIMS
 from ..ops.kernels.cache_write import (
     flush_stage_to_main,
@@ -97,7 +97,7 @@ from ..ops.kernels.streaming_decode import (
     decode_attention_quantized_streaming_staged,
 )
 from ..ops.kernels.dequant_gemm import qlinear_w4_dense_largeM, qlinear_w4_fused
-from ..ops.qlinear import resolve_qmatmul
+from ..ops.qlinear import promoted_matmul, qlinear, resolve_qmatmul
 from ..parallel.collectives import mx4_decode, mx4_encode, mx8_decode, mx8_encode
 from .kernel_backend import (
     _LARGEM_THRESHOLD,
@@ -116,6 +116,7 @@ from .kv_cache import (
     is_quantized_cache,
     is_staged_cache,
     stage_boundary_sync,
+    write_layer_rows,
 )
 
 FLUSH_RESIDUE = 48  # flush once a ring holds 48 tokens: < 64 lanes always
@@ -152,27 +153,30 @@ def _cache_kind(cache: dict) -> str:
         cache["k"].dtype, str(cache["k"].dtype))
 
 
-def _check_cache_regime(kind: str, max_len: int, head_dim: int) -> None:
-    """Raise ``NotImplementedError`` where the JAX package serves a cache of
-    this kind and length through a path the port has no kernel for."""
-    if kind == "float32":
-        raise NotImplementedError(
-            "the float32 cache is not ported (JAX: init_kv_cache with "
-            "dtype=float32, served by the eager path serving/decode.py::"
-            "_attend)")
-    if kind not in ("bfloat16", "mxint8", "mxint4", *STAGED_KINDS):
-        raise NotImplementedError(f"cache {kind!r} is not ported")
-    if max_len < 128 or max_len % 16 or head_dim % 16:
-        raise NotImplementedError(
-            f"decode at max_len={max_len}, head_dim={head_dim} takes the JAX "
-            "package's eager path (serving/decode.py::_attend; its kernels "
-            "need max_len >= 128 and max_len, head_dim multiples of 16), "
-            "which is not ported")
-    if kind == "bfloat16" and not _fp_cache_kernel_fits(max_len, head_dim, 2):
-        raise NotImplementedError(
-            f"the bf16 cache at max_len={max_len} is past the fp kernel's "
-            "one-pass length (serving/decode.py::_fp_cache_kernel_fits); the "
-            "JAX package takes its eager path (_attend), which is not ported")
+def _use_attn_kernel(backend, s: int, attn_cfg, max_len: int, head_dim: int,
+                     cache: dict | None = None) -> bool:
+    """The JAX package's decode-kernel eligibility: a decode step (s = 1)
+    with a backend, the canonical MXINT attention formats (K/V at the
+    cache's width) and max_len >= 128 with max_len and the head dim
+    multiples of 16; an fp cache also within the fp kernel's one-pass
+    length. ``LQER_DISABLE_ATTN_KERNEL`` forces the eager path;
+    ``LQER_FP_ATTN_KERNEL`` routes an unquantized (fp) attention config
+    through the kernels too, all operand quantizers off."""
+    if os.environ.get("LQER_DISABLE_ATTN_KERNEL"):
+        return False
+    if s != 1 or max_len < 128 or max_len % 16 or head_dim % 16:
+        return False
+    if cache is not None and not is_quantized_cache(cache):
+        if not _fp_cache_kernel_fits(max_len, head_dim,
+                                     cache["k"].element_size()):
+            return False
+    if attn_cfg.qk_cfg is None and attn_cfg.pv_cfg is None:
+        return bool(os.environ.get("LQER_FP_ATTN_KERNEL"))
+    if backend is None:
+        return False
+    cw = (cache_code_width(cache)
+          if cache is not None and is_quantized_cache(cache) else 8)
+    return supports_decode_attention(attn_cfg, cache_width=cw)
 
 
 def streams(kind: str, max_len: int, head_dim: int) -> bool:
@@ -185,19 +189,32 @@ def streams(kind: str, max_len: int, head_dim: int) -> bool:
         and not _kvh_chunk_fits(max_len, head_dim)
 
 
-def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
-                 ) -> tuple[str, ...]:
+def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int,
+                 eager: bool = False) -> tuple[str, ...]:
     """The kernels (``ops.kernels.KERNELS`` names) that a decode step
-    launches, in order, for each layer over a cache of this kind; the
-    staged cache's flush runs besides, once for all layers, when a ring
-    fills. The route is the same at every ``n_rep`` the kernels take, as
-    in the JAX package."""
+    launches, in order, for each layer over a cache of this kind where
+    :func:`_use_attn_kernel` allows; the staged cache's flush runs besides,
+    once for all layers, when a ring fills. ``eager``: the eager step's
+    (:func:`model_step`), which writes a direct cache in plain PyTorch and
+    then attends (the JAX package's ``_cache_update`` + ``_attend_auto``).
+    The route is the same at every ``n_rep`` the kernels take, as in the
+    JAX package."""
     stream = streams(kind, max_len, head_dim)
     if kind in STAGED_KINDS:   # either width, read off the cache's rows
         return (("decode_attention_streaming_staged",) if stream
                 else ("decode_attention",))
+    if eager:
+        return {
+            "bfloat16": ("decode_attention_fp",),
+            "float32": ("decode_attention_fp",),
+            "mxint8": ("decode_attention_streaming",) if stream
+            else ("decode_attention_quantized",),
+            "mxint4": ("decode_attention_streaming",) if stream
+            else ("decode_attention_quantized",),
+        }[kind]
     return {
         "bfloat16": ("row_write", "decode_attention_fp"),
+        "float32": ("row_write", "decode_attention_fp"),
         "mxint8": (("encode_write_tokens", "decode_attention_streaming")
                    if stream else ("decode_attention_write",)),
         "mxint4": ("row_write", "decode_attention_streaming" if stream
@@ -208,12 +225,11 @@ def decode_route(kind: str, max_len: int, head_dim: int, n_rep: int
 def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                device="cuda") -> dict:
     """The JAX package's ``make_cache``: ``"bfloat16"`` (the default;
-    ``torch.bfloat16`` too), ``"mxint8"``, ``"mxint8-staged"``,
-    ``"mxint4"`` and ``"mxint4-staged"``. As in JAX, a staged name under a
-    sliding window (or where ``max_len % 128 != 0``) gives the direct-write
-    cache of its width, and the MXINT4 caches need ``head_dim % 32 == 0``.
-    ``"float32"`` and lengths the kernels do not serve raise
-    ``NotImplementedError``."""
+    ``torch.bfloat16`` too), ``"float32"`` (``torch.float32``),
+    ``"mxint8"``, ``"mxint8-staged"``, ``"mxint4"`` and ``"mxint4-staged"``.
+    As in JAX, a staged name under a sliding window (or where
+    ``max_len % 128 != 0``) gives the direct-write cache of its width, and
+    the MXINT4 caches need ``head_dim % 32 == 0``."""
     name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}.get(dtype,
                                                                       dtype)
     if name not in CACHE_DTYPES:
@@ -229,11 +245,11 @@ def make_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                     "direct-write %s cache", name, window, max_len,
                     name.removesuffix("-staged"))
     kind = name.removesuffix("-staged") if not staged else name
-    _check_cache_regime(kind, max_len, cfg.head_dim)
     shape = (cfg.num_hidden_layers, batch, cfg.kv_heads, cfg.head_dim,
              max_len)
-    if kind == "bfloat16":
-        return init_kv_cache(*shape, dtype=torch.bfloat16, device=device)
+    if kind in ("bfloat16", "float32"):
+        return init_kv_cache(*shape, dtype=getattr(torch, kind),
+                             device=device)
     return init_quantized_kv_cache(
         *shape, staged=staged,
         code_width=4 if kind.startswith("mxint4") else 8, device=device)
@@ -337,41 +353,48 @@ def check_card_shapes(head_dim: int, device_type: str) -> None:
             f"{HEAD_DIMS} (csrc/*.cu, instantiated per head dim)")
 
 
-def check_servable(cache: dict, attn_cfgs, head_dim: int,
-                   window: int | None = None) -> None:
-    """Raise ``NotImplementedError`` unless every admission and decode step
-    over ``cache`` with these attention configs runs through a ported
-    path: a decode kernel at every step, and an admission through the
-    prefill kernel, or under a sliding window the eager :func:`_attend`
-    (as in the JAX package, whose prefill kernel takes no window). A cache
-    on the card also needs a head dim its kernels take
-    (:func:`check_card_shapes`)."""
-    kind = _cache_kind(cache)
-    max_len = cache_max_len(cache)
-    _check_cache_regime(kind, max_len, head_dim)
-    check_card_shapes(head_dim, next(iter(cache.values())).device.type)
+def _prefill_kernel_takes(attn_cfg, cache: dict, window, head_dim: int
+                          ) -> bool:
+    """Whether an admission over ``cache`` can reach the prefill kernel
+    (:func:`_fresh_prefill_attend`'s tests that do not depend on the
+    chunk's length)."""
     quantized = is_quantized_cache(cache)
-    width = cache_code_width(cache) if quantized else 8
+    if window is not None or head_dim % 16 or not supports_fused_attention(
+            attn_cfg, kv_pre_quantized=quantized):
+        return False
+    return not quantized or _kv_config_is_cache_format(
+        attn_cfg, cache_code_width(cache))
+
+
+def check_servable(cache: dict, attn_cfgs, head_dim: int,
+                   window: int | None = None, *, backend: bool = True,
+                   scan: bool = True) -> None:
+    """Raise ``NotImplementedError`` before any work where a step over
+    ``cache`` on the card would hand a kernel what it does not take: a
+    head dim outside ``attention.HEAD_DIMS`` (:func:`check_card_shapes`)
+    wherever an attention kernel or the stacked step's MXINT encode +
+    write is reached, and the ``float32`` cache wherever a kernel would
+    read or write it (the fp decode kernel and the row write take bf16):
+    the stacked step's row writes, or a decode kernel. ``backend``: the
+    engine serves with a kernel backend; ``scan``: the stacked step. On
+    the CPU every regime the JAX package serves is served."""
+    if next(iter(cache.values())).device.type != "cuda":
+        return
+    max_len = cache_max_len(cache)
     # layers resolved from one config share its matmul dicts
-    for attn_cfg in {(id(c.qk_cfg), id(c.pv_cfg)): c
-                     for c in attn_cfgs}.values():
-        if not supports_decode_attention(attn_cfg, width):
-            raise NotImplementedError(
-                f"decode attention of this configuration over the {kind} "
-                "cache takes the JAX package's eager path (serving/decode.py"
-                "::_attend; the kernels need the MXINT attention formats "
-                f"with K/V at the cache's width {width}), which the port "
-                "does not take at decode")
-        if window is None and (
-                not supports_fused_attention(attn_cfg,
-                                             kv_pre_quantized=quantized)
-                or (quantized and not _kv_config_is_cache_format(attn_cfg,
-                                                                 width))):
-            raise NotImplementedError(
-                f"admission attention of this configuration over the {kind} "
-                "cache takes the JAX package's eager path (serving/decode.py"
-                "::_fresh_prefill_attend returns None), which the port takes "
-                "only under a sliding window")
+    cfgs = {(id(c.qk_cfg), id(c.pv_cfg)): c for c in attn_cfgs}.values()
+    decode_kernel = any(_use_attn_kernel(True if backend else None, 1, c,
+                                         max_len, head_dim, cache)
+                        for c in cfgs)
+    prefill_kernel = any(_prefill_kernel_takes(c, cache, window, head_dim)
+                         for c in cfgs)
+    if decode_kernel or prefill_kernel or (scan and is_quantized_cache(cache)):
+        check_card_shapes(head_dim, "cuda")
+    if _cache_kind(cache) == "float32" and (scan or decode_kernel):
+        raise NotImplementedError(
+            "the float32 cache on the card: its kernels (the fp decode "
+            "kernel, the row write) take bf16; it serves on the card only "
+            "through the eager step's plain attention (no decode kernel)")
 
 
 def stack_backend(backend: dict, cfg, consume: bool = False) -> dict:
@@ -415,31 +438,74 @@ def stack_backend(backend: dict, cfg, consume: bool = False) -> dict:
             "meta": {k: backend["meta"][k] for k in rest}}
 
 
-def layer_backend(backend_stacked: dict, li: int) -> tuple[dict, int]:
+def layer_backend(backend_stacked: dict | None, li: int
+                  ) -> tuple[dict | None, int | None]:
     """The stacked entries of the segment that holds layer ``li``
-    (:func:`stack_backend`) and ``li``'s index inside it."""
+    (:func:`stack_backend`) and ``li``'s index inside it; ``(None, None)``
+    without a backend."""
+    if backend_stacked is None:
+        return None, None
     for start, end, seg in backend_stacked["segments"]:
         if start <= li < end:
             return seg, li - start
     raise IndexError(f"layer {li} is in no segment of the backend")
 
 
-def _lin_group(x, fused_rel, member_rels, qcs, backend, li):
+# -- linears: the per-prefix (eager) and the stacked (scan) lookups -----------
+def _lin(x, params, prefix, qc, backend):
+    """A quantized linear: the kernels when the backend packed ``prefix``,
+    else the software emulation on the prepared params."""
+    if backend is not None and prefix in backend["meta"]:
+        return serving_linear(x, prefix, backend, qc)
+    return qlinear(x, {k: params.get(f"{prefix}.{k}")
+                       for k in ("weight", "bias", "A", "B")}, qc)
+
+
+def _lin_group(x, params, layer_prefix, fused_rel, member_rels, qcs,
+               backend):
     """Projections sharing one input: one launch when the backend packed
-    the group fused, else one launch per member."""
-    if fused_rel in backend["meta"]:
-        return serving_linear_split(x, fused_rel, backend, qcs[0],
-                                    layer_index=li)
-    return [serving_linear(x, rel, backend, qc, layer_index=li)
+    the group fused, else per-member linears (:func:`_lin`)."""
+    key = f"{layer_prefix}.{fused_rel}"
+    if backend is not None and key in backend["meta"]:
+        return serving_linear_split(x, key, backend, qcs[0])
+    return [_lin(x, params, f"{layer_prefix}.{rel}", qc, backend)
             for rel, qc in zip(member_rels, qcs)]
 
 
-def _mlp_fused_or_none(x, qc_first, backend, li):
+def _mlp_fused_or_none(x, layer_prefix, qc_first, backend):
     """The whole MLP through the megakernel when the backend packed it
-    (``mlp_fused``), else None (the caller runs the per-linear path)."""
-    if "mlp_fused" not in backend["meta"]:
+    (``{layer}.mlp_fused``), else None (the caller runs the per-linear
+    path)."""
+    key = f"{layer_prefix}.mlp_fused"
+    if backend is None or key not in backend["meta"]:
         return None
-    return serving_mlp(x, "mlp_fused", backend, qc_first, layer_index=li)
+    return serving_mlp(x, key, backend, qc_first)
+
+
+def _lin_slice(x, stacked, li, rel, qc, seg, lj):
+    """A linear of the stacked step: the kernels on the segment's stacked
+    entry (layer ``lj`` of it) when packed, else the emulation on layer
+    ``li`` of the stacked params."""
+    if seg is not None and rel in seg["meta"]:
+        return serving_linear(x, rel, seg, qc, layer_index=lj)
+    return qlinear(x, {k: (stacked[f"{rel}.{k}"][li]
+                           if f"{rel}.{k}" in stacked else None)
+                       for k in ("weight", "bias", "A", "B")}, qc)
+
+
+def _lin_group_slice(x, stacked, li, fused_rel, member_rels, qcs, seg, lj):
+    """Stacked counterpart of :func:`_lin_group`."""
+    if seg is not None and fused_rel in seg["meta"]:
+        return serving_linear_split(x, fused_rel, seg, qcs[0],
+                                    layer_index=lj)
+    return [_lin_slice(x, stacked, li, rel, qc, seg, lj)
+            for rel, qc in zip(member_rels, qcs)]
+
+
+def _mlp_slice_or_none(x, qc_first, seg, lj):
+    if seg is None or "mlp_fused" not in seg["meta"]:
+        return None
+    return serving_mlp(x, "mlp_fused", seg, qc_first, layer_index=lj)
 
 
 def _heads(y: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -472,31 +538,18 @@ def _lm_head_logits(h, lm_head, backend):
                   backend["arrays"]["lm_head"], meta["fmt"],
                   quant_xa_width=None, quant_out_width=None)
         return y[:, :meta["n_real"]].reshape(b, s, -1).to(h.dtype)
-    return torch.matmul(h, lm_head.T.to(h.dtype))
+    return promoted_matmul(h, lm_head.T)
 
 
+# -- cache writes ---------------------------------------------------------------
 def _cache_write_full(cache, li, kh, vh, positions):
-    """Admission write (s > 1) of the new rows at ``positions[b] + t``: the
-    bf16 rows into the fp cache, or their MXINT8/MXINT4 encode (exact
-    exponents, zero fill 1.0) token-axis-last into the MXINT cache."""
-    s = kh.shape[2]
-    idx_t = (positions[:, None] + torch.arange(s, device=kh.device)).to(
-        torch.int64)
-    if not is_quantized_cache(cache):
-        for key, new in (("k", kh), ("v", vh)):
-            arr = cache[key][li]                       # (B, KVH, L, d)
-            val = new.to(arr.dtype)
-            arr.scatter_(2, idx_t[:, None, :, None].expand_as(val), val)
-        return
-    group = cache_group(cache)
-    enc = mx4_encode if cache_code_width(cache) == 4 else mx8_encode
-    for side, new in (("k", kh), ("v", vh)):
-        codes, exps = enc(new, group, zero_fill=1.0)
-        for key, val in ((f"{side}_codes", codes), (f"{side}_exps", exps)):
-            arr = cache[key][li]                       # (B, KVH, rows, L)
-            val_t = val.transpose(-1, -2)              # (B, KVH, rows, s)
-            idx = idx_t[:, None, None, :].expand_as(val_t)
-            arr.scatter_(-1, idx, val_t)
+    """Plain write of the new rows at ``positions[b] + t``: every write of
+    the eager step (the JAX package's ``_cache_update``), and an admission's
+    or an unaligned decode write of the stacked step (the plain half of
+    JAX's ``_cache_write_full``). The rows into the fp cache, or their
+    MXINT8/MXINT4 encode (exact exponents, zero fill 1.0) token-axis-last
+    into the MXINT cache."""
+    write_layer_rows(cache, li, kh, vh, positions)
 
 
 def _cache_write_row(cache, li, kh, vh, positions):
@@ -515,19 +568,43 @@ def _cache_write_row(cache, li, kh, vh, positions):
                           li, positions)
 
 
+def _scan_cache_write(cache, li, kh, vh, positions):
+    """The stacked step's write before its eager attention (the JAX
+    package's ``_cache_write_full``): at s = 1 the fused MXINT8 encode +
+    write where the main cache is 128-aligned, the row write where the
+    token axis is aligned (32 rows of the fp cache, 128 columns of an
+    MXINT one), else the plain write."""
+    s, L = kh.shape[2], cache_max_len(cache)
+    quantized = is_quantized_cache(cache)
+    if s == 1 and quantized and cache_code_width(cache) == 8 and L % 128 == 0:
+        write_kv_tokens_fused(tuple(cache[k] for k in MAIN_KEYS), kh, vh, li,
+                              positions)
+    elif s == 1 and L % (128 if quantized else 32) == 0:
+        _cache_write_row(cache, li, kh, vh, positions)
+    else:
+        _cache_write_full(cache, li, kh, vh, positions)
+
+
+# -- attention ------------------------------------------------------------------
 def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache,
-                          scale_query=False):
+                          window, scale_query=False):
     """Admission attention (positions 0, fresh cache) through the prefill
-    kernel. Over an MXINT cache K/V enter as their cache-write grid (the
-    round trip through the cache's encode); over the fp cache as the f32
-    rows, quantized at use (K^T per 16 tokens, V per 16 along d). OPT
+    kernel, or None where the JAX package's ``_fresh_prefill_attend`` is
+    ineligible (a sliding window, non-canonical formats, unaligned dims, a
+    chunk of fewer than 16 or not a multiple of 16 tokens): the caller then
+    attends eagerly. Over an MXINT cache K/V enter as their cache-write
+    grid (the round trip through the cache's encode); over the fp cache as
+    the rows, quantized at use (K^T per 16 tokens, V per 16 along d). OPT
     (``scale_query``) scales q before its quantizer."""
     b, h, s, d = qh.shape
-    if d % 16 or s % 16 or s < 16:
-        raise ValueError(f"prefill chunk must be a multiple of 16 (s={s})")
+    if not _prefill_kernel_takes(attn_cfg, cache, window, d) \
+            or s % 16 or s < 16:
+        return None
     quantized = is_quantized_cache(cache)
     if quantized:
         g = cache_group(cache)
+        if d % g:
+            return None
         enc, dec = ((mx4_encode, mx4_decode) if cache_code_width(cache) == 4
                     else (mx8_encode, mx8_decode))
         kh = dec(*enc(kh, g, zero_fill=1.0), g, torch.bfloat16)
@@ -541,11 +618,12 @@ def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
                    route, scale_query=False, window=None):
     """Decode attention (s = 1) through the kernels of ``route``
     (:func:`decode_route`), in order: the fresh token lands in layer ``li``
-    of the cache in place (a staged cache's rings), and the last kernel's
-    attention is returned. OPT (``scale_query``) scales q before its
-    quantizer; ``window`` is the sliding window (a staged cache has none:
+    of the cache in place (a staged cache's rings; the eager route's
+    caller writes a direct cache first), and the last kernel's attention
+    is returned. OPT (``scale_query``) scales q before its quantizer;
+    ``window`` is the sliding window (a staged cache has none:
     ``make_cache`` falls back to the direct-write one)."""
-    def main():
+    def main():     # read in place at ``li`` (the JAX ``_quant_slices``)
         return tuple(cache[k] for k in MAIN_KEYS)
 
     def staged():
@@ -587,6 +665,45 @@ def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
     return attn
 
 
+def _staged_eager_update(cache, li, kh, vh, positions, compute_dtype):
+    """Eager staged decode write + views (s = 1; the JAX package's
+    ``_staged_eager_update``): the fresh token's encode into ring lane
+    ``pos % 64`` of layer ``li``, then the layer's (b, kv_heads, max_len,
+    d) K/V views in ``compute_dtype``: the main cache's decode with
+    columns ``[flushed, pos]`` taken from the ring (lane j holds token
+    ``j mod 64``). The staged kernel's function without its savings; it
+    serves where no decode kernel does (no backend,
+    ``LQER_DISABLE_ATTN_KERNEL``, other attention formats)."""
+    group = cache_group(cache)
+    enc, dec = ((mx4_encode, mx4_decode) if cache_code_width(cache) == 4
+                else (mx8_encode, mx8_decode))
+    SW = cache["k_stage_codes"].shape[-1]
+    L = cache["k_codes"].shape[-1]
+    lane = torch.remainder(positions, SW).to(torch.int64)
+    for side, new in (("k", kh), ("v", vh)):
+        codes, exps = enc(new, group, zero_fill=1.0)   # (B, KVH, 1, ·)
+        for key, val in ((f"{side}_stage_codes", codes),
+                         (f"{side}_stage_exps", exps)):
+            ring = cache[key][li]                        # (B, KVH, rows, SW)
+            val_t = val.transpose(-1, -2)                # (B, KVH, rows, 1)
+            ring.scatter_(-1, lane[:, None, None, None].expand_as(val_t),
+                          val_t)
+    col = torch.arange(L, device=positions.device)[None, :]
+    valid = (col >= cache["flushed"][:, None]) & (col <= positions[:, None])
+
+    def view(side):
+        main = dec(cache[f"{side}_codes"][li].transpose(-1, -2),
+                   cache[f"{side}_exps"][li].transpose(-1, -2), group,
+                   compute_dtype)                        # (B, KVH, L, d)
+        ring = dec(cache[f"{side}_stage_codes"][li].transpose(-1, -2),
+                   cache[f"{side}_stage_exps"][li].transpose(-1, -2), group,
+                   compute_dtype)                        # (B, KVH, SW, d)
+        tiled = ring.repeat(1, 1, L // SW, 1)
+        return torch.where(valid[:, None, :, None], tiled, main)
+
+    return cache, view("k"), view("v")
+
+
 def _staged_flush_maybe(cache, positions):
     """When any slot's ring residue reaches 48, move every slot's completed
     32-blocks of every layer into the main cache (kernel 4, in place)."""
@@ -600,28 +717,7 @@ def _staged_flush_maybe(cache, positions):
     return cache
 
 
-def _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions, s,
-                fresh_prefill, window=None):
-    """Checks and set-up shared by the steps: the per-layer configs, the
-    decode route, and the staged cache's flush before a decode step."""
-    if backend_stacked is None:
-        raise NotImplementedError("the port serves through the kernel "
-                                  "backend only (backend_stacked)")
-    if s > 1 and not fresh_prefill:
-        raise NotImplementedError("chunked prefill into a filled cache is "
-                                  "not ported")
-    qcfgs = (layer_qcfg if isinstance(layer_qcfg, list)
-             else [layer_qcfg] * cfg.num_hidden_layers)
-    n_rep = cfg.num_attention_heads // cfg.kv_heads
-    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, window)
-    route = decode_route(_cache_kind(cache), cache_max_len(cache),
-                         cfg.head_dim, n_rep)
-    if s == 1 and is_staged_cache(cache):
-        _staged_flush_maybe(cache, positions)
-    return qcfgs, route, n_rep
-
-
-def _kv_valid(valid_lengths, s, device):
+def _kv_valid_mask(valid_lengths, s, device):
     """(b, s) mask of each admitted row's real tokens, or None."""
     if valid_lengths is None:
         return None
@@ -629,34 +725,88 @@ def _kv_valid(valid_lengths, s, device):
 
 
 def _attention(cache, qh, kh, vh, positions, li, attn_cfg, scaling, n_rep,
-               route, kv_valid, scale_query=False, window=None, mask=None):
-    """One layer's attention: padding rows of K/V zeroed; an admission
-    through the prefill kernel, then its rows written into the cache (under
-    a sliding ``window``: the rows written first, then the eager
-    :func:`_attend` over the layer's decoded cache with the additive
-    ``mask``); a decode step through the kernels of ``route``."""
+               kv_valid, mask, *, use_ak, fresh_prefill, scan,
+               scale_query=False, window=None):
+    """One layer's attention, in the JAX package's order of eligibility
+    (the branches of its ``_llama_step`` / scan bodies and
+    ``_attend_auto``):
+    padding rows of K/V zeroed; the prefill kernel at an admission it takes
+    (then the rows written in plain PyTorch); at s = 1 with
+    :func:`_use_attn_kernel`'s ``use_ak`` the decode kernels of
+    :func:`decode_route` (``scan``: the stacked step's, else the eager
+    step's after its plain write); a staged cache at s = 1 otherwise
+    through :func:`_staged_eager_update`; everything else writes (the
+    stacked step through :func:`_scan_cache_write`) and attends eagerly
+    over the layer's decoded cache with the additive ``mask()``."""
     if kv_valid is not None:
         kh = kh * kv_valid[:, None, :, None].to(kh.dtype)
         vh = vh * kv_valid[:, None, :, None].to(vh.dtype)
-    if qh.shape[2] > 1 and window is not None:
-        _cache_write_full(cache, li, kh, vh, positions)
-        quantized = is_quantized_cache(cache)
-        return _attend(qh, *_cache_layer_views(cache, li), mask, attn_cfg,
-                       scaling, n_rep, scale_query,
-                       kv_pre_quantized=quantized,
-                       cache_width=cache_code_width(cache) if quantized
-                       else 8)
-    if qh.shape[2] > 1:
-        attn = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep,
-                                     cache, scale_query)
-        _cache_write_full(cache, li, kh, vh, positions)
-        return attn
-    return _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg,
-                          scaling, route, scale_query, window)
+    s = qh.shape[2]
+    if fresh_prefill and s > 1:
+        pre = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep,
+                                    cache, window, scale_query)
+        if pre is not None:
+            _cache_write_full(cache, li, kh, vh, positions)
+            return pre
+    quantized = is_quantized_cache(cache)
+    width = cache_code_width(cache) if quantized else 8
+    kind = _cache_kind(cache)
+    if s == 1 and use_ak:
+        route = decode_route(kind, cache_max_len(cache), qh.shape[-1], n_rep,
+                             eager=not scan)
+        if not scan and not is_staged_cache(cache):
+            _cache_write_full(cache, li, kh, vh, positions)
+        return _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg,
+                              scaling, route, scale_query, window)
+    if s == 1 and is_staged_cache(cache):
+        _, k_l, v_l = _staged_eager_update(cache, li, kh, vh, positions,
+                                           qh.dtype)
+        return _attend(qh, k_l, v_l, mask(), attn_cfg, scaling, n_rep,
+                       scale_query, kv_pre_quantized=True, cache_width=width)
+    (_scan_cache_write if scan else _cache_write_full)(cache, li, kh, vh,
+                                                       positions)
+    return _attend(qh, *_cache_layer_views(cache, li), mask(), attn_cfg,
+                   scaling, n_rep, scale_query, kv_pre_quantized=quantized,
+                   cache_width=width)
+
+
+# -- steps ----------------------------------------------------------------------
+def _layer_qcfgs(layer_qcfg, cfg) -> list:
+    """Per-layer resolved configs: the list, one config for every layer, or
+    the unquantized model's (None)."""
+    if layer_qcfg is None:
+        return [FP_LAYER_OPT if cfg.arch == "opt"
+                else FP_LAYER_LLAMA] * cfg.num_hidden_layers
+    if isinstance(layer_qcfg, list):
+        return layer_qcfg
+    return [layer_qcfg] * cfg.num_hidden_layers
+
+
+def _begin_step(cache, cfg, layer_qcfg, backend, positions, s, scan,
+                window=None):
+    """Checks and set-up shared by the steps: the per-layer configs, the
+    card's shape checks, and the staged cache's flush before a decode
+    step."""
+    qcfgs = _layer_qcfgs(layer_qcfg, cfg)
+    check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, window,
+                   backend=backend is not None, scan=scan)
+    if s == 1 and is_staged_cache(cache):
+        _staged_flush_maybe(cache, positions)
+    return qcfgs
+
+
+def _step_masks(positions, s, cache, dtype, window, device):
+    """The step's absolute positions (b, s) and a memoized builder of the
+    eager attention's additive mask (built only if a layer attends
+    eagerly)."""
+    q_abs = (positions[:, None] + torch.arange(s, device=device)).to(
+        torch.int64)
+    return q_abs, functools.cache(
+        lambda: _cache_mask(q_abs, cache_max_len(cache), dtype, window))
 
 
 def _end_step(h, cache, positions, valid_lengths, logits_last_only,
-              lm_head, backend_stacked):
+              lm_head, backend):
     """The last valid rows' logits; after an admission, the staged cache's
     stage boundary."""
     s = h.shape[1]
@@ -665,77 +815,212 @@ def _end_step(h, cache, positions, valid_lengths, logits_last_only,
         new_pos = positions + (valid_lengths if valid_lengths is not None
                                else s)
         stage_boundary_sync(cache, new_pos)
-    return _lm_head_logits(h, lm_head, backend_stacked), cache
+    return _lm_head_logits(h, lm_head, backend), cache
+
+
+def model_step(params: dict, input_ids: torch.Tensor, cache: dict,
+               positions: torch.Tensor, cfg, layer_qcfgs: list | None = None,
+               backend: dict | None = None, valid_lengths=None,
+               fresh_prefill: bool = False, logits_last_only: bool = False):
+    """Run ``input_ids (b, s)`` at ``positions (b,)`` through the model,
+    updating ``cache`` in place; returns ``(logits (b, s, vocab), cache)``
+    (``logits_last_only``: (b, 1, vocab) at each slot's last valid
+    position). ``s > 1`` is a prefill (``fresh_prefill``: an admission at
+    positions 0 on a zeroed cache; else a chunk into a filled cache),
+    ``s == 1`` a decode step. ``backend``: the per-prefix kernel backend
+    (``kernel_backend.prepare_serving_params``; None: every linear
+    emulated); ``layer_qcfgs`` None serves the model unquantized.
+    ``valid_lengths (b,)``: the real tokens of each right-padded row (K/V
+    past it are zeroed before the write)."""
+    step = _opt_step if cfg.arch == "opt" else _llama_step
+    return step(params, input_ids, cache, positions, cfg, layer_qcfgs,
+                backend, valid_lengths, fresh_prefill, logits_last_only)
+
+
+def _llama_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
+                backend=None, valid_lengths=None, fresh_prefill=False,
+                logits_last_only=False):
+    b, s = input_ids.shape
+    window = getattr(cfg, "sliding_window", None)
+    qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
+                        scan=False, window=window)
+    max_len = cache_max_len(cache)
+    embed = params["model.embed_tokens.weight"]
+    h = embed[input_ids]
+    q_abs, mask = _step_masks(positions, s, cache, h.dtype, window, h.device)
+    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
+    cos, sin = _rotary(cfg.head_dim,
+                       max(max_len, cfg.max_position_embeddings),
+                       cfg.rope_theta, h.device)
+    n_rep = cfg.num_attention_heads // cfg.kv_heads
+    scaling = cfg.head_dim ** -0.5
+    for i in range(cfg.num_hidden_layers):
+        q = qcfgs[i]
+        attn_cfg = q["attn"]
+        use_ak = _use_attn_kernel(backend, s, attn_cfg, max_len, cfg.head_dim,
+                                  cache)
+        p = llama_mod.layer_prefix(i)
+        residual = h
+        hn = rms_norm(h, {"weight": params[f"{p}.input_layernorm.weight"]},
+                      cfg.rms_norm_eps)
+        qy, ky, vy = _lin_group(
+            hn, params, p, "self_attn.qkv_proj",
+            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
+        qh = _heads(qy, cfg.num_attention_heads)
+        kh = _heads(ky, cfg.kv_heads)
+        vh = _heads(vy, cfg.kv_heads)
+        qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
+        attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg, scaling,
+                          n_rep, kv_valid, mask, use_ak=use_ak,
+                          fresh_prefill=fresh_prefill, scan=False,
+                          window=window)
+        attn = _lin(merge_heads(attn), params, f"{p}.self_attn.o_proj",
+                    attn_cfg.o_proj, backend)
+        h = residual + attn
+        residual = h
+        hn = rms_norm(h, {"weight":
+                          params[f"{p}.post_attention_layernorm.weight"]},
+                      cfg.rms_norm_eps)
+        y = _mlp_fused_or_none(hn, p, q["gate_proj"], backend)
+        if y is None:
+            gate, up = _lin_group(hn, params, p, "mlp.gateup_proj",
+                                  ("mlp.gate_proj", "mlp.up_proj"),
+                                  (q["gate_proj"], q["up_proj"]), backend)
+            y = _lin(silu(gate) * up, params, f"{p}.mlp.down_proj",
+                     q["down_proj"], backend)
+        h = residual + y
+    h = rms_norm(h, {"weight": params["model.norm.weight"]}, cfg.rms_norm_eps)
+    return _end_step(h, cache, positions, valid_lengths, logits_last_only,
+                     params.get("lm_head.weight", embed), backend)
+
+
+def _opt_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
+              backend=None, valid_lengths=None, fresh_prefill=False,
+              logits_last_only=False):
+    b, s = input_ids.shape
+    qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
+                        scan=False)
+    max_len = cache_max_len(cache)
+    embed = params["model.decoder.embed_tokens.weight"]
+    h = embed[input_ids]
+    if params.get("model.decoder.project_in.weight") is not None:
+        h = promoted_matmul(h, params["model.decoder.project_in.weight"].T)
+    q_abs, mask = _step_masks(positions, s, cache, h.dtype, None, h.device)
+    h = h + params["model.decoder.embed_positions.weight"][q_abs + 2]
+    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
+    scaling = cfg.head_dim ** -0.5
+
+    def norm(x, prefix):
+        return layer_norm(x, opt_mod._mod(params, prefix))
+
+    pre = cfg.do_layer_norm_before
+    for i in range(cfg.num_hidden_layers):
+        q = qcfgs[i]
+        attn_cfg = q["attn"]
+        use_ak = _use_attn_kernel(backend, s, attn_cfg, max_len, cfg.head_dim,
+                                  cache)
+        p = opt_mod.layer_prefix(i)
+        residual = h
+        hn = norm(h, f"{p}.self_attn_layer_norm") if pre else h
+        qy, ky, vy = _lin_group(
+            hn, params, p, "self_attn.qkv_proj",
+            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
+        qh, kh, vh = (_heads(y, cfg.num_attention_heads)
+                      for y in (qy, ky, vy))
+        attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg, scaling,
+                          1, kv_valid, mask, use_ak=use_ak,
+                          fresh_prefill=fresh_prefill, scan=False,
+                          scale_query=True)
+        attn = _lin(merge_heads(attn), params, f"{p}.self_attn.out_proj",
+                    attn_cfg.o_proj, backend)
+        h = residual + attn
+        if not pre:
+            h = norm(h, f"{p}.self_attn_layer_norm")
+        residual = h
+        hn = norm(h, f"{p}.final_layer_norm") if pre else h
+        y = _mlp_fused_or_none(hn, p, q["fc1"], backend)
+        if y is None:
+            y = relu(_lin(hn, params, f"{p}.fc1", q["fc1"], backend))
+            y = _lin(y, params, f"{p}.fc2", q["fc2"], backend)
+        h = residual + y
+        if not pre:
+            h = norm(h, f"{p}.final_layer_norm")
+    if params.get("model.decoder.final_layer_norm.weight") is not None:
+        h = norm(h, "model.decoder.final_layer_norm")
+    if params.get("model.decoder.project_out.weight") is not None:
+        h = promoted_matmul(h, params["model.decoder.project_out.weight"].T)
+    return _end_step(h, cache, positions, valid_lengths, logits_last_only,
+                     params.get("lm_head.weight", embed), backend)
 
 
 def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                     stacked=None, rest=None, backend_stacked=None,
                     valid_lengths=None, fresh_prefill=False,
                     logits_last_only=False):
-    """One model step over ``input_ids (b, s)`` at ``positions (b,)``:
-    ``s > 1`` is an admission prefill (``fresh_prefill``: positions 0 on a
-    zeroed cache), ``s == 1`` a decode step. Returns ``(logits, cache)``.
-    ``layer_qcfg`` is one resolved layer config or the per-layer list.
-    Mistral (``cfg.sliding_window``) attends within its window: eagerly at
-    admission, through the decode kernels' window argument at s = 1. The
-    rotary table spans ``max(max_len, max_position_embeddings)``, so a
-    cache longer than the model's positions serves, as in JAX."""
+    """:func:`model_step` for Llama over layer-stacked params (the JAX
+    package's ``llama_step_scan``): ``backend_stacked`` from
+    :func:`stack_backend` (None: every linear emulated on the stacked
+    params); ``layer_qcfg`` one resolved layer config, the per-layer list,
+    or None (unquantized). Mistral (``cfg.sliding_window``) attends within
+    its window. The rotary table spans ``max(max_len,
+    max_position_embeddings)``, so a cache longer than the model's
+    positions serves, as in JAX."""
     if stacked is None or rest is None:
         stacked, rest = llama_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
     window = getattr(cfg, "sliding_window", None)
-    qcfgs, route, n_rep = _begin_step(cache, cfg, layer_qcfg,
-                                      backend_stacked, positions, s,
-                                      fresh_prefill, window)
+    qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
+                        s, scan=True, window=window)
+    max_len = cache_max_len(cache)
     embed = rest["model.embed_tokens.weight"]
     h = embed[input_ids]
     h_dtype = h.dtype
-    q_abs = (positions[:, None] + torch.arange(s, device=h.device)).to(
-        torch.int64)
+    q_abs, mask = _step_masks(positions, s, cache, h.dtype, window, h.device)
     cos, sin = _rotary(cfg.head_dim,
-                       max(cache_max_len(cache), cfg.max_position_embeddings),
+                       max(max_len, cfg.max_position_embeddings),
                        cfg.rope_theta, h.device)
+    n_rep = cfg.num_attention_heads // cfg.kv_heads
     scaling = cfg.head_dim ** -0.5
-    kv_valid = _kv_valid(valid_lengths, s, h.device)
-    mask = (_cache_mask(q_abs, cache_max_len(cache), h.dtype, window)
-            if s > 1 and window is not None else None)
+    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
 
     for li in range(cfg.num_hidden_layers):
         q = qcfgs[li]
         attn_cfg = q["attn"]
-        lb, lj = layer_backend(backend_stacked, li)
+        use_ak = _use_attn_kernel(backend_stacked, s, attn_cfg, max_len,
+                                  cfg.head_dim, cache)
+        seg, lj = layer_backend(backend_stacked, li)
         residual = h
         hn = rms_norm(h, {"weight": stacked["input_layernorm.weight"][li]},
                       cfg.rms_norm_eps)
-        qy, ky, vy = _lin_group(
-            hn, "self_attn.qkv_proj",
+        qy, ky, vy = _lin_group_slice(
+            hn, stacked, li, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
-            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj),
-            lb, lj)
+            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
         qh = _heads(qy, cfg.num_attention_heads)
         kh = _heads(ky, cfg.kv_heads)
         vh = _heads(vy, cfg.kv_heads)
         qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
         attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
-                          scaling, n_rep, route, kv_valid, window=window,
-                          mask=mask)
-        attn = serving_linear(merge_heads(attn),
-                              "self_attn.o_proj", lb,
-                              attn_cfg.o_proj, layer_index=lj)
+                          scaling, n_rep, kv_valid, mask, use_ak=use_ak,
+                          fresh_prefill=fresh_prefill, scan=True,
+                          window=window)
+        attn = _lin_slice(merge_heads(attn), stacked, li, "self_attn.o_proj",
+                          attn_cfg.o_proj, seg, lj)
         h = residual + attn
         residual = h
         hn = rms_norm(h, {"weight":
                           stacked["post_attention_layernorm.weight"][li]},
                       cfg.rms_norm_eps)
-        y = _mlp_fused_or_none(hn, q["gate_proj"], lb, lj)
+        y = _mlp_slice_or_none(hn, q["gate_proj"], seg, lj)
         if y is None:
-            gate, up = _lin_group(hn, "mlp.gateup_proj",
-                                  ("mlp.gate_proj", "mlp.up_proj"),
-                                  (q["gate_proj"], q["up_proj"]),
-                                  lb, lj)
-            y = serving_linear(silu(gate) * up, "mlp.down_proj",
-                               lb, q["down_proj"],
-                               layer_index=lj)
+            gate, up = _lin_group_slice(hn, stacked, li, "mlp.gateup_proj",
+                                        ("mlp.gate_proj", "mlp.up_proj"),
+                                        (q["gate_proj"], q["up_proj"]),
+                                        seg, lj)
+            y = _lin_slice(silu(gate) * up, stacked, li, "mlp.down_proj",
+                           q["down_proj"], seg, lj)
         h = (residual + y).to(h_dtype)
 
     h = rms_norm(h, {"weight": rest["model.norm.weight"]}, cfg.rms_norm_eps)
@@ -758,19 +1043,18 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     if stacked is None or rest is None:
         stacked, rest = opt_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
-    qcfgs, route, n_rep = _begin_step(cache, cfg, layer_qcfg,
-                                      backend_stacked, positions, s,
-                                      fresh_prefill)
+    qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
+                        s, scan=True)
+    max_len = cache_max_len(cache)
     embed = rest["model.decoder.embed_tokens.weight"]
     h = embed[input_ids]
     h_dtype = h.dtype
     if rest.get("model.decoder.project_in.weight") is not None:
-        h = torch.matmul(h, rest["model.decoder.project_in.weight"].T)
-    q_abs = (positions[:, None] + torch.arange(s, device=h.device)).to(
-        torch.int64)
+        h = promoted_matmul(h, rest["model.decoder.project_in.weight"].T)
+    q_abs, mask = _step_masks(positions, s, cache, h.dtype, None, h.device)
     h = h + rest["model.decoder.embed_positions.weight"][q_abs + 2]
     scaling = cfg.head_dim ** -0.5
-    kv_valid = _kv_valid(valid_lengths, s, h.device)
+    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
 
     def norm(x, rel, li):
         return layer_norm(x, {k: stacked[f"{rel}.{k}"][li]
@@ -781,32 +1065,32 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     for li in range(cfg.num_hidden_layers):
         q = qcfgs[li]
         attn_cfg = q["attn"]
-        lb, lj = layer_backend(backend_stacked, li)
+        use_ak = _use_attn_kernel(backend_stacked, s, attn_cfg, max_len,
+                                  cfg.head_dim, cache)
+        seg, lj = layer_backend(backend_stacked, li)
         residual = h
         hn = norm(h, "self_attn_layer_norm", li) if pre else h
-        qy, ky, vy = _lin_group(
-            hn, "self_attn.qkv_proj",
+        qy, ky, vy = _lin_group_slice(
+            hn, stacked, li, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
-            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj),
-            lb, lj)
+            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
         qh, kh, vh = (_heads(y, cfg.num_attention_heads)
                       for y in (qy, ky, vy))
         attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
-                          scaling, n_rep, route, kv_valid, scale_query=True)
-        attn = serving_linear(merge_heads(attn), "self_attn.out_proj",
-                              lb, attn_cfg.o_proj,
-                              layer_index=lj)
+                          scaling, 1, kv_valid, mask, use_ak=use_ak,
+                          fresh_prefill=fresh_prefill, scan=True,
+                          scale_query=True)
+        attn = _lin_slice(merge_heads(attn), stacked, li,
+                          "self_attn.out_proj", attn_cfg.o_proj, seg, lj)
         h = residual + attn
         if not pre:
             h = norm(h, "self_attn_layer_norm", li)
         residual = h
         hn = norm(h, "final_layer_norm", li) if pre else h
-        y = _mlp_fused_or_none(hn, q["fc1"], lb, lj)
+        y = _mlp_slice_or_none(hn, q["fc1"], seg, lj)
         if y is None:
-            y = relu(serving_linear(hn, "fc1", lb, q["fc1"],
-                                    layer_index=lj))
-            y = serving_linear(y, "fc2", lb, q["fc2"],
-                               layer_index=lj)
+            y = relu(_lin_slice(hn, stacked, li, "fc1", q["fc1"], seg, lj))
+            y = _lin_slice(y, stacked, li, "fc2", q["fc2"], seg, lj)
         h = residual + y
         if not pre:
             h = norm(h, "final_layer_norm", li)
@@ -816,6 +1100,6 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         h = layer_norm(h, opt_mod._mod(rest,
                                        "model.decoder.final_layer_norm"))
     if rest.get("model.decoder.project_out.weight") is not None:
-        h = torch.matmul(h, rest["model.decoder.project_out.weight"].T)
+        h = promoted_matmul(h, rest["model.decoder.project_out.weight"].T)
     return _end_step(h, cache, positions, valid_lengths, logits_last_only,
                      rest.get("lm_head.weight", embed), backend_stacked)

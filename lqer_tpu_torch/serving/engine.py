@@ -1,8 +1,8 @@
 """Continuous-batching decode engine (port of ``lqer_tpu/serving/engine.py``).
 
-A fixed number of slots decode together, one kernel-backed step per
-token. Waiting prompts are admitted in one right-padded batch (bucketed
-lengths) on a freshly zeroed cache: all slots at once, or the admitted
+A fixed number of slots decode together, one model step per token.
+Waiting prompts are admitted in one right-padded batch (bucketed lengths)
+on a freshly zeroed cache: all slots at once, or the admitted
 slots scattered back into the running cache. Sampling happens on the
 device: greedy argmax, or a temperature sample drawn with the engine's own
 ``torch.Generator``.
@@ -17,10 +17,12 @@ import torch
 
 from .. import models
 from ..device import resolve_device
+from . import decode
 from .decode import (
     check_servable,
     llama_step_scan,
     make_cache,
+    model_step,
     opt_step_scan,
     stack_backend,
 )
@@ -54,32 +56,39 @@ def _to(obj, device):
 
 
 class DecodeEngine:
-    """Single-device continuous batching over the kernel-backed step.
+    """Single-device continuous batching over one model step.
+
+    ``scan_layers=False`` (the default, as in the JAX package) runs the
+    eager step ``decode.model_step`` on per-prefix weights and backend
+    entries; ``scan_layers=True`` the stacked step
+    (``decode.llama_step_scan`` / ``opt_step_scan``) on layer-stacked
+    params and ``decode.stack_backend``'s stacked backend (with
+    ``consume_backend`` the per-prefix arrays are dropped as they stack).
+    Each engine builds only the copy of the packed weights it reads.
 
     ``pallas_backend`` comes from ``kernel_backend.prepare_serving_params``
-    (or ``convert.backend_from_jax``); ``lm_head_width=8`` packs the head
-    for the W8 kernel. ``cache_dtype`` is one of ``decode.make_cache``'s
-    (the bf16 cache by default, as in the JAX package). ``device`` defaults
-    to the card and raises when there is none; params and backend move to
-    it. A cache and configuration that would take a path without a ported
-    kernel raise ``NotImplementedError`` here, as does a head dim the
-    card's kernels do not take when ``device`` is the card. The step
-    follows ``cfg.arch``: ``decode.opt_step_scan`` for OPT,
-    ``decode.llama_step_scan`` for Llama and Mistral (its sliding window
-    included).
+    (or ``convert.backend_from_jax``); None serves every linear through
+    the software emulation on ``models.prepare_ptq``'s params, and a
+    linear the backend did not pack takes it too. ``layer_qcfgs`` None
+    serves the model unquantized. ``lm_head_width=8`` packs the head for
+    the W8 kernel (with a backend; without one the head stays dense, as
+    in JAX). ``cache_dtype`` is one of ``decode.make_cache``'s (the bf16
+    cache by default, as in the JAX package). ``device`` defaults to the
+    card and raises when there is none; params and backend move to it. A
+    regime the card's kernels do not take (``decode.check_servable``)
+    raises ``NotImplementedError`` here. The step follows ``cfg.arch``:
+    OPT, or Llama and Mistral (its sliding window included).
     An OPT engine whose ``max_len`` exceeds ``max_position_embeddings``
     raises ``ValueError`` before any work: its learned positions would
     index past the table, which faults on the card. (The JAX engine takes
     such rows with ``jnp.take``, which fills them silently.)"""
 
-    def __init__(self, params: dict, cfg, layer_qcfgs, num_slots: int = 4,
-                 max_len: int = 512, cache_dtype="bfloat16",
-                 rng_seed: int = 0, pallas_backend: dict | None = None,
-                 consume_backend: bool = False,
+    def __init__(self, params: dict, cfg, layer_qcfgs=None,
+                 num_slots: int = 4, max_len: int = 512,
+                 cache_dtype="bfloat16", rng_seed: int = 0,
+                 pallas_backend: dict | None = None,
+                 scan_layers: bool = False, consume_backend: bool = False,
                  lm_head_width: int | None = None, device="cuda"):
-        if pallas_backend is None:
-            raise NotImplementedError("the port serves through the kernel "
-                                      "backend only (pallas_backend)")
         if cfg.arch == "opt" and max_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"max_len {max_len} exceeds OPT's max_position_embeddings "
@@ -91,28 +100,40 @@ class DecodeEngine:
         self.max_len = max_len
         params = _to(params, self.device)
         backend = _to(pallas_backend, self.device)
-        if lm_head_width is not None:
+        if lm_head_width is not None and backend is not None:
             backend = pack_lm_head(backend, params, width=lm_head_width)
         self.cache = make_cache(cfg, num_slots, max_len, cache_dtype,
                                 device=self.device)
-        check_servable(self.cache, [q["attn"] for q in layer_qcfgs],
-                       cfg.head_dim, getattr(cfg, "sliding_window", None))
+        self._qcfgs = None if layer_qcfgs is None else list(layer_qcfgs)
+        attn_cfgs = [q["attn"] for q in decode._layer_qcfgs(self._qcfgs, cfg)]
+        check_servable(self.cache, attn_cfgs, cfg.head_dim,
+                       getattr(cfg, "sliding_window", None),
+                       backend=backend is not None, scan=scan_layers)
         self.lengths = np.zeros(num_slots, dtype=np.int32)  # tokens in cache
         self.slot_req: list[Request | None] = [None] * num_slots
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
-        arch = models.get_arch_module(cfg)
-        self._stacked, self._rest = arch.stack_layer_params(params, cfg)
-        self._backend = stack_backend(backend, cfg, consume=consume_backend)
-        self._qcfgs = list(layer_qcfgs)
-        self._step_fn = opt_step_scan if cfg.arch == "opt" else llama_step_scan
+        self._scan = scan_layers
+        if scan_layers:
+            arch = models.get_arch_module(cfg)
+            self._stacked, self._rest = arch.stack_layer_params(params, cfg)
+            self._backend = (None if backend is None else stack_backend(
+                backend, cfg, consume=consume_backend))
+            self._step_fn = (opt_step_scan if cfg.arch == "opt"
+                             else llama_step_scan)
+        else:
+            self._params = params
+            self._backend = backend
 
     # ------------------------------------------------------------------
     def _step(self, ids, cache, positions, **kw):
-        return self._step_fn({}, ids, cache, positions, self.cfg,
-                             self._qcfgs, stacked=self._stacked,
-                             rest=self._rest, backend_stacked=self._backend,
-                             **kw)
+        if self._scan:
+            return self._step_fn({}, ids, cache, positions, self.cfg,
+                                 self._qcfgs, stacked=self._stacked,
+                                 rest=self._rest,
+                                 backend_stacked=self._backend, **kw)
+        return model_step(self._params, ids, cache, positions, self.cfg,
+                          self._qcfgs, backend=self._backend, **kw)
 
     def _sample(self, logits: torch.Tensor, temps: list[float]) -> torch.Tensor:
         """(n, vocab) logits → (n,) tokens: greedy where temp <= 0, else a
@@ -262,3 +283,18 @@ class DecodeEngine:
                     pending[s] = tok
             try_admit()
         return requests
+
+
+def generate(params: dict, cfg, prompt_ids: list[int],
+             max_new_tokens: int = 32, layer_qcfgs=None, max_len: int = 256,
+             temperature: float = 0.0, cache_dtype="bfloat16",
+             device="cuda") -> list[int]:
+    """One prompt through a one-slot eager engine (the JAX package's
+    ``generate``); returns the new token ids."""
+    engine = DecodeEngine(params, cfg, layer_qcfgs, num_slots=1,
+                          max_len=max_len, cache_dtype=cache_dtype,
+                          device=device)
+    req = Request(prompt_ids=prompt_ids, max_new_tokens=max_new_tokens,
+                  temperature=temperature)
+    engine.run([req])
+    return req.output_ids

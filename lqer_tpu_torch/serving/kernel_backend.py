@@ -7,8 +7,8 @@ rows and more the linears and the MLP take the large-M route instead:
 unpack each weight once (kernel 6), then one dense product.
 
 Port of ``lqer_tpu/serving/pallas_backend.py``: the same eligibility checks
-decide which linears are packed (an ineligible one is not packed; the port
-has no emulated fallback yet, so serving such a model raises), the MLP is
+decide which linears are packed (an ineligible one is not packed, and the
+step runs it through the software emulation, ``decode._lin``), the MLP is
 packed whole (``{layer}.mlp_fused``, ``fuse_mlp=True``, the default) where
 :func:`_mlp_fusable` allows, the same fuse groups (q|k|v, and for Llama gate|up
 when the MLP is not packed whole) share one launch, and ``pad_to_tile``
@@ -457,7 +457,8 @@ def serving_linear(x: torch.Tensor, prefix: str, backend: dict, qc, *,
     if prefix not in backend["meta"]:
         raise NotImplementedError(
             f"{prefix} is not packed for the kernel (ineligible quantizer "
-            "format or shape); the emulated fallback is not ported")
+            "format or shape); decode._lin runs such a linear through the "
+            "emulation (ops/qlinear.py::qlinear)")
     prep = layer_prep(backend["arrays"][prefix], layer_index)
     meta = backend["meta"][prefix]
     b, s, k = x.shape

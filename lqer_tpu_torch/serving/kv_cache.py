@@ -2,7 +2,7 @@
 
 Three layouts, each layer-stacked with a leading layer axis:
 
-- the fp cache (``init_kv_cache``): ``k``, ``v`` of shape
+- the fp cache (``init_kv_cache``, bf16 or f32): ``k``, ``v`` of shape
   ``(NL, B, KVH, L, d)``, token-major;
 - the MXINT cache (``init_quantized_kv_cache``): codes and exponents keep the
   JAX package's token-axis-last layout, codes ``(NL, B, KVH, d, L)`` (MXINT8)
@@ -18,6 +18,11 @@ Three layouts, each layer-stacked with a leading layer axis:
 
 On the card the token-axis-last layout reads consecutive tokens across a
 warp in both phases of the decode kernels (``csrc/decode_common.cuh``).
+
+The eager step's writes (:func:`write_layer_rows`, and
+:func:`update_layer_cache` / :func:`update_layer_cache_quantized` with the
+post-update layer views) are plain PyTorch, as the JAX
+package writes them in XLA, and update the cache in place.
 """
 
 from __future__ import annotations
@@ -127,3 +132,93 @@ def stage_boundary_sync(cache: dict, new_positions: torch.Tensor) -> dict:
         ring.copy_(torch.where(valid[None, :, None, None, :], gathered, ring))
     cache["flushed"].copy_(fl.to(torch.int32))
     return cache
+
+
+def _write_starts(positions: torch.Tensor, s: int, length: int
+                  ) -> torch.Tensor:
+    """(b, s) token indices of an ``s``-token write at ``positions``, each
+    start clamped to ``[0, length - s]`` as ``lax.dynamic_update_slice``
+    clamps it."""
+    start = positions.to(torch.int64).clamp(0, length - s)
+    return start[:, None] + torch.arange(s, device=positions.device)
+
+
+def write_layer_rows(cache: dict, layer: int, k_new: torch.Tensor,
+                     v_new: torch.Tensor, positions: torch.Tensor) -> dict:
+    """Write ``k_new``, ``v_new`` (b, kv_heads, s, d) into layer ``layer``
+    at ``positions`` (b,), in place: the rows into the fp cache in its
+    dtype, or their encode at an MXINT cache's code width (exact
+    exponents, zero fill 1.0) token-axis-last."""
+    if not is_quantized_cache(cache):
+        idx = _write_starts(positions, k_new.shape[2], cache["k"].shape[3])
+        for key, new in (("k", k_new), ("v", v_new)):
+            arr = cache[key][layer]
+            val = new.to(arr.dtype)
+            arr.scatter_(2, idx[:, None, :, None].expand_as(val), val)
+        return cache
+    from ..parallel.collectives import mx4_encode, mx8_encode
+
+    group = cache_group(cache)
+    enc = mx4_encode if cache_code_width(cache) == 4 else mx8_encode
+    idx = _write_starts(positions, k_new.shape[2], cache["k_codes"].shape[-1])
+    for side, new in (("k", k_new), ("v", v_new)):
+        codes, exps = enc(new, group, zero_fill=1.0)
+        for key, val in ((f"{side}_codes", codes), (f"{side}_exps", exps)):
+            arr = cache[key][layer]                    # (B, KVH, rows, L)
+            val_t = val.transpose(-1, -2)              # (B, KVH, rows, s)
+            arr.scatter_(-1, idx[:, None, None, :].expand_as(val_t), val_t)
+    return cache
+
+
+def update_layer_cache(cache: dict, layer: int, k_new: torch.Tensor,
+                       v_new: torch.Tensor, positions: torch.Tensor
+                       ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """:func:`write_layer_rows` into the fp cache; returns the cache and
+    the post-update layer views (b, kv_heads, max_len, d)."""
+    write_layer_rows(cache, layer, k_new, v_new, positions)
+    return cache, cache["k"][layer], cache["v"][layer]
+
+
+def update_layer_cache_quantized(cache: dict, layer: int, k_new: torch.Tensor,
+                                 v_new: torch.Tensor, positions: torch.Tensor,
+                                 compute_dtype=torch.float32
+                                 ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """:func:`write_layer_rows` into an MXINT cache; returns the cache and
+    the decoded post-update layer views (b, kv_heads, max_len, d) in
+    ``compute_dtype``."""
+    from ..parallel.collectives import mx4_decode, mx8_decode
+
+    write_layer_rows(cache, layer, k_new, v_new, positions)
+    group = cache_group(cache)
+    dec = mx4_decode if cache_code_width(cache) == 4 else mx8_decode
+    views = tuple(dec(cache[f"{side}_codes"][layer].transpose(-1, -2),
+                      cache[f"{side}_exps"][layer].transpose(-1, -2), group,
+                      compute_dtype) for side in ("k", "v"))
+    return (cache, *views)
+
+
+def decode_mask(lengths: torch.Tensor, max_len: int, dtype=torch.float32
+                ) -> torch.Tensor:
+    """(b, 1, 1, max_len) additive mask over the cache: 0 below
+    ``lengths`` (the tokens held, the current one included), else
+    ``finfo(dtype).min``."""
+    ok = torch.arange(max_len, device=lengths.device)[None, :] < \
+        lengths[:, None]
+    return _additive(ok, dtype)[:, None, None, :]
+
+
+def prefill_mask(seq_len: int, lengths: torch.Tensor, dtype=torch.float32
+                 ) -> torch.Tensor:
+    """(b, 1, s, s) causal mask of a right-padded prompt batch: key k is
+    seen by query q where k <= q and k < the slot's ``lengths``."""
+    q = torch.arange(seq_len, device=lengths.device)[:, None]
+    k = torch.arange(seq_len, device=lengths.device)[None, :]
+    ok = (k <= q)[None] & (k[None] < lengths[:, None, None])
+    return _additive(ok, dtype)[:, None, :, :]
+
+
+def _additive(ok: torch.Tensor, dtype) -> torch.Tensor:
+    zero = torch.zeros((), dtype=dtype, device=ok.device)
+    low = torch.full((), torch.finfo(dtype).min, dtype=dtype,
+                     device=ok.device)
+    return torch.where(ok, zero, low)

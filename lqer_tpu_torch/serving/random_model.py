@@ -7,7 +7,8 @@ drawn on the device from a ``torch.Generator`` seeded with
 ``seed * 1000 + layer``, packed into the kernel backend (by default as the
 JAX package packs: each MLP whole, for the megakernel; ``fuse_mlp=False``
 packs Llama's gate|up and down for kernel 1) and freed, so only
-one layer's fp32 weights exist at a time. The returned params keep the
+one layer's fp32 weights exist at a time; :func:`build_random_dense_model`
+keeps the same weights dense instead, for the emulated linears. The returned params keep the
 embeddings, the norms and nothing else: every linear is served from the
 backend, and the head is the tied embedding (``pack_lm_head``; OPT's
 stays dense). An OPT layer's linears carry biases of scale 0.02 (the JAX
@@ -119,6 +120,25 @@ def _layer_norms(cfg, prefix, dev) -> dict:
     return out
 
 
+def _layer_weights(cfg, prefix: str, rank: int, gen, dev) -> dict:
+    """One layer's linears drawn from ``gen``: fp32 weights of scale 0.01,
+    OPT's biases of scale 0.02, and bf16-exact rank-``rank`` A/B factors
+    of scale 0.01."""
+    layer = {}
+    for rel, (o, ic) in sorted(layer_shapes(cfg).items()):
+        layer[f"{prefix}.{rel}.weight"] = torch.randn(
+            o, ic, generator=gen, device=dev) * 0.01
+        if cfg.arch == "opt":
+            layer[f"{prefix}.{rel}.bias"] = torch.randn(
+                o, generator=gen, device=dev) * 0.02
+        if rank > 0:
+            for name, shape in (("A", (ic, rank)), ("B", (rank, o))):
+                layer[f"{prefix}.{rel}.{name}"] = (torch.randn(
+                    *shape, generator=gen, device=dev) * 0.01).to(
+                    torch.bfloat16).to(torch.float32)
+    return layer
+
+
 def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda",
                        fuse_mlp: bool = True):
     """``(backend, params, layer_qcfgs)`` for ``cfg`` (Llama, Mistral: GQA
@@ -132,24 +152,14 @@ def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda",
     qcfgs = models.quantize_model(cfg, q_config_for(cfg),
                                   {"linear": {"rank": rank}})
     one_layer = dataclasses.replace(cfg, num_hidden_layers=1)
-    p0 = models.get_arch_module(cfg).layer_prefix(0)
+    arch = models.get_arch_module(cfg)
+    p0 = arch.layer_prefix(0)
     arrays, meta = {}, {}
     for i in range(cfg.num_hidden_layers):
-        p = models.get_arch_module(cfg).layer_prefix(i)
+        p = arch.layer_prefix(i)
         params.update(_layer_norms(cfg, p, dev))
         gen.manual_seed(seed * 1000 + i)
-        layer = {}
-        for rel, (o, ic) in sorted(layer_shapes(cfg).items()):
-            layer[f"{p0}.{rel}.weight"] = torch.randn(
-                o, ic, generator=gen, device=dev) * 0.01
-            if cfg.arch == "opt":
-                layer[f"{p0}.{rel}.bias"] = torch.randn(
-                    o, generator=gen, device=dev) * 0.02
-            if rank > 0:
-                for name, shape in (("A", (ic, rank)), ("B", (rank, o))):
-                    layer[f"{p0}.{rel}.{name}"] = (torch.randn(
-                        *shape, generator=gen, device=dev) * 0.01).to(
-                        torch.bfloat16).to(torch.float32)
+        layer = _layer_weights(cfg, p0, rank, gen, dev)
         packed = prepare_serving_params(layer, one_layer, [qcfgs[i]],
                                         fuse_mlp=fuse_mlp)
         del layer
@@ -157,3 +167,26 @@ def build_random_model(cfg, rank: int = 32, seed: int = 0, device="cuda",
                        for k, v in packed["arrays"].items()})
         meta.update({k.replace(p0, p, 1): v for k, v in packed["meta"].items()})
     return {"arrays": arrays, "meta": meta}, params, qcfgs
+
+
+def build_random_dense_model(cfg, rank: int = 32, seed: int = 0,
+                             device="cuda"):
+    """``(params, layer_qcfgs)``: the dense counterpart of
+    :func:`build_random_model` with the same arguments, the same draws from
+    the same seeds (so ``prepare_serving_params`` of these params packs its
+    backend), every linear's fp32 weight and A/B factors kept in
+    ``params``, unprepared (``models.prepare_ptq`` quantizes them for the
+    emulated linears)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = _non_layer_params(cfg, gen, dev)
+    qcfgs = models.quantize_model(cfg, q_config_for(cfg),
+                                  {"linear": {"rank": rank}})
+    arch = models.get_arch_module(cfg)
+    for i in range(cfg.num_hidden_layers):
+        p = arch.layer_prefix(i)
+        params.update(_layer_norms(cfg, p, dev))
+        gen.manual_seed(seed * 1000 + i)
+        params.update(_layer_weights(cfg, p, rank, gen, dev))
+    return params, qcfgs

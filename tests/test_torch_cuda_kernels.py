@@ -810,8 +810,10 @@ def test_opt_engine_on_card(gen, cache_dtype):
                                        {"linear": {"rank": 32}})
     kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
               pallas_backend=backend, lm_head_width=8)
-    card = DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)
-    cpu = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    card = DecodeEngine(params, cfg, qcfgs,
+                        scan_layers=True, device="cuda", **kw)
+    cpu = DecodeEngine(params, cfg, qcfgs,
+                       scan_layers=True, device="cpu", **kw)
     ids = torch.randint(0, 200, (4, 64), generator=gen,
                         device="cuda").cpu().numpy()
     lengths = torch.full((4,), 63, dtype=torch.int32).numpy()
@@ -846,8 +848,10 @@ def test_opt_head_dim_80_engine_on_card(gen, cache_dtype):
                                                 device="cpu")
     kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
               pallas_backend=backend, lm_head_width=8)
-    card = DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)
-    cpu = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    card = DecodeEngine(params, cfg, qcfgs,
+                        scan_layers=True, device="cuda", **kw)
+    cpu = DecodeEngine(params, cfg, qcfgs,
+                       scan_layers=True, device="cpu", **kw)
     route = {"bfloat16": kfp.decode_attention_fp,
              "mxint8": kq.decode_attention_quantized_write,
              "mxint8-staged": k3.decode_attention_quantized_staged}[
@@ -953,8 +957,10 @@ def test_mistral_engine_on_card(gen, cache_dtype):
     params["model.embed_tokens.weight"] *= 40
     kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
               pallas_backend=backend, lm_head_width=8)
-    card = DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)
-    cpu = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    card = DecodeEngine(params, cfg, qcfgs,
+                        scan_layers=True, device="cuda", **kw)
+    cpu = DecodeEngine(params, cfg, qcfgs,
+                       scan_layers=True, device="cpu", **kw)
     ids = torch.randint(0, 256, (4, 64), generator=gen,
                         device="cuda").cpu().numpy()
     lengths = np.full(4, 63, dtype=np.int32)
@@ -1135,11 +1141,14 @@ def test_llama_engine_new_routes_on_card(gen, monkeypatch, route):
                                        {"linear": {"rank": 32}})
     kw = dict(num_slots=4, max_len=128, cache_dtype=cache_dtype,
               pallas_backend=backend, lm_head_width=8)
-    engines = {"card": DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)}
+    engines = {"card": DecodeEngine(params, cfg, qcfgs,
+                                    scan_layers=True, device="cuda", **kw)}
     if route == "mxint4-staged":
-        engines["other"] = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+        engines["other"] = DecodeEngine(params, cfg, qcfgs,
+                                        scan_layers=True, device="cpu", **kw)
     else:
-        engines["other"] = DecodeEngine(params, cfg, qcfgs, device="cuda",
+        engines["other"] = DecodeEngine(params, cfg, qcfgs,
+                                        scan_layers=True, device="cuda",
                                         **kw)
     ids = torch.randint(0, 256, (4, 64), generator=gen,
                         device="cuda").cpu().numpy()
@@ -1418,3 +1427,66 @@ def test_streaming_split_long(gen, width, d, nrep, window):
     s, vals = kq.quantized_scores(q, *cache, p, 1, **kw)
     check_close(f"row 8 width {width} d {d} window {window}", got, want,
                 attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+
+
+@pytest.mark.parametrize("cache_dtype,max_len,emulated", [
+    ("mxint8-staged", 128, False), ("bfloat16", 128, False),
+    ("mxint8", 128, False), ("bfloat16", 64, False), ("bfloat16", 64, True),
+])
+def test_eager_engine_on_card(gen, cache_dtype, max_len, emulated):
+    """The eager engine (``scan_layers=False``) on a 2-layer tiny Llama
+    (hidden 256, 4 heads of d = 64 over 2 kv heads, rank 32) through the
+    kernels against the same engine through the plain versions on the
+    CPU, teacher-forced with the card's greedy tokens: an admission of
+    40-token prompts and 16 decode steps, logits within chip_smoke.py's
+    limits; with the backend each step launches the eager route's decode
+    kernel (max_len 64 attends eagerly); ``emulated``: no backend, every
+    linear through ``qlinear`` on the prepared dense weights of the same
+    seeds. The eager and stacked engines give equal logits on the card
+(on ``mxint8``, where the stacked step writes and attends in one launch
+of row 10, within the same limits)."""
+    from lqer_tpu_torch.serving.random_model import build_random_dense_model
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, heads=4, kv_heads=2,
+                           inter=512, max_pos=256)
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=9,
+                                                device="cpu")
+    if emulated:
+        dense, qcfgs = build_random_dense_model(cfg, rank=32, seed=9,
+                                                device="cpu")
+        params, backend = tmodels.prepare_ptq(dense, cfg, qcfgs), None
+    kw = dict(num_slots=4, max_len=max_len, cache_dtype=cache_dtype,
+              pallas_backend=backend)
+    engines = {"card": DecodeEngine(params, cfg, qcfgs, device="cuda", **kw),
+               "cpu": DecodeEngine(params, cfg, qcfgs, device="cpu", **kw),
+               "stacked": DecodeEngine(params, cfg, qcfgs, scan_layers=True,
+                                       device="cuda", **kw)}
+    ids = torch.randint(0, 256, (4, 64), generator=gen,
+                        device="cuda").cpu().numpy()
+    lengths = np.full(4, 40, dtype=np.int32)
+    logits = {k: [e.prefill(ids, np.arange(4), lengths)]
+              for k, e in engines.items()}
+    for e in engines.values():
+        e.lengths[:] = lengths
+    route = {"mxint8-staged": k3.decode_attention_quantized_staged,
+             "bfloat16": kfp.decode_attention_fp,
+             "mxint8": kq.decode_attention_quantized}[cache_dtype]
+    launched = 0
+    for _ in range(16):
+        tokens = torch.argmax(logits["card"][-1], -1).cpu().numpy()
+        for k, e in engines.items():
+            before = route.launches
+            logits[k].append(e.decode_logits(tokens))
+            e.lengths += 1
+            launched += (route.launches - before) * (k == "card")
+    kernel = max_len >= 128 and not emulated
+    assert launched == (16 * 2 if kernel else 0)
+    for got, want in zip(logits["card"], logits["cpu"]):
+        worst, rms = logits_steps(got.float().cpu(), want.float())
+        assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+    for got, want in zip(logits["card"], logits["stacked"]):
+        if cache_dtype == "mxint8":     # row 6 after a plain write; row 10
+            worst, rms = logits_steps(got.float(), want.float())
+            assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+        else:
+            assert torch.equal(got, want)

@@ -43,7 +43,7 @@ def _port_engine(jparams, jb, q_config, max_len, cache_dtype, num_slots=2):
                                          for k, v in jparams.items()}),
                         cfg, tq, num_slots=num_slots, max_len=max_len,
                         cache_dtype=cache_dtype, pallas_backend=backend,
-                        lm_head_width=8, device="cpu")
+                        lm_head_width=8, scan_layers=True, device="cpu")
 
 
 def _assert_caches_agree(ours: dict, theirs: dict):

@@ -1,7 +1,8 @@
 """The bf16 cache at every length the JAX package serves with its fp-cache
 kernel (``_fp_cache_kernel_fits``): the port's row 5 keeps nothing in
-shared memory that grows with the cache length, so the port accepts a bf16
-cache exactly up to that limit, whatever the GQA group and head dim.
+shared memory that grows with the cache length, so the port takes a bf16
+cache through it exactly up to that limit, whatever the GQA group and head
+dim; past it both packages attend eagerly.
 
 The boundary is held against the JAX function, and a tiny Llama of head
 dim 64 and 8 query heads per kv head is served on the bf16 cache at max_len
@@ -59,10 +60,15 @@ def test_bf16_cache_accepted_exactly_to_the_jax_limit(n_rep, head_dim):
     attn = tmodels.quantize_model(cfg, Q_CONFIG, None)[0]["attn"]
     cache = tdecode.make_cache(cfg, 1, limit, "bfloat16", device="cpu")
     tdecode.check_servable(cache, [attn] * 2, head_dim)
+    assert tdecode._use_attn_kernel(True, 1, attn, limit, head_dim, cache)
     assert tdecode.decode_route("bfloat16", limit, head_dim, n_rep) == (
         "row_write", "decode_attention_fp")
-    with pytest.raises(NotImplementedError, match="_fp_cache_kernel_fits"):
-        tdecode.make_cache(cfg, 1, limit + 16, "bfloat16", device="cpu")
+    # past the limit the bf16 cache serves through the eager attention, as
+    # in JAX (serving/decode.py::_fp_cache_kernel_fits)
+    cache = tdecode.make_cache(cfg, 1, limit + 16, "bfloat16", device="meta")
+    assert not tdecode._use_attn_kernel(True, 1, attn, limit + 16, head_dim,
+                                        cache)
+    assert not tdecode._fp_cache_kernel_fits(limit + 16, head_dim, 2)
 
 
 def _jax_model(jcfg, seed=0):
@@ -103,7 +109,7 @@ def test_gqa8_head_dim_64_serves_past_the_old_limit():
         params_from_jax({k: np.asarray(v) for k, v in params.items()}), cfg,
         tq, num_slots=2, max_len=max_len, pallas_backend=backend_from_jax(
             jax.tree.map(np.asarray, jb["arrays"]), jb["meta"]),
-        lm_head_width=8, device="cpu")
+        lm_head_width=8, scan_layers=True, device="cpu")
     padded = np.random.default_rng(1).integers(0, 128, (2, 64)).astype(
         np.int32)
     lengths = np.array([63, 21], np.int32)

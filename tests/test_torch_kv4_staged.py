@@ -247,7 +247,7 @@ def test_engine_mxint4_staged_matches_jax_engine():
     for cache_dtype in ("mxint4-staged", "mxint4"):
         engine = DecodeEngine(tparams, cfg, tq, num_slots=2, max_len=128,
                               cache_dtype=cache_dtype, pallas_backend=backend,
-                              lm_head_width=8, device="cpu")
+                              lm_head_width=8, scan_layers=True, device="cpu")
         reqs = _requests(Request)
         engine.run(reqs)
         tokens[cache_dtype] = [r.output_ids for r in reqs]

@@ -95,7 +95,7 @@ def _port_engine(params, jb, q_config, cache_dtype):
                                          for k, v in params.items()}),
                         cfg, tq, num_slots=2, max_len=MAX_LEN,
                         cache_dtype=cache_dtype, pallas_backend=backend,
-                        lm_head_width=8, device="cpu")
+                        lm_head_width=8, scan_layers=True, device="cpu")
 
 
 def _requests(cls, rng):

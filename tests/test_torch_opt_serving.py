@@ -160,7 +160,7 @@ def test_engine_matches_jax_engine(cache_dtype, post_ln, kv4):
                                            for k, v in params.items()}),
                           cfg, tq, num_slots=2, max_len=MAX_LEN,
                           cache_dtype=cache_dtype, pallas_backend=backend,
-                          lm_head_width=8, device="cpu")
+                          lm_head_width=8, scan_layers=True, device="cpu")
     assert "lm_head" not in engine._backend["meta"]        # vocab 200: dense
     reqs = _requests(Request, np.random.default_rng(1), 3)
     engine.run(reqs)
@@ -263,4 +263,4 @@ def test_engine_refuses_max_len_past_the_position_table():
     with pytest.raises(ValueError, match="max_position_embeddings"):
         DecodeEngine({}, cfg, tq, num_slots=1, max_len=256,
                      pallas_backend={"arrays": {}, "meta": {}},
-                     device="cuda")
+                     scan_layers=True, device="cuda")

@@ -1,7 +1,8 @@
 """Per-layer packing: a model whose layers pack differently (the reference's
 ``model_layer_{i}`` overrides; here layer 1's q, k and v quantize their
-input at width 6) served by the port's ``DecodeEngine`` and by the JAX
-package's default engine (``DecodeEngine(..., pallas_backend=b)``,
+input at width 6) served by the port's stacked ``DecodeEngine``
+(``scan_layers=True``) and by the JAX package's default engine
+(``DecodeEngine(..., pallas_backend=b)``,
 ``scan_layers=False``, per-prefix backend entries), on the tiny Llama of
 ``test_torch_serving.py`` packed with ``fuse_mlp=True``, over
 ``mxint8-staged``. The port stacks each run of consecutive layers that
@@ -62,7 +63,7 @@ def test_engine_matches_default_jax_engine():
                                            for k, v in params.items()}),
                           cfg, tq, num_slots=2, max_len=MAX_LEN,
                           cache_dtype="mxint8-staged", pallas_backend=backend,
-                          lm_head_width=8, device="cpu")
+                          lm_head_width=8, scan_layers=True, device="cpu")
     segments = engine._backend["segments"]
     assert [(s, e) for s, e, _ in segments] == [(0, 1), (1, 2)]
     assert tdecode.layer_backend(engine._backend, 1) == (segments[1][2], 0)

@@ -94,7 +94,7 @@ def test_engine_matches_jax_engine(monkeypatch, fuse_mlp, slots):
                                            for k, v in params.items()}),
                           cfg, tq, num_slots=slots, max_len=MAX_LEN,
                           cache_dtype="mxint8-staged", pallas_backend=backend,
-                          lm_head_width=8, device="cpu")
+                          lm_head_width=8, scan_layers=True, device="cpu")
     rows = []           # rows of each MLP call, by route
     for name in ("mlp_w4_fused", "mlp_w4_dense_largeM"):
         real = getattr(tbackend, name)
@@ -209,7 +209,7 @@ def _port_engine(num_slots, device="cpu", cache_dtype="mxint8-staged", **kw):
                                          for k, v in params.items()}),
                         cfg, tq, num_slots=num_slots, max_len=MAX_LEN,
                         cache_dtype=cache_dtype, pallas_backend=backend,
-                        device=device, **kw)
+                        scan_layers=True, device=device, **kw)
 
 
 def test_partial_admission_and_seeded_sampling():
@@ -269,22 +269,45 @@ def test_card_requests_raise_without_a_card(monkeypatch):
     ("mxint8", MAX_LEN, None, "_attend"),              # fp attention config
 ])
 def test_unported_options_raise(cache_dtype, max_len, q_config, path):
-    """Regimes whose JAX path has no ported kernel raise before any work,
-    naming that path: the cache through ``make_cache``, the configuration
-    through the engine."""
-    cfg = LlamaConfig.tiny(**TINY)
-    if q_config is Q_CONFIG and path != "_attend":
-        with pytest.raises(NotImplementedError, match=path):
-            tdecode.make_cache(cfg, 2, max_len, cache_dtype, device="cpu")
-        return
+    """Regimes the port refused before its eager path was ported (the
+    ``float32`` cache, the bf16 cache past the fp kernel's one-pass length,
+    and the eager ``_attend`` regimes) now serve, as the JAX package
+    serves them: the port's engines (eager and stacked) against the JAX
+    engine with the packed backend, tokens equal; the decode step takes
+    the JAX package's route (``path``: the fp kernel on the f32 cache, or
+    no decode kernel)."""
     if q_config is None:
         q_config = {**Q_CONFIG, "matmul": None}
+    jcfg, params, jq, jb = _jax_model(3, q_config=q_config)
+    jcache_dtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}.get(
+        cache_dtype, cache_dtype)
+    kw = dict(num_slots=2, max_len=max_len, lm_head_width=8)
+    jreqs = [JRequest(prompt_ids=p, max_new_tokens=4)
+             for p in ([3, 9, 27, 4, 100, 17], [5, 6, 7])]
+    JDecodeEngine(jmodels.prepare_ptq(params, jcfg, jq), jcfg, jq,
+                  pallas_backend=jb, cache_dtype=jcache_dtype,
+                  **kw).run(jreqs)
+    cfg = LlamaConfig.tiny(**TINY)
     tq = tmodels.quantize_model(cfg, q_config, {"linear": {"rank": RANK}})
-    params = {"model.embed_tokens.weight": torch.zeros(128, 256),
-              "model.norm.weight": torch.ones(256)}
-    with pytest.raises(NotImplementedError, match=path):
-        DecodeEngine(params, cfg, tq, num_slots=2, max_len=max_len,
-                     cache_dtype=cache_dtype, pallas_backend={}, device="cpu")
+    attn = tq[0]["attn"]
+    tparams = tmodels.prepare_ptq(
+        params_from_jax({k: np.asarray(v) for k, v in params.items()}), cfg,
+        tq)
+    backend = backend_from_jax(jax.tree.map(np.asarray, jb["arrays"]),
+                               jb["meta"])
+    for scan in (False, True):
+        engine = DecodeEngine(tparams, cfg, tq, cache_dtype=cache_dtype,
+                              pallas_backend=backend, scan_layers=scan,
+                              device="cpu", **kw)
+        reqs = [Request(prompt_ids=r.prompt_ids, max_new_tokens=4)
+                for r in jreqs]
+        engine.run(reqs)
+        assert [r.output_ids for r in reqs] == [r.output_ids for r in jreqs]
+    kernel = tdecode._use_attn_kernel(True, 1, attn, max_len, cfg.head_dim,
+                                      engine.cache)
+    assert kernel == (path == "float32")
+    if path == "_fp_cache_kernel_fits":
+        assert not tdecode._fp_cache_kernel_fits(max_len, cfg.head_dim, 2)
 
 
 def test_unfused_projections_serve_like_fused():
@@ -316,7 +339,7 @@ def test_unfused_projections_serve_like_fused():
         engine = DecodeEngine(tparams, cfg, tq, num_slots=2, max_len=MAX_LEN,
                               cache_dtype="mxint8-staged",
                               pallas_backend=backend, lm_head_width=8,
-                              device="cpu")
+                              scan_layers=True, device="cpu")
         reqs = _requests(Request, np.random.default_rng(2))
         engine.run(reqs)
         outs.append([r.output_ids for r in reqs])

@@ -113,11 +113,11 @@ def mistral(torch, seeds: int, steps: int) -> None:
     kw = dict(num_slots=4, max_len=8192, cache_dtype="bfloat16",
               lm_head_width=8)
     card = DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                        device="cuda", **kw)
+                        scan_layers=True, device="cuda", **kw)
     plain = DecodeEngine(params, cfg, qcfgs, pallas_backend=backend,
-                         device="cuda", **kw)
+                         scan_layers=True, device="cuda", **kw)
     cpu = DecodeEngine(cpu_params, cfg, qcfgs, pallas_backend=cpu_backend,
-                       device="cpu", **kw)
+                       scan_layers=True, device="cpu", **kw)
     rng = np.random.default_rng(cs.SEED + 2)
     padded = rng.integers(0, cfg.vocab_size, (4, 64))
     lengths = np.full(4, 63, dtype=np.int32)
@@ -211,10 +211,11 @@ def opt350m(torch) -> None:
     kw = dict(num_slots=8, max_len=256, cache_dtype="bfloat16",
               lm_head_width=8, device="cuda")
     engines = {"kernels": DecodeEngine(params, cfg, qcfgs,
-                                       pallas_backend=backend, **kw)}
+                                       pallas_backend=backend, **kw,
+                                       scan_layers=True)}
     for name, b in controls.items():
         engines[name] = DecodeEngine(params, cfg, qcfgs, pallas_backend=b,
-                                     **kw)
+                                     **kw, scan_layers=True)
     rng = np.random.default_rng(cs.SEED + 1)
     padded = rng.integers(0, cfg.vocab_size, (8, 64))
     lengths = np.full(8, 63, dtype=np.int32)

@@ -48,6 +48,7 @@ first. Needs one CUDA device.
 from __future__ import annotations
 
 import json
+import inspect
 import statistics
 import subprocess
 import sys
@@ -77,6 +78,10 @@ def child(root: str) -> None:
         raise RuntimeError(f"imported {lqer_tpu_torch.__file__}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     build_all()
+    # the stacked engine (``scan_layers=True``) in every checkout; an
+    # engine without ``scan_layers`` serves only that one
+    stacked = ({"scan_layers": True} if "scan_layers" in
+               inspect.signature(DecodeEngine).parameters else {})
     cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=32)
     backend, params, qcfgs = build_random_model(cfg, rank=32, seed=3)
     params["model.embed_tokens.weight"] = \
@@ -84,7 +89,7 @@ def child(root: str) -> None:
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
                           cache_dtype="mxint8-staged",
                           pallas_backend=backend, lm_head_width=8,
-                          device="cuda")
+                          device="cuda", **stacked)
     rng = np.random.default_rng(5)
 
     def timed(fn, *a):
@@ -115,7 +120,7 @@ def child(root: str) -> None:
     out = {}
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=2048,
                           cache_dtype="bfloat16", pallas_backend=backend,
-                          lm_head_width=8, device="cuda")
+                          lm_head_width=8, device="cuda", **stacked)
     engine.lengths[:] = 64
     steps_bf16 = []
     for _ in range(40):
@@ -196,7 +201,7 @@ def mistral_steps(torch, timed, cache_dtype: str = "bfloat16",
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=8, max_len=8192,
                           cache_dtype=cache_dtype, pallas_backend=backend,
                           consume_backend=True, lm_head_width=8,
-                          device="cuda")
+                          device="cuda", **stacked)
     del backend
     if cache_dtype == "bfloat16":
         gen = torch.Generator(device="cuda")
@@ -237,7 +242,7 @@ def llama_long_steps(torch, timed, cfg, params, qcfgs, backend,
 
     engine = DecodeEngine(params, cfg, qcfgs, num_slots=4, max_len=32768,
                           cache_dtype=cache_dtype, pallas_backend=backend,
-                          lm_head_width=8, device="cuda")
+                          lm_head_width=8, device="cuda", **stacked)
     fill_context(torch, {"card": engine}, np.full(4, position), seed=17)
     if "flushed" in engine.cache:
         engine.cache["flushed"].fill_(position)
