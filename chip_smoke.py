@@ -156,8 +156,35 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    32 heads of d = 80, rank 32, dense head, 8 slots, max_len 2048) over
    ``bfloat16`` and ``mxint8`` (40 new tokens) and ``mxint8-staged`` (80,
    then one 2048-token admission), a profile each;
-6. the ``kernels`` JSON line: launches of each kernel in phase 5 and the
-   phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
+6. the offline pipeline (``runners.run_pipeline``: profile → approximate →
+   perplexity) on the card at Llama-2-7B width, 2 layers (a checkpoint of
+   seeded dense weights through ``model_dir``), W4A8 lqer-act at rank 32
+   (``experiments/configs/template/llama-2-7b.toml``'s quantizers),
+   synthetic data at max_length 2048: 4 calibration sequences, the 14
+   linears' SVDs on the card (``torch.linalg.svd``), the perplexity of 4
+   test sequences at batch 1 through the kernel backend and the fused
+   prefill attention (2048 rows: row 4 and, on the packed linears, the
+   large-M route of row 2), then resumed from
+   ``config_after_approximation.toml`` at max_length 256 (row 4 and, on
+   the packed linears, row 1; row 3 only where a layer's whole MLP packs).
+   A linear whose A or B holds a value the 8-bit quantizer passed through
+   at |v| <= 1e-8 (not exact in bf16) runs the emulation, as in JAX: the
+   pipeline-made model has packed 5 or 7 of its 14 linears and no whole
+   MLP, so row 3 runs only in the 32-layer evaluation below. Each stage's
+   wall time, the rows each evaluation launched, its launches held to the
+   packed entries (at least one), layers and batches. The same evaluation
+   through the plain versions on the card (test batch 0's logits within
+   LOGIT_MAX_STEPS and LOGIT_RMS_STEPS, the perplexity within
+   PIPELINE_PPL_RTOL), and ``disable_lqer`` (a negative control: its
+   logits must fall outside those limits); against the CPU, in 2 spawned
+   workers beside the card's runs, the scale dict of the same calibration
+   batches (rtol 1e-3) and ``A_q B_q`` of PIPELINE_CPU_WEIGHTS (one of each
+   shape, from the card's scales; PIPELINE_PRODUCT_REL_ERR); then the
+   perplexity alone at 32 layers (``build_random_model``'s seeded rank-32
+   factors, no SVD) on PIPELINE_FULL_BATCHES batches of 2048 tokens and
+   one of 256, with a profile of one batch and the launches held;
+7. the ``kernels`` JSON line: launches of each kernel in phases 5 and 6
+   and the phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
    Mistral's phase-5 launches; rows 7 and 9 at code width 4 as their
    ``width4``, with its phase-5 launches; kernel 1 and the megakernel with
    the in-kernel activation quantizer as their ``quant_x``; row 4 at one
@@ -3918,6 +3945,442 @@ def profile_window(torch, fn, steps: int, what: str) -> float | None:
     return busy_ms
 
 
+# -- phase 6: the offline pipeline ------------------------------------------------
+# Phase 6's model: Llama-2-7B's width at PIPELINE_LAYERS layers, W4A8
+# lqer-act at rank 32 (the template's quantizers), synthetic data at
+# max_length 2048; the 32-layer evaluation reads PIPELINE_FULL_BATCHES
+# batches of 2048 tokens
+PIPELINE_LAYERS = 2
+PIPELINE_RANK = 32
+PIPELINE_FULL_BATCHES = 2
+# The perplexity through the kernels against through the plain versions on
+# the card: a flipped 8-bit rounding moves a logit row by a few code steps
+# (the logits limits above), the perplexity of 4 x 2047 predictions by far
+# less
+PIPELINE_PPL_RTOL = 2e-3
+# One weight of each of the three shapes, held card against CPU
+PIPELINE_CPU_WEIGHTS = ("model.layers.0.self_attn.q_proj.weight",
+                        "model.layers.0.mlp.gate_proj.weight",
+                        "model.layers.0.mlp.down_proj.weight")
+# ``A_q B_q`` card against CPU: the limit of the CPU tests
+# (tests/test_torch_approximator.py::PRODUCT_REL_ERR)
+PIPELINE_PRODUCT_REL_ERR = 1e-2
+
+
+def pipeline_config(root: Path, work: Path, ckpt: Path) -> dict:
+    """The pipeline config of phase 6: ``experiments/configs/template/
+    llama-2-7b.toml`` (W4A8, lqer-act) at rank 32 on the 2-layer model
+    of ``ckpt``, synthetic data (4 calibration sequences of 2048 tokens at
+    batch 2; 4 test sequences at batch 1), the evaluation through the
+    kernel backend and the fused prefill attention, no harness."""
+    import dataclasses
+
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.utils import load_config
+
+    c = load_config(root / "experiments/configs/template/llama-2-7b.toml")
+    cfg = dataclasses.replace(LlamaConfig.llama_7b(),
+                              num_hidden_layers=PIPELINE_LAYERS)
+    c.update(project="chip_smoke", enable_wandb=False,
+             enable_harness_downstream_evaluation=False,
+             checkpoint_path=str(work / "run"), model_dir=str(ckpt),
+             overwrite_checkpoint=True, tags=["chip_smoke"])
+    c["model"] = {k: v for k, v in dataclasses.asdict(cfg).items()
+                  if v is not None}
+    c["l_config"]["linear"]["rank"] = PIPELINE_RANK
+    c["approximate"]["approximator"]["default"]["rank"] = PIPELINE_RANK
+    synthetic = {"vocab_size": cfg.vocab_size, "num_train": 4,
+                 "num_test": 4, "seed": SEED}
+    c["profile"] = {"dataset": "synthetic", "dtype": "float32",
+                    "max_length": 2048, "batch_size": 2, "num_samples": 4,
+                    "synthetic": synthetic}
+    c["evaluate"] = {"disable_lqer": False, "dtype": "float32",
+                     "pallas_backend": True, "fused_attention": True,
+                     "perplexity": {"dataset": "synthetic", "batch_size": 1,
+                                    "max_length": 2048,
+                                    "progress_bar": False,
+                                    "synthetic": synthetic}}
+    return c
+
+
+def write_checkpoint(torch, cfg, path: Path) -> dict:
+    """``model.safetensors`` of seeded random dense weights
+    (``random_model.build_random_dense_model`` at rank 0: the linears'
+    weights f32 at scale 0.01, the embedding at 0.02, the head tied),
+    stored as bf16 (the pipeline reads them back as f32). Returns the
+    params, on the card."""
+    from safetensors.torch import save_file
+
+    from lqer_tpu_torch.serving.random_model import build_random_dense_model
+
+    params, _ = build_random_dense_model(cfg, rank=0, seed=SEED + 11)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    path.mkdir(parents=True, exist_ok=True)
+    save_file({k: v.cpu().contiguous() for k, v in params.items()},
+              str(path / "model.safetensors"))
+    return params
+
+
+def cpu_pipeline_job(job: dict) -> str:
+    """Phase 6's CPU side, in a worker process: ``"profile"`` runs the
+    profiling stage of ``job["config"]`` on the CPU; ``"approximate"``
+    runs ``approximate_weight`` of the weights ``job["names"]`` with the
+    card's scale dict ``job["scale_dict"]``. Saves the result to a file and
+    returns its path."""
+    import torch
+    from safetensors import safe_open
+
+    from lqer_tpu_torch import runners
+    from lqer_tpu_torch.approximate import approximate_weight
+    from lqer_tpu_torch.models.checkpoint import load_tensor_dict
+    from lqer_tpu_torch.ops.quantizers import make_quantizer
+
+    t0 = time.perf_counter()
+    out = job["out"]
+    if job["kind"] == "profile":
+        work = Path(out).parent / "cpu-profile"
+        work.mkdir(parents=True, exist_ok=True)
+        config = runners.run_profiler(json.loads(job["config"]), work,
+                                      device="cpu")
+        result = load_tensor_dict(config["profile"]["scale_dict"])
+    else:
+        d = json.loads(job["config"])["approximate"]["approximator"][
+            "default"]
+        qs = [make_quantizer(d[k]) for k in ("W_quantizer", "A_quantizer",
+                                             "B_quantizer")]
+        scales = load_tensor_dict(job["scale_dict"])
+        result = {}
+        with safe_open(job["checkpoint"], framework="pt") as f:
+            for name in job["names"]:
+                w = f.get_tensor(name).to(torch.float32)
+                s = torch.as_tensor(scales[name[:-len("weight")] + "scale"])
+                a, b, _ = approximate_weight(w, d["rank"], *qs, scale=s)
+                result[name + ".A"], result[name + ".B"] = a, b
+    torch.save({"result": result, "seconds": time.perf_counter() - t0}, out)
+    return out
+
+
+def packed_prefixes(meta: dict) -> set:
+    """The Llama linears a backend's entries cover: a fused q|k|v or
+    gate|up entry its members, an MLP entry gate, up and down."""
+    members = {"self_attn.qkv_proj": ("self_attn.q_proj", "self_attn.k_proj",
+                                      "self_attn.v_proj"),
+               "mlp.gateup_proj": ("mlp.gate_proj", "mlp.up_proj"),
+               "mlp_fused": ("mlp.gate_proj", "mlp.up_proj",
+                             "mlp.down_proj")}
+    out = set()
+    for key in meta:
+        for fused, rels in members.items():
+            if key.endswith("." + fused):
+                lp = key[:-len(fused) - 1]
+                out.update(f"{lp}.{r}" for r in rels)
+                break
+        else:
+            out.add(key)
+    return out
+
+
+def pipeline_launches(counts: dict, meta: dict, layers: int, batches: int,
+                      rows: int) -> dict:
+    """The launches each row should make in an evaluation of ``batches``
+    batches of ``rows`` rows through ``layers`` Llama layers whose packed
+    entries are ``meta`` (the backend's): per layer one prefill attention
+    (row 4); per packed linear (q|k|v fused, or one projection) kernel 1
+    below 512 rows, else one unpack (row 2) before a dense product; per
+    packed MLP one megakernel (row 3) below 512 rows, else three unpacks.
+    A linear the backend did not pack runs the emulation, as in JAX; the
+    head stays a dense product. Raises unless ``counts`` holds exactly
+    these."""
+    want = {"attention": layers * batches}
+    for entry in meta.values():
+        mlp = entry.get("kind") == "mlp"
+        key, n = (("mlp_fused", 1) if mlp else ("dequant_gemm", 1)) \
+            if rows < 512 else ("unpack", 3 if mlp else 1)
+        want[key] = want.get(key, 0) + n * batches
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want} "
+                             f"({layers} layers x {batches} batches of "
+                             f"{rows} rows, {len(meta)} packed entries)")
+    return got
+
+
+PIPELINE_ROWS = {"dequant_gemm": 1, "unpack": 2, "mlp_fused": 3,
+                 "attention": 4}
+
+
+def pipeline_rows(launches: dict) -> list:
+    """The kernel table's rows of an evaluation's launches."""
+    return sorted(PIPELINE_ROWS[k] for k in launches)
+
+
+def phase_pipeline(torch, rates, pool_workers: int = 2) -> dict:
+    """Phase 6: the offline pipeline on the card (``runners.run_pipeline``,
+    profile → approximate → perplexity) at Llama-2-7B width, held against
+    the plain versions on the card and against the CPU; then the
+    perplexity of the 32-layer model. Returns the launches of its
+    evaluations."""
+    import concurrent.futures
+    import dataclasses
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from lqer_tpu_torch import models, runners
+    from lqer_tpu_torch.evaluate import evaluate_perplexity
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.models import llama as llama_mod
+    from lqer_tpu_torch.models.checkpoint import load_tensor_dict
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.testing import logits_steps
+    from lqer_tpu_torch.utils import load_config, save_config
+
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
+    cpus = os.cpu_count() or 1
+    pool = concurrent.futures.ProcessPoolExecutor(
+        pool_workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init,
+        initargs=(str(root), max(1, cpus // pool_workers)))
+    total = {}
+    try:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(LlamaConfig.llama_7b(),
+                                  num_hidden_layers=PIPELINE_LAYERS)
+        ckpt = work / "checkpoint"
+        write_checkpoint(torch, cfg, ckpt)
+        config = pipeline_config(root, work, ckpt)
+        config_json = json.dumps(config)
+        print(f"phase 6: checkpoint of the {PIPELINE_LAYERS}-layer "
+              f"Llama-2-7B-width model written in "
+              f"{time.perf_counter() - t0:.1f}s; the CPU sides in "
+              f"{pool_workers} spawned workers of "
+              f"{max(1, cpus // pool_workers)} threads", flush=True)
+        cpu_profile = pool.submit(cpu_pipeline_job, {
+            "kind": "profile", "config": config_json,
+            "out": str(work / "cpu-profile.pt")})
+        cpu_svd, ran = [], []
+        stage_s, eval_counts = {}, {}
+        run_dir = work / "run"
+
+        @contextlib.contextmanager
+        def timed(folder):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            stage_s[folder] = time.perf_counter() - t
+            eval_counts[folder] = launch_counts()
+            ran.append(folder)
+            if folder == "profile":
+                cpu_svd.append(pool.submit(cpu_pipeline_job, {
+                    "kind": "approximate", "config": config_json,
+                    "names": PIPELINE_CPU_WEIGHTS,
+                    "checkpoint": str(ckpt / "model.safetensors"),
+                    "scale_dict": str(
+                        run_dir / "profile/scale_dict.safetensors"),
+                    "out": str(work / "cpu-svd.pt")}))
+
+        path = work / "pipeline.toml"
+        save_config(config, path)
+        t = time.perf_counter()
+        runners.run_pipeline([str(path)], stage_hook=timed)
+        pipeline_s = time.perf_counter() - t
+        stage_s["evaluate_2048"] = stage_s.pop("evaluate_perplexity")
+        counts_2048 = eval_counts.pop("evaluate_perplexity")
+        # resume from after the approximation at 256 rows a batch
+        runners.run_pipeline([
+            str(run_dir / "pipeline/config_after_approximation.toml"),
+            "--evaluate:perplexity:max_length=256",
+            f"--checkpoint_path={work / 'run256'}"], stage_hook=timed)
+        stage_s["evaluate_256"] = stage_s.pop("evaluate_perplexity")
+        counts_256 = eval_counts.pop("evaluate_perplexity")
+        if ran != ["profile", "approximate", "evaluate_perplexity",
+                   "evaluate_perplexity"]:
+            raise AssertionError(f"the two runs ran the stages {ran}")
+        for name in ("profile", "approximate"):
+            if any(eval_counts[name].values()):
+                raise AssertionError(f"the {name} stage launched kernels: "
+                                     f"{eval_counts[name]}")
+        # the evaluated model as run_pipeline builds it (the same weights
+        # and factors pack the same way): its packed entries
+        config = load_config(
+            run_dir / "pipeline/config_after_approximation.toml")
+        _, _, _, backend, fwd = runners._build_quantized_forward(
+            config, False, torch.float32, "cuda")
+        meta = dict(backend["meta"])
+        if not meta:
+            raise AssertionError("run_pipeline's evaluation packed no entry")
+        got_2048 = pipeline_launches(counts_2048, meta, PIPELINE_LAYERS, 4,
+                                     2048)
+        got_256 = pipeline_launches(counts_256, meta, PIPELINE_LAYERS, 4,
+                                    256)
+        covered = packed_prefixes(meta)
+        linears = [p for i in range(PIPELINE_LAYERS)
+                   for p, _ in models.quantizable_module_prefixes(cfg, i)]
+        emulated = [p.removeprefix("model.layers.") for p in linears
+                    if p not in covered]
+        for got in (got_2048, got_256):
+            for k, n in got.items():
+                total[k] = total.get(k, 0) + n
+
+        def ppl(out):
+            with open(out / "evaluate_perplexity/synthetic.json") as f:
+                return json.load(f)["perplexity"]
+
+        ppl_2048, ppl_256 = ppl(run_dir), ppl(work / "run256")
+        print(f"phase 6 pipeline (run_pipeline on the card, "
+              f"{PIPELINE_LAYERS} layers at Llama-2-7B width, W4A8 lqer-act "
+              f"rank {PIPELINE_RANK}): {pipeline_s:.1f}s; stages: profile "
+              f"(4 x 2048 tokens, batch 2) {stage_s['profile']:.2f}s, "
+              f"approximate (14 linears, torch.linalg.svd on the card) "
+              f"{stage_s['approximate']:.2f}s, perplexity at 2048 rows (4 "
+              f"batches of 1 x 2048) {stage_s['evaluate_2048']:.2f}s, "
+              f"ppl {ppl_2048:.4f}, launches {got_2048}; resumed from "
+              f"config_after_approximation.toml at 256 rows (4 batches of "
+              f"1 x 256) {stage_s['evaluate_256']:.2f}s, ppl {ppl_256:.4f}, "
+              f"launches {got_256}; rows launched at 2048 rows "
+              f"{pipeline_rows(got_2048)}, at 256 rows "
+              f"{pipeline_rows(got_256)}; {len(meta)} packed entries cover "
+              f"{len(linears) - len(emulated)} of the {len(linears)} "
+              f"linears, emulated (an A or B value the 8-bit quantizer "
+              f"passed through at |v| <= 1e-8, not exact in bf16, as the "
+              f"JAX package leaves it): {emulated or 'none'}", flush=True)
+
+        # (b) the same evaluation through the plain versions on the card
+        test = runners._get_split(config["evaluate"]["perplexity"], config,
+                                  "test")
+        ids = torch.as_tensor(test[:1]).cuda()
+        with torch.inference_mode():
+            kern = fwd(ids)
+            with plain_versions_on_card():
+                plain = fwd(ids)
+                plain_dir = work / "plain"
+                plain_dir.mkdir()
+                runners.run_evaluate_perplexity(config, plain_dir, "cuda")
+            *_, fwd_nc = runners._build_quantized_forward(
+                config, True, torch.float32, "cuda")
+            control = fwd_nc(ids)
+        with open(plain_dir / "synthetic.json") as f:
+            ppl_plain = json.load(f)["perplexity"]
+        steps = logits_steps(kern, plain)
+        ctrl = logits_steps(control, kern)
+        ok = steps[0] <= LOGIT_MAX_STEPS and steps[1] <= LOGIT_RMS_STEPS
+        ctrl_out = ctrl[0] > LOGIT_MAX_STEPS or ctrl[1] > LOGIT_RMS_STEPS
+        ppl_ok = abs(ppl_2048 - ppl_plain) <= PIPELINE_PPL_RTOL * ppl_plain
+        print(f"phase 6 kernels against the plain versions on the card, "
+              f"test batch 0 (1 x 2048): logits {steps[0]:.4f} code steps "
+              f"at most, {steps[1]:.4f} RMS (limits {LOGIT_MAX_STEPS}, "
+              f"{LOGIT_RMS_STEPS}); perplexity {ppl_2048:.6f} against "
+              f"{ppl_plain:.6f} (rtol {PIPELINE_PPL_RTOL}); negative "
+              f"control, disable_lqer = true: {ctrl[0]:.4f} steps at most, "
+              f"{ctrl[1]:.4f} RMS from the LQER logits (must fall outside)",
+              flush=True)
+        del backend, fwd, fwd_nc, kern, plain, control
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (ok and ctrl_out and ppl_ok):
+            raise AssertionError(
+                f"phase 6 against the plain versions: logits within limits "
+                f"{ok}, control outside {ctrl_out}, perplexity {ppl_ok}")
+
+        # (d) the perplexity alone at all 32 layers
+        cfg32 = LlamaConfig.llama_7b()
+        t = time.perf_counter()
+        backend, params, qcfgs = build_random_model(cfg32, rank=PIPELINE_RANK,
+                                                    seed=SEED + 12)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t
+        data = runners._get_split(
+            {"dataset": "synthetic", "max_length": 2048,
+             "synthetic": {"vocab_size": cfg32.vocab_size,
+                           "num_train": 0, "num_test": PIPELINE_FULL_BATCHES,
+                           "seed": SEED + 13}}, {"model_name": "n/a"},
+            "test")
+
+        def fwd32(ids):
+            return llama_mod.forward(params, ids, cfg32, qcfgs,
+                                     fused_attention=True, backend=backend)
+
+        with torch.inference_mode():
+            fwd32(torch.as_tensor(data[:1]).cuda())     # warm
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            res = evaluate_perplexity(fwd32, data, batch_size=1,
+                                      device="cuda")
+            torch.cuda.synchronize()
+            full_s = time.perf_counter() - t
+            got_32 = pipeline_launches(launch_counts(), backend["meta"], 32,
+                                       PIPELINE_FULL_BATCHES, 2048)
+            # one batch of 256 rows: rows 1 and 3 on every layer
+            reset_launch_counts()
+            t = time.perf_counter()
+            res_256 = evaluate_perplexity(fwd32, data[:1, :256], batch_size=1,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            s256 = time.perf_counter() - t
+            got_32_256 = pipeline_launches(launch_counts(), backend["meta"],
+                                           32, 1, 256)
+            busy = profile_window(
+                torch, lambda: fwd32(torch.as_tensor(data[:1]).cuda()), 1,
+                "32-layer perplexity batches (1 x 2048 tokens)")
+        for got in (got_32, got_32_256):
+            for k, n in got.items():
+                total[k] = total.get(k, 0) + n
+        print(f"phase 6 perplexity at 32 layers (Llama-2-7B, rank "
+              f"{PIPELINE_RANK} seeded A and B, packed in {pack_s:.1f}s): "
+              f"{PIPELINE_FULL_BATCHES} batches of 1 x 2048 tokens in "
+              f"{full_s:.2f}s wall ({full_s / PIPELINE_FULL_BATCHES:.3f}s "
+              f"a batch; device busy {busy} ms a batch), ppl "
+              f"{res['perplexity']:.4f}, launches {got_32}; one batch of "
+              f"1 x 256 tokens {s256:.3f}s, ppl {res_256['perplexity']:.4f}, "
+              f"launches {got_32_256}", flush=True)
+        del backend, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the CPU sides
+        t = time.perf_counter()
+        cpu = torch.load(cpu_profile.result(), weights_only=False)
+        svd = torch.load(cpu_svd[0].result(), weights_only=False)
+        wait_s = time.perf_counter() - t
+        card_sd = load_tensor_dict(run_dir / "profile/scale_dict.safetensors")
+        worst_scale = 0.0
+        for k, v in card_sd.items():
+            c = torch.as_tensor(cpu["result"][k], dtype=torch.float64)
+            d = ((torch.as_tensor(v, dtype=torch.float64) - c).abs()
+                 / c.abs()).max()
+            worst_scale = max(worst_scale, float(d))
+        card_lr = load_tensor_dict(
+            run_dir / "approximate/low_rank_dict.safetensors")
+        products = {}
+        for name in PIPELINE_CPU_WEIGHTS:
+            m = name[:-len(".weight")]
+            want = (torch.as_tensor(card_lr[m + ".A"]).double().cuda()
+                    @ torch.as_tensor(card_lr[m + ".B"]).double().cuda())
+            got = (svd["result"][name + ".A"].double().cuda()
+                   @ svd["result"][name + ".B"].double().cuda())
+            products[m.split("layers.0.")[1]] = float(
+                torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        print(f"phase 6 against the CPU (waited {wait_s:.1f}s for the "
+              f"workers: profile {cpu['seconds']:.1f}s, SVDs "
+              f"{svd['seconds']:.1f}s): scale dict largest relative "
+              f"difference {worst_scale:.3g} over {len(card_sd)} entries "
+              f"(rtol 1e-3); A_q B_q relative Frobenius error card against "
+              f"CPU {products} (limit {PIPELINE_PRODUCT_REL_ERR})",
+              flush=True)
+        if (sorted(card_sd) != sorted(cpu["result"]) or worst_scale > 1e-3
+                or max(products.values()) > PIPELINE_PRODUCT_REL_ERR):
+            raise AssertionError("phase 6 against the CPU: past the limits")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3925,7 +4388,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from lqer_tpu_torch.ops.kernels import KERNELS, launch_counts
+    from lqer_tpu_torch.ops.kernels import (
+        KERNELS,
+        launch_counts,
+        reset_launch_counts,
+    )
     from lqer_tpu_torch.ops.kernels._build import ENTRIES, SOURCES, build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4013,6 +4480,12 @@ def main() -> int:
         print(f"phase 5 {what} done at {time.perf_counter() - t0:.0f}s",
               flush=True)
     print(f"phase 5 done at {time.perf_counter() - t0:.0f}s", flush=True)
+    reset_launch_counts()
+    for k, n in phase_pipeline(torch, rates).items():
+        counts[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6 done at {time.perf_counter() - t0:.0f}s", flush=True)
     missing = [k for k, n in counts.items() if n <= 0]
     missing += [f"{k} (Mistral)" for k, r in results.items()
                 if r.get("mistral", {}).get("launches", 1) <= 0]

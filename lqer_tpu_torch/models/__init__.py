@@ -1,8 +1,10 @@
 """Model registry, quantizer resolution and the functional "model surgery"
-(port of the parts of ``lqer_tpu/models/__init__.py`` the serving path
-uses): a quantized model is (arch config, flat param dict, resolved
-per-layer quantizer configs); :func:`prepare_ptq` quantizes its weights
-once and :func:`load_low_rank_dict` fills its ``.A``/``.B`` factors."""
+(port of ``lqer_tpu/models/__init__.py``, without
+``forward_sequence_classification``): a quantized model is (arch config,
+flat param dict, resolved per-layer quantizer configs); :func:`prepare_ptq`
+quantizes its weights once, :func:`load_low_rank_dict` fills its
+``.A``/``.B`` factors and :func:`forward` runs its architecture's
+forward."""
 
 from __future__ import annotations
 
@@ -135,6 +137,12 @@ def load_low_rank_dict(params: dict, low_rank_dict: dict, dtype=None) -> dict:
     return params
 
 
+def forward(params, input_ids, cfg, layer_qcfgs=None, tap=None):
+    """The architecture's full-sequence forward: logits (b, s, vocab)."""
+    return get_arch_module(cfg).forward(params, input_ids, cfg, layer_qcfgs,
+                                        tap=tap)
+
+
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
                 device="cpu") -> dict:
     """Random-init params of ``cfg``'s architecture drawn from
@@ -144,6 +152,6 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
 
 
 __all__ = ["LlamaConfig", "MODEL_CONFIGS", "OPTConfig", "OPT_ATTN_PROJS",
-           "OPT_MLP_PROJS", "get_arch_module", "get_model_config",
+           "OPT_MLP_PROJS", "forward", "get_arch_module", "get_model_config",
            "init_params", "load_low_rank_dict", "prepare_ptq",
            "quantize_model", "quantizable_module_prefixes"]

@@ -1,7 +1,8 @@
-"""Shared building blocks of the decoder models (port of the parts of
-``lqer_tpu/models/common.py`` the serving path uses): LayerNorm, RMSNorm,
-rotary tables, GQA head repetition, head merging, the resolved attention config
-and the fused quantized prefill attention."""
+"""Shared building blocks of the decoder models (port of
+``lqer_tpu/models/common.py``): LayerNorm, RMSNorm, rotary tables, the
+causal mask, GQA head repetition, the eager quantized attention, head
+projection and merging, the resolved attention config and the fused
+quantized prefill attention."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Callable
 
 import torch
 
-from ..ops.qlinear import QLinearConfig
+from ..ops.qlinear import QLinearConfig, qlinear
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5
@@ -101,12 +102,61 @@ def apply_rotary(q, k, cos, sin, positions):
     return q * c + rotate_half(q) * s, k * c + rotate_half(k) * s
 
 
+def causal_mask(seq_len: int, dtype=torch.float32, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(1, 1, s, s + offset) additive mask: 0 where key <= query, the
+    dtype's lowest value elsewhere; ``offset`` > 0 for queries after a
+    cached prefix."""
+    q_idx = torch.arange(seq_len, device=device)[:, None] + offset
+    k_idx = torch.arange(seq_len + offset, device=device)[None, :]
+    mask = torch.where(k_idx <= q_idx, 0.0, torch.finfo(dtype).min)
+    return mask.to(dtype)[None, None]
+
+
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(b, kv_heads, s, d) → (b, kv_heads·n_rep, s, d) for GQA."""
     if n_rep == 1:
         return x
     b, h, s, d = x.shape
     return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def eager_attention(q, k, v, mask, qk_matmul: Callable, pv_matmul: Callable,
+                    scaling: float, *, scale_query: bool = False
+                    ) -> torch.Tensor:
+    """Eager attention with quantized QK^T and P·V on 3-D ``(b·h, s, d)``
+    operands, so that no shared-exponent block of an activation quantizer
+    spans heads. ``scale_query`` (OPT) multiplies q by ``scaling`` before
+    QK^T; otherwise the scores are scaled after it (Llama, Mistral); the
+    scalar is rounded to the operand's dtype first, as JAX's weakly typed
+    one. The additive ``mask`` (or None), then the softmax in f32, the
+    probabilities back in q's dtype. (b, h, s, d) in and out."""
+    b, h, s, d = q.shape
+    kv_len = k.shape[2]
+    q3 = q.reshape(b * h, s, d)
+    k3 = k.reshape(b * h, kv_len, d)
+    v3 = v.reshape(b * h, kv_len, d)
+    if scale_query:
+        q3 = q3 * torch.tensor(scaling, dtype=q3.dtype)
+        scores = qk_matmul(q3, k3.transpose(-1, -2))
+    else:
+        scores = qk_matmul(q3, k3.transpose(-1, -2))
+        scores = scores * torch.tensor(scaling, dtype=scores.dtype)
+    scores = scores.reshape(b, h, s, kv_len)
+    if mask is not None:
+        scores = scores + mask
+        scores = scores.clamp_min(torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    out = pv_matmul(probs.reshape(b * h, s, kv_len), v3)
+    return out.reshape(b, h, s, d)
+
+
+def project_heads(x: torch.Tensor, params: dict, cfg: QLinearConfig,
+                  num_heads: int) -> torch.Tensor:
+    """``qlinear`` then (b, s, e) → (b, h, s, d)."""
+    b, s, _ = x.shape
+    y = qlinear(x, params, cfg)
+    return y.reshape(b, s, num_heads, -1).transpose(1, 2)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:

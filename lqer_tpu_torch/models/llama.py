@@ -1,7 +1,10 @@
-"""Llama-family configuration (Llama and Mistral), random init and
-parameter stacking (port of the parts of ``lqer_tpu/models/llama.py`` the
-serving path uses). Params are a flat ``{hf_name: tensor}`` dict
-(``model.layers.N.self_attn.q_proj.weight``...)."""
+"""Llama-family decoder (Llama and Mistral; port of
+``lqer_tpu/models/llama.py``): configuration, random init, parameter
+stacking and the full-sequence forward with quantized ops (RMSNorm, HF
+rotary, GQA through ``repeat_kv`` before the quantized matmuls, Mistral's
+sliding window in the additive mask, the SiLU-gated MLP). Params are a
+flat ``{hf_name: tensor}`` dict (``model.layers.N.self_attn.q_proj.weight``
+...)."""
 
 from __future__ import annotations
 
@@ -9,7 +12,23 @@ import dataclasses
 
 import torch
 
-from .common import randn_init, stack_layers
+from torch.nn.functional import silu
+
+from ..ops.qlinear import promoted_matmul, qlinear
+from .common import (
+    apply_rotary,
+    causal_mask,
+    eager_attention,
+    fused_quantized_attention,
+    merge_heads,
+    project_heads,
+    randn_init,
+    repeat_kv,
+    rms_norm,
+    rotary_tables,
+    stack_layers,
+    supports_fused_attention,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +113,150 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
+def _mod(params: dict, prefix: str) -> dict:
+    """``{weight, bias, A, B}`` of a module prefix from the flat dict."""
+    return {k: params.get(f"{prefix}.{k}") for k in ("weight", "bias", "A",
+                                                      "B")}
+
+
+def _sliding_window_mask(s: int, window: int, dtype, device=None
+                         ) -> torch.Tensor:
+    """(1, 1, s, s) additive mask: a query sees the ``window`` keys up to
+    and including itself."""
+    q_idx = torch.arange(s, device=device)[:, None]
+    k_idx = torch.arange(s, device=device)[None, :]
+    ok = (k_idx <= q_idx) & (k_idx > q_idx - window)
+    mask = torch.where(ok, 0.0, torch.finfo(dtype).min)
+    return mask.to(dtype)[None, None]
+
+
+def _masks(cfg: LlamaConfig, s: int, dtype, device):
+    """The sequence's additive mask and whether it is the sliding one."""
+    sliding = cfg.sliding_window is not None and s > cfg.sliding_window
+    if sliding:
+        return _sliding_window_mask(s, cfg.sliding_window, dtype,
+                                    device), True
+    return causal_mask(s, dtype=dtype, device=device), False
+
+
+def decoder_layer(h: torch.Tensor, params: dict, cfg: LlamaConfig, i: int,
+                  qcfg: dict | None, mask: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor, positions: torch.Tensor, tap=None,
+                  fused_attention: bool = False,
+                  backend: dict | None = None) -> torch.Tensor:
+    """One Llama decoder layer. ``tap(module_prefix, x)`` receives the
+    input of each linear (the profiler's hook). With a ``backend`` every
+    linear it packed runs through the kernels (``serving/decode.py::
+    _lin_group``, ``_lin``, ``_mlp_fused_or_none``), the others through
+    the emulation; with ``fused_attention`` the attention runs through the
+    prefill kernel (``common.fused_quantized_attention``), otherwise
+    eagerly."""
+    from .fp_config import FP_LAYER_LLAMA
+
+    q = qcfg if qcfg is not None else FP_LAYER_LLAMA
+    tap = tap or (lambda name, x: None)
+    p = layer_prefix(i)
+    attn_cfg = q["attn"]
+
+    residual = h
+    h = rms_norm(h, _mod(params, f"{p}.input_layernorm"), cfg.rms_norm_eps)
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        tap(f"{p}.self_attn.{proj}", h)
+    if backend is not None:
+        from ..serving.decode import _heads, _lin, _lin_group, \
+            _mlp_fused_or_none
+
+        qy, ky, vy = _lin_group(
+            h, params, p, "self_attn.qkv_proj",
+            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
+        qh = _heads(qy, cfg.num_attention_heads)
+        kh = _heads(ky, cfg.kv_heads)
+        vh = _heads(vy, cfg.kv_heads)
+    else:
+        qh = project_heads(h, _mod(params, f"{p}.self_attn.q_proj"),
+                           attn_cfg.q_proj, cfg.num_attention_heads)
+        kh = project_heads(h, _mod(params, f"{p}.self_attn.k_proj"),
+                           attn_cfg.k_proj, cfg.kv_heads)
+        vh = project_heads(h, _mod(params, f"{p}.self_attn.v_proj"),
+                           attn_cfg.v_proj, cfg.kv_heads)
+    qh, kh = apply_rotary(qh, kh, cos, sin, positions)
+    n_rep = cfg.num_attention_heads // cfg.kv_heads
+    kh = repeat_kv(kh, n_rep)
+    vh = repeat_kv(vh, n_rep)
+    if fused_attention:
+        attn = fused_quantized_attention(qh, kh, vh, attn_cfg,
+                                         scaling=cfg.head_dim ** -0.5)
+    else:
+        attn = eager_attention(qh, kh, vh, mask, attn_cfg.qk_matmul,
+                               attn_cfg.pv_matmul,
+                               scaling=cfg.head_dim ** -0.5)
+    attn = merge_heads(attn)
+    tap(f"{p}.self_attn.o_proj", attn)
+    if backend is not None:
+        attn = _lin(attn, params, f"{p}.self_attn.o_proj", attn_cfg.o_proj,
+                    backend)
+    else:
+        attn = qlinear(attn, _mod(params, f"{p}.self_attn.o_proj"),
+                       attn_cfg.o_proj)
+    h = residual + attn
+
+    residual = h
+    h = rms_norm(h, _mod(params, f"{p}.post_attention_layernorm"),
+                 cfg.rms_norm_eps)
+    tap(f"{p}.mlp.gate_proj", h)
+    tap(f"{p}.mlp.up_proj", h)
+    if backend is not None:
+        y = _mlp_fused_or_none(h, p, q["gate_proj"], backend)
+        if y is None:
+            gate, up = _lin_group(h, params, p, "mlp.gateup_proj",
+                                  ("mlp.gate_proj", "mlp.up_proj"),
+                                  (q["gate_proj"], q["up_proj"]), backend)
+            y = _lin(silu(gate) * up, params, f"{p}.mlp.down_proj",
+                     q["down_proj"], backend)
+        return residual + y
+    gate = qlinear(h, _mod(params, f"{p}.mlp.gate_proj"), q["gate_proj"])
+    up = qlinear(h, _mod(params, f"{p}.mlp.up_proj"), q["up_proj"])
+    h = silu(gate) * up
+    tap(f"{p}.mlp.down_proj", h)
+    h = qlinear(h, _mod(params, f"{p}.mlp.down_proj"), q["down_proj"])
+    return residual + h
+
+
+def forward(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
+            layer_qcfgs: list | None = None, tap=None,
+            fused_attention: bool = False, return_hidden: bool = False,
+            backend: dict | None = None) -> torch.Tensor:
+    """Causal-LM forward over the whole sequence: logits (b, s, vocab), or
+    with ``return_hidden`` the final hidden state; the head tied to the
+    embedding when the params hold no ``lm_head.weight``.
+    ``fused_attention`` takes effect only where the prefill kernel
+    applies: a causal mask (no sliding window within ``s``) and every
+    layer's attention in its format (``supports_fused_attention``)."""
+    b, s = input_ids.shape
+    embed = params["model.embed_tokens.weight"]
+    h = embed[input_ids]
+    cos, sin = rotary_tables(cfg.head_dim,
+                             max(s, cfg.max_position_embeddings),
+                             cfg.rope_theta, device=h.device)
+    positions = torch.arange(s, device=h.device)
+    mask, sliding = _masks(cfg, s, h.dtype, h.device)
+    if fused_attention:
+        fused_attention = (not sliding and layer_qcfgs is not None and all(
+            supports_fused_attention(qc["attn"]) for qc in layer_qcfgs))
+    for i in range(cfg.num_hidden_layers):
+        qcfg = layer_qcfgs[i] if layer_qcfgs is not None else None
+        h = decoder_layer(h, params, cfg, i, qcfg, mask, cos, sin, positions,
+                          tap=tap, fused_attention=fused_attention,
+                          backend=backend)
+    h = rms_norm(h, _mod(params, "model.norm"), cfg.rms_norm_eps)
+    if return_hidden:
+        return h
+    if tap is not None:
+        tap("lm_head", h)
+    return promoted_matmul(h, params.get("lm_head.weight", embed).T)
+
+
 LAYER_REL_KEYS = (
     "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
     "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj",
@@ -106,3 +269,24 @@ def stack_layer_params(params: dict, cfg: LlamaConfig) -> tuple[dict, dict]:
     ``rest`` holds embeddings, the final norm and the head."""
     return stack_layers(params, cfg.num_hidden_layers, layer_prefix,
                         LAYER_REL_KEYS)
+
+
+def forward_scan(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
+                 layer_qcfg: dict | list | None = None,
+                 stacked: dict | None = None, rest: dict | None = None
+                 ) -> torch.Tensor:
+    """:func:`forward` over layer-stacked params (the JAX package's
+    ``lax.scan``): each layer reads its zero-copy views ``stacked[rel][li]``.
+    ``layer_qcfg`` is one resolved layer config for every layer, or the
+    per-layer list. Pass ``(stacked, rest)`` from :func:`stack_layer_params`
+    to stack once."""
+    if stacked is None or rest is None:
+        stacked, rest = stack_layer_params(params, cfg)
+    view = dict(rest)
+    for key, t in stacked.items():
+        for li in range(cfg.num_hidden_layers):
+            view[f"{layer_prefix(li)}.{key}"] = t[li]
+    if layer_qcfg is not None and not isinstance(layer_qcfg, (list, tuple)):
+        layer_qcfg = [layer_qcfg] * cfg.num_hidden_layers
+    return forward(view, input_ids, cfg,
+                   list(layer_qcfg) if layer_qcfg is not None else None)

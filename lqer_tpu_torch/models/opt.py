@@ -1,5 +1,6 @@
-"""OPT configuration, random init and parameter stacking (port of the
-parts of ``lqer_tpu/models/opt.py`` the serving path uses). Params are a flat
+"""OPT decoder (port of ``lqer_tpu/models/opt.py``): configuration,
+random init, parameter stacking and the full-sequence forward with
+quantized ops. Params are a flat
 ``{hf_name: tensor}`` dict (``model.decoder.layers.N.self_attn.q_proj.weight``
 ...): learned positions with offset 2 (``embed_positions[pos + 2]``), the
 query scaled before QK^T, pre-LN (``do_layer_norm_before``) or post-LN, a
@@ -11,7 +12,18 @@ import dataclasses
 
 import torch
 
-from .common import randn_init, stack_layers
+from torch.nn.functional import relu
+
+from ..ops.qlinear import promoted_matmul, qlinear
+from .common import (
+    causal_mask,
+    eager_attention,
+    layer_norm,
+    merge_heads,
+    project_heads,
+    randn_init,
+    stack_layers,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +136,106 @@ def _mod(params: dict, prefix: str) -> dict:
     """``{weight, bias, A, B}`` of a module prefix from the flat dict."""
     return {k: params.get(f"{prefix}.{k}") for k in ("weight", "bias", "A",
                                                       "B")}
+
+
+def decoder_layer(h: torch.Tensor, params: dict, cfg: OPTConfig, i: int,
+                  qcfg: dict | None, mask: torch.Tensor, tap=None,
+                  backend: dict | None = None) -> torch.Tensor:
+    """One OPT decoder layer. ``tap(module_prefix, x)`` receives the input
+    of each linear (the profiler's hook). With a ``backend`` every linear
+    it packed runs through the kernels (``serving/decode.py::_lin_group``,
+    ``_lin``, ``_mlp_fused_or_none``), the others through the emulation;
+    without, every linear through ``qlinear``."""
+    from .fp_config import FP_LAYER_OPT
+
+    q = qcfg if qcfg is not None else FP_LAYER_OPT
+    tap = tap or (lambda name, x: None)
+    p = layer_prefix(i)
+    attn_cfg = q["attn"]
+
+    residual = h
+    if cfg.do_layer_norm_before:
+        h = layer_norm(h, _mod(params, f"{p}.self_attn_layer_norm"))
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        tap(f"{p}.self_attn.{proj}", h)
+    if backend is not None:
+        from ..serving.decode import _heads, _lin, _lin_group, \
+            _mlp_fused_or_none
+
+        qy, ky, vy = _lin_group(
+            h, params, p, "self_attn.qkv_proj",
+            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
+        qh, kh, vh = (_heads(y, cfg.num_attention_heads)
+                      for y in (qy, ky, vy))
+    else:
+        qh, kh, vh = (
+            project_heads(h, _mod(params, f"{p}.self_attn.{proj}"),
+                          getattr(attn_cfg, proj), cfg.num_attention_heads)
+            for proj in ("q_proj", "k_proj", "v_proj"))
+    attn = eager_attention(qh, kh, vh, mask, attn_cfg.qk_matmul,
+                           attn_cfg.pv_matmul, scaling=cfg.head_dim ** -0.5,
+                           scale_query=True)
+    attn = merge_heads(attn)
+    tap(f"{p}.self_attn.out_proj", attn)
+    if backend is not None:
+        attn = _lin(attn, params, f"{p}.self_attn.out_proj",
+                    attn_cfg.o_proj, backend)
+    else:
+        attn = qlinear(attn, _mod(params, f"{p}.self_attn.out_proj"),
+                       attn_cfg.o_proj)
+    h = residual + attn
+    if not cfg.do_layer_norm_before:
+        h = layer_norm(h, _mod(params, f"{p}.self_attn_layer_norm"))
+
+    residual = h
+    if cfg.do_layer_norm_before:
+        h = layer_norm(h, _mod(params, f"{p}.final_layer_norm"))
+    tap(f"{p}.fc1", h)
+    if backend is not None:
+        y = _mlp_fused_or_none(h, p, q["fc1"], backend)
+        if y is None:
+            y = relu(_lin(h, params, f"{p}.fc1", q["fc1"], backend))
+            y = _lin(y, params, f"{p}.fc2", q["fc2"], backend)
+        h = y
+    else:
+        h = relu(qlinear(h, _mod(params, f"{p}.fc1"), q["fc1"]))
+        tap(f"{p}.fc2", h)
+        h = qlinear(h, _mod(params, f"{p}.fc2"), q["fc2"])
+    h = residual + h
+    if not cfg.do_layer_norm_before:
+        h = layer_norm(h, _mod(params, f"{p}.final_layer_norm"))
+    return h
+
+
+def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
+            layer_qcfgs: list | None = None, tap=None,
+            return_hidden: bool = False, backend: dict | None = None
+            ) -> torch.Tensor:
+    """Causal-LM forward over the whole sequence: logits (b, s, vocab), or
+    with ``return_hidden`` the final hidden state. ``project_in`` /
+    ``project_out`` where the params hold them (OPT-350m)."""
+    b, s = input_ids.shape
+    embed = params["model.decoder.embed_tokens.weight"]
+    h = embed[input_ids]
+    if params.get("model.decoder.project_in.weight") is not None:
+        h = promoted_matmul(h, params["model.decoder.project_in.weight"].T)
+    positions = torch.arange(s, device=h.device) + 2
+    h = h + params["model.decoder.embed_positions.weight"][positions]
+    mask = causal_mask(s, dtype=h.dtype, device=h.device)
+    for i in range(cfg.num_hidden_layers):
+        qcfg = layer_qcfgs[i] if layer_qcfgs is not None else None
+        h = decoder_layer(h, params, cfg, i, qcfg, mask, tap=tap,
+                          backend=backend)
+    if params.get("model.decoder.final_layer_norm.weight") is not None:
+        h = layer_norm(h, _mod(params, "model.decoder.final_layer_norm"))
+    if params.get("model.decoder.project_out.weight") is not None:
+        h = promoted_matmul(h, params["model.decoder.project_out.weight"].T)
+    if return_hidden:
+        return h
+    if tap is not None:
+        tap("lm_head", h)
+    return promoted_matmul(h, params.get("lm_head.weight", embed).T)
 
 
 LAYER_REL_KEYS = (

@@ -4,7 +4,9 @@ Port of ``lqer_tpu/ops/qlinear.py``: :class:`QLinearConfig` resolves a
 reference-schema q_config (+ l_config) into quantizer callables, with the
 A_out/B_out quantizers falling back to the x-quantizer config, and
 :func:`qlinear` computes ``Y = X_q W_q^T + b_q [+ B_out_q(A_out_q(X_q A) B)]``.
-The emulated ``llm_int8`` mode is not ported.
+A q_config named ``llm_int8`` (or ``llm_int4``) resolves to the emulated
+LLM.int8() linear (``ops/llm_int8.py``), which quantizes per call
+(``is_ptq`` False).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ class QLinearConfig:
     is_ptq: bool = True
     is_lqer: bool = False
     rank: int = 0
+    # "flexible", or "llm_int8": the emulated outlier-decomposition linear
+    mode: str = "flexible"
+    int_bits: int = 8
+    int_threshold: float = 6.0
     # raw resolved config dicts, kept for the serving backend's
     # kernel-eligibility checks (compared by the memoized callables above)
     x_cfg: dict | None = dataclasses.field(default=None, compare=False)
@@ -38,8 +44,12 @@ class QLinearConfig:
     def from_q_config(q_config: dict, l_config: dict | None = None
                       ) -> "QLinearConfig":
         if q_config.get("name") in ("llm_int8", "llm_int4"):
-            raise NotImplementedError(
-                "the llm_int8 emulated linear is not ported yet")
+            bits = (4 if q_config["name"].endswith("4")
+                    else int(q_config.get("width", 8)))
+            return QLinearConfig(
+                mode="llm_int8", int_bits=bits,
+                int_threshold=float(q_config.get("threshold", 6.0)),
+                is_ptq=False)
 
         def cfg(key, fallback_keys=()):
             c = q_config.get(key)
@@ -73,6 +83,12 @@ class QLinearConfig:
 
 def qlinear(x: torch.Tensor, params: dict, cfg: QLinearConfig, *,
             weights_prepared: bool | None = None) -> torch.Tensor:
+    if cfg.mode == "llm_int8":
+        from .llm_int8 import llm_int_linear
+
+        return llm_int_linear(x, params["weight"], params.get("bias"),
+                              bits=cfg.int_bits,
+                              threshold=cfg.int_threshold)
     if weights_prepared is None:
         weights_prepared = cfg.is_ptq
     w, b = params["weight"], params.get("bias")

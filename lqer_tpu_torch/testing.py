@@ -19,6 +19,8 @@ of values past the plain tolerance shows.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .ops.kernels import mlp_fused
@@ -195,3 +197,38 @@ def cache_agreement(a: dict, b: dict, lengths) -> tuple[float, float]:
             db = vb * exp2_int(yb - emax)
             worst = max(worst, float((da - db).abs().max()))
     return eq / max(total, 1), worst
+
+
+def one_torch_thread_fixture():
+    """An autouse, module-scoped pytest fixture that runs a test file's
+    tests with one intra-op thread (``_one_torch_thread =
+    one_torch_thread_fixture()`` in the file). The CPU tests run in several
+    worker processes at once (pytest-xdist), and in each the default pool
+    of one thread per core busy-waits against the others'; the tiny
+    models of these tests gain little from more threads."""
+    import pytest
+
+    @pytest.fixture(autouse=True, scope="module")
+    def _one_torch_thread():
+        before = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(before)
+
+    return _one_torch_thread
+
+
+def shared(build):
+    """``build`` run once per distinct arguments (compared by ``repr``, so
+    dicts count), its result returned to every later call: for the JAX
+    reference models that several test cases only read."""
+    results = {}
+
+    @functools.wraps(build)
+    def get(*args, **kwargs):
+        key = repr((args, sorted(kwargs.items())))
+        if key not in results:
+            results[key] = build(*args, **kwargs)
+        return results[key]
+
+    return get

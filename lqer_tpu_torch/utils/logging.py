@@ -1,6 +1,6 @@
 """The package's logger (port of ``lqer_tpu/utils/logging.py``): one
 ``lqer_tpu_torch`` root at INFO with a plain stream handler (colorlog when
-installed), and a child per component."""
+installed), a child per component, and :func:`set_logging_verbosity`."""
 
 from __future__ import annotations
 
@@ -31,3 +31,10 @@ root_logger = _make_root_logger()
 
 def get_logger(name: str) -> logging.Logger:
     return root_logger.getChild(name)
+
+
+def set_logging_verbosity(level: str = "info") -> None:
+    levels = {"debug": logging.DEBUG, "info": logging.INFO,
+              "warning": logging.WARNING, "error": logging.ERROR,
+              "critical": logging.CRITICAL}
+    root_logger.setLevel(levels[level.lower()])

@@ -27,6 +27,9 @@ from lqer_tpu_torch.models.common import fused_quantized_attention
 from lqer_tpu_torch.ops.kernels import attention as k2
 from lqer_tpu_torch.ops.quantizers import block_fp_quantizer
 from lqer_tpu_torch.serving.random_model import Q_CONFIG
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 

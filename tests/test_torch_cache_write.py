@@ -11,6 +11,9 @@ from lqer_tpu.ops.pallas.cache_write import flush_stage_to_main as jax_flush
 from lqer_tpu.serving import kv_cache as jkv
 from lqer_tpu_torch.ops.kernels import cache_write as k4
 from lqer_tpu_torch.serving import kv_cache as tkv
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, B, KVH, D, L, SW = 2, 3, 2, 32, 256, 64
 ROWS = (D, D // 16, D, D // 16)

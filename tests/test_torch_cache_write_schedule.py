@@ -31,6 +31,9 @@ from lqer_tpu.ops.pallas.cache_write import (
 )
 from lqer_tpu_torch.ops.kernels import cache_write as kcw
 from lqer_tpu_torch.parallel.collectives import ceil_log2_exact, mx_mantissa
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 LI = 1
 

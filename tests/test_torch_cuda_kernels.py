@@ -76,7 +76,10 @@ from lqer_tpu_torch.testing import (
     dequant_gemm_limit,
     logits_steps,
     mlp_limit,
+    one_torch_thread_fixture,
 )
+
+_one_torch_thread = one_torch_thread_fixture()
 
 pytestmark = pytest.mark.cuda
 

@@ -17,6 +17,9 @@ from lqer_tpu.ops.pallas.decode_attention import (
 )
 from lqer_tpu.parallel.collectives import mx8_encode
 from lqer_tpu_torch.ops.kernels import decode_attention as k3
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, B, KVH, D, L, SW = 2, 3, 2, 64, 256, 64
 NREP = 2

@@ -24,6 +24,9 @@ from lqer_tpu.ops.quantizers import block_fp_quantizer
 from lqer_tpu_torch.convert import backend_from_jax
 from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
 from lqer_tpu_torch.ops.storage import MXFormat
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 K, N = 256, 512
 TOL = dict(rtol=2e-4, atol=2e-4)

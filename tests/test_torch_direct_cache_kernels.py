@@ -27,6 +27,9 @@ from lqer_tpu_torch.models.common import AttnQConfig
 from lqer_tpu_torch.ops.kernels import cache_write as tcw
 from lqer_tpu_torch.ops.kernels import fp_decode, quantized_decode
 from lqer_tpu_torch.serving.random_model import KV4_Q_CONFIG, Q_CONFIG
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, B, KVH, D, L = 2, 3, 2, 64, 128
 NREP = 2

@@ -31,7 +31,10 @@ from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving import kv_cache as tkv
 from lqer_tpu_torch.parallel.collectives import exp2_int, floor_log2_exact
 from lqer_tpu_torch.serving.random_model import KV4_Q_CONFIG, Q_CONFIG
+from lqer_tpu_torch.testing import one_torch_thread_fixture
 from test_torch_serving import RANK, TINY, _jax_model, _requests
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 def _port_engine(jparams, jb, q_config, max_len, cache_dtype, num_slots=2):

@@ -15,7 +15,10 @@ from lqer_tpu.serving import Request as JRequest
 from lqer_tpu.serving import generate as jgenerate
 from lqer_tpu_torch.serving import DecodeEngine, Request, generate
 from lqer_tpu_torch.serving import decode as tdecode
+from lqer_tpu_torch.testing import one_torch_thread_fixture
 from test_torch_eager_serving import llama_model
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 def _mix(cls, eos=None, new_tokens=(20, 12, 6, 8)):

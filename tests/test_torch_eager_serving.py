@@ -46,7 +46,13 @@ from lqer_tpu_torch.convert import backend_from_jax, params_from_jax
 from lqer_tpu_torch.models import LlamaConfig
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving.random_model import q_config_for
-from lqer_tpu_torch.testing import cache_agreement, logits_steps
+from lqer_tpu_torch.testing import (
+    cache_agreement,
+    logits_steps,
+    one_torch_thread_fixture,
+)
+
+_one_torch_thread = one_torch_thread_fixture()
 
 RANK = 32
 TINY = dict(vocab_size=128, hidden=256, layers=2, heads=4, kv_heads=2,

@@ -18,6 +18,7 @@ from lqer_tpu import models as jmodels
 from lqer_tpu.models import LlamaConfig as JLlamaConfig
 from lqer_tpu.models import llama as jllama
 from lqer_tpu_torch.models import LlamaConfig
+from lqer_tpu_torch.testing import one_torch_thread_fixture
 from test_torch_eager_serving import (
     CACHES,
     MODES,
@@ -26,6 +27,8 @@ from test_torch_eager_serving import (
     run_steps,
     with_factors,
 )
+
+_one_torch_thread = one_torch_thread_fixture()
 
 WINDOW = 16
 

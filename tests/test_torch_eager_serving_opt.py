@@ -19,6 +19,7 @@ from lqer_tpu import models as jmodels
 from lqer_tpu.models import OPTConfig as JOPTConfig
 from lqer_tpu.models import opt as jopt
 from lqer_tpu_torch.models import OPTConfig
+from lqer_tpu_torch.testing import one_torch_thread_fixture
 from test_torch_eager_serving import (
     CACHES,
     MODES,
@@ -26,6 +27,8 @@ from test_torch_eager_serving import (
     run_steps,
     with_factors,
 )
+
+_one_torch_thread = one_torch_thread_fixture()
 
 SHAPE = dict(vocab_size=200, hidden_size=256, ffn_dim=512,
              num_hidden_layers=2, num_attention_heads=2,

@@ -10,6 +10,9 @@ import pytest
 
 from test_torch_eager_serving import CACHES, MODES, run_steps
 from test_torch_eager_serving_opt import opt_model
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 @pytest.mark.parametrize("max_len", [64, 256])

@@ -30,7 +30,9 @@ from lqer_tpu_torch.models import LlamaConfig
 from lqer_tpu_torch.serving import DecodeEngine
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving.random_model import Q_CONFIG
-from lqer_tpu_torch.testing import logits_steps
+from lqer_tpu_torch.testing import logits_steps, one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 RANK = 16
 

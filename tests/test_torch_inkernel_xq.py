@@ -36,11 +36,17 @@ from lqer_tpu_torch.ops.storage import MXFormat, MXINT4
 from lqer_tpu_torch.serving import Request
 from lqer_tpu_torch.serving import kernel_backend as tbackend
 from lqer_tpu_torch.serving.random_model import Q_CONFIG
-from lqer_tpu_torch.testing import check_close, mlp_limit
+from lqer_tpu_torch.testing import (
+    check_close,
+    mlp_limit,
+    one_torch_thread_fixture,
+)
 from test_torch_dequant_gemm import _case as k1_case
 from test_torch_direct_cache_serving import _port_engine
 from test_torch_mlp_fused import _case as k5_case
 from test_torch_serving import _jax_model, _requests
+
+_one_torch_thread = one_torch_thread_fixture()
 
 X_CFG = dict(width=8, exponent_width=8, block_size=[1, 16],
              skip_first_dim=True)

@@ -41,7 +41,13 @@ from lqer_tpu_torch.serving import DecodeEngine, Request
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving import kv_cache as tkv
 from lqer_tpu_torch.serving.random_model import KV4_Q_CONFIG
-from lqer_tpu_torch.testing import attention_limit, check_close
+from lqer_tpu_torch.testing import (
+    attention_limit,
+    check_close,
+    one_torch_thread_fixture,
+)
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, B, KVH, D, SW = 2, 3, 2, 64, 64
 NREP = 2

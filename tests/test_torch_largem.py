@@ -20,6 +20,9 @@ from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
 from lqer_tpu_torch.ops.storage import MXFormat
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving import kernel_backend as tbackend
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 K, N = 256, 384
 TOL = dict(rtol=2e-4, atol=2e-4)

@@ -17,7 +17,10 @@ from lqer_tpu_torch.testing import (
     code_step,
     dequant_gemm_limit,
     logits_steps,
+    one_torch_thread_fixture,
 )
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 def _gemm_case(seed):

@@ -44,7 +44,13 @@ from lqer_tpu_torch.serving import DecodeEngine, Request
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving import kernel_backend as tbackend
 from lqer_tpu_torch.serving.random_model import KV4_Q_CONFIG, Q_CONFIG
-from lqer_tpu_torch.testing import logits_steps
+from lqer_tpu_torch.testing import (
+    logits_steps,
+    one_torch_thread_fixture,
+    shared,
+)
+
+_one_torch_thread = one_torch_thread_fixture()
 
 MAX_LEN = 128
 WINDOW = 40
@@ -64,6 +70,7 @@ def _cfgs():
     return jcfg, cfg
 
 
+@shared
 def _jax_model(q_config=Q_CONFIG, rank=RANK, seed=0):
     """The tiny Mistral's JAX config, params (rank-``rank`` A/B factors of
     bf16-exact values on every linear, a wide embedding so greedy decoding

@@ -22,7 +22,13 @@ from lqer_tpu.ops.quantizers import block_fp_quantizer
 from lqer_tpu_torch.convert import backend_from_jax
 from lqer_tpu_torch.ops.kernels import mlp_fused as k5
 from lqer_tpu_torch.ops.storage import MXINT4
-from lqer_tpu_torch.testing import check_close, mlp_limit
+from lqer_tpu_torch.testing import (
+    check_close,
+    mlp_limit,
+    one_torch_thread_fixture,
+)
+
+_one_torch_thread = one_torch_thread_fixture()
 
 K, I, N = 256, 512, 256
 KW = dict(act_width=8, quant_xa_width=8, quant_out_width=8)

@@ -54,7 +54,10 @@ from lqer_tpu_torch.testing import (
     check_close,
     dequant_gemm_limit,
     mlp_limit,
+    one_torch_thread_fixture,
 )
+
+_one_torch_thread = one_torch_thread_fixture()
 
 K, I, N = 256, 512, 256
 KW = dict(act_width=8, quant_xa_width=8, quant_out_width=8)

@@ -36,7 +36,13 @@ from lqer_tpu_torch.models import opt as topt
 from lqer_tpu_torch.serving import DecodeEngine, Request
 from lqer_tpu_torch.serving import kernel_backend as tbackend
 from lqer_tpu_torch.serving.random_model import q_config_for
-from lqer_tpu_torch.testing import logits_steps
+from lqer_tpu_torch.testing import (
+    logits_steps,
+    one_torch_thread_fixture,
+    shared,
+)
+
+_one_torch_thread = one_torch_thread_fixture()
 
 MAX_LEN = 128
 TINY = dict(vocab_size=200, hidden=256, layers=2, heads=2, ffn=512,
@@ -50,6 +56,7 @@ LOGIT_MAX_STEPS = 4.0
 LOGIT_RMS_STEPS = 0.4
 
 
+@shared
 def _jax_model(post_ln=False, kv4=False, seed=0):
     """The tiny OPT's JAX config, params, resolved configs, packed backend
     and q_config."""

@@ -24,8 +24,11 @@ from lqer_tpu_torch.models import LlamaConfig
 from lqer_tpu_torch.serving import DecodeEngine, Request
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving.random_model import Q_CONFIG
+from lqer_tpu_torch.testing import one_torch_thread_fixture
 from test_torch_direct_cache_serving import _assert_caches_agree
 from test_torch_serving import MAX_LEN, RANK, TINY, _jax_model, _requests
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 def _per_layer_config():

@@ -23,6 +23,9 @@ from lqer_tpu_torch.ops import quantizers as tq
 from lqer_tpu_torch.ops.qlinear import QLinearConfig, qlinear
 from lqer_tpu_torch.ops import registry as tregistry
 from lqer_tpu_torch.parallel import collectives as tc
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 def _x(seed=0, shape=(4, 24, 80), scale=0.3):

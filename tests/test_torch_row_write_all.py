@@ -16,6 +16,9 @@ from lqer_tpu.ops.pallas.cache_write import (
     write_kv_rows_all_layers as jax_all_layers,
 )
 from lqer_tpu_torch.ops.kernels import cache_write as tcw
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, B, KVH, D, L = 3, 4, 2, 64, 256
 POS = np.array([0, 127, 128, 255], np.int32)

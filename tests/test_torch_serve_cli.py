@@ -32,6 +32,9 @@ from lqer_tpu_torch import runners as trunners
 from lqer_tpu_torch.models import checkpoint as tcheckpoint
 from lqer_tpu_torch.serving import cli as tcli
 from lqer_tpu_torch.utils import convert_str_na_to_none, load_config
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 ROOT = Path(__file__).resolve().parents[1]
 DEBUG = ROOT / "experiments" / "configs" / "debug"

@@ -35,6 +35,9 @@ from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving import kernel_backend as tbackend
 from lqer_tpu_torch.serving.engine import _bucket
 from lqer_tpu_torch.serving.random_model import Q_CONFIG
+from lqer_tpu_torch.testing import one_torch_thread_fixture, shared
+
+_one_torch_thread = one_torch_thread_fixture()
 
 MAX_LEN = 128
 TINY = dict(vocab_size=128, hidden=256, layers=2, heads=4, kv_heads=2,
@@ -42,6 +45,7 @@ TINY = dict(vocab_size=128, hidden=256, layers=2, heads=4, kv_heads=2,
 RANK = 32
 
 
+@shared
 def _jax_model(seed=0, fuse_mlp=False, q_config=Q_CONFIG):
     """Tiny Llama (tests/test_staged_serving.py:38 shape) with rank-32 A/B
     factors on every linear (bf16-exact values) and a wider embedding so

@@ -43,7 +43,13 @@ from lqer_tpu_torch.ops.kernels import decode_attention as k3
 from lqer_tpu_torch.ops.kernels import fp_decode, quantized_decode
 from lqer_tpu_torch.ops.kernels import split_plan as sp
 from lqer_tpu_torch.ops.kernels.attention import _quantize_sublane_groups
-from lqer_tpu_torch.testing import attention_limit, check_close
+from lqer_tpu_torch.testing import (
+    attention_limit,
+    check_close,
+    one_torch_thread_fixture,
+)
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, KVH, NREP, D = 2, 2, 2, 64
 H = KVH * NREP

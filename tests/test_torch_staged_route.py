@@ -20,6 +20,9 @@ from lqer_tpu.ops.pallas.decode_attention import (
 )
 from lqer_tpu_torch.ops.kernels.attention import HEAD_DIMS
 from lqer_tpu_torch.serving import decode as tdecode
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 ONE_PASS = ("decode_attention",)
 STREAMING = ("decode_attention_streaming_staged",)

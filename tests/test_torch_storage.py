@@ -22,6 +22,9 @@ from lqer_tpu_torch.models import LlamaConfig
 from lqer_tpu_torch.ops import storage as tstorage
 from lqer_tpu_torch.serving import kernel_backend as tbackend
 from lqer_tpu_torch.serving.random_model import Q_CONFIG
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 def _w(seed, shape, scale=0.1):

@@ -27,7 +27,13 @@ from lqer_tpu.parallel.collectives import mx4_encode, mx8_encode
 from lqer_tpu_torch.ops.kernels import cache_write as tcw
 from lqer_tpu_torch.ops.kernels import decode_attention as tstaged
 from lqer_tpu_torch.ops.kernels import quantized_decode, streaming_decode
-from lqer_tpu_torch.testing import attention_limit, check_close
+from lqer_tpu_torch.testing import (
+    attention_limit,
+    check_close,
+    one_torch_thread_fixture,
+)
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, B, KVH, D, L, SW = 2, 3, 2, 64, 512, 64
 NREP = 2

@@ -36,8 +36,11 @@ from lqer_tpu_torch.ops.kernels.attention import HEAD_DIMS
 from lqer_tpu_torch.serving import Request
 from lqer_tpu_torch.serving import decode as tdecode
 from lqer_tpu_torch.serving.random_model import KV4_Q_CONFIG, Q_CONFIG
+from lqer_tpu_torch.testing import one_torch_thread_fixture
 from test_torch_direct_cache_serving import _assert_caches_agree, _port_engine
 from test_torch_serving import _jax_model
+
+_one_torch_thread = one_torch_thread_fixture()
 
 
 def _requests(cls):

@@ -23,6 +23,9 @@ from lqer_tpu_torch.convert import backend_from_jax
 from lqer_tpu_torch.ops.kernels import dequant_gemm as k1
 from lqer_tpu_torch.ops.kernels import mlp_fused as k5
 from lqer_tpu_torch.ops.storage import MXFormat
+from lqer_tpu_torch.testing import one_torch_thread_fixture
+
+_one_torch_thread = one_torch_thread_fixture()
 
 ROWS = [1, 8, 9, 64, 65, 256, 511]
 # (N, K): Llama-2-7B's q|k|v, o, gate|up and down (padded I), Mistral's

@@ -43,9 +43,12 @@ from lqer_tpu_torch.testing import (
     check_close,
     dequant_gemm_limit,
     mlp_limit,
+    one_torch_thread_fixture,
 )
 from test_torch_mlp_fused import KW as MLP_KW
 from test_torch_mlp_fused import _case as mlp_case
+
+_one_torch_thread = one_torch_thread_fixture()
 
 NL, B, KVH, D = 2, 3, 2, 64
 WINDOW = 40
