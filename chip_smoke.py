@@ -56,8 +56,12 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    layer (32 layers x 8 slots x 32 kv heads, L = 2048; MXINT8 and MXINT4
    columns and bf16 rows) bit-exact with its plain version and with 32
    single-layer launches, beside ``index_put_``; rows 9 and 11 to 14 also
-   print their earlier kernels' times (EARLIER_MS); last, an empty launch
-   under the same timer, the floor of the launch-bound cache writes;
+   print their earlier kernels' times (EARLIER_MS); then rows 5 and 11 over
+   the ``float32`` cache (``phase_f32_kernels``: row 5 at 8 slots x 32 kv
+   heads at L = 2048 and at the f32 one-pass length, 6144, beside SDPA on
+   the f32 values; row 11's f32 rows bit-exact, beside ``index_put_``);
+   last, an empty launch under the same timer, the floor of the
+   launch-bound cache writes;
 4. a 2-layer Llama at full 7B width, packed as the JAX package packs by
    default (each MLP whole, for the megakernel), teacher-forced through an
    8 x 64-token admission (512 rows: the large-M route) and 20 decode
@@ -111,8 +115,8 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    per layer those of ``decode_route(eager=True)``; the emulated engine
    (no backend, the same weights kept dense: ``build_random_dense_model``)
    on ``bfloat16`` at max_len 64 and ``float32`` at 256 against itself on
-   the CPU and against the backend engine on the card (on ``float32`` with
-   ``LQER_DISABLE_ATTN_KERNEL``: the card's fp-cache kernels take bf16).
+   the CPU and against the backend engine on the card (on ``float32``
+   its decode steps through row 5's f32 entry).
    Every CPU side runs in a pool of spawned worker processes
    (``CpuPool``: ``os.cpu_count() // workers`` threads each, at a lower
    priority, tensors through files) beside the card's runs, compared once
@@ -156,6 +160,11 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    32 heads of d = 80, rank 32, dense head, 8 slots, max_len 2048) over
    ``bfloat16`` and ``mxint8`` (40 new tokens) and ``mxint8-staged`` (80,
    then one 2048-token admission), a profile each;
+   then the ``float32`` cache served (``phase_f32_engine``): the 2-layer
+   Llama of phase 4 with the kernel backend at 8 slots, max_len 256,
+   stacked and eager, kernels against the plain versions on the card
+   (phase 4's limits; each decode step launches row 11 then row 5 per
+   layer stacked, row 5 eager, both over f32);
 6. the offline pipeline (``runners.run_pipeline``: profile → approximate →
    perplexity) on the card at Llama-2-7B width, 2 layers (a checkpoint of
    seeded dense weights through ``model_dir``), W4A8 lqer-act at rank 32
@@ -182,7 +191,16 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    shape, from the card's scales; PIPELINE_PRODUCT_REL_ERR); then the
    perplexity alone at 32 layers (``build_random_model``'s seeded rank-32
    factors, no SVD) on PIPELINE_FULL_BATCHES batches of 2048 tokens and
-   one of 256, with a profile of one batch and the launches held;
+   one of 256, with a profile of one batch and the launches held. On
+   the same 2-layer model, before the 32-layer one: the harness stage
+   (``run_pipeline`` resumed with it on and the template's task names:
+   skipped without lm_eval, as in JAX; then every ``tiny_*`` task on
+   ``ByteTokenizer``, through the kernels and through the plain versions
+   on the card, accuracies equal and the rest within HARNESS_RTOL, its
+   wall seconds and launches per request type), and
+   ``chunked-approximate`` in 2 chunks of 7 weights then ``merge-chunks``
+   against the unchunked factors (equal to the bit, or A_q B_q within
+   CHUNKED_REL_ERR);
 7. the ``kernels`` JSON line: launches of each kernel in phases 5 and 6
    and the phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
    Mistral's phase-5 launches; rows 7 and 9 at code width 4 as their
@@ -197,7 +215,9 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    device time as ``launch_split_ms``; kernel 1 at Mistral's q|k|v and o
    and the megakernel at M = 256 as ``qkv_m256``, ``o_m256`` and ``m256``;
    row 7's yardstick, SDPA on the unquantized bf16 values, as its
-   ``library_ms``).
+   ``library_ms``; rows 5 and 11 over the ``float32`` cache as their
+   ``f32``, with their f32 launches, row 5 also at the f32 one-pass
+   length as ``f32.L6144``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises
 and the script exits non-zero; so does a machine without a CUDA device, or
@@ -289,6 +309,11 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# float32 operations outside the tensor cores, H100 SXM (NVIDIA's data
+# sheet): the bound of the f32 cache's row 5
+F32_OPS_RATE = 67e12
 
 
 def peak_rates(name: str) -> tuple[float, float]:
@@ -959,6 +984,132 @@ def phase_direct_kernels(torch, timer, rates, results):
                 shape="the bf16 K and V rows of 8 slots, 32 kv heads, d=128 "
                 "(the four MXINT4 columns printed beside it)")
         del arrays, mine, theirs
+    torch.cuda.empty_cache()
+
+
+def phase_f32_kernels(torch, timer, rates, results):
+    """Phase 3, the ``float32`` cache's forms of rows 5 and 11 at the 7B
+    decode shape (B = 8 slots, 32 heads and kv heads, d = 128, layer 1 of
+    a two-layer cache): row 5 at L = 2048 (positions 64..1984) and at the
+    f32 one-pass length L = 6144 (positions up to 6143), each against its
+    plain version to the bf16 row's limits, beside SDPA on the same f32
+    values; row 11's f32 rows bit-exact, beside ``index_put_``. Their
+    entries in the kernels line are each row's ``f32``."""
+    import torch.nn.functional as F
+
+    from lqer_tpu_torch.ops.kernels import cache_write as kcw
+    from lqer_tpu_torch.ops.kernels import fp_decode as kfp
+    from lqer_tpu_torch.serving.decode import _fp_cache_kernel_fits
+    from lqer_tpu_torch.testing import attention_limit, check_close
+
+    bw, _ = rates
+    f32_rate = F32_OPS_RATE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+    NL, B, H, KVH, D, li = 2, 8, 32, 32, 128, 1
+    scale = D ** -0.5
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda")
+
+    def bound(nb, ops):
+        t_bytes, t_ops = nb / bw * 1e3, ops / f32_rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    top = max(n for n in range(2048, 65536, 16)
+              if _fp_cache_kernel_fits(n, D, 4))
+    entries = {}
+    for L, pos in ((2048, [64, 303, 560, 815, 1088, 1343, 1600, 1984]),
+                   (top, [100, 1000, 2047, 3000, 4095, 5000, 6000, top - 1])):
+        pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        tokens = int(((pos + 16) // 16 * 16).clamp(max=L).sum())
+        k, v = (torch.randn(NL, B, KVH, L, D, generator=gen, device="cuda")
+                for _ in range(2))
+        k[:, 0, 0, :16] *= 1e-9        # a group the quantizer passes through
+        kw = dict(scaling=scale)
+        before = kfp.decode_attention_fp.launches_f32
+        y = kfp.decode_attention_fp(q, k, v, pos, li, **kw)
+        if kfp.decode_attention_fp.launches_f32 != before + 1:
+            raise AssertionError("row 5 on an f32 cache: no f32 launch")
+        ref = kfp.fp_decode_plain(q, k, v, pos, li, **kw)
+        sc, vals = kfp.fp_scores(q, k, v, pos, li, **kw)
+        c = check_close(f"fp decode attention f32 L={L}", y, ref,
+                        attention_limit(sc, vals, ref, p_width=8),
+                        FLIPPED["attention"])
+        del sc, vals
+        if not torch.equal(y, kfp.decode_attention_fp(q, k, v, pos, li,
+                                                       **kw)):
+            raise AssertionError("row 5 f32: two launches differ")
+        ms = timer(lambda: kfp.decode_attention_fp(q, k, v, pos, li, **kw))
+        plain_ms = timer(lambda: kfp.fp_decode_plain(q, k, v, pos, li, **kw),
+                         5)
+        keep = torch.arange(L, device="cuda")[None, :] <= pos[:, None].long()
+        kl, vl = k[li].contiguous(), v[li].contiguous()
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q, kl, vl, attn_mask=keep[:, None, None, :]))
+        b_ms, b_by = bound(tokens * KVH * D * 4 * 2 + nbytes(q) * 2,
+                           2 * 2 * H * tokens * D)
+        print(f"fp decode attention over the f32 cache B={B} KVH={KVH} "
+              f"L={L} pos={pos.tolist()}: max_abs_err={c['max_abs_err']:.3g} "
+              f"({c['of_limit']:.3g} of its limit, {c['flipped']:.4%} past "
+              f"2e-4), two launches bit-equal, kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; f32 values at "
+              f"3.35 TB/s) library_ms={lib_ms:.4f} (scaled_dot_product_"
+              f"attention on the unquantized f32 values); the bf16 cache's "
+              f"row 5 at L = 2048: "
+              f"{results['decode_attention_fp']['ms']:.4f} ms", flush=True)
+        entries[L] = dict(
+            max_abs_err=c["max_abs_err"], of_limit=c["of_limit"], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
+            shape=f"one layer of an f32 cache, B=8, 32 kv heads, L={L}")
+        del k, v, kl, vl
+    results["decode_attention_fp"]["f32"] = {**entries[2048],
+                                             f"L{top}": entries[top]}
+
+    # ---- row 11: the f32 K and V rows into the f32 cache, unrounded
+    L = 2048
+    pos = torch.tensor([64, 303, 560, 815, 1088, 1343, 1600, 1984],
+                       dtype=torch.int32, device="cuda")
+    arrays = [torch.randn(NL, B, KVH, L, D, generator=gen, device="cuda")
+              for _ in range(2)]
+    news = [torch.randn(B, KVH, 1, D, generator=gen, device="cuda")
+            for _ in range(2)]
+    mine = [a.clone() for a in arrays]
+    theirs = [a.clone() for a in arrays]
+    before = kcw.write_kv_rows_stacked.launches_f32
+    kcw.write_kv_rows_stacked(tuple(mine), tuple(news), li, pos)
+    if kcw.write_kv_rows_stacked.launches_f32 != before + 1:
+        raise AssertionError("row 11 on f32 arrays: no f32 launch")
+    kcw.write_rows_plain(tuple(theirs), tuple(news), li, pos)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(mine, theirs)):
+        raise AssertionError("row write of f32 rows differs from its plain "
+                             "version")
+    ms = timer(lambda: kcw.write_kv_rows_stacked(tuple(mine), tuple(news),
+                                                li, pos))
+    plain_ms = timer(lambda: kcw.write_rows_plain(tuple(theirs), tuple(news),
+                                                  li, pos), 5)
+    b_idx, kv_idx = torch.arange(B, device="cuda"), torch.arange(
+        KVH, device="cuda")
+
+    def index_put():
+        for arr, new in zip(theirs, news):
+            arr[li].index_put_((b_idx[:, None], kv_idx[None, :],
+                                pos.long()[:, None]), new[:, :, 0, :])
+
+    lib_ms = timer(index_put)
+    b_ms, b_by = bound(sum(nbytes(n) * 2 for n in news), 0)
+    print(f"row write, the f32 K and V rows of {B} slots, 32 kv heads into "
+          f"the f32 cache: bit-exact kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} bound_ms={b_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(index_put_); the bf16 rows: {results['row_write']['ms']:.4f} ms",
+          flush=True)
+    results["row_write"]["f32"] = dict(
+        max_abs_err=0.0, of_limit=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape="the f32 K and V rows of 8 slots, 32 kv heads, d=128 into "
+              "an f32 cache")
+    del arrays, mine, theirs
     torch.cuda.empty_cache()
 
 
@@ -3093,10 +3244,10 @@ def emulated_engines(torch, pool, cfg, backend, padded, steps) -> list:
     ``bfloat16`` cache at max_len 64 (prompts of 40 tokens) and the
     ``float32`` cache at 256: against itself on the CPU (the pool) and
     against the backend engine (kernels) on the card, within phase 4's
-    limits. Its admissions attend through the prefill kernel, as JAX's do.
-    The card's fp-cache kernels take bf16, so on the ``float32`` cache the
-    backend engine attends eagerly at decode
-    (``LQER_DISABLE_ATTN_KERNEL``, as the JAX package's switch does)."""
+    limits. Its admissions attend through the prefill kernel, as JAX's do;
+    on the ``float32`` cache the backend engine's decode steps attend
+    through row 5's f32 entry, as JAX's fp decode kernel reads an f32
+    cache."""
     from lqer_tpu_torch import models
     from lqer_tpu_torch.serving import DecodeEngine
     from lqer_tpu_torch.serving.random_model import build_random_dense_model
@@ -3109,21 +3260,15 @@ def emulated_engines(torch, pool, cfg, backend, padded, steps) -> list:
     failed = []
     for cache_dtype, max_len in (("bfloat16", 64), ("float32", 256)):
         kw = dict(num_slots=8, max_len=max_len, cache_dtype=cache_dtype)
-        eager_attention = cache_dtype == "float32"
-        if eager_attention:
-            os.environ["LQER_DISABLE_ATTN_KERNEL"] = "1"
-        try:
-            engines = {
-                "emulated": DecodeEngine(prepared, cfg, qcfgs, device="cuda",
-                                         **kw),
-                "kernels": DecodeEngine(prepared, cfg, qcfgs,
-                                        pallas_backend=backend,
-                                        device="cuda", **kw)}
-            t0 = time.perf_counter()
-            logits, routes, tokens, snaps = teacher_force(
-                torch, engines, padded, lengths, steps, snap=(8, CPU_STEPS))
-        finally:
-            os.environ.pop("LQER_DISABLE_ATTN_KERNEL", None)
+        engines = {
+            "emulated": DecodeEngine(prepared, cfg, qcfgs, device="cuda",
+                                     **kw),
+            "kernels": DecodeEngine(prepared, cfg, qcfgs,
+                                    pallas_backend=backend, device="cuda",
+                                    **kw)}
+        t0 = time.perf_counter()
+        logits, routes, tokens, snaps = teacher_force(
+            torch, engines, padded, lengths, steps, snap=(8, CPU_STEPS))
         if (routes["attention"] != 2 or routes["dequant_gemm"]
                 or routes["mlp_fused"] or routes["unpack"]):
             raise AssertionError(f"phase 4 emulated {cache_dtype} routes: "
@@ -3424,6 +3569,91 @@ def phase_teacher_forced_opt(torch, pool, name="facebook/opt-6.7b",
         raise AssertionError(f"phase 4 OPT past its limits: {failed}")
     del backend, params, broken
     torch.cuda.empty_cache()
+
+
+F32_STEPS = 6   # decode steps of the float32 engines
+
+
+def phase_f32_engine(torch, rates) -> dict:
+    """The ``float32`` cache served with the kernel backend: phase 4's
+    2-layer Llama-2-7B-width model, 8 slots at max_len 256, stacked and
+    eager, one admission of 63-token prompts and F32_STEPS decode steps
+    through the kernels and through the plain versions on the card,
+    teacher-forced with the kernels' greedy tokens. Each decode step
+    launches decode_route's kernels per layer on the f32 cache (stacked:
+    row 11 then row 5; eager: row 5); the logits are held to phase 4's
+    limits and the cache's layer 0 to one code step. Returns the kernels'
+    launches."""
+    import dataclasses
+
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.serving import DecodeEngine
+    from lqer_tpu_torch.serving.decode import decode_route
+    from lqer_tpu_torch.serving.random_model import build_random_model
+    from lqer_tpu_torch.testing import cache_agreement, logits_steps
+
+    cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_hidden_layers=2)
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=SEED + 2)
+    params["model.embed_tokens.weight"] = params[
+        "model.embed_tokens.weight"].to(torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    padded = rng.integers(0, cfg.vocab_size, (8, 64))
+    lengths = np.full(8, 63, dtype=np.int32)
+    total, failed, tokens_by = {}, [], {}
+    for scan in (True, False):
+        what = "stacked" if scan else "eager"
+        kw = dict(num_slots=8, max_len=256, cache_dtype="float32",
+                  lm_head_width=8, scan_layers=scan)
+        engines = {name: DecodeEngine(params, cfg, qcfgs,
+                                      pallas_backend=backend, device="cuda",
+                                      **kw)
+                   for name in ("kernels", "plain")}
+        t0 = time.perf_counter()
+        logits, routes, tokens = teacher_force(torch, engines, padded,
+                                               lengths, F32_STEPS)
+        tokens_by[what] = np.stack(tokens)
+        n = cfg.num_hidden_layers * F32_STEPS
+        route = decode_route("float32", 256, cfg.head_dim, 1, eager=not scan)
+        want = {k: n for k in route}
+        got = {k: routes[k] for k in ("row_write", "decode_attention_fp")
+               if routes[k]}
+        f32 = {k: routes[f"{k}.f32"] for k in got}
+        if got != want or f32 != want:
+            failed.append(f"float32 {what}: decode launches {got} (f32 "
+                          f"{f32}), expected {want}")
+        seen = [logits_steps(a, b) for a, b in zip(logits["kernels"],
+                                                   logits["plain"])]
+        worst, rms = max(m for m, _ in seen), max(r for _, r in seen)
+        held = engines["kernels"].lengths.tolist()
+        frac, steps_all = cache_agreement(engines["kernels"].cache,
+                                          engines["plain"].cache, held)
+        steps0 = cache_agreement(
+            {k: v[:1] for k, v in engines["kernels"].cache.items()},
+            {k: v[:1] for k, v in engines["plain"].cache.items()}, held)[1]
+        print(f"float32 cache, {what} engine with the kernel backend, "
+              f"kernels vs plain versions on the card: admission + "
+              f"{F32_STEPS} decode steps, logits |diff| in code steps max "
+              f"{worst:.3g} (limit {LOGIT_MAX_STEPS}), RMS {rms:.3g} (limit "
+              f"{LOGIT_RMS_STEPS}); cache over tokens {held}: f32 values "
+              f"equal {frac:.6f}, largest diff {steps_all:.3g} 8-bit code "
+              f"step(s) of its 16-groups ({steps0:.3g} in layer 0); decode "
+              f"launches {got}, of them over f32 {f32}; "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
+            failed.append(f"float32 {what}: logits")
+        if steps0 > 1 or steps_all > CACHE_CPU_STEPS:
+            failed.append(f"float32 {what}: cache")
+        for k, v in routes.items():
+            total[k] = total.get(k, 0) + v
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = np.array_equal(tokens_by["stacked"], tokens_by["eager"])
+    print(f"float32 cache: the eager engine's greedy tokens equal the "
+          f"stacked one's: {same}", flush=True)
+    if failed:
+        raise AssertionError(f"the float32 cache: {failed}")
+    return total
 
 
 def phase_serve_opt(torch, rates, name="facebook/opt-6.7b",
@@ -4114,6 +4344,215 @@ def pipeline_rows(launches: dict) -> list:
     return sorted(PIPELINE_ROWS[k] for k in launches)
 
 
+# The harness stage on phase 6's model, kernels against the plain versions
+# on the card: accuracies equal; every other metric (a task's mean
+# perplexity, word perplexity, and the stderrs) within this relative
+# tolerance, phase 6's perplexity limit: each is an exp of a sum of
+# log-softmaxes of logits held to phase 4's limits.
+HARNESS_RTOL = 2e-3
+HARNESS_ACCURACIES = ("acc", "acc_norm", "exact_match")
+# The chunked approximation against the unchunked one on the same card:
+# equal to the bit, or (where cuSOLVER's batched gesvda gives another
+# rounding for another batch) each weight's A_q B_q within this relative
+# Frobenius error
+CHUNKED_REL_ERR = 1e-4
+
+
+class ByteTokenizer:
+    """A byte-level tokenizer for the harness on the card (the card machine
+    has no ``transformers``): UTF-8 bytes as ids 3..258, 1 the BOS and 2
+    the EOS id, as Llama's."""
+
+    bos_token_id = 1
+    eos_token_id = 2
+
+    def encode(self, text: str) -> list[int]:
+        return [b + 3 for b in text.encode("utf-8")]
+
+    def decode(self, ids) -> str:
+        return bytes(i - 3 for i in ids if 3 <= i < 259).decode(
+            "utf-8", errors="replace")
+
+
+def harness_on_pipeline_model(torch, root: Path, run_dir: Path,
+                              work: Path) -> dict:
+    """Phase 6's harness stage on its model (``run_dir``: the pipeline's
+    output). First ``run_pipeline`` from ``config_after_approximation.toml``
+    with the stage on and the template's own task names: without lm_eval
+    it skips them, then the stage, and ends "Done.". Then every ``tiny_*``
+    task on :class:`ByteTokenizer` (patched into ``runners._get_tokenizer``
+    for the call), through the kernels and through the plain versions on
+    the card: accuracies equal, the rest within HARNESS_RTOL. The fused
+    prefill attention is off for it: row 4 takes only lengths that are
+    multiples of 16 (the JAX kernel asserts it), and a batch of requests
+    is as long as its longest. Returns the kernels' launches."""
+    from lqer_tpu_torch import runners
+    from lqer_tpu_torch.evaluate import harness
+    from lqer_tpu_torch.evaluate.minieval import TASK_REGISTRY
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.utils import load_config, save_config
+
+    template = load_config(root / "experiments/configs/template/"
+                           "llama-2-7b.toml")["evaluate"]["harness_downstream"]
+    config = load_config(run_dir / "pipeline/config_after_approximation.toml")
+    config.update(enable_harness_downstream_evaluation=True,
+                  enable_perplexity_evaluation=False)
+    config["evaluate"]["harness_downstream"] = dict(template)
+    path = work / "harness.toml"
+    save_config(config, path)
+    warned = []
+    saved_warning = runners.logger.warning
+    runners.logger.warning = lambda msg, *a: (warned.append(msg % a),
+                                              saved_warning(msg, *a))
+    try:
+        out = runners.run_pipeline([str(path),
+                                    f"--checkpoint_path={work / 'real'}"])
+    finally:
+        runners.logger.warning = saved_warning
+    stage = work / "real/evaluate_harness_downstream"
+    skipped = (out["enable_harness_downstream_evaluation"] is False
+               and stage.is_dir() and not any(stage.iterdir())
+               and (work / "real/pipeline/config_after_harness_downstream_"
+                    "evaluation.toml").exists()
+               and any("lambada_openai" in w for w in warned)
+               and any("skipping stage" in w for w in warned))
+    print(f"phase 6 harness with the template's tasks {template['datasets']}"
+          f": skipped as in JAX {skipped} ({warned})", flush=True)
+    if not skipped:
+        raise AssertionError("phase 6 harness: the template's tasks were "
+                             "not skipped")
+
+    config["evaluate"]["harness_downstream"] = dict(
+        template, datasets=sorted(TASK_REGISTRY))
+    config["evaluate"]["fused_attention"] = False
+    per_type, secs, launches, results = {}, {}, {}, {}
+    methods = ("loglikelihood", "loglikelihood_rolling", "generate_until")
+    saved = [(runners, "_get_tokenizer", runners._get_tokenizer)] + [
+        (harness.TorchCausalLM, m, getattr(harness.TorchCausalLM, m))
+        for m in methods]
+
+    def counted(m, fn):
+        def run(self, requests):
+            torch.cuda.synchronize()
+            before, t = launch_counts(), time.perf_counter()
+            out = fn(self, requests)
+            torch.cuda.synchronize()
+            per_type[m] = {
+                "requests": len(requests),
+                "seconds": round(time.perf_counter() - t, 3),
+                "launches": {k: v - before[k]
+                             for k, v in launch_counts().items()
+                             if v != before[k]}}
+            return out
+        return run
+
+    runners._get_tokenizer = lambda c: ByteTokenizer()
+    try:
+        for name in ("kernels", "plain"):
+            for m in methods:
+                setattr(harness.TorchCausalLM, m,
+                        counted(m, dict((n, f) for _, n, f in saved)[m]))
+            d = work / f"harness_{name}"
+            d.mkdir()
+            with run_context(name):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t = time.perf_counter()
+                runners.run_evaluate_harness_downstream(config, d, "cuda")
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t
+                launches[name] = {k: v for k, v in launch_counts().items()
+                                  if v}
+            with open(d / "harness_results.json") as f:
+                results[name] = json.load(f)
+            if name == "kernels":
+                kernel_types = dict(per_type)
+    finally:
+        for obj, n, f in saved:
+            setattr(obj, n, f)
+    worst, unequal = 0.0, []
+    for task, metrics in results["plain"]["results"].items():
+        for k, v in metrics.items():
+            got = results["kernels"]["results"][task][k]
+            if k == "alias":
+                continue
+            if k.split(",")[0].removesuffix("_stderr") in HARNESS_ACCURACIES:
+                if got != v:
+                    unequal.append(f"{task} {k}: {got} vs {v}")
+            else:
+                worst = max(worst, abs(got - v) / max(abs(v), 1e-30))
+    acc = {t: m.get("acc", m.get("exact_match"))
+           for t, m in results["kernels"]["results"].items()}
+    print(f"phase 6 harness, every tiny task on a byte-level tokenizer "
+          f"(batch {template['batch_size']}, fused prefill attention off): "
+          f"through the kernels {secs['kernels']:.2f}s wall, through the "
+          f"plain versions on the card {secs['plain']:.2f}s; accuracies "
+          f"{acc}, equal to the plain versions' {not unequal}; the other "
+          f"metrics' largest relative difference {worst:.3g} (limit "
+          f"{HARNESS_RTOL}); the kernels' launches per request type "
+          f"{kernel_types}; in all {launches['kernels']}", flush=True)
+    if unequal or worst > HARNESS_RTOL or not launches["kernels"]:
+        raise AssertionError(f"phase 6 harness: accuracies differ "
+                             f"{unequal}, worst other {worst}")
+    return launches["kernels"]
+
+
+def chunked_on_pipeline_model(torch, run_dir: Path, work: Path) -> None:
+    """``chunked-approximate`` of phase 6's 14 weights in 2 chunks of 7 on
+    the card, then ``merge-chunks`` (the CLI), against the pipeline's
+    unchunked ``low_rank_dict`` from the same scale dict."""
+    import copy
+
+    from lqer_tpu_torch import cli
+    from lqer_tpu_torch.models.checkpoint import load_tensor_dict
+    from lqer_tpu_torch.utils import load_config, save_config
+
+    config = load_config(run_dir / "pipeline/config_after_profiling.toml")
+    path = work / "chunked.toml"
+    save_config(copy.deepcopy(config), path)
+    out = work / "chunked"
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for idx in range(2):
+        if cli.main(["chunked-approximate", str(path), "chip_smoke",
+                     f"--checkpoint_path={out}",
+                     "--approximate:chunk_size=:ast:7",
+                     f"--approximate:chunk_idx=:ast:{idx}"]) != 0:
+            raise AssertionError(f"chunked-approximate chunk {idx} failed")
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t
+    prj = out / "approximate_chunked"
+    if cli.main(["merge-chunks", str(prj)]) != 0:
+        raise AssertionError("merge-chunks failed")
+    paths = load_config(prj / "config_merged.toml")["evaluate"][
+        "low_rank_dict"]
+    merged = load_tensor_dict(paths)
+    whole = load_tensor_dict(run_dir / "approximate/low_rank_dict.safetensors")
+    if sorted(merged) != sorted(whole) or len(paths) != 2:
+        raise AssertionError(f"merged chunks hold {len(merged)} factors in "
+                             f"{len(paths)} files, the pipeline {len(whole)}")
+    equal = sum(np.array_equal(merged[k], whole[k]) for k in whole)
+    worst = 0.0
+    for k in whole:
+        if k.endswith(".A"):
+            m = k[:-2]
+            want = (torch.as_tensor(whole[m + ".A"]).double()
+                    @ torch.as_tensor(whole[m + ".B"]).double())
+            got = (torch.as_tensor(merged[m + ".A"]).double()
+                   @ torch.as_tensor(merged[m + ".B"]).double())
+            worst = max(worst, float(torch.linalg.norm(got - want)
+                                     / torch.linalg.norm(want)))
+    print(f"phase 6 chunked approximation (2 chunks of 7 weights, "
+          f"chunked-approximate then merge-chunks, torch.linalg.svd on the "
+          f"card): {chunk_s:.2f}s for the chunks; {equal} of {len(whole)} "
+          f"factors equal to the bit to the unchunked run's, A_q B_q "
+          f"largest relative error {worst:.3g} (limit {CHUNKED_REL_ERR} "
+          f"where not bit-equal)", flush=True)
+    if equal != len(whole) and worst > CHUNKED_REL_ERR:
+        raise AssertionError("phase 6 chunked approximation differs from "
+                             "the unchunked one")
+
+
 def phase_pipeline(torch, rates, pool_workers: int = 2) -> dict:
     """Phase 6: the offline pipeline on the card (``runners.run_pipeline``,
     profile → approximate → perplexity) at Llama-2-7B width, held against
@@ -4286,6 +4725,14 @@ def phase_pipeline(torch, rates, pool_workers: int = 2) -> dict:
                 f"phase 6 against the plain versions: logits within limits "
                 f"{ok}, control outside {ctrl_out}, perplexity {ppl_ok}")
 
+        # (e) the harness stage and the chunked approximation, same model
+        for k, n in harness_on_pipeline_model(torch, root, run_dir,
+                                              work).items():
+            total[k] = total.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        chunked_on_pipeline_model(torch, run_dir, work)
+
         # (d) the perplexity alone at all 32 layers
         cfg32 = LlamaConfig.llama_7b()
         t = time.perf_counter()
@@ -4416,6 +4863,7 @@ def main() -> int:
     phase_mistral_kernels(torch, timer, rates, results)
     phase_head_dim_kernels(torch, timer, rates, results)
     phase_slice7_kernels(torch, timer, rates, results)
+    phase_f32_kernels(torch, timer, rates, results)
     floor = timer(lambda: torch.cuda._sleep(0))
     print(f"empty launch (torch.cuda._sleep(0): one thread that returns at "
           f"once) under phase 3's timer: {floor:.4f} ms, the floor of the "
@@ -4461,7 +4909,8 @@ def main() -> int:
             ("OPT-2.7b", lambda *a: phase_serve_opt(
                 *a, name="facebook/opt-2.7b", caches=(
                     ("bfloat16", 40), ("mxint8", 40),
-                    ("mxint8-staged", 80))))):
+                    ("mxint8-staged", 80)))),
+            ("float32", phase_f32_engine)):
         run = serve(torch, rates)
         extra = {"Mistral": "mistral", "OPT-2.7b": "opt_2_7b"}.get(what)
         for k, n in run.items():
@@ -4493,6 +4942,8 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     for k in ("decode_attention", "decode_attention_streaming_staged"):
         results[k]["width4"]["launches"] = counts[f"{k}.width4"]
+    for k in ("decode_attention_fp", "row_write"):
+        results[k]["f32"]["launches"] = counts[f"{k}.f32"]
     kernels = []
     for k, (_, source, replaces) in KERNELS.items():
         r = results[k]
@@ -4507,7 +4958,7 @@ def main() -> int:
                                  "launch_split_ms", "quant_x",
                                  "admission_2048", "opt_scale_query",
                                  "mistral_12288", "nrep2_d64_32768",
-                                 "launch_floor_ms", "slots4")
+                                 "launch_floor_ms", "slots4", "f32")
                if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

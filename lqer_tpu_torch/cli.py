@@ -2,12 +2,19 @@
 
     python -m lqer_tpu_torch.cli pipeline <config.toml> [tags...] [--device cuda|cpu] [--a:b:c=v ...]
     python -m lqer_tpu_torch.cli serve <config.toml> --prompt "1 2 3" [--pallas --scan-layers] [--device cuda|cpu]
+    python -m lqer_tpu_torch.cli sweep <template.toml> --method lqer-act --ranks 8 32 ... [--device cuda|cpu] [--dry-run]
+    python -m lqer_tpu_torch.cli collect-results <checkpoints-dir> [--out-prefix collected]
+    python -m lqer_tpu_torch.cli chunked-approximate <config.toml> [tags...] --approximate:chunk_idx=:ast:0 --approximate:chunk_size=:ast:4 [--device cuda|cpu]
+    python -m lqer_tpu_torch.cli merge-chunks <project-dir>
 
-``pipeline`` runs profile → approximate → evaluate perplexity
-(``runners.run_pipeline``), ``serve`` the serving CLI
-(``serving/cli.py``). Both run on the card unless ``--device cpu``. The
-JAX package's other subcommands (sweep, collect-results,
-chunked-approximate, merge-chunks) are not ported yet and exit with 2.
+``pipeline`` runs profile → approximate → evaluate perplexity → the
+harness tasks (``runners.run_pipeline``), ``serve`` the serving CLI
+(``serving/cli.py``), ``sweep`` the pipeline over a grid of ranks and
+widths (``sweep.py``), ``collect-results`` gathers result JSONs into CSVs
+(``collect.py``), ``chunked-approximate`` one chunk of the approximation
+and ``merge-chunks`` a directory of chunks (``chunked_runners.py``). All
+but ``collect-results`` and ``merge-chunks``, which only read and write
+files, run on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -15,8 +22,6 @@ from __future__ import annotations
 import sys
 
 _USAGE = __doc__.split("\n\n")[1]
-_NOT_PORTED = ("sweep", "collect-results", "chunked-approximate",
-               "merge-chunks")
 
 
 def main(argv=None) -> int:
@@ -33,9 +38,26 @@ def main(argv=None) -> int:
         from .serving.cli import main as serve_main
 
         serve_main(rest)
-    elif cmd in _NOT_PORTED:
-        print(f"lqer_tpu_torch.cli {cmd}: not ported yet", file=sys.stderr)
-        return 2
+    elif cmd == "sweep":
+        from .sweep import main as sweep_main
+
+        sweep_main(rest)
+    elif cmd == "collect-results":
+        from .collect import main as collect_main
+
+        collect_main(rest)
+    elif cmd == "chunked-approximate":
+        from .chunked_runners import run_chunked_approximator
+
+        run_chunked_approximator(rest)
+    elif cmd == "merge-chunks":
+        from .chunked_runners import merge_chunks
+
+        if len(rest) != 1:
+            print("usage: python -m lqer_tpu_torch.cli merge-chunks "
+                  "<project-dir>", file=sys.stderr)
+            return 2
+        merge_chunks(rest[0])
     else:
         print(f"unknown subcommand {cmd!r}\nusage:\n" + _USAGE,
               file=sys.stderr)

@@ -47,7 +47,8 @@
 // token positions[b] of layer li, in place: on dim 3 (a row of C values:
 // the bf16 K/V of the fp cache) or on dim 4 (a column of R values: the
 // token-axis-last MXINT codes and exponents). f32 rows stored into a bf16
-// array round to nearest even, as astype does; int8 rows are copied. A
+// array round to nearest even, as astype does; f32 rows stored into an f32
+// array (the float32 cache) and int8 rows are copied. A
 // position outside [0, L) writes nothing (checked on the device, no host
 // sync); the JAX kernel states in-range positions as its precondition.
 //
@@ -62,7 +63,8 @@
 // all arrays of a call runs a flat grid of independent items, one a thread,
 // so no thread waits for more than one round trip to memory: 8 values of a
 // bf16 row (two float4 loads of the f32 row, one 16-byte store of packed
-// bf16) where the row and both pointers allow, else one value (each code
+// bf16), or 4 of an f32 row (one float4 load and store), where the row and
+// both pointers allow, else one value (each code
 // or exponent byte of a column from its own thread). A thread loads its
 // value before its slot's position, so the two loads overlap.
 //
@@ -193,8 +195,9 @@ struct RowArrays {
   int lane[4];         // 1: token axis on dim 4 (C = L); 0: on dim 3 (R = L)
   int rows[4];         // R
   int cols[4];         // C
-  int kind[4];         // 0: int8 copy; 1: f32 -> bf16
-  int vec[4];          // values an item: 8 (a bf16 row's 16 bytes) or 1
+  int kind[4];         // 0: int8 copy; 1: f32 -> bf16; 2: f32 copy
+  int vec[4];          // values an item: 8 (a bf16 row's 16 bytes), 4 (an
+                       // f32 row's) or 1
   int start[5];        // first item of each array; start[4]: all items
 };
 
@@ -237,9 +240,18 @@ row_write_kernel(RowArrays a, const int* __restrict__ pos_p, int li0, int B,
                    bf16x2(hi.x, hi.y), bf16x2(hi.z, hi.w));
     return;
   }
+  if (vec == 4) {  // f32 -> f32, 4 values of a row
+    const float4 x = __ldg(reinterpret_cast<const float4*>(
+        static_cast<const float*>(a.src[arr]) + so));
+    const int pos = pos_p[bk / KVH];
+    if (pos < 0 || pos >= R) return;
+    *reinterpret_cast<float4*>(static_cast<float*>(a.dst[arr]) + base +
+                               (size_t)pos * C + k) = x;
+    return;
+  }
   float f = 0.f;
   int8_t c = 0;
-  if (a.kind[arr] == 1)
+  if (a.kind[arr] != 0)
     f = __ldg(static_cast<const float*>(a.src[arr]) + so);
   else
     c = __ldg(static_cast<const int8_t*>(a.src[arr]) + so);
@@ -249,6 +261,8 @@ row_write_kernel(RowArrays a, const int* __restrict__ pos_p, int li0, int B,
       base + (lane ? (size_t)k * C + pos : (size_t)pos * C + k);
   if (a.kind[arr] == 1)
     static_cast<__nv_bfloat16*>(a.dst[arr])[off] = __float2bfloat16_rn(f);
+  else if (a.kind[arr] == 2)
+    static_cast<float*>(a.dst[arr])[off] = f;
   else
     static_cast<int8_t*>(a.dst[arr])[off] = c;
 }
@@ -352,9 +366,10 @@ int launch_rows(void* dst0, void* dst1, void* dst2, void* dst3,
       a.vec[k] = 1;
       continue;
     }
-    const bool row8 = a.kind[k] == 1 && !a.lane[k] && a.cols[k] % 8 == 0 &&
-                      aligned(a.dst[k]) && aligned(a.src[k]);
-    a.vec[k] = row8 ? 8 : 1;
+    const bool rows = !a.lane[k] && aligned(a.dst[k]) && aligned(a.src[k]);
+    a.vec[k] = (rows && a.kind[k] == 1 && a.cols[k] % 8 == 0)   ? 8
+               : (rows && a.kind[k] == 2 && a.cols[k] % 4 == 0) ? 4
+                                                                 : 1;
     items += (long long)B * KVH * (a.lane[k] ? a.rows[k] : a.cols[k]) /
              a.vec[k];
   }
@@ -382,7 +397,8 @@ int launch_rows(void* dst0, void* dst1, void* dst2, void* dst3,
 
 // dst_i: n layer-stacked arrays (NL, B, KVH, rows_i, cols_i), updated in
 // place at layer li; src_i: the new (B, KVH, ·) rows, f32 for kind 1
-// (stored as bf16) or int8 for kind 0; lane_i says which dim is the token
+// (stored as bf16) and kind 2 (stored as f32) or int8 for kind 0; lane_i
+// says which dim is the token
 // axis; positions (B) int32.
 LQER_API int lqer_write_rows(LQER_ROW_PARAMS, int li, int B, int KVH,
                              void* stream) {

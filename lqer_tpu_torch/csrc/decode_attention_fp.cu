@@ -1,5 +1,5 @@
-// Decode attention over the bf16 (fp) KV cache, one query token per slot,
-// with every operand quantized in the kernel.
+// Decode attention over the bf16 or f32 (fp) KV cache, one query token per
+// slot, with every operand quantized in the kernel.
 //
 // Replaces lqer_tpu/ops/pallas/decode_attention.py::_kernel (entry
 // decode_attention). Per (slot, kv head) of one layer, at position pos:
@@ -51,37 +51,47 @@
 //      the last block of a (slot, kv head) to finish (an atomic counter,
 //      zeroed in pass 1) sums its partials in chunk order.
 // No float atomics: a run repeats itself to the bit. K and V are staged in
-// bf16: the raw cache values, and values quantized with at most 8 mantissa
-// bits (width <= 9), are exact in bf16.
+// the cache's own type T (uint16_t for bf16 bits, or float), rows padded by
+// 16 bytes: the bf16 cache's raw values, and its values quantized with at
+// most 8 mantissa bits (width <= 9), are exact in bf16. The f32 cache (entry
+// lqer_decode_attention_fp32) stages f32 rows, twice the bytes, so one block
+// fits an SM: a value at |v| <= 1e-8 passes the quantizer unrounded, and
+// raw f32 values are not bf16 values.
 #include "decode_split.cuh"
 
 namespace {
 
 using namespace decode;
 
+// Values of T in a 16-byte piece, and the tile's row stride in values (a
+// row of D values padded by 16 bytes, so 8 consecutive rows fall on
+// distinct banks).
+template <typename T>
+constexpr int PIECE = 16 / (int)sizeof(T);
+template <int D, typename T>
+constexpr int RS = D + PIECE<T>;
+
 // The warp's copy of the 16 rows from chunk row r (a group in range) of
-// the (L, D) bf16 rows src into the padded tile (row stride D + 8): 16-byte
-// cp.async, lane-strided.
-template <int D>
-__device__ __forceinline__ void copy_group(const uint16_t* src,
-                                           uint16_t* tile, int r) {
-  constexpr int P = D / 8;
+// the (L, D) rows src into the padded tile: 16-byte cp.async,
+// lane-strided.
+template <int D, typename T>
+__device__ __forceinline__ void copy_group(const T* src, T* tile, int r) {
+  constexpr int V = PIECE<T>, P = D / V;
   for (int i = threadIdx.x % 32; i < 16 * P; i += 32) {
-    const int row = r + i / P, col = i % P * 8;
-    cp_async16(tile + row * (D + 8) + col, src + (size_t)row * D + col);
+    const int row = r + i / P, col = i % P * V;
+    cp_async16(tile + row * RS<D, T> + col, src + (size_t)row * D + col);
   }
 }
 
 // Each warp's two groups, rows 32w.. and 32w + 16.., as two commit groups
 // (empty where the group is out of range).
-template <int D>
-__device__ __forceinline__ void copy_warp_rows(const uint16_t* src,
-                                               uint16_t* tile,
+template <int D, typename T>
+__device__ __forceinline__ void copy_warp_rows(const T* src, T* tile,
                                                const Chunk& c) {
   const int r = threadIdx.x / 32 * 32;
 #pragma unroll
   for (int g = 0; g < 2; ++g) {
-    if (group_in(c, r + 16 * g)) copy_group<D>(src, tile, r + 16 * g);
+    if (group_in(c, r + 16 * g)) copy_group<D, T>(src, tile, r + 16 * g);
     cp_async_commit();
   }
 }
@@ -102,7 +112,7 @@ __device__ __forceinline__ uint32_t bf16_pair_absmax(uint32_t m, uint32_t x) {
 // holds the group's 16 words in registers.
 template <int D>
 __device__ __forceinline__ void quantize_k(uint16_t* tile, int r, int k_mb) {
-  constexpr int RW = (D + 8) / 2;  // words per padded row
+  constexpr int RW = RS<D, uint16_t> / 2;  // words per padded row
   uint32_t* words = reinterpret_cast<uint32_t*>(tile) + r * RW;
   for (int wd = threadIdx.x % 32; wd < D / 2; wd += 32) {
     uint32_t* col = words + wd;
@@ -135,8 +145,8 @@ template <int D>
 __device__ __forceinline__ void quantize_v(uint16_t* tile, int r, int v_mb) {
   constexpr int G = D / 16;
   for (int i = threadIdx.x % 32; i < 16 * G; i += 32) {
-    uint4* grp = reinterpret_cast<uint4*>(tile + (r + i / G) * (D + 8) +
-                                          i % G * 16);
+    uint4* grp = reinterpret_cast<uint4*>(tile + (r + i / G) *
+                                          RS<D, uint16_t> + i % G * 16);
     uint4 w[2] = {grp[0], grp[1]};
     uint32_t* x = reinterpret_cast<uint32_t*>(w);
     uint32_t m2 = 0;
@@ -159,10 +169,89 @@ __device__ __forceinline__ void quantize_v(uint16_t* tile, int r, int v_mb) {
   }
 }
 
+// The f32 tile's K^T quantizer: a lane per d column holds the group's 16
+// values in registers.
+template <int D>
+__device__ __forceinline__ void quantize_k(float* tile, int r, int k_mb) {
+  constexpr int R = RS<D, float>;
+  float* rows = tile + r * R;
+  for (int col = threadIdx.x % 32; col < D; col += 32) {
+    float x[16];
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      x[j] = rows[j * R + col];
+      m = fmaxf(m, fabsf(x[j]));
+    }
+    const int e = group_exponent(m);
+    if (e <= MX_GROUP_EMAX) {
+      const MxGroup g = mx_group(e, k_mb);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) rows[j * R + col] = mx_group_value(x[j], g);
+    } else {
+      for (int j = 0; j < 16; ++j) rows[j * R + col] = mx_value(x[j], e, k_mb);
+    }
+  }
+}
+
+// The f32 tile's V quantizer: a lane per (token, 16-wide d group), four
+// 16-byte words.
+template <int D>
+__device__ __forceinline__ void quantize_v(float* tile, int r, int v_mb) {
+  constexpr int G = D / 16;
+  for (int i = threadIdx.x % 32; i < 16 * G; i += 32) {
+    float4* grp = reinterpret_cast<float4*>(tile + (r + i / G) *
+                                            RS<D, float> + i % G * 16);
+    float4 w[4] = {grp[0], grp[1], grp[2], grp[3]};
+    float* x = reinterpret_cast<float*>(w);
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) m = fmaxf(m, fabsf(x[j]));
+    const int e = group_exponent(m);
+    if (e <= MX_GROUP_EMAX) {
+      const MxGroup g = mx_group(e, v_mb);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) x[j] = mx_group_value(x[j], g);
+    } else {
+      for (int j = 0; j < 16; ++j) x[j] = mx_value(x[j], e, v_mb);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) grp[k] = w[k];
+  }
+}
+
+// The 8 values of a row from column 8 * d8 on, as f32.
+__device__ __forceinline__ void load8(const uint16_t* row, int d8,
+                                      float (&x)[8]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(row + d8 * 8);
+  x[0] = bf16_lo(w.x); x[1] = bf16_hi(w.x);
+  x[2] = bf16_lo(w.y); x[3] = bf16_hi(w.y);
+  x[4] = bf16_lo(w.z); x[5] = bf16_hi(w.z);
+  x[6] = bf16_lo(w.w); x[7] = bf16_hi(w.w);
+}
+
+__device__ __forceinline__ void load8(const float* row, int d8,
+                                      float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(row + d8 * 8);
+  const float4 b = *reinterpret_cast<const float4*>(row + d8 * 8 + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+// Columns 2 wd and 2 wd + 1 of a row, as f32.
+__device__ __forceinline__ float2 load2(const uint16_t* row, int wd) {
+  const uint32_t x = reinterpret_cast<const uint32_t*>(row)[wd];
+  return make_float2(bf16_lo(x), bf16_hi(x));
+}
+
+__device__ __forceinline__ float2 load2(const float* row, int wd) {
+  return reinterpret_cast<const float2*>(row)[wd];
+}
+
 // Waits for the warp's two groups in turn and quantizes each as it lands
 // (K: per d column, V: per token; mb < 0 leaves them as they are).
-template <int D, bool IS_K>
-__device__ __forceinline__ void land_and_quantize(uint16_t* tile,
+template <int D, bool IS_K, typename T>
+__device__ __forceinline__ void land_and_quantize(T* tile,
                                                   const Chunk& c, int mb) {
   const int r = threadIdx.x / 32 * 32;
   cp_async_wait<1>();
@@ -181,9 +270,9 @@ __device__ __forceinline__ void land_and_quantize(uint16_t* tile,
 }
 
 // Pass 1. Grid (B, KVH, NZ), NZ = ceil(L / CH).
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(FT)
-fp_scores_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
+fp_scores_kernel(const float* __restrict__ q, const T* __restrict__ k,
                  const int* __restrict__ pos_p, float* __restrict__ scores,
                  float* __restrict__ st_m, float* __restrict__ st_l,
                  int* __restrict__ count, float* __restrict__ out, int KVH,
@@ -201,27 +290,25 @@ fp_scores_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
   }
   if (z == c.z0 && t == 0) count[(size_t)b * KVH + kv] = 0;
 
-  uint16_t* tile = reinterpret_cast<uint16_t*>(smem);           // CH x (D+8)
-  float* qs = reinterpret_cast<float*>(tile + CH * (D + 8));   // nrep x D
+  T* tile = reinterpret_cast<T*>(smem);                      // CH x RS
+  float* qs = reinterpret_cast<float*>(tile + CH * RS<D, T>);  // nrep x D
   const size_t bk = (size_t)b * KVH + kv;
 
-  copy_warp_rows<D>(k + (bk * L + c.c0) * D, tile, c);
+  copy_warp_rows<D, T>(k + (bk * L + c.c0) * D, tile, c);
   quantize_queries<D>(q + ((size_t)b * H + kv * nrep) * D, qs, nrep, q_mb);
   __syncthreads();  // the queries are in
-  land_and_quantize<D, true>(tile, c, k_mb);
+  land_and_quantize<D, true, T>(tile, c, k_mb);
 
   const bool in = t >= c.j0 && t < c.n;
   float s[NREP_MAX];
 #pragma unroll
   for (int h = 0; h < NREP_MAX; ++h) s[h] = 0.f;
   if (in) {
-    const uint16_t* row = tile + t * (D + 8);
+    const T* row = tile + t * RS<D, T>;
 #pragma unroll 4
     for (int d8 = 0; d8 < D / 8; ++d8) {
-      const uint4 w = *reinterpret_cast<const uint4*>(row + d8 * 8);
-      const float kv8[8] = {bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y),
-                            bf16_hi(w.y), bf16_lo(w.z), bf16_hi(w.z),
-                            bf16_lo(w.w), bf16_hi(w.w)};
+      float kv8[8];
+      load8(row, d8, kv8);
 #pragma unroll
       for (int h = 0; h < NREP_MAX; ++h)
         if (h < nrep) {
@@ -245,9 +332,9 @@ fp_scores_kernel(const float* __restrict__ q, const uint16_t* __restrict__ k,
 }
 
 // Pass 2. Same grid as pass 1.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(FT)
-fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
+fp_pv_kernel(const T* __restrict__ v, const int* __restrict__ pos_p,
              const float* __restrict__ scores,
              const float* __restrict__ st_m, const float* __restrict__ st_l,
              float* part, int* __restrict__ count, float* __restrict__ out,
@@ -258,14 +345,14 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
   const int t = threadIdx.x, lane = t % 32, w = t / 32, H = KVH * nrep;
   Chunk c;
   if (!chunk_of(pos_p, nullptr, b, z, NZ, L, window, CH, c)) return;
-  uint16_t* tile = reinterpret_cast<uint16_t*>(smem);  // CH x (D + 8)
+  T* tile = reinterpret_cast<T*>(smem);  // CH x RS
   const size_t bk = (size_t)b * KVH + kv;
 
-  copy_warp_rows<D>(v + (bk * L + c.c0) * D, tile, c);
+  copy_warp_rows<D, T>(v + (bk * L + c.c0) * D, tile, c);
   float p[NREP_MAX];
   chunk_p(c, scores + ((size_t)b * H + kv * nrep) * L + c.c0 + t, L, st_m,
           st_l, bk * NZ * nrep, nrep, p_mb, p);
-  land_and_quantize<D, false>(tile, c, v_mb);
+  land_and_quantize<D, false, T>(tile, c, v_mb);
 
   // partial P·V over the warp's tokens, lanes along d (a word of two
   // columns each), each token's p from its lane
@@ -276,8 +363,7 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
     for (int i = 0; i < NWD; ++i) acc[h][i][0] = acc[h][i][1] = 0.f;
   const int lo = max(w * 32, c.j0), hi = min(w * 32 + 32, c.n);
   for (int tok = lo; tok < hi; ++tok) {
-    const uint32_t* row =
-        reinterpret_cast<const uint32_t*>(tile + tok * (D + 8));
+    const T* row = tile + tok * RS<D, T>;
     float pv[NREP_MAX];
 #pragma unroll
     for (int h = 0; h < NREP_MAX; ++h)
@@ -286,8 +372,8 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
     for (int i = 0; i < NWD; ++i) {
       const int wd = lane + 32 * i;
       if (wd < D / 2) {
-        const uint32_t x = row[wd];
-        const float a = bf16_lo(x), bb = bf16_hi(x);
+        const float2 x = load2(row, wd);
+        const float a = x.x, bb = x.y;
 #pragma unroll
         for (int h = 0; h < NREP_MAX; ++h)
           if (h < nrep) {
@@ -314,7 +400,7 @@ fp_pv_kernel(const uint16_t* __restrict__ v, const int* __restrict__ pos_p,
                   bk, NZ, nrep);
 }
 
-template <int D>
+template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            void* scratch, void* out, int B, int KVH, int nrep, int L,
            float scaling, int q_mb, int k_mb, int p_mb, int v_mb, int window,
@@ -327,21 +413,21 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
   const auto* pp = static_cast<const int*>(pos);
   auto* o = static_cast<float*>(out);
   const dim3 grid(B, KVH, NZ);
-  const size_t tile = sizeof(uint16_t) * CH * (D + 8);
+  const size_t tile = sizeof(T) * CH * RS<D, T>;
   const size_t smem1 = tile + sizeof(float) * nrep * D;
-  // three blocks an SM
-  const void* fns[] = {(const void*)fp_scores_kernel<D>,
-                       (const void*)fp_pv_kernel<D>};
+  // three blocks an SM over bf16, one over f32
+  const void* fns[] = {(const void*)fp_scores_kernel<D, T>,
+                       (const void*)fp_pv_kernel<D, T>};
   cudaError_t err = allow_smem(fns, 2, smem1);
   if (err != cudaSuccess) return (int)err;
-  fp_scores_kernel<D><<<grid, FT, smem1, st>>>(
-      static_cast<const float*>(q), static_cast<const uint16_t*>(k), pp,
+  fp_scores_kernel<D, T><<<grid, FT, smem1, st>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k), pp,
       sc.scores, sc.st_m, sc.st_l, sc.count, o, KVH, nrep, L, scaling, q_mb,
       k_mb, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fp_pv_kernel<D><<<grid, FT, tile, st>>>(
-      static_cast<const uint16_t*>(v), pp, sc.scores, sc.st_m, sc.st_l,
+  fp_pv_kernel<D, T><<<grid, FT, tile, st>>>(
+      static_cast<const T*>(v), pp, sc.scores, sc.st_m, sc.st_l,
       sc.part, sc.count, o, KVH, nrep, L, p_mb, v_mb, window);
   return (int)cudaGetLastError();
 }
@@ -356,23 +442,40 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 // int32 counter per (slot, kv head). D is a
 // multiple of 16 from 64 to 128 (instantiated at 64, 80, 96 and 128);
 // k_mb and v_mb at most 8.
-LQER_API int lqer_decode_attention_fp(const void* q, const void* k,
-                                      const void* v, const void* pos,
-                                      void* scratch, void* out, int B,
-                                      int KVH, int nrep, int D, int L,
-                                      float scaling, int q_mb, int k_mb,
-                                      int p_mb, int v_mb, int window,
-                                      void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define LQER_FP_PARAMS                                                     \
+  const void *q, const void *k, const void *v, const void *pos,           \
+      void *scratch, void *out, int B, int KVH, int nrep, int D, int L,   \
+      float scaling, int q_mb, int k_mb, int p_mb, int v_mb, int window,  \
+      void *stream
 #define LQER_FP_ARGS                                                       \
   q, k, v, pos, scratch, out, B, KVH, nrep, L, scaling, q_mb, k_mb, p_mb, \
-      v_mb, window, st
+      v_mb, window, reinterpret_cast<cudaStream_t>(stream)
+
+namespace {
+
+template <typename T>
+int launch_d(LQER_FP_PARAMS) {
   switch (D) {
-    case 64: return launch<64>(LQER_FP_ARGS);
-    case 80: return launch<80>(LQER_FP_ARGS);
-    case 96: return launch<96>(LQER_FP_ARGS);
-    case 128: return launch<128>(LQER_FP_ARGS);
+    case 64: return launch<64, T>(LQER_FP_ARGS);
+    case 80: return launch<80, T>(LQER_FP_ARGS);
+    case 96: return launch<96, T>(LQER_FP_ARGS);
+    case 128: return launch<128, T>(LQER_FP_ARGS);
   }
-#undef LQER_FP_ARGS
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+LQER_API int lqer_decode_attention_fp(LQER_FP_PARAMS) {
+  return launch_d<uint16_t>(q, k, v, pos, scratch, out, B, KVH, nrep, D, L,
+                            scaling, q_mb, k_mb, p_mb, v_mb, window, stream);
+}
+
+// The same over the f32 cache: k, v (B, KVH, L, D) f32.
+LQER_API int lqer_decode_attention_fp32(LQER_FP_PARAMS) {
+  return launch_d<float>(q, k, v, pos, scratch, out, B, KVH, nrep, D, L,
+                         scaling, q_mb, k_mb, p_mb, v_mb, window, stream);
+}
+
+#undef LQER_FP_PARAMS
+#undef LQER_FP_ARGS

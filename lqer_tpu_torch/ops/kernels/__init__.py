@@ -2,7 +2,9 @@
 version. A wrapper launches its CUDA kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs the plain
 version and counts nothing. The staged decode wrappers (rows 7 and 9) also
-count their launches at code width 4 in ``launches_width4``."""
+count their launches at code width 4 in ``launches_width4``, and the fp
+decode and row-write wrappers (rows 5 and 11) their launches over an f32
+cache in ``launches_f32``."""
 
 from __future__ import annotations
 
@@ -75,19 +77,25 @@ KERNELS = {
 }
 
 
+_VARIANTS = ("width4", "f32")   # launches counted apart as well
+
+
 def reset_launch_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-        if hasattr(wrapper, "launches_width4"):
-            wrapper.launches_width4 = 0
+        for v in _VARIANTS:
+            if hasattr(wrapper, f"launches_{v}"):
+                setattr(wrapper, f"launches_{v}", 0)
 
 
 def launch_counts() -> dict[str, int]:
-    """Each entry's launches, and ``"{name}.width4"`` for the entries that
-    count their code-width-4 launches apart."""
+    """Each entry's launches, and ``"{name}.width4"`` (``"{name}.f32"``)
+    for the entries that count their code-width-4 (f32-cache) launches
+    apart."""
     counts = {}
     for name, (w, _, _) in KERNELS.items():
         counts[name] = w.launches
-        if hasattr(w, "launches_width4"):
-            counts[f"{name}.width4"] = w.launches_width4
+        for v in _VARIANTS:
+            if hasattr(w, f"launches_{v}"):
+                counts[f"{name}.{v}"] = getattr(w, f"launches_{v}")
     return counts

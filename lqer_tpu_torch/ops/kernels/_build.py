@@ -52,6 +52,9 @@ ENTRIES = {
         [P] * 10 + [I] * 6 + [F, I, I, I]),
     "decode_attention_fp": ("decode_attention_fp", "lqer_decode_attention_fp",
                             [P] * 6 + [I] * 5 + [F] + [I] * 5),
+    "decode_attention_fp32": ("decode_attention_fp",
+                              "lqer_decode_attention_fp32",
+                              [P] * 6 + [I] * 5 + [F] + [I] * 5),
     "decode_attention_streaming": (
         "decode_attention_streaming", "lqer_decode_attention_streaming",
         [P] * 8 + [I] * 7 + [F, I, I, I]),

@@ -128,10 +128,12 @@ def write_kv_rows_stacked(cache_arrays: tuple, new_rows: tuple,
     """Write one new row per slot into layer ``layer_index`` of up to four
     layer-stacked arrays ``(NL, B, KVH, ·, ·)``, in place; returns them.
     ``new_rows``: ``(B, KVH, 1, C)`` rows (token axis on dim 3; f32 or bf16
-    into a bf16 array) or ``(B, KVH, R, 1)`` int8 columns (token axis on
-    dim 4); ``positions`` (B,). CPU tensors run :func:`write_rows_plain`;
-    CUDA tensors launch ``csrc/cache_write.cu`` (one launch for all
-    arrays)."""
+    into a bf16 array, rounded to nearest even; f32 into an f32 array, the
+    ``float32`` cache, unrounded) or ``(B, KVH, R, 1)`` int8 columns (token
+    axis on dim 4); ``positions`` (B,). CPU tensors run
+    :func:`write_rows_plain`; CUDA tensors launch ``csrc/cache_write.cu``
+    (one launch for all arrays; over f32 arrays also counted in
+    ``launches_f32``)."""
     a0 = cache_arrays[0]
     if a0.device.type == "cpu":
         return write_rows_plain(cache_arrays, new_rows, layer_index, positions)
@@ -142,13 +144,15 @@ def write_kv_rows_stacked(cache_arrays: tuple, new_rows: tuple,
     cols = _row_columns(cache_arrays, new_rows)
     _launch_rows("row_write", cols, new_rows, positions, int(layer_index))
     write_kv_rows_stacked.launches += 1
+    write_kv_rows_stacked.launches_f32 += 2 in cols["kind"]
     return tuple(cache_arrays)
 
 
 def _row_columns(cache_arrays: tuple, new_rows: tuple) -> dict:
     """Check up to four CUDA arrays ``(NL, B, KVH, ·, ·)`` against one
     layer's new rows; returns the row-write kernel's per-array arguments
-    (``kind`` 1: f32 or bf16 rows stored into a bf16 array; 0: int8)."""
+    (``kind`` 1: f32 or bf16 rows stored into a bf16 array; 2: f32 or bf16
+    rows into an f32 array; 0: int8)."""
     a0 = cache_arrays[0]
     NL, B, KVH = a0.shape[:3]
     if not 1 <= len(cache_arrays) == len(new_rows) <= 4:
@@ -164,14 +168,17 @@ def _row_columns(cache_arrays: tuple, new_rows: tuple) -> dict:
             raise ValueError(f"row write needs contiguous CUDA arrays "
                              f"(NL, B, KVH, ·, ·) and rows {want} (got "
                              f"{tuple(arr.shape)} and {tuple(new.shape)})")
-        if arr.dtype == torch.bfloat16 and new.dtype in (torch.float32,
-                                                         torch.bfloat16):
+        floats = (torch.float32, torch.bfloat16)
+        if arr.dtype == torch.bfloat16 and new.dtype in floats:
             kind = 1
+        elif arr.dtype == torch.float32 and new.dtype in floats:
+            kind = 2
         elif arr.dtype == new.dtype == torch.int8:
             kind = 0
         else:
-            raise ValueError(f"row write stores f32/bf16 into bf16 or int8 "
-                             f"into int8 (got {new.dtype} into {arr.dtype})")
+            raise ValueError(f"row write stores f32/bf16 into bf16 or f32, "
+                             f"or int8 into int8 (got {new.dtype} into "
+                             f"{arr.dtype})")
         for key, val in (("dst", arr), ("lane", int(lane)),
                          ("rows", arr.shape[3]), ("cols", arr.shape[4]),
                          ("kind", kind)):
@@ -183,9 +190,9 @@ def _launch_rows(entry: str, cols: dict, new_rows, positions: torch.Tensor,
                  layer_arg: int) -> None:
     """One launch of a row-write entry: ``row_write`` (``layer_arg`` the
     layer) or ``row_write_all`` (``layer_arg`` the layer count); the kernel
-    reads rows for a bf16 array as f32."""
+    reads rows for a bf16 or f32 array as f32."""
     n = len(cols["dst"])
-    srcs = [(r.to(torch.float32) if k == 1 else r).contiguous()
+    srcs = [(r.to(torch.float32) if k else r).contiguous()
             for r, k in zip(new_rows, cols["kind"])]
     pad = 4 - n
     B, KVH = cols["dst"][0].shape[1:3]
@@ -200,6 +207,7 @@ def _launch_rows(entry: str, cols: dict, new_rows, positions: torch.Tensor,
 
 
 write_kv_rows_stacked.launches = 0
+write_kv_rows_stacked.launches_f32 = 0
 
 
 def write_rows_all_layers_plain(cache_arrays, new_rows,

@@ -1,4 +1,4 @@
-"""Decode attention over the bf16 (fp) KV cache.
+"""Decode attention over the bf16 or f32 (fp) KV cache.
 
 Port of ``decode_attention`` (body ``_kernel``) of
 ``lqer_tpu/ops/pallas/decode_attention.py``, with the eligibility rule
@@ -21,6 +21,9 @@ tokens (scores and chunk stats, then P·V with the final stats), so it takes
 every length the JAX package's one-pass kernel takes (``L % 16 == 0``; the
 serving regime is ``decode._check_cache_regime``'s) and any head dim of
 :data:`HEAD_DIMS`; its f32 scratch is ``split_plan.scratch_floats`` long.
+A ``float32`` cache launches the kernel's f32 entry
+(``lqer_decode_attention_fp32``: the same design over f32 rows, as the JAX
+kernel reads an f32 cache), counted apart in ``launches_f32``.
 """
 
 from __future__ import annotations
@@ -133,8 +136,9 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
     (NL, B, KVH, L, d), read at ``layer_index``; positions (B,);
     ``scale_query`` as ``decode_attention.scaled_query``; ``window`` the
     sliding window in tokens (None: none). Returns
-    (B, H, 1, d) f32. CPU tensors run :func:`fp_decode_plain`; CUDA tensors
-    launch ``csrc/decode_attention_fp.cu``."""
+    (B, H, 1, d) f32. The cache is bf16 or f32. CPU tensors run
+    :func:`fp_decode_plain`; CUDA tensors launch
+    ``csrc/decode_attention_fp.cu``."""
     B, H, S, d = q.shape
     NL, _, KVH, L, dc = k_cache.shape
     if S != 1 or dc != d or group != 16 or L % group:
@@ -154,28 +158,32 @@ def decode_attention_fp(q, k_cache, v_cache, positions, layer_index: int, *,
         raise ValueError(f"unsupported fp decode shape d={d} H={H} KVH={KVH} "
                          f"L={L} layer {layer_index} of {NL}")
     if any(w is not None and w > 9 for w in (k_width, v_width)):
-        raise ValueError(f"the kernel stages quantized K and V in bf16: "
-                         f"widths up to 9 (k_width={k_width}, "
-                         f"v_width={v_width})")
+        raise ValueError(f"the kernel takes K and V widths up to 9 "
+                         f"(k_width={k_width}, v_width={v_width})")
+    f32 = k_cache.dtype == torch.float32
     for a in (k_cache, v_cache):
-        if not (a.is_cuda and a.dtype == torch.bfloat16 and a.is_contiguous()
+        if not (a.is_cuda and a.dtype in (torch.bfloat16, torch.float32)
+                and a.dtype == k_cache.dtype and a.is_contiguous()
                 and a.shape == k_cache.shape):
-            raise ValueError("k_cache, v_cache must be contiguous bf16 CUDA "
-                             "tensors of one shape")
+            raise ValueError("k_cache, v_cache must be contiguous bf16 or "
+                             "f32 CUDA tensors of one shape and dtype")
     qf, scaling = scaled_query(q, scaling, scale_query)
     qf = qf.contiguous()
     pos = positions.to(torch.int32).contiguous()
     out = torch.empty(B, H, 1, d, dtype=torch.float32, device=q.device)
     scratch = torch.empty(scratch_floats(B, H, KVH, L, d),
                           dtype=torch.float32, device=q.device)
-    _build.launch("decode_attention_fp", qf.data_ptr(),
+    _build.launch("decode_attention_fp32" if f32 else "decode_attention_fp",
+                  qf.data_ptr(),
                   k_cache[layer_index].data_ptr(),
                   v_cache[layer_index].data_ptr(), pos.data_ptr(),
                   scratch.data_ptr(), out.data_ptr(), B, KVH, H // KVH, d, L,
                   float(scaling),
                   _mb(q_width), _mb(k_width), _mb(p_width), _mb(v_width), win)
     decode_attention_fp.launches += 1
+    decode_attention_fp.launches_f32 += f32
     return out
 
 
 decode_attention_fp.launches = 0
+decode_attention_fp.launches_f32 = 0

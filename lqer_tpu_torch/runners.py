@@ -1,5 +1,5 @@
-"""Pipeline orchestration: profile → approximate → evaluate perplexity
-(port of ``lqer_tpu/runners.py``, without the harness stage).
+"""Pipeline orchestration: profile → approximate → evaluate perplexity →
+evaluate the downstream harness tasks (port of ``lqer_tpu/runners.py``).
 
 The config file is the pipeline's state: every stage writes its
 artifacts' paths back into the config and saves a
@@ -9,7 +9,8 @@ run resumes from any stage. The artifacts are the JAX package's:
 (and ``error_T_dict.safetensors`` with ``keep_error_T``),
 ``approximate/results.pkl`` and ``results_summary.csv`` (or
 ``results.json`` without pandas), ``evaluate_perplexity/<dataset>.json``,
-and ``pipeline/config*.toml``.
+``evaluate_harness_downstream/harness_results.json`` (then
+``harness_results_{n}.json``) and ``pipeline/config*.toml``.
 
 Every stage runs on an explicit ``device``, ``"cuda"`` by default; a
 request for the card without one raises (``device.resolve_device``). The
@@ -96,13 +97,13 @@ def build_params(config: dict, cfg, dtype=torch.float32, device="cpu"
 
 
 def _get_tokenizer(config: dict):
-    """The model's tokenizer from the local HF cache, or None (synthetic
-    data needs none)."""
+    """The model's tokenizer from the local HF cache (never downloaded),
+    or None (synthetic data needs none; the harness stage needs one)."""
     name = config.get("tokenizer_name", config["model_name"])
     try:
         from transformers import AutoTokenizer
 
-        return AutoTokenizer.from_pretrained(name)
+        return AutoTokenizer.from_pretrained(name, local_files_only=True)
     except Exception as e:
         logger.warning("Tokenizer unavailable (%s); dataset must be "
                        "synthetic", e)
@@ -306,6 +307,64 @@ def run_evaluate_perplexity(config: dict, project_path: Path,
     return config
 
 
+def run_evaluate_harness_downstream(config: dict, project_path: Path,
+                                    device="cuda") -> dict:
+    """The downstream 0-shot tasks through lm_eval, or without it through
+    the bundled :mod:`.evaluate.minieval`, whose ``tiny_*`` tasks run and
+    whose unknown task names are skipped with a warning (the stage too when
+    no task is left), as in the JAX package. Loglikelihood requests run the
+    evaluated model's forward (``_build_quantized_forward``); generation
+    decodes through a one-slot ``DecodeEngine`` over the same params,
+    without a kernel backend, built on the first generation request.
+    Writes ``harness_results.json`` (``harness_results_{n}.json`` beside
+    an earlier one)."""
+    from .evaluate.harness import HAS_LM_EVAL, evaluate_harness_downstream
+
+    dev = resolve_device(device)
+    eval_config = config["evaluate"]
+    eval_hd_config = eval_config["harness_downstream"]
+    dtype = _get_dtype(eval_config.get("dtype"), "float32")
+    tasks = list(eval_hd_config["datasets"])
+    if not HAS_LM_EVAL:
+        from .evaluate.minieval import TASK_REGISTRY
+
+        known = [t for t in tasks if t in TASK_REGISTRY]
+        if len(known) != len(tasks):
+            logger.warning(
+                "lm_eval not installed: skipping real benchmark tasks %s "
+                "(minieval runs bundled tiny_* fixtures only)",
+                [t for t in tasks if t not in TASK_REGISTRY])
+        tasks = known
+        if not tasks:
+            logger.warning("no runnable harness tasks; skipping stage")
+            return config
+
+    cfg, params, qcfgs, _, fwd = _build_quantized_forward(
+        config, eval_config.get("disable_lqer", False), dtype, dev)
+    tokenizer = _get_tokenizer(config)
+    max_length = eval_hd_config.get("max_length", 2048)
+    from .serving import DecodeEngine
+
+    def engine():
+        return DecodeEngine(params, cfg, qcfgs, num_slots=1,
+                            max_len=max_length, cache_dtype=dtype,
+                            device=dev)
+
+    results = evaluate_harness_downstream(
+        fwd, tokenizer, tasks=tasks,
+        num_fewshot=eval_hd_config.get("num_fewshot", 0),
+        batch_size=eval_hd_config.get("batch_size", None),
+        max_length=max_length, engine=engine, device=dev)
+    save_path = project_path / "harness_results.json"
+    if save_path.exists():
+        n = len(list(project_path.glob("harness_results_*.json")))
+        save_path = project_path / f"harness_results_{n}.json"
+    with open(save_path, "w") as f:
+        json.dump(results, f, indent=4, default=str)
+    logger.info("results saved to %s", save_path)
+    return config
+
+
 # -- the pipeline -------------------------------------------------------------------
 def get_project_path(config: dict, tags: list[str], action: str) -> Path:
     """``checkpoints/<project>/<tags>/<action>`` under the repository
@@ -342,21 +401,17 @@ def parse_args(action: str, argv=None, device: str = "cuda"):
     config, overridden = override_args(config, unknown)
     if overridden:
         logger.info("overridden args: %s", overridden)
-    if config.get("enable_harness_downstream_evaluation", False):
-        raise NotImplementedError(
-            "enable_harness_downstream_evaluation: the harness stage "
-            "(evaluate/harness.py and minieval) is not ported yet "
-            "(ROADMAP.md §1 item 5)")
     tags = args.tags + config.get("tags", [])
     return config, get_project_path(config, tags=tags, action=action), dev
 
 
 def run_pipeline(argv=None, device: str = "cuda", stage_hook=None) -> dict:
-    """Profile → approximate → evaluate perplexity, each stage where its
-    ``enable_*`` switch is on; ``argv`` as :func:`parse_args` takes it.
-    ``stage_hook(folder)``, where given, returns a context manager that
-    wraps each stage run (``folder``: ``profile``, ``approximate`` or
-    ``evaluate_perplexity``), for example to time it."""
+    """Profile → approximate → evaluate perplexity → the harness tasks,
+    each stage where its ``enable_*`` switch is on; ``argv`` as
+    :func:`parse_args` takes it. ``stage_hook(folder)``, where given,
+    returns a context manager that wraps each stage run (``folder``:
+    ``profile``, ``approximate``, ``evaluate_perplexity`` or
+    ``evaluate_harness_downstream``), for example to time it."""
     config, prj, dev = parse_args("pipeline", argv, device)
     wandb_compat.maybe_init(config, "pipeline")
     stages = (
@@ -367,6 +422,9 @@ def run_pipeline(argv=None, device: str = "cuda", stage_hook=None) -> dict:
         ("enable_perplexity_evaluation", "evaluate_perplexity",
          run_evaluate_perplexity, "perplexity_evaluation",
          "Evaluating perplexity"),
+        ("enable_harness_downstream_evaluation",
+         "evaluate_harness_downstream", run_evaluate_harness_downstream,
+         "harness_downstream_evaluation", "Evaluating harness downstream"),
     )
     for switch, folder, stage, after, what in stages:
         if not config.get(switch, False):

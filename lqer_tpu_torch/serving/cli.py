@@ -23,6 +23,7 @@ from pathlib import Path
 from .. import models
 from ..models.checkpoint import load_tensor_dict
 from ..utils import get_logger, load_config
+from ..utils.tracing import trace
 from . import DecodeEngine, Request
 
 logger = get_logger("serve")
@@ -55,7 +56,8 @@ def main(argv=None):
     ap.add_argument("--pallas", action="store_true",
                     help="route linears through the W4A8 kernels")
     ap.add_argument("--trace-dir", type=str, default=None,
-                    help="write a torch.profiler trace of the run there")
+                    help="write a torch.profiler trace of the run there "
+                    "(trace.json; utils.tracing.trace)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -103,29 +105,14 @@ def main(argv=None):
                     temperature=args.temperature,
                     eos_token_id=getattr(tokenizer, "eos_token_id", None))
             for p in prompts]
-    profiler = None
-    if args.trace_dir:
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
+    with trace(args.trace_dir, "serve"):
+        t0 = time.perf_counter()
+        engine.run(reqs)
         if engine.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.__enter__()
-    t0 = time.perf_counter()
-    engine.run(reqs)
-    if engine.device.type == "cuda":
-        import torch
+            import torch
 
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if profiler is not None:
-        profiler.__exit__(None, None, None)
-        out = Path(args.trace_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        profiler.export_chrome_trace(str(out / "trace.json"))
-        logger.info("profiler trace written to %s", out / "trace.json")
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     total = sum(len(r.output_ids) for r in reqs)
     for i, r in enumerate(reqs):
         if tokenizer:

@@ -25,16 +25,17 @@ Attention follows the JAX package per layer and step:
   configuration the prefill kernel takes (:func:`_fresh_prefill_attend`)
   attends through it, and its rows are written in plain PyTorch;
 - a decode step (s = 1) where :func:`_use_attn_kernel` allows (a backend,
-  the MXINT attention formats, max_len >= 128, 16-aligned dims, the bf16
-  cache within the fp kernel's one-pass length) runs the decode kernels:
+  the MXINT attention formats, max_len >= 128, 16-aligned dims, a bf16 or
+  f32 cache within the fp kernel's one-pass length) runs the decode
+  kernels:
   on a staged cache the staged kernel writes the ring and attends (rows 7
   and 9); otherwise the stacked step takes :func:`decode_route`'s kernels
   (the row write, the fused MXINT8 write + attend, the fused encode +
   write) and the eager step writes in plain PyTorch
   (``kv_cache.write_layer_rows``) and attends through row 5, 6 or 8
   (:func:`decode_route` with ``eager=True``);
-- everything else (a sliding-window or chunked prefill, the ``float32``
-  cache, short or unaligned caches, fp or mismatched attention configs, no
+- everything else (a sliding-window or chunked prefill, an fp cache past
+  that length, short or unaligned caches, fp or mismatched attention configs, no
   backend, ``LQER_DISABLE_ATTN_KERNEL``) writes the cache and attends
   eagerly (:func:`_attend` with the additive :func:`_cache_mask`), a staged
   cache through :func:`_staged_eager_update`. This plain PyTorch attention
@@ -373,11 +374,11 @@ def check_servable(cache: dict, attn_cfgs, head_dim: int,
     ``cache`` on the card would hand a kernel what it does not take: a
     head dim outside ``attention.HEAD_DIMS`` (:func:`check_card_shapes`)
     wherever an attention kernel or the stacked step's MXINT encode +
-    write is reached, and the ``float32`` cache wherever a kernel would
-    read or write it (the fp decode kernel and the row write take bf16):
-    the stacked step's row writes, or a decode kernel. ``backend``: the
-    engine serves with a kernel backend; ``scan``: the stacked step. On
-    the CPU every regime the JAX package serves is served."""
+    write is reached. ``backend``: the engine serves with a kernel
+    backend; ``scan``: the stacked step. On the CPU every regime the JAX
+    package serves is served; on the card too, within those head dims (the
+    ``float32`` cache through the f32 entries of the fp decode kernel and
+    the row write)."""
     if next(iter(cache.values())).device.type != "cuda":
         return
     max_len = cache_max_len(cache)
@@ -390,11 +391,6 @@ def check_servable(cache: dict, attn_cfgs, head_dim: int,
                          for c in cfgs)
     if decode_kernel or prefill_kernel or (scan and is_quantized_cache(cache)):
         check_card_shapes(head_dim, "cuda")
-    if _cache_kind(cache) == "float32" and (scan or decode_kernel):
-        raise NotImplementedError(
-            "the float32 cache on the card: its kernels (the fp decode "
-            "kernel, the row write) take bf16; it serves on the card only "
-            "through the eager step's plain attention (no decode kernel)")
 
 
 def stack_backend(backend: dict, cfg, consume: bool = False) -> dict:

@@ -33,7 +33,11 @@ twice, equal to the bit; the row write at 8 and 32 kv heads and d = 80 and
 at 8 kv heads, L = 32768, at d 64, 80 and 96, with positions past L, from
 strided views of a q|k|v output and from bf16 rows; the flush at the 7B
 shape (32 layers, 8 slots, 32 kv heads, L = 2048) with spans 0, 32 and 64
-and a slot off a multiple of 16. Needs an
+and a slot off a multiple of 16; rows 5 and 11 over the ``float32``
+cache (row 5 up to its one-pass length, 6144 at d = 128) and a tiny Llama
+served on it with the kernel backend against the CPU, stacked and eager;
+the harness adapter's loglikelihood and rolling requests through the
+kernels against the CPU. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -1493,3 +1497,147 @@ of row 10, within the same limits)."""
             assert worst <= 4.0 and rms <= 0.4, (worst, rms)
         else:
             assert torch.equal(got, want)
+
+
+# ---- the float32 cache: rows 5 and 11 over f32 arrays
+
+
+@pytest.mark.parametrize("widths", [8, None])
+@pytest.mark.parametrize("b,kvh,nrep,d,l,pos", DECODE_SHAPES + [
+    (2, 2, 4, 128, 6144, [6143, 3000]),           # the f32 one-pass length
+    (2, 2, 2, 80, 512, [100, 511])])
+def test_fp_decode_attention_f32(gen, b, kvh, nrep, d, l, pos, widths):
+    """Row 5 over an f32 cache (values off the bf16 grid, a 16-token group
+    at |v| <= 1e-8 that the quantizer passes through) against its plain
+    version; the f32 launch counted; two launches equal to the bit."""
+    k, v = (torch.randn(2, b, kvh, l, d, generator=gen, device="cuda")
+            for _ in range(2))
+    k[:, 0, 0, :16] *= 1e-9
+    v[:, -1, -1, :16] *= 1e-9
+    q = torch.randn(b, kvh * nrep, 1, d, generator=gen, device="cuda")
+    kw = dict(scaling=d ** -0.5, k_width=widths, v_width=widths)
+    p = _positions(pos)
+    before = kfp.decode_attention_fp.launches_f32
+    got = kfp.decode_attention_fp(q, k, v, p, 1, **kw)
+    assert kfp.decode_attention_fp.launches_f32 == before + 1
+    want = kfp.fp_decode_plain(q, k, v, p, 1, **kw)
+    s, vals = kfp.fp_scores(q, k, v, p, 1, **kw)
+    check_close("fp decode attention over f32", got, want,
+                attention_limit(s, vals, want, p_width=8), max_flipped=0.05)
+    assert torch.equal(got, kfp.decode_attention_fp(q, k, v, p, 1, **kw))
+
+
+@pytest.mark.parametrize("kvh,d", [(8, 80), (32, 128), (2, 64)])
+def test_row_write_f32(gen, kvh, d):
+    """Row 11's f32 rows into the f32 cache, bit-exact with its plain
+    version (unrounded); positions -1 and L write nothing; a strided row
+    view is copied first."""
+    nl, l = 2, 256
+    pos = [-1, 0, 17, 255, 256]
+    b = len(pos)
+    arrays = [torch.randn(nl, b, kvh, l, d, generator=gen, device="cuda")
+              for _ in range(2)]
+    news = [torch.randn(b, kvh, 1, 2 * d, generator=gen,
+                        device="cuda")[..., ::2] for _ in range(2)]
+    mine, theirs = [a.clone() for a in arrays], [a.clone() for a in arrays]
+    p = _positions(pos)
+    before = k4.write_kv_rows_stacked.launches_f32
+    k4.write_kv_rows_stacked(tuple(mine), tuple(news), 1, p)
+    assert k4.write_kv_rows_stacked.launches_f32 == before + 1
+    k4.write_rows_plain(tuple(theirs), tuple(news), 1, p)
+    assert all(torch.equal(a.view(torch.int32), c.view(torch.int32))
+               for a, c in zip(mine, theirs))
+    assert torch.equal(mine[0][1, 1, :, 0], news[0][1, :, 0])
+    for a, c in zip(mine, arrays):
+        assert torch.equal(a[0], c[0])
+        assert torch.equal(a[:, 0], c[:, 0]) and torch.equal(a[:, 4], c[:, 4])
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_f32_engine_on_card(gen, scan):
+    """A 2-layer tiny Llama with the kernel backend on the f32 cache, the
+    card's engine against the CPU's, teacher-forced: logits within 4 code
+    steps at most and 0.4 RMS; each decode step launches row 5 per layer
+    over f32 (and the stacked step row 11 before it)."""
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, max_pos=256)
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=9)
+    kw = dict(num_slots=4, max_len=128, cache_dtype="float32",
+              pallas_backend=backend, lm_head_width=8, scan_layers=scan)
+    card = DecodeEngine(params, cfg, qcfgs, device="cuda", **kw)
+    cpu = DecodeEngine(params, cfg, qcfgs, device="cpu", **kw)
+    ids = torch.randint(0, 256, (4, 64), generator=gen,
+                        device="cuda").cpu().numpy()
+    lengths = np.full(4, 50, dtype=np.int32)
+    logits = [(card.prefill(ids, np.arange(4), lengths),
+               cpu.prefill(ids, np.arange(4), lengths))]
+    card.lengths[:] = cpu.lengths[:] = lengths
+    fp = kfp.decode_attention_fp.launches_f32
+    rw = k4.write_kv_rows_stacked.launches_f32
+    for _ in range(8):
+        tokens = torch.argmax(logits[-1][0], -1).cpu().numpy()
+        logits.append((card.decode_logits(tokens),
+                       cpu.decode_logits(tokens)))
+        card.lengths += 1
+        cpu.lengths += 1
+    assert kfp.decode_attention_fp.launches_f32 == fp + 8 * 2
+    assert k4.write_kv_rows_stacked.launches_f32 == rw + (8 * 2 if scan
+                                                          else 0)
+    for got, want in logits:
+        worst, rms = logits_steps(got.float().cpu(), want.float())
+        assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+
+
+class _ByteTok:
+    bos_token_id = 0
+    eos_token_id = None
+
+    def encode(self, text):
+        return [b % 256 for b in text.encode("utf-8")]
+
+    def decode(self, ids):
+        return "".join(chr(97 + i % 26) for i in ids)
+
+
+def test_harness_loglikelihood_through_kernels(gen):
+    """The harness's loglikelihood and rolling requests (the tiny
+    multiple-choice, lambada and wikitext tasks) on a 2-layer tiny Llama
+    with every linear packed: the forward through the kernels on the card
+    (kernel 1 and the megakernel, every batch below 512 rows) against the
+    same model's plain versions on the CPU, scored by the same adapter:
+    equal greedy flags, loglikelihoods within 1e-3 relative (the logits
+    held to phase 4's limits move a sum of log-softmaxes that little)."""
+    from lqer_tpu_torch.evaluate.harness import TorchCausalLM
+    from lqer_tpu_torch.evaluate.minieval import TASK_REGISTRY
+    from lqer_tpu_torch.models import llama
+    from lqer_tpu_torch.serving.engine import _to
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, max_pos=256)
+    backend, params, qcfgs = build_random_model(cfg, rank=32, seed=10)
+    cpu_params, cpu_backend = _to(params, "cpu"), _to(backend, "cpu")
+    requests = {}
+    for name in ("tiny_arc_easy", "tiny_boolq", "tiny_lambada_openai",
+                 "tiny_wikitext"):
+        for inst in TASK_REGISTRY[name]().build_all_requests(0):
+            requests.setdefault(inst.request_type, []).append(inst)
+    out, launched = {}, 0
+    for dev, p, bk in (("cuda", params, backend),
+                       ("cpu", cpu_params, cpu_backend)):
+        lm = TorchCausalLM(
+            lambda ids, p=p, bk=bk: llama.forward(p, ids, cfg, qcfgs,
+                                                  backend=bk),
+            _ByteTok(), max_length=128, batch_size=4, device=dev)
+        before = k1.qlinear_w4_fused.launches + k5.mlp_w4_fused.launches
+        out[dev] = {t: getattr(lm, t)(r) for t, r in requests.items()}
+        if dev == "cuda":
+            launched = (k1.qlinear_w4_fused.launches
+                        + k5.mlp_w4_fused.launches - before)
+    assert launched > 0
+    for (ll, g), (ll_cpu, g_cpu) in zip(out["cuda"]["loglikelihood"],
+                                        out["cpu"]["loglikelihood"]):
+        assert g == g_cpu
+        assert abs(ll - ll_cpu) <= 1e-3 * abs(ll_cpu), (ll, ll_cpu)
+    np.testing.assert_allclose(out["cuda"]["loglikelihood_rolling"],
+                               out["cpu"]["loglikelihood_rolling"],
+                               rtol=1e-3)

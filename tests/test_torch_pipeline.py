@@ -33,7 +33,7 @@ The verify skill's probes run on the port: resuming from
 ``--evaluate:perplexity:batch_size=4`` overrides; ``--overwrite_checkpoint
 =false`` on a non-empty directory raises ``RuntimeError``; without
 ``--device cpu`` and without a card the run raises before it makes a
-directory; the harness stage raises before any work.
+directory; the harness stage, on the configs' own task, is skipped.
 """
 
 import contextlib
@@ -231,14 +231,23 @@ def test_clobber_and_device_probes(runs, monkeypatch):
 
 
 def test_harness_stage_refused(tmp_path):
+    """The harness stage is served, no longer refused: enabled alone on
+    opt-tiny, whose task (``lambada_openai``) needs lm_eval, the stage is
+    skipped as the JAX package skips it, before any model is built, and
+    the pipeline writes its stage config (``test_torch_harness_stage.py``
+    runs the tiny tasks)."""
     config = load_config(CONFIGS["opt-tiny"])
-    config["enable_harness_downstream_evaluation"] = True
+    config.update(enable_harness_downstream_evaluation=True,
+                  enable_profiling=False, enable_approximation=False,
+                  enable_perplexity_evaluation=False)
     path = tmp_path / "harness.toml"
     save_config(config, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trunners.run_pipeline([str(path), f"--checkpoint_path={tmp_path}/x",
-                               "--device", "cpu"])
-    assert not (tmp_path / "x").exists()
+    out = trunners.run_pipeline([str(path), f"--checkpoint_path={tmp_path}/x",
+                                 "--device", "cpu"])
+    assert out["enable_harness_downstream_evaluation"] is False
+    assert not list((tmp_path / "x/evaluate_harness_downstream").iterdir())
+    assert (tmp_path / "x/pipeline/"
+            "config_after_harness_downstream_evaluation.toml").exists()
 
 
 def test_save_config_round_trip(tmp_path):
