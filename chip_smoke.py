@@ -201,7 +201,33 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    ``chunked-approximate`` in 2 chunks of 7 weights then ``merge-chunks``
    against the unchunked factors (equal to the bit, or A_q B_q within
    CHUNKED_REL_ERR);
-7. the ``kernels`` JSON line: launches of each kernel in phases 5 and 6
+7. the modules the JAX package runs beside serving, at Llama-2-7B width,
+   2 layers, seeded weights: the 14 linears packed on the card as GPTQ
+   (group 128, zero offset, layer 0 in act order) and AWQ (group 128),
+   ``dequantize_checkpoint`` on the card against the CPU (equal to the
+   bit), ``models.forward`` and ``forward_sequence_classification`` (2
+   labels, a right-padded 2 x 128 batch) on the GPTQ model, card against
+   CPU within phase 4's logits limits; then tensor parallelism over
+   ``torch.distributed`` with two ``gloo`` ranks on this one card (NCCL
+   takes one rank per device; every collective is staged through host
+   memory, so its times are not NCCL or NVLink times):
+   ``dryrun_multichip(2, tp=2)`` (the port's ``__graft_entry__.py``
+   sequence), and beside the checkpoints (``phase_parallel``) the exact
+   TP forward (2 x 128) against the single-rank ``models.forward`` and the
+   quantized-collective one against its plain one-process emulation (the
+   same rank-local products, the ring's MXINT8 round trips in JAX's chunk
+   order), both within rtol = atol = EXACT_TOL with the argmax equal; the
+   quantized one against ``models.forward`` within WIRE_MAX_STEPS and
+   WIRE_RMS_STEPS, its argmax equal where the top-2 margin exceeds
+   ARGMAX_MARGIN (the wire's own rounding error); one sharded train step
+   against a single-process autograd step (loss and parameters within
+   TRAIN_RTOL relative, each parameter's update within UPDATE_RTOL of its
+   norm), the mesh engine on ``mxint8-staged`` and
+   ``float32`` (2 slots, PARALLEL_NEW_TOKENS new tokens, the staged cache
+   flushing on the way) with tokens equal to the single-rank engine's and
+   rows 4 and 14 launched on each rank's heads, and the bytes one
+   row-parallel reduction sends, quantized against exact;
+8. the ``kernels`` JSON line: launches of each kernel in phases 5, 6 and 7
    and the phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
    Mistral's phase-5 launches; rows 7 and 9 at code width 4 as their
    ``width4``, with its phase-5 launches; kernel 1 and the megakernel with
@@ -4828,6 +4854,584 @@ def phase_pipeline(torch, rates, pool_workers: int = 2) -> dict:
     return total
 
 
+# -- phase 7: checkpoints, sequence classification, tensor parallelism ----------
+PARALLEL_LAYERS = 2
+PARALLEL_SEQ = 128
+PARALLEL_TP = 2
+PARALLEL_SEED = SEED + 7
+# The engine's prompts (60 and 41 tokens) and new tokens: the first slot's
+# ring reaches the flush residue (48) after 20 decode steps, so the staged
+# cache flushes (row 14) inside the run.
+PARALLEL_PROMPTS = (60, 41)
+PARALLEL_NEW_TOKENS = 24
+# The exact TP forward against the single-rank models.forward, and the
+# quantized one against its plain emulation in one process
+# (emulated_tp_forward: the same rank-local products, the ring's MXINT8
+# round trips in JAX's chunk order), both within rtol = atol = EXACT_TOL
+# with the argmax equal.
+EXACT_TOL = 2e-4
+# The quantized wire against the unquantized single-rank forward: the
+# wire's own rounding error, a sanity bound. JAX's bound (rtol 0.1, atol
+# 0.15, tests/test_tp_forward.py:79) is absolute, set at hidden 64; at 4096
+# the roundings of the partial sums move the logits by about 3 code steps
+# of a row scale of 1/16 (0.18), past its atol, so the bound counts code
+# steps (twice phase 4's limits) and the fraction within JAX's bound is
+# printed. The argmax must be equal wherever the single-rank top-2 margin
+# exceeds 0.1 (JAX's check on OPT).
+WIRE_MAX_STEPS = 2 * LOGIT_MAX_STEPS
+WIRE_RMS_STEPS = 2 * LOGIT_RMS_STEPS
+WIRE_RTOL, WIRE_ATOL = 0.1, 0.15
+ARGMAX_MARGIN = 0.1
+TRAIN_RTOL = 2e-4      # the train step's loss and parameters, relative
+# Each parameter's update (new - old) against the single-process step's,
+# relative to the norm of that update. The CPU tests read at most 1.5e-2
+# against JAX, and 0.87 to 1 on the replicated parameters with their tp
+# all-reduce left out (tests/test_torch_tp_forward.py).
+UPDATE_RTOL = 0.1
+TRAIN_LR = 1e-2
+CKPT_GROUP = 128
+
+
+def _parallel_cfg():
+    import dataclasses
+
+    from lqer_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama_7b(),
+                               num_hidden_layers=PARALLEL_LAYERS)
+
+
+def _parallel_ids(torch, cfg, device):
+    rng = np.random.default_rng(PARALLEL_SEED)
+    return torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                        (2, PARALLEL_SEQ)), device=device)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _pow2(torch, k):
+    """2^k as f32 from its bits (k a normal exponent)."""
+    return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def mx8_round_trip(torch, x, group: int = 16):
+    """Plain MXINT8 round trip along the last axis in groups of ``group``:
+    the shared exponent ``e = ceil(log2(absmax))`` (from ``frexp``), codes
+    ``sign(x + 1e-9) * min(round((|x| + 1e-9) / 2^e * 128), 127)``, values
+    ``code * 2^(e - 7)``; an all-zero group decodes to zeros."""
+    *lead, f = x.shape
+    xf = x.float().reshape(*lead, f // group, group)
+    amax = xf.abs().amax(-1, keepdim=True)
+    m, k = torch.frexp(torch.where(amax > 0, amax, torch.ones_like(amax)))
+    e = torch.where(m == 0.5, k - 1, k)
+    mant = torch.round((xf.abs() + 1e-9) / _pow2(torch, e) * 128.0)
+    codes = torch.sign(xf + 1e-9) * mant.clamp(max=127.0)
+    return (codes * _pow2(torch, e - 7)).reshape(*lead, f)
+
+
+def ring_reduce(torch, partials: list):
+    """JAX's quantized reduction of a row-parallel linear over the feature
+    axis (``quantized_psum_scatter`` then ``quantized_all_gather``), its
+    ranks emulated in one process: ``partials[i]`` is rank i's (rows, f)
+    partial product. Rank i starts from its chunk i - 1; at each of the
+    n - 1 hops every partial sum is round-tripped through MXINT8, passed to
+    the next rank and the receiver's own chunk i - 1 - step added. Each
+    rank's reduced chunk i is round-tripped once more and the chunks
+    joined."""
+    n = len(partials)
+    chunks = [p.chunk(n, dim=-1) for p in partials]
+    acc = [chunks[i][(i - 1) % n] for i in range(n)]
+    for step in range(1, n):
+        sent = [mx8_round_trip(torch, a) for a in acc]
+        acc = [sent[(i - 1) % n] + chunks[i][(i - 1 - step) % n]
+               for i in range(n)]
+    return torch.cat([mx8_round_trip(torch, a) for a in acc], dim=-1)
+
+
+def emulated_tp_forward(torch, cfg, qcfgs, params, ids, tp: int):
+    """``make_tp_forward(..., quantized_collectives=True)`` on Llama with
+    its ``tp`` ranks emulated in one process: every rank-local product on
+    that rank's shard (the shapes the ranks use), each row-parallel
+    reduction through :func:`ring_reduce`, the partial X·A summed in rank
+    order, the embedding looked up whole, the logits joined in rank
+    order."""
+    from torch.nn.functional import silu
+
+    from lqer_tpu_torch.models.common import (
+        apply_rotary,
+        causal_mask,
+        eager_attention,
+        merge_heads,
+        repeat_kv,
+        rms_norm,
+        rotary_tables,
+    )
+    from lqer_tpu_torch.parallel.sharding import fixed_spec, local_shard
+
+    shards = [{k: local_shard(v, fixed_spec(k, v.shape, tp), tp, r)
+               for k, v in params.items()} for r in range(tp)]
+    b, s = ids.shape
+    heads_l, kv_l = cfg.num_attention_heads // tp, cfg.kv_heads // tp
+    n_rep = cfg.num_attention_heads // cfg.kv_heads
+    eps = cfg.rms_norm_eps
+
+    def col(x, sh, prefix, qc):
+        x_q = qc.x_quantizer(x)
+        y = torch.matmul(x_q, sh[prefix + ".weight"].T)
+        if qc.is_lqer and prefix + ".A" in sh:
+            xa = qc.a_out_quantizer(torch.matmul(x_q, sh[prefix + ".A"]))
+            y = y + qc.b_out_quantizer(torch.matmul(xa, sh[prefix + ".B"]))
+        return y
+
+    def row(xs, prefix, qc):
+        x_qs = [qc.x_quantizer(x) for x in xs]
+        y = ring_reduce(torch, [
+            torch.matmul(xq, sh[prefix + ".weight"].T).reshape(b * s, -1)
+            for xq, sh in zip(x_qs, shards)]).reshape(b, s, -1)
+        if qc.is_lqer and prefix + ".A" in params:
+            xa = sum(torch.matmul(xq, sh[prefix + ".A"])
+                     for xq, sh in zip(x_qs, shards))
+            y = y + qc.b_out_quantizer(torch.matmul(
+                qc.a_out_quantizer(xa), params[prefix + ".B"]))
+        return y
+
+    def heads_of(y, n):
+        return y.reshape(b, s, n, -1).transpose(1, 2)
+
+    h = params["model.embed_tokens.weight"][ids]
+    cos, sin = rotary_tables(cfg.head_dim,
+                             max(s, cfg.max_position_embeddings),
+                             cfg.rope_theta, device=h.device)
+    positions = torch.arange(s, device=h.device)
+    mask = causal_mask(s, dtype=h.dtype, device=h.device)
+    for i in range(cfg.num_hidden_layers):
+        p, lq = f"model.layers.{i}", qcfgs[i]
+        ac = lq["attn"]
+        hn = rms_norm(h, {"weight": params[f"{p}.input_layernorm.weight"]},
+                      eps)
+        attn = []
+        for sh in shards:
+            qh = heads_of(col(hn, sh, f"{p}.self_attn.q_proj", ac.q_proj),
+                          heads_l)
+            kh = heads_of(col(hn, sh, f"{p}.self_attn.k_proj", ac.k_proj),
+                          kv_l)
+            vh = heads_of(col(hn, sh, f"{p}.self_attn.v_proj", ac.v_proj),
+                          kv_l)
+            qh, kh = apply_rotary(qh, kh, cos, sin, positions)
+            attn.append(merge_heads(eager_attention(
+                qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep), mask,
+                ac.qk_matmul, ac.pv_matmul, scaling=cfg.head_dim ** -0.5)))
+        h = h + row(attn, f"{p}.self_attn.o_proj", ac.o_proj)
+        hn = rms_norm(
+            h, {"weight": params[f"{p}.post_attention_layernorm.weight"]},
+            eps)
+        mids = [silu(col(hn, sh, f"{p}.mlp.gate_proj", lq["gate_proj"]))
+                * col(hn, sh, f"{p}.mlp.up_proj", lq["up_proj"])
+                for sh in shards]
+        h = h + row(mids, f"{p}.mlp.down_proj", lq["down_proj"])
+    h = rms_norm(h, {"weight": params["model.norm.weight"]}, eps)
+    head = ("lm_head.weight" if "lm_head.weight" in params
+            else "model.embed_tokens.weight")
+    return torch.cat([torch.matmul(h, sh[head].T) for sh in shards], dim=-1)
+
+
+def parallel_rank() -> dict:
+    """One rank of phase 7's tensor-parallel run (tp = PARALLEL_TP, two
+    ``gloo`` ranks on one card): the exact TP forward against the
+    single-rank ``models.forward``, the quantized one against its plain
+    emulation (:func:`emulated_tp_forward`) and, for its rounding error,
+    against ``models.forward``; one train step against a single-process
+    autograd step, the mesh engine against the single-rank engine, and the
+    bytes of one row-parallel reduction. Returns its numbers and
+    failures."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.evaluate.perplexity import causal_lm_loss
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.parallel import collectives as C
+    from lqer_tpu_torch.parallel.dryrun import tiny_llama_setup
+    from lqer_tpu_torch.parallel.mesh import make_mesh
+    from lqer_tpu_torch.parallel.sharding import (
+        fixed_spec,
+        local_shard,
+        shard_params,
+    )
+    from lqer_tpu_torch.parallel.step import make_train_step
+    from lqer_tpu_torch.parallel.tp_forward import (
+        make_tp_forward,
+        reduce_row_parallel,
+    )
+    from lqer_tpu_torch.serving import DecodeEngine, Request
+    from lqer_tpu_torch.serving.random_model import (
+        build_random_dense_model,
+        q_config_for,
+    )
+    from lqer_tpu_torch.testing import logits_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    out, failed = {"rank": rank}, []
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, (time.perf_counter() - t) * 1e3
+
+    cfg = _parallel_cfg()
+    dense, qcfgs = build_random_dense_model(cfg, rank=32,
+                                            seed=PARALLEL_SEED)
+    params = models.prepare_ptq(dense, cfg, qcfgs)
+    mesh = make_mesh(tp=PARALLEL_TP, device_type="cuda")
+    group = mesh.get_group("tp")
+    local = shard_params(params, mesh)
+    ids = _parallel_ids(torch, cfg, "cuda")
+    models.forward(params, ids, cfg, qcfgs)
+    ref, out["single_ms"] = wall(lambda: models.forward(params, ids, cfg,
+                                                        qcfgs))
+    def close(y, want) -> bool:
+        return bool(torch.allclose(y, want, rtol=EXACT_TOL, atol=EXACT_TOL)
+                    and torch.equal(y.argmax(-1), want.argmax(-1)))
+
+    for quantized in (False, True):
+        fwd = make_tp_forward(cfg, qcfgs, mesh,
+                              quantized_collectives=quantized)
+        fwd(local, ids)
+        C.reset_wire_counts()
+        y, ms = wall(lambda: fwd(local, ids))
+        what = "quantized" if quantized else "exact"
+        if quantized:
+            emu, out["emulated_ms"] = wall(lambda: emulated_tp_forward(
+                torch, cfg, qcfgs, params, ids, PARALLEL_TP))
+            out["emulated_max_abs_err"] = float((y - emu).abs().max())
+            if not close(y, emu):
+                failed.append(
+                    f"quantized TP forward against its emulation: max "
+                    f"|diff| {out['emulated_max_abs_err']:.3g} (rtol = atol "
+                    f"= {EXACT_TOL}, argmax equal)")
+            del emu
+        err = (y - ref).abs()
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > ARGMAX_MARGIN
+        same = y.argmax(-1) == ref.argmax(-1)
+        out[what] = {"ms": ms, "max_abs_err": float(err.max()),
+                     "steps": logits_steps(y.cpu(), ref.cpu()),
+                     "within_2e-4": float((err <= EXACT_TOL * (
+                         1 + ref.abs())).float().mean()),
+                     "within_jax": float((err <= WIRE_ATOL + WIRE_RTOL
+                                          * ref.abs()).float().mean()),
+                     "argmax_equal": float(same.float().mean()),
+                     "argmax_equal_clear": float(same[clear].float().mean()),
+                     **C.wire_counts()}
+        if quantized:
+            worst, rms = out[what]["steps"]
+            if worst > WIRE_MAX_STEPS or rms > WIRE_RMS_STEPS \
+                    or not bool(same[clear].all()):
+                failed.append(
+                    f"quantized TP forward: {worst:.3g} code steps max, "
+                    f"{rms:.3g} RMS (limits {WIRE_MAX_STEPS}, "
+                    f"{WIRE_RMS_STEPS}), argmax equal on "
+                    f"{out[what]['argmax_equal_clear']:.4f} of the positions "
+                    f"whose top-2 margin exceeds {ARGMAX_MARGIN}")
+        elif not close(y, ref):
+            failed.append(f"exact TP forward: max |diff| "
+                          f"{out[what]['max_abs_err']:.3g} against "
+                          f"models.forward (rtol = atol = {EXACT_TOL}, "
+                          f"argmax equal)")
+    del ref
+    for quantized in (False, True):
+        y = torch.randn(2, PARALLEL_SEQ, cfg.hidden_size, device="cuda")
+        C.reset_wire_counts()
+        reduce_row_parallel(y, group, quantized)
+        out[f"reduce_bytes_{quantized}"] = C.wire_counts()["sent_bytes"]
+    # one train step on the fake-quantized model against autograd
+    q = q_config_for(cfg)
+    q = {**q, "linear": {**q["linear"], "is_ptq": False}}
+    tq = models.quantize_model(cfg, q, {"linear": {"rank": 32}})
+    step = make_train_step(cfg, tq, mesh, lr=TRAIN_LR)
+    dense_local = shard_params(dense, mesh)
+    step(dense_local, ids)      # the first call's set-up stays out of the time
+    (new, loss), out["train_ms"] = wall(lambda: step(dense_local, ids))
+
+    def single_step():
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in dense.items()}
+        return _autograd_step(torch, models, causal_lm_loss, leaves, ids,
+                              cfg, tq)
+
+    single_step()
+    (want_loss, want), out["train_single_ms"] = wall(single_step)
+    out["loss"], out["want_loss"] = float(loss), float(want_loss)
+    loss_rel = abs(out["loss"] - out["want_loss"]) / abs(out["want_loss"])
+    worst, worst_update = 0.0, 0.0
+    for k, v in new.items():
+        w = local_shard(want[k], fixed_spec(k, want[k].shape, PARALLEL_TP),
+                        PARALLEL_TP, rank)
+        worst = max(worst, _rel(v, w))
+        d = local_shard(dense[k], fixed_spec(k, dense[k].shape,
+                                             PARALLEL_TP), PARALLEL_TP, rank)
+        norm = torch.linalg.vector_norm((w - d).double())
+        worst_update = max(worst_update, float(
+            torch.linalg.vector_norm((v - w).double()) / norm)
+            if norm > 0 else float("inf"))
+    out["train_param_rel"], out["train_update_rel"] = worst, worst_update
+    out["train_loss_rel"] = loss_rel
+    if loss_rel > TRAIN_RTOL or worst > TRAIN_RTOL \
+            or worst_update > UPDATE_RTOL:
+        failed.append(f"train step: loss {loss_rel:.3g}, parameters "
+                      f"{worst:.3g} relative (limit {TRAIN_RTOL}), updates "
+                      f"{worst_update:.3g} of their norm (limit "
+                      f"{UPDATE_RTOL})")
+    del new, want
+    torch.cuda.empty_cache()
+    # the mesh engine against the single-rank engine: first on the dry
+    # run's model, whose weights are quantized at every step
+    # (is_ptq False), then on the prepared 7B-width model
+    dcfg, dparams, dq = tiny_llama_setup(hidden=512)
+    runs = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        engine = DecodeEngine(dparams, dcfg, dq, num_slots=2, max_len=128,
+                              cache_dtype="mxint8-staged", device="cuda",
+                              mesh=m)
+        reqs = [Request(prompt_ids=p, max_new_tokens=8)
+                for p in ([3, 17, 42], [9, 8, 7, 6])]
+        engine.run(reqs)
+        runs[name] = [r.output_ids for r in reqs]
+    out["dryrun_engine_tokens"] = runs["mesh"]
+    if runs["mesh"] != runs["single"]:
+        failed.append(f"mesh engine on the dry run's model (is_ptq False): "
+                      f"tokens {runs['mesh']} against {runs['single']}")
+    rng = np.random.default_rng(PARALLEL_SEED + 1)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in PARALLEL_PROMPTS]
+    for cache in ("mxint8-staged", "float32"):
+        runs = {}
+        for name, m in (("mesh", mesh), ("single", None)):
+            engine = DecodeEngine(params, cfg, qcfgs, num_slots=2,
+                                  max_len=256, cache_dtype=cache,
+                                  device="cuda", mesh=m)
+            reqs = [Request(prompt_ids=p, max_new_tokens=PARALLEL_NEW_TOKENS)
+                    for p in prompts]
+            if m is not None:
+                reset_launch_counts()
+            _, ms = wall(lambda: engine.run(reqs))
+            if m is not None:
+                counts = launch_counts()
+                out[f"launches/{cache}"] = {k: counts[k] for k in
+                                            ("attention", "cache_write")}
+            runs[name] = ([r.output_ids for r in reqs], ms)
+            del engine
+        out[f"engine/{cache}"] = {"mesh_ms": runs["mesh"][1],
+                                  "single_ms": runs["single"][1]}
+        if runs["mesh"][0] != runs["single"][0]:
+            failed.append(f"mesh engine on {cache}: tokens "
+                          f"{runs['mesh'][0]} against {runs['single'][0]}")
+    out["failed"] = failed
+    return out
+
+
+def _autograd_step(torch, models, loss_fn, leaves, ids, cfg, qcfgs):
+    loss = loss_fn(models.forward(leaves, ids, cfg, qcfgs), ids)
+    loss.backward()
+    with torch.no_grad():
+        return loss.detach(), {k: (p - TRAIN_LR * p.grad if p.grad is not None
+                                   else p).detach()
+                               for k, p in leaves.items()}
+
+
+def _act_order(torch, qc, w, group):
+    """GPTQ tensors of ``w`` as an act-order checkpoint holds them: the
+    input channels quantized in a permuted order (groups over the
+    permutation), the codes stored in the original order and ``g_idx``
+    naming each channel's group."""
+    gen = torch.Generator(device=w.device).manual_seed(PARALLEL_SEED)
+    perm = torch.randperm(w.shape[1], generator=gen, device=w.device)
+    qweight, qzeros, scales, _ = qc.pack_gptq_weight(w[:, perm], group)
+    inv = torch.argsort(perm)
+    codes = qc._unpack_int32_nibbles(qweight, 0)[inv]
+    g_idx = (inv // group).to(torch.int32)
+    return qc._pack_int32_nibbles(codes, 0), qzeros, scales, g_idx, perm
+
+
+def phase_checkpoints(torch) -> None:
+    """Phase 7's checkpoints: the 14 linears of a 2-layer Llama-2-7B-width
+    model packed on the card as GPTQ (group 128, zero offset; layer 0 in
+    act order) and AWQ (group 128); ``dequantize_checkpoint`` on the card
+    against the CPU (equal to the bit); then ``models.forward`` and
+    ``forward_sequence_classification`` (2 labels, a right-padded 2 x 128
+    batch) on the GPTQ model, card against CPU, within phase 4's logits
+    limits."""
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.models import quant_checkpoints as qc
+    from lqer_tpu_torch.serving.engine import _to
+    from lqer_tpu_torch.serving.random_model import build_random_dense_model
+    from lqer_tpu_torch.testing import logits_steps
+
+    cfg = _parallel_cfg()
+    dense, _ = build_random_dense_model(cfg, rank=0, seed=PARALLEL_SEED + 2)
+    linears = [p for i in range(cfg.num_hidden_layers)
+               for p, _ in models.quantizable_module_prefixes(cfg, i)]
+    ckpts = {"gptq": {}, "awq": {}}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for prefix in linears:
+        w = dense.pop(prefix + ".weight")
+        if prefix.startswith("model.layers.0."):
+            *gptq, perm = _act_order(torch, qc, w, CKPT_GROUP)
+            base = qc.dequantize_gptq_weight(
+                *qc.pack_gptq_weight(w[:, perm], CKPT_GROUP)[:3])
+            if not torch.equal(qc.dequantize_gptq_weight(*gptq),
+                               base[:, torch.argsort(perm)]):
+                raise AssertionError(f"{prefix}: the act-order checkpoint "
+                                     "decodes other weights")
+        else:
+            gptq = qc.pack_gptq_weight(w, CKPT_GROUP)
+        for s, v in zip((".qweight", ".qzeros", ".scales", ".g_idx"), gptq):
+            ckpts["gptq"][prefix + s] = v
+        for s, v in zip((".qweight", ".qzeros", ".scales"),
+                        qc.pack_awq_weight(w, CKPT_GROUP)):
+            ckpts["awq"][prefix + s] = v
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t
+    dense["score.weight"] = torch.randn(
+        2, cfg.hidden_size, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(PARALLEL_SEED)
+    ) * 0.02
+    for fmt, tensors in ckpts.items():
+        tensors.update(dense)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = qc.dequantize_checkpoint(tensors, fmt)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = qc.dequantize_checkpoint(_to(tensors, "cpu"), fmt)
+        cpu_s = time.perf_counter() - t
+        unequal = [k for k in cpu if not torch.equal(card[k].cpu(), cpu[k])]
+        if unequal or set(card) != set(cpu):
+            raise AssertionError(f"{fmt} checkpoint: the card's weights "
+                                 f"differ from the CPU's at {unequal}")
+        print(f"phase 7 {fmt} checkpoint of {len(linears)} linears (group "
+              f"{CKPT_GROUP}{', layer 0 in act order' if fmt == 'gptq' else ''}"
+              f"): dequantize_checkpoint {card_s:.4f} s on the card, "
+              f"{cpu_s:.3f} s on the CPU, every weight equal to the bit "
+              f"({card_line()})", flush=True)
+        if fmt == "gptq":
+            gptq_card, gptq_cpu = card, cpu
+    print(f"phase 7 packing both checkpoints on the card: {pack_s:.2f} s",
+          flush=True)
+    ids = _parallel_ids(torch, cfg, "cuda")
+    ids[1, 100:] = 0
+    for what, fn in (
+            ("models.forward", lambda p, i: models.forward(p, i, cfg)),
+            ("forward_sequence_classification",
+             lambda p, i: models.forward_sequence_classification(
+                 p, i, cfg, pad_token_id=0))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = fn(gptq_card, ids).float().cpu()
+        card_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = fn(gptq_cpu, ids.cpu()).float()
+        cpu_s = time.perf_counter() - t
+        worst, rms = logits_steps(got, want)
+        print(f"phase 7 {what} on the GPTQ model (2 x {PARALLEL_SEQ}, row 1 "
+              f"padded after 100): card against CPU max {worst:.3g} code "
+              f"steps (limit {LOGIT_MAX_STEPS}), RMS {rms:.3g} (limit "
+              f"{LOGIT_RMS_STEPS}); {card_ms:.1f} ms on the card, "
+              f"{cpu_s:.2f} s on the CPU", flush=True)
+        if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
+            raise AssertionError(f"phase 7 {what}: card against CPU past "
+                                 "phase 4's logits limits")
+
+
+def phase_parallel(torch, rates) -> dict:
+    """Phase 7: the port's ``dryrun_multichip`` on two ``gloo`` ranks on
+    this card, then the checkpoints (:func:`phase_checkpoints`) in this
+    process beside the tensor-parallel ranks (:func:`parallel_rank`) at
+    Llama-2-7B width. Collective times are host-staged ``gloo`` times on
+    one card, not NCCL or NVLink ones. Returns the ranks' launches of rows
+    4 and 14 in the mesh engine runs."""
+    from lqer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lqer_tpu_torch.parallel.launch import start_ranks
+
+    card = card_line()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(2, tp=PARALLEL_TP, device="cuda", backend="gloo",
+                            timeout=300)
+    print(f"phase 7 {line} ({time.perf_counter() - t0:.1f} s, two gloo "
+          f"ranks on cuda:0; {card})", flush=True)
+    t1 = time.perf_counter()
+    ranks = start_ranks(parallel_rank, PARALLEL_TP, backend="gloo",
+                        device="cuda", timeout=600)
+    phase_checkpoints(torch)
+    results = ranks.results()
+    print(f"phase 7 tensor-parallel ranks done in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    failed = [f"rank {r['rank']}: {f}" for r in results for f in r["failed"]]
+    launches = {"attention": 0, "cache_write": 0}
+    for r in results:
+        tag = f"phase 7 rank {r['rank']} ({card})"
+        print(f"{tag}: quantized TP forward against its plain one-process "
+              f"emulation ({r['emulated_ms']:.1f} ms): max |diff| "
+              f"{r['emulated_max_abs_err']:.3g} (rtol = atol = {EXACT_TOL}, "
+              f"argmax equal)", flush=True)
+        for what in ("exact", "quantized"):
+            x = r[what]
+            print(f"{tag}: {what} TP forward 2 x {PARALLEL_SEQ} at tp "
+                  f"{PARALLEL_TP}: {x['ms']:.1f} ms wall (single-rank "
+                  f"models.forward {r['single_ms']:.1f} ms); against it max "
+                  f"|diff| {x['max_abs_err']:.3g}, {x['steps'][0]:.3g} code "
+                  f"steps max and {x['steps'][1]:.3g} RMS, "
+                  f"{x['within_2e-4']:.4f} of the logits within 2e-4 and "
+                  f"{x['within_jax']:.4f} within JAX's rtol {WIRE_RTOL}, "
+                  f"atol {WIRE_ATOL}, "
+                  f"argmax equal {x['argmax_equal']:.4f} ("
+                  f"{x['argmax_equal_clear']:.4f} where the top-2 margin "
+                  f"exceeds {ARGMAX_MARGIN}); sent {x['sent_bytes']} bytes, "
+                  f"{x['host_staged_bytes']} staged through host memory",
+                  flush=True)
+        q, e = r["reduce_bytes_True"], r["reduce_bytes_False"]
+        print(f"{tag}: one row-parallel reduction of 2 x {PARALLEL_SEQ} x "
+              f"4096 f32 sends {q} bytes quantized (codes + exponents) "
+              f"against {e} exact ({q / e:.4f}x)", flush=True)
+        print(f"{tag}: train step {r['train_ms']:.1f} ms wall (single "
+              f"process {r['train_single_ms']:.1f} ms): loss {r['loss']:.6f} "
+              f"against {r['want_loss']:.6f} ({r['train_loss_rel']:.3g} "
+              f"relative), parameters {r['train_param_rel']:.3g} relative "
+              f"(limit {TRAIN_RTOL}), updates {r['train_update_rel']:.3g} "
+              f"of their norm (limit {UPDATE_RTOL})", flush=True)
+        print(f"{tag}: mesh engine on the dry run's model (hidden 512, its "
+              f"weights quantized at every step), mxint8-staged, 8 new "
+              f"tokens: {r['dryrun_engine_tokens']}, equal to the single "
+              f"rank's", flush=True)
+        for cache in ("mxint8-staged", "float32"):
+            x, n = r[f"engine/{cache}"], r[f"launches/{cache}"]
+            print(f"{tag}: mesh engine on {cache}, 2 slots, prompts "
+                  f"{PARALLEL_PROMPTS}, {PARALLEL_NEW_TOKENS} new tokens: "
+                  f"{x['mesh_ms']:.1f} ms wall ({x['mesh_ms'] / PARALLEL_NEW_TOKENS:.2f} "
+                  f"ms a token), single rank {x['single_ms']:.1f} ms; tokens "
+                  f"equal; row 4 launches {n['attention']}, row 14 launches "
+                  f"{n['cache_write']}", flush=True)
+            for k in launches:
+                launches[k] += n[k]
+    if failed:
+        raise AssertionError(f"phase 7: {failed}")
+    if launches["attention"] <= 0 or launches["cache_write"] <= 0:
+        raise AssertionError(f"phase 7 launched {launches}")
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4935,6 +5539,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 6 done at {time.perf_counter() - t0:.0f}s", flush=True)
+    for k, n in phase_parallel(torch, rates).items():
+        counts[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7 done at {time.perf_counter() - t0:.0f}s", flush=True)
     missing = [k for k, n in counts.items() if n <= 0]
     missing += [f"{k} (Mistral)" for k, r in results.items()
                 if r.get("mistral", {}).get("launches", 1) <= 0]

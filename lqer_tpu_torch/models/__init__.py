@@ -1,10 +1,10 @@
 """Model registry, quantizer resolution and the functional "model surgery"
-(port of ``lqer_tpu/models/__init__.py``, without
-``forward_sequence_classification``): a quantized model is (arch config,
-flat param dict, resolved per-layer quantizer configs); :func:`prepare_ptq`
-quantizes its weights once, :func:`load_low_rank_dict` fills its
-``.A``/``.B`` factors and :func:`forward` runs its architecture's
-forward."""
+(port of ``lqer_tpu/models/__init__.py``): a quantized model is (arch
+config, flat param dict, resolved per-layer quantizer configs);
+:func:`prepare_ptq` quantizes its weights once, :func:`load_low_rank_dict`
+fills its ``.A``/``.B`` factors, :func:`forward` runs its architecture's
+forward and :func:`forward_sequence_classification` its classification
+head."""
 
 from __future__ import annotations
 
@@ -143,6 +143,33 @@ def forward(params, input_ids, cfg, layer_qcfgs=None, tap=None):
                                         tap=tap)
 
 
+def forward_sequence_classification(params, input_ids, cfg, layer_qcfgs=None,
+                                    pad_token_id: int | None = None
+                                    ) -> torch.Tensor:
+    """Sequence classification over the (quantized) decoder: the bias-free
+    ``score`` head (``params["score.weight"]``, (labels, hidden)) over the
+    final hidden state of each row's last non-pad token; (b, labels).
+
+    The JAX package's rule picks that token: ``sum(ids != pad) - 1``,
+    clamped at 0 (the last position without a pad id, from the argument or
+    ``cfg.pad_token_id``). On a left-padded row it differs from HF's
+    first-pad-minus-one; the port keeps JAX's rule."""
+    from ..ops.qlinear import promoted_matmul
+
+    h = get_arch_module(cfg).forward(params, input_ids, cfg, layer_qcfgs,
+                                     return_hidden=True)
+    logits = promoted_matmul(h, params["score.weight"].T)   # (b, s, labels)
+    pad = pad_token_id if pad_token_id is not None else getattr(
+        cfg, "pad_token_id", None)
+    b, s = input_ids.shape
+    if pad is None:
+        last = torch.full((b,), s - 1, device=logits.device)
+    else:
+        last = ((input_ids != pad).sum(-1) - 1).clamp_min(0)
+    return logits[torch.arange(b, device=logits.device), last.to(
+        logits.device)]
+
+
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
                 device="cpu") -> dict:
     """Random-init params of ``cfg``'s architecture drawn from
@@ -152,6 +179,7 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
 
 
 __all__ = ["LlamaConfig", "MODEL_CONFIGS", "OPTConfig", "OPT_ATTN_PROJS",
-           "OPT_MLP_PROJS", "forward", "get_arch_module", "get_model_config",
+           "OPT_MLP_PROJS", "forward", "forward_sequence_classification",
+           "get_arch_module", "get_model_config",
            "init_params", "load_low_rank_dict", "prepare_ptq",
            "quantize_model", "quantizable_module_prefixes"]

@@ -47,11 +47,13 @@ def stack_layers(params: dict, num_layers: int, layer_prefix, rel_keys
                  ) -> tuple[dict, dict]:
     """Per-layer params → ``(stacked {rel.suffix: (L, ...)}, rest)`` for the
     modules ``rel_keys`` of each ``layer_prefix(i)``; every layer must carry
-    the same key set. ``rest`` holds every other param."""
+    the same key set. A module's ``shard`` hooks (a tensor-parallel rank's
+    callables, ``parallel/step.py``) stack as a list. ``rest`` holds every
+    other param."""
     stacked: dict[str, torch.Tensor] = {}
     consumed = set()
     for rel in rel_keys:
-        for suffix in ("weight", "bias", "A", "B"):
+        for suffix in ("weight", "bias", "A", "B", "shard"):
             if f"{layer_prefix(0)}.{rel}.{suffix}" not in params:
                 continue
             per_layer = []
@@ -61,7 +63,8 @@ def stack_layers(params: dict, num_layers: int, layer_prefix, rel_keys
                     raise KeyError(f"layer {i} missing {rel}.{suffix}")
                 per_layer.append(params[n])
                 consumed.add(n)
-            stacked[f"{rel}.{suffix}"] = torch.stack(per_layer)
+            stacked[f"{rel}.{suffix}"] = (per_layer if suffix == "shard"
+                                          else torch.stack(per_layer))
     rest = {k: v for k, v in params.items() if k not in consumed}
     return stacked, rest
 

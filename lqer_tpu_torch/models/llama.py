@@ -114,9 +114,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 def _mod(params: dict, prefix: str) -> dict:
-    """``{weight, bias, A, B}`` of a module prefix from the flat dict."""
+    """``{weight, bias, A, B, shard}`` of a module prefix from the flat
+    dict (``shard``: a tensor-parallel linear's callable, in
+    ``parallel/step.py``'s params views only)."""
     return {k: params.get(f"{prefix}.{k}") for k in ("weight", "bias", "A",
-                                                      "B")}
+                                                      "B", "shard")}
 
 
 def _sliding_window_mask(s: int, window: int, dtype, device=None

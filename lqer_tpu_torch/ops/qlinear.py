@@ -34,9 +34,11 @@ class QLinearConfig:
     int_bits: int = 8
     int_threshold: float = 6.0
     # raw resolved config dicts, kept for the serving backend's
-    # kernel-eligibility checks (compared by the memoized callables above)
+    # kernel-eligibility checks and the tensor-parallel shards' group checks
+    # (compared by the memoized callables above)
     x_cfg: dict | None = dataclasses.field(default=None, compare=False)
     w_cfg: dict | None = dataclasses.field(default=None, compare=False)
+    b_cfg: dict | None = dataclasses.field(default=None, compare=False)
     a_out_cfg: dict | None = dataclasses.field(default=None, compare=False)
     b_out_cfg: dict | None = dataclasses.field(default=None, compare=False)
 
@@ -76,13 +78,18 @@ class QLinearConfig:
             is_ptq=bool(q_config.get("is_ptq", False)),
             is_lqer=is_lqer,
             rank=rank,
-            x_cfg=x_cfg, w_cfg=w_cfg, a_out_cfg=a_out_cfg,
+            x_cfg=x_cfg, w_cfg=w_cfg, b_cfg=b_cfg, a_out_cfg=a_out_cfg,
             b_out_cfg=b_out_cfg,
         )
 
 
 def qlinear(x: torch.Tensor, params: dict, cfg: QLinearConfig, *,
             weights_prepared: bool | None = None) -> torch.Tensor:
+    """``Y = X_q W_q^T + b_q [+ B_out_q(A_out_q(X_q A) B)]``; a module dict
+    with a ``shard`` callable (a tensor-parallel shard, ``parallel/
+    step.py``) runs it instead: ``shard(x, params, cfg)``."""
+    if params.get("shard") is not None:
+        return params["shard"](x, params, cfg)
     if cfg.mode == "llm_int8":
         from .llm_int8 import llm_int_linear
 

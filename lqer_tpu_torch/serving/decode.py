@@ -305,8 +305,18 @@ def _kv_skip_matmuls(attn_cfg):
             resolve_qmatmul(strip(attn_cfg.pv_cfg)))
 
 
+def _expand_kv(x: torch.Tensor, n_rep: int, heads: int, q_off: int = 0
+               ) -> torch.Tensor:
+    """(b, kv_heads, ...) → the kv head of each of ``heads`` q heads: every
+    kv head repeated ``n_rep`` times, from q head ``q_off`` on where the
+    caller holds only some q heads (a tensor-parallel rank that keeps every
+    kv head)."""
+    x = repeat_kv(x, n_rep)
+    return x if x.shape[1] == heads else x[:, q_off:q_off + heads]
+
+
 def _attend(qh, k_l, v_l, mask, attn_cfg, scaling, n_rep, scale_query=False,
-            kv_pre_quantized=False, cache_width=8):
+            kv_pre_quantized=False, cache_width=8, q_off=0):
     """Eager cache attention (the JAX package's ``serving/decode.py::
     _attend``), in plain PyTorch: quantized matmuls on (b·h, ...) operands,
     so quantizer groups never span heads; K^T quantizes in groups of 16
@@ -315,15 +325,16 @@ def _attend(qh, k_l, v_l, mask, attn_cfg, scaling, n_rep, scale_query=False,
     K/V one) the K/V-side quantizers pass through. Scores scale in q's
     dtype (the scalar rounded to it first, as JAX's weakly typed one), the
     additive ``mask`` is added, the softmax runs in f32 and the
-    probabilities return to q's dtype. (b, h, s, d) in and out."""
+    probabilities return to q's dtype. ``q_off``: see :func:`_expand_kv`.
+    (b, h, s, d) in and out."""
     if kv_pre_quantized and _kv_config_is_cache_format(attn_cfg,
                                                        cache_width):
         qk_matmul, pv_matmul = _kv_skip_matmuls(attn_cfg)
     else:
         qk_matmul, pv_matmul = attn_cfg.qk_matmul, attn_cfg.pv_matmul
-    k_full = repeat_kv(k_l, n_rep)
-    v_full = repeat_kv(v_l, n_rep)
     b, h, s, d = qh.shape
+    k_full = _expand_kv(k_l, n_rep, h, q_off)
+    v_full = _expand_kv(v_l, n_rep, h, q_off)
     kv_len = k_full.shape[2]
     q3 = qh.reshape(b * h, s, d)
     k3 = k_full.reshape(b * h, kv_len, d)
@@ -454,7 +465,7 @@ def _lin(x, params, prefix, qc, backend):
     if backend is not None and prefix in backend["meta"]:
         return serving_linear(x, prefix, backend, qc)
     return qlinear(x, {k: params.get(f"{prefix}.{k}")
-                       for k in ("weight", "bias", "A", "B")}, qc)
+                       for k in ("weight", "bias", "A", "B", "shard")}, qc)
 
 
 def _lin_group(x, params, layer_prefix, fused_rel, member_rels, qcs,
@@ -484,9 +495,14 @@ def _lin_slice(x, stacked, li, rel, qc, seg, lj):
     ``li`` of the stacked params."""
     if seg is not None and rel in seg["meta"]:
         return serving_linear(x, rel, seg, qc, layer_index=lj)
-    return qlinear(x, {k: (stacked[f"{rel}.{k}"][li]
-                           if f"{rel}.{k}" in stacked else None)
-                       for k in ("weight", "bias", "A", "B")}, qc)
+    return qlinear(x, _slice_mod(stacked, li, rel), qc)
+
+
+def _slice_mod(stacked, li, rel) -> dict:
+    """``{weight, bias, A, B, shard}`` of layer ``li`` of a stacked
+    module."""
+    return {k: (stacked[f"{rel}.{k}"][li] if f"{rel}.{k}" in stacked
+                else None) for k in ("weight", "bias", "A", "B", "shard")}
 
 
 def _lin_group_slice(x, stacked, li, fused_rel, member_rels, qcs, seg, lj):
@@ -583,7 +599,7 @@ def _scan_cache_write(cache, li, kh, vh, positions):
 
 # -- attention ------------------------------------------------------------------
 def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache,
-                          window, scale_query=False):
+                          window, scale_query=False, q_off=0):
     """Admission attention (positions 0, fresh cache) through the prefill
     kernel, or None where the JAX package's ``_fresh_prefill_attend`` is
     ineligible (a sliding window, non-canonical formats, unaligned dims, a
@@ -606,7 +622,8 @@ def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache,
         kh = dec(*enc(kh, g, zero_fill=1.0), g, torch.bfloat16)
         vh = dec(*enc(vh, g, zero_fill=1.0), g, torch.bfloat16)
     return fused_quantized_attention(
-        qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep), attn_cfg, scaling,
+        qh, _expand_kv(kh, n_rep, h, q_off), _expand_kv(vh, n_rep, h, q_off),
+        attn_cfg, scaling,
         scale_query=scale_query, kv_values_pre_quantized=quantized)
 
 
@@ -722,7 +739,7 @@ def _kv_valid_mask(valid_lengths, s, device):
 
 def _attention(cache, qh, kh, vh, positions, li, attn_cfg, scaling, n_rep,
                kv_valid, mask, *, use_ak, fresh_prefill, scan,
-               scale_query=False, window=None):
+               scale_query=False, window=None, q_off=0):
     """One layer's attention, in the JAX package's order of eligibility
     (the branches of its ``_llama_step`` / scan bodies and
     ``_attend_auto``):
@@ -740,7 +757,7 @@ def _attention(cache, qh, kh, vh, positions, li, attn_cfg, scaling, n_rep,
     s = qh.shape[2]
     if fresh_prefill and s > 1:
         pre = _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep,
-                                    cache, window, scale_query)
+                                    cache, window, scale_query, q_off)
         if pre is not None:
             _cache_write_full(cache, li, kh, vh, positions)
             return pre
@@ -758,12 +775,13 @@ def _attention(cache, qh, kh, vh, positions, li, attn_cfg, scaling, n_rep,
         _, k_l, v_l = _staged_eager_update(cache, li, kh, vh, positions,
                                            qh.dtype)
         return _attend(qh, k_l, v_l, mask(), attn_cfg, scaling, n_rep,
-                       scale_query, kv_pre_quantized=True, cache_width=width)
+                       scale_query, kv_pre_quantized=True, cache_width=width,
+                       q_off=q_off)
     (_scan_cache_write if scan else _cache_write_full)(cache, li, kh, vh,
                                                        positions)
     return _attend(qh, *_cache_layer_views(cache, li), mask(), attn_cfg,
                    scaling, n_rep, scale_query, kv_pre_quantized=quantized,
-                   cache_width=width)
+                   cache_width=width, q_off=q_off)
 
 
 # -- steps ----------------------------------------------------------------------
@@ -802,22 +820,25 @@ def _step_masks(positions, s, cache, dtype, window, device):
 
 
 def _end_step(h, cache, positions, valid_lengths, logits_last_only,
-              lm_head, backend):
-    """The last valid rows' logits; after an admission, the staged cache's
-    stage boundary."""
+              lm_head, backend, tp=None):
+    """The last valid rows' logits (gathered over tp with a ``tp`` shard);
+    after an admission, the staged cache's stage boundary."""
     s = h.shape[1]
     h = _last_valid_h(h, valid_lengths, s, logits_last_only)
     if s > 1 and is_staged_cache(cache):
         new_pos = positions + (valid_lengths if valid_lengths is not None
                                else s)
         stage_boundary_sync(cache, new_pos)
+    if tp is not None:
+        return tp.logits(h, lm_head), cache
     return _lm_head_logits(h, lm_head, backend), cache
 
 
 def model_step(params: dict, input_ids: torch.Tensor, cache: dict,
                positions: torch.Tensor, cfg, layer_qcfgs: list | None = None,
                backend: dict | None = None, valid_lengths=None,
-               fresh_prefill: bool = False, logits_last_only: bool = False):
+               fresh_prefill: bool = False, logits_last_only: bool = False,
+               tp=None):
     """Run ``input_ids (b, s)`` at ``positions (b,)`` through the model,
     updating ``cache`` in place; returns ``(logits (b, s, vocab), cache)``
     (``logits_last_only``: (b, 1, vocab) at each slot's last valid
@@ -827,22 +848,34 @@ def model_step(params: dict, input_ids: torch.Tensor, cache: dict,
     (``kernel_backend.prepare_serving_params``; None: every linear
     emulated); ``layer_qcfgs`` None serves the model unquantized.
     ``valid_lengths (b,)``: the real tokens of each right-padded row (K/V
-    past it are zeroed before the write)."""
+    past it are zeroed before the write). ``tp``: one rank's tensor-parallel
+    shard (``parallel.tp_forward.TPShard``; no backend): ``params`` and
+    ``cache`` hold its heads, each sharded linear carries its ``shard``
+    hook (``parallel.step.linear_hook``: o_proj and down_proj, out_proj and
+    fc2, sum exactly over tp), and the logits are gathered over tp."""
     step = _opt_step if cfg.arch == "opt" else _llama_step
     return step(params, input_ids, cache, positions, cfg, layer_qcfgs,
-                backend, valid_lengths, fresh_prefill, logits_last_only)
+                backend, valid_lengths, fresh_prefill, logits_last_only, tp)
+
+
+def _tp_heads(cfg, tp):
+    """(q heads, kv heads, q head offset) the step holds."""
+    if tp is None:
+        return cfg.num_attention_heads, cfg.kv_heads, 0
+    return tp.heads, tp.kv_heads, tp.q_off
 
 
 def _llama_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
                 backend=None, valid_lengths=None, fresh_prefill=False,
-                logits_last_only=False):
+                logits_last_only=False, tp=None):
     b, s = input_ids.shape
     window = getattr(cfg, "sliding_window", None)
     qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
                         scan=False, window=window)
     max_len = cache_max_len(cache)
+    heads, kv_heads, q_off = _tp_heads(cfg, tp)
     embed = params["model.embed_tokens.weight"]
-    h = embed[input_ids]
+    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
     q_abs, mask = _step_masks(positions, s, cache, h.dtype, window, h.device)
     kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
     cos, sin = _rotary(cfg.head_dim,
@@ -863,14 +896,14 @@ def _llama_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
             hn, params, p, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
             (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
-        qh = _heads(qy, cfg.num_attention_heads)
-        kh = _heads(ky, cfg.kv_heads)
-        vh = _heads(vy, cfg.kv_heads)
+        qh = _heads(qy, heads)
+        kh = _heads(ky, kv_heads)
+        vh = _heads(vy, kv_heads)
         qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
         attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg, scaling,
                           n_rep, kv_valid, mask, use_ak=use_ak,
                           fresh_prefill=fresh_prefill, scan=False,
-                          window=window)
+                          window=window, q_off=q_off)
         attn = _lin(merge_heads(attn), params, f"{p}.self_attn.o_proj",
                     attn_cfg.o_proj, backend)
         h = residual + attn
@@ -888,18 +921,19 @@ def _llama_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
         h = residual + y
     h = rms_norm(h, {"weight": params["model.norm.weight"]}, cfg.rms_norm_eps)
     return _end_step(h, cache, positions, valid_lengths, logits_last_only,
-                     params.get("lm_head.weight", embed), backend)
+                     params.get("lm_head.weight", embed), backend, tp)
 
 
 def _opt_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
               backend=None, valid_lengths=None, fresh_prefill=False,
-              logits_last_only=False):
+              logits_last_only=False, tp=None):
     b, s = input_ids.shape
     qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
                         scan=False)
     max_len = cache_max_len(cache)
+    heads = _tp_heads(cfg, tp)[0]
     embed = params["model.decoder.embed_tokens.weight"]
-    h = embed[input_ids]
+    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
     if params.get("model.decoder.project_in.weight") is not None:
         h = promoted_matmul(h, params["model.decoder.project_in.weight"].T)
     q_abs, mask = _step_masks(positions, s, cache, h.dtype, None, h.device)
@@ -923,8 +957,7 @@ def _opt_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
             hn, params, p, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
             (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
-        qh, kh, vh = (_heads(y, cfg.num_attention_heads)
-                      for y in (qy, ky, vy))
+        qh, kh, vh = (_heads(y, heads) for y in (qy, ky, vy))
         attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg, scaling,
                           1, kv_valid, mask, use_ak=use_ak,
                           fresh_prefill=fresh_prefill, scan=False,
@@ -948,13 +981,13 @@ def _opt_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
     if params.get("model.decoder.project_out.weight") is not None:
         h = promoted_matmul(h, params["model.decoder.project_out.weight"].T)
     return _end_step(h, cache, positions, valid_lengths, logits_last_only,
-                     params.get("lm_head.weight", embed), backend)
+                     params.get("lm_head.weight", embed), backend, tp)
 
 
 def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                     stacked=None, rest=None, backend_stacked=None,
                     valid_lengths=None, fresh_prefill=False,
-                    logits_last_only=False):
+                    logits_last_only=False, tp=None):
     """:func:`model_step` for Llama over layer-stacked params (the JAX
     package's ``llama_step_scan``): ``backend_stacked`` from
     :func:`stack_backend` (None: every linear emulated on the stacked
@@ -962,7 +995,7 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     or None (unquantized). Mistral (``cfg.sliding_window``) attends within
     its window. The rotary table spans ``max(max_len,
     max_position_embeddings)``, so a cache longer than the model's
-    positions serves, as in JAX."""
+    positions serves, as in JAX. ``tp``: as in :func:`model_step`."""
     if stacked is None or rest is None:
         stacked, rest = llama_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
@@ -970,8 +1003,9 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
                         s, scan=True, window=window)
     max_len = cache_max_len(cache)
+    heads, kv_heads, q_off = _tp_heads(cfg, tp)
     embed = rest["model.embed_tokens.weight"]
-    h = embed[input_ids]
+    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
     h_dtype = h.dtype
     q_abs, mask = _step_masks(positions, s, cache, h.dtype, window, h.device)
     cos, sin = _rotary(cfg.head_dim,
@@ -994,14 +1028,14 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
             hn, stacked, li, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
             (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
-        qh = _heads(qy, cfg.num_attention_heads)
-        kh = _heads(ky, cfg.kv_heads)
-        vh = _heads(vy, cfg.kv_heads)
+        qh = _heads(qy, heads)
+        kh = _heads(ky, kv_heads)
+        vh = _heads(vy, kv_heads)
         qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
         attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
                           scaling, n_rep, kv_valid, mask, use_ak=use_ak,
                           fresh_prefill=fresh_prefill, scan=True,
-                          window=window)
+                          window=window, q_off=q_off)
         attn = _lin_slice(merge_heads(attn), stacked, li, "self_attn.o_proj",
                           attn_cfg.o_proj, seg, lj)
         h = residual + attn
@@ -1021,13 +1055,13 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
 
     h = rms_norm(h, {"weight": rest["model.norm.weight"]}, cfg.rms_norm_eps)
     return _end_step(h, cache, positions, valid_lengths, logits_last_only,
-                     rest.get("lm_head.weight", embed), backend_stacked)
+                     rest.get("lm_head.weight", embed), backend_stacked, tp)
 
 
 def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                   stacked=None, rest=None, backend_stacked=None,
                   valid_lengths=None, fresh_prefill=False,
-                  logits_last_only=False):
+                  logits_last_only=False, tp=None):
     """OPT analogue of :func:`llama_step_scan` (JAX
     ``serving/decode.py::opt_step_scan``): learned positions
     ``embed_positions[pos + 2]``, pre-LN or post-LN
@@ -1035,15 +1069,17 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     with the query scaled before its quantizer, the relu MLP with biases,
     ``project_in``/``project_out`` (OPT-350m) and the final LayerNorm from
     ``rest``. The positions must stay inside the table: the engine refuses
-    ``max_len > cfg.max_position_embeddings``."""
+    ``max_len > cfg.max_position_embeddings``. ``tp``: as in
+    :func:`model_step`."""
     if stacked is None or rest is None:
         stacked, rest = opt_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
     qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
                         s, scan=True)
     max_len = cache_max_len(cache)
+    heads = _tp_heads(cfg, tp)[0]
     embed = rest["model.decoder.embed_tokens.weight"]
-    h = embed[input_ids]
+    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
     h_dtype = h.dtype
     if rest.get("model.decoder.project_in.weight") is not None:
         h = promoted_matmul(h, rest["model.decoder.project_in.weight"].T)
@@ -1070,8 +1106,7 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
             hn, stacked, li, "self_attn.qkv_proj",
             ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
             (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
-        qh, kh, vh = (_heads(y, cfg.num_attention_heads)
-                      for y in (qy, ky, vy))
+        qh, kh, vh = (_heads(y, heads) for y in (qy, ky, vy))
         attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
                           scaling, 1, kv_valid, mask, use_ak=use_ak,
                           fresh_prefill=fresh_prefill, scan=True,
@@ -1098,4 +1133,4 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     if rest.get("model.decoder.project_out.weight") is not None:
         h = promoted_matmul(h, rest["model.decoder.project_out.weight"].T)
     return _end_step(h, cache, positions, valid_lengths, logits_last_only,
-                     rest.get("lm_head.weight", embed), backend_stacked)
+                     rest.get("lm_head.weight", embed), backend_stacked, tp)

@@ -5,12 +5,15 @@ Waiting prompts are admitted in one right-padded batch (bucketed lengths)
 on a freshly zeroed cache: all slots at once, or the admitted
 slots scattered back into the running cache. Sampling happens on the
 device: greedy argmax, or a temperature sample drawn with the engine's own
-``torch.Generator``.
+``torch.Generator``. With a (dp, tp) mesh every rank runs the same
+scheduler on the same requests over its share of the slots, heads and
+cache (:func:`_mesh_shard`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -47,6 +50,52 @@ def _bucket(n: int, minimum: int = 16) -> int:
     return b
 
 
+def _mesh_shard(params: dict, cfg, mesh, num_slots: int):
+    """One rank's part of a mesh engine (the JAX package's
+    ``_shard_cache`` rule for the cache): slots over dp where dp divides
+    them, else every rank serves every slot; q heads, gate/up (fc1) and
+    the row-parallel inputs over tp (``sharding.shard_params``); kv heads
+    over tp where tp divides them, else every rank computes and caches
+    every kv head and attends its q heads to theirs; the vocab over tp
+    where it divides. Each sharded linear gets its ``shard`` hook
+    (``step.linear_hook`` on the rank's heads and columns), which gives it
+    ``qlinear``'s quantizers as they act on the whole tensors. Returns
+    ``(local params, TPShard, dp group or None, (first slot, end slot))``."""
+    from ..parallel.mesh import axis_size
+    from ..parallel.sharding import shard_params
+    from ..parallel.step import linear_hook
+    from ..parallel.tp_forward import TPShard
+
+    tp, dp = axis_size(mesh, "tp"), axis_size(mesh, "dp")
+    inter = cfg.ffn_dim if cfg.arch == "opt" else cfg.intermediate_size
+    if cfg.num_attention_heads % tp or (cfg.hidden_size // tp) % 16 \
+            or inter % tp or (inter // tp) % 16:
+        raise ValueError(
+            f"the mesh engine needs heads % tp == 0 and hidden / tp and "
+            f"intermediate / tp in 16-groups (tp={tp}: heads="
+            f"{cfg.num_attention_heads} hidden={cfg.hidden_size} "
+            f"inter={inter})")
+    local = shard_params(params, mesh)
+    kv_whole = ("k_proj", "v_proj") if cfg.kv_heads % tp else ()
+    for name in params:
+        if any(f".{p}." in name for p in kv_whole):
+            local[name] = params[name]
+    tp_group = mesh.get_group("tp")
+    for i in range(cfg.num_hidden_layers):
+        for prefix, proj in models.quantizable_module_prefixes(cfg, i):
+            if proj not in kv_whole:
+                local[prefix + ".shard"] = linear_hook(
+                    proj, tp_group, local_activations=True)
+    lo, hi = 0, num_slots
+    dp_group = None
+    if num_slots % dp == 0 and dp > 1:
+        n = num_slots // dp
+        lo = mesh.get_local_rank("dp") * n
+        hi = lo + n
+        dp_group = mesh.get_group("dp")
+    return local, TPShard(cfg, tp_group), dp_group, (lo, hi)
+
+
 def _to(obj, device):
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
@@ -81,29 +130,54 @@ class DecodeEngine:
     An OPT engine whose ``max_len`` exceeds ``max_position_embeddings``
     raises ``ValueError`` before any work: its learned positions would
     index past the table, which faults on the card. (The JAX engine takes
-    such rows with ``jnp.take``, which fills them silently.)"""
+    such rows with ``jnp.take``, which fills them silently.)
+
+    ``mesh``: a (dp, tp) ``DeviceMesh`` (``parallel.make_mesh``) whose
+    every rank builds the engine from the full ``params`` and runs the same
+    requests: each keeps its part (:func:`_mesh_shard`), its steps sum
+    o_proj and down_proj over tp exactly and gather the logits over tp and
+    dp, so every rank samples the same tokens. It serves without a
+    backend, as the JAX package's mesh engine does (the prefill attention
+    kernel and the staged flush run on each rank's heads); a
+    ``pallas_backend`` with a mesh raises ``NotImplementedError``."""
 
     def __init__(self, params: dict, cfg, layer_qcfgs=None,
                  num_slots: int = 4, max_len: int = 512,
                  cache_dtype="bfloat16", rng_seed: int = 0,
                  pallas_backend: dict | None = None,
                  scan_layers: bool = False, consume_backend: bool = False,
-                 lm_head_width: int | None = None, device="cuda"):
+                 lm_head_width: int | None = None, device="cuda",
+                 mesh=None):
         if cfg.arch == "opt" and max_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"max_len {max_len} exceeds OPT's max_position_embeddings "
                 f"{cfg.max_position_embeddings}: positions past it have no "
                 "row in embed_positions")
+        if mesh is not None and pallas_backend is not None:
+            raise NotImplementedError(
+                "a pallas_backend with a mesh: the mesh engine serves the "
+                "emulated linears, as the JAX package's does")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
+        self._tp = self._dp_group = None
+        self._slots = (0, num_slots)
+        kv_heads = cfg.kv_heads
+        if mesh is not None:
+            params, self._tp, self._dp_group, self._slots = _mesh_shard(
+                params, cfg, mesh, num_slots)
+            kv_heads = self._tp.kv_heads
         params = _to(params, self.device)
         backend = _to(pallas_backend, self.device)
         if lm_head_width is not None and backend is not None:
             backend = pack_lm_head(backend, params, width=lm_head_width)
-        self.cache = make_cache(cfg, num_slots, max_len, cache_dtype,
-                                device=self.device)
+        cache_cfg = types.SimpleNamespace(
+            num_hidden_layers=cfg.num_hidden_layers, kv_heads=kv_heads,
+            head_dim=cfg.head_dim,
+            sliding_window=getattr(cfg, "sliding_window", None))
+        self.cache = make_cache(cache_cfg, self._slots[1] - self._slots[0],
+                                max_len, cache_dtype, device=self.device)
         self._qcfgs = None if layer_qcfgs is None else list(layer_qcfgs)
         attn_cfgs = [q["attn"] for q in decode._layer_qcfgs(self._qcfgs, cfg)]
         check_servable(self.cache, attn_cfgs, cfg.head_dim,
@@ -131,9 +205,26 @@ class DecodeEngine:
             return self._step_fn({}, ids, cache, positions, self.cfg,
                                  self._qcfgs, stacked=self._stacked,
                                  rest=self._rest,
-                                 backend_stacked=self._backend, **kw)
+                                 backend_stacked=self._backend, tp=self._tp,
+                                 **kw)
         return model_step(self._params, ids, cache, positions, self.cfg,
-                          self._qcfgs, backend=self._backend, **kw)
+                          self._qcfgs, backend=self._backend, tp=self._tp,
+                          **kw)
+
+    def _gather_rows(self, logits: torch.Tensor, rows: np.ndarray, n: int
+                     ) -> torch.Tensor:
+        """(n, vocab) logits with this rank's ``rows`` from ``logits`` (None:
+        no rows here) and the other dp ranks' rows, in f32 (zeros summed
+        in: exact); ``logits`` itself without a dp split."""
+        if self._dp_group is None:
+            return logits
+        from ..parallel.collectives import all_reduce
+
+        full = torch.zeros((n, self.cfg.vocab_size), dtype=torch.float32,
+                           device=self.device)
+        if len(rows):
+            full[torch.as_tensor(rows, device=self.device)] = logits.float()
+        return all_reduce(full, self._dp_group)
 
     def _sample(self, logits: torch.Tensor, temps: list[float]) -> torch.Tensor:
         """(n, vocab) logits → (n,) tokens: greedy where temp <= 0, else a
@@ -150,12 +241,14 @@ class DecodeEngine:
     def decode_logits(self, tokens: np.ndarray) -> torch.Tensor:
         """One decode step for every slot at ``self.lengths`` (the caller
         advances them); returns the (slots, vocab) logits."""
-        ids = torch.as_tensor(tokens, dtype=torch.int64,
+        lo, hi = self._slots
+        ids = torch.as_tensor(tokens[lo:hi], dtype=torch.int64,
                               device=self.device)[:, None]
-        positions = torch.as_tensor(self.lengths, dtype=torch.int32,
+        positions = torch.as_tensor(self.lengths[lo:hi], dtype=torch.int32,
                                     device=self.device)
         logits, self.cache = self._step(ids, self.cache, positions)
-        return logits[:, 0, :]
+        return self._gather_rows(logits[:, 0, :], np.arange(lo, hi),
+                                 self.num_slots)
 
     def decode_step(self, tokens: np.ndarray, temps: list[float]
                     ) -> np.ndarray:
@@ -165,10 +258,16 @@ class DecodeEngine:
                 lengths: np.ndarray) -> torch.Tensor:
         """Admit right-padded prompts ``padded (nb, pad_len)`` into
         ``slots`` on a freshly zeroed cache; returns the last valid
-        position's logits (nb, vocab)."""
+        position's logits (nb, vocab). A mesh rank runs the rows of its
+        slots."""
+        lo, hi = self._slots
+        rows = np.flatnonzero((slots >= lo) & (slots < hi))
+        n_all = padded.shape[0]
+        if len(rows) == 0:
+            return self._gather_rows(None, rows, n_all)
+        padded, slots, lengths = padded[rows], slots[rows] - lo, lengths[rows]
         nb = padded.shape[0]
-        full = nb == self.num_slots and np.array_equal(
-            slots, np.arange(self.num_slots))
+        full = nb == hi - lo and np.array_equal(slots, np.arange(hi - lo))
         ids = torch.as_tensor(padded, dtype=torch.int64, device=self.device)
         lens = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
         positions = torch.zeros(nb, dtype=torch.int32, device=self.device)
@@ -187,7 +286,7 @@ class DecodeEngine:
             idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
             for k, v in self.cache.items():
                 v.index_copy_(0 if v.ndim == 1 else 1, idx, batch_cache[k])
-        return logits[:, 0, :]
+        return self._gather_rows(logits[:, 0, :], rows, n_all)
 
     def _check_truncation(self, req: Request) -> None:
         """A prompt of ``max_len`` tokens or more keeps its last

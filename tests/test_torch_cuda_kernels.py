@@ -1641,3 +1641,94 @@ def test_harness_loglikelihood_through_kernels(gen):
     np.testing.assert_allclose(out["cuda"]["loglikelihood_rolling"],
                                out["cpu"]["loglikelihood_rolling"],
                                rtol=1e-3)
+
+
+def test_dequantize_checkpoint_on_card(gen):
+    """GPTQ (act-order ``g_idx`` permuted, zero offset) and AWQ packing and
+    ``dequantize_checkpoint`` on the card against the same calls on the
+    CPU: packed words, zeros, scales and weights equal to the bit."""
+    from lqer_tpu_torch.models import quant_checkpoints as qc
+
+    w = torch.randn(96, 256, generator=gen, device="cuda")
+    for fmt in ("gptq", "awq"):
+        pack = qc.pack_gptq_weight if fmt == "gptq" else qc.pack_awq_weight
+        card, cpu = pack(w, group_size=128), pack(w.cpu(), group_size=128)
+        for a, b in zip(card, cpu):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+        names = (".qweight", ".qzeros", ".scales", ".g_idx")
+        tensors = {f"model.layers.0.mlp.up_proj{n}": t
+                   for n, t in zip(names, card)}
+        if fmt == "gptq":
+            perm = torch.randperm(256, generator=gen, device="cuda")
+            tensors["model.layers.0.mlp.up_proj.g_idx"] = card[3][perm]
+        tensors["model.norm.weight"] = torch.ones(8, device="cuda")
+        got = qc.dequantize_checkpoint(tensors, fmt)
+        want = qc.dequantize_checkpoint({k: v.cpu() for k, v in
+                                         tensors.items()}, fmt)
+        assert list(got) == list(want)
+        for k in want:
+            assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_seq_classification_on_card(gen):
+    """``forward_sequence_classification`` of a quantized tiny Llama on a
+    right-padded batch, on the card against the CPU: within phase 4's
+    logits limits (4 code steps at most, 0.4 RMS)."""
+    from lqer_tpu_torch.serving.engine import _to
+    from lqer_tpu_torch.serving.random_model import build_random_dense_model
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, max_pos=256)
+    params, qcfgs = build_random_dense_model(cfg, rank=32, seed=11)
+    params = tmodels.prepare_ptq(params, cfg, qcfgs)
+    params["score.weight"] = torch.randn(2, 256, generator=gen,
+                                         device="cuda") * 0.02
+    ids = torch.randint(1, 256, (2, 64), generator=gen, device="cuda")
+    ids[0, 40:] = 0
+    got = tmodels.forward_sequence_classification(params, ids, cfg, qcfgs,
+                                                  pad_token_id=0)
+    want = tmodels.forward_sequence_classification(
+        _to(params, "cpu"), ids.cpu(), cfg, qcfgs, pad_token_id=0)
+    worst, rms = logits_steps(got.cpu(), want)
+    assert worst <= 4.0 and rms <= 0.4, (worst, rms)
+
+
+def _mesh_engine_rank(cache_dtype):
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.parallel.mesh import make_mesh
+    from lqer_tpu_torch.serving import Request
+    from lqer_tpu_torch.serving.random_model import build_random_dense_model
+
+    cfg = LlamaConfig.tiny(vocab_size=256, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, max_pos=256)
+    params, qcfgs = build_random_dense_model(cfg, rank=32, seed=12)
+    params = tmodels.prepare_ptq(params, cfg, qcfgs)
+    mesh = make_mesh(tp=2, device_type="cuda")
+    out = {}
+    for m in (None, mesh):
+        reset_launch_counts()
+        engine = DecodeEngine(params, cfg, qcfgs, num_slots=2, max_len=128,
+                              cache_dtype=cache_dtype, device="cuda", mesh=m)
+        reqs = [Request(prompt_ids=list(range(5, 65)), max_new_tokens=24),
+                Request(prompt_ids=list(range(9, 50)), max_new_tokens=24)]
+        engine.run(reqs)
+        out["mesh" if m is not None else "single"] = (
+            [r.output_ids for r in reqs], dict(launch_counts()))
+    return out
+
+
+@pytest.mark.parametrize("cache_dtype", ["mxint8-staged", "float32"])
+def test_mesh_engine_on_card(gen, cache_dtype):
+    """Two ``gloo`` ranks on one card serve a tiny Llama at tp 2: every
+    rank's tokens equal the single-rank engine's, and each rank launches
+    the prefill attention kernel (row 4) at its admission and, on the
+    staged cache, the flush (row 14) on its heads."""
+    from lqer_tpu_torch.parallel.launch import run_ranks
+
+    for r in run_ranks(_mesh_engine_rank, 2, backend="gloo", device="cuda",
+                       args=(cache_dtype,), timeout=300):
+        assert r["mesh"][0] == r["single"][0]
+        launches = r["mesh"][1]
+        assert launches["attention"] > 0
+        if cache_dtype == "mxint8-staged":
+            assert launches["cache_write"] > 0
