@@ -227,7 +227,23 @@ Run from the repository root: ``python3 chip_smoke.py``. One line per phase:
    flushing on the way) with tokens equal to the single-rank engine's and
    rows 4 and 14 launched on each rank's heads, and the bytes one
    row-parallel reduction sends, quantized against exact;
-8. the ``kernels`` JSON line: launches of each kernel in phases 5, 6 and 7
+8. the experiment entry points (``lqer_tpu_torch/experiments/``,
+   ``phase_experiments``), which reach no kernel (they evaluate without a
+   backend, as the JAX scripts do; the phase fails if one launches), their
+   CPU sides in a ``CpuPool``: ``baselines.main`` at Llama-2-7B width, 2
+   layers, seeded weights, for fp32, bf16, fp16, llm_int8, llm_int4 and
+   GPTQ/AWQ checkpoints packed on the card, at the baseline configs' 2 x
+   2048 tokens (perplexity and wall s) and at 1 x 256 against the CPU
+   (within PIPELINE_PPL_RTOL; the int methods, whose perplexity one f32
+   ulp moves by percents on this model, linear by linear on the same
+   inputs), with llm_int8 and GPTQ moving the perplexity from fp32 (the
+   negative control); the outlier census (counts equal to the CPU's but
+   where a column's max |x| lies at the threshold); ``kv_cache_quality``
+   and ``lm_head_quality`` at their three sizes, ``tiny-9M``'s trajectories
+   and lm_head rows against the CPU on the card's teacher tokens (phase
+   4's logits limits; the W8 head's round trip equal to the bit); and
+   ``reproduce_baseline --plan``;
+9. the ``kernels`` JSON line: launches of each kernel in phases 5, 6 and 7
    and the phase-3 numbers (at Mistral's shapes as each entry's ``mistral``, with
    Mistral's phase-5 launches; rows 7 and 9 at code width 4 as their
    ``width4``, with its phase-5 launches; kernel 1 and the megakernel with
@@ -2771,6 +2787,18 @@ class CpuPool:
         ``compare`` returns what failed."""
         self.deferred.append((future, compare))
 
+    def call(self, fn, job: dict):
+        """``fn(job)`` in a worker (a function of this module, CPU data
+        only); returns its future."""
+        return self.pool.submit(fn, job)
+
+    def close(self) -> None:
+        """Join the pool without comparisons (:meth:`finish` makes them)."""
+        import shutil
+
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
     def finish(self, torch) -> list:
         """Join the pool (a job that raised, or a worker that died, raises
         here), then make the deferred comparisons; returns what failed."""
@@ -5261,24 +5289,13 @@ def _act_order(torch, qc, w, group):
     return qc._pack_int32_nibbles(codes, 0), qzeros, scales, g_idx, perm
 
 
-def phase_checkpoints(torch) -> None:
-    """Phase 7's checkpoints: the 14 linears of a 2-layer Llama-2-7B-width
-    model packed on the card as GPTQ (group 128, zero offset; layer 0 in
-    act order) and AWQ (group 128); ``dequantize_checkpoint`` on the card
-    against the CPU (equal to the bit); then ``models.forward`` and
-    ``forward_sequence_classification`` (2 labels, a right-padded 2 x 128
-    batch) on the GPTQ model, card against CPU, within phase 4's logits
-    limits."""
-    from lqer_tpu_torch import models
+def pack_checkpoints(torch, dense: dict, linears) -> tuple[dict, float]:
+    """Each linear of ``linears`` popped from ``dense`` and packed on the
+    card as GPTQ (group CKPT_GROUP, zero offset; layer 0 in act order,
+    checked to decode as its contiguous groups permuted) and AWQ (group
+    CKPT_GROUP): ``({"gptq": tensors, "awq": tensors}, seconds)``."""
     from lqer_tpu_torch.models import quant_checkpoints as qc
-    from lqer_tpu_torch.serving.engine import _to
-    from lqer_tpu_torch.serving.random_model import build_random_dense_model
-    from lqer_tpu_torch.testing import logits_steps
 
-    cfg = _parallel_cfg()
-    dense, _ = build_random_dense_model(cfg, rank=0, seed=PARALLEL_SEED + 2)
-    linears = [p for i in range(cfg.num_hidden_layers)
-               for p, _ in models.quantizable_module_prefixes(cfg, i)]
     ckpts = {"gptq": {}, "awq": {}}
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -5300,7 +5317,28 @@ def phase_checkpoints(torch) -> None:
                         qc.pack_awq_weight(w, CKPT_GROUP)):
             ckpts["awq"][prefix + s] = v
     torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t
+    return ckpts, time.perf_counter() - t
+
+
+def phase_checkpoints(torch) -> None:
+    """Phase 7's checkpoints: the 14 linears of a 2-layer Llama-2-7B-width
+    model packed on the card as GPTQ (group 128, zero offset; layer 0 in
+    act order) and AWQ (group 128); ``dequantize_checkpoint`` on the card
+    against the CPU (equal to the bit); then ``models.forward`` and
+    ``forward_sequence_classification`` (2 labels, a right-padded 2 x 128
+    batch) on the GPTQ model, card against CPU, within phase 4's logits
+    limits."""
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.models import quant_checkpoints as qc
+    from lqer_tpu_torch.serving.engine import _to
+    from lqer_tpu_torch.serving.random_model import build_random_dense_model
+    from lqer_tpu_torch.testing import logits_steps
+
+    cfg = _parallel_cfg()
+    dense, _ = build_random_dense_model(cfg, rank=0, seed=PARALLEL_SEED + 2)
+    linears = [p for i in range(cfg.num_hidden_layers)
+               for p, _ in models.quantizable_module_prefixes(cfg, i)]
+    ckpts, pack_s = pack_checkpoints(torch, dense, linears)
     dense["score.weight"] = torch.randn(
         2, cfg.hidden_size, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(PARALLEL_SEED)
@@ -5432,6 +5470,391 @@ def phase_parallel(torch, rates) -> dict:
     return launches
 
 
+# -- phase 8: the experiment entry points -----------------------------------------
+# Phase 8's model: Llama-2-7B's width at EXPERIMENT_LAYERS layers, phase 6's
+# seeded dense weights (``write_checkpoint``); the baselines evaluate the
+# baseline configs' shape (experiments/configs/baseline/*.toml: batch 2,
+# max_length 2048), and 1 x BASELINE_CPU_LENGTH tokens on the card and on
+# the CPU, held within PIPELINE_PPL_RTOL
+EXPERIMENT_LAYERS = 2
+EXPERIMENT_SEED = SEED + 8
+BASELINE_METHODS = ("fp32", "bf16", "fp16", "llm_int8", "llm_int4", "gptq",
+                    "awq")
+BASELINE_BATCH = 2
+BASELINE_LENGTH = 2048
+BASELINE_CPU_LENGTH = 256
+# The census's outlier threshold: the seeded model's normalised activations
+# are about unit scale, so the bitsandbytes default 6.0 marks almost no
+# column (about 2e-9 of the values reach it); at 4.0 a sixth to a fifth of
+# the columns of q|k|v, gate|up and the head hold one. The int baselines
+# run at the default, as a user runs them
+INT_THRESHOLD = 4.0
+# A census column may land on either side of the threshold, card against
+# CPU, only where its max |x| lies this close to it (relative)
+CENSUS_NEAR_RTOL = 1e-4
+# The emulated LLM.int8()/int4 baselines quantize each activation row to
+# 8 or 4 bits at every linear: a rounding that a summation order flips
+# moves a whole row's product, and the random model carries it on, so
+# their perplexity on the card parts from the CPU's by as much as one f32
+# ulp on the embedding moves it on either device (printed). They are held
+# card against CPU linear by linear, on the same inputs, at rtol = atol =
+# 2e-4 (testing.RTOL), at the default threshold and at INT_THRESHOLD
+INT_METHODS = ("llm_int8", "llm_int4")
+QUALITY_SEED = 0
+QUALITY_STEPS = 48
+
+
+def experiment_config(cfg, ckpt: Path, length: int, batch: int) -> dict:
+    """A baselines / census config of the model in ``ckpt``: one batch of
+    ``batch`` synthetic test rows of ``length`` tokens, and a profile split
+    of as many rows from the same stream."""
+    import dataclasses
+
+    synthetic = {"vocab_size": cfg.vocab_size, "num_train": batch,
+                 "num_test": batch, "seed": EXPERIMENT_SEED}
+    return {"model_name": "chip_smoke/llama-2-7b-width", "model_dir": str(ckpt),
+            "model": {k: v for k, v in dataclasses.asdict(cfg).items()
+                      if v is not None},
+            "evaluate": {"hf_quant_method": "fp32", "perplexity": {
+                "dataset": "synthetic", "batch_size": batch,
+                "max_length": length, "synthetic": synthetic}},
+            "profile": {"dataset": "synthetic", "max_length": length,
+                        "synthetic": synthetic}}
+
+
+def baseline_argv(config: str, method: str, ckpts: dict, device: str
+                  ) -> list:
+    argv = [config, "--method", method, "--device", device]
+    if method in ckpts:
+        argv += ["--model-dir", ckpts[method]]
+    return argv
+
+
+def census_argv(config: str, rows: int, length: int, device: str) -> list:
+    return [config, "--threshold", str(INT_THRESHOLD), "--seq-len",
+            str(length), "--num-samples", str(rows), "--batch-size",
+            str(rows), "--device", device]
+
+
+def cpu_experiment_job(job: dict):
+    """Phase 8's CPU side, in a worker process: ``"baseline"`` runs
+    ``baselines.main`` on ``job["argv"]`` (its perplexity and seconds),
+    ``"census"`` ``profile_llm_int8.main`` (its column counts),
+    ``"quality"`` the ``tiny-9M`` studies on the card's teacher tokens (the
+    three trajectories, the lm_head row and the W8 head's round trip)."""
+    import torch
+
+    t0 = time.perf_counter()
+    if job["kind"] == "baseline":
+        from lqer_tpu_torch.experiments import baselines
+
+        out = baselines.main(job["argv"])["perplexity"]
+    elif job["kind"] == "census":
+        from lqer_tpu_torch.experiments.hw_performance import profile_llm_int8
+
+        res = profile_llm_int8.main(job["argv"])
+        out = {k: v["num_activation_columns_in_high_precision"]
+               for k, v in res.items()}
+    else:
+        from lqer_tpu_torch.experiments import kv_cache_quality as kvq
+        from lqer_tpu_torch.experiments import lm_head_quality as lmq
+        from lqer_tpu_torch.models import LlamaConfig
+
+        cfg = LlamaConfig.tiny(**lmq.SIZES["tiny-9M"])
+        params, prompt = kvq.seeded_model(cfg, QUALITY_SEED, "cpu")
+        traj = kvq.trajectories(cfg, params, prompt, job["tokens"], "cpu")
+        lm = lmq.seeded_model(cfg, QUALITY_SEED, "cpu")
+        out = {"trajectories": traj, "lm_rows": lmq.head_rows(cfg, *lm),
+               "w8": lmq.head_roundtrip(lm[0]["lm_head.weight"], 8)}
+    return out, time.perf_counter() - t0
+
+
+def linear_inputs(torch, params, cfg, ids) -> dict:
+    """Each tapped linear's input in the unquantized model (the head's
+    too)."""
+    from lqer_tpu_torch import models
+
+    out = {}
+    with torch.inference_mode():
+        models.forward(params, ids, cfg, None,
+                       tap=lambda name, x: out.__setitem__(name, x))
+    return out
+
+
+def int_linears_against_cpu(torch, params, inputs: dict) -> dict:
+    """``llm_int_linear`` at 8 and 4 bits, at the default threshold and at
+    INT_THRESHOLD, of every linear on the same input on the card and on
+    the CPU; ``{(bits, threshold): (largest |diff| / (atol + rtol |want|),
+    outlier columns)}`` over the linears."""
+    from lqer_tpu_torch.ops.llm_int8 import llm_int_linear
+    from lqer_tpu_torch.testing import ATOL, RTOL
+
+    out = {}
+    for bits in (8, 4):
+        for th in (6.0, INT_THRESHOLD):
+            worst, cols = 0.0, 0
+            for name, x in inputs.items():
+                if name == "lm_head":        # the head stays fp
+                    continue
+                w = params[name + ".weight"]
+                with torch.inference_mode():
+                    got = llm_int_linear(x, w, bits=bits, threshold=th)
+                    want = llm_int_linear(x.cpu(), w.cpu(), bits=bits,
+                                          threshold=th)
+                worst = max(worst, float(((got.cpu() - want).abs()
+                                          / (ATOL + RTOL * want.abs())).max()))
+                cols += int((x.abs().reshape(-1, x.shape[-1]).amax(0)
+                             >= th).sum())
+            out[(bits, th)] = (worst, cols)
+    return out
+
+
+def ulp_moved_ppl(torch, params, cfg, qcfgs, split) -> float:
+    """The perplexity of ``split`` with every embedding value moved one
+    f32 ulp up or down (seeded), on the params' device."""
+    from lqer_tpu_torch import models
+    from lqer_tpu_torch.evaluate import evaluate_perplexity
+
+    emb = params["model.embed_tokens.weight"]
+    gen = torch.Generator(device=emb.device).manual_seed(EXPERIMENT_SEED)
+    away = torch.where(torch.rand(emb.shape, generator=gen,
+                                  device=emb.device) < 0.5, -1.0, 1.0)
+    moved = {**params,
+             "model.embed_tokens.weight": torch.nextafter(emb, emb + away)}
+    with torch.inference_mode():
+        return evaluate_perplexity(
+            lambda ids: models.forward(moved, ids, cfg, qcfgs), split,
+            batch_size=1, device=emb.device)["perplexity"]
+
+
+def phase_experiments(torch) -> None:
+    """Phase 8: the experiment entry points (``lqer_tpu_torch/experiments/``)
+    on the card, their CPU sides in a :class:`CpuPool`. The baselines
+    (every method) and the census at Llama-2-7B width, EXPERIMENT_LAYERS
+    layers, seeded weights; the two quality studies at their three sizes
+    (one seed), ``tiny-9M`` against the CPU; the reproduction plan. No
+    kernel runs: the entry points evaluate without a backend, as JAX's."""
+    import dataclasses
+    import tempfile
+
+    from safetensors.torch import save_file
+
+    from lqer_tpu_torch import models, runners
+    from lqer_tpu_torch.experiments import baselines
+    from lqer_tpu_torch.experiments import kv_cache_quality as kvq
+    from lqer_tpu_torch.experiments import lm_head_quality as lmq
+    from lqer_tpu_torch.experiments import reproduce_baseline
+    from lqer_tpu_torch.experiments.hw_performance import profile_llm_int8
+    from lqer_tpu_torch.models import LlamaConfig
+    from lqer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from lqer_tpu_torch.testing import logits_steps
+    from lqer_tpu_torch.utils import load_config, save_config
+
+    card = card_line()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_experiments_"))
+    pool = CpuPool()
+    try:
+        cfg = dataclasses.replace(LlamaConfig.llama_7b(),
+                                  num_hidden_layers=EXPERIMENT_LAYERS)
+        dense = write_checkpoint(torch, cfg, work / "fp")
+        linears = [p for i in range(cfg.num_hidden_layers)
+                   for p, _ in models.quantizable_module_prefixes(cfg, i)]
+        packed, pack_s = pack_checkpoints(
+            torch, {k: v.float() for k, v in dense.items()}, linears)
+        ckpts = {}
+        rest = {k: v for k, v in dense.items()
+                if k[:-len(".weight")] not in linears}
+        for fmt, tensors in packed.items():
+            (work / fmt).mkdir()
+            save_file({k: v.cpu().contiguous()
+                       for k, v in {**tensors, **rest}.items()},
+                      str(work / fmt / "model.safetensors"))
+            ckpts[fmt] = str(work / fmt)
+        del packed, rest
+        configs = {}
+        for n, (length, batch) in {"card": (BASELINE_LENGTH, BASELINE_BATCH),
+                                   "cpu": (BASELINE_CPU_LENGTH, 1)}.items():
+            configs[n] = str(work / f"baseline_{n}.toml")
+            save_config(experiment_config(cfg, work / "fp", length, batch),
+                        configs[n])
+        print(f"phase 8: checkpoints of the {EXPERIMENT_LAYERS}-layer "
+              f"Llama-2-7B-width model written (fp as bf16; GPTQ and AWQ "
+              f"group {CKPT_GROUP}, packed on the card in {pack_s:.2f}s) in "
+              f"{time.perf_counter() - t0:.1f}s; the CPU sides in "
+              f"{pool.workers} workers of {pool.threads} threads",
+              flush=True)
+        census_cpu = pool.call(cpu_experiment_job, {
+            "kind": "census", "argv": census_argv(
+                configs["card"], BASELINE_BATCH, BASELINE_LENGTH, "cpu")})
+        base_cpu = {m: pool.call(cpu_experiment_job, {
+            "kind": "baseline",
+            "argv": baseline_argv(configs["cpu"], m, ckpts, "cpu")})
+            for m in BASELINE_METHODS}
+
+        # (a) every baseline method at 2 x 2048 tokens and 1 x 256
+        ppl, ppl256, wall = {}, {}, {}
+        for m in BASELINE_METHODS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ppl[m] = baselines.main(baseline_argv(configs["card"], m, ckpts,
+                                                  "cuda"))["perplexity"]
+            torch.cuda.synchronize()
+            wall[m] = time.perf_counter() - t
+            ppl256[m] = baselines.main(baseline_argv(configs["cpu"], m, ckpts,
+                                                     "cuda"))["perplexity"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"phase 8 baseline {m}: perplexity {ppl[m]!r} on "
+                  f"{BASELINE_BATCH} x {BASELINE_LENGTH} tokens, "
+                  f"{wall[m]:.2f}s wall (load, dequantize, evaluate; "
+                  f"{card})", flush=True)
+
+        # the int methods linear by linear, and one ulp's reach
+        f32 = {k: v.float() for k, v in dense.items()}
+        config256 = load_config(configs["cpu"])
+        split256 = runners._get_split(config256["evaluate"]["perplexity"],
+                                      config256, "test")
+        int_linears = int_linears_against_cpu(torch, f32, linear_inputs(
+            torch, f32, cfg, torch.as_tensor(split256).cuda()))
+        ulp = {m: ulp_moved_ppl(torch, f32, cfg, baselines.build_llm_int_qcfgs(
+            cfg, m, 6.0), split256) for m in INT_METHODS}
+        del f32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the census, and each column's max |x| on the card
+        t = time.perf_counter()
+        census = profile_llm_int8.main(census_argv(
+            configs["card"], BASELINE_BATCH, BASELINE_LENGTH, "cuda"))
+        census_s = time.perf_counter() - t
+        config = load_config(configs["card"])
+        ids = torch.as_tensor(runners._get_split(
+            config["profile"], config, "train")[:BASELINE_BATCH]).cuda()
+        inputs = linear_inputs(
+            torch, {k: v.float() for k, v in dense.items()}, cfg, ids)
+        near = {k + ".threshold": int((
+            (x.abs().reshape(-1, x.shape[-1]).amax(0) - INT_THRESHOLD).abs()
+            <= CENSUS_NEAR_RTOL * INT_THRESHOLD).sum())
+            for k, x in inputs.items()}
+        del dense, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the quality studies at their three sizes, one seed
+        t = time.perf_counter()
+        kv_table = kvq.main(["--seeds", "1", "--steps", str(QUALITY_STEPS),
+                             "--device", "cuda"])
+        lm_table = lmq.main(["--seed", str(QUALITY_SEED), "--device",
+                             "cuda"])
+        studies_s = time.perf_counter() - t
+        tiny = LlamaConfig.tiny(**lmq.SIZES["tiny-9M"])
+        rows = kvq.seed_rows(tiny, QUALITY_SEED, QUALITY_STEPS, "cuda")
+        quality_cpu = pool.call(cpu_experiment_job, {
+            "kind": "quality", "tokens": rows["tokens"]})
+        lm_params = lmq.seeded_model(tiny, QUALITY_SEED, "cuda")[0]
+        w8 = lmq.head_roundtrip(lm_params["lm_head.weight"], 8).cpu()
+
+        # (d) the reproduction plan
+        plan_rc = reproduce_baseline.main(["--plan"])
+        card_launches = {k: n for k, n in launch_counts().items() if n}
+
+        # (e) against the CPU
+        t = time.perf_counter()
+        cpu_ppl = {m: f.result() for m, f in base_cpu.items()}
+        cpu_census, census_cpu_s = census_cpu.result()
+        quality, quality_cpu_s = quality_cpu.result()
+        wait_s = time.perf_counter() - t
+    finally:
+        pool.close()
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+
+    failed = []
+    gaps = {}
+    for m in BASELINE_METHODS:
+        want, cpu_s = cpu_ppl[m]
+        gap = gaps[m] = abs(ppl256[m] - want) / want
+        if m in INT_METHODS:
+            held = (f"one f32 ulp on the embedding moves the card's by "
+                    f"{abs(ulp[m] - ppl256[m]) / ppl256[m]:.3g}; held "
+                    f"linear by linear below")
+        else:
+            held = f"limit {PIPELINE_PPL_RTOL}"
+            if gap > PIPELINE_PPL_RTOL:
+                failed.append(f"baseline {m} against the CPU")
+        print(f"phase 8 baseline {m} on 1 x {BASELINE_CPU_LENGTH} tokens: "
+              f"card {ppl256[m]!r}, CPU {want!r} ({cpu_s:.1f}s), "
+              f"{gap:.3g} relative ({held})", flush=True)
+    for (bits, th), (worst, cols) in int_linears.items():
+        print(f"phase 8 llm_int_linear at {bits} bits, threshold {th}, "
+              f"each of the {len(linears)} linears on its input of 1 x "
+              f"{BASELINE_CPU_LENGTH} tokens (captured on the card; {cols} "
+              f"outlier columns in all): card against CPU at most "
+              f"{worst:.3g} of rtol = atol = 2e-4", flush=True)
+        if worst > 1:
+            failed.append(f"llm_int_linear at {bits} bits, threshold {th}")
+    # the method took effect: it moves the perplexity at both shapes by more
+    # than ten times the fp32 evaluation's own card-against-CPU gap
+    floor = 10 * gaps["fp32"]
+    for m in ("llm_int8", "gptq"):
+        moved = [abs(a[m] - a["fp32"]) / a["fp32"] for a in (ppl, ppl256)]
+        print(f"phase 8 negative control, {m} against fp32: {moved[0]:.3g} "
+              f"relative at {BASELINE_BATCH} x {BASELINE_LENGTH}, "
+              f"{moved[1]:.3g} at 1 x {BASELINE_CPU_LENGTH} (each must "
+              f"exceed {floor:.3g}, ten times fp32's card-CPU gap)",
+              flush=True)
+        if min(moved) <= floor:
+            failed.append(f"{m} did not move the perplexity from fp32")
+    counts = {k: v["num_activation_columns_in_high_precision"]
+              for k, v in census.items()}
+    flips = {k: abs(counts[k] - cpu_census.get(k, -1))
+             for k in counts if counts[k] != cpu_census.get(k)}
+    print(f"phase 8 census (threshold {INT_THRESHOLD}, {BASELINE_BATCH} x "
+          f"{BASELINE_LENGTH} tokens, {len(counts)} tapped linears) "
+          f"{census_s:.2f}s on the card, {census_cpu_s:.1f}s on the CPU: "
+          f"outlier columns {counts}; differing from the CPU's {flips} "
+          f"where {sum(near.values())} columns lie within "
+          f"{CENSUS_NEAR_RTOL} of the threshold "
+          f"({ {k: n for k, n in near.items() if n} })", flush=True)
+    if set(counts) != set(cpu_census) or any(
+            n > near[k] for k, n in flips.items()):
+        failed.append("census against the CPU")
+    print(f"phase 8 quality studies (one seed, {QUALITY_STEPS} steps) "
+          f"{studies_s:.1f}s on the card: kv_cache_quality {kv_table}; "
+          f"lm_head_quality {lm_table}", flush=True)
+    for label in ("float32",) + tuple(c for c, _ in kvq.CACHES):
+        worst, rms = logits_steps(
+            torch.from_numpy(rows["trajectories"][label]),
+            torch.from_numpy(quality["trajectories"][label]))
+        print(f"phase 8 tiny-9M {label} cache, the card's {QUALITY_STEPS} "
+              f"teacher tokens: card against CPU {worst:.4g} code steps max,"
+              f" {rms:.4g} RMS (limits {LOGIT_MAX_STEPS}, {LOGIT_RMS_STEPS}); "
+              f"CPU {quality_cpu_s:.1f}s", flush=True)
+        if worst > LOGIT_MAX_STEPS or rms > LOGIT_RMS_STEPS:
+            failed.append(f"tiny-9M {label} trajectory against the CPU")
+    lm_card, lm_cpu = lm_table["tiny-9M"], quality["lm_rows"]
+    lm_gap = max(abs(lm_card[k] - lm_cpu[k]) / lm_cpu[k]
+                 for k in ("fp", "w8", "w4"))
+    w8_equal = torch.equal(w8, quality["w8"])
+    print(f"phase 8 tiny-9M lm_head rows card {lm_card}, CPU {lm_cpu}: "
+          f"{lm_gap:.3g} relative (limit {PIPELINE_PPL_RTOL}); W8 head round "
+          f"trip equal to the bit: {w8_equal}", flush=True)
+    if lm_gap > PIPELINE_PPL_RTOL or not w8_equal:
+        failed.append("tiny-9M lm_head against the CPU")
+    if plan_rc != 0:
+        failed.append(f"reproduce_baseline --plan returned {plan_rc}")
+    if card_launches:
+        failed.append(f"kernels launched: {card_launches}")
+    print(f"phase 8 reproduce_baseline --plan rc {plan_rc}; kernels launched "
+          f"{card_launches or 'none'}; waited {wait_s:.1f}s for the CPU; "
+          f"took {time.perf_counter() - t0:.1f}s ({card})", flush=True)
+    if failed:
+        raise AssertionError(f"phase 8: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -5544,6 +5967,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 7 done at {time.perf_counter() - t0:.0f}s", flush=True)
+    phase_experiments(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8 done at {time.perf_counter() - t0:.0f}s", flush=True)
     missing = [k for k, n in counts.items() if n <= 0]
     missing += [f"{k} (Mistral)" for k, r in results.items()
                 if r.get("mistral", {}).get("launches", 1) <= 0]

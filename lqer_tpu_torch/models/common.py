@@ -34,8 +34,11 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5
 
 def randn_init(generator: torch.Generator, dtype, device, scale=0.02):
     """``randn(shape)``: normal values at ``scale`` from ``generator``
-    (drawn in f32 on its device), in ``dtype`` on ``device``."""
+    (drawn in f32 on its device), in ``dtype`` on ``device``; on the
+    ``meta`` device shapes only, nothing drawn."""
     def randn(shape):
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, dtype=dtype, device="meta")
         x = torch.randn(shape, generator=generator,
                         device=generator.device) * scale
         return x.to(device=device, dtype=dtype)

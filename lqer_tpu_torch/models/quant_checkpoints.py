@@ -146,7 +146,9 @@ def _minmax_groups(w: torch.Tensor, group_size: int):
     in_f, out_f = wt.shape
     blk = wt.reshape(in_f // group_size, group_size, out_f)
     lo, hi = blk.amin(1), blk.amax(1)
-    scale = ((hi - lo) / 15.0).clamp_min(1e-8)
+    # a tensor divisor: on the card a Python scalar's is a multiplication
+    # by its reciprocal, one ulp off numpy's quotient for some groups
+    scale = ((hi - lo) / hi.new_tensor(15.0)).clamp_min(1e-8)
     zero = torch.round(-lo / scale).clamp(0, 15)
     codes = torch.round(blk / scale[:, None] + zero[:, None]).clamp(0, 15)
     return (codes.reshape(in_f, out_f).to(torch.int32),

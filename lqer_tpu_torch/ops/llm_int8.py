@@ -28,7 +28,11 @@ def llm_int_linear(x: torch.Tensor, weight: torch.Tensor,
     x_lo = torch.where(outlier, zero, x)
 
     def fake_quant(t):
-        s = (t.abs().amax(-1, keepdim=True) / qmax).clamp_min(1e-12)
+        # a tensor divisor: PyTorch's CUDA kernels multiply by the
+        # reciprocal of a Python scalar, a quotient one ulp off the CPU's
+        # (and numpy's) for some rows, which then round to other codes
+        s = (t.abs().amax(-1, keepdim=True) / t.new_tensor(qmax)
+             ).clamp_min(1e-12)
         return torch.clamp(torch.round(t / s), -qmax, qmax) * s
 
     # x_hi is zero outside the outlier columns, so its product with the

@@ -380,13 +380,16 @@ def _prefill_kernel_takes(attn_cfg, cache: dict, window, head_dim: int
 
 def check_servable(cache: dict, attn_cfgs, head_dim: int,
                    window: int | None = None, *, backend: bool = True,
-                   scan: bool = True) -> None:
+                   scan: bool = True, admission: bool = True) -> None:
     """Raise ``NotImplementedError`` before any work where a step over
     ``cache`` on the card would hand a kernel what it does not take: a
     head dim outside ``attention.HEAD_DIMS`` (:func:`check_card_shapes`)
     wherever an attention kernel or the stacked step's MXINT encode +
     write is reached. ``backend``: the engine serves with a kernel
-    backend; ``scan``: the stacked step. On the CPU every regime the JAX
+    backend; ``scan``: the stacked step; ``admission``: the call may run an
+    admission (``fresh_prefill``), the one place the prefill kernel runs
+    (an engine admits; a decode step or a prefill into a filled cache
+    reaches no prefill kernel). On the CPU every regime the JAX
     package serves is served; on the card too, within those head dims (the
     ``float32`` cache through the f32 entries of the fp decode kernel and
     the row write)."""
@@ -398,8 +401,8 @@ def check_servable(cache: dict, attn_cfgs, head_dim: int,
     decode_kernel = any(_use_attn_kernel(True if backend else None, 1, c,
                                          max_len, head_dim, cache)
                         for c in cfgs)
-    prefill_kernel = any(_prefill_kernel_takes(c, cache, window, head_dim)
-                         for c in cfgs)
+    prefill_kernel = admission and any(
+        _prefill_kernel_takes(c, cache, window, head_dim) for c in cfgs)
     if decode_kernel or prefill_kernel or (scan and is_quantized_cache(cache)):
         check_card_shapes(head_dim, "cuda")
 
@@ -797,13 +800,14 @@ def _layer_qcfgs(layer_qcfg, cfg) -> list:
 
 
 def _begin_step(cache, cfg, layer_qcfg, backend, positions, s, scan,
-                window=None):
+                window=None, fresh_prefill=False):
     """Checks and set-up shared by the steps: the per-layer configs, the
-    card's shape checks, and the staged cache's flush before a decode
-    step."""
+    card's shape checks (for this step: an admission only where it is one),
+    and the staged cache's flush before a decode step."""
     qcfgs = _layer_qcfgs(layer_qcfg, cfg)
     check_servable(cache, [q["attn"] for q in qcfgs], cfg.head_dim, window,
-                   backend=backend is not None, scan=scan)
+                   backend=backend is not None, scan=scan,
+                   admission=fresh_prefill and s > 1)
     if s == 1 and is_staged_cache(cache):
         _staged_flush_maybe(cache, positions)
     return qcfgs
@@ -871,7 +875,8 @@ def _llama_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
     b, s = input_ids.shape
     window = getattr(cfg, "sliding_window", None)
     qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
-                        scan=False, window=window)
+                        scan=False, window=window,
+                        fresh_prefill=fresh_prefill)
     max_len = cache_max_len(cache)
     heads, kv_heads, q_off = _tp_heads(cfg, tp)
     embed = params["model.embed_tokens.weight"]
@@ -929,7 +934,7 @@ def _opt_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
               logits_last_only=False, tp=None):
     b, s = input_ids.shape
     qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
-                        scan=False)
+                        scan=False, fresh_prefill=fresh_prefill)
     max_len = cache_max_len(cache)
     heads = _tp_heads(cfg, tp)[0]
     embed = params["model.decoder.embed_tokens.weight"]
@@ -1001,7 +1006,8 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     b, s = input_ids.shape
     window = getattr(cfg, "sliding_window", None)
     qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
-                        s, scan=True, window=window)
+                        s, scan=True, window=window,
+                        fresh_prefill=fresh_prefill)
     max_len = cache_max_len(cache)
     heads, kv_heads, q_off = _tp_heads(cfg, tp)
     embed = rest["model.embed_tokens.weight"]
@@ -1075,7 +1081,7 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         stacked, rest = opt_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
     qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
-                        s, scan=True)
+                        s, scan=True, fresh_prefill=fresh_prefill)
     max_len = cache_max_len(cache)
     heads = _tp_heads(cfg, tp)[0]
     embed = rest["model.decoder.embed_tokens.weight"]

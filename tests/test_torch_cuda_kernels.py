@@ -37,7 +37,8 @@ and a slot off a multiple of 16; rows 5 and 11 over the ``float32``
 cache (row 5 up to its one-pass length, 6144 at d = 128) and a tiny Llama
 served on it with the kernel backend against the CPU, stacked and eager;
 the harness adapter's loglikelihood and rolling requests through the
-kernels against the CPU. Needs an
+kernels against the CPU; the GPTQ/AWQ packers' groups and the emulated
+LLM.int8()/int4 linear against the CPU. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
@@ -1668,6 +1669,37 @@ def test_dequantize_checkpoint_on_card(gen):
         assert list(got) == list(want)
         for k in want:
             assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_minmax_groups_on_card_equal_cpu(gen):
+    """The GPTQ/AWQ packers' min-max groups at a 7B MLP weight's shape on
+    the card: codes, zeros and f32 scales equal to the CPU's bit for bit
+    (a Python-scalar divisor would be a multiplication by its reciprocal
+    on the card, one ulp off for some groups)."""
+    from lqer_tpu_torch.models import quant_checkpoints as qc
+
+    w = torch.randn(11008, 4096, generator=gen, device="cuda") * 0.02
+    for a, b in zip(qc._minmax_groups(w, 128), qc._minmax_groups(w.cpu(),
+                                                                 128)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("threshold", [6.0, 1.5])
+def test_llm_int_linear_on_card(gen, bits, threshold):
+    """The emulated LLM.int8()/int4 linear on one input, card against CPU:
+    every quantized activation and weight row at the same codes and
+    scales, so the outputs differ only by the f32 sums' order (rtol = atol
+    = 2e-4), with and without outlier columns."""
+    from lqer_tpu_torch.ops.llm_int8 import llm_int_linear
+
+    x = torch.randn(256, 4096, generator=gen, device="cuda")
+    w = torch.randn(11008, 4096, generator=gen, device="cuda") * 0.02
+    b = torch.randn(11008, generator=gen, device="cuda") * 0.02
+    got = llm_int_linear(x, w, b, bits=bits, threshold=threshold)
+    want = llm_int_linear(x.cpu(), w.cpu(), b.cpu(), bits=bits,
+                          threshold=threshold)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
 
 
 def test_seq_classification_on_card(gen):

@@ -9,7 +9,7 @@ cases of ``tests/test_tp_forward.py`` and ``tests/test_parallel.py``).
   2e-4 with the argmax equal, and within JAX's own bound of the
   single-device forward (rtol 0.1, atol 0.15). The quantized reference
   runs with exact powers of two in its MXINT8 codec
-  (:func:`exact_pow2_codec`): the codec scales by ``jnp.exp2``, which
+  (``jax_exact_exp2.exact_exp2``): the codec scales by ``jnp.exp2``, which
   XLA:CPU computes up to 34 ulps off for integer arguments below -12
   (and some above 12), where the port builds each power from its bits.
   Those few-ulp offsets move a wire rounding now and then, and each such
@@ -51,6 +51,8 @@ import torch
 from lqer_tpu_torch import models as tmodels
 from lqer_tpu_torch.parallel.launch import start_ranks
 from lqer_tpu_torch.testing import logits_steps, one_torch_thread_fixture
+
+from jax_exact_exp2 import exact_exp2
 
 _one_torch_thread = one_torch_thread_fixture()
 
@@ -245,39 +247,6 @@ def _jax_model(case, params_np, is_ptq=True, q=None):
     return cfg, qcfgs, {k: jnp.asarray(v) for k, v in params_np.items()}
 
 
-@contextlib.contextmanager
-def exact_pow2_codec():
-    """The JAX package's MXINT codec (``lqer_tpu/parallel/collectives.py``)
-    with ``jnp.exp2`` built from bits while the block runs: every argument
-    it gets there is a whole number, whose power of two XLA:CPU's exp2
-    misses by up to 34 ulps below -12. The package's files stay as they
-    are."""
-    import jax
-    import jax.numpy as jnp
-
-    from lqer_tpu.parallel import collectives as jc
-
-    def exp2(x):
-        k = jnp.asarray(x).astype(jnp.int32)
-        bits = jax.lax.bitcast_convert_type
-        normal = bits(jnp.clip(k + 127, 1, 255) << 23, jnp.float32)
-        sub = bits(jnp.left_shift(jnp.int32(1), jnp.clip(k + 149, 0, 22)),
-                   jnp.float32)
-        return jnp.where(k >= -126, normal, sub)
-
-    class _Jnp:
-        def __getattr__(self, name):
-            return getattr(jnp, name)
-
-    patched = _Jnp()
-    patched.exp2 = exp2
-    jc.jnp = patched
-    try:
-        yield
-    finally:
-        jc.jnp = jnp
-
-
 def _np(tree):
     import jax
 
@@ -322,8 +291,8 @@ def _jax_side(tp_inputs, sharded_inputs, train_inputs) -> dict:
         for n, mesh in meshes.items():
             sharded = shard_params(params, mesh)
             for quantized in (False, True):
-                with (exact_pow2_codec() if quantized
-                      else contextlib.nullcontext()):
+                with (exact_exp2("lqer_tpu.parallel.collectives")
+                      if quantized else contextlib.nullcontext()):
                     fwd = make_tp_forward(cfg, qcfgs, mesh,
                                           quantized_collectives=quantized)
                     want[f"tp/{name}/{quantized}/{n}"] = np.asarray(
