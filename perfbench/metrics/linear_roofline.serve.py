@@ -1,0 +1,10 @@
+"""The linear kernels' share of their roofline in the traced decode steps:
+the bound time of the step's linear work (``perfbench/roofline.py``) over
+the device time of the kernels ``kernel_groups.json`` puts in
+``linear``, in %."""
+
+from perfbench.metrics._roofline import decode_bounds, share
+
+
+def read(ctx):
+    return share(ctx, "decode_step", "linear", decode_bounds)
