@@ -15,6 +15,7 @@ import torch
 
 from ..data import batches
 from ..device import resolve_device
+from ..utils import tracing
 from ..utils.logging import get_logger
 
 logger = get_logger("evaluate")
@@ -52,8 +53,12 @@ def evaluate_perplexity(forward_fn: Callable, split: np.ndarray,
     evaluated = 0
     num_batches = -(-len(split) // batch_size)
     for bi, batch in enumerate(batches(split, batch_size)):
-        ids = torch.as_tensor(batch).to(device)
-        loss = float(causal_lm_loss(forward_fn(ids), ids))
+        with tracing.EVAL_BATCH:
+            ids = torch.as_tensor(batch).to(device)
+            logits = forward_fn(ids)
+            with tracing.LOSS:
+                loss = float(causal_lm_loss(logits, ids))
+            del logits
         bs = batch.shape[0]
         total_loss += loss * bs * seq_len
         evaluated += bs

@@ -12,6 +12,7 @@ from typing import Callable
 import torch
 
 from ..ops.qlinear import QLinearConfig, qlinear
+from ..utils import tracing
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5
@@ -127,6 +128,7 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
 
 
+@tracing.annotate(tracing.ATTENTION["eager"])
 def eager_attention(q, k, v, mask, qk_matmul: Callable, pv_matmul: Callable,
                     scaling: float, *, scale_query: bool = False
                     ) -> torch.Tensor:
@@ -215,6 +217,7 @@ def supports_fused_attention(attn_cfg: AttnQConfig,
     return len({c["width"] for c in cfgs}) == 1
 
 
+@tracing.annotate(tracing.ATTENTION["kernel"])
 def fused_quantized_attention(q, k, v, attn_cfg: AttnQConfig, scaling: float,
                               *, scale_query: bool = False,
                               kv_values_pre_quantized: bool = False):

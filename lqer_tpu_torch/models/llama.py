@@ -15,6 +15,7 @@ import torch
 from torch.nn.functional import silu
 
 from ..ops.qlinear import promoted_matmul, qlinear
+from ..utils import tracing
 from .common import (
     apply_rotary,
     causal_mask,
@@ -225,6 +226,7 @@ def decoder_layer(h: torch.Tensor, params: dict, cfg: LlamaConfig, i: int,
     return residual + h
 
 
+@tracing.annotate(tracing.FORWARD)
 def forward(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
             layer_qcfgs: list | None = None, tap=None,
             fused_attention: bool = False, return_hidden: bool = False,
@@ -237,26 +239,30 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
     layer's attention in its format (``supports_fused_attention``)."""
     b, s = input_ids.shape
     embed = params["model.embed_tokens.weight"]
-    h = embed[input_ids]
-    cos, sin = rotary_tables(cfg.head_dim,
-                             max(s, cfg.max_position_embeddings),
-                             cfg.rope_theta, device=h.device)
-    positions = torch.arange(s, device=h.device)
-    mask, sliding = _masks(cfg, s, h.dtype, h.device)
+    with tracing.PROLOGUE:
+        h = embed[input_ids]
+        cos, sin = rotary_tables(cfg.head_dim,
+                                 max(s, cfg.max_position_embeddings),
+                                 cfg.rope_theta, device=h.device)
+        positions = torch.arange(s, device=h.device)
+        mask, sliding = _masks(cfg, s, h.dtype, h.device)
     if fused_attention:
         fused_attention = (not sliding and layer_qcfgs is not None and all(
             supports_fused_attention(qc["attn"]) for qc in layer_qcfgs))
     for i in range(cfg.num_hidden_layers):
         qcfg = layer_qcfgs[i] if layer_qcfgs is not None else None
-        h = decoder_layer(h, params, cfg, i, qcfg, mask, cos, sin, positions,
-                          tap=tap, fused_attention=fused_attention,
-                          backend=backend)
+        with tracing.LAYER:
+            h = decoder_layer(h, params, cfg, i, qcfg, mask, cos, sin,
+                              positions, tap=tap,
+                              fused_attention=fused_attention,
+                              backend=backend)
     h = rms_norm(h, _mod(params, "model.norm"), cfg.rms_norm_eps)
     if return_hidden:
         return h
     if tap is not None:
         tap("lm_head", h)
-    return promoted_matmul(h, params.get("lm_head.weight", embed).T)
+    with tracing.HEAD:
+        return promoted_matmul(h, params.get("lm_head.weight", embed).T)
 
 
 LAYER_REL_KEYS = (

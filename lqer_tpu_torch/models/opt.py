@@ -15,6 +15,7 @@ import torch
 from torch.nn.functional import relu
 
 from ..ops.qlinear import promoted_matmul, qlinear
+from ..utils import tracing
 from .common import (
     causal_mask,
     eager_attention,
@@ -210,6 +211,7 @@ def decoder_layer(h: torch.Tensor, params: dict, cfg: OPTConfig, i: int,
     return h
 
 
+@tracing.annotate(tracing.FORWARD)
 def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
             layer_qcfgs: list | None = None, tap=None,
             return_hidden: bool = False, backend: dict | None = None
@@ -219,16 +221,19 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
     ``project_out`` where the params hold them (OPT-350m)."""
     b, s = input_ids.shape
     embed = params["model.decoder.embed_tokens.weight"]
-    h = embed[input_ids]
-    if params.get("model.decoder.project_in.weight") is not None:
-        h = promoted_matmul(h, params["model.decoder.project_in.weight"].T)
-    positions = torch.arange(s, device=h.device) + 2
-    h = h + params["model.decoder.embed_positions.weight"][positions]
-    mask = causal_mask(s, dtype=h.dtype, device=h.device)
+    with tracing.PROLOGUE:
+        h = embed[input_ids]
+        if params.get("model.decoder.project_in.weight") is not None:
+            h = promoted_matmul(h,
+                                params["model.decoder.project_in.weight"].T)
+        positions = torch.arange(s, device=h.device) + 2
+        h = h + params["model.decoder.embed_positions.weight"][positions]
+        mask = causal_mask(s, dtype=h.dtype, device=h.device)
     for i in range(cfg.num_hidden_layers):
         qcfg = layer_qcfgs[i] if layer_qcfgs is not None else None
-        h = decoder_layer(h, params, cfg, i, qcfg, mask, tap=tap,
-                          backend=backend)
+        with tracing.LAYER:
+            h = decoder_layer(h, params, cfg, i, qcfg, mask, tap=tap,
+                              backend=backend)
     if params.get("model.decoder.final_layer_norm.weight") is not None:
         h = layer_norm(h, _mod(params, "model.decoder.final_layer_norm"))
     if params.get("model.decoder.project_out.weight") is not None:
@@ -237,7 +242,8 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
         return h
     if tap is not None:
         tap("lm_head", h)
-    return promoted_matmul(h, params.get("lm_head.weight", embed).T)
+    with tracing.HEAD:
+        return promoted_matmul(h, params.get("lm_head.weight", embed).T)
 
 
 LAYER_REL_KEYS = (

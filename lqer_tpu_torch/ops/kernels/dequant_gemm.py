@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ...parallel.collectives import fill_zero_groups, mx_values
+from ...utils import tracing
 from ..storage import MXINT4, MXFormat, dequantize_packed, pack_weight, quantize_mx
 from . import _build
 
@@ -133,6 +134,7 @@ def counters(device: torch.device, n: int, owner: str = "dequant_gemm"
     return buf
 
 
+@tracing.annotate(tracing.QUANTIZE)
 def _quantize_rows_mx(x: torch.Tensor, mb: int, group: int = 16
                       ) -> torch.Tensor:
     """Per (row, group of ``group`` along the last dim) block_fp
@@ -146,6 +148,7 @@ def _quantize_rows_mx(x: torch.Tensor, mb: int, group: int = 16
     return mx_values(v, bmax, mb).reshape(m, n)
 
 
+@tracing.annotate(tracing.CORRECTION)
 def lqer_correction(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                     quant_xa_width: int | None = 8,
                     quant_out_width: int | None = 8) -> torch.Tensor:
@@ -207,6 +210,7 @@ def unpack_plain(codes: torch.Tensor, exps: torch.Tensor, fmt: MXFormat
     return dequantize_packed(codes, exps, fmt).to(torch.bfloat16)
 
 
+@tracing.annotate(tracing.UNPACK)
 def unpack_packed_to_bf16(codes: torch.Tensor, exps: torch.Tensor,
                           fmt: MXFormat) -> torch.Tensor:
     """Packed words ``(K/per, N)`` + exps ``(K/16, N)`` (one layer's views

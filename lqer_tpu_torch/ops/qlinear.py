@@ -16,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from ..utils import tracing
 from .quantizers import make_quantizer, passthrough_quantizer
 
 
@@ -83,6 +84,7 @@ class QLinearConfig:
         )
 
 
+@tracing.annotate(tracing.LINEAR["emulated"])
 def qlinear(x: torch.Tensor, params: dict, cfg: QLinearConfig, *,
             weights_prepared: bool | None = None) -> torch.Tensor:
     """``Y = X_q W_q^T + b_q [+ B_out_q(A_out_q(X_q A) B)]``; a module dict

@@ -36,6 +36,7 @@ from ..parallel.collectives import (
     floor_log2_exact,
     mx_values,
 )
+from ..utils import tracing
 from .blocking import per_block_absmax, unblock
 
 
@@ -54,7 +55,8 @@ def _ste(core: Callable) -> Callable:
 
     @functools.wraps(core)
     def call(x, **kwargs):
-        return _Quantize.apply(x, kwargs)
+        with tracing.QUANTIZE:
+            return _Quantize.apply(x, kwargs)
 
     return call
 

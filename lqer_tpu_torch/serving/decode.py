@@ -100,6 +100,7 @@ from ..ops.kernels.streaming_decode import (
 from ..ops.kernels.dequant_gemm import qlinear_w4_dense_largeM, qlinear_w4_fused
 from ..ops.qlinear import promoted_matmul, qlinear, resolve_qmatmul
 from ..parallel.collectives import mx4_decode, mx4_encode, mx8_decode, mx8_encode
+from ..utils import tracing
 from .kernel_backend import (
     _LARGEM_THRESHOLD,
     serving_linear,
@@ -315,6 +316,7 @@ def _expand_kv(x: torch.Tensor, n_rep: int, heads: int, q_off: int = 0
     return x if x.shape[1] == heads else x[:, q_off:q_off + heads]
 
 
+@tracing.annotate(tracing.ATTENTION["eager"])
 def _attend(qh, k_l, v_l, mask, attn_cfg, scaling, n_rep, scale_query=False,
             kv_pre_quantized=False, cache_width=8, q_off=0):
     """Eager cache attention (the JAX package's ``serving/decode.py::
@@ -630,6 +632,7 @@ def _fresh_prefill_attend(qh, kh, vh, attn_cfg, scaling, n_rep, cache,
         scale_query=scale_query, kv_values_pre_quantized=quantized)
 
 
+@tracing.annotate(tracing.ATTENTION["kernel"])
 def _decode_attend(cache, qh, kh, vh, positions, li, attn_cfg, scaling,
                    route, scale_query=False, window=None):
     """Decode attention (s = 1) through the kernels of ``route``
@@ -833,9 +836,10 @@ def _end_step(h, cache, positions, valid_lengths, logits_last_only,
         new_pos = positions + (valid_lengths if valid_lengths is not None
                                else s)
         stage_boundary_sync(cache, new_pos)
-    if tp is not None:
-        return tp.logits(h, lm_head), cache
-    return _lm_head_logits(h, lm_head, backend), cache
+    with tracing.HEAD:
+        if tp is not None:
+            return tp.logits(h, lm_head), cache
+        return _lm_head_logits(h, lm_head, backend), cache
 
 
 def model_step(params: dict, input_ids: torch.Tensor, cache: dict,
@@ -869,118 +873,125 @@ def _tp_heads(cfg, tp):
     return tp.heads, tp.kv_heads, tp.q_off
 
 
+@tracing.annotate(tracing.FORWARD)
 def _llama_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
                 backend=None, valid_lengths=None, fresh_prefill=False,
                 logits_last_only=False, tp=None):
     b, s = input_ids.shape
     window = getattr(cfg, "sliding_window", None)
-    qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
-                        scan=False, window=window,
-                        fresh_prefill=fresh_prefill)
-    max_len = cache_max_len(cache)
-    heads, kv_heads, q_off = _tp_heads(cfg, tp)
-    embed = params["model.embed_tokens.weight"]
-    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
-    q_abs, mask = _step_masks(positions, s, cache, h.dtype, window, h.device)
-    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
-    cos, sin = _rotary(cfg.head_dim,
-                       max(max_len, cfg.max_position_embeddings),
-                       cfg.rope_theta, h.device)
-    n_rep = cfg.num_attention_heads // cfg.kv_heads
-    scaling = cfg.head_dim ** -0.5
+    with tracing.PROLOGUE:
+        qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
+                            scan=False, window=window,
+                            fresh_prefill=fresh_prefill)
+        max_len = cache_max_len(cache)
+        heads, kv_heads, q_off = _tp_heads(cfg, tp)
+        embed = params["model.embed_tokens.weight"]
+        h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
+        q_abs, mask = _step_masks(positions, s, cache, h.dtype, window,
+                                  h.device)
+        kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
+        cos, sin = _rotary(cfg.head_dim,
+                           max(max_len, cfg.max_position_embeddings),
+                           cfg.rope_theta, h.device)
+        n_rep = cfg.num_attention_heads // cfg.kv_heads
+        scaling = cfg.head_dim ** -0.5
     for i in range(cfg.num_hidden_layers):
-        q = qcfgs[i]
-        attn_cfg = q["attn"]
-        use_ak = _use_attn_kernel(backend, s, attn_cfg, max_len, cfg.head_dim,
-                                  cache)
-        p = llama_mod.layer_prefix(i)
-        residual = h
-        hn = rms_norm(h, {"weight": params[f"{p}.input_layernorm.weight"]},
-                      cfg.rms_norm_eps)
-        qy, ky, vy = _lin_group(
-            hn, params, p, "self_attn.qkv_proj",
-            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
-            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
-        qh = _heads(qy, heads)
-        kh = _heads(ky, kv_heads)
-        vh = _heads(vy, kv_heads)
-        qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
-        attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg, scaling,
-                          n_rep, kv_valid, mask, use_ak=use_ak,
-                          fresh_prefill=fresh_prefill, scan=False,
-                          window=window, q_off=q_off)
-        attn = _lin(merge_heads(attn), params, f"{p}.self_attn.o_proj",
-                    attn_cfg.o_proj, backend)
-        h = residual + attn
-        residual = h
-        hn = rms_norm(h, {"weight":
-                          params[f"{p}.post_attention_layernorm.weight"]},
-                      cfg.rms_norm_eps)
-        y = _mlp_fused_or_none(hn, p, q["gate_proj"], backend)
-        if y is None:
-            gate, up = _lin_group(hn, params, p, "mlp.gateup_proj",
-                                  ("mlp.gate_proj", "mlp.up_proj"),
-                                  (q["gate_proj"], q["up_proj"]), backend)
-            y = _lin(silu(gate) * up, params, f"{p}.mlp.down_proj",
-                     q["down_proj"], backend)
-        h = residual + y
+        with tracing.LAYER:
+            q = qcfgs[i]
+            attn_cfg = q["attn"]
+            use_ak = _use_attn_kernel(backend, s, attn_cfg, max_len,
+                                      cfg.head_dim, cache)
+            p = llama_mod.layer_prefix(i)
+            residual = h
+            hn = rms_norm(h, {"weight": params[f"{p}.input_layernorm.weight"]},
+                          cfg.rms_norm_eps)
+            qy, ky, vy = _lin_group(
+                hn, params, p, "self_attn.qkv_proj",
+                ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+                (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
+            qh = _heads(qy, heads)
+            kh = _heads(ky, kv_heads)
+            vh = _heads(vy, kv_heads)
+            qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
+            attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg,
+                              scaling, n_rep, kv_valid, mask, use_ak=use_ak,
+                              fresh_prefill=fresh_prefill, scan=False,
+                              window=window, q_off=q_off)
+            attn = _lin(merge_heads(attn), params, f"{p}.self_attn.o_proj",
+                        attn_cfg.o_proj, backend)
+            h = residual + attn
+            residual = h
+            hn = rms_norm(h, {"weight":
+                              params[f"{p}.post_attention_layernorm.weight"]},
+                          cfg.rms_norm_eps)
+            y = _mlp_fused_or_none(hn, p, q["gate_proj"], backend)
+            if y is None:
+                gate, up = _lin_group(hn, params, p, "mlp.gateup_proj",
+                                      ("mlp.gate_proj", "mlp.up_proj"),
+                                      (q["gate_proj"], q["up_proj"]), backend)
+                y = _lin(silu(gate) * up, params, f"{p}.mlp.down_proj",
+                         q["down_proj"], backend)
+            h = residual + y
     h = rms_norm(h, {"weight": params["model.norm.weight"]}, cfg.rms_norm_eps)
     return _end_step(h, cache, positions, valid_lengths, logits_last_only,
                      params.get("lm_head.weight", embed), backend, tp)
 
 
+@tracing.annotate(tracing.FORWARD)
 def _opt_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
               backend=None, valid_lengths=None, fresh_prefill=False,
               logits_last_only=False, tp=None):
     b, s = input_ids.shape
-    qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
-                        scan=False, fresh_prefill=fresh_prefill)
-    max_len = cache_max_len(cache)
-    heads = _tp_heads(cfg, tp)[0]
-    embed = params["model.decoder.embed_tokens.weight"]
-    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
-    if params.get("model.decoder.project_in.weight") is not None:
-        h = promoted_matmul(h, params["model.decoder.project_in.weight"].T)
-    q_abs, mask = _step_masks(positions, s, cache, h.dtype, None, h.device)
-    h = h + params["model.decoder.embed_positions.weight"][q_abs + 2]
-    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
-    scaling = cfg.head_dim ** -0.5
+    with tracing.PROLOGUE:
+        qcfgs = _begin_step(cache, cfg, layer_qcfgs, backend, positions, s,
+                            scan=False, fresh_prefill=fresh_prefill)
+        max_len = cache_max_len(cache)
+        heads = _tp_heads(cfg, tp)[0]
+        embed = params["model.decoder.embed_tokens.weight"]
+        h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
+        if params.get("model.decoder.project_in.weight") is not None:
+            h = promoted_matmul(h, params["model.decoder.project_in.weight"].T)
+        q_abs, mask = _step_masks(positions, s, cache, h.dtype, None, h.device)
+        h = h + params["model.decoder.embed_positions.weight"][q_abs + 2]
+        kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
+        scaling = cfg.head_dim ** -0.5
 
     def norm(x, prefix):
         return layer_norm(x, opt_mod._mod(params, prefix))
 
     pre = cfg.do_layer_norm_before
     for i in range(cfg.num_hidden_layers):
-        q = qcfgs[i]
-        attn_cfg = q["attn"]
-        use_ak = _use_attn_kernel(backend, s, attn_cfg, max_len, cfg.head_dim,
-                                  cache)
-        p = opt_mod.layer_prefix(i)
-        residual = h
-        hn = norm(h, f"{p}.self_attn_layer_norm") if pre else h
-        qy, ky, vy = _lin_group(
-            hn, params, p, "self_attn.qkv_proj",
-            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
-            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
-        qh, kh, vh = (_heads(y, heads) for y in (qy, ky, vy))
-        attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg, scaling,
-                          1, kv_valid, mask, use_ak=use_ak,
-                          fresh_prefill=fresh_prefill, scan=False,
-                          scale_query=True)
-        attn = _lin(merge_heads(attn), params, f"{p}.self_attn.out_proj",
-                    attn_cfg.o_proj, backend)
-        h = residual + attn
-        if not pre:
-            h = norm(h, f"{p}.self_attn_layer_norm")
-        residual = h
-        hn = norm(h, f"{p}.final_layer_norm") if pre else h
-        y = _mlp_fused_or_none(hn, p, q["fc1"], backend)
-        if y is None:
-            y = relu(_lin(hn, params, f"{p}.fc1", q["fc1"], backend))
-            y = _lin(y, params, f"{p}.fc2", q["fc2"], backend)
-        h = residual + y
-        if not pre:
-            h = norm(h, f"{p}.final_layer_norm")
+        with tracing.LAYER:
+            q = qcfgs[i]
+            attn_cfg = q["attn"]
+            use_ak = _use_attn_kernel(backend, s, attn_cfg, max_len,
+                                      cfg.head_dim, cache)
+            p = opt_mod.layer_prefix(i)
+            residual = h
+            hn = norm(h, f"{p}.self_attn_layer_norm") if pre else h
+            qy, ky, vy = _lin_group(
+                hn, params, p, "self_attn.qkv_proj",
+                ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+                (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), backend)
+            qh, kh, vh = (_heads(y, heads) for y in (qy, ky, vy))
+            attn = _attention(cache, qh, kh, vh, positions, i, attn_cfg,
+                              scaling, 1, kv_valid, mask, use_ak=use_ak,
+                              fresh_prefill=fresh_prefill, scan=False,
+                              scale_query=True)
+            attn = _lin(merge_heads(attn), params, f"{p}.self_attn.out_proj",
+                        attn_cfg.o_proj, backend)
+            h = residual + attn
+            if not pre:
+                h = norm(h, f"{p}.self_attn_layer_norm")
+            residual = h
+            hn = norm(h, f"{p}.final_layer_norm") if pre else h
+            y = _mlp_fused_or_none(hn, p, q["fc1"], backend)
+            if y is None:
+                y = relu(_lin(hn, params, f"{p}.fc1", q["fc1"], backend))
+                y = _lin(y, params, f"{p}.fc2", q["fc2"], backend)
+            h = residual + y
+            if not pre:
+                h = norm(h, f"{p}.final_layer_norm")
     if params.get("model.decoder.final_layer_norm.weight") is not None:
         h = norm(h, "model.decoder.final_layer_norm")
     if params.get("model.decoder.project_out.weight") is not None:
@@ -989,6 +1000,7 @@ def _opt_step(params, input_ids, cache, positions, cfg, layer_qcfgs,
                      params.get("lm_head.weight", embed), backend, tp)
 
 
+@tracing.annotate(tracing.FORWARD)
 def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                     stacked=None, rest=None, backend_stacked=None,
                     valid_lengths=None, fresh_prefill=False,
@@ -1005,65 +1017,69 @@ def llama_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
         stacked, rest = llama_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
     window = getattr(cfg, "sliding_window", None)
-    qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
-                        s, scan=True, window=window,
-                        fresh_prefill=fresh_prefill)
-    max_len = cache_max_len(cache)
-    heads, kv_heads, q_off = _tp_heads(cfg, tp)
-    embed = rest["model.embed_tokens.weight"]
-    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
-    h_dtype = h.dtype
-    q_abs, mask = _step_masks(positions, s, cache, h.dtype, window, h.device)
-    cos, sin = _rotary(cfg.head_dim,
-                       max(max_len, cfg.max_position_embeddings),
-                       cfg.rope_theta, h.device)
-    n_rep = cfg.num_attention_heads // cfg.kv_heads
-    scaling = cfg.head_dim ** -0.5
-    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
+    with tracing.PROLOGUE:
+        qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
+                            s, scan=True, window=window,
+                            fresh_prefill=fresh_prefill)
+        max_len = cache_max_len(cache)
+        heads, kv_heads, q_off = _tp_heads(cfg, tp)
+        embed = rest["model.embed_tokens.weight"]
+        h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
+        h_dtype = h.dtype
+        q_abs, mask = _step_masks(positions, s, cache, h.dtype, window,
+                                  h.device)
+        cos, sin = _rotary(cfg.head_dim,
+                           max(max_len, cfg.max_position_embeddings),
+                           cfg.rope_theta, h.device)
+        n_rep = cfg.num_attention_heads // cfg.kv_heads
+        scaling = cfg.head_dim ** -0.5
+        kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
 
     for li in range(cfg.num_hidden_layers):
-        q = qcfgs[li]
-        attn_cfg = q["attn"]
-        use_ak = _use_attn_kernel(backend_stacked, s, attn_cfg, max_len,
-                                  cfg.head_dim, cache)
-        seg, lj = layer_backend(backend_stacked, li)
-        residual = h
-        hn = rms_norm(h, {"weight": stacked["input_layernorm.weight"][li]},
-                      cfg.rms_norm_eps)
-        qy, ky, vy = _lin_group_slice(
-            hn, stacked, li, "self_attn.qkv_proj",
-            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
-            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
-        qh = _heads(qy, heads)
-        kh = _heads(ky, kv_heads)
-        vh = _heads(vy, kv_heads)
-        qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
-        attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
-                          scaling, n_rep, kv_valid, mask, use_ak=use_ak,
-                          fresh_prefill=fresh_prefill, scan=True,
-                          window=window, q_off=q_off)
-        attn = _lin_slice(merge_heads(attn), stacked, li, "self_attn.o_proj",
-                          attn_cfg.o_proj, seg, lj)
-        h = residual + attn
-        residual = h
-        hn = rms_norm(h, {"weight":
-                          stacked["post_attention_layernorm.weight"][li]},
-                      cfg.rms_norm_eps)
-        y = _mlp_slice_or_none(hn, q["gate_proj"], seg, lj)
-        if y is None:
-            gate, up = _lin_group_slice(hn, stacked, li, "mlp.gateup_proj",
-                                        ("mlp.gate_proj", "mlp.up_proj"),
-                                        (q["gate_proj"], q["up_proj"]),
-                                        seg, lj)
-            y = _lin_slice(silu(gate) * up, stacked, li, "mlp.down_proj",
-                           q["down_proj"], seg, lj)
-        h = (residual + y).to(h_dtype)
+        with tracing.LAYER:
+            q = qcfgs[li]
+            attn_cfg = q["attn"]
+            use_ak = _use_attn_kernel(backend_stacked, s, attn_cfg, max_len,
+                                      cfg.head_dim, cache)
+            seg, lj = layer_backend(backend_stacked, li)
+            residual = h
+            hn = rms_norm(h, {"weight": stacked["input_layernorm.weight"][li]},
+                          cfg.rms_norm_eps)
+            qy, ky, vy = _lin_group_slice(
+                hn, stacked, li, "self_attn.qkv_proj",
+                ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+                (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
+            qh = _heads(qy, heads)
+            kh = _heads(ky, kv_heads)
+            vh = _heads(vy, kv_heads)
+            qh, kh = apply_rotary(qh, kh, cos, sin, q_abs)
+            attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
+                              scaling, n_rep, kv_valid, mask, use_ak=use_ak,
+                              fresh_prefill=fresh_prefill, scan=True,
+                              window=window, q_off=q_off)
+            attn = _lin_slice(merge_heads(attn), stacked, li,
+                              "self_attn.o_proj", attn_cfg.o_proj, seg, lj)
+            h = residual + attn
+            residual = h
+            hn = rms_norm(h, {"weight":
+                              stacked["post_attention_layernorm.weight"][li]},
+                          cfg.rms_norm_eps)
+            y = _mlp_slice_or_none(hn, q["gate_proj"], seg, lj)
+            if y is None:
+                gate, up = _lin_group_slice(hn, stacked, li, "mlp.gateup_proj",
+                                            ("mlp.gate_proj", "mlp.up_proj"),
+                                            (q["gate_proj"], q["up_proj"]),
+                                            seg, lj)
+                y = _lin_slice(silu(gate) * up, stacked, li, "mlp.down_proj",
+                               q["down_proj"], seg, lj)
+            h = (residual + y).to(h_dtype)
 
     h = rms_norm(h, {"weight": rest["model.norm.weight"]}, cfg.rms_norm_eps)
     return _end_step(h, cache, positions, valid_lengths, logits_last_only,
                      rest.get("lm_head.weight", embed), backend_stacked, tp)
 
 
+@tracing.annotate(tracing.FORWARD)
 def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
                   stacked=None, rest=None, backend_stacked=None,
                   valid_lengths=None, fresh_prefill=False,
@@ -1080,19 +1096,20 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
     if stacked is None or rest is None:
         stacked, rest = opt_mod.stack_layer_params(params, cfg)
     b, s = input_ids.shape
-    qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
-                        s, scan=True, fresh_prefill=fresh_prefill)
-    max_len = cache_max_len(cache)
-    heads = _tp_heads(cfg, tp)[0]
-    embed = rest["model.decoder.embed_tokens.weight"]
-    h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
-    h_dtype = h.dtype
-    if rest.get("model.decoder.project_in.weight") is not None:
-        h = promoted_matmul(h, rest["model.decoder.project_in.weight"].T)
-    q_abs, mask = _step_masks(positions, s, cache, h.dtype, None, h.device)
-    h = h + rest["model.decoder.embed_positions.weight"][q_abs + 2]
-    scaling = cfg.head_dim ** -0.5
-    kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
+    with tracing.PROLOGUE:
+        qcfgs = _begin_step(cache, cfg, layer_qcfg, backend_stacked, positions,
+                            s, scan=True, fresh_prefill=fresh_prefill)
+        max_len = cache_max_len(cache)
+        heads = _tp_heads(cfg, tp)[0]
+        embed = rest["model.decoder.embed_tokens.weight"]
+        h = embed[input_ids] if tp is None else tp.embed(embed, input_ids)
+        h_dtype = h.dtype
+        if rest.get("model.decoder.project_in.weight") is not None:
+            h = promoted_matmul(h, rest["model.decoder.project_in.weight"].T)
+        q_abs, mask = _step_masks(positions, s, cache, h.dtype, None, h.device)
+        h = h + rest["model.decoder.embed_positions.weight"][q_abs + 2]
+        scaling = cfg.head_dim ** -0.5
+        kv_valid = _kv_valid_mask(valid_lengths, s, h.device)
 
     def norm(x, rel, li):
         return layer_norm(x, {k: stacked[f"{rel}.{k}"][li]
@@ -1101,37 +1118,38 @@ def opt_step_scan(params, input_ids, cache, positions, cfg, layer_qcfg,
 
     pre = cfg.do_layer_norm_before
     for li in range(cfg.num_hidden_layers):
-        q = qcfgs[li]
-        attn_cfg = q["attn"]
-        use_ak = _use_attn_kernel(backend_stacked, s, attn_cfg, max_len,
-                                  cfg.head_dim, cache)
-        seg, lj = layer_backend(backend_stacked, li)
-        residual = h
-        hn = norm(h, "self_attn_layer_norm", li) if pre else h
-        qy, ky, vy = _lin_group_slice(
-            hn, stacked, li, "self_attn.qkv_proj",
-            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
-            (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
-        qh, kh, vh = (_heads(y, heads) for y in (qy, ky, vy))
-        attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
-                          scaling, 1, kv_valid, mask, use_ak=use_ak,
-                          fresh_prefill=fresh_prefill, scan=True,
-                          scale_query=True)
-        attn = _lin_slice(merge_heads(attn), stacked, li,
-                          "self_attn.out_proj", attn_cfg.o_proj, seg, lj)
-        h = residual + attn
-        if not pre:
-            h = norm(h, "self_attn_layer_norm", li)
-        residual = h
-        hn = norm(h, "final_layer_norm", li) if pre else h
-        y = _mlp_slice_or_none(hn, q["fc1"], seg, lj)
-        if y is None:
-            y = relu(_lin_slice(hn, stacked, li, "fc1", q["fc1"], seg, lj))
-            y = _lin_slice(y, stacked, li, "fc2", q["fc2"], seg, lj)
-        h = residual + y
-        if not pre:
-            h = norm(h, "final_layer_norm", li)
-        h = h.to(h_dtype)
+        with tracing.LAYER:
+            q = qcfgs[li]
+            attn_cfg = q["attn"]
+            use_ak = _use_attn_kernel(backend_stacked, s, attn_cfg, max_len,
+                                      cfg.head_dim, cache)
+            seg, lj = layer_backend(backend_stacked, li)
+            residual = h
+            hn = norm(h, "self_attn_layer_norm", li) if pre else h
+            qy, ky, vy = _lin_group_slice(
+                hn, stacked, li, "self_attn.qkv_proj",
+                ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+                (attn_cfg.q_proj, attn_cfg.k_proj, attn_cfg.v_proj), seg, lj)
+            qh, kh, vh = (_heads(y, heads) for y in (qy, ky, vy))
+            attn = _attention(cache, qh, kh, vh, positions, li, attn_cfg,
+                              scaling, 1, kv_valid, mask, use_ak=use_ak,
+                              fresh_prefill=fresh_prefill, scan=True,
+                              scale_query=True)
+            attn = _lin_slice(merge_heads(attn), stacked, li,
+                              "self_attn.out_proj", attn_cfg.o_proj, seg, lj)
+            h = residual + attn
+            if not pre:
+                h = norm(h, "self_attn_layer_norm", li)
+            residual = h
+            hn = norm(h, "final_layer_norm", li) if pre else h
+            y = _mlp_slice_or_none(hn, q["fc1"], seg, lj)
+            if y is None:
+                y = relu(_lin_slice(hn, stacked, li, "fc1", q["fc1"], seg, lj))
+                y = _lin_slice(y, stacked, li, "fc2", q["fc2"], seg, lj)
+            h = residual + y
+            if not pre:
+                h = norm(h, "final_layer_norm", li)
+            h = h.to(h_dtype)
 
     if rest.get("model.decoder.final_layer_norm.weight") is not None:
         h = layer_norm(h, opt_mod._mod(rest,

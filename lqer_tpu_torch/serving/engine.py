@@ -20,6 +20,7 @@ import torch
 
 from .. import models
 from ..device import resolve_device
+from ..utils import tracing
 from . import decode
 from .decode import (
     check_servable,
@@ -250,6 +251,7 @@ class DecodeEngine:
         return self._gather_rows(logits[:, 0, :], np.arange(lo, hi),
                                  self.num_slots)
 
+    @tracing.annotate(tracing.ENGINE_STEP)
     def decode_step(self, tokens: np.ndarray, temps: list[float]
                     ) -> np.ndarray:
         return self._sample(self.decode_logits(tokens), temps).cpu().numpy()
@@ -305,6 +307,7 @@ class DecodeEngine:
                 f"{req.max_new_tokens}): lower max_new_tokens below "
                 f"{self.max_len - 1}")
 
+    @tracing.annotate(tracing.ENGINE_ADMIT)
     def _admit_batch(self, pairs: list[tuple[Request, int]]) -> list[int]:
         prepped = []
         for req, slot in pairs:

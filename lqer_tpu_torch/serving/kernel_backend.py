@@ -44,6 +44,7 @@ from ..ops.kernels.mlp_fused import (
 )
 from ..ops.qlinear import bf16_exact
 from ..ops.storage import MXINT4, MXFormat
+from ..utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -435,16 +436,17 @@ def serving_mlp(x: torch.Tensor, key: str, backend: dict, qc_first, *,
     b, s, k = x.shape
     kw = dict(act_width=meta["act_width"], quant_xa_width=meta["xa_width"],
               quant_out_width=meta["out_width"])
-    qxw = inkernel_x_width(qc_first.x_cfg, k)
-    if b * s < _LARGEM_THRESHOLD and qxw is not None:
-        y = mlp_w4_fused(x.reshape(b * s, k), prep, meta["fmt"],
-                         quant_x_width=qxw, **kw)
+    large = b * s >= _LARGEM_THRESHOLD
+    with tracing.MLP["largeM" if large else "kernel"]:
+        qxw = inkernel_x_width(qc_first.x_cfg, k)
+        if not large and qxw is not None:
+            y = mlp_w4_fused(x.reshape(b * s, k), prep, meta["fmt"],
+                             quant_x_width=qxw, **kw)
+            return y.reshape(b, s, -1).to(x.dtype)
+        x_q = qc_first.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
+        route = mlp_w4_dense_largeM if large else mlp_w4_fused
+        y = route(x_q, prep, meta["fmt"], **kw)
         return y.reshape(b, s, -1).to(x.dtype)
-    x_q = qc_first.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
-    route = (mlp_w4_dense_largeM if b * s >= _LARGEM_THRESHOLD
-             else mlp_w4_fused)
-    y = route(x_q, prep, meta["fmt"], **kw)
-    return y.reshape(b, s, -1).to(x.dtype)
 
 
 def serving_linear(x: torch.Tensor, prefix: str, backend: dict, qc, *,
@@ -464,16 +466,17 @@ def serving_linear(x: torch.Tensor, prefix: str, backend: dict, qc, *,
     b, s, k = x.shape
     kw = dict(quant_xa_width=meta["xa_width"],
               quant_out_width=meta["out_width"])
-    qxw = inkernel_x_width(qc.x_cfg, k)
-    if b * s < _LARGEM_THRESHOLD and qxw is not None:
-        y = qlinear_w4_fused(x.reshape(b * s, k), prep, meta["fmt"],
-                             quant_x_width=qxw, **kw)
+    large = b * s >= _LARGEM_THRESHOLD
+    with tracing.LINEAR["largeM" if large else "kernel"]:
+        qxw = inkernel_x_width(qc.x_cfg, k)
+        if not large and qxw is not None:
+            y = qlinear_w4_fused(x.reshape(b * s, k), prep, meta["fmt"],
+                                 quant_x_width=qxw, **kw)
+            return y.reshape(b, s, -1).to(x.dtype)
+        x_q = qc.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
+        route = qlinear_w4_dense_largeM if large else qlinear_w4_fused
+        y = route(x_q, prep, meta["fmt"], **kw)
         return y.reshape(b, s, -1).to(x.dtype)
-    x_q = qc.x_quantizer(x).to(torch.bfloat16).reshape(b * s, k)
-    route = (qlinear_w4_dense_largeM if b * s >= _LARGEM_THRESHOLD
-             else qlinear_w4_fused)
-    y = route(x_q, prep, meta["fmt"], **kw)
-    return y.reshape(b, s, -1).to(x.dtype)
 
 
 def serving_linear_split(x: torch.Tensor, fused_prefix: str, backend: dict,

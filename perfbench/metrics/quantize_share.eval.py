@@ -1,0 +1,15 @@
+"""The device time of the kernels launched inside the program's
+``lqer.quantize`` spans (every quantizer that runs in PyTorch, at whatever
+site) as a share of the kernel time of the traced batches, in %."""
+
+from perfbench import program_spans
+
+
+def read(ctx):
+    s = program_spans.of(ctx)
+    if not s or s["kernel_s"] <= 0:
+        return None
+    names = program_spans.by_name(s)
+    if program_spans.QUANTIZE not in names:
+        return None
+    return 100.0 * names[program_spans.QUANTIZE] / s["kernel_s"]
